@@ -5,7 +5,7 @@ its JAX counterpart's path and names; inside it is written in PyTorch idiom
 (``nn.Module``s, an explicit ``device`` everywhere, an explicit
 ``torch.Generator`` for every random draw).
 
-The only JAX-package module imported is ``diff_pruning_tpu.pruning.graph``
-(pure Python, no jax import), so both packages share one ChannelGraph.
-The hand-written kernels live in :mod:`diff_pruning_tpu_torch.ops`.
+The port imports nothing of the JAX package and never ``jax``: where it
+needs a pure-Python module of the JAX package (the channel graph), it keeps
+its own copy. The hand-written kernels live in :mod:`diff_pruning_tpu_torch.ops`.
 """

@@ -54,7 +54,7 @@ def resolve_device(name: str):
 
 
 def main(argv=None) -> dict:
-    """Returns ``{"params", "images", "nonfinite", "seconds", "imgs_per_s"}``."""
+    """Returns ``{"params", "macs", "images", "nonfinite", "seconds", "imgs_per_s"}``."""
     args = parse_args(argv)
     if args.mode != "fid":
         raise NotImplementedError(f"--mode {args.mode} comes with the port of "
@@ -63,6 +63,7 @@ def main(argv=None) -> dict:
     import torch
 
     from ..models.unet2d import UNet2D
+    from ..pruning.flops import count_ops_and_params
     from ..sampling.ddim_sampler import SamplerConfig, make_sampler
     from ..sampling.distributed import sample_many
     from ..schedulers.ddpm import DiffusionSchedule
@@ -76,8 +77,10 @@ def main(argv=None) -> dict:
     model = UNet2D(cfg, device=device)
     model.load_state_dict(state)
     model.eval()
-    n_params = sum(p.numel() for p in model.parameters())
+    hw = cfg.sample_size or 32
+    macs, n_params = count_ops_and_params(model, (1, hw, hw, cfg.in_channels))
     print("#Params: {:.4f} M".format(n_params / 1e6))
+    print("#MACS: {:.4f} G".format(macs / 1e9))
 
     schedule = DiffusionSchedule.create(device=device)
     sampler = make_sampler(model, schedule, SamplerConfig(
@@ -90,7 +93,6 @@ def main(argv=None) -> dict:
         dtype=args.dtype,
     ))
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    hw = cfg.sample_size or 32
     if device.type == "cuda":
         # device-clock interval around the run; ends once the last PNG is written
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -111,7 +113,8 @@ def main(argv=None) -> dict:
           f"at {args.ddim_steps} DDIM steps, {args.dtype}, {where})")
     if stats["nonfinite"]:
         print(f"WARNING: {stats['nonfinite']} non-finite sample values")
-    return {"params": n_params, **stats, "seconds": dt, "imgs_per_s": stats["images"] / dt}
+    return {"params": n_params, "macs": macs, **stats, "seconds": dt,
+            "imgs_per_s": stats["images"] / dt}
 
 
 if __name__ == "__main__":

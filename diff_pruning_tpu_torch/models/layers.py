@@ -2,7 +2,7 @@
 
 Each layer is an ``nn.Module`` built with resolved channel sizes (pruned or
 not). Construction registers the layer's parameter axes into a
-:class:`~diff_pruning_tpu.pruning.graph.ChannelGraph` under the JAX param
+:class:`~diff_pruning_tpu_torch.pruning.graph.ChannelGraph` under the JAX param
 paths and axes, so ``channel_sizes`` and the graph mean the same in both
 packages; the registered axes describe the checkpoint layout (HWIO conv
 kernels, (din, dout) linear kernels), which ``utils/checkpoint.py`` maps to
@@ -22,11 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diff_pruning_tpu.pruning.graph import CatVar, ChannelGraph, ChannelVar, VarLike
-
 from .. import ops
 from ..ops.attention import flash_attention, reference_attention
 from ..ops.group_norm import group_norm, group_norm_reference
+from ..pruning.graph import CatVar, ChannelGraph, ChannelVar, VarLike
 
 
 class Scope:
@@ -104,7 +103,9 @@ class GroupNorm(nn.Module):
     uniformly per group (on a concatenated input, each part's). The math,
     including the dtype gate on the variance formulation, is
     :func:`~diff_pruning_tpu_torch.ops.group_norm.group_norm_reference`; with
-    the ``group_norm`` switch on, CUDA tensors go through the kernel.
+    the ``group_norm`` switch on, CUDA tensors go through the kernels, and
+    under autograd the wrapper's ``torch.autograd.Function`` runs the
+    backward kernel too (with it off, torch differentiates the plain math).
     """
 
     def __init__(self, scope: Scope, var: VarLike, num_groups: int, eps: float = 1e-6, *,
@@ -137,7 +138,9 @@ class SelfAttention2D(nn.Module):
     """Spatial self-attention (diffusers Attention with
     ``_from_deprecated_attn_block=True``): GN over channels, q/k/v/out
     Linear, f32 softmax, residual, ``rescale_output_factor``. ``inner`` is
-    the shared q/k/v output ChannelVar; its group_div is the head count."""
+    the shared q/k/v output ChannelVar; its group_div is the head count.
+    With the ``attention`` switch on, the wrapper runs the forward kernel and,
+    under autograd, the lse-writing forward and the backward kernels."""
 
     def __init__(self, scope: Scope, var: ChannelVar, inner: ChannelVar, heads: int = 1,
                  norm_num_groups: int = 32, eps: float = 1e-6,

@@ -6,8 +6,9 @@ tree named after the JAX param tree (``ModuleDict`` keys ``"0"``, ``"1"``,
 ...), so ``state_dict`` keys are the JAX flat paths with ``.`` for ``/``.
 
 ``forward`` takes and returns NHWC like the JAX model. Inside, activations
-are NCHW in ``torch.channels_last`` memory (see ``layers.py``). Only the
-inference path is ported: there is no dropout (the finetune slice adds it).
+are NCHW in ``torch.channels_last`` memory (see ``layers.py``). The forward
+is differentiable through the port's kernels (the Diff-Pruning sweep's
+path); there is no dropout yet (the finetune slice adds it).
 """
 
 from __future__ import annotations
@@ -20,8 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from diff_pruning_tpu.pruning.graph import CatVar, ChannelGraph, ChannelVar
-
+from ..pruning.graph import CatVar, ChannelGraph, ChannelVar
 from .layers import (
     Conv2D,
     GroupNorm,

@@ -6,9 +6,10 @@ CUDA C++ (``csrc/*.cu``, plain C interface) is compiled by ``nvcc`` for
 ``torch.utils.cpp_extension`` (PyTorch's headers) takes minutes. Libraries
 are named by a hash of source and flags, so an edited source rebuilds.
 
-Triton kernels are compiled by Triton at their first launch; their cache is
-pointed into ``BUILD_DIR`` as well unless ``TRITON_CACHE_DIR`` is set.
-``BUILD_DIR`` is listed in ``.gitignore``.
+Each library has its own lock, so :func:`build_libraries` runs one ``nvcc``
+per source, all at once. Triton kernels are compiled by Triton at their
+first launch; their cache is pointed into ``BUILD_DIR`` as well unless
+``TRITON_CACHE_DIR`` is set. ``BUILD_DIR`` is listed in ``.gitignore``.
 """
 
 from __future__ import annotations
@@ -20,16 +21,19 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the CUDA sources under csrc/, one library each
+CUDA_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
 # name -> {"seconds": build seconds (0.0 if already built), "log": nvcc's stderr}
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
-_LOCK = threading.Lock()
+_LOCKS = {name: threading.Lock() for name in CUDA_LIBRARIES}
 
 
 def nvcc_path() -> str:
@@ -45,7 +49,7 @@ def nvcc_path() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it."""
-    with _LOCK:
+    with _LOCKS[name]:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(_CSRC, name + ".cu")
@@ -67,6 +71,14 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_INFO[name] = info
         _LIBS[name] = lib
         return lib
+
+
+def build_libraries(names=CUDA_LIBRARIES) -> None:
+    """Build and load the named libraries, one ``nvcc`` process each, all
+    started together; raises the first build's error."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for fut in [pool.submit(load_library, n) for n in names]:
+            fut.result()
 
 
 def group_norm_kernels():

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel `_flash_fwd_call` / `_fwd_kernel` of
 // diff_pruning_tpu/ops/attention.py: online-softmax attention with a running
-// max, denominator and f32 accumulator, never forming the Nq x Nkv matrix.
+// max, denominator and f32 accumulator, never forming the Nq x Nkv matrix,
+// and optionally the per-row logsumexp for the backward.
 //
 // What bounds it on the H100: at the UNet's shapes (N = 256 tokens, one head
 // of D = 256) the op does 4*N*D flops per query row against 4*D bytes read
@@ -20,7 +21,11 @@
 // - each thread keeps 64 f32 accumulators: columns lane4 + 4*i of its row,
 //   so any D up to 256 is masked to the loaded width, with no padding;
 // - query rows at or beyond Nq are computed on zeros and not written; kv
-//   columns at or beyond Nkv are set to -inf before the softmax.
+//   columns at or beyond Nkv are set to -inf before the softmax;
+// - `lse` may be null (inference: the launch writes only o). Otherwise it is
+//   a contiguous (B*H, Nq) f32 array and each row's logsumexp of its scaled
+//   scores, m + log(l) (the TPU kernel's `_finish`), is written there for the
+//   backward kernels (flash_attention_bwd.cu).
 // Shared memory for D = 256: (64 + 2*32) * 257 * 4 + 64 * 33 * 4 = 140,032
 // bytes, above the 48 KB default, so the launcher raises the kernel's limit.
 //
@@ -63,7 +68,7 @@ struct Strides {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                  int H, int Nq, int Nkv, int D, int ld,
                  Strides sq, Strides sk, Strides sv, Strides so, float scale) {
   extern __shared__ float smem[];
@@ -167,11 +172,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = quarter + 4 * i;
       if (c < D) orow[c] = from_f32<T>(acc[i] / l_run);
     }
+    if (lse != nullptr && quarter == 0) lse[size_t(bh) * Nq + qr] = m_run + logf(l_run);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   int B, int H,
                    int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
                    float scale, cudaStream_t stream) {
   const int ld = D | 1;  // odd row stride: rows fall on distinct banks
@@ -184,15 +191,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(B * H, (Nq + kBlockQ - 1) / kBlockQ);
   flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, Nq, Nkv, D, ld, sq, sk, sv, so, scale);
+      static_cast<T*>(o), lse, H, Nq, Nkv, D, ld, sq, sk, sv, so, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in elements.
+// lse: null, or (B*H, Nq) f32 contiguous.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int H, int Nq, int Nkv, int D,
+                                   void* lse, int dtype, int B, int H, int Nq, int Nkv, int D,
                                    long long sqb, long long sqh, long long sqn,
                                    long long skb, long long skh, long long skn,
                                    long long svb, long long svh, long long svn,
@@ -202,13 +210,15 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn}, so{sob, soh, son};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (dtype) {
     case 0:
-      return int(launch<float>(q, k, v, o, B, H, Nq, Nkv, D, sq, sk, sv, so, scale, s));
+      return int(launch<float>(q, k, v, o, l, B, H, Nq, Nkv, D, sq, sk, sv, so, scale, s));
     case 1:
-      return int(launch<__nv_bfloat16>(q, k, v, o, B, H, Nq, Nkv, D, sq, sk, sv, so, scale, s));
+      return int(launch<__nv_bfloat16>(q, k, v, o, l, B, H, Nq, Nkv, D, sq, sk, sv, so, scale,
+                                       s));
     case 2:
-      return int(launch<__half>(q, k, v, o, B, H, Nq, Nkv, D, sq, sk, sv, so, scale, s));
+      return int(launch<__half>(q, k, v, o, l, B, H, Nq, Nkv, D, sq, sk, sv, so, scale, s));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -1,27 +1,41 @@
-"""GroupNorm(+SiLU) forward: plain PyTorch version and the Triton kernel's wrapper.
+"""GroupNorm(+SiLU), forward and backward: plain PyTorch versions and the
+Triton kernels' wrappers.
 
-Replaces the TPU kernel ``_pallas_gn`` (``diff_pruning_tpu/ops/group_norm.py``:
-``_fwd_kernel`` with ``_stats`` and ``_group_avg_matrix``), which normalises
+Replaces the TPU kernels ``_pallas_gn`` (forward: ``_fwd_kernel`` with
+``_stats`` and ``_group_avg_matrix``) and ``_pallas_gn_bwd`` (backward:
+``_bwd_kernel``) of ``diff_pruning_tpu/ops/group_norm.py``, which normalise
 one sample's (N, C) NHWC slab per grid step inside VMEM.
 
-On the H100 the op is bound by device-memory bytes: it does a handful of
-flops per element and never touches the tensor cores. The Triton kernels
-(``_group_norm_triton.py``) therefore stream x in coalesced (rows, channels)
-tiles with channels contiguous, keep every statistic in f32 registers, and
-write nothing but two (B, C) coefficient rows between their two passes:
+On the H100 both directions are bound by device-memory bytes: a handful of
+flops per element and no tensor-core work. The Triton kernels
+(``_group_norm_triton.py``) therefore stream x (and dy) in coalesced
+(rows, channels) tiles with channels contiguous, keep every statistic in f32
+registers, and write nothing but small per-channel or per-group rows
+between their two passes:
 
+forward
 1. ``gn_stats_kernel``: one program per (sample, run of whole groups) sums
    each channel over H*W (shifted by the channel's first element for f32
    inputs, as the layer does), combines channels into groups in registers,
    and writes per-(b, c) coefficients ``a = scale * inv`` and
-   ``b = bias - mean * a``;
+   ``b = bias - mean * a``; under autograd also the per-(b, group) mean and
+   rstd, which the backward reads instead of recomputing;
 2. ``gn_apply_kernel``: ``y = x * a + b``, SiLU if asked, cast back.
 
-The pair works at any slab size, so there is no counterpart of the TPU
-kernel's VMEM fallback: for a CUDA tensor the wrapper always launches the
-kernels. It reads x through its strides, so a tensor whose (B, H*W, C) view
-is not contiguous is read correctly (``reshape`` copies only where no view
-exists).
+backward (``_pallas_gn_bwd``'s math, ``group_norm.py:74-102`` there)
+1. ``gn_bwd_reduce_kernel``: per (sample, run of whole groups), with the SiLU
+   derivative chained first on a recomputed ``z = xhat * gamma + beta``,
+   the (B, C) partials ``dscale = sum dy * xhat`` and ``dbias = sum dy``, and
+   per group ``gm1 = mean(dy * gamma)`` and ``gm2 = mean(dy * gamma * xhat)``;
+2. ``gn_bwd_apply_kernel``: ``dx = rstd * (dy * gamma - gm1 - xhat * gm2)``.
+   The batch sum of the partials is a torch sum, as in the JAX package.
+
+The kernels work at any slab size and any channels-per-group count (3, 5,
+7, 12: masked, not padded), so there is no counterpart of the TPU kernel's
+VMEM fallback: for a CUDA tensor the wrapper always launches the kernels.
+They read x and dy through their strides, so a tensor whose (B, H*W, C)
+view is not contiguous is read correctly (``reshape`` copies only where no
+view exists).
 """
 
 from __future__ import annotations
@@ -33,24 +47,20 @@ from . import LAUNCHES
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-                         groups: int, eps: float = 1e-6,
-                         with_silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU) over the last axis of (B, ..., C): the JAX layer's math
-    (``diff_pruning_tpu/models/layers.py`` ``GroupNorm.__call__``).
+def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float = 1e-6):
+    """Per-(sample, group) mean and rstd, (B, G) f32, of (B, ..., C): the
+    statistics of :func:`group_norm_reference`.
 
-    Statistics in f32 whatever the input dtype. f32/f64 inputs use the
-    shifted variance anchored at each channel's first spatial element
-    (E[x^2]-E[x]^2 cancels when mean^2 >> var); bf16/f16 inputs use the plain
-    one-pass sum and sum of squares.
+    f32/f64 inputs use the shifted variance anchored at each channel's first
+    spatial element (E[x^2]-E[x]^2 cancels when mean^2 >> var); bf16/f16
+    inputs use the plain one-pass sum and sum of squares.
     """
-    orig_dtype = x.dtype
     b, c = x.shape[0], x.shape[-1]
     g = groups
     xf = x.to(torch.float32).reshape(b, -1, c)
     n_spatial = xf.shape[1]
     n_per_group = (c // g) * n_spatial
-    shifted = orig_dtype in (torch.float32, torch.float64)
+    shifted = x.dtype in (torch.float32, torch.float64)
     if shifted:
         m0 = xf[:, 0, :]
         d = xf - m0[:, None, :]
@@ -66,13 +76,85 @@ def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tenso
     else:
         mean = s1g.sum(-1) / n_per_group
         var = s2g.sum(-1) / n_per_group - mean * mean
-    inv = torch.rsqrt(var.clamp_min(0.0) + eps)                  # (B, g)
-    a = scale.to(torch.float32) * inv.repeat_interleave(c // g, dim=-1)
-    bb = bias.to(torch.float32) - mean.repeat_interleave(c // g, dim=-1) * a
-    y = xf * a[:, None, :] + bb[:, None, :]
+    return mean, torch.rsqrt(var.clamp_min(0.0) + eps)
+
+
+def group_norm_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+                         groups: int, eps: float = 1e-6,
+                         with_silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) over the last axis of (B, ..., C): the JAX layer's math
+    (``diff_pruning_tpu/models/layers.py`` ``GroupNorm.__call__``), with
+    statistics in f32 whatever the input dtype
+    (:func:`group_norm_stats_reference`)."""
+    b, c = x.shape[0], x.shape[-1]
+    cpg = c // groups
+    mean, inv = group_norm_stats_reference(x, groups, eps)
+    a = scale.to(torch.float32) * inv.repeat_interleave(cpg, dim=-1)
+    bb = bias.to(torch.float32) - mean.repeat_interleave(cpg, dim=-1) * a
+    y = x.to(torch.float32).reshape(b, -1, c) * a[:, None, :] + bb[:, None, :]
     if with_silu:
         y = y * torch.sigmoid(y)
-    return y.to(orig_dtype).reshape(x.shape)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def group_norm_backward_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                  dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, *,
+                                  groups: int, with_silu: bool = False):
+    """(dx, dscale, dbias) of :func:`group_norm_reference` given the forward's
+    (B, G) ``mean`` and ``rstd``: the TPU backward's formula
+    (``diff_pruning_tpu/ops/group_norm.py:74-102``) step by step, in f32.
+    dx has x's shape and dtype; dscale and dbias have scale's and bias's."""
+    b, c = x.shape[0], x.shape[-1]
+    cpg = c // groups
+    xf = x.to(torch.float32).reshape(b, -1, c)
+    dyf = dy.to(torch.float32).reshape(b, -1, c)
+    n = xf.shape[1]
+    gamma = scale.to(torch.float32)
+    mean_c = mean.repeat_interleave(cpg, dim=-1)[:, None, :]
+    rstd_c = rstd.repeat_interleave(cpg, dim=-1)[:, None, :]
+    xhat = (xf - mean_c) * rstd_c
+    if with_silu:
+        z = xhat * gamma + bias.to(torch.float32)
+        sig = torch.sigmoid(z)
+        dyf = dyf * (sig * (1.0 + z * (1.0 - sig)))
+    dscale = (dyf * xhat).sum((0, 1))
+    dbias = dyf.sum((0, 1))
+    dyg = dyf * gamma
+
+    def gmean(v):  # (B, N, C) -> per-channel-broadcast group mean (B, 1, C)
+        s = v.sum(1).reshape(b, groups, cpg).sum(-1) / (n * cpg)
+        return s.repeat_interleave(cpg, dim=-1)[:, None, :]
+
+    dx = rstd_c * (dyg - gmean(dyg) - xhat * gmean(dyg * xhat))
+    return dx.to(x.dtype).reshape(x.shape), dscale.to(scale.dtype), dbias.to(bias.dtype)
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """GroupNorm(+SiLU) with the hand-written backward. A CPU tensor runs the
+    plain versions of both directions; a CUDA tensor launches the kernels."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, with_silu):
+        if x.device.type == "cpu":
+            mean, rstd = group_norm_stats_reference(x, groups, eps)
+            y = group_norm_reference(x, scale, bias, groups=groups, eps=eps,
+                                     with_silu=with_silu)
+        else:
+            y, mean, rstd = _launch(x, scale, bias, groups, eps, with_silu, save_stats=True)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.groups, ctx.with_silu = groups, with_silu
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        if x.device.type == "cpu":
+            dx, dscale, dbias = group_norm_backward_reference(
+                x, scale, bias, dy, mean, rstd, groups=ctx.groups, with_silu=ctx.with_silu)
+        else:
+            dx, dscale, dbias = group_norm_backward(x, scale, bias, dy, mean, rstd,
+                                                    groups=ctx.groups, with_silu=ctx.with_silu)
+        return dx, dscale, dbias, None, None, None
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -80,56 +162,131 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     """GroupNorm(+SiLU) over the last axis of (B, ..., C).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the Triton
-    kernels (or raises on what they do not take). Returns a contiguous
-    tensor of x's shape and dtype.
+    kernels (or raises on what they do not take). When autograd records
+    (grad enabled and an input requires grad) the op is a
+    ``torch.autograd.Function`` whose forward also saves the group
+    statistics and whose backward is the backward kernel (plain versions on
+    the CPU). Returns a contiguous tensor of x's shape and dtype.
     """
-    if x.device.type == "cpu":
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormFn.apply(x, scale, bias, groups, float(eps), with_silu)
+    if x.device.type in ("cpu", "meta"):  # meta: shapes only (MAC counting)
         return group_norm_reference(x, scale, bias, groups=groups, eps=eps,
                                     with_silu=with_silu)
     return _launch(x, scale, bias, groups, float(eps), with_silu)
+
+
+def group_norm_forward_with_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                  *, groups: int, eps: float = 1e-6, with_silu: bool = False):
+    """``(y, mean, rstd)``: the forward kernel as autograd runs it (it also
+    writes the (B, G) statistics). CUDA tensors only."""
+    return _launch(x, scale, bias, groups, float(eps), with_silu, save_stats=True)
+
+
+def group_norm_backward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                        dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, *,
+                        groups: int, with_silu: bool = False):
+    """(dx, dscale, dbias) by the backward kernels: the counterpart of
+    :func:`group_norm_backward_reference` for CUDA tensors (raises on others)."""
+    _check(x, scale, bias, groups)
+    b, c = x.shape[0], x.shape[-1]
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"group_norm backward: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    for t in (mean, rstd):
+        if t.shape != (b, groups) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("group_norm backward: mean/rstd must be contiguous (B, G) f32")
+    from ._build import group_norm_kernels
+
+    k = group_norm_kernels()
+    x3 = x.reshape(b, -1, c)
+    dy3 = dy.reshape(b, -1, c)
+    n = x3.shape[1]
+    cpg = c // groups
+    gpp, block_n, block_c = _stats_tiles(n, cpg, groups)
+    dscale_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    dbias_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    gm1 = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    gm2 = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
+    apply_n, apply_c = _apply_tiles(n, c)
+    with torch.cuda.device(x.device):
+        k.gn_bwd_reduce_kernel[(b, _cdiv(groups, gpp))](
+            x3, dy3, scale, bias, mean, rstd, dscale_b, dbias_b, gm1, gm2,
+            n, c, groups, cpg, gpp, *x3.stride(), *dy3.stride(),
+            WITH_SILU=with_silu, BLOCK_N=block_n, BLOCK_C=block_c,
+            GROUPS_PAD=_next_pow2(gpp), num_warps=4)
+        k.gn_bwd_apply_kernel[(b, _cdiv(n, apply_n), _cdiv(c, apply_c))](
+            x3, dy3, dx, scale, bias, mean, rstd, gm1, gm2, n, c, groups, cpg,
+            *x3.stride(), *dy3.stride(),
+            WITH_SILU=with_silu, BLOCK_N=apply_n, BLOCK_C=apply_c, num_warps=4)
+    LAUNCHES["group_norm_bwd"] += 1
+    return (dx.view(x.shape), dscale_b.sum(0).to(scale.dtype),
+            dbias_b.sum(0).to(bias.dtype))
 
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
 
 
-def _launch(x, scale, bias, groups, eps, with_silu):
+def _stats_tiles(n: int, cpg: int, groups: int):
+    """A stats/reduce program owns whole groups: about 64 channels, masked to
+    a power of 2; (groups per program, BLOCK_N, BLOCK_C)."""
+    gpp = min(groups, max(1, 64 // cpg))
+    block_c = _next_pow2(gpp * cpg)
+    return gpp, max(16, min(_next_pow2(n), 4096 // block_c)), block_c
+
+
+def _apply_tiles(n: int, c: int):
+    apply_c = min(128, _next_pow2(c))
+    return max(16, min(_next_pow2(n), 4096 // apply_c)), apply_c
+
+
+def _check(x, scale, bias, groups):
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: no kernel for device {x.device}")
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"group_norm kernel takes {KERNEL_DTYPES}, got {x.dtype}")
-    b, c = x.shape[0], x.shape[-1]
+    c = x.shape[-1]
     if x.dim() < 3 or c % groups:
         raise ValueError(f"group_norm: shape {tuple(x.shape)} with {groups} groups")
     for t in (scale, bias):
         if t.shape != (c,) or t.device != x.device or not t.is_contiguous():
             raise ValueError("group_norm: scale/bias must be contiguous (C,) on x's device")
+
+
+def _launch(x, scale, bias, groups, eps, with_silu, save_stats=False):
+    _check(x, scale, bias, groups)
     from ._build import group_norm_kernels
 
     k = group_norm_kernels()
+    b, c = x.shape[0], x.shape[-1]
     x3 = x.reshape(b, -1, c)
     n = x3.shape[1]
     cpg = c // groups
-    # a stats program owns whole groups: about 64 channels, masked to a power of 2
-    gpp = min(groups, max(1, 64 // cpg))
-    block_c = _next_pow2(gpp * cpg)
-    block_n = max(16, min(_next_pow2(n), 4096 // block_c))
+    gpp, block_n, block_c = _stats_tiles(n, cpg, groups)
     coef_a = torch.empty((b, c), dtype=torch.float32, device=x.device)
     coef_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    if save_stats:
+        mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+        rstd = torch.empty((b, groups), dtype=torch.float32, device=x.device)
+    else:  # not written: SAVE_STATS is off
+        mean = rstd = coef_a
     y = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    apply_c = min(128, _next_pow2(c))
-    apply_n = max(16, min(_next_pow2(n), 4096 // apply_c))
+    apply_n, apply_c = _apply_tiles(n, c)
     with torch.cuda.device(x.device):
         k.gn_stats_kernel[(b, _cdiv(groups, gpp))](
-            x3, scale, bias, coef_a, coef_b, n, c, cpg, gpp,
+            x3, scale, bias, coef_a, coef_b, mean, rstd, n, c, groups, cpg, gpp,
             x3.stride(0), x3.stride(1), x3.stride(2), eps,
-            SHIFTED=x.dtype == torch.float32, BLOCK_N=block_n, BLOCK_C=block_c,
-            GROUPS_PAD=_next_pow2(gpp), num_warps=4)
+            SHIFTED=x.dtype == torch.float32, SAVE_STATS=save_stats, BLOCK_N=block_n,
+            BLOCK_C=block_c, GROUPS_PAD=_next_pow2(gpp), num_warps=4)
         k.gn_apply_kernel[(b, _cdiv(n, apply_n), _cdiv(c, apply_c))](
             x3, y, coef_a, coef_b, n, c,
             x3.stride(0), x3.stride(1), x3.stride(2),
             WITH_SILU=with_silu, BLOCK_N=apply_n, BLOCK_C=apply_c, num_warps=4)
     LAUNCHES["group_norm"] += 1
+    if save_stats:
+        return y.view(x.shape), mean, rstd
     return y.view(x.shape)
 
 

@@ -4,7 +4,8 @@ A checkpoint is ``<dir>/unet/{config.json, params.npz}`` with flat
 ``a/b/kernel`` keys, exactly as ``diff_pruning_tpu/utils/checkpoint.py``
 writes it, so checkpoints cross-load between the two packages.
 
-The bridge maps a flat dict of numpy arrays to a ``state_dict`` and back.
+The bridge maps a flat dict of numpy arrays to a ``state_dict`` and back,
+and a model's accumulated grads to the same flat layout (``flat_grads``).
 The module tree is named after the JAX param tree, so keys map ``/`` <->
 ``.``; the only per-leaf transforms are for kernels: 4-D HWIO <-> OIHW and
 2-D (din, dout) <-> (dout, din).
@@ -47,6 +48,17 @@ def flat_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np
                 t = t.t()
         out[key.replace(".", "/")] = np.ascontiguousarray(t.numpy())
     return out
+
+
+def flat_grads(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """The grads bridge: the model's accumulated ``.grad`` tensors as flat
+    JAX-layout numpy arrays (HWIO conv kernels, (din, dout) linear kernels),
+    keyed like the params, by the transforms of :func:`flat_from_state_dict`.
+    A parameter without a grad maps to zeros. Importance and surgery then run
+    on the layout that the channel graph registers."""
+    return flat_from_state_dict({
+        n: p.grad if p.grad is not None else torch.zeros_like(p)
+        for n, p in model.named_parameters()})
 
 
 def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:

@@ -1,5 +1,6 @@
 """The port's ops on the CPU: import hygiene, and the plain versions of the
-two kernels against the JAX layer math and the Pallas kernels (interpret mode).
+kernels, forward and backward, against the JAX layer math and the Pallas
+kernels (interpret mode).
 
 On the CPU each op's wrapper must run its plain version and launch nothing;
 the kernels themselves are compared with these plain versions on the card
@@ -11,6 +12,11 @@ Tolerances (|port - jax| <= atol + rtol * |jax|):
   round the result to bf16 once, so a sum-order change can flip one ulp.
 - high-mean low-variance GN against a float64 reference: 5e-2, the bound
   the JAX package's own test holds its layer to.
+- gradients (f32): 1e-4 + 1e-4 rel against the Pallas backward kernels.
+  The GroupNorm one recomputes its statistics with E[x^2]-E[x]^2 where the
+  port reads the forward's shifted ones, and both sum in other orders;
+  against torch autograd of the plain forward, 2e-5 + 2e-5 rel (same
+  statistics, another order of the same f32 sums).
 """
 
 import os
@@ -157,3 +163,102 @@ def test_attention_matches_jax(dtype):
     _close(got.float(), np.asarray(want, np.float32), dtype)
     if dtype == "float32":
         _close(got, np.asarray(pallas), dtype)
+
+
+# (B, H, W, C, groups, silu): C/g = 4 without and with SiLU, and a ragged C/g of 5
+GN_GRAD_CASES = [(2, 8, 8, 128, 32, False), (2, 8, 8, 128, 32, True), (2, 5, 7, 40, 8, True)]
+
+
+def _gn_inputs(case, seed):
+    b, h, w, c, g, silu = case
+    rng = np.random.default_rng(seed)
+    x = (2.0 * rng.standard_normal((b, h * w, c)) + 0.5).astype(np.float32)
+    scale = (1.0 + 0.2 * rng.standard_normal(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    wt = rng.standard_normal(x.shape).astype(np.float32)  # so dy is not constant
+    return x, scale, bias, wt
+
+
+def _port_grads(fn, arrays, wt, **kw):
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts, **kw)
+    (out * torch.from_numpy(wt)).sum().backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("case", GN_GRAD_CASES, ids=lambda c: f"C{c[3]}-g{c[4]}-silu{c[5]}")
+def test_group_norm_backward_matches_pallas(case):
+    """dx, dscale, dbias through the port's autograd Function (the plain
+    backward on the CPU) against jax.grad of the Pallas kernel."""
+    from diff_pruning_tpu.ops.group_norm import fused_group_norm
+
+    *_, g, silu = case
+    x, scale, bias, wt = _gn_inputs(case, seed=3)
+    before = dict(ops.LAUNCHES)
+    got = _port_grads(group_norm, (x, scale, bias), wt, groups=g, with_silu=silu)
+    assert ops.LAUNCHES == before
+
+    def f(x, s, b):
+        return (fused_group_norm(x, s, b, groups=g, with_silu=silu, interpret=True) * wt).sum()
+
+    with jax.default_matmul_precision("float32"):
+        want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(scale),
+                                              jnp.asarray(bias))
+    for a, b_, name in zip(got, want, ("dx", "dscale", "dbias")):
+        np.testing.assert_allclose(a, np.asarray(b_), atol=1e-4, rtol=1e-4, err_msg=name)
+
+
+def test_group_norm_backward_reference_matches_autograd():
+    """group_norm_backward_reference against torch autograd of
+    group_norm_reference, given the forward's statistics."""
+    from diff_pruning_tpu_torch.ops.group_norm import (group_norm_backward_reference,
+                                                        group_norm_stats_reference)
+
+    for i, case in enumerate(GN_GRAD_CASES):
+        *_, g, silu = case
+        x, scale, bias, wt = _gn_inputs(case, seed=4 + i)
+        want = _port_grads(group_norm_reference, (x, scale, bias), wt, groups=g, with_silu=silu)
+        tx = torch.from_numpy(x)
+        mean, rstd = group_norm_stats_reference(tx, g)
+        assert mean.shape == rstd.shape == (x.shape[0], g) and mean.dtype == torch.float32
+        got = group_norm_backward_reference(tx, torch.from_numpy(scale), torch.from_numpy(bias),
+                                            torch.from_numpy(wt), mean, rstd, groups=g,
+                                            with_silu=silu)
+        for a, b_, name in zip(got, want, ("dx", "dscale", "dbias")):
+            np.testing.assert_allclose(a.numpy(), b_, atol=2e-5, rtol=2e-5,
+                                       err_msg=f"{case} {name}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 64, 64, 32), (2, 2, 40, 70, 56)],
+                         ids=["square", "ragged"])
+def test_attention_backward_matches_pallas(shape):
+    """dq, dk, dv through the port's autograd Function (plain backward on the
+    CPU) and the forward's lse, against the Pallas kernels (interpret mode):
+    square, and a ragged head dim with Nq != Nkv."""
+    from diff_pruning_tpu.ops.attention import _flash_fwd_res
+    from diff_pruning_tpu.ops.attention import flash_attention as jax_flash
+    from diff_pruning_tpu_torch.ops.attention import reference_attention_lse
+
+    b, h, nq, nkv, d = shape
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((b, h, nq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, nkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, nkv, d)).astype(np.float32)
+    wt = rng.standard_normal(q.shape).astype(np.float32)
+    scale = d ** -0.5
+    before = dict(ops.LAUNCHES)
+    got = _port_grads(flash_attention, (q, k, v), wt, scale=scale)
+    assert ops.LAUNCHES == before
+
+    def f(q, k, v):
+        return (jax_flash(q, k, v, scale, interpret=True, min_tokens=1) * wt).sum()
+
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    with jax.default_matmul_precision("float32"):
+        want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+        jlse = _flash_fwd_res(jq, jk, jv, scale, True, with_lse=True)[1][4]
+    for a, b_, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(a, np.asarray(b_), atol=1e-4, rtol=1e-4, err_msg=name)
+    lse = reference_attention_lse(*(torch.from_numpy(a) for a in (q, k, v)), scale)[1]
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :nq, 0].reshape(b, h, nq),
+                               atol=1e-5, rtol=1e-5)
