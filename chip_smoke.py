@@ -13,19 +13,26 @@ result lines.
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles the CUDA kernels (one nvcc per source, sm_90a, all at
    once) and the Triton kernels from this checkout's sources; prints the
-   build seconds and ptxas's registers and spills.
+   build seconds and ptxas's registers and spills, and counts the
+   attention forward's tensor-core (HMMA) and FFMA instructions per kernel
+   in its SASS (cuobjdump): the bf16/f16 kernels must use the tensor cores,
+   the f32 kernels must not (no TF32).
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense and the
    pruned UNet give them (collected by forward hooks), plus a ragged token
    count.
-4. Full-width forward, B = 128, kernels on and off on the same weights.
+4. Full-width forward, B = 128, kernels on and off on the same weights;
+   the strides of every GroupNorm input the layers pass (also under
+   autograd, in phase 9).
 5. Serving path, dense: the sampling CLI, 256 images in batches of 128,
    DDIM-100; launch counters reset just before and read just after.
 6. Serving path, pruned: the same CLI on a checkpoint keeping
    floor(0.7 * size / group_div) * group_div channels of every prunable var.
 7. Timings (CUDA events, in turns): per-op forward kernel against plain and
-   the library call at the main-path shapes, and sampling imgs/s with the
-   kernels on and off.
+   the library call at the main-path shapes (attention also in TFLOP/s),
+   the GroupNorm wrapper's host time per call, dense and pruned sampling
+   imgs/s with the kernels on and off, f32 and bf16, and a torch.profiler
+   breakdown of 5 dense DDIM steps by kernel class.
 8. Backward kernels against their plain versions, at the same shapes, B =
    128, f32 and bf16: the forward's saved GroupNorm statistics and the
    attention lse, then dx/dscale/dbias and dq/dk/dv.
@@ -48,6 +55,7 @@ comparisons are f32 against f32.
 """
 
 import collections
+import itertools
 import json
 import os
 import subprocess
@@ -160,7 +168,7 @@ def bound_by(tot, prefix=""):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if n.startswith("gn_"):  # the Triton kernels' own names
+    if n.startswith("gn_") or "gn_fwd_kernel" in n:  # Triton's names; the CUDA one, mangled
         return "GroupNorm kernels"
     if "flash_fwd_kernel" in n or "flash_bwd_" in n:  # the CUDA kernels, mangled
         return "attention kernels"
@@ -176,9 +184,56 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def sass_counts(lib_path):
+    """{kernel: (HMMA count, FFMA count)} from cuobjdump's SASS of a built
+    library, or None where the toolkit has no cuobjdump."""
+    from diff_pruning_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(os.path.realpath(_build.nvcc_path())), "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], check=True, capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += " HMMA" in line
+            counts[name][1] += " FFMA" in line
+    return counts
+
+
+def layout_name(x3) -> str:
+    """What a GroupNorm kernel reads: x3 is the (B, ..., C) tensor a layer
+    passes."""
+    if x3.is_contiguous():
+        return "channels-last ((B, N, C) contiguous)"
+    if x3.permute(0, x3.dim() - 1, *range(1, x3.dim() - 1)).is_contiguous():
+        return "NCHW-contiguous ((B, N, C) strides (C*N, 1, N))"
+    return f"other, strides {tuple(x3.stride())}"
+
+
+def record_gn_layouts(model):
+    """Hooks counting the layouts of the GroupNorm inputs; returns (counter,
+    remove)."""
+    from diff_pruning_tpu_torch.models.layers import GroupNorm
+
+    seen = collections.Counter()
+
+    def hook(mod, args):
+        seen[layout_name(args[0].permute(0, 2, 3, 1))] += 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
+             if isinstance(m, GroupNorm)]
+    return seen, lambda: [h.remove() for h in hooks]
+
+
 def profile_classes(fn):
-    """Device time by kernel class (ms), the host span (ms) and the kernel
-    count of one run of ``fn``, from torch.profiler's CUPTI trace."""
+    """Device time by kernel class (ms), the host span (ms), the kernel count
+    and the kernel count by class of one run of ``fn``, from torch.profiler's
+    CUPTI trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -188,7 +243,7 @@ def profile_classes(fn):
         fn()
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) * 1e3
-    busy, launches = collections.defaultdict(float), 0
+    busy, counts = collections.defaultdict(float), collections.Counter()
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -196,8 +251,18 @@ def profile_classes(fn):
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         busy[kernel_class(evt.key)] += us / 1e3
-        launches += evt.count
-    return dict(busy), span, launches
+        counts[kernel_class(evt.key)] += evt.count
+    return dict(busy), span, sum(counts.values()), dict(counts)
+
+
+def print_profile(what, busy, span, launches, counts, per, tag):
+    print(f"profile {what} (torch.profiler, device ms per {per[0]} by kernel class): "
+          + ", ".join(f"{k} {v / per[1]:.2f}" for k, v in sorted(busy.items()))
+          + f"; device busy {sum(busy.values()) / per[1]:.2f} of {span / per[1]:.2f} ms span "
+          + "per " + per[0] + ", idle share "
+          + (f"{1 - sum(busy.values()) / span:.3f}" if busy else "not measured")
+          + f", {launches / per[1]:.0f} kernel launches per {per[0]} ("
+          + ", ".join(f"{k} {v / per[1]:.1f}" for k, v in sorted(counts.items())) + f") {tag}")
 
 
 def pruned_config(cfg):
@@ -321,7 +386,18 @@ def main() -> None:
                  if "registers" in ln or "spill" in ln]
         print(f"build: {name}.cu (nvcc sm_90a) {info['seconds']:.2f}s; " + " | ".join(ptxas))
     print(f"build: {os.path.relpath(triton_mod.__file__, REPO)} (triton {triton.__version__}) "
-          f"first 12 variants {t_triton:.2f}s; all builds {time.perf_counter() - t_build:.2f}s")
+          f"first 4 variants {t_triton:.2f}s; all builds {time.perf_counter() - t_build:.2f}s")
+    sass = sass_counts(_build.load_library("flash_attention_fwd")._name)
+    if sass is None:
+        print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
+    else:
+        for kname, (hmma, ffma) in sorted(sass.items()):
+            print(f"sass: flash_attention_fwd {kname}: {hmma} HMMA, {ffma} FFMA")
+            if "flash_fwd_kernel_mma" in kname:
+                assert hmma > 0, f"{kname} has no tensor-core instruction"
+            if "flash_fwd_kernel_f32" in kname:
+                assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
+        assert any("flash_fwd_kernel_mma" in kname for kname in sass), sorted(sass)
 
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
     cfg = ddpm_cifar10_config()
@@ -371,9 +447,11 @@ def main() -> None:
     x = torch.randn((B, 32, 32, 3), generator=gen, device=dev)
     t = torch.randint(0, 1000, (B,), generator=gen, device=dev)
     with torch.inference_mode():
+        gn_seen, unhook = record_gn_layouts(model)
         ops.reset_launch_counts()
         y_on = model(x, t)
         fwd_counts = dict(ops.LAUNCHES)
+        unhook()
         ops.set_kernels_enabled(False)
         y_off = model(x, t)
         ops.set_kernels_enabled(True)
@@ -383,6 +461,7 @@ def main() -> None:
     assert fwd_counts["group_norm"] == sum(gn_dense.values()), fwd_counts
     assert fwd_counts["attention"] == sum(attn_dense.values()), fwd_counts
     assert bool(torch.isfinite(y_on).all()) and diff <= FORWARD_TOL_F32
+    print(f"GroupNorm inputs, full-width forward (inference): {dict(gn_seen)}")
 
     tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmpdir.name
@@ -445,25 +524,55 @@ def main() -> None:
                 bms, by = bound(nbytes, flops, dname)
                 tot["kernel"] += km * calls
                 tot["plain"] += pm * calls
+                tot["flops"] += flops * calls
                 add_bound(tot, "", bms * calls, by)
                 if len(ms) == 3:
                     lib = ms[2]
                     tot["library"] += lib * calls
                     tot["kernel_where_library"] += km * calls
+                rate = (f", {flops / km / 1e9:.1f} TFLOP/s (library "
+                        f"{flops / lib / 1e9:.1f})" if op == "attention" else "")
                 print(f"time {op} fwd {shape} x{calls}/forward B={B} {dname}: kernel {km:.4f} ms, "
                       f"plain {pm:.4f} ms, library "
-                      f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by}) {tag}")
+                      f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})"
+                      f"{rate} {tag}")
+            tot["tflops"] = tot["flops"] / tot["kernel"] / 1e9
             per_forward[(op, dname)] = dict(tot)
             print(f"time {op} fwd per UNet forward B={B} {dname}: kernel {tot['kernel']:.4f} ms, "
                   f"plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms; library "
                   f"{tot['library']:.4f} ms against kernel {tot['kernel_where_library']:.4f} ms "
-                  f"on the calls it covers {tag}")
+                  f"on the calls it covers; {tot['tflops']:.2f} TFLOP/s {tag}")
+
+    # GroupNorm host time per call: the wrapper's enqueue, no sync inside
+    host_us = {}
+    for dname in TOL:
+        dtype = getattr(torch, dname)
+        total = 0.0
+        for (n, c, silu), calls in sorted(gn_dense.items()):
+            x = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
+            s, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            for _ in range(5):
+                group_norm(x, s, b, groups=32, with_silu=silu)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                group_norm(x, s, b, groups=32, with_silu=silu)
+            us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            total += us * calls
+        host_us[dname] = total / sum(gn_dense.values())
+        print(f"time group_norm fwd host per call B={B} {dname}: {host_us[dname]:.2f} us "
+              f"(perf_counter over 200 calls without a sync, averaged over one forward's "
+              f"calls) {tag}")
 
     sched = DiffusionSchedule.create(device=dev)
-    sampling = {}
-    for dname in TOL:
-        sample = make_sampler(model, sched, SamplerConfig(num_inference_steps=100, dtype=dname))
-        warm = make_sampler(model, sched, SamplerConfig(num_inference_steps=2, dtype=dname))
+    pmodel = UNet2D(pcfg, device=dev)
+    pmodel.load_state_dict(pruned.state_dict())
+    pmodel.eval()
+    sampling = collections.defaultdict(dict)
+    for (name, net), dname in itertools.product((("dense", model), ("pruned", pmodel)), TOL):
+        sample = make_sampler(net, sched, SamplerConfig(num_inference_steps=100, dtype=dname))
+        warm = make_sampler(net, sched, SamplerConfig(num_inference_steps=2, dtype=dname))
 
         def run(on, sample=sample):
             ops.set_kernels_enabled(on)
@@ -477,12 +586,21 @@ def main() -> None:
             warm(gen, B, 32, 3)
         ops.set_kernels_enabled(True)
         off1, on1, on2, off2 = run(False), run(True), run(True), run(False)
-        sampling[dname] = (B * 2000 / (on1 + on2), B * 2000 / (off1 + off2))
-        print(f"time sampling dense DDIM-100 B={B} {dname}: kernels on "
-              f"{sampling[dname][0]:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), kernels off "
-              f"{sampling[dname][1]:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
+        if name == "dense":  # profile of 5 DDIM steps
+            prof = make_sampler(net, sched, SamplerConfig(num_inference_steps=5, dtype=dname))
+            for on in (True, False):
+                ops.set_kernels_enabled(on)
+                print_profile(f"sampling dense DDIM step kernels {'on' if on else 'off'} "
+                              f"B={B} {dname}", *profile_classes(lambda: prof(gen, B, 32, 3)),
+                              ("step", 5), tag)
+            ops.set_kernels_enabled(True)
+        on, off = B * 2000 / (on1 + on2), B * 2000 / (off1 + off2)
+        sampling[name][dname] = {"kernels_on": on, "kernels_off": off}
+        print(f"time sampling {name} DDIM-100 B={B} {dname}: kernels on "
+              f"{on:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), kernels off "
+              f"{off:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
     torch.cuda.synchronize()
-    del model
+    del model, pmodel
 
     # -- 8. backward kernels against plain versions at the UNet's shapes, B = 128
     for n, c, silu in gn_cases:
@@ -570,7 +688,10 @@ def main() -> None:
         finally:
             ops.set_kernels_enabled(True)
 
+    gn_seen, unhook = record_gn_layouts(smodel)
     res_on, counts_on, grads_on = sweep(True)
+    unhook()
+    print(f"GroupNorm inputs, sweep under autograd ({SWEEP_STEPS} steps): {dict(gn_seen)}")
     res_off, counts_off, grads_off = sweep(False)
     res_again, _, grads_again = sweep(True)
     print(f"sweep cifar10 35.75M B={B} f32 {SWEEP_STEPS} steps: losses on {res_on.losses}, "
@@ -738,14 +859,8 @@ def main() -> None:
           f"{step_on:.2f} ms, kernels off {step_off:.2f} ms (CUDA events, in turns "
           f"off-on-on-off, cuDNN deterministic) {tag}")
     for on in (False, True):
-        busy, span, launches = profile_classes(lambda: sweep_steps(on))
-        print(f"profile sweep step kernels {'on' if on else 'off'} B={B} f32 (torch.profiler, "
-              f"device ms per step by kernel class): " + ", ".join(
-                  f"{k} {v / SWEEP_STEPS:.2f}" for k, v in sorted(busy.items()))
-              + f"; device busy {sum(busy.values()) / SWEEP_STEPS:.2f} of "
-              f"{span / SWEEP_STEPS:.2f} ms span per step, idle share "
-              + (f"{1 - sum(busy.values()) / span:.3f}" if busy else "not measured")
-              + f", {launches / SWEEP_STEPS:.0f} kernel launches per step {tag}")
+        print_profile(f"sweep step kernels {'on' if on else 'off'} B={B} f32",
+                      *profile_classes(lambda: sweep_steps(on)), ("step", SWEEP_STEPS), tag)
     torch.backends.cudnn.deterministic = False
     torch.cuda.synchronize()
 
@@ -763,18 +878,23 @@ def main() -> None:
 
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
-    gn_src = "diff_pruning_tpu_torch/ops/_group_norm_triton.py"
+    gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
+    gn_bwd_src = "diff_pruning_tpu_torch/ops/_group_norm_triton.py"
+    bf16_fwd = {op: per_forward[(op, "bfloat16")] for op in ("group_norm", "attention")}
     attn_bwd_src = "diff_pruning_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     kernels = [
-        entry("group_norm_silu_fwd", "triton", gn_src, "diff_pruning_tpu/ops/group_norm.py:110",
+        entry("group_norm_silu_fwd", "cuda", gn_fwd_src, "diff_pruning_tpu/ops/group_norm.py:110",
               cli_counts["group_norm"], "group_norm", f32_fwd["group_norm"]["kernel"],
               f32_fwd["group_norm"]["plain"], f32_fwd["group_norm"]["bound"],
               bound_by(f32_fwd["group_norm"]),
               f32_fwd["group_norm"]["library"], ms_is=per_fwd,
               library_ms_is="F.group_norm over the no-SiLU calls only",
               ms_where_library=f32_fwd["group_norm"]["kernel_where_library"],
+              ms_bf16=bf16_fwd["group_norm"]["kernel"],
+              library_ms_bf16=bf16_fwd["group_norm"]["library"],
+              host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"]),
-        entry("group_norm_silu_bwd", "triton", gn_src, "diff_pruning_tpu/ops/group_norm.py:131",
+        entry("group_norm_silu_bwd", "triton", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               cli_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
               f32_bwd["gn_library"],
@@ -788,6 +908,9 @@ def main() -> None:
               f32_fwd["attention"]["bound"], bound_by(f32_fwd["attention"]),
               f32_fwd["attention"]["library"],
               ms_is=per_fwd, library_ms_is="F.scaled_dot_product_attention",
+              ms_bf16=bf16_fwd["attention"]["kernel"],
+              library_ms_bf16=bf16_fwd["attention"]["library"],
+              tflops=f32_fwd["attention"]["tflops"], tflops_bf16=bf16_fwd["attention"]["tflops"],
               max_abs_err_lse=worst[("attention_lse", "float32")],
               launches_with_lse=cli_counts["attention_lse"],
               launches_serving_dense=results["dense"]["launches"]["attention"]),

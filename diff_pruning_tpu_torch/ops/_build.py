@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the CUDA sources under csrc/, one library each
-CUDA_LIBRARIES = ("flash_attention_fwd", "flash_attention_bwd")
+CUDA_LIBRARIES = ("group_norm_fwd", "flash_attention_fwd", "flash_attention_bwd")
 # name -> {"seconds": build seconds (0.0 if already built), "log": nvcc's stderr}
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
@@ -82,7 +82,7 @@ def build_libraries(names=CUDA_LIBRARIES) -> None:
 
 
 def group_norm_kernels():
-    """The Triton GroupNorm module; imports ``triton`` on first call."""
+    """The Triton GroupNorm backward module; imports ``triton`` on first call."""
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
     from . import _group_norm_triton
 

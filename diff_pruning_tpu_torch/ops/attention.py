@@ -7,10 +7,12 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel``).
 
 - Forward (``csrc/flash_attention_fwd.cu``): one block per (batch*head,
-  64-row query tile) with an online softmax and an f32 accumulator. Under
-  autograd it also writes the per-row logsumexp ``lse = m + log(l)``
-  (f32, (B, H, Nq)); without autograd no lse is written and the launch is
-  the inference one.
+  64-row query tile) with an online softmax and f32 accumulators, K/V tiles
+  streamed through a cp.async ring. f32 inputs run exact f32 on the CUDA
+  cores from register micro-tiles (no TF32); bf16/f16 inputs run on the
+  tensor cores (``mma.sync`` m16n8k16, f32 accumulators). Under autograd it
+  also writes the per-row logsumexp ``lse = m + log(l)`` (f32, (B, H, Nq));
+  without autograd no lse is written and the launch is the inference one.
 - Backward (``csrc/flash_attention_bwd.cu``), the standard flash backward
   split as the JAX package splits it, so no block writes what another block
   writes (no atomics: gradients are bit-reproducible run to run):
@@ -20,15 +22,18 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   reads that D. With ``p = exp(s - lse)`` and ``ds = p * (dO v^T - D) *
   scale``: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``.
 
-The kernels take any head dim up to 256, masked to the loaded width rather
-than padded, and read head-split views through their strides, so the layer
-passes ``(B, N, heads*dh)`` projections without a transpose copy; outputs
-are (B, H, N, D) views of contiguous (B, N, H, D) tensors, so merging the
-heads back is free. Their source notes say what bounds them on the H100.
+The kernels take any head dim up to 256 (the forward zero-pads it in shared
+memory, the backward masks it to the loaded width), and read head-split
+views through their strides, so the layer passes ``(B, N, heads*dh)``
+projections without a transpose copy; outputs are (B, H, N, D) views of
+contiguous (B, N, H, D) tensors, so merging the heads back is free. Their
+source notes say what bounds them on the H100.
 
 The plain forward keeps the layer's math: f32 scores, probabilities cast to
-``v.dtype`` before the PV product. The kernels keep the probabilities in f32
-(the TPU kernels' math), so in bf16 the two differ by about one bf16 ulp.
+``v.dtype`` before the PV product. The bf16/f16 forward kernel rounds its
+(unnormalised) probabilities to the input type too, as the tensor cores
+take them; the backward kernels keep them in f32 (the TPU kernels' math).
+In bf16 kernel and plain version differ by about one bf16 ulp.
 """
 
 from __future__ import annotations
@@ -191,18 +196,18 @@ def _heads_out(like: torch.Tensor) -> torch.Tensor:
 def _launch(q, k, v, scale, with_lse=False):
     _check(q, k, v)
     b, h, nq, d = q.shape
-    nkv = k.shape[2]
+    dev = q.device
     o = _heads_out(q)
-    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _lib("flash_attention_fwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None,
-            _DTYPE_CODES[q.dtype], b, h, nq, nkv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            scale, stream)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=dev) if with_lse else None
+    fn = _lib("flash_attention_fwd").flash_attention_fwd
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype], b, h, nq, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale)
+    if dev.index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     LAUNCHES["attention"] += 1

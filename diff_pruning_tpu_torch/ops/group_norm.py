@@ -1,5 +1,5 @@
 """GroupNorm(+SiLU), forward and backward: plain PyTorch versions and the
-Triton kernels' wrappers.
+kernels' wrappers.
 
 Replaces the TPU kernels ``_pallas_gn`` (forward: ``_fwd_kernel`` with
 ``_stats`` and ``_group_avg_matrix``) and ``_pallas_gn_bwd`` (backward:
@@ -7,22 +7,21 @@ Replaces the TPU kernels ``_pallas_gn`` (forward: ``_fwd_kernel`` with
 one sample's (N, C) NHWC slab per grid step inside VMEM.
 
 On the H100 both directions are bound by device-memory bytes: a handful of
-flops per element and no tensor-core work. The Triton kernels
-(``_group_norm_triton.py``) therefore stream x (and dy) in coalesced
-(rows, channels) tiles with channels contiguous, keep every statistic in f32
-registers, and write nothing but small per-channel or per-group rows
-between their two passes:
+flops per element and no tensor-core work; at the UNet's sizes a call's
+fixed host and launch cost is of the same order as its bytes.
 
-forward
-1. ``gn_stats_kernel``: one program per (sample, run of whole groups) sums
-   each channel over H*W (shifted by the channel's first element for f32
-   inputs, as the layer does), combines channels into groups in registers,
-   and writes per-(b, c) coefficients ``a = scale * inv`` and
-   ``b = bias - mean * a``; under autograd also the per-(b, group) mean and
-   rstd, which the backward reads instead of recomputing;
-2. ``gn_apply_kernel``: ``y = x * a + b``, SiLU if asked, cast back.
+forward (CUDA C++, ``csrc/group_norm_fwd.cu``), one launch a call, like the
+TPU kernel: one block per (sample, run of whole groups) copies its slab
+from device memory once into shared memory, takes the statistics there in
+f32 (the shifted variance for f32 inputs, as the layer does), then writes y
+once, with SiLU if asked; under autograd it also writes the (B, G) mean and
+rstd, which the backward reads instead of recomputing. A slab beyond the
+block's shared memory is taken in chunks (one launch still; x is read a
+second time, from L2). The wrapper's host path is one allocation for y
+(plus one (2, B, G) buffer for the statistics) and one ``ctypes`` call.
 
-backward (``_pallas_gn_bwd``'s math, ``group_norm.py:74-102`` there)
+backward (Triton, ``_group_norm_triton.py``; ``_pallas_gn_bwd``'s math,
+``group_norm.py:74-102`` there)
 1. ``gn_bwd_reduce_kernel``: per (sample, run of whole groups), with the SiLU
    derivative chained first on a recomputed ``z = xhat * gamma + beta``,
    the (B, C) partials ``dscale = sum dy * xhat`` and ``dbias = sum dy``, and
@@ -40,11 +39,16 @@ view exists).
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
 from . import LAUNCHES
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_LIB = []
 
 
 def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float = 1e-6):
@@ -161,7 +165,7 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
                groups: int, eps: float = 1e-6, with_silu: bool = False) -> torch.Tensor:
     """GroupNorm(+SiLU) over the last axis of (B, ..., C).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the Triton
+    A CPU tensor takes the plain version; a CUDA tensor launches the
     kernels (or raises on what they do not take). When autograd records
     (grad enabled and an input requires grad) the op is a
     ``torch.autograd.Function`` whose forward also saves the group
@@ -230,7 +234,7 @@ def _next_pow2(n: int) -> int:
 
 
 def _stats_tiles(n: int, cpg: int, groups: int):
-    """A stats/reduce program owns whole groups: about 64 channels, masked to
+    """A reduce program owns whole groups: about 64 channels, masked to
     a power of 2; (groups per program, BLOCK_N, BLOCK_C)."""
     gpp = min(groups, max(1, 64 // cpg))
     block_c = _next_pow2(gpp * cpg)
@@ -255,39 +259,57 @@ def _check(x, scale, bias, groups):
             raise ValueError("group_norm: scale/bias must be contiguous (C,) on x's device")
 
 
-def _launch(x, scale, bias, groups, eps, with_silu, save_stats=False):
-    _check(x, scale, bias, groups)
-    from ._build import group_norm_kernels
+def _lib():
+    if not _LIB:
+        from ._build import load_library
 
-    k = group_norm_kernels()
-    b, c = x.shape[0], x.shape[-1]
-    x3 = x.reshape(b, -1, c)
-    n = x3.shape[1]
-    cpg = c // groups
-    gpp, block_n, block_c = _stats_tiles(n, cpg, groups)
-    coef_a = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    coef_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    if save_stats:
-        mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-        rstd = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-    else:  # not written: SAVE_STATS is off
-        mean = rstd = coef_a
-    y = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    apply_n, apply_c = _apply_tiles(n, c)
-    with torch.cuda.device(x.device):
-        k.gn_stats_kernel[(b, _cdiv(groups, gpp))](
-            x3, scale, bias, coef_a, coef_b, mean, rstd, n, c, groups, cpg, gpp,
-            x3.stride(0), x3.stride(1), x3.stride(2), eps,
-            SHIFTED=x.dtype == torch.float32, SAVE_STATS=save_stats, BLOCK_N=block_n,
-            BLOCK_C=block_c, GROUPS_PAD=_next_pow2(gpp), num_warps=4)
-        k.gn_apply_kernel[(b, _cdiv(n, apply_n), _cdiv(c, apply_c))](
-            x3, y, coef_a, coef_b, n, c,
-            x3.stride(0), x3.stride(1), x3.stride(2),
-            WITH_SILU=with_silu, BLOCK_N=apply_n, BLOCK_C=apply_c, num_warps=4)
+        lib = load_library("group_norm_fwd")
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.group_norm_fwd.argtypes = ([ptr] * 5 + [i32] * 5 + [i64] * 3
+                                       + [ctypes.c_float, i32, ptr])
+        lib.group_norm_fwd.restype = i32
+        _LIB.append(lib.group_norm_fwd)
+    return _LIB[0]
+
+
+def _slab(x):
+    """``(x3, n, strides)``: x as (B, N, C) through its strides. A view where
+    the spatial dims merge (always, for the layer's input); a copy otherwise."""
+    sh, st = x.shape, x.stride()
+    n = 1
+    for i in range(1, x.dim() - 1):
+        n *= sh[i]
+        if i > 1 and st[i - 1] != st[i] * sh[i]:
+            x = x.reshape(sh[0], -1, sh[-1])
+            return x, n * math.prod(sh[i + 1:-1]), x.stride()
+    return x, n, (st[0], st[-2], st[-1])
+
+
+def _launch(x, scale, bias, groups, eps, with_silu, save_stats=False):
+    """One launch of the forward kernel. Kept lean: it runs 51 times a UNet
+    forward, and its host time is of the order of the kernel's."""
+    _check(x, scale, bias, groups)
+    x3, n, strides = _slab(x)
+    dev = x.device
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    stats = torch.empty((2, x.shape[0], groups), dtype=torch.float32,
+                        device=dev) if save_stats else None
+    if scale.dtype != torch.float32:
+        scale, bias = scale.float(), bias.float()
+    args = (x3.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            stats.data_ptr() if save_stats else None, _DTYPE_CODES[x.dtype], x.shape[0], n,
+            x.shape[-1], groups, *strides, eps, with_silu)
+    if dev.index == torch._C._cuda_getDevice():
+        err = _lib()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = _lib()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"group_norm_fwd launch failed: CUDA error {err}")
     LAUNCHES["group_norm"] += 1
     if save_stats:
-        return y.view(x.shape), mean, rstd
-    return y.view(x.shape)
+        return y, stats[0], stats[1]
+    return y
 
 
 def _cdiv(a: int, b: int) -> int:
