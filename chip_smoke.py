@@ -13,10 +13,11 @@ result lines.
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles the CUDA kernels (one nvcc per source, sm_90a, all at
    once) and the Triton kernels from this checkout's sources; prints the
-   build seconds and ptxas's registers and spills, and counts the
-   attention forward's tensor-core (HMMA) and FFMA instructions per kernel
-   in its SASS (cuobjdump): the bf16/f16 kernels must use the tensor cores,
-   the f32 kernels must not (no TF32).
+   build seconds and ptxas's registers and spills (per kernel for the f32
+   attention backward), and counts the attention kernels' tensor-core
+   (HMMA) and FFMA instructions in their SASS (cuobjdump): the bf16/f16
+   forward kernels must use the tensor cores, the f32 forward and backward
+   kernels must not (exact f32, no TF32).
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense and the
    pruned UNet give them (collected by forward hooks), plus a ragged token
@@ -45,7 +46,8 @@ result lines.
    of 128 images; launch counters reset just before and read just after.
    The checkpoint it writes reloads at the pinned param count, and the
    sampling CLI draws 128 finite images from it.
-11. Timings: per-op backward kernels against plain and the library call,
+11. Timings: per-op backward kernels against plain and the library call
+   (attention dq and dk/dv also in TFLOP/s),
    the sweep step (forward + backward, f32) with the kernels on and off,
    and a torch.profiler breakdown of the sweep step by kernel class.
 12. The kernels' JSON line, nvidia-smi's line, then the result line.
@@ -203,6 +205,25 @@ def sass_counts(lib_path):
             counts[name][0] += " HMMA" in line
             counts[name][1] += " FFMA" in line
     return counts
+
+
+def ptxas_by_kernel(log: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ``nvcc -Xptxas -v``'s log, for the f32 attention backward kernels, named
+    as ``flash_bwd_dq_kernel_f32<NC>``."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*?(flash_bwd_\w+?_f32)ILi(\d)E", line)
+        if "Compiling entry function" in line:
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+        elif name is not None and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name] = [None, int(nums[0]), int(nums[1])]
+        elif name is not None and "registers" in line and name in out:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def layout_name(x3) -> str:
@@ -387,17 +408,26 @@ def main() -> None:
         print(f"build: {name}.cu (nvcc sm_90a) {info['seconds']:.2f}s; " + " | ".join(ptxas))
     print(f"build: {os.path.relpath(triton_mod.__file__, REPO)} (triton {triton.__version__}) "
           f"first 4 variants {t_triton:.2f}s; all builds {time.perf_counter() - t_build:.2f}s")
-    sass = sass_counts(_build.load_library("flash_attention_fwd")._name)
-    if sass is None:
-        print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
-    else:
+    bwd_regs = ptxas_by_kernel(_build.BUILD_INFO["flash_attention_bwd"]["log"])
+    for kname, (regs, st, ld) in sorted(bwd_regs.items()):
+        print(f"ptxas: flash_attention_bwd {kname}: {regs} registers, spill stores {st} "
+              f"bytes, spill loads {ld} bytes")
+    if _build.BUILD_INFO["flash_attention_bwd"]["log"]:  # empty when already built
+        assert {k.split("<")[0] for k in bwd_regs} == {"flash_bwd_dq_kernel_f32",
+                                                      "flash_bwd_dkv_kernel_f32"}, bwd_regs
+    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass = sass_counts(_build.load_library(lib)._name)
+        if sass is None:
+            print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
+            break
         for kname, (hmma, ffma) in sorted(sass.items()):
-            print(f"sass: flash_attention_fwd {kname}: {hmma} HMMA, {ffma} FFMA")
+            print(f"sass: {lib} {kname}: {hmma} HMMA, {ffma} FFMA")
             if "flash_fwd_kernel_mma" in kname:
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
-            if "flash_fwd_kernel_f32" in kname:
+            if "_kernel_f32" in kname:
                 assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        assert any("flash_fwd_kernel_mma" in kname for kname in sass), sorted(sass)
+        want = "flash_fwd_kernel_mma" if lib == "flash_attention_fwd" else "_kernel_f32"
+        assert sum(want in kname for kname in sass) >= 2, sorted(sass)
 
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
     cfg = ddpm_cifar10_config()
@@ -826,17 +856,22 @@ def main() -> None:
                 lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
                 lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)],
                 iters=20)
+            fq, fkv = attn_dq_work(n, h, d, dname)[1], attn_dkv_work(n, h, d, dname)[1]
             bq, byq = bound(*attn_dq_work(n, h, d, dname), dname)
             bkv, bykv = bound(*attn_dkv_work(n, h, d, dname), dname)
             for key, val in (("dq_plain", ms[0]), ("dq_kernel", ms[1]), ("dkv_plain", ms[2]),
-                             ("dkv_kernel", ms[3]), ("attn_library", ms[4])):
+                             ("dkv_kernel", ms[3]), ("attn_library", ms[4]),
+                             ("dq_flops", fq), ("dkv_flops", fkv)):
                 tot[key] += val * calls
             add_bound(tot, "dq_", bq * calls, byq)
             add_bound(tot, "dkv_", bkv * calls, bykv)
             print(f"time attention bwd {(n, h, d)} x{calls}/step B={B} {dname}: dq kernel "
-                  f"{ms[1]:.4f} ms (plain {ms[0]:.4f}, bound {bq:.4f} {byq}), dk/dv kernel "
-                  f"{ms[3]:.4f} ms (plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library "
+                  f"{ms[1]:.4f} ms, {fq / ms[1] / 1e9:.1f} TFLOP/s (plain {ms[0]:.4f}, bound "
+                  f"{bq:.4f} {byq}), dk/dv kernel {ms[3]:.4f} ms, {fkv / ms[3] / 1e9:.1f} "
+                  f"TFLOP/s (plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library "
                   f"(SDPA backward, dq+dk+dv) {ms[4]:.4f} ms {tag}")
+        tot["dq_tflops"] = tot["dq_flops"] / tot["dq_kernel"] / 1e9
+        tot["dkv_tflops"] = tot["dkv_flops"] / tot["dkv_kernel"] / 1e9
         per_step_bwd[dname] = dict(tot)
         print(f"time backward per sweep step B={B} {dname}: " + ", ".join(
             f"{k} {val:.4f} ms" for k, val in sorted(tot.items())) + f" {tag}")
@@ -918,12 +953,14 @@ def main() -> None:
               "diff_pruning_tpu/ops/attention.py:205", cli_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
               f32_bwd["dq_bound"], bound_by(f32_bwd, "dq_"), None, ms_is=per_bwd,
-              library_ms_dq_dk_dv=f32_bwd["attn_library"]),
+              library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dq_tflops"],
+              ms_bf16=per_step_bwd["bfloat16"]["dq_kernel"]),
         entry("flash_attention_bwd_dkv", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", cli_counts["attention_bwd_dkv"],
               "attention_bwd_dkv", f32_bwd["dkv_kernel"], f32_bwd["dkv_plain"],
               f32_bwd["dkv_bound"], bound_by(f32_bwd, "dkv_"), None, ms_is=per_bwd,
-              library_ms_dq_dk_dv=f32_bwd["attn_library"]),
+              library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dkv_tflops"],
+              ms_bf16=per_step_bwd["bfloat16"]["dkv_kernel"]),
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
                       "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling}))

@@ -20,10 +20,14 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   also forms ``D = rowsum(dO * O)`` for its rows and writes it; then
   ``dk, dv`` one block per (batch*head, kv tile) looping over q tiles, which
   reads that D. With ``p = exp(s - lse)`` and ``ds = p * (dO v^T - D) *
-  scale``: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``.
+  scale``: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``. f32 inputs run
+  exact f32 on the CUDA cores from register micro-tiles, with the streamed
+  tiles (K/V for dq, Q/dO for dk/dv) copied through cp.async; bf16/f16
+  inputs run the first design (8 lanes a row, f32 math from shared memory).
 
-The kernels take any head dim up to 256 (the forward zero-pads it in shared
-memory, the backward masks it to the loaded width), and read head-split
+The kernels take any head dim up to 256 (the forward and the f32 backward
+zero-pad it in shared memory, the 16-bit backward masks it to the loaded
+width), and read head-split
 views through their strides, so the layer passes ``(B, N, heads*dh)``
 projections without a transpose copy; outputs are (B, H, N, D) views of
 contiguous (B, N, H, D) tensors, so merging the heads back is free. Their
@@ -193,21 +197,26 @@ def _heads_out(like: torch.Tensor) -> torch.Tensor:
     return torch.empty((b, n, h, d), dtype=like.dtype, device=like.device).transpose(1, 2)
 
 
+def _on_device(dev, fn, *args):
+    """``fn(*args, stream)`` on ``dev``'s current raw stream; enters a device
+    context only when ``dev`` is not the current device."""
+    if dev.index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    with torch.cuda.device(dev):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+
+
 def _launch(q, k, v, scale, with_lse=False):
     _check(q, k, v)
     b, h, nq, d = q.shape
     dev = q.device
     o = _heads_out(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=dev) if with_lse else None
-    fn = _lib("flash_attention_fwd").flash_attention_fwd
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype], b, h, nq, k.shape[2], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale)
-    if dev.index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    err = _on_device(
+        dev, _lib("flash_attention_fwd").flash_attention_fwd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if with_lse else None, _DTYPE_CODES[q.dtype], b, h, nq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], scale)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     LAUNCHES["attention"] += 1
@@ -254,15 +263,13 @@ def flash_attention_backward_dq(q, k, v, o, do, lse, scale: float):
     b, h, nq, d = q.shape
     dsum = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     dq = _heads_out(q)
-    lib = _lib("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, h, nq, k.shape[2], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            *do.stride()[:3], *dq.stride()[:3], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    err = _on_device(
+        q.device, _lib("flash_attention_bwd").flash_attention_bwd_dq,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype],
+        b, h, nq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        *do.stride()[:3], *dq.stride()[:3], float(scale))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {err}")
     LAUNCHES["attention_bwd_dq"] += 1
@@ -275,15 +282,13 @@ def flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale: float):
     do = _check_bwd(q, k, v, do, lse, dsum)
     b, h, nq, d = q.shape
     dk, dv = _heads_out(k), _heads_out(v)
-    lib = _lib("flash_attention_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, h, nq, k.shape[2], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            *dk.stride()[:3], *dv.stride()[:3], float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    err = _on_device(
+        q.device, _lib("flash_attention_bwd").flash_attention_bwd_dkv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
+        b, h, nq, k.shape[2], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *dk.stride()[:3], *dv.stride()[:3], float(scale))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {err}")
     LAUNCHES["attention_bwd_dkv"] += 1

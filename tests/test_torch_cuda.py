@@ -185,10 +185,15 @@ def test_group_norm_backward_kernel_matches_plain(cuda):
 @pytest.mark.cuda
 def test_flash_attention_backward_kernels_match_plain(cuda):
     """The forward's lse and the dq and dk/dv kernels against the plain
-    versions, then one autograd step through head-split views."""
+    versions, then one autograd step through head-split views, then a
+    repeat of the f32 kernels that must be bit-identical (no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
+    # the UNet's (256, 256) and (16, 256), a pruned D, ragged N, several
+    # heads, Nq != Nkv, partial 32- and 64-row tiles at full width (200), and
+    # kv longer than q and ragged (64, 300)
     cases = [(4, 1, 256, 256, 256), (4, 1, 16, 16, 256), (2, 1, 256, 256, 179),
-             (2, 1, 100, 100, 64), (2, 4, 70, 70, 32), (2, 2, 33, 77, 56)]
+             (2, 1, 100, 100, 64), (2, 4, 70, 70, 32), (2, 2, 33, 77, 56),
+             (2, 1, 200, 200, 256), (2, 1, 64, 300, 128)]
     for b, h, nq, nkv, d in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
@@ -220,4 +225,9 @@ def test_flash_attention_backward_kernels_match_plain(cuda):
     assert ops.LAUNCHES["attention_bwd_dkv"] == before["attention_bwd_dkv"] + 1
     (reference_attention(*heads(tr), 40 ** -0.5) * w).sum().backward()
     _check_rel(t.grad, tr.grad, torch.float32, "attention autograd")
+    q, k, v, do = (torch.randn((4, 1, 256, 256), generator=gen, device=cuda) for _ in range(4))
+    o, lse = A.reference_attention_lse(q, k, v, 256 ** -0.5)
+    runs = [A.flash_attention_backward(q, k, v, o, do, lse, 256 ** -0.5) for _ in range(2)]
+    for name, a, b in zip(("dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), f"attention bwd f32 repeat: {name} differs"
     torch.cuda.synchronize()
