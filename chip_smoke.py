@@ -11,13 +11,14 @@ on failure; none is caught, so any failure exits non-zero before the
 result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
-2. Build: compiles the CUDA kernels (one nvcc per source, sm_90a, all at
-   once) and the Triton kernels from this checkout's sources; prints the
-   build seconds and ptxas's registers and spills (per kernel for the f32
-   attention backward), and counts the attention kernels' tensor-core
-   (HMMA) and FFMA instructions in their SASS (cuobjdump): the bf16/f16
-   forward kernels must use the tensor cores, the f32 forward and backward
-   kernels must not (exact f32, no TF32).
+2. Build: compiles every kernel of the port, CUDA C++ from this
+   checkout's sources (one nvcc per source, sm_90a, all at once); prints
+   the build seconds and ptxas's registers and spills (per kernel for the
+   f32 attention backward), and counts the tensor-core (HMMA) and FFMA
+   instructions in the SASS (cuobjdump) of the attention kernels and the
+   GroupNorm backward: the bf16/f16 attention forward kernels must use the
+   tensor cores, the f32 attention kernels and the GroupNorm backward must
+   not.
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense and the
    pruned UNet give them (collected by forward hooks), plus a ragged token
@@ -39,17 +40,19 @@ result lines.
    attention lse, then dx/dscale/dbias and dq/dk/dv.
 9. The sweep at full width, B = 128, f32, 3 timesteps, kernels on against
    off on the same x0 and noise (cuDNN deterministic): losses, every
-   parameter's grad, Diff-Pruning scores, launch counts per step; then the
-   kernel-on sweep again, whose grads must be bit-identical.
+   parameter's grad, Diff-Pruning scores, launch counts per step, and the
+   strides of x and dy at the GroupNorm backward; then the kernel-on sweep
+   again, whose grads must be bit-identical.
 10. Pruning path (this slice's main path): the prune CLI, diff-pruning at
    ratio 0.3, thr 0.05, at most 20 sweep steps, B = 128, on a seeded .npz
    of 128 images; launch counters reset just before and read just after.
    The checkpoint it writes reloads at the pinned param count, and the
    sampling CLI draws 128 finite images from it.
 11. Timings: per-op backward kernels against plain and the library call
-   (attention dq and dk/dv also in TFLOP/s),
-   the sweep step (forward + backward, f32) with the kernels on and off,
-   and a torch.profiler breakdown of the sweep step by kernel class.
+   (attention dq and dk/dv also in TFLOP/s), the GroupNorm backward
+   wrapper's host time per call, the sweep step (forward + backward, f32)
+   with the kernels on and off, and a torch.profiler breakdown of the sweep
+   step by kernel class.
 12. The kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
@@ -64,7 +67,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 128
@@ -170,8 +172,10 @@ def bound_by(tot, prefix=""):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if n.startswith("gn_") or "gn_fwd_kernel" in n:  # Triton's names; the CUDA one, mangled
-        return "GroupNorm kernels"
+    if "gn_fwd_kernel" in n:  # the CUDA kernels, mangled
+        return "GroupNorm forward"
+    if "gn_bwd_kernel" in n:
+        return "GroupNorm backward"
     if "flash_fwd_kernel" in n or "flash_bwd_" in n:  # the CUDA kernels, mangled
         return "attention kernels"
     if any(w in n for w in ("conv", "fft", "winograd", "implicit", "grad", "cudnn", "xmma",
@@ -207,23 +211,36 @@ def sass_counts(lib_path):
     return counts
 
 
-def ptxas_by_kernel(log: str):
+def ptxas_by_kernel(log: str, pattern: str, name_of):
     """{kernel: (registers, spill store bytes, spill load bytes)} from
-    ``nvcc -Xptxas -v``'s log, for the f32 attention backward kernels, named
-    as ``flash_bwd_dq_kernel_f32<NC>``."""
+    ``nvcc -Xptxas -v``'s log, for the kernels whose mangled name matches
+    ``pattern``, named by ``name_of(match)``."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(flash_bwd_\w+?_f32)ILi(\d)E", line)
+        m = re.search(pattern, line)
         if "Compiling entry function" in line:
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            name = name_of(m) if m else None
         elif name is not None and "spill stores" in line:
             nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[name] = [None, int(nums[0]), int(nums[1])]
         elif name is not None and "registers" in line and name in out:
             out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
     return {k: tuple(v) for k, v in out.items()}
+
+
+# the kernels whose registers and spills phase 2 prints one by one: the f32
+# attention backward (``flash_bwd_dq_kernel_f32<NC>``) and the GroupNorm
+# backward (``gn_bwd_kernel<T, silu>``)
+PTXAS_KERNELS = {
+    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_f32)ILi(\d)E",
+                            lambda m: f"{m.group(1)}<{m.group(2)}>"),
+    "group_norm_bwd": (r"Compiling entry function '.*?gn_bwd_kernelI(f|13__nv_bfloat16|6__half)"
+                       r"Lb(\d)E",
+                       lambda m: f"gn_bwd_kernel<{m.group(1).lstrip('0123456789')}, "
+                                 f"silu={m.group(2)}>"),
+}
 
 
 def layout_name(x3) -> str:
@@ -249,6 +266,37 @@ def record_gn_layouts(model):
     hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
              if isinstance(m, GroupNorm)]
     return seen, lambda: [h.remove() for h in hooks]
+
+
+def record_gn_bwd_layouts():
+    """Counts the layouts of x and dy as the GroupNorm backward wrapper gets
+    them (under autograd); returns (counter, restore)."""
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    seen, inner = collections.Counter(), G.group_norm_backward
+
+    def wrapped(x, scale, bias, dy, *args, **kwargs):
+        seen[f"x {layout_name(x)}, dy {layout_name(dy)}"] += 1
+        return inner(x, scale, bias, dy, *args, **kwargs)
+
+    G.group_norm_backward = wrapped
+    return seen, lambda: setattr(G, "group_norm_backward", inner)
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """The host's enqueue time of ``fn`` per call: perf_counter over
+    ``calls`` calls without a sync, after a warm-up."""
+    import torch
+
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def profile_classes(fn):
@@ -381,41 +429,27 @@ def main() -> None:
     from diff_pruning_tpu_torch.utils.checkpoint import (flat_from_state_dict, load_model,
                                                          save_model)
 
-    # -- 2. build: one nvcc per CUDA source in the background, Triton meanwhile
+    # -- 2. build: one nvcc per CUDA source, all at once
     t_build = time.perf_counter()
-    pool = ThreadPoolExecutor(max_workers=1)
-    cuda_build = pool.submit(_build.build_libraries)
-    triton_mod = _build.group_norm_kernels()
-    small = torch.randn((2, 16, 64), device=dev)
-    ones, zeros = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-    for dtype in (torch.float32, torch.bfloat16):
-        for silu in (False, True):
-            x = small.to(dtype)
-            group_norm(x, ones, zeros, groups=32, with_silu=silu)
-            _, mean, rstd = G.group_norm_forward_with_stats(x, ones, zeros, groups=32,
-                                                            with_silu=silu)
-            G.group_norm_backward(x, ones, zeros, x, mean, rstd, groups=32, with_silu=silu)
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t_build
-    cuda_build.result()  # raises the build's error, if any
-    pool.shutdown()
-    import triton
-
+    _build.build_libraries()
     for name in _build.CUDA_LIBRARIES:
         info = _build.BUILD_INFO[name]
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"build: {name}.cu (nvcc sm_90a) {info['seconds']:.2f}s; " + " | ".join(ptxas))
-    print(f"build: {os.path.relpath(triton_mod.__file__, REPO)} (triton {triton.__version__}) "
-          f"first 4 variants {t_triton:.2f}s; all builds {time.perf_counter() - t_build:.2f}s")
-    bwd_regs = ptxas_by_kernel(_build.BUILD_INFO["flash_attention_bwd"]["log"])
-    for kname, (regs, st, ld) in sorted(bwd_regs.items()):
-        print(f"ptxas: flash_attention_bwd {kname}: {regs} registers, spill stores {st} "
-              f"bytes, spill loads {ld} bytes")
+    print(f"build: all builds {time.perf_counter() - t_build:.2f}s")
+    regs = {lib: ptxas_by_kernel(_build.BUILD_INFO[lib]["log"], *PTXAS_KERNELS[lib])
+            for lib in PTXAS_KERNELS}
+    for lib, kernels in regs.items():
+        for kname, (nregs, st, ld) in sorted(kernels.items()):
+            print(f"ptxas: {lib} {kname}: {nregs} registers, spill stores {st} bytes, "
+                  f"spill loads {ld} bytes")
     if _build.BUILD_INFO["flash_attention_bwd"]["log"]:  # empty when already built
-        assert {k.split("<")[0] for k in bwd_regs} == {"flash_bwd_dq_kernel_f32",
-                                                      "flash_bwd_dkv_kernel_f32"}, bwd_regs
-    for lib in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
+            "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32"}, regs
+    if _build.BUILD_INFO["group_norm_bwd"]["log"]:
+        assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
+    for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd"):
         sass = sass_counts(_build.load_library(lib)._name)
         if sass is None:
             print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
@@ -424,9 +458,10 @@ def main() -> None:
             print(f"sass: {lib} {kname}: {hmma} HMMA, {ffma} FFMA")
             if "flash_fwd_kernel_mma" in kname:
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
-            if "_kernel_f32" in kname:
+            if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
                 assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        want = "flash_fwd_kernel_mma" if lib == "flash_attention_fwd" else "_kernel_f32"
+        want = {"flash_attention_fwd": "flash_fwd_kernel_mma",
+                "flash_attention_bwd": "_kernel_f32", "group_norm_bwd": "gn_bwd_kernel"}[lib]
         assert sum(want in kname for kname in sass) >= 2, sorted(sass)
 
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
@@ -502,7 +537,7 @@ def main() -> None:
         ckpt = os.path.join(tmp, name)
         save_model(ckpt, c, m)
         base = ["--model_path", ckpt, "--batch_size", str(B), "--device", "cuda"]
-        # warm-up: compiles the Triton variants of this model's shapes
+        # warm-up
         ddpm_sample.main(base + ["--output_dir", os.path.join(tmp, name + "_warm"),
                                  "--total_samples", str(B), "--ddim_steps", "2"])
         out = os.path.join(tmp, name + "_samples")
@@ -581,15 +616,8 @@ def main() -> None:
         for (n, c, silu), calls in sorted(gn_dense.items()):
             x = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
             s, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
-            for _ in range(5):
-                group_norm(x, s, b, groups=32, with_silu=silu)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                group_norm(x, s, b, groups=32, with_silu=silu)
-            us = (time.perf_counter() - t0) / 200 * 1e6
-            torch.cuda.synchronize()
-            total += us * calls
+            total += host_us_per_call(
+                lambda: group_norm(x, s, b, groups=32, with_silu=silu)) * calls
         host_us[dname] = total / sum(gn_dense.values())
         print(f"time group_norm fwd host per call B={B} {dname}: {host_us[dname]:.2f} us "
               f"(perf_counter over 200 calls without a sync, averaged over one forward's "
@@ -719,9 +747,12 @@ def main() -> None:
             ops.set_kernels_enabled(True)
 
     gn_seen, unhook = record_gn_layouts(smodel)
+    bwd_seen, unwrap = record_gn_bwd_layouts()
     res_on, counts_on, grads_on = sweep(True)
     unhook()
-    print(f"GroupNorm inputs, sweep under autograd ({SWEEP_STEPS} steps): {dict(gn_seen)}")
+    unwrap()
+    print(f"GroupNorm inputs, sweep under autograd ({SWEEP_STEPS} steps): {dict(gn_seen)}; "
+          f"at the backward kernel: {dict(bwd_seen)}")
     res_off, counts_off, grads_off = sweep(False)
     res_again, _, grads_again = sweep(True)
     print(f"sweep cifar10 35.75M B={B} f32 {SWEEP_STEPS} steps: losses on {res_on.losses}, "
@@ -812,7 +843,7 @@ def main() -> None:
     tmpdir.cleanup()
 
     # -- 11. timings: backward per op at the dense shapes, then the sweep step
-    per_step_bwd = {}
+    per_step_bwd, bwd_host_us = {}, {}
     for dname in TOL:
         dtype = getattr(torch, dname)
         tot = collections.defaultdict(float)
@@ -872,6 +903,18 @@ def main() -> None:
                   f"(SDPA backward, dq+dk+dv) {ms[4]:.4f} ms {tag}")
         tot["dq_tflops"] = tot["dq_flops"] / tot["dq_kernel"] / 1e9
         tot["dkv_tflops"] = tot["dkv_flops"] / tot["dkv_kernel"] / 1e9
+        total = 0.0
+        for (n, c, silu), calls in sorted(gn_dense.items()):
+            x = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
+            dy = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
+            s, b = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+            mean, rstd = G.group_norm_stats_reference(x, 32)
+            total += host_us_per_call(lambda: G.group_norm_backward(
+                x, s, b, dy, mean, rstd, groups=32, with_silu=silu)) * calls
+        bwd_host_us[dname] = total / sum(gn_dense.values())
+        print(f"time group_norm bwd host per call B={B} {dname}: "
+              f"{bwd_host_us[dname]:.2f} us (perf_counter over 200 calls without a "
+              f"sync, averaged over one step's calls) {tag}")
         per_step_bwd[dname] = dict(tot)
         print(f"time backward per sweep step B={B} {dname}: " + ", ".join(
             f"{k} {val:.4f} ms" for k, val in sorted(tot.items())) + f" {tag}")
@@ -901,7 +944,7 @@ def main() -> None:
 
     # -- 12. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
-    f32_bwd = per_step_bwd["float32"]
+    f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
     def entry(name, route, source, replaces, launches, err_key, ms, plain_ms, bound_ms,
               bound_by, library_ms, **extra):
@@ -914,7 +957,7 @@ def main() -> None:
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
     gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
-    gn_bwd_src = "diff_pruning_tpu_torch/ops/_group_norm_triton.py"
+    gn_bwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_bwd.cu"
     bf16_fwd = {op: per_forward[(op, "bfloat16")] for op in ("group_norm", "attention")}
     attn_bwd_src = "diff_pruning_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     kernels = [
@@ -929,13 +972,18 @@ def main() -> None:
               library_ms_bf16=bf16_fwd["group_norm"]["library"],
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"]),
-        entry("group_norm_silu_bwd", "triton", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
+        entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               cli_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
               f32_bwd["gn_library"],
               ms_is=per_bwd,
               library_ms_is="autograd of F.group_norm over the no-SiLU calls only",
-              ms_where_library=f32_bwd["gn_kernel_where_library"]),
+              ms_where_library=f32_bwd["gn_kernel_where_library"],
+              ms_bf16=bf16_bwd["gn_kernel"], bound_ms_bf16=bf16_bwd["gn_bound"],
+              library_ms_bf16=bf16_bwd["gn_library"],
+              ms_where_library_bf16=bf16_bwd["gn_kernel_where_library"],
+              host_us_per_call=bwd_host_us["float32"],
+              host_us_per_call_bf16=bwd_host_us["bfloat16"]),
         entry("flash_attention_fwd", "cuda",
               "diff_pruning_tpu_torch/ops/csrc/flash_attention_fwd.cu",
               "diff_pruning_tpu/ops/attention.py:97", cli_counts["attention"], "attention",

@@ -24,7 +24,8 @@ Differences from the JAX CLI:
   (``--use_generated_samples``); the sweep noise comes from a
   ``torch.Generator`` seeded by ``--seed``.
 ``--device cuda`` (the default) without a GPU raises: the CLI never carries
-on on the CPU.
+on on the CPU. TF32 is off for matmuls and convolutions (printed at the
+start), as in the JAX package's parity tests.
 """
 
 from __future__ import annotations
@@ -106,12 +107,13 @@ def main(argv=None) -> dict:
     """Returns ``{"params_before", "params", "macs_before", "macs", "steps_run",
     "sweep_seconds", "channel_sizes"}`` (``steps_run`` 0 when no sweep ran)."""
     args = parse_args(argv)
+    from .ddpm_sample import pin_f32_precision, resolve_device
+
+    pin_f32_precision()
     if args.cost_aware or args.match_params:
         raise NotImplementedError(
             "--cost_aware/--match_params need the cost model (pruning/cost.py), which "
-            "the port has not ported yet (ROADMAP queue 1, item 7)")
-    from .ddpm_sample import resolve_device
-
+            "the port has not ported yet (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
     import torch
 

@@ -7,7 +7,8 @@
 Loads a ``(config.json, params.npz)`` checkpoint in the JAX package's
 layout, samples DDIM (or DDPM) trajectories batch by batch and writes PNGs,
 each batch encoded while the next one runs. ``--device cuda`` without a GPU
-raises: the CLI never carries on on the CPU.
+raises: the CLI never carries on on the CPU. TF32 is off for matmuls and
+convolutions (printed at the start).
 """
 
 from __future__ import annotations
@@ -53,9 +54,22 @@ def resolve_device(name: str):
     return device
 
 
+def pin_f32_precision() -> None:
+    """Full f32 matmuls and convolutions: torch's default runs cuDNN's f32
+    convolutions in TF32, which neither the port's timings nor its parity
+    tests against the JAX package use. Prints both flags."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+
+
 def main(argv=None) -> dict:
     """Returns ``{"params", "macs", "images", "nonfinite", "seconds", "imgs_per_s"}``."""
     args = parse_args(argv)
+    pin_f32_precision()
     if args.mode != "fid":
         raise NotImplementedError(f"--mode {args.mode} comes with the port of "
                                   "sampling/trajectories.py")

@@ -7,9 +7,8 @@ CUDA C++ (``csrc/*.cu``, plain C interface) is compiled by ``nvcc`` for
 are named by a hash of source and flags, so an edited source rebuilds.
 
 Each library has its own lock, so :func:`build_libraries` runs one ``nvcc``
-per source, all at once. Triton kernels are compiled by Triton at their
-first launch; their cache is pointed into ``BUILD_DIR`` as well unless
-``TRITON_CACHE_DIR`` is set. ``BUILD_DIR`` is listed in ``.gitignore``.
+per source, all at once. Every kernel of the port is one of these
+libraries; ``BUILD_DIR`` is listed in ``.gitignore``.
 """
 
 from __future__ import annotations
@@ -29,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the CUDA sources under csrc/, one library each
-CUDA_LIBRARIES = ("group_norm_fwd", "flash_attention_fwd", "flash_attention_bwd")
+CUDA_LIBRARIES = ("group_norm_fwd", "group_norm_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd")
 # name -> {"seconds": build seconds (0.0 if already built), "log": nvcc's stderr}
 BUILD_INFO: dict = {}
 _LIBS: dict = {}
@@ -80,10 +80,3 @@ def build_libraries(names=CUDA_LIBRARIES) -> None:
         for fut in [pool.submit(load_library, n) for n in names]:
             fut.result()
 
-
-def group_norm_kernels():
-    """The Triton GroupNorm backward module; imports ``triton`` on first call."""
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(BUILD_DIR, "triton"))
-    from . import _group_norm_triton
-
-    return _group_norm_triton

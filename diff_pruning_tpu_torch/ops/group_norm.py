@@ -20,21 +20,32 @@ block's shared memory is taken in chunks (one launch still; x is read a
 second time, from L2). The wrapper's host path is one allocation for y
 (plus one (2, B, G) buffer for the statistics) and one ``ctypes`` call.
 
-backward (Triton, ``_group_norm_triton.py``; ``_pallas_gn_bwd``'s math,
-``group_norm.py:74-102`` there)
-1. ``gn_bwd_reduce_kernel``: per (sample, run of whole groups), with the SiLU
-   derivative chained first on a recomputed ``z = xhat * gamma + beta``,
-   the (B, C) partials ``dscale = sum dy * xhat`` and ``dbias = sum dy``, and
-   per group ``gm1 = mean(dy * gamma)`` and ``gm2 = mean(dy * gamma * xhat)``;
-2. ``gn_bwd_apply_kernel``: ``dx = rstd * (dy * gamma - gm1 - xhat * gm2)``.
-   The batch sum of the partials is a torch sum, as in the JAX package.
+backward (CUDA C++, ``csrc/group_norm_bwd.cu``; ``_pallas_gn_bwd``'s math,
+``group_norm.py:74-102`` there), one launch a call: one block per (sample,
+run of whole groups), as in the forward, copies the x and dy slabs from
+device memory once into shared memory (cp.async, in stages that overlap
+the sums), forms xhat and dy' (dy through the SiLU derivative on a
+recomputed ``z = xhat * gamma + beta``) from the forward's saved (B, G)
+mean and rstd, sums ``dy'`` and ``dy' * xhat`` per channel, forms per group
+``gm1 = mean(dy' * gamma)`` and ``gm2 = mean(dy' * gamma * xhat)``, and
+writes ``dx = rstd * (dy' * gamma - gm1 - xhat * gm2)`` once. dscale and
+dbias are summed over the batch in the same launch: each block writes its
+per-sample partials, and the last block of each channel run (an atomic
+ticket, which only orders the blocks) sums them in a fixed order. The
+wrapper's host path is one allocation for dx, one for the (2, B, C)
+partials, one for the two (C,) outputs and one ``ctypes`` call. The
+tickets are zero before a launch and zero after it, so calls in one
+stream's order share one ticket buffer, kept per (device, stream); a call
+captured into a CUDA graph gets tickets of its own, zeroed in the graph,
+which no other call touches.
 
-The kernels work at any slab size and any channels-per-group count (3, 5,
-7, 12: masked, not padded), so there is no counterpart of the TPU kernel's
-VMEM fallback: for a CUDA tensor the wrapper always launches the kernels.
-They read x and dy through their strides, so a tensor whose (B, H*W, C)
+Both kernels take any slab size and any channels-per-group count (2, 3, 5,
+7, 12: masked, not padded), so there is no counterpart of the TPU kernels'
+VMEM fallback: for a CUDA tensor the wrappers always launch the kernels.
+They read x (and dy) through their strides, so a tensor whose (B, H*W, C)
 view is not contiguous is read correctly (``reshape`` copies only where no
-view exists).
+view exists). No sum in either kernel is taken with atomics, so their
+results are bit-reproducible.
 """
 
 from __future__ import annotations
@@ -48,7 +59,8 @@ from . import LAUNCHES
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_LIB = []
+_LIBS = {}
+_TICKETS = {}
 
 
 def group_norm_stats_reference(x: torch.Tensor, groups: int, eps: float = 1e-6):
@@ -191,63 +203,64 @@ def group_norm_forward_with_stats(x: torch.Tensor, scale: torch.Tensor, bias: to
 def group_norm_backward(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                         dy: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor, *,
                         groups: int, with_silu: bool = False):
-    """(dx, dscale, dbias) by the backward kernels: the counterpart of
-    :func:`group_norm_backward_reference` for CUDA tensors (raises on others)."""
+    """(dx, dscale, dbias) by one launch of the backward kernel: the
+    counterpart of :func:`group_norm_backward_reference` for CUDA tensors
+    (raises on others). Kept lean, as the forward's :func:`_launch`."""
     _check(x, scale, bias, groups)
     b, c = x.shape[0], x.shape[-1]
-    if dy.shape != x.shape or dy.device != x.device:
-        raise ValueError(f"group_norm backward: dy {tuple(dy.shape)} for x {tuple(x.shape)}")
+    if dy.shape != x.shape or dy.device != x.device or dy.dtype != x.dtype:
+        raise ValueError(f"group_norm backward: dy {tuple(dy.shape)} {dy.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype}")
     for t in (mean, rstd):
         if t.shape != (b, groups) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("group_norm backward: mean/rstd must be contiguous (B, G) f32")
-    from ._build import group_norm_kernels
-
-    k = group_norm_kernels()
-    x3 = x.reshape(b, -1, c)
-    dy3 = dy.reshape(b, -1, c)
-    n = x3.shape[1]
-    cpg = c // groups
-    gpp, block_n, block_c = _stats_tiles(n, cpg, groups)
-    dscale_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    dbias_b = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    gm1 = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-    gm2 = torch.empty((b, groups), dtype=torch.float32, device=x.device)
-    dx = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
-    apply_n, apply_c = _apply_tiles(n, c)
-    with torch.cuda.device(x.device):
-        k.gn_bwd_reduce_kernel[(b, _cdiv(groups, gpp))](
-            x3, dy3, scale, bias, mean, rstd, dscale_b, dbias_b, gm1, gm2,
-            n, c, groups, cpg, gpp, *x3.stride(), *dy3.stride(),
-            WITH_SILU=with_silu, BLOCK_N=block_n, BLOCK_C=block_c,
-            GROUPS_PAD=_next_pow2(gpp), num_warps=4)
-        k.gn_bwd_apply_kernel[(b, _cdiv(n, apply_n), _cdiv(c, apply_c))](
-            x3, dy3, dx, scale, bias, mean, rstd, gm1, gm2, n, c, groups, cpg,
-            *x3.stride(), *dy3.stride(),
-            WITH_SILU=with_silu, BLOCK_N=apply_n, BLOCK_C=apply_c, num_warps=4)
+    dev = x.device
+    if dev.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return group_norm_backward(x, scale, bias, dy, mean, rstd, groups=groups,
+                                       with_silu=with_silu)
+    x3, n, xstrides = _slab(x)
+    dy3, _, dstrides = _slab(dy)
+    dx = torch.empty_like(x, memory_format=torch.contiguous_format)
+    pdtypes = scale.dtype, bias.dtype
+    cast = pdtypes != (torch.float32, torch.float32)
+    if cast:
+        scale, bias = scale.float(), bias.float()
+    dscale, dbias = torch.empty((2, c), dtype=torch.float32, device=dev)
+    partials = torch.empty((2, b, c), dtype=torch.float32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    tickets = _tickets(dev, stream, groups)
+    err = _lib("group_norm_bwd")(
+        x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+        rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+        partials.data_ptr(), tickets.data_ptr(), _DTYPE_CODES[x.dtype], b, n, c, groups,
+        *xstrides, *dstrides, with_silu, stream)
+    if err != 0:
+        raise RuntimeError(f"group_norm_bwd launch failed: CUDA error {err}")
     LAUNCHES["group_norm_bwd"] += 1
-    return (dx.view(x.shape), dscale_b.sum(0).to(scale.dtype),
-            dbias_b.sum(0).to(bias.dtype))
+    if cast:
+        return dx, dscale.to(pdtypes[0]), dbias.to(pdtypes[1])
+    return dx, dscale, dbias
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, int(n) - 1).bit_length()
-
-
-def _stats_tiles(n: int, cpg: int, groups: int):
-    """A reduce program owns whole groups: about 64 channels, masked to
-    a power of 2; (groups per program, BLOCK_N, BLOCK_C)."""
-    gpp = min(groups, max(1, 64 // cpg))
-    block_c = _next_pow2(gpp * cpg)
-    return gpp, max(16, min(_next_pow2(n), 4096 // block_c)), block_c
-
-
-def _apply_tiles(n: int, c: int):
-    apply_c = min(128, _next_pow2(c))
-    return max(16, min(_next_pow2(n), 4096 // apply_c)), apply_c
+def _tickets(dev, stream: int, groups: int) -> torch.Tensor:
+    """Zeroed int32 tickets (one per channel run, at most ``groups``) for a
+    launch on ``stream``. A launch leaves its tickets zero for the next in
+    its stream's order, so eager calls in one stream share a buffer, kept
+    across calls. A call being captured into a CUDA graph gets its own, from
+    the graph's memory pool and zeroed inside the graph: a replay shares its
+    tickets with no other call, and no later call frees what it holds."""
+    if torch._C._cuda_isCurrentStreamCapturing():
+        return torch.zeros(groups, dtype=torch.int32, device=dev)
+    buf = _TICKETS.get((dev.index, stream))
+    if buf is None or buf.numel() < groups:
+        buf = _TICKETS[(dev.index, stream)] = torch.zeros(max(groups, 1024), dtype=torch.int32,
+                                                          device=dev)
+    return buf
 
 
 def _check(x, scale, bias, groups):
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"group_norm: no kernel for device {x.device}")
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"group_norm kernel takes {KERNEL_DTYPES}, got {x.dtype}")
@@ -259,17 +272,21 @@ def _check(x, scale, bias, groups):
             raise ValueError("group_norm: scale/bias must be contiguous (C,) on x's device")
 
 
-def _lib():
-    if not _LIB:
+def _lib(name: str):
+    """The C entry point of ``csrc/<name>.cu``, built on first use."""
+    fn = _LIBS.get(name)
+    if fn is None:
         from ._build import load_library
 
-        lib = load_library("group_norm_fwd")
+        fn = getattr(load_library(name), name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.group_norm_fwd.argtypes = ([ptr] * 5 + [i32] * 5 + [i64] * 3
-                                       + [ctypes.c_float, i32, ptr])
-        lib.group_norm_fwd.restype = i32
-        _LIB.append(lib.group_norm_fwd)
-    return _LIB[0]
+        if name == "group_norm_fwd":
+            fn.argtypes = [ptr] * 5 + [i32] * 5 + [i64] * 3 + [ctypes.c_float, i32, ptr]
+        else:
+            fn.argtypes = [ptr] * 11 + [i32] * 5 + [i64] * 6 + [i32, ptr]
+        fn.restype = i32
+        _LIBS[name] = fn
+    return fn
 
 
 def _slab(x):
@@ -300,10 +317,10 @@ def _launch(x, scale, bias, groups, eps, with_silu, save_stats=False):
             stats.data_ptr() if save_stats else None, _DTYPE_CODES[x.dtype], x.shape[0], n,
             x.shape[-1], groups, *strides, eps, with_silu)
     if dev.index == torch._C._cuda_getDevice():
-        err = _lib()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+        err = _lib("group_norm_fwd")(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     else:
         with torch.cuda.device(dev):
-            err = _lib()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+            err = _lib("group_norm_fwd")(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"group_norm_fwd launch failed: CUDA error {err}")
     LAUNCHES["group_norm"] += 1
@@ -311,6 +328,3 @@ def _launch(x, scale, bias, groups, eps, with_silu, save_stats=False):
         return y, stats[0], stats[1]
     return y
 
-
-def _cdiv(a: int, b: int) -> int:
-    return (a + b - 1) // b

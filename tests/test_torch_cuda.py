@@ -17,9 +17,10 @@ Tolerances, |kernel - plain| <= atol + rtol * |plain|:
   product (the plain one after normalising, the kernel before).
 - statistics (GroupNorm mean and rstd, attention lse), f32 whatever the
   input type: |kernel - plain| <= 1e-4 * max|plain|, as in the backward.
-- backward: |kernel - plain| <= tol * max|plain| per output, tol 1e-4 (f32)
-  and 2e-2 (bf16): both compute in f32 from the same inputs and statistics
-  and differ in summation order, then round once to the output dtype.
+- backward: |kernel - plain| <= tol * max|plain| per output, tol 1e-4 (f32),
+  2e-2 (bf16) and 2e-3 (f16): both compute in f32 from the same inputs and
+  statistics and differ in summation order, then round once to the output
+  dtype (16-bit: under one ulp of the max, 2^-8 and 2^-11).
 """
 
 import pytest
@@ -33,7 +34,7 @@ from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_referen
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1.6e-2),
        torch.float16: (1e-3, 2e-3)}
-BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 
 
 @pytest.fixture
@@ -142,32 +143,109 @@ def _check_rel(got, want, dtype, what):
 
 @pytest.mark.cuda
 def test_group_norm_backward_kernel_matches_plain(cuda):
-    """The forward's saved statistics and the backward kernels against the
-    plain versions, then one autograd step through the layer op."""
+    """The forward's saved statistics and the backward kernel against the
+    plain versions, through strided x and dy, back-to-back launches with
+    another batch size (the kernel's tickets), a repeat that must be
+    bit-identical (no float summed atomically), a CUDA-graph capture
+    replayed between eager calls, then one autograd step through the layer
+    op."""
     gen = torch.Generator(device=cuda).manual_seed(2)
+    # (B, N, C, groups, silu): C/g = 4, 12, 16, 5 and 3, the pruned 2, 7 and
+    # 10, N ragged, and a slab beyond one block's shared memory
     cases = [(4, 1024, 128, 32, True), (4, 256, 384, 32, True), (4, 16, 512, 32, False),
-             (3, 64, 160, 32, True), (2, 100, 96, 32, False), (2, 35, 40, 8, True)]
+             (3, 64, 160, 32, True), (2, 100, 96, 32, False), (2, 35, 40, 8, True),
+             (2, 256, 64, 32, True), (2, 64, 224, 32, True), (2, 16, 320, 32, False),
+             (2, 4096, 512, 32, True)]
+
+    def inputs(b, n, c, dtype):
+        x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+        dy = torch.randn((b, n, c), generator=gen, device=cuda).to(dtype)
+        scale = torch.rand((c,), generator=gen, device=cuda) + 0.5
+        bias = torch.randn((c,), generator=gen, device=cuda) * 0.1
+        return x, dy, scale, bias
+
+    def check(x, dy, scale, bias, g, silu, dtype, what):
+        pmean, prstd = G.group_norm_stats_reference(x, g)
+        before = ops.LAUNCHES["group_norm_bwd"]
+        got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=g,
+                                    with_silu=silu)
+        assert ops.LAUNCHES["group_norm_bwd"] == before + 1
+        want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
+                                               groups=g, with_silu=silu)
+        for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
+            assert a.dtype == w.dtype, what + name
+            _check_rel(a, w, dtype, f"{what} {name}")
+        return got
+
     for b, n, c, g, silu in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
-            dy = torch.randn((b, n, c), generator=gen, device=cuda).to(dtype)
-            scale = torch.rand((c,), generator=gen, device=cuda) + 0.5
-            bias = torch.randn((c,), generator=gen, device=cuda) * 0.1
+        for dtype in TOL:
+            x, dy, scale, bias = inputs(b, n, c, dtype)
             what = f"gn bwd {(b, n, c, g, silu)} {dtype}"
             y, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=g,
                                                             with_silu=silu)
             pmean, prstd = G.group_norm_stats_reference(x, g)
             _check_rel(mean, pmean, torch.float32, what + " mean")
             _check_rel(rstd, prstd, torch.float32, what + " rstd")
-            before = ops.LAUNCHES["group_norm_bwd"]
-            got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=g,
-                                        with_silu=silu)
-            assert ops.LAUNCHES["group_norm_bwd"] == before + 1
-            want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
-                                                   groups=g, with_silu=silu)
+            check(x, dy, scale, bias, g, silu, dtype, what)
+    # x and dy through other strides: the (B, H, W, C) view of an NCHW
+    # tensor (16-byte reads along positions), channels cut from a wider
+    # tensor (along channels, another row stride), every other channel
+    # (element by element)
+    for dtype in TOL:
+        x, dy, scale, bias = (t.view(2, 8, 8, 64) if t.dim() == 3 else t
+                              for t in inputs(2, 64, 64, dtype))
+        nchw = [t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) for t in (x, dy)]
+        wide = torch.randn((2, 8, 8, 72), generator=gen, device=cuda).to(dtype)[..., :64]
+        every_other = torch.randn((2, 8, 8, 128), generator=gen, device=cuda).to(dtype)[..., ::2]
+        for name, xa, dya in (("x and dy NCHW", *nchw),
+                              ("x NCHW, dy every other", nchw[0], every_other),
+                              ("dy cut from 72 channels", x, wide),
+                              ("x every other, dy NCHW", every_other, nchw[1])):
+            check(xa, dya, scale, bias, 32, True, dtype, f"gn bwd {name} {dtype}")
+    # back to back on one stream with other batch sizes (each launch leaves
+    # its tickets zero for the next), then a repeat that must be identical
+    for dtype in TOL:
+        runs = [inputs(b, 256, 128, dtype) for b in (3, 5, 1, 3)]
+        outs = [G.group_norm_backward(x, s, bb, dy, *G.group_norm_stats_reference(x, 32),
+                                      groups=32, with_silu=True) for x, dy, s, bb in runs]
+        for (x, dy, s, bb), got in zip(runs, outs):
+            want = G.group_norm_backward_reference(
+                x, s, bb, dy, *G.group_norm_stats_reference(x, 32), groups=32, with_silu=True)
             for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
-                assert a.dtype == w.dtype, what + name
-                _check_rel(a, w, dtype, f"{what} {name}")
+                _check_rel(a, w, dtype, f"gn bwd back to back B={x.shape[0]} {dtype} {name}")
+        x, dy, scale, bias = inputs(4, 1024, 128, dtype)
+        mean, rstd = G.group_norm_stats_reference(x, 32)
+        first, again = (G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32,
+                                              with_silu=True) for _ in range(2))
+        for name, a, b in zip(("dx", "dscale", "dbias"), first, again):
+            assert torch.equal(a, b), f"gn bwd {dtype} repeat: {name} differs"
+    # captured into a CUDA graph, then replayed between eager calls on the
+    # capture stream with a larger B * C than any before: the graph keeps
+    # its own tickets and partials, and the eager calls free nothing it holds
+    x, dy, scale, bias = inputs(3, 256, 128, torch.float32)
+    mean, rstd = G.group_norm_stats_reference(x, 32)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up outside the capture
+        G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32, with_silu=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32,
+                                         with_silu=True)
+    for replay in range(2):
+        with torch.cuda.stream(stream):
+            check(*inputs(160 + replay, 16, 512, torch.float32), 32, True, torch.float32,
+                  f"gn bwd eager beside a graph {replay}")
+        nx, ndy, _, _ = inputs(3, 256, 128, torch.float32)
+        x.copy_(nx)
+        dy.copy_(ndy)
+        for t, v in zip((mean, rstd), G.group_norm_stats_reference(nx, 32)):
+            t.copy_(v)
+        graph.replay()
+        want = G.group_norm_backward_reference(nx, scale, bias, ndy, mean, rstd, groups=32,
+                                               with_silu=True)
+        for a, w, name in zip(captured, want, ("dx", "dscale", "dbias")):
+            _check_rel(a, w, torch.float32, f"gn bwd graph replay {replay} {name}")
     x = torch.randn((2, 64, 8, 8), generator=gen, device=cuda, requires_grad=True)
     scale = torch.ones(64, device=cuda, requires_grad=True)
     bias = torch.zeros(64, device=cuda, requires_grad=True)

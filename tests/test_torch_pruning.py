@@ -71,8 +71,7 @@ def test_port_imports_nothing_of_jax():
         "for m in ('jax', 'diff_pruning_tpu', 'triton'):\n"
         "    sys.modules[m] = None\n"
         "import diff_pruning_tpu_torch as pkg\n"
-        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')\n"
-        "         if not m.name.endswith('_group_norm_triton')]\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
@@ -221,9 +220,10 @@ def test_data_batches_match_jax(tmp_path):
 
 
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
-    """The prune CLI end to end on the tiny config: a checkpoint that both
-    packages load, the JAX CLI's report lines, the vis grid; the options it
-    does not port raise, and --device cuda without a GPU raises."""
+    """The prune CLI end to end on the tiny config: TF32 pinned off, a
+    checkpoint that both packages load, the JAX CLI's report lines, the vis
+    grid; the options it does not port raise, and --device cuda without a
+    GPU raises."""
     from diff_pruning_tpu.utils import checkpoint as jckpt
     from diff_pruning_tpu_torch.cli import ddpm_prune
 
@@ -233,12 +233,16 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     data = np.random.default_rng(17).integers(0, 256, (8, 16, 16, 3), dtype=np.uint8)
     np.savez(tmp_path / "data.npz", images=data)
     out = tmp_path / "pruned"
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     base = ["--model_path", str(tmp_path / "dense"), "--save_path", str(out),
             "--dataset", str(tmp_path / "data.npz"), "--batch_size", "4"]
     stats = ddpm_prune.main(base + ["--pruner", "diff-pruning", "--pruning_ratio", "0.3",
                                     "--thr", "0.05", "--max_steps", "3", "--host_loop",
                                     "--device", "cpu"])
     text = capsys.readouterr().out
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert "torch.backends.cudnn.allow_tf32=False" in text
     assert "#Params: 1.0029 M =>" in text and "#MACS:" in text
     assert stats["steps_run"] == 3 and stats["params"] < stats["params_before"]
     assert (out / "vis" / "after_pruning.png").is_file()
@@ -249,7 +253,7 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     pruned = tunet.UNet2D(tcfg, device="cpu")
     pruned.load_state_dict(state)
     assert sum(p.numel() for p in pruned.parameters()) == stats["params"]
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         ddpm_prune.main(base + ["--global_pruning", "--cost_aware", "bytes", "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -111,7 +111,10 @@ def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
     out = tmp_path / "samples"
     args = ["--model_path", str(tmp_path / "ckpt"), "--output_dir", str(out),
             "--total_samples", "5", "--batch_size", "2", "--ddim_steps", "3"]
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
     stats = ddpm_sample.main(args + ["--device", "cpu"])
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
     assert sorted(os.listdir(out)) == [f"{i:06d}.png" for i in range(5)]
     assert stats["images"] == 5 and stats["nonfinite"] == 0
     assert stats["params"] == sum(p.numel() for p in model.parameters())
