@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through its own kernels, on the full-width
+Drives the port's three paths through its own kernels, on the full-width
 CIFAR-10 UNet (35.75M params) from a seeded random checkpoint, and checks
-them: the serving path (DDIM-100 sampling) and the pruning path (the
-Diff-Pruning sweep, scoring, slicing and the prune CLI). Every phase raises
-on failure; none is caught, so any failure exits non-zero before the
-result lines.
+them: the serving path (DDIM-100 sampling), the pruning path (the
+Diff-Pruning sweep, scoring, slicing and the prune CLI) and the finetune
+path (the train CLI on the pruned checkpoint, f32 and bf16, and its
+resume). Every phase raises on failure; none is caught, so any failure
+exits non-zero before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
@@ -20,9 +21,9 @@ result lines.
    tensor cores, the f32 attention kernels and the GroupNorm backward must
    not.
 3. Forward kernels against their plain versions on the card, B = 128, f32
-   and bf16, at every GroupNorm and attention shape the dense and the
-   pruned UNet give them (collected by forward hooks), plus a ragged token
-   count.
+   and bf16, at every GroupNorm and attention shape the dense, the pruned
+   and the prune CLI's UNet give them (collected by forward hooks), plus a
+   ragged token count.
 4. Full-width forward, B = 128, kernels on and off on the same weights;
    the strides of every GroupNorm input the layers pass (also under
    autograd, in phase 9).
@@ -43,25 +44,45 @@ result lines.
    parameter's grad, Diff-Pruning scores, launch counts per step, and the
    strides of x and dy at the GroupNorm backward; then the kernel-on sweep
    again, whose grads must be bit-identical.
-10. Pruning path (this slice's main path): the prune CLI, diff-pruning at
-   ratio 0.3, thr 0.05, at most 20 sweep steps, B = 128, on a seeded .npz
-   of 128 images; launch counters reset just before and read just after.
-   The checkpoint it writes reloads at the pinned param count, and the
-   sampling CLI draws 128 finite images from it.
-11. Timings: per-op backward kernels against plain and the library call
+10. Pruning path: the prune CLI, diff-pruning at ratio 0.3, thr 0.05, at
+   most 20 sweep steps, B = 128, on a seeded .npz of 128 images; launch
+   counters reset just before and read just after. The checkpoint it
+   writes reloads at the pinned param count, and the sampling CLI draws 128
+   finite images from it.
+11. Finetune path, f32 (the main path of the latest slice): the train CLI
+   on that checkpoint and .npz, B = 128, 20 steps, a checkpoint and a
+   DDIM-100 vis grid every 10 (cuDNN deterministic); launch counters reset
+   just before and read just after, equal to calls x steps plus the vis
+   forwards. Then a resume from the step-10 checkpoint into another
+   directory, whose step-20 params, EMA and Adam state must be
+   bit-identical to the uninterrupted run's; the EMA weights reload at the
+   pinned param count and the sampling CLI draws finite images from them.
+12. Finetune path, bf16 (``--mixed_precision bf16``), 10 steps: finite
+   losses, and the launch counts, every GroupNorm and attention backward
+   taken in bf16 (the 16-bit dq and dk/dv kernels, the bf16 GroupNorm
+   backward).
+13. Timings: per-op backward kernels against plain and the library call
    (attention dq and dk/dv also in TFLOP/s), the GroupNorm backward
    wrapper's host time per call, the sweep step (forward + backward, f32)
    with the kernels on and off, and a torch.profiler breakdown of the sweep
    step by kernel class.
-12. The kernels' JSON line, nvidia-smi's line, then the result line.
+14. The train step: kernels on against off (f32, dense, 3 steps from the
+   same state on the same noise and t, no dropout): losses and the first
+   step's grads; then train step ms and imgs/s, dense and pruned, f32 and
+   bf16, kernels on and off (CUDA events, in turns), peak memory, the
+   optimizer + EMA ms per step, and torch.profiler breakdowns of one train
+   step of each (with the dq and dk/dv kernels' device ms).
+15. The kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
 """
 
 import collections
+import dataclasses
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -90,6 +111,11 @@ SWEEP_LOSS_RTOL, SWEEP_GRAD_TOL, SWEEP_SCORE_RTOL = 1e-4, 1e-3, 1e-3
 # params of the CIFAR UNet pruned locally at ratio 0.3 (pinned from the JAX
 # package's pruner in tests/test_torch_pruning.py)
 PRUNED_PARAMS_AT_0_3 = 19_951_049
+# the finetune path: f32 steps, bf16 steps, the save (and vis) interval,
+# vis images; the train step kernels on vs off: 3 steps, losses to 1e-4
+# relative, the first step's grads to the sweep's rule (SWEEP_GRAD_TOL)
+FT_STEPS, FT_BF16_STEPS, FT_SAVE, FT_VIS = 20, 10, 10, 16
+TRAIN_STEPS, TRAIN_LOSS_RTOL = 3, 1e-4
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -183,6 +209,8 @@ def kernel_class(name: str) -> str:
         return "convolutions"
     if any(w in n for w in ("gemm", "cutlass", "cublas")):
         return "GEMMs"
+    if "multi_tensor_apply" in n or "foreach" in n:
+        return "optimizer and EMA (foreach)"
     if "reduce" in n:
         return "reductions"
     if "elementwise" in n or "vectorized" in n:
@@ -283,6 +311,40 @@ def record_gn_bwd_layouts():
     return seen, lambda: setattr(G, "group_norm_backward", inner)
 
 
+def record_bwd_dtypes():
+    """Counts the (op, dtype) of every GroupNorm and attention backward that
+    autograd runs through the kernels' wrappers; returns (counter, restore)."""
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    seen = collections.Counter()
+    gn, attn = G.group_norm_backward, A.flash_attention_backward
+
+    def gn_wrapped(x, *args, **kwargs):
+        seen[("group_norm_bwd", str(x.dtype))] += 1
+        return gn(x, *args, **kwargs)
+
+    def attn_wrapped(q, *args, **kwargs):
+        seen[("attention_bwd", str(q.dtype))] += 1
+        return attn(q, *args, **kwargs)
+
+    G.group_norm_backward, A.flash_attention_backward = gn_wrapped, attn_wrapped
+
+    def restore():
+        G.group_norm_backward, A.flash_attention_backward = gn, attn
+
+    return seen, restore
+
+
+def npz_equal(a: str, b: str) -> bool:
+    """Whether two .npz files hold the same arrays, bit for bit."""
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        return sorted(za.files) == sorted(zb.files) and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k]) for k in za.files)
+
+
 def host_us_per_call(fn, calls: int = 200) -> float:
     """The host's enqueue time of ``fn`` per call: perf_counter over
     ``calls`` calls without a sync, after a warm-up."""
@@ -303,6 +365,11 @@ def profile_classes(fn):
     """Device time by kernel class (ms), the host span (ms), the kernel count
     and the kernel count by class of one run of ``fn``, from torch.profiler's
     CUPTI trace."""
+    return profile_kernels(fn)[:4]
+
+
+def profile_kernels(fn):
+    """:func:`profile_classes`'s four results, then device ms by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,6 +380,7 @@ def profile_classes(fn):
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) * 1e3
     busy, counts = collections.defaultdict(float), collections.Counter()
+    by_name = collections.defaultdict(float)
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -321,7 +389,8 @@ def profile_classes(fn):
             us = getattr(evt, "self_cuda_time_total", 0.0)
         busy[kernel_class(evt.key)] += us / 1e3
         counts[kernel_class(evt.key)] += evt.count
-    return dict(busy), span, sum(counts.values()), dict(counts)
+        by_name[evt.key] += us / 1e3
+    return dict(busy), span, sum(counts.values()), dict(counts), dict(by_name)
 
 
 def print_profile(what, busy, span, launches, counts, per, tag):
@@ -332,6 +401,20 @@ def print_profile(what, busy, span, launches, counts, per, tag):
           + (f"{1 - sum(busy.values()) / span:.3f}" if busy else "not measured")
           + f", {launches / per[1]:.0f} kernel launches per {per[0]} ("
           + ", ".join(f"{k} {v / per[1]:.1f}" for k, v in sorted(counts.items())) + f") {tag}")
+
+
+def cli_pruned_config(cfg, model):
+    """The config that the prune CLI writes at ratio 0.3: in local mode the
+    kept sizes depend only on the ratio and each var's constraints, so
+    magnitude scores of any weights give them."""
+    from diff_pruning_tpu_torch.pruning.importance import make_importance
+    from diff_pruning_tpu_torch.pruning.pruner import prune
+    from diff_pruning_tpu_torch.pruning.surgery import unflatten_params
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict
+
+    params = unflatten_params(flat_from_state_dict(model.state_dict()))
+    res = prune(model.graph, params, make_importance("magnitude"), sparsity=0.3)
+    return cfg.with_channel_sizes(res.channel_sizes)
 
 
 def pruned_config(cfg):
@@ -413,7 +496,7 @@ def main() -> None:
 
     sys.path.insert(0, REPO)
     from diff_pruning_tpu_torch import ops
-    from diff_pruning_tpu_torch.cli import ddpm_prune, ddpm_sample
+    from diff_pruning_tpu_torch.cli import ddpm_prune, ddpm_sample, ddpm_train
     from diff_pruning_tpu_torch.diffpruning.sweep import (accumulate_taylor_grads,
                                                           make_loss_fn)
     from diff_pruning_tpu_torch.models.unet2d import UNet2D, ddpm_cifar10_config
@@ -426,6 +509,10 @@ def main() -> None:
     from diff_pruning_tpu_torch.pruning.surgery import unflatten_params
     from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
     from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.training.ema import ema_update
+    from diff_pruning_tpu_torch.training.finetune import (TrainConfig, antithetic_timesteps,
+                                                          init_train_state, make_optimizer,
+                                                          make_train_step)
     from diff_pruning_tpu_torch.utils.checkpoint import (flat_from_state_dict, load_model,
                                                          save_model)
 
@@ -469,14 +556,20 @@ def main() -> None:
     pcfg = pruned_config(cfg)
     dense = UNet2D(cfg, device="cpu").init(torch.Generator().manual_seed(0)).eval()
     pruned = UNet2D(pcfg, device="cpu").init(torch.Generator().manual_seed(1)).eval()
+    # the prune CLI's UNet (phase 10), which the finetune path trains
+    ftcfg = cli_pruned_config(cfg, dense)
+    ftnet = UNet2D(ftcfg, device="cpu").init(torch.Generator().manual_seed(5)).eval()
     gn_dense, attn_dense = op_shapes(dense)
     gn_pruned, attn_pruned = op_shapes(pruned)
+    gn_ft, attn_ft = op_shapes(ftnet)
     print(f"dense UNet: {sum(gn_dense.values())} GroupNorm and {sum(attn_dense.values())} "
           f"attention calls per forward; pruned: {sum(gn_pruned.values())} and "
-          f"{sum(attn_pruned.values())}")
+          f"{sum(attn_pruned.values())}; prune CLI's (finetune path, "
+          f"{sum(p.numel() for p in ftnet.parameters())} params): {sum(gn_ft.values())} and "
+          f"{sum(attn_ft.values())}")
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = collections.defaultdict(float)
-    gn_cases = sorted(set(gn_dense) | set(gn_pruned))
+    gn_cases = sorted(set(gn_dense) | set(gn_pruned) | set(gn_ft))
     for n, c, silu in gn_cases:
         for dname in TOL:
             dtype = getattr(torch, dname)
@@ -490,7 +583,7 @@ def main() -> None:
             print(f"check group_norm B={B} N={n} C={c} C/g={c // 32} silu={silu} {dname}: "
                   f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
             assert ok, f"group_norm kernel disagrees at N={n} C={c} silu={silu} {dname}"
-    attn_cases = sorted(set(attn_dense) | set(attn_pruned) | {(100, 1, 256)})
+    attn_cases = sorted(set(attn_dense) | set(attn_pruned) | set(attn_ft) | {(100, 1, 256)})
     for n, h, d in attn_cases:
         for dname in TOL:
             dtype = getattr(torch, dname)
@@ -840,9 +933,88 @@ def main() -> None:
           f"{PRUNED_PARAMS_AT_0_3}); sampling CLI drew {samples['images']} images, "
           f"{samples['nonfinite']} non-finite values, {samples['imgs_per_s']:.2f} imgs/s")
     assert samples["images"] == B and samples["nonfinite"] == 0
+
+    # -- 11. finetune path, f32: the train CLI on the prune CLI's checkpoint, then a resume
+    assert pcfg_cli.channel_sizes == ftcfg.channel_sizes
+    torch.backends.cudnn.deterministic = True
+    ft_base = ["--dataset", data, "--model_path", out, "--train_batch_size", str(B),
+               "--save_model_steps", str(FT_SAVE), "--log_steps", str(FT_SAVE),
+               "--vis_samples", str(FT_VIS), "--device", "cuda"]
+    ft_out, ft2_out = os.path.join(tmp, "finetuned"), os.path.join(tmp, "finetuned_resumed")
+
+    def ft_counts_want(steps):
+        # per step one forward and one backward; DDIM-100 for each vis grid
+        g, a, vis = sum(gn_ft.values()), sum(attn_ft.values()), steps // FT_SAVE * 100
+        return {"group_norm": (steps + vis) * g, "group_norm_bwd": steps * g,
+                "attention": (steps + vis) * a, "attention_lse": steps * a,
+                "attention_bwd_dq": steps * a, "attention_bwd_dkv": steps * a}
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ft = ddpm_train.main(ft_base + ["--output_dir", ft_out, "--num_iters", str(FT_STEPS)])
+    torch.cuda.synchronize()
+    ft_seconds = time.perf_counter() - t0
+    ft_counts = dict(ops.LAUNCHES)
+    with open(os.path.join(ft_out, "metrics.jsonl")) as f:
+        ft_log = [json.loads(line) for line in f]
+    print(f"main path finetune CLI f32: {FT_STEPS} steps of the {PRUNED_PARAMS_AT_0_3}-param "
+          f"UNet, B={B}, losses {ft['losses']}; whole CLI {ft_seconds:.2f}s (host clock, "
+          f"two saves and vis grids included); metrics.jsonl {ft_log} {tag}; "
+          f"launches {ft_counts}")
+    assert ft["steps"] == FT_STEPS and all(math.isfinite(v) for v in ft["losses"]), ft
+    assert ft_counts == ft_counts_want(FT_STEPS), (ft_counts, ft_counts_want(FT_STEPS))
+    assert [r["step"] for r in ft_log] == [FT_SAVE, 2 * FT_SAVE]
+    ft2 = ddpm_train.main(ft_base + ["--output_dir", ft2_out, "--num_iters", str(FT_STEPS),
+                                     "--resume_from_checkpoint",
+                                     os.path.join(ft_out, "ckpt", f"step-{FT_SAVE}")])
+    resume_same = {f: npz_equal(os.path.join(ft_out, "ckpt", f"step-{FT_STEPS}", f),
+                                os.path.join(ft2_out, "ckpt", f"step-{FT_STEPS}", f))
+                   for f in ("params.npz", "ema_params.npz", "opt_state.npz")}
+    print(f"finetune resume from step {ft2['start_step']}: losses {ft2['losses']}; step-"
+          f"{FT_STEPS} files bit-identical to the uninterrupted run's: {resume_same}")
+    assert ft2["start_step"] == FT_SAVE and ft2["losses"] == ft["losses"][FT_SAVE:], ft2
+    assert all(resume_same.values()), resume_same
+    ecfg, estate = load_model(ft_out, subfolder="unet_ema")
+    ema_net = UNet2D(ecfg, device=dev)
+    ema_net.load_state_dict(estate)
+    n_ema = sum(p.numel() for p in ema_net.parameters())
+    del ema_net
+    ema_samples = ddpm_sample.main(["--model_path", ft_out, "--use_ema", "--output_dir",
+                                    os.path.join(tmp, "ema_s"), "--total_samples", str(B),
+                                    "--batch_size", str(B), "--device", "cuda"])
+    print(f"finetune check: unet_ema reloads at {n_ema} params; sampling CLI drew "
+          f"{ema_samples['images']} images from it, {ema_samples['nonfinite']} non-finite")
+    assert n_ema == PRUNED_PARAMS_AT_0_3
+    assert ema_samples["images"] == B and ema_samples["nonfinite"] == 0
+
+    # -- 12. finetune path, bf16
+    ft16_out = os.path.join(tmp, "finetuned_bf16")
+    bwd_dtypes, unwrap = record_bwd_dtypes()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ft16 = ddpm_train.main(ft_base + ["--output_dir", ft16_out, "--num_iters",
+                                          str(FT_BF16_STEPS), "--mixed_precision", "bf16"])
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+    ft16_seconds = time.perf_counter() - t0
+    ft16_counts = dict(ops.LAUNCHES)
+    print(f"finetune CLI bf16: {FT_BF16_STEPS} steps, losses {ft16['losses']}; whole CLI "
+          f"{ft16_seconds:.2f}s {tag}; launches {ft16_counts}; backward calls by dtype "
+          f"{dict(bwd_dtypes)}; first-step loss bf16 {ft16['losses'][0]:.4f} against f32 "
+          f"{ft['losses'][0]:.4f}")
+    assert ft16["steps"] == FT_BF16_STEPS and all(math.isfinite(v) for v in ft16["losses"])
+    assert ft16_counts == ft_counts_want(FT_BF16_STEPS), ft16_counts
+    assert dict(bwd_dtypes) == {
+        ("group_norm_bwd", "torch.bfloat16"): FT_BF16_STEPS * sum(gn_ft.values()),
+        ("attention_bwd", "torch.bfloat16"): FT_BF16_STEPS * sum(attn_ft.values())}, bwd_dtypes
+    torch.backends.cudnn.deterministic = False
     tmpdir.cleanup()
 
-    # -- 11. timings: backward per op at the dense shapes, then the sweep step
+    # -- 13. timings: backward per op at the dense shapes, then the sweep step
     per_step_bwd, bwd_host_us = {}, {}
     for dname in TOL:
         dtype = getattr(torch, dname)
@@ -942,7 +1114,116 @@ def main() -> None:
     torch.backends.cudnn.deterministic = False
     torch.cuda.synchronize()
 
-    # -- 12. result lines
+    # -- 14. the train step: kernels on against off, then timings and profiles
+    torch.backends.cudnn.deterministic = True
+    tgen = torch.Generator(device=dev).manual_seed(6)
+    tx = [torch.rand((B, 32, 32, 3), generator=tgen, device=dev) * 2 - 1
+          for _ in range(TRAIN_STEPS)]
+    tnoise = [torch.randn((B, 32, 32, 3), generator=tgen, device=dev) for _ in range(TRAIN_STEPS)]
+    tts = [antithetic_timesteps(tgen, B, 1000) for _ in range(TRAIN_STEPS)]
+
+    def train_steps(on):
+        ops.set_kernels_enabled(on)
+        try:
+            net = UNet2D(cfg, device=dev)
+            net.load_state_dict(dense.state_dict())
+            st = init_train_state(net, TrainConfig())
+            step = make_train_step(net, sched, TrainConfig())
+            ops.reset_launch_counts()
+            losses, mu1 = [], None
+            for i in range(TRAIN_STEPS):
+                st, met = step(st, tx[i], noise=tnoise[i], t=tts[i])
+                losses.append(float(met["loss"]))
+                if i == 0:  # Adam's first moment: 0.1 x the first step's clipped grads
+                    mu1 = {n: m.clone() for n, m in st.opt_state.mu.items()}
+            return np.asarray(losses), mu1, dict(ops.LAUNCHES)
+        finally:
+            ops.set_kernels_enabled(True)
+
+    tl_on, mu_on, tcounts_on = train_steps(True)
+    tl_off, mu_off, tcounts_off = train_steps(False)
+    assert tcounts_on == {k: TRAIN_STEPS * v for k, v in per_step.items()}, tcounts_on
+    assert not any(tcounts_off.values()), tcounts_off
+    np.testing.assert_allclose(tl_on, tl_off, rtol=TRAIN_LOSS_RTOL)
+    floor = 1e-6 * max(float(m.abs().max()) for m in mu_off.values())
+    worst_mu, worst_mu_name = 0.0, ""
+    for name, m in mu_off.items():
+        err, mmax = float((mu_on[name] - m).abs().max()), float(m.abs().max())
+        assert bool(torch.isfinite(mu_on[name]).all()) and \
+            err <= SWEEP_GRAD_TOL * mmax + floor, f"train step grad {name}: {err:.3e}"
+        if err / max(mmax, floor) > worst_mu:
+            worst_mu, worst_mu_name = err / max(mmax, floor), name
+    print(f"train step cifar10 35.75M B={B} f32 {TRAIN_STEPS} steps, kernels on vs off: "
+          f"losses on {tl_on}, off {tl_off}, max rel diff "
+          f"{float(np.max(np.abs(tl_on / tl_off - 1))):.3e} (tol {TRAIN_LOSS_RTOL}); first "
+          f"step's grads (Adam's mu) worst err / param max {worst_mu:.3e} at {worst_mu_name} "
+          f"(tol {SWEEP_GRAD_TOL}); launches on {tcounts_on}")
+    del mu_on, mu_off
+    torch.backends.cudnn.deterministic = False
+
+    # timings as the train CLI runs the step: draws from (seed, step), dropout 0.1
+    train_ms, peak_gb, train_prof = {}, {}, {}
+    sd_ft = {n: p.to(dev) for n, p in ftnet.state_dict().items()}
+    for (name, c, sd), prec in itertools.product(
+            (("dense", cfg, dense.state_dict()), ("pruned", ftcfg, sd_ft)), ("no", "bf16")):
+        tcfg = TrainConfig(mixed_precision=prec)
+        net = UNet2D(dataclasses.replace(c, dropout=0.1), device=dev)
+        net.load_state_dict(sd)
+        st = init_train_state(net, tcfg)
+        step = make_train_step(net, sched, tcfg, seed=7)
+
+        def run(on, st=st, step=step):
+            ops.set_kernels_enabled(on)
+            try:
+                step(st, tx[0])
+            finally:
+                ops.set_kernels_enabled(True)
+
+        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=3)
+        dname = "bfloat16" if prec == "bf16" else "float32"
+        train_ms[(name, dname)] = {"kernels_on_ms": on, "kernels_off_ms": off,
+                                   "kernels_on_imgs_per_s": B * 1e3 / on,
+                                   "kernels_off_imgs_per_s": B * 1e3 / off}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run(True)
+        torch.cuda.synchronize()
+        peak_gb[(name, dname)] = torch.cuda.max_memory_allocated(dev) / 1e9
+        train_ms[(name, dname)]["host_ms"] = host_us_per_call(lambda: run(True), calls=3) / 1e3
+        print(f"time train step {name} B={B} {dname}: kernels on {on:.2f} ms "
+              f"({B * 1e3 / on:.1f} imgs/s), kernels off {off:.2f} ms ({B * 1e3 / off:.1f} "
+              f"imgs/s) (CUDA events, in turns off-on-on-off, 3 steps each, dropout 0.1); host "
+              f"{train_ms[(name, dname)]['host_ms']:.2f} ms a step kernels on (perf_counter over "
+              f"3 steps without a sync); peak memory {peak_gb[(name, dname)]:.2f} GB {tag}")
+        busy, span, launches, counts, by_name = profile_kernels(lambda: run(True))
+        print_profile(f"train step {name} kernels on B={B} {dname}", busy, span, launches,
+                      counts, ("step", 1), tag)
+        prof = train_prof[f"{name}/{dname}"] = {
+            "busy_ms": sum(busy.values()), "span_ms": span, "launches": launches,
+            "idle_share": 1 - sum(busy.values()) / span,
+            "dq_ms": sum(v for k, v in by_name.items() if "flash_bwd_dq" in k),
+            "dkv_ms": sum(v for k, v in by_name.items() if "flash_bwd_dkv" in k)}
+        print(f"profile train step {name} B={B} {dname}: dq kernel {prof['dq_ms']:.3f} ms, "
+              f"dk/dv kernel {prof['dkv_ms']:.3f} ms device time per step {tag}")
+        if (name, prec) == ("dense", "no"):
+            opt = make_optimizer(tcfg)
+            plist = list(st.params.values())
+            grads = [torch.randn(p.shape, generator=tgen, device=dev) for p in plist]
+
+            def opt_ema():
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                opt.update(grads, norm, st.opt_state, plist)
+                ema_update(st.ema_params.values(), plist, tcfg.ema_decay)
+
+            opt_ms = cuda_ms(opt_ema, iters=10)
+            opt_host_ms = host_us_per_call(opt_ema, calls=10) / 1e3
+            print(f"time optimizer + EMA per step (grad norm, clip, Adam, EMA; "
+                  f"{sum(p.numel() for p in plist)} params in {len(plist)} tensors, f32): "
+                  f"{opt_ms:.3f} ms (CUDA events), host {opt_host_ms:.3f} ms {tag}")
+        del net, st, step
+    torch.cuda.synchronize()
+
+    # -- 15. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -954,6 +1235,9 @@ def main() -> None:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, **extra}
 
+    def paths(key):
+        return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key])
+
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
     gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
@@ -962,7 +1246,7 @@ def main() -> None:
     attn_bwd_src = "diff_pruning_tpu_torch/ops/csrc/flash_attention_bwd.cu"
     kernels = [
         entry("group_norm_silu_fwd", "cuda", gn_fwd_src, "diff_pruning_tpu/ops/group_norm.py:110",
-              cli_counts["group_norm"], "group_norm", f32_fwd["group_norm"]["kernel"],
+              ft_counts["group_norm"], "group_norm", f32_fwd["group_norm"]["kernel"],
               f32_fwd["group_norm"]["plain"], f32_fwd["group_norm"]["bound"],
               bound_by(f32_fwd["group_norm"]),
               f32_fwd["group_norm"]["library"], ms_is=per_fwd,
@@ -971,9 +1255,10 @@ def main() -> None:
               ms_bf16=bf16_fwd["group_norm"]["kernel"],
               library_ms_bf16=bf16_fwd["group_norm"]["library"],
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
-              launches_serving_dense=results["dense"]["launches"]["group_norm"]),
+              launches_serving_dense=results["dense"]["launches"]["group_norm"],
+              **paths("group_norm")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
-              cli_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
+              ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
               f32_bwd["gn_library"],
               ms_is=per_bwd,
@@ -983,10 +1268,10 @@ def main() -> None:
               library_ms_bf16=bf16_bwd["gn_library"],
               ms_where_library_bf16=bf16_bwd["gn_kernel_where_library"],
               host_us_per_call=bwd_host_us["float32"],
-              host_us_per_call_bf16=bwd_host_us["bfloat16"]),
+              host_us_per_call_bf16=bwd_host_us["bfloat16"], **paths("group_norm_bwd")),
         entry("flash_attention_fwd", "cuda",
               "diff_pruning_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-              "diff_pruning_tpu/ops/attention.py:97", cli_counts["attention"], "attention",
+              "diff_pruning_tpu/ops/attention.py:97", ft_counts["attention"], "attention",
               f32_fwd["attention"]["kernel"], f32_fwd["attention"]["plain"],
               f32_fwd["attention"]["bound"], bound_by(f32_fwd["attention"]),
               f32_fwd["attention"]["library"],
@@ -995,23 +1280,32 @@ def main() -> None:
               library_ms_bf16=bf16_fwd["attention"]["library"],
               tflops=f32_fwd["attention"]["tflops"], tflops_bf16=bf16_fwd["attention"]["tflops"],
               max_abs_err_lse=worst[("attention_lse", "float32")],
-              launches_with_lse=cli_counts["attention_lse"],
-              launches_serving_dense=results["dense"]["launches"]["attention"]),
+              launches_with_lse=ft_counts["attention_lse"],
+              launches_serving_dense=results["dense"]["launches"]["attention"],
+              **paths("attention")),
         entry("flash_attention_bwd_dq", "cuda", attn_bwd_src,
-              "diff_pruning_tpu/ops/attention.py:205", cli_counts["attention_bwd_dq"],
+              "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
               f32_bwd["dq_bound"], bound_by(f32_bwd, "dq_"), None, ms_is=per_bwd,
               library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dq_tflops"],
-              ms_bf16=per_step_bwd["bfloat16"]["dq_kernel"]),
+              ms_bf16=per_step_bwd["bfloat16"]["dq_kernel"],
+              bound_ms_bf16=per_step_bwd["bfloat16"]["dq_bound"],
+              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dq_ms"], **paths("attention_bwd_dq")),
         entry("flash_attention_bwd_dkv", "cuda", attn_bwd_src,
-              "diff_pruning_tpu/ops/attention.py:205", cli_counts["attention_bwd_dkv"],
+              "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dkv"],
               "attention_bwd_dkv", f32_bwd["dkv_kernel"], f32_bwd["dkv_plain"],
               f32_bwd["dkv_bound"], bound_by(f32_bwd, "dkv_"), None, ms_is=per_bwd,
               library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dkv_tflops"],
-              ms_bf16=per_step_bwd["bfloat16"]["dkv_kernel"]),
+              ms_bf16=per_step_bwd["bfloat16"]["dkv_kernel"],
+              bound_ms_bf16=per_step_bwd["bfloat16"]["dkv_bound"],
+              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dkv_ms"], **paths("attention_bwd_dkv")),
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
-                      "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling}))
+                      "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling,
+                      "finetune_cli_seconds": {"float32": ft_seconds, "bfloat16": ft16_seconds},
+                      "finetune_imgs_per_sec": {f"{n}/{d}": v for (n, d), v in train_ms.items()},
+                      "train_step_peak_gb": {f"{n}/{d}": v for (n, d), v in peak_gb.items()},
+                      "optimizer_ema_ms": opt_ms, "train_step_profile": train_prof}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

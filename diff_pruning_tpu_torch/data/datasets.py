@@ -1,12 +1,13 @@
 """Host-side data loading: the subset of ``diff_pruning_tpu/data/datasets.py``
-that the prune CLI reads.
+that the prune and train CLIs read.
 
 numpy only, as the JAX package's loaders are: a local ``.npz`` of uint8
 NHWC images, or a local CIFAR-10 python-pickle batch directory
 (``cifar-10-batches-py``); nothing is downloaded. ``iterate_batches`` is the
 plain path of the JAX version (shuffle, random horizontal flip, [-1, 1]),
 drawing from the same ``np.random.default_rng(seed)`` in the same order, so
-its batches are bit-identical to the JAX package's for the same seed.
+its batches are bit-identical to the JAX package's for the same seed, and
+so are the batches after a ``skip_batches`` fast-forward for resume.
 Image folders, LSUN/FFHQ lmdb, CIFAR-100 and the ddpm_exp input transforms
 are not ported yet.
 """
@@ -17,7 +18,7 @@ import dataclasses
 import os
 import pickle
 from glob import glob
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -59,9 +60,12 @@ def load_npz(path: str) -> ArrayDataset:
     return ArrayDataset(np.asarray(arr, np.uint8))
 
 
-def get_dataset(name_or_path: str) -> ArrayDataset:
+def get_dataset(name_or_path: str, resolution: Optional[int] = None) -> ArrayDataset:
     """'<file>.npz' | a CIFAR-10 batch directory | 'cifar10' (looked up under
-    ./data/cifar10). Images are used at their stored size."""
+    ./data/cifar10). Images are used at their stored size: ``resolution``
+    is accepted for the JAX call's signature, which reads it only for image
+    folders and lmdb sources (not ported yet)."""
+    del resolution
     if name_or_path is None:
         raise ValueError("dataset required")
     if name_or_path.endswith(".npz"):
@@ -86,12 +90,16 @@ def normalize(batch_u8: np.ndarray) -> np.ndarray:
     return batch_u8.astype(np.float32) / 127.5 - 1.0
 
 
-def iterate_batches(dataset: ArrayDataset, batch_size: int, *,
-                    seed: int = 0) -> Iterator[np.ndarray]:
+def iterate_batches(dataset: ArrayDataset, batch_size: int, *, seed: int = 0,
+                    skip_batches: int = 0) -> Iterator[np.ndarray]:
     """Endless shuffled epochs of normalized NHWC float32 batches with random
     horizontal flip, the last partial batch of each epoch dropped (the JAX
     version's plain path with its defaults: one permutation per epoch, then
-    one flip draw per batch, from one ``default_rng(seed)``)."""
+    one flip draw per batch, from one ``default_rng(seed)``).
+
+    ``skip_batches`` fast-forwards the stream for resume: the skipped
+    batches' shuffle and flip draws are replayed without touching pixels, so
+    a resumed run sees exactly the batches an uninterrupted run would."""
     rng = np.random.default_rng(seed)
     n = len(dataset)
     while True:
@@ -99,6 +107,9 @@ def iterate_batches(dataset: ArrayDataset, batch_size: int, *,
         for i in range(0, n - n % batch_size, batch_size):
             idx = order[i:i + batch_size]
             flips = rng.random(len(idx)) < 0.5
+            if skip_batches > 0:
+                skip_batches -= 1
+                continue
             imgs = dataset.images[idx].copy()
             imgs[flips] = imgs[flips, :, ::-1]
             yield normalize(imgs)

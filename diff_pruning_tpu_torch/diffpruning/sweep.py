@@ -31,20 +31,30 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..models.unet2d import call_in_dtype
 from ..schedulers.ddpm import DiffusionSchedule
 
 
-def make_loss_fn(model, schedule: DiffusionSchedule, loss_type: str = "mse") -> Callable:
+def make_loss_fn(model, schedule: DiffusionSchedule, loss_type: str = "mse",
+                 compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """(x0, noise, t) -> scalar DDPM noise-prediction loss of ``model``.
 
     ``loss_type``: 'mse' is the mean MSE of ddpm_prune.py:101 (torch
     F.mse_loss); 'sum' is ddpm_exp's sum-per-image, mean-over-batch
-    (functions/losses.py:14-15). The error and its reduction are f32."""
+    (functions/losses.py:14-15). The error and its reduction are f32.
+    ``compute_dtype=torch.bfloat16`` runs the forward and backward with the
+    params, x0 and noise cast to bf16 (``call_in_dtype``, the finetune
+    step's mixed precision); the grads accumulate in the f32 params'
+    ``.grad``."""
     if loss_type not in ("mse", "sum"):
         raise ValueError(loss_type)
 
     def loss_fn(x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        out = model(schedule.add_noise(x0, noise, t), t)
+        if compute_dtype is None:
+            out = model(schedule.add_noise(x0, noise, t), t)
+        else:
+            noisy = schedule.add_noise(x0.to(compute_dtype), noise.to(compute_dtype), t)
+            out = call_in_dtype(model, compute_dtype, noisy, t)
         err = (out.to(torch.float32) - noise.to(torch.float32)) ** 2
         if loss_type == "mse":
             return err.mean()

@@ -206,3 +206,9 @@ def downsample_pad(x: torch.Tensor) -> torch.Tensor:
     downsample_padding == 0 (resnet.py:213-215): one row below, one column
     to the right."""
     return F.pad(x, (0, 1, 0, 1))
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 mean pool of NHWC (B, H, W, C), the JAX package's ``avg_pool_2x``."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).mean(dim=(2, 4))

@@ -8,7 +8,11 @@ tree named after the JAX param tree (``ModuleDict`` keys ``"0"``, ``"1"``,
 ``forward`` takes and returns NHWC like the JAX model. Inside, activations
 are NCHW in ``torch.channels_last`` memory (see ``layers.py``). The forward
 is differentiable through the port's kernels (the Diff-Pruning sweep's
-path); there is no dropout yet (the finetune slice adds it).
+and the finetune step's path). Dropout (``cfg.dropout``, after each
+ResnetBlock's second GroupNorm+SiLU) applies only when the caller passes a
+``dropout_generator``, as the JAX model applies it only when given a
+``dropout_rng``; ``module.training`` does not switch it, so the sweep and
+the samplers stay deterministic.
 """
 
 from __future__ import annotations
@@ -106,6 +110,7 @@ class ResnetBlock(nn.Module):
 
     def _build(self, scope, cfg, cin, temb_var, device):
         ng, eps = cfg.norm_num_groups, cfg.norm_eps
+        self.dropout = cfg.dropout
         self.norm1 = GroupNorm(scope("norm1"), cin, ng, eps, device=device)
         self.conv1 = Conv2D(scope("conv1"), cin, self.out, 3, 1, 1, device=device)
         self.time_emb_proj = Linear(scope("time_emb_proj"), temb_var, self.out, device=device)
@@ -115,10 +120,18 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = Conv2D(scope("conv_shortcut"), cin, self.out, 1, 1, 0,
                                         device=device)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.conv1(self.norm1(x, with_silu=True))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.norm2(h, with_silu=True))
+        h = self.norm2(h, with_silu=True)
+        if generator is not None and self.dropout > 0.0:
+            # keep each element with probability 1 - p, scaled by 1 / keep;
+            # empty_like keeps h's channels-last layout for conv2
+            keep = 1.0 - self.dropout
+            u = torch.empty_like(h, dtype=torch.float32).uniform_(generator=generator)
+            h = torch.where(u < keep, h / keep, 0.0).to(h.dtype)
+        h = self.conv2(h)
         return h + (self.conv_shortcut(x) if self.has_shortcut else x)
 
 
@@ -312,8 +325,11 @@ class UNet2D(nn.Module):
     # -- forward --------------------------------------------------------------
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                class_labels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """sample (B, H, W, C) NHWC; timesteps (B,) or scalar -> eps, NHWC."""
+                class_labels: Optional[torch.Tensor] = None, *,
+                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """sample (B, H, W, C) NHWC; timesteps (B,) or scalar -> eps, NHWC.
+        With ``dropout_generator``, every ResnetBlock drops at ``cfg.dropout``
+        from it, in forward order."""
         cfg = self.cfg
         if cfg.center_input_sample:
             sample = 2.0 * sample - 1.0
@@ -337,7 +353,7 @@ class UNet2D(nn.Module):
         for blk in self.down_blocks.values():
             attns = blk["attentions"] if "attentions" in blk else None
             for j, r in blk["resnets"].items():
-                h = r(h, temb)
+                h = r(h, temb, dropout_generator)
                 if attns is not None:
                     h = attns[j](h)
                 hs.append(h)
@@ -349,15 +365,15 @@ class UNet2D(nn.Module):
                 hs.append(h)
 
         mid = self.mid_block
-        h = mid["resnets"]["0"](h, temb)
+        h = mid["resnets"]["0"](h, temb, dropout_generator)
         if "attentions" in mid:
             h = mid["attentions"]["0"](h)
-        h = mid["resnets"]["1"](h, temb)
+        h = mid["resnets"]["1"](h, temb, dropout_generator)
 
         for blk in self.up_blocks.values():
             attns = blk["attentions"] if "attentions" in blk else None
             for j, r in blk["resnets"].items():
-                h = r(torch.cat([h, hs.pop()], dim=1), temb)
+                h = r(torch.cat([h, hs.pop()], dim=1), temb, dropout_generator)
                 if attns is not None:
                     h = attns[j](h)
             if "upsamplers" in blk:
@@ -365,6 +381,19 @@ class UNet2D(nn.Module):
 
         h = self.conv_out(self.conv_norm_out(h, with_silu=True))
         return h.permute(0, 2, 3, 1)
+
+
+def call_in_dtype(model: nn.Module, dtype: torch.dtype, *args,
+                  params: Optional[Dict[str, torch.Tensor]] = None, **kwargs):
+    """``model(*args, **kwargs)`` with every parameter (``params``, default
+    the model's own) cast to ``dtype``: the JAX package's mixed precision,
+    which casts the whole f32 param tree to the compute dtype for the
+    forward and backward. The casts are differentiable, so grads reach the
+    f32 masters in f32."""
+    if params is None:
+        params = dict(model.named_parameters())
+    cast = {n: p.to(dtype) for n, p in params.items()}
+    return torch.func.functional_call(model, cast, args, kwargs)
 
 
 def ddpm_cifar10_config() -> UNet2DConfig:

@@ -9,12 +9,22 @@ and a model's accumulated grads to the same flat layout (``flat_grads``).
 The module tree is named after the JAX param tree, so keys map ``/`` <->
 ``.``; the only per-leaf transforms are for kernels: 4-D HWIO <-> OIHW and
 2-D (din, dout) <-> (dout, din).
+
+Train state (``save_train_state``/``load_train_state``/``restore_opt_state``)
+has the JAX package's on-disk layout too: ``<path>/step-N/`` holding
+``params.npz``, ``ema_params.npz`` (flat JAX paths), ``opt_state.npz``
+(optax's keypath strings, ``[1][0].mu['conv_in']['kernel']``) and
+``meta.json``, written last and fsynced, with a ``LATEST`` pointer replaced
+atomically. A JAX train checkpoint resumes in the port and the port's
+restores in the JAX package.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Mapping
+import shutil
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -72,12 +82,14 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
 
 
 def save_model(model_dir: str, config, model, subfolder: str = "unet") -> None:
-    """diffusers-like layout: <dir>/<subfolder>/{config.json, params.npz}."""
+    """diffusers-like layout: <dir>/<subfolder>/{config.json, params.npz}.
+    ``model`` is a module or a state dict."""
     d = os.path.join(model_dir, subfolder) if subfolder else model_dir
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, "config.json"), "w") as f:
         f.write(config.to_json())
-    save_params_npz(os.path.join(d, "params.npz"), model.state_dict())
+    state = model if isinstance(model, Mapping) else model.state_dict()
+    save_params_npz(os.path.join(d, "params.npz"), state)
 
 
 def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
@@ -93,3 +105,88 @@ def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
     with open(os.path.join(d, "config.json")) as f:
         cfg = config_cls.from_json(f.read())
     return cfg, load_params_npz(os.path.join(d, "params.npz"))
+
+
+def save_train_state(path: str, *, step: int, params: Mapping[str, torch.Tensor],
+                     ema_params: Optional[Mapping[str, torch.Tensor]] = None,
+                     opt_state=None, extra_meta: Optional[dict] = None,
+                     keep: int = 2) -> None:
+    """Writes ``<path>/step-<step>/`` and points ``LATEST`` at it; keeps the
+    newest ``keep`` committed versions. ``params``/``ema_params`` are state
+    dicts; ``opt_state`` is an object with ``by_keypath()``
+    (``training.finetune.AdamState``); ``extra_meta`` records what resume
+    needs beyond tensors (seed, batches consumed).
+
+    Crash-atomic as the JAX version: ``meta.json`` is written and fsynced
+    last, so a step dir without it is a torn save; ``LATEST`` is replaced
+    only after every file is on disk."""
+    d = os.path.join(path, f"step-{int(step)}")
+    os.makedirs(d, exist_ok=True)
+    save_params_npz(os.path.join(d, "params.npz"), params)
+    if ema_params is not None:
+        save_params_npz(os.path.join(d, "ema_params.npz"), ema_params)
+    if opt_state is not None:
+        np.savez(os.path.join(d, "opt_state.npz"), **opt_state.by_keypath())
+    meta = {"step": int(step), **(extra_meta or {})}
+    with open(os.path.join(d, "meta.json"), "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    tmp = os.path.join(path, ".LATEST.tmp")
+    with open(tmp, "w") as f:
+        f.write(f"step-{int(step)}")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, "LATEST"))
+    # delete torn dirs (no meta.json), then all but the newest `keep`
+    # committed versions; never the one LATEST points to
+    committed = []
+    for e in os.listdir(path):
+        if not e.startswith("step-") or e == f"step-{int(step)}":
+            continue
+        if os.path.exists(os.path.join(path, e, "meta.json")):
+            committed.append(e)
+        else:
+            shutil.rmtree(os.path.join(path, e), ignore_errors=True)
+    committed.sort(key=lambda e: int(e.split("-")[1]))
+    for e in committed[:-(keep - 1)] if keep > 1 else committed:
+        shutil.rmtree(os.path.join(path, e), ignore_errors=True)
+
+
+def _resolve_ckpt_dir(path: str) -> str:
+    """The version ``LATEST`` points to; a single version (a ``step-N/``
+    directory, or meta.json directly inside) resolves to itself."""
+    latest = os.path.join(path, "LATEST")
+    if os.path.exists(latest):
+        with open(latest) as f:
+            return os.path.join(path, f.read().strip())
+    return path
+
+
+def restore_opt_state(path: str, opt_state_template):
+    """Fills ``opt_state_template`` (a fresh ``AdamState``) in place from the
+    saved ``opt_state.npz``, matched by keypath; raises on a missing path.
+    Returns ``(state, True)``, or ``(template, False)`` when the checkpoint
+    holds no optimizer state. The JAX package's legacy positional archives
+    ('0', '1', ...) are not read."""
+    opt_path = os.path.join(_resolve_ckpt_dir(path), "opt_state.npz")
+    if not os.path.exists(opt_path):
+        return opt_state_template, False
+    with np.load(opt_path) as z:
+        if z.files and all(k.isdigit() for k in z.files):
+            raise ValueError(f"{opt_path}: a positional (legacy) optimizer archive; the port "
+                             "restores keypath archives only")
+        opt_state_template.load_by_keypath({k: z[k] for k in z.files}, where=opt_path)
+    return opt_state_template, True
+
+
+def load_train_state(path: str):
+    """Returns ``(meta, params, ema_params | None)``, the tensors as state
+    dicts (CPU). The optimizer state comes from :func:`restore_opt_state`."""
+    path = _resolve_ckpt_dir(path)
+    params = load_params_npz(os.path.join(path, "params.npz"))
+    ema_path = os.path.join(path, "ema_params.npz")
+    ema = load_params_npz(ema_path) if os.path.exists(ema_path) else None
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    return meta, params, ema

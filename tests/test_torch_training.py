@@ -1,0 +1,352 @@
+"""The port's finetune slice against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages; the JAX
+side runs with f32 matmuls and the port with TF32 off. The JAX step draws
+its noise and timesteps from ``split(key, 3)``; the test re-draws them from
+the same keys and feeds them to the port's step. Tolerances:
+
+- f32: loss and grad_norm rtol 1e-5 (the forwards differ in summation order
+  only, a few 1e-6 relative, tests/test_torch_unet.py); the first step's
+  grads, read from Adam's first moment (0.1 x the clipped grads), within
+  1e-4 of each parameter's max plus 1e-6 of the largest overall (the
+  sweep's rule, tests/test_torch_pruning.py); params and EMA after three
+  steps within 1e-6 + 1e-2 x the LR summed over the steps.
+- bf16: loss rtol 2e-2 and grad_norm rtol 5e-2 (bf16 rounds activations
+  and grads at other places in the two frameworks); the first step's grads
+  within 5e-2 in norm, relative to their norm.
+- Where a grad is zero in exact arithmetic (to_k's bias: the softmax is
+  invariant to it) or, in bf16, near the bf16 noise, Adam turns the noise's
+  sign into +-lr: those params (named below; in bf16 all of them) are held
+  to ADAM_MOVE x the summed LR, twice the most the first steps' bias-corrected
+  update can move a param (1.003 lr, Cauchy-Schwarz on the moments' weights).
+- Checkpoints and resume: exact.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from diff_pruning_tpu.models import unet2d as junet
+from diff_pruning_tpu.pruning.surgery import flatten_params as jflatten
+from diff_pruning_tpu.pruning.surgery import unflatten_params as junflatten
+from diff_pruning_tpu.schedulers.ddpm import DiffusionSchedule as JaxSchedule
+from diff_pruning_tpu.training import finetune as jft
+from diff_pruning_tpu.utils import checkpoint as jckpt
+from diff_pruning_tpu_torch.models import unet2d as tunet
+from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+from diff_pruning_tpu_torch.training import finetune as tft
+from diff_pruning_tpu_torch.utils import checkpoint as tckpt
+
+torch.set_num_threads(2)
+ADAM_MOVE = 2.02
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def numpy_params(jmodel, seed):
+    """Flat JAX-layout params with torch-like init scales and non-trivial norms."""
+    rng = np.random.default_rng(seed)
+    shapes = jflatten(jax.eval_shape(jmodel.init, jax.random.key(0)))
+    flat = {}
+    for path, s in shapes.items():
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "kernel":
+            a = rng.uniform(-1.0, 1.0, s.shape) * np.sqrt(3.0 / np.prod(s.shape[:-1]))
+        elif leaf == "scale":
+            a = 1.0 + 0.2 * rng.standard_normal(s.shape)
+        else:
+            a = 0.1 * rng.standard_normal(s.shape)
+        flat[path] = a.astype(np.float32)
+    return flat
+
+
+def port_model(cfg, flat):
+    m = tunet.UNet2D(tunet.UNet2DConfig.from_json(cfg.to_json()), device="cpu")
+    m.load_state_dict(tckpt.state_dict_from_flat(flat))
+    return m
+
+
+def jax_opt_arrays(opt_state):
+    return {jax.tree_util.keystr(k): np.array(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(opt_state)[0]}
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_train_step_matches_jax(precision):
+    """Three steps of JAX make_train_step (warmup 2, clip active, EMA on)
+    against the port's step on the same params, batches, noise and t:
+    losses, grad norms, the first step's grads and the optimizer's layout,
+    then params and EMA. f32: dropout changes the output only with a
+    generator, ddpm_loss, avg_pool_2x and a KD step against JAX; bf16: the
+    sweep's bf16 loss against JAX."""
+    cfg = junet.tiny_unet_config()
+    jmodel = junet.UNet2D(cfg)
+    flat = numpy_params(jmodel, 21)
+    rng = np.random.default_rng(22)
+    bsz = 4
+    batches = [rng.uniform(-1, 1, (bsz, 16, 16, 3)).astype(np.float32) for _ in range(3)]
+    kw = dict(lr_warmup_steps=2, ema_decay=0.9,
+              mixed_precision="bf16" if precision == "bf16" else "no")
+    jcfg = jft.TrainConfig(**kw)
+    with jax.default_matmul_precision("float32"):
+        jstate = jft.init_train_state(junflatten({k: jnp.asarray(v) for k, v in flat.items()}),
+                                      jcfg)
+        jstep = jft.make_train_step(jmodel, JaxSchedule.create(), jcfg)
+        want, draws = [], []
+        for i, b in enumerate(batches):
+            key = jax.random.key(100 + i)
+            nkey, tkey, _ = jax.random.split(key, 3)
+            draws.append((np.array(jax.random.normal(nkey, b.shape, jnp.float32)),
+                          np.array(jft.antithetic_timesteps(tkey, bsz, 1000))))
+            jstate, m = jstep(jstate, jnp.asarray(b), key)
+            want.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                jopt1 = jax_opt_arrays(jstate.opt_state)
+    tmodel = port_model(cfg, flat)
+    tstate = tft.init_train_state(tmodel, tft.TrainConfig(**kw))
+    tstep = tft.make_train_step(tmodel, DiffusionSchedule.create(), tft.TrainConfig(**kw))
+    got = []
+    for i, (b, (noise, t)) in enumerate(zip(batches, draws)):
+        tstate, m = tstep(tstate, torch.from_numpy(b), noise=torch.from_numpy(noise),
+                          t=torch.from_numpy(t).long())
+        got.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            topt1 = {k: np.array(v) for k, v in tstate.opt_state.by_keypath().items()}
+    loss_rtol, norm_rtol = (1e-5, 1e-5) if precision == "f32" else (2e-2, 5e-2)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=loss_rtol)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=norm_rtol)
+        assert w["grad_norm"] > jcfg.grad_clip  # the clip is active
+    assert sorted(topt1) == sorted(jopt1)
+    assert {k: int(v) for k, v in topt1.items() if k.endswith("count")} == {
+        "[1][0].count": 1, "[1][1].count": 1}
+    mus = [k for k in jopt1 if ".mu" in k]
+    if precision == "f32":
+        floor = 1e-6 * max(np.abs(jopt1[k]).max() for k in mus)
+        for k in mus:
+            err = np.abs(topt1[k] - jopt1[k]).max()
+            assert err <= 1e-4 * np.abs(jopt1[k]).max() + floor, (k, err)
+    else:
+        diff = np.sqrt(sum(((topt1[k] - jopt1[k]) ** 2).sum() for k in mus))
+        assert diff <= 5e-2 * np.sqrt(sum((jopt1[k] ** 2).sum() for k in mus))
+
+    lr_sum = 0.0 + 1e-4 + 2e-4  # warmup 2: lr 0, lr/2, lr
+    tol = 1e-6 + 1e-2 * lr_sum
+    for jtree, ttree in ((jstate.params, tstate.params), (jstate.ema_params, tstate.ema_params)):
+        jflat, tflat = jflatten(jtree), tckpt.flat_from_state_dict(ttree)
+        for k, v in jflat.items():
+            err = np.abs(tflat[k] - np.asarray(v)).max()
+            lim = ADAM_MOVE * lr_sum if (precision == "bf16" or k.endswith("to_k/bias")) \
+                else tol
+            assert err <= lim, (k, err, lim)
+
+    # dropout: off without a generator, reproducible with one
+    if precision == "f32":
+        from diff_pruning_tpu.training.finetune import ddpm_loss as jloss
+
+        x0, (noise, t) = batches[0], draws[0]
+        with jax.default_matmul_precision("float32"):
+            jl = float(jloss(jmodel, junflatten({k: jnp.asarray(v) for k, v in flat.items()}),
+                             JaxSchedule.create(), jnp.asarray(x0), jnp.asarray(noise),
+                             jnp.asarray(t)))
+        tmodel = port_model(cfg, flat)
+        with torch.no_grad():
+            tl = float(tft.ddpm_loss(tmodel, DiffusionSchedule.create(), torch.from_numpy(x0),
+                                     torch.from_numpy(noise), torch.from_numpy(t).long()))
+            np.testing.assert_allclose(tl, jl, rtol=1e-5)
+            dmodel = port_model(dataclasses.replace(cfg, dropout=0.1), flat)
+            x, tt = torch.from_numpy(x0), torch.from_numpy(t).long()
+            plain = tmodel(x, tt)
+            assert torch.equal(dmodel(x, tt), plain)
+            a = dmodel(x, tt, dropout_generator=torch.Generator().manual_seed(5))
+            b = dmodel(x, tt, dropout_generator=torch.Generator().manual_seed(5))
+            assert torch.equal(a, b) and not torch.allclose(a, plain, atol=1e-3)
+        from diff_pruning_tpu.models.layers import avg_pool_2x as javg
+        from diff_pruning_tpu_torch.models.layers import avg_pool_2x
+
+        np.testing.assert_allclose(avg_pool_2x(x).numpy(), np.asarray(javg(jnp.asarray(x0))),
+                                   rtol=1e-6, atol=1e-7)
+
+        # KD: one step against the JAX step with the same teacher
+        tflat = numpy_params(jmodel, 23)
+        jtp = junflatten({k: jnp.asarray(v) for k, v in tflat.items()})
+        jcfg0 = jft.TrainConfig()
+        with jax.default_matmul_precision("float32"):
+            js = jft.init_train_state(junflatten({k: jnp.asarray(v) for k, v in flat.items()}),
+                                      jcfg0)
+            _, jm = jft.make_train_step(jmodel, JaxSchedule.create(), jcfg0,
+                                        teacher=(jmodel, jtp))(js, jnp.asarray(x0),
+                                                               jax.random.key(100))
+        student = port_model(cfg, flat)
+        kstep = tft.make_train_step(student, DiffusionSchedule.create(), tft.TrainConfig(),
+                                    teacher=port_model(cfg, tflat).requires_grad_(False))
+        _, km = kstep(tft.init_train_state(student, tft.TrainConfig()), torch.from_numpy(x0),
+                      noise=torch.from_numpy(noise), t=torch.from_numpy(t).long())
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(km[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+    else:
+        # the bf16 sweep loss (make_loss_fn's compute_dtype) against the JAX one
+        from diff_pruning_tpu.diffpruning.sweep import make_loss_fn as jmake
+        from diff_pruning_tpu_torch.diffpruning.sweep import make_loss_fn
+
+        x0, (noise, _) = batches[0], draws[0]
+        ts = np.full((bsz,), 7)
+        with jax.default_matmul_precision("float32"):
+            jl = float(jmake(jmodel, JaxSchedule.create(), compute_dtype=jnp.bfloat16)(
+                junflatten({k: jnp.asarray(v) for k, v in flat.items()}), jnp.asarray(x0),
+                jnp.asarray(noise), jnp.asarray(ts)))
+        with torch.no_grad():
+            tl = float(make_loss_fn(port_model(cfg, flat), DiffusionSchedule.create(),
+                                    compute_dtype=torch.bfloat16)(
+                torch.from_numpy(x0), torch.from_numpy(noise), torch.from_numpy(ts)))
+        np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
+
+
+def test_train_state_crosses_packages(tmp_path):
+    """A JAX train checkpoint resumes in the port (params, EMA, Adam count
+    and moments, the schedule's count); the port's restores in the JAX
+    package; a port run resumed at step 2 of 4 ends bit-identical to the
+    uninterrupted run, dropout on."""
+    from diff_pruning_tpu_torch.data.datasets import ArrayDataset, iterate_batches
+
+    cfg = junet.tiny_unet_config()
+    flat = numpy_params(junet.UNet2D(cfg), 31)
+    jparams = junflatten({k: jnp.asarray(v) for k, v in flat.items()})
+    jcfg = jft.TrainConfig(lr_warmup_steps=3)
+    jstate = jft.init_train_state(jparams, jcfg)
+    rng = np.random.default_rng(32)
+    jgrads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape), jnp.float32),
+                          jparams)
+    opt = jft.make_optimizer(jcfg)
+    _, jopt = opt.update(jgrads, jstate.opt_state, jparams)
+    _, jopt = opt.update(jgrads, jopt, jparams)
+    jema = jax.tree.map(lambda a: a * 0.5, jparams)
+    jckpt.save_train_state(str(tmp_path / "jax"), step=2, params=jparams, ema_params=jema,
+                           opt_state=jopt, extra_meta={"seed": 7})
+    meta, params, ema = tckpt.load_train_state(str(tmp_path / "jax"))
+    assert meta == {"step": 2, "seed": 7}
+    model = tunet.UNet2D(tunet.UNet2DConfig.from_json(cfg.to_json()), device="cpu")
+    model.load_state_dict(params)
+    tcfg = tft.TrainConfig(lr_warmup_steps=3)
+    state = tft.init_train_state(model, tcfg)
+    restored, ok = tckpt.restore_opt_state(str(tmp_path / "jax"), state.opt_state)
+    assert ok and restored.count == restored.schedule_count == 2
+    want = jax_opt_arrays(jopt)
+    mine = restored.by_keypath()
+    assert sorted(mine) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(mine[k], v, err_msg=k)
+    for k, v in tckpt.flat_from_state_dict(ema).items():
+        np.testing.assert_array_equal(v, np.asarray(jflatten(jema)[k]), err_msg=k)
+
+    # the port's checkpoint restores in the JAX package
+    tckpt.save_train_state(str(tmp_path / "port"), step=2, params=state.params,
+                           ema_params=ema, opt_state=restored, extra_meta={"seed": 7})
+    jrestored, ok = jckpt.restore_opt_state(str(tmp_path / "port"),
+                                            jft.init_train_state(jparams, jcfg).opt_state)
+    assert ok
+    for k, v in jax_opt_arrays(jrestored).items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    jmeta, jp, je = jckpt.load_train_state(str(tmp_path / "port"))
+    assert jmeta["step"] == 2
+    for k, v in jflatten(jp).items():
+        np.testing.assert_array_equal(np.asarray(v), flat[k], err_msg=k)
+    with pytest.raises(KeyError, match="refusing a partial restore"):
+        tft.init_train_state(model, tft.TrainConfig()).opt_state.load_by_keypath(
+            {"[1][0].count": np.int32(0)})
+
+    # resume at step 2 of 4: the same batches, draws and state as uninterrupted
+    cfg_d = tunet.UNet2DConfig.from_json(cfg.to_json())
+    cfg_d.dropout = 0.1
+    data = ArrayDataset(np.random.default_rng(33).integers(0, 256, (6, 16, 16, 3), np.uint8))
+    sched = DiffusionSchedule.create()
+
+    def run(steps, start=0, ckpt=None):
+        m = tunet.UNet2D(cfg_d, device="cpu")
+        m.load_state_dict(tckpt.state_dict_from_flat(flat))
+        st = tft.init_train_state(m, tcfg)
+        if start:
+            _, p, e = tckpt.load_train_state(ckpt)
+            m.load_state_dict(p)
+            tckpt.restore_opt_state(ckpt, st.opt_state)
+            for n, t in e.items():
+                st.ema_params[n].copy_(t)
+            st.step = start
+        step = tft.make_train_step(m, sched, tcfg, seed=3)
+        batches = iterate_batches(data, 4, seed=3, skip_batches=start)
+        for i in range(start, steps):
+            st, _ = step(st, torch.from_numpy(next(batches)))
+            if i + 1 == 2 and not start:
+                tckpt.save_train_state(ckpt, step=2, params=st.params, ema_params=st.ema_params,
+                                       opt_state=st.opt_state)
+        return st
+
+    ck = str(tmp_path / "resume")
+    full, resumed = run(4, ckpt=ck), run(4, start=2, ckpt=ck)
+    for a, b in ((full.params, resumed.params), (full.ema_params, resumed.ema_params),
+                 (full.opt_state.mu, resumed.opt_state.mu),
+                 (full.opt_state.nu, resumed.opt_state.nu)):
+        for n in a:
+            assert torch.equal(a[n], b[n]), n
+    assert (full.step, full.opt_state.count) == (resumed.step, resumed.opt_state.count) == (4, 4)
+
+
+def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
+    """The train CLI end to end on the tiny config: TF32 pinned off,
+    metrics.jsonl, ckpt/ (two versions kept), unet/ and unet_ema/ that the
+    JAX package loads, vis grids, run.sh; a resume with another seed warns;
+    --remat and --device cuda without a GPU raise."""
+    from diff_pruning_tpu_torch.cli import ddpm_train
+
+    cfg = tunet.tiny_unet_config()
+    model = tunet.UNet2D(cfg, device="cpu").init(torch.Generator().manual_seed(41))
+    tckpt.save_model(str(tmp_path / "in"), cfg, model)
+    data = np.random.default_rng(42).integers(0, 256, (8, 16, 16, 3), dtype=np.uint8)
+    np.savez(tmp_path / "data.npz", images=data)
+    out = tmp_path / "out"
+    base = ["--model_path", str(tmp_path / "in"), "--output_dir", str(out),
+            "--dataset", str(tmp_path / "data.npz"), "--train_batch_size", "4",
+            "--num_iters", "4", "--save_model_steps", "2", "--log_steps", "2",
+            "--vis_samples", "4", "--steps_per_dispatch", "8"]
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    stats = ddpm_train.main(base + ["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert "torch.backends.cudnn.allow_tf32=False" in text
+    assert stats["steps"] == 4 and all(np.isfinite(stats["losses"]))
+    recs = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [2, 4]
+    assert recs[-1]["loss"] == pytest.approx(stats["losses"][-1])
+    assert sorted(os.listdir(out / "ckpt")) == ["LATEST", "step-2", "step-4"]
+    assert sorted(os.listdir(out / "vis")) == ["iter-2.png", "iter-4.png"]
+    assert (out / "run.sh").read_text().startswith(
+        "python -m diff_pruning_tpu_torch.cli.ddpm_train --model_path")
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(out / "logs"))
+    _, params, ema = tckpt.load_train_state(str(out / "ckpt"))
+    for sub, want in (("unet", params), ("unet_ema", ema)):
+        jcfg, jparams = jckpt.load_model(str(out), subfolder=sub)
+        junet.UNet2D(jcfg).graph.validate(jparams)
+        for k, v in tckpt.flat_from_state_dict(want).items():
+            np.testing.assert_array_equal(np.asarray(jflatten(jparams)[k]), v, err_msg=k)
+    resumed = ddpm_train.main(base + ["--device", "cpu", "--seed", "1",
+                                      "--resume_from_checkpoint", str(out / "ckpt")])
+    text = capsys.readouterr().out
+    assert (resumed["start_step"], resumed["steps"]) == (4, 0)
+    assert "warning: resuming with seed 1" in text and "optimizer state restored" in text
+    with pytest.raises(NotImplementedError, match="remat"):
+        ddpm_train.main(base + ["--remat", "--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ddpm_train.main(base)
