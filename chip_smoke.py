@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``diff_pruning_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
 
 Drives the port's three paths through its own kernels, on the full-width
 CIFAR-10 UNet (35.75M params) from a seeded random checkpoint, and checks
@@ -15,11 +15,14 @@ exits non-zero before the result lines.
 2. Build: compiles every kernel of the port, CUDA C++ from this
    checkout's sources (one nvcc per source, sm_90a, all at once); prints
    the build seconds and ptxas's registers and spills (per kernel for the
-   f32 attention backward), and counts the tensor-core (HMMA) and FFMA
-   instructions in the SASS (cuobjdump) of the attention kernels and the
-   GroupNorm backward: the bf16/f16 attention forward kernels must use the
-   tensor cores, the f32 attention kernels and the GroupNorm backward must
-   not.
+   attention backward, f32 and bf16/f16, and the GroupNorm backward), and
+   counts the tensor-core (HMMA) and FFMA instructions in the SASS
+   (cuobjdump) of the attention kernels and the GroupNorm backward: the
+   bf16/f16 attention kernels (forward, dq, dk/dv) must use the tensor
+   cores, the f32 attention kernels and the GroupNorm backward must not.
+   With ``--compare-bwd LABEL=SRC`` (repeatable) it also builds SRC,
+   another version of flash_attention_bwd.cu with the same C interface
+   (e.g. the parent commit's, unpacked by ``git archive``), for phase 13.
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense, the pruned
    and the prune CLI's UNet give them (collected by forward hooks), plus a
@@ -62,16 +65,19 @@ exits non-zero before the result lines.
    taken in bf16 (the 16-bit dq and dk/dv kernels, the bf16 GroupNorm
    backward).
 13. Timings: per-op backward kernels against plain and the library call
-   (attention dq and dk/dv also in TFLOP/s), the GroupNorm backward
-   wrapper's host time per call, the sweep step (forward + backward, f32)
-   with the kernels on and off, and a torch.profiler breakdown of the sweep
-   step by kernel class.
-14. The train step: kernels on against off (f32, dense, 3 steps from the
-   same state on the same noise and t, no dropout): losses and the first
-   step's grads; then train step ms and imgs/s, dense and pruned, f32 and
-   bf16, kernels on and off (CUDA events, in turns), peak memory, the
-   optimizer + EMA ms per step, and torch.profiler breakdowns of one train
-   step of each (with the dq and dk/dv kernels' device ms).
+   (attention dq and dk/dv also in TFLOP/s, at the dense UNet's shapes and,
+   in bf16, at the prune CLI's UNet's (D = 179) too; with ``--compare-bwd``
+   also the other versions' dq and dk/dv, in turns with these), the
+   GroupNorm backward wrapper's host time per call, the sweep step (forward
+   + backward, f32) with the kernels on and off, and a torch.profiler
+   breakdown of the sweep step by kernel class.
+14. The train step: kernels on against off (dense, 3 steps from the same
+   state on the same noise and t, no dropout), in f32 and in bf16 (the
+   16-bit dq and dk/dv inside the model): losses and the first step's
+   grads; then train step ms and imgs/s, dense and pruned, f32 and bf16,
+   kernels on and off (CUDA events, in turns), peak memory, the optimizer +
+   EMA ms per step, and torch.profiler breakdowns of one train step of each
+   (with the dq and dk/dv kernels' device ms).
 15. The kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
@@ -116,6 +122,11 @@ PRUNED_PARAMS_AT_0_3 = 19_951_049
 # relative, the first step's grads to the sweep's rule (SWEEP_GRAD_TOL)
 FT_STEPS, FT_BF16_STEPS, FT_SAVE, FT_VIS = 20, 10, 10, 16
 TRAIN_STEPS, TRAIN_LOSS_RTOL = 3, 1e-4
+# the bf16 train step kernels on vs off: losses to 2e-2 relative, the first
+# step's grads within 5e-2 in norm relative to their norm: the port's bf16
+# train-step tolerances against the JAX step (tests/test_torch_training.py),
+# since bf16 rounds activations and grads at other places on the two sides
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 5e-2
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -258,17 +269,63 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
     return {k: tuple(v) for k, v in out.items()}
 
 
-# the kernels whose registers and spills phase 2 prints one by one: the f32
-# attention backward (``flash_bwd_dq_kernel_f32<NC>``) and the GroupNorm
-# backward (``gn_bwd_kernel<T, silu>``)
+# the kernels whose registers and spills phase 2 prints one by one: the
+# attention backward (``flash_bwd_dq_kernel_f32<NC>``,
+# ``flash_bwd_dkv_kernel_mma<T, NC>``) and the GroupNorm backward
+# (``gn_bwd_kernel<T, silu>``)
 PTXAS_KERNELS = {
-    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_f32)ILi(\d)E",
-                            lambda m: f"{m.group(1)}<{m.group(2)}>"),
+    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32|mma))"
+                            r"I(13__nv_bfloat16|6__half)?Li(\d)E",
+                            lambda m: f"{m.group(1)}<" + (
+                                m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
+                            + f"{m.group(3)}>"),
     "group_norm_bwd": (r"Compiling entry function '.*?gn_bwd_kernelI(f|13__nv_bfloat16|6__half)"
                        r"Lb(\d)E",
                        lambda m: f"gn_bwd_kernel<{m.group(1).lstrip('0123456789')}, "
                                  f"silu={m.group(2)}>"),
 }
+
+
+def load_other_bwd(label: str, src: str):
+    """The library of another version of flash_attention_bwd.cu with the
+    port's C interface, built as the port builds its own (nvcc, the same
+    flags, the port's csrc/ on the include path) and bound as
+    ops/attention.py binds it."""
+    import ctypes
+
+    from diff_pruning_tpu_torch.ops import _build
+    from diff_pruning_tpu_torch.ops import attention as A
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, f"libflash_attention_bwd-{label}.so")
+    t0 = time.perf_counter()
+    # (-I: the port's shared headers, for a version that includes them)
+    res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build._CSRC, "-o", out,
+                          os.path.abspath(src)], capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
+    print(f"build: {label}: {src} (nvcc sm_90a) {time.perf_counter() - t0:.2f}s")
+    lib, ours = ctypes.CDLL(out), A._lib("flash_attention_bwd")
+    for fn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
+        getattr(lib, fn).restype = getattr(ours, fn).restype
+    return lib
+
+
+def with_bwd_lib(lib, fn):
+    """``fn`` as a function that runs it with ops/attention.py's backward
+    library set to ``lib``."""
+    from diff_pruning_tpu_torch.ops import attention as A
+
+    def run():
+        saved = A._LIBS["flash_attention_bwd"]
+        A._LIBS["flash_attention_bwd"] = lib
+        try:
+            return fn()
+        finally:
+            A._LIBS["flash_attention_bwd"] = saved
+
+    return run
 
 
 def layout_name(x3) -> str:
@@ -475,9 +532,20 @@ def compare_rel(got, want, tol):
 
 
 def main() -> None:
+    import argparse
+
     import numpy as np
     import torch
     import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--compare-bwd", metavar="LABEL=SRC", action="append", default=[],
+                    help="another flash_attention_bwd.cu (same C interface) whose dq and dk/dv "
+                         "phase 13 times in turns with this checkout's; repeatable")
+    args = ap.parse_args()
+    other_srcs = [arg.partition("=")[::2] for arg in args.compare_bwd]  # (label, source)
+    if not all(label and src for label, src in other_srcs):
+        ap.error(f"--compare-bwd takes LABEL=SRC, got {args.compare_bwd}")
 
     # -- 1. device
     if not torch.cuda.is_available():
@@ -533,7 +601,10 @@ def main() -> None:
                   f"spill loads {ld} bytes")
     if _build.BUILD_INFO["flash_attention_bwd"]["log"]:  # empty when already built
         assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
-            "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32"}, regs
+            "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
+            "flash_bwd_dkv_kernel_mma"}, regs
+        # f32: dq at 4 head-dim paddings, dk/dv at 2; 16-bit: 2 types x 4 x 2 kernels
+        assert len(regs["flash_attention_bwd"]) == 22, regs
     if _build.BUILD_INFO["group_norm_bwd"]["log"]:
         assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
     for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd"):
@@ -543,13 +614,19 @@ def main() -> None:
             break
         for kname, (hmma, ffma) in sorted(sass.items()):
             print(f"sass: {lib} {kname}: {hmma} HMMA, {ffma} FFMA")
-            if "flash_fwd_kernel_mma" in kname:
+            if "_kernel_mma" in kname:  # forward, dq and dk/dv in bf16/f16
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
             if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
                 assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        want = {"flash_attention_fwd": "flash_fwd_kernel_mma",
-                "flash_attention_bwd": "_kernel_f32", "group_norm_bwd": "gn_bwd_kernel"}[lib]
-        assert sum(want in kname for kname in sass) >= 2, sorted(sass)
+        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma",),
+                 "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
+                                         "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma"),
+                 "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
+        for want in wants:
+            assert sum(want in kname for kname in sass) >= 2, (want, sorted(sass))
+    ours = A._lib("flash_attention_bwd")
+    # label -> library of another version of the attention backward
+    others = {label: load_other_bwd(label, src) for label, src in other_srcs}
 
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
     cfg = ddpm_cifar10_config()
@@ -1044,37 +1121,54 @@ def main() -> None:
             print(f"time group_norm bwd {(n, c, silu)} x{calls}/step B={B} {dname}: kernel "
                   f"{ms[1]:.4f} ms, plain {ms[0]:.4f} ms, library "
                   f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by}) {tag}")
-        for (n, h, d), calls in sorted(attn_dense.items()):
-            q, k, v, do = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
-                           for _ in range(4))
-            scale = d ** -0.5
-            o, lse = A.reference_attention_lse(q, k, v, scale)
-            _, dsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale)
-            ql, kl, vl = (z.detach().clone().requires_grad_() for z in (q, k, v))
-            ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
-            ms = in_turns([
-                lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
-                lambda: A.flash_attention_backward_dq(q, k, v, o, do, lse, scale),
-                lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
-                lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
-                lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)],
-                iters=20)
-            fq, fkv = attn_dq_work(n, h, d, dname)[1], attn_dkv_work(n, h, d, dname)[1]
-            bq, byq = bound(*attn_dq_work(n, h, d, dname), dname)
-            bkv, bykv = bound(*attn_dkv_work(n, h, d, dname), dname)
-            for key, val in (("dq_plain", ms[0]), ("dq_kernel", ms[1]), ("dkv_plain", ms[2]),
-                             ("dkv_kernel", ms[3]), ("attn_library", ms[4]),
-                             ("dq_flops", fq), ("dkv_flops", fkv)):
-                tot[key] += val * calls
-            add_bound(tot, "dq_", bq * calls, byq)
-            add_bound(tot, "dkv_", bkv * calls, bykv)
-            print(f"time attention bwd {(n, h, d)} x{calls}/step B={B} {dname}: dq kernel "
-                  f"{ms[1]:.4f} ms, {fq / ms[1] / 1e9:.1f} TFLOP/s (plain {ms[0]:.4f}, bound "
-                  f"{bq:.4f} {byq}), dk/dv kernel {ms[3]:.4f} ms, {fkv / ms[3] / 1e9:.1f} "
-                  f"TFLOP/s (plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library "
-                  f"(SDPA backward, dq+dk+dv) {ms[4]:.4f} ms {tag}")
-        tot["dq_tflops"] = tot["dq_flops"] / tot["dq_kernel"] / 1e9
-        tot["dkv_tflops"] = tot["dkv_flops"] / tot["dkv_kernel"] / 1e9
+        # the dense UNet's shapes, and in bf16 the prune CLI's UNet's (D = 179;
+        # keys "ft_..."), which the bf16 finetune path trains
+        for pre, cases in [("", attn_dense)] + ([("ft_", attn_ft)] if dname == "bfloat16" else []):
+            for (n, h, d), calls in sorted(cases.items()):
+                q, k, v, do = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
+                               for _ in range(4))
+                scale = d ** -0.5
+                o, lse = A.reference_attention_lse(q, k, v, scale)
+                _, dsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale)
+                ql, kl, vl = (z.detach().clone().requires_grad_() for z in (q, k, v))
+                ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+                fns = [
+                    lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
+                    with_bwd_lib(ours, lambda: A.flash_attention_backward_dq(
+                        q, k, v, o, do, lse, scale)),
+                    lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
+                    with_bwd_lib(ours, lambda: A.flash_attention_backward_dkv(
+                        q, k, v, do, lse, dsum, scale)),
+                    lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+                for lib in others.values():  # the other versions, timed in the same turns
+                    fns += [with_bwd_lib(lib, lambda: A.flash_attention_backward_dq(
+                                q, k, v, o, do, lse, scale)),
+                            with_bwd_lib(lib, lambda: A.flash_attention_backward_dkv(
+                                q, k, v, do, lse, dsum, scale))]
+                ms = in_turns(fns, iters=20)
+                fq, fkv = attn_dq_work(n, h, d, dname)[1], attn_dkv_work(n, h, d, dname)[1]
+                bq, byq = bound(*attn_dq_work(n, h, d, dname), dname)
+                bkv, bykv = bound(*attn_dkv_work(n, h, d, dname), dname)
+                other_ms = {label: ms[5 + 2 * i: 7 + 2 * i] for i, label in enumerate(others)}
+                for key, val in (("dq_plain", ms[0]), ("dq_kernel", ms[1]),
+                                 ("dkv_plain", ms[2]), ("dkv_kernel", ms[3]),
+                                 ("attn_library", ms[4]), ("dq_flops", fq), ("dkv_flops", fkv),
+                                 *((f"{part}_{label}", t) for label, pair in other_ms.items()
+                                   for part, t in zip(("dq", "dkv"), pair))):
+                    tot[pre + key] += val * calls
+                add_bound(tot, pre + "dq_", bq * calls, byq)
+                add_bound(tot, pre + "dkv_", bkv * calls, bykv)
+                versus = "".join(f"; {label} dq {a:.4f} ms, dk/dv {b:.4f} ms"
+                                 for label, (a, b) in other_ms.items())
+                print(f"time attention bwd {'prune CLI UNet ' if pre else ''}{(n, h, d)} "
+                      f"x{calls}/step B={B} {dname}: dq kernel {ms[1]:.4f} ms, "
+                      f"{fq / ms[1] / 1e9:.1f} TFLOP/s (plain {ms[0]:.4f}, bound {bq:.4f} "
+                      f"{byq}), dk/dv kernel {ms[3]:.4f} ms, {fkv / ms[3] / 1e9:.1f} TFLOP/s "
+                      f"(plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library (SDPA backward, "
+                      f"dq+dk+dv) {ms[4]:.4f} ms{versus} {tag}")
+        for pre in ("", "ft_") if dname == "bfloat16" else ("",):
+            tot[pre + "dq_tflops"] = tot[pre + "dq_flops"] / tot[pre + "dq_kernel"] / 1e9
+            tot[pre + "dkv_tflops"] = tot[pre + "dkv_flops"] / tot[pre + "dkv_kernel"] / 1e9
         total = 0.0
         for (n, c, silu), calls in sorted(gn_dense.items()):
             x = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
@@ -1122,13 +1216,13 @@ def main() -> None:
     tnoise = [torch.randn((B, 32, 32, 3), generator=tgen, device=dev) for _ in range(TRAIN_STEPS)]
     tts = [antithetic_timesteps(tgen, B, 1000) for _ in range(TRAIN_STEPS)]
 
-    def train_steps(on):
+    def train_steps(on, prec="no"):
         ops.set_kernels_enabled(on)
         try:
             net = UNet2D(cfg, device=dev)
             net.load_state_dict(dense.state_dict())
-            st = init_train_state(net, TrainConfig())
-            step = make_train_step(net, sched, TrainConfig())
+            st = init_train_state(net, TrainConfig(mixed_precision=prec))
+            step = make_train_step(net, sched, TrainConfig(mixed_precision=prec))
             ops.reset_launch_counts()
             losses, mu1 = [], None
             for i in range(TRAIN_STEPS):
@@ -1158,7 +1252,32 @@ def main() -> None:
           f"{float(np.max(np.abs(tl_on / tl_off - 1))):.3e} (tol {TRAIN_LOSS_RTOL}); first "
           f"step's grads (Adam's mu) worst err / param max {worst_mu:.3e} at {worst_mu_name} "
           f"(tol {SWEEP_GRAD_TOL}); launches on {tcounts_on}")
-    del mu_on, mu_off
+    # bf16: every GroupNorm and attention backward in bf16, the 16-bit dq and
+    # dk/dv kernels inside the model
+    bwd_dtypes, unwrap = record_bwd_dtypes()
+    try:
+        tl16_on, mu16_on, tc16_on = train_steps(True, "bf16")
+    finally:
+        unwrap()
+    tl16_off, mu16_off, tc16_off = train_steps(False, "bf16")
+    assert tc16_on == {k: TRAIN_STEPS * v for k, v in per_step.items()}, tc16_on
+    assert not any(tc16_off.values()), tc16_off
+    assert dict(bwd_dtypes) == {
+        ("group_norm_bwd", "torch.bfloat16"): TRAIN_STEPS * per_step["group_norm_bwd"],
+        ("attention_bwd", "torch.bfloat16"): TRAIN_STEPS * per_step["attention_bwd_dq"]}, \
+        bwd_dtypes
+    loss16 = float(np.max(np.abs(tl16_on / tl16_off - 1)))
+    diff16 = math.sqrt(sum(float(((mu16_on[n] - m) ** 2).sum()) for n, m in mu16_off.items()))
+    norm16 = math.sqrt(sum(float((m ** 2).sum()) for m in mu16_off.values()))
+    print(f"train step cifar10 35.75M B={B} bf16 {TRAIN_STEPS} steps, kernels on vs off: "
+          f"losses on {tl16_on}, off {tl16_off}, max rel diff {loss16:.3e} (tol "
+          f"{TRAIN_BF16_LOSS_RTOL}); first step's grads (Adam's mu) |on - off| / |off| "
+          f"{diff16 / norm16:.3e} (tol {TRAIN_BF16_GRAD_RTOL}); backward calls by dtype "
+          f"{dict(bwd_dtypes)}")
+    assert np.isfinite(tl16_on).all() and loss16 <= TRAIN_BF16_LOSS_RTOL, (tl16_on, tl16_off)
+    assert all(bool(torch.isfinite(m).all()) for m in mu16_on.values())
+    assert diff16 <= TRAIN_BF16_GRAD_RTOL * norm16, (diff16, norm16)
+    del mu_on, mu_off, mu16_on, mu16_off
     torch.backends.cudnn.deterministic = False
 
     # timings as the train CLI runs the step: draws from (seed, step), dropout 0.1
@@ -1235,6 +1354,20 @@ def main() -> None:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms, **extra}
 
+    def bf16_bwd_of(part):
+        """The 16-bit dq or dk/dv kernel's bf16 figures per sweep step: at the
+        dense UNet's shapes and (``_prune_cli_unet``) the prune CLI's UNet's."""
+        out = {}
+        for pre, suffix in (("", ""), ("ft_", "_prune_cli_unet")):
+            out.update({f"ms_bf16{suffix}": bf16_bwd[f"{pre}{part}_kernel"],
+                        f"plain_ms_bf16{suffix}": bf16_bwd[f"{pre}{part}_plain"],
+                        f"bound_ms_bf16{suffix}": bf16_bwd[f"{pre}{part}_bound"],
+                        f"library_ms_dq_dk_dv_bf16{suffix}": bf16_bwd[f"{pre}attn_library"],
+                        f"tflops_bf16{suffix}": bf16_bwd[f"{pre}{part}_tflops"]})
+            for label in others:
+                out[f"{label}_ms_bf16{suffix}"] = bf16_bwd[f"{pre}{part}_{label}"]
+        return out
+
     def paths(key):
         return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key])
 
@@ -1288,17 +1421,15 @@ def main() -> None:
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
               f32_bwd["dq_bound"], bound_by(f32_bwd, "dq_"), None, ms_is=per_bwd,
               library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dq_tflops"],
-              ms_bf16=per_step_bwd["bfloat16"]["dq_kernel"],
-              bound_ms_bf16=per_step_bwd["bfloat16"]["dq_bound"],
-              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dq_ms"], **paths("attention_bwd_dq")),
+              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dq_ms"], **bf16_bwd_of("dq"),
+              **paths("attention_bwd_dq")),
         entry("flash_attention_bwd_dkv", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dkv"],
               "attention_bwd_dkv", f32_bwd["dkv_kernel"], f32_bwd["dkv_plain"],
               f32_bwd["dkv_bound"], bound_by(f32_bwd, "dkv_"), None, ms_is=per_bwd,
               library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dkv_tflops"],
-              ms_bf16=per_step_bwd["bfloat16"]["dkv_kernel"],
-              bound_ms_bf16=per_step_bwd["bfloat16"]["dkv_bound"],
-              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dkv_ms"], **paths("attention_bwd_dkv")),
+              ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dkv_ms"], **bf16_bwd_of("dkv"),
+              **paths("attention_bwd_dkv")),
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
                       "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling,

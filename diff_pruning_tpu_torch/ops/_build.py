@@ -4,7 +4,8 @@ CUDA C++ (``csrc/*.cu``, plain C interface) is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``BUILD_DIR`` and loaded with
 ``ctypes``: a few seconds per file, where a build through
 ``torch.utils.cpp_extension`` (PyTorch's headers) takes minutes. Libraries
-are named by a hash of source and flags, so an edited source rebuilds.
+are named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds.
 
 Each library has its own lock, so :func:`build_libraries` runs one ``nvcc``
 per source, all at once. Every kernel of the port is one of these
@@ -14,6 +15,7 @@ libraries; ``BUILD_DIR`` is listed in ``.gitignore``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -53,8 +55,12 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _LIBS:
             return _LIBS[name]
         src = os.path.join(_CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in [src, *sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))]:
+            with open(path, "rb") as f:
+                h.update(f.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        digest = h.hexdigest()[:16]
         os.makedirs(BUILD_DIR, exist_ok=True)
         out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         info = {"seconds": 0.0, "log": ""}

@@ -20,24 +20,26 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   also forms ``D = rowsum(dO * O)`` for its rows and writes it; then
   ``dk, dv`` one block per (batch*head, kv tile) looping over q tiles, which
   reads that D. With ``p = exp(s - lse)`` and ``ds = p * (dO v^T - D) *
-  scale``: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``. f32 inputs run
-  exact f32 on the CUDA cores from register micro-tiles, with the streamed
-  tiles (K/V for dq, Q/dO for dk/dv) copied through cp.async; bf16/f16
-  inputs run the first design (8 lanes a row, f32 math from shared memory).
+  scale``: ``dq = ds k``, ``dk = ds^T q``, ``dv = p^T dO``. The streamed
+  tiles (K/V for dq, Q/dO for dk/dv) are copied through cp.async. f32
+  inputs run exact f32 on the CUDA cores from register micro-tiles;
+  bf16/f16 inputs run on the tensor cores (``mma.sync`` m16n8k16, f32
+  accumulators), with p and ds exchanged between warps through shared
+  memory in the input type.
 
-The kernels take any head dim up to 256 (the forward and the f32 backward
-zero-pad it in shared memory, the 16-bit backward masks it to the loaded
-width), and read head-split
-views through their strides, so the layer passes ``(B, N, heads*dh)``
-projections without a transpose copy; outputs are (B, H, N, D) views of
-contiguous (B, N, H, D) tensors, so merging the heads back is free. Their
-source notes say what bounds them on the H100.
+The kernels take any head dim up to 256 (zero-padded in shared memory) and
+read head-split views through their strides, so the layer passes ``(B, N,
+heads*dh)`` projections without a transpose copy; outputs are (B, H, N, D)
+views of contiguous (B, N, H, D) tensors, so merging the heads back is
+free. Their source notes say what bounds them on the H100.
 
-The plain forward keeps the layer's math: f32 scores, probabilities cast to
-``v.dtype`` before the PV product. The bf16/f16 forward kernel rounds its
-(unnormalised) probabilities to the input type too, as the tensor cores
-take them; the backward kernels keep them in f32 (the TPU kernels' math).
-In bf16 kernel and plain version differ by about one bf16 ulp.
+The plain versions keep the layer's math: f32 scores, probabilities cast
+to ``v.dtype`` before the PV product; the plain backward keeps p and ds in
+f32 (the TPU kernels' math). The bf16/f16 kernels round what the tensor
+cores take to the input type, once: the forward its (unnormalised)
+probabilities, the backward p and ds; scores, lse, D and every sum stay
+f32. In bf16 kernel and plain version differ by about one bf16 ulp of the
+output's largest value.
 """
 
 from __future__ import annotations

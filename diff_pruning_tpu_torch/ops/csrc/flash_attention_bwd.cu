@@ -11,10 +11,12 @@
 //
 // What bounds it on the H100: at the UNet's shapes (N = 256 tokens, one head
 // of D = 256) the dq kernel does 6*Nq*Nkv*D flops and the dk/dv kernel
-// 8*Nq*Nkv*D against a few D-wide rows of bytes per token, so both are
-// bound by arithmetic: the f32 CUDA-core rate (67 TFLOP/s). What keeps a
-// kernel from it is feeding the FMA units: shared-memory loads per FMA, and
-// copies that do not overlap the math. Both directions are split as the JAX
+// 8*Nq*Nkv*D against 6*N*D elements moved a head. In f32 that is bound by
+// arithmetic: the f32 CUDA-core rate (67 TFLOP/s). In bf16/f16 the tensor
+// cores (989 TFLOP/s) turn it around: 6*N*D*2 bytes at 3.35 TB/s take
+// longer than the products, so the bound is bytes. What keeps a kernel from
+// its bound is feeding the arithmetic units from shared memory, and copies
+// that do not overlap the math. Both directions are split as the JAX
 // package splits them, with no atomics anywhere, so every gradient is
 // bit-reproducible from run to run.
 //
@@ -54,28 +56,52 @@
 // * 4 + 2 * 64 * 4 = 208,896: one block (8 warps) per SM; the launcher
 // raises the limit.
 //
-// bf16/f16 (`flash_bwd_dq_kernel<T>`, `flash_bwd_dkv_kernel<T>`), the first
-// design, kept for the 16-bit inputs until their tensor-core version, all
-// math in f32 on the CUDA cores from f32 copies in shared memory:
-// - dq: one block of 256 threads per (batch*head, 32-row q tile), looping
-//   over 32-row kv tiles. Each q row belongs to 8 neighbouring lanes of one
-//   warp; a lane scores its row against kv columns e + 8j and owns dq
-//   columns e + 8i (32 f32 accumulators, any D <= 256 masked to the loaded
-//   width). Its prologue forms D = rowsum(dO * O) for its rows (a shuffle
-//   over the 8 lanes) and writes it to `dsum` for the dk/dv kernel.
-// - dk/dv: one block of 256 threads per (batch*head, 32-row kv tile),
-//   looping over 32-row q tiles. Each kv row belongs to 8 lanes; a lane
-//   scores its kv row against q rows e + 8m and owns dk and dv columns
-//   e + 8t: 2 x 32 f32 accumulators, where 4 lanes per row (64 columns
-//   each, as the forward) would need 128 and spill at D = 256.
-// - Q, dO, K, V tiles live in shared memory as f32 with an odd row stride
-//   (no bank conflicts); p and ds tiles (32 x 33) pass a row's values
-//   between its own 8 lanes (__syncwarp).
-// - q rows at or beyond Nq and kv rows at or beyond Nkv are loaded as zeros
-//   and their p is set to 0, so they contribute exactly zero to every
-//   gradient (the TPU kernels' padding rule); they are not written.
-// Shared memory at D = 256: 4 * 32 * 257 * 4 + (p, ds) tiles + 2 * 32 * 4
-// = 140,288 bytes (dk/dv), 135,808 (dq); the launcher raises the limit.
+// bf16/f16 (`flash_bwd_dkv_kernel_mma<T, NC>`, `flash_bwd_dq_kernel_mma<T,
+// NC>`): the tensor cores, `mma.sync.aligned.m16n8k16` with f32 accumulators,
+// operands from shared memory through `ldmatrix` (tensor_core.cuh, shared
+// with the forward). One m16n8k16 takes 512 bytes of operands, which one
+// `ldmatrix.x4` delivers in 4 cycles at 128 bytes a cycle, so each phase is
+// laid out to reuse a loaded fragment across as many products as the
+// registers allow. 256 threads (8 warps) per block, 64-row tiles both ways.
+// What keeps them above their byte bound: the shared memory of one block
+// fills an SM, so its 8 warps alone hide the latency of each ldmatrix ->
+// mma chain; and both kernels form S and dP (7 products of N x N x D where
+// a backward that sums dq with atomics forms 5), the price of the split.
+// - dk/dv, one block per (batch*head, 64-row kv tile): K and V resident; Q
+//   and dO, with their lse and D rows, stream in 64-row tiles through a
+//   two-slot cp.async ring (tile t+1 is issued as the math on tile t
+//   starts). S^T = K Q_t^T and dP^T = V dO_t^T are formed transposed so that
+//   a warp's rows are kv rows: warp w takes kv rows 16 (w % 4) .. +15 and q
+//   columns 32 (w / 4) .. +31 (16 x 32 tiles). dV += P^T dO_t and dK +=
+//   dS^T Q_t need all 64 q columns of a kv row, which two warps hold: P^T
+//   and dS^T go through shared memory (two 64 x 72 tiles in the input
+//   type), and there warp w owns kv rows 32 (w % 2) .. +31 and head-dim
+//   columns (D_pad / 4) (w / 2) .. of dK and of dV: 2 x 64 f32 accumulators
+//   a thread at D = 256, where whole rows would take 256 and spill; 32-row
+//   warp tiles load 6 ldmatrix per 16 mma where 16-row ones load 9. dO_t
+//   and Q_t enter those products through `ldmatrix .trans`.
+// - dq, one block per (batch*head, 64-row q tile): Q and dO resident, K and
+//   V streamed through the same ring. The prologue copies O's rows into V's
+//   second slot, forms D = rowsum(dO * O) there (4 lanes a row, 16-byte
+//   shared loads) and writes `dsum`. S = Q K_t^T and dP = dO V_t^T in 16 x
+//   32 warp tiles; dS goes through one 64 x 72 tile; dq += dS K_t (K_t
+//   .trans) in 32 x (D_pad / 4) warp tiles, 64 f32 accumulators a thread.
+// - Rounding: p and ds are rounded to the input type in registers, once,
+//   where they become mma operands (the forward rounds P there too); lse, D,
+//   the scores and every accumulator stay f32. The outputs are rounded once.
+// - The head dim is zero-filled in shared memory up to D_pad = 64 *
+//   ceil(D / 64) (179 -> 192), never in device memory; rows of 2 * (D_pad +
+//   8) bytes put the 8 rows of an ldmatrix on distinct banks. Every copy is
+//   a 16-byte cp.async: where base and strides are 16-byte aligned straight
+//   into place, else (D = 179 views have 2-byte aligned rows) as the whole
+//   16-byte chunks that hold a row, shifted into place in shared memory
+//   once they land (`realign_tile16`). Rows at or beyond Nq/Nkv are
+//   zero-filled and their p set to exactly 0; columns at or beyond D are
+//   not written. The gradients leave through shared memory, in 16-byte
+//   stores where aligned.
+// Shared memory at D = 256: dk/dv 6 * 64 * 264 * 2 + 2 * 64 * 72 * 2 + 2 *
+// 128 * 4 = 222,208 bytes, dq 6 * 64 * 264 * 2 + 64 * 72 * 2 + 2 * 64 * 4 =
+// 212,480: one block (8 warps) per SM; the launcher raises the limit.
 //
 // q, k, v, o, dO and the outputs are addressed as [b][h][n][d] through
 // element strides (d contiguous); lse and dsum are contiguous (B*H, Nq) f32.
@@ -87,247 +113,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kTile = 32;                 // q rows and kv rows per tile
-constexpr int kLanes = 8;                 // lanes per row
-constexpr int kThreads = kTile * kLanes;  // 256
+constexpr int kThreads = 256;  // threads per block, all four kernels
 constexpr int kMaxD = 256;
-constexpr int kColsPerLane = kMaxD / kLanes;  // 32
-constexpr int kPerLane = kTile / kLanes;      // 4 scores per lane per tile
-constexpr int kLdp = kTile + 1;               // p / ds tile row stride
-
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long b, h, n;
 };
-
-// rows [r0, r0 + kTile) of a [n][d] slab -> f32 shared tile, zeros past n_valid
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long stride_n,
-                                         int r0, int n_valid, int D, int ld, int tid) {
-  for (int idx = tid; idx < kTile * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int gr = r0 + r;
-    dst[r * ld + c] = gr < n_valid ? to_f32(src[gr * stride_n + c]) : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ dsum, T* __restrict__ dq,
-                    int H, int Nq, int Nkv, int D, int ld,
-                    Strides sq, Strides sk, Strides sv, Strides so, Strides sdo, Strides sdq,
-                    float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;             // kTile x ld
-  float* dos = qs + kTile * ld;  // kTile x ld
-  float* ks = dos + kTile * ld;  // kTile x ld
-  float* vs = ks + kTile * ld;   // kTile x ld
-  float* dss = vs + kTile * ld;  // kTile x kLdp
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;  // this lane's q row in the tile
-  const int e = tid % kLanes;
-  const int qr = q0 + row;
-  const bool valid = qr < Nq;
-
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
-  load_tile(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, ld, tid);
-  load_tile(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, D, ld, tid);
-  __syncthreads();
-
-  // D = rowsum(dO * O) for this row, over the 8 lanes
-  float drow = 0.f;
-  if (valid) {
-    const T* orow = o + b * so.b + h * so.h + qr * so.n;
-    for (int c = e; c < D; c += kLanes) drow = fmaf(dos[row * ld + c], to_f32(orow[c]), drow);
-  }
-  drow += __shfl_xor_sync(0xffffffffu, drow, 1);
-  drow += __shfl_xor_sync(0xffffffffu, drow, 2);
-  drow += __shfl_xor_sync(0xffffffffu, drow, 4);
-  const size_t lrow = size_t(bh) * Nq + qr;
-  if (valid && e == 0) dsum[lrow] = drow;
-  const float lse_row = valid ? lse[lrow] : 0.f;
-
-  float acc[kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kColsPerLane; ++i) acc[i] = 0.f;
-  const float* qrow = qs + row * ld;
-  const float* dorow = dos + row * ld;
-  float* dsrow = dss + row * kLdp;
-
-  for (int kv0 = 0; kv0 < Nkv; kv0 += kTile) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile(ks, kb, sk.n, kv0, Nkv, D, ld, tid);
-    load_tile(vs, vb, sv.n, kv0, Nkv, D, ld, tid);
-    __syncthreads();
-
-    // s and dO v^T of this row against kv columns e + 8j
-    float s[kPerLane], dp[kPerLane];
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) s[j] = dp[j] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float qv = qrow[c];
-      const float dov = dorow[c];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        s[j] = fmaf(qv, ks[(e + kLanes * j) * ld + c], s[j]);
-        dp[j] = fmaf(dov, vs[(e + kLanes * j) * ld + c], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int col = kv0 + e + kLanes * j;
-      const float p = (valid && col < Nkv) ? expf(s[j] * scale - lse_row) : 0.f;
-      dsrow[e + kLanes * j] = p * (dp[j] - drow) * scale;
-    }
-    __syncwarp();  // a row's ds values are written and read by its own 8 lanes
-
-    for (int j = 0; j < kTile; ++j) {
-      const float ds = dsrow[j];
-      const float* krow = ks + j * ld;
-#pragma unroll
-      for (int i = 0; i < kColsPerLane; ++i) {
-        const int c = e + kLanes * i;
-        if (c < D) acc[i] = fmaf(ds, krow[c], acc[i]);
-      }
-    }
-  }
-
-  if (valid) {
-    T* out = dq + b * sdq.b + h * sdq.h + qr * sdq.n;
-#pragma unroll
-    for (int i = 0; i < kColsPerLane; ++i) {
-      const int c = e + kLanes * i;
-      if (c < D) out[c] = from_f32<T>(acc[i]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ dsum,
-                     T* __restrict__ dk, T* __restrict__ dv,
-                     int H, int Nq, int Nkv, int D, int ld,
-                     Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-                     float scale) {
-  extern __shared__ float smem[];
-  float* ks = smem;              // kTile x ld
-  float* vs = ks + kTile * ld;   // kTile x ld
-  float* qs = vs + kTile * ld;   // kTile x ld
-  float* dos = qs + kTile * ld;  // kTile x ld
-  float* ps = dos + kTile * ld;  // kTile x kLdp
-  float* dss = ps + kTile * kLdp;  // kTile x kLdp
-  float* lses = dss + kTile * kLdp;  // kTile
-  float* dsums = lses + kTile;       // kTile
-
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int kv0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x;
-  const int row = tid / kLanes;  // this lane's kv row in the tile
-  const int e = tid % kLanes;
-  const int kr = kv0 + row;
-  const bool valid = kr < Nkv;
-
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
-  load_tile(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, D, ld, tid);
-  load_tile(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, D, ld, tid);
-
-  float acc_k[kColsPerLane], acc_v[kColsPerLane];
-#pragma unroll
-  for (int i = 0; i < kColsPerLane; ++i) acc_k[i] = acc_v[i] = 0.f;
-  const float* krow = ks + row * ld;
-  const float* vrow = vs + row * ld;
-  float* prow = ps + row * kLdp;
-  float* dsrow = dss + row * kLdp;
-
-  for (int q0 = 0; q0 < Nq; q0 += kTile) {
-    __syncthreads();  // K/V are loaded; the previous Q/dO tile is consumed
-    load_tile(qs, qb, sq.n, q0, Nq, D, ld, tid);
-    load_tile(dos, dob, sdo.n, q0, Nq, D, ld, tid);
-    if (tid < kTile) {
-      const int qi = q0 + tid;
-      lses[tid] = qi < Nq ? lse[size_t(bh) * Nq + qi] : 0.f;
-      dsums[tid] = qi < Nq ? dsum[size_t(bh) * Nq + qi] : 0.f;
-    }
-    __syncthreads();
-
-    // s and dO v^T of q rows e + 8m against this kv row
-    float s[kPerLane], dp[kPerLane];
-#pragma unroll
-    for (int m = 0; m < kPerLane; ++m) s[m] = dp[m] = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float kv = krow[c];
-      const float vv = vrow[c];
-#pragma unroll
-      for (int m = 0; m < kPerLane; ++m) {
-        s[m] = fmaf(qs[(e + kLanes * m) * ld + c], kv, s[m]);
-        dp[m] = fmaf(dos[(e + kLanes * m) * ld + c], vv, dp[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < kPerLane; ++m) {
-      const int i = e + kLanes * m;
-      const float p = (valid && q0 + i < Nq) ? expf(s[m] * scale - lses[i]) : 0.f;
-      prow[i] = p;
-      dsrow[i] = p * (dp[m] - dsums[i]) * scale;
-    }
-    __syncwarp();  // a row's p and ds values are written and read by its own 8 lanes
-
-    for (int i = 0; i < kTile; ++i) {
-      const float p = prow[i];
-      const float ds = dsrow[i];
-      const float* qrow = qs + i * ld;
-      const float* dorow = dos + i * ld;
-#pragma unroll
-      for (int t = 0; t < kColsPerLane; ++t) {
-        const int c = e + kLanes * t;
-        if (c < D) {
-          acc_v[t] = fmaf(p, dorow[c], acc_v[t]);
-          acc_k[t] = fmaf(ds, qrow[c], acc_k[t]);
-        }
-      }
-    }
-  }
-
-  if (valid) {
-    T* dkrow = dk + b * sdk.b + h * sdk.h + kr * sdk.n;
-    T* dvrow = dv + b * sdv.b + h * sdv.h + kr * sdv.n;
-#pragma unroll
-    for (int t = 0; t < kColsPerLane; ++t) {
-      const int c = e + kLanes * t;
-      if (c < D) {
-        dkrow[c] = from_f32<T>(acc_k[t]);
-        dvrow[c] = from_f32<T>(acc_v[t]);
-      }
-    }
-  }
-}
 
 // ---------------------------------------------------------------- f32 path
 
@@ -723,47 +519,452 @@ size_t dkv_smem_f32(int nc) {
           2 * kQRows) * sizeof(float);
 }
 
-size_t dq_smem(int ld) { return (size_t(4 * kTile) * ld + size_t(kTile) * kLdp) * sizeof(float); }
-size_t dkv_smem(int ld) {
-  return (size_t(4 * kTile) * ld + size_t(2 * kTile) * kLdp + 2 * kTile) * sizeof(float);
+// ----------------------------------------------------------- bf16/f16 path
+
+constexpr int kTile16 = 64;           // q rows and kv rows per tile (16-bit kernels)
+constexpr int kLdx = kTile16 + 8;     // row stride of the P^T, dS^T and dS exchange tiles
+static_assert(kTile16 == kQRows, "copy_rows copies the rows of one 64-row tile");
+
+// two 16-bit values (one 32-bit word, lo in the low half) as f32
+__device__ __forceinline__ float2 to_f32x2(uint32_t w, __nv_bfloat16*) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ float2 to_f32x2(uint32_t w, __half*) {
+  return __half22float2(*reinterpret_cast<__half2*>(&w));
 }
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const float* lse, float* dsum, void* dq, int B, int H,
-                      int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
-                      Strides sdo, Strides sdq, float scale, cudaStream_t stream) {
-  const int ld = D | 1;  // odd row stride: rows fall on distinct banks
-  const size_t smem = dq_smem(ld);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Nq + kTile - 1) / kTile);
-  flash_bwd_dq_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq),
-      H, Nq, Nkv, D, ld, sq, sk, sv, so, sdo, sdq, scale);
-  return cudaGetLastError();
+// Issues the copy of rows [row0, row0 + 64) of one head into shared memory
+// (row stride LD = DP + 8); rows >= nvalid are zero-filled. vec (base and
+// strides 16-byte aligned): columns [0, DP), zero-filled at and past D.
+// Otherwise a row starts o = (address % 16) / 2 elements into a 16-byte
+// chunk of device memory: the row's chunks are copied whole, o elements
+// early (a chunk never crosses a page, so reading all of it is safe), and
+// realign_tile16 shifts them into place once they have landed.
+template <typename T, int DP>
+__device__ __forceinline__ void copy_tile16(T* dst, const T* src, long long sn, int row0,
+                                            int nvalid, int D, bool vec) {
+  constexpr int LD = DP + 8;
+  constexpr int kPerRow = LD / 8;  // a row's 16-byte chunks in shared memory
+  for (int idx = threadIdx.x; idx < kTile16 * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx - r * kPerRow) * 8;
+    const int row = row0 + r;
+    // (zero-fill: nothing is read, but the address must be 16-byte aligned)
+    const T* from = reinterpret_cast<const T*>(reinterpret_cast<uintptr_t>(src) & ~uintptr_t(15));
+    int bytes = 0;
+    if (row < nvalid) {
+      const T* first = src + row * sn;
+      if (vec) {
+        if (c < D) {
+          bytes = (D - c >= 8 ? 8 : D - c) * 2;
+          from = first + c;
+        }
+      } else {
+        const int o = int((reinterpret_cast<uintptr_t>(first) & 15) >> 1);
+        if (c < o + D) {
+          bytes = 16;
+          from = first - o + c;
+        }
+      }
+    }
+    if (!vec || c < DP) cp_async16(dst + r * LD + c, from, bytes);  // (pad columns: never read)
+  }
 }
 
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* dsum, void* dk, void* dv, int B, int H,
-                       int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
-                       Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
-  const int ld = D | 1;
-  const size_t smem = dkv_smem(ld);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Nkv + kTile - 1) / kTile);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, Nq, Nkv, D, ld, sq, sk, sv, sdo, sdk, sdv, scale);
-  return cudaGetLastError();
+// Shifts the rows that copy_tile16 copied as whole chunks (not vec) left by
+// their o elements and zero-fills columns [D, DP). Warp w takes rows w, w +
+// 8, ...; lane l the 32-bit words l + 32i of a row. A word is read from the
+// row's words at or right of it, all lanes read before any writes, and the
+// words of one pass are left of the next pass's, so the shift works in place.
+template <typename T, int DP>
+__device__ __forceinline__ void realign_tile16(T* tile, const T* src, long long sn, int row0,
+                                               int D) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kTile16; r += kThreads / 32) {
+    const int o = int((reinterpret_cast<uintptr_t>(src + (row0 + r) * sn) & 15) >> 1);
+    uint32_t* row = reinterpret_cast<uint32_t*>(tile + r * LD);
+#pragma unroll
+    for (int w0 = 0; w0 < DP / 2; w0 += 32) {
+      const int i = w0 + lane;  // the word of columns 2i, 2i + 1
+      const int e = 2 * i + o;  // column 2i's element in the copied chunks
+      const uint32_t lo = row[e >> 1];
+      uint32_t word = (e & 1) ? __funnelshift_r(lo, row[(e >> 1) + 1], 16) : lo;
+      if (2 * i + 1 >= D) word = 2 * i >= D ? 0u : (word & 0xffffu);
+      __syncwarp();
+      row[i] = word;
+      __syncwarp();
+    }
+  }
+}
+
+// rows [row0, row0 + 64) of a shared [64][LD] tile to device memory, rows <
+// nvalid and columns < D; vec: base and strides 16-byte aligned, D % 8 == 0
+template <typename T, int LD>
+__device__ __forceinline__ void store_tile16(T* dst, long long sn, const T* tile, int row0,
+                                             int nvalid, int D, bool vec) {
+  if (vec) {
+    const int per_row = D / 8;
+    for (int idx = threadIdx.x; idx < kTile16 * per_row; idx += kThreads) {
+      const int r = idx / per_row;
+      const int c = (idx - r * per_row) * 8;
+      if (row0 + r < nvalid)
+        *reinterpret_cast<uint4*>(dst + (row0 + r) * sn + c) =
+            *reinterpret_cast<const uint4*>(tile + r * LD + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < kTile16 * D; idx += kThreads) {
+      const int r = idx / D;
+      const int c = idx - r * D;
+      if (row0 + r < nvalid) dst[(row0 + r) * sn + c] = tile[r * LD + c];
+    }
+  }
+}
+
+// A warp's 16 x 8NT f32 accumulator tile (rows r0 + lane / 4 and + 8,
+// columns c0 + 8n + 2 (lane % 4) .. +1), rounded to the input type, into a
+// shared [..][LD] tile
+template <typename T, int NT, int LD>
+__device__ __forceinline__ void stage_tile(T* tile, const float (&acc)[NT][4], int r0, int c0) {
+  const int lane = threadIdx.x & 31;
+  T* p = tile + (r0 + (lane >> 2)) * LD + c0 + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(p + n * 8) = pack2(acc[n][0], acc[n][1], static_cast<T*>(nullptr));
+    *reinterpret_cast<uint32_t*>(p + 8 * LD + n * 8) =
+        pack2(acc[n][2], acc[n][3], static_cast<T*>(nullptr));
+  }
+}
+
+// s = A1 B1^T and dp = A2 B2^T for one warp, over DP columns: a1, a2 point
+// at 16 rows, b1, b2 at 32 rows of shared [..][DP + 8] tiles. s[n] holds
+// rows lane / 4 (+8) and columns 8n + 2 (lane % 4) (+1).
+template <typename T, int DP>
+__device__ __forceinline__ void score_pair(float (&s)[4][4], float (&dp)[4][4], const T* a1,
+                                           const T* b1, const T* a2, const T* b2) {
+  constexpr int LD = DP + 8;
+  const int lane = threadIdx.x & 31;
+  // A rows lane % 16, column half lane / 16; B rows lane % 8 + 8 (lane / 16)
+  // of a pair of n-tiles, column half (lane / 8) % 2
+  const int ao = (lane & 15) * LD + (lane >> 4) * 8;
+  const int bo = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t x[4], y[4];
+    ldmatrix_x4(x, a1 + ao + kk * 16);
+    ldmatrix_x4(y, a2 + ao + kk * 16);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b1 + bo + np * 16 * LD + kk * 16);
+      mma16816(s[2 * np], x, b[0], b[1], static_cast<T*>(nullptr));
+      mma16816(s[2 * np + 1], x, b[2], b[3], static_cast<T*>(nullptr));
+      ldmatrix_x4(b, b2 + bo + np * 16 * LD + kk * 16);
+      mma16816(dp[2 * np], y, b[0], b[1], static_cast<T*>(nullptr));
+      mma16816(dp[2 * np + 1], y, b[2], b[3], static_cast<T*>(nullptr));
+    }
+  }
+}
+
+// acc += X B for one warp: x points at its 32 rows of a 64-wide exchange
+// tile (row stride kLdx; the 64 columns are the product's k), b at column
+// c0 of row 0 of a shared [64][LD] tile whose rows are k (read .trans);
+// acc[m][n] holds rows 16m + lane / 4 (+8), columns c0 + 8n + 2 (lane % 4)
+// (+1).
+template <typename T, int LD, int NT>
+__device__ __forceinline__ void grad_tile(float (&acc)[2][NT][4], const T* x, const T* b) {
+  const int lane = threadIdx.x & 31;
+  // A rows lane % 16 (+16), column half lane / 16; B (.trans) k rows lane %
+  // 8 + 8 ((lane / 8) % 2), column half lane / 16
+  const T* xa = x + (lane & 15) * kLdx + (lane >> 4) * 8;
+  const T* bt = b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < kTile16 / 16; ++kk) {
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4(a0, xa + kk * 16);
+    ldmatrix_x4(a1, xa + 16 * kLdx + kk * 16);
+#pragma unroll
+    for (int dc = 0; dc < NT / 2; ++dc) {
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, bt + kk * 16 * LD + dc * 16);
+      mma16816(acc[0][2 * dc], a0, bf[0], bf[1], static_cast<T*>(nullptr));
+      mma16816(acc[0][2 * dc + 1], a0, bf[2], bf[3], static_cast<T*>(nullptr));
+      mma16816(acc[1][2 * dc], a1, bf[0], bf[1], static_cast<T*>(nullptr));
+      mma16816(acc[1][2 * dc + 1], a1, bf[2], bf[3], static_cast<T*>(nullptr));
+    }
+  }
+}
+
+template <typename T, int NC>  // head dim padded to 64 * NC
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ dsum,
+                         T* __restrict__ dk, T* __restrict__ dv, int H, int Nq, int Nkv, int D,
+                         Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                         Strides sdv, float scale, int vec, int vec_out) {
+  constexpr int DP = 64 * NC;
+  constexpr int LD = DP + 8;
+  constexpr int NQ = DP / 4;  // head-dim columns of dK and dV per warp
+  constexpr int NT = NQ / 8;  // their n-tiles
+  constexpr int TILE = kTile16 * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [64][LD] kv rows (resident)
+  T* vs = ks + TILE;                        // [64][LD]
+  T* qs = vs + TILE;                        // 2 slots of [64][LD] q rows (streamed)
+  T* dos = qs + 2 * TILE;                   // 2 slots of [64][LD]
+  T* pts = dos + 2 * TILE;                  // [64 kv][kLdx]: P^T of the q tile
+  T* dsts = pts + kTile16 * kLdx;           // [64 kv][kLdx]: dS^T
+  float* rows = reinterpret_cast<float*>(dsts + kTile16 * kLdx);  // 2 slots of lse[64], D[64]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kv0 = blockIdx.y * kTile16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int mr = (warp & 3) * 16;  // scores: the warp's kv rows in the tile
+  const int nh = warp >> 2;        // ... and its q half
+  const int gr = (warp & 1) * 32;  // dK and dV: the warp's kv rows
+  const int gc = (warp >> 1) * NQ; // ... and head-dim columns
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + size_t(bh) * Nq;
+  const float* db = dsum + size_t(bh) * Nq;
+
+  copy_tile16<T, DP>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, D, vec);
+  copy_tile16<T, DP>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, D, vec);
+  copy_tile16<T, DP>(qs, qb, sq.n, 0, Nq, D, vec);
+  copy_tile16<T, DP>(dos, dob, sdo.n, 0, Nq, D, vec);
+  copy_rows(rows, lb, 0, Nq);
+  copy_rows(rows + kTile16, db, 0, Nq);
+  cp_async_commit();
+
+  float acc_k[2][NT][4], acc_v[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = acc_v[m][n][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+  const bool kv_ok[2] = {kv0 + mr + (lane >> 2) < Nkv, kv0 + mr + (lane >> 2) + 8 < Nkv};
+  const int ntiles = (Nq + kTile16 - 1) / kTile16;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = t * kTile16;
+    const int slot = t & 1;
+    T* qt = qs + slot * TILE;
+    T* dot = dos + slot * TILE;
+    const float* lrow = rows + slot * 2 * kTile16;
+    const float* drow = lrow + kTile16;
+    cp_async_wait<0>();  // tile t has landed
+    __syncthreads();     // ... for every thread; tile t-1's slot and the exchange tiles are free
+    if (!vec) {
+      if (t == 0) {
+        realign_tile16<T, DP>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, D);
+        realign_tile16<T, DP>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, D);
+      }
+      realign_tile16<T, DP>(qt, qb, sq.n, q0, D);
+      realign_tile16<T, DP>(dot, dob, sdo.n, q0, D);
+      __syncthreads();
+    }
+    if (t + 1 < ntiles) {
+      const int next = slot ^ 1;
+      copy_tile16<T, DP>(qs + next * TILE, qb, sq.n, q0 + kTile16, Nq, D, vec);
+      copy_tile16<T, DP>(dos + next * TILE, dob, sdo.n, q0 + kTile16, Nq, D, vec);
+      copy_rows(rows + next * 2 * kTile16, lb, q0 + kTile16, Nq);
+      copy_rows(rows + next * 2 * kTile16 + kTile16, db, q0 + kTile16, Nq);
+    }
+    cp_async_commit();
+
+    // S^T = K Q_t^T and dP^T = V dO_t^T: kv rows mr.., q columns 32 nh..
+    float s[4][4], dp[4][4];
+    score_pair<T, DP>(s, dp, ks + mr * LD, qt + nh * 32 * LD, vs + mr * LD, dot + nh * 32 * LD);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = nh * 32 + n * 8 + (lane & 3) * 2 + (e & 1);  // q row in the tile
+        const float p = q0 + i < Nq && kv_ok[e >> 1]
+                            ? exp2f(s[n][e] * scale2 - lrow[i] * kLog2e) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - drow[i]) * scale;
+      }
+    stage_tile<T, 4, kLdx>(pts, s, mr, nh * 32);
+    stage_tile<T, 4, kLdx>(dsts, dp, mr, nh * 32);
+    __syncthreads();  // P^T and dS^T are visible to every warp
+
+    // dV += P^T dO_t and dK += dS^T Q_t: kv rows gr.., head-dim columns gc..
+    grad_tile<T, LD, NT>(acc_v, pts + gr * kLdx, dot + gc);
+    grad_tile<T, LD, NT>(acc_k, dsts + gr * kLdx, qt + gc);
+  }
+
+  __syncthreads();  // every warp is done with the slots: they take dK and dV
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    stage_tile<T, NT, LD>(qs, acc_k[m], gr + 16 * m, gc);
+    stage_tile<T, NT, LD>(dos, acc_v[m], gr + 16 * m, gc);
+  }
+  __syncthreads();
+  store_tile16<T, LD>(dk + b * sdk.b + h * sdk.h, sdk.n, qs, kv0, Nkv, D, vec_out);
+  store_tile16<T, LD>(dv + b * sdv.b + h * sdv.h, sdv.n, dos, kv0, Nkv, D, vec_out);
+}
+
+template <typename T, int NC>  // head dim padded to 64 * NC
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ dsum, T* __restrict__ dq, int H, int Nq, int Nkv,
+                        int D, Strides sq, Strides sk, Strides sv, Strides so, Strides sdo,
+                        Strides sdq, float scale, int vec, int vec_o, int vec_out) {
+  constexpr int DP = 64 * NC;
+  constexpr int LD = DP + 8;
+  constexpr int NQ = DP / 4;  // head-dim columns of dq per warp
+  constexpr int NT = NQ / 8;
+  constexpr int TILE = kTile16 * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [64][LD] q rows (resident)
+  T* dos = qs + TILE;                       // [64][LD]
+  T* ks = dos + TILE;                       // 2 slots of [64][LD] kv rows (streamed)
+  T* vs = ks + 2 * TILE;                    // 2 slots of [64][LD]
+  T* dss = vs + 2 * TILE;                   // [64 q][kLdx]: dS of the kv tile
+  float* drows = reinterpret_cast<float*>(dss + kTile16 * kLdx);  // [64] D = rowsum(dO * O)
+  float* lrows = drows + kTile16;                                 // [64] lse
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * kTile16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int mr = (warp & 3) * 16;  // scores: the warp's q rows in the tile
+  const int nh = warp >> 2;        // ... and its kv half
+  const int gr = (warp & 1) * 32;  // dq: the warp's q rows
+  const int gc = (warp >> 1) * NQ; // ... and head-dim columns
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const T* ob = o + b * so.b + h * so.h;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  T* os = vs + TILE;  // O's rows wait in V's second slot until D is formed
+  copy_tile16<T, DP>(qs, qb, sq.n, q0, Nq, D, vec);
+  copy_tile16<T, DP>(dos, dob, sdo.n, q0, Nq, D, vec);
+  copy_tile16<T, DP>(ks, kb, sk.n, 0, Nkv, D, vec);
+  copy_tile16<T, DP>(vs, vb, sv.n, 0, Nkv, D, vec);
+  copy_tile16<T, DP>(os, ob, so.n, q0, Nq, D, vec_o);
+  copy_rows(lrows, lse + size_t(bh) * Nq, q0, Nq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!vec) {
+    realign_tile16<T, DP>(qs, qb, sq.n, q0, D);
+    realign_tile16<T, DP>(dos, dob, sdo.n, q0, D);
+    realign_tile16<T, DP>(ks, kb, sk.n, 0, D);
+    realign_tile16<T, DP>(vs, vb, sv.n, 0, D);
+  }
+  if (!vec_o) realign_tile16<T, DP>(os, ob, so.n, q0, D);
+  __syncthreads();
+
+  // D = rowsum(dO * O), both in shared memory (zeros past D): row
+  // threadIdx.x / 4 by 4 lanes, 16-byte loads, combined by shuffles
+  {
+    const int r = threadIdx.x >> 2;
+    const int part = threadIdx.x & 3;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = part * 8; c < DP; c += 32) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(os + r * LD + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dos + r * LD + c);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = to_f32x2(ow[j], static_cast<T*>(nullptr));
+        const float2 d = to_f32x2(dw[j], static_cast<T*>(nullptr));
+        acc = fmaf(d.x, a.x, acc);
+        acc = fmaf(d.y, a.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      drows[r] = acc;
+      if (q0 + r < Nq) dsum[size_t(bh) * Nq + q0 + r] = acc;
+    }
+  }
+  __syncthreads();  // drows is visible to every warp
+
+  const float scale2 = scale * kLog2e;
+  float l2[2], dd[2];
+  bool q_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = mr + (lane >> 2) + 8 * r;  // q row in the tile
+    l2[r] = lrows[i] * kLog2e;
+    dd[r] = drows[i];
+    q_ok[r] = q0 + i < Nq;
+  }
+  float acc[2][NT][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+  const int ntiles = (Nkv + kTile16 - 1) / kTile16;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int kv0 = t * kTile16;
+    const int slot = t & 1;
+    T* kt = ks + slot * TILE;
+    T* vt = vs + slot * TILE;
+    if (t > 0) {  // (tile 0 landed in the prologue)
+      cp_async_wait<0>();  // tile t has landed
+      __syncthreads();     // ... for every thread; tile t-1's slot and dS are free
+      if (!vec) {
+        realign_tile16<T, DP>(kt, kb, sk.n, kv0, D);
+        realign_tile16<T, DP>(vt, vb, sv.n, kv0, D);
+        __syncthreads();
+      }
+    }
+    if (t + 1 < ntiles) {  // (for t = 0: every warp is done with O in slot 1)
+      const int next = slot ^ 1;
+      copy_tile16<T, DP>(ks + next * TILE, kb, sk.n, kv0 + kTile16, Nkv, D, vec);
+      copy_tile16<T, DP>(vs + next * TILE, vb, sv.n, kv0 + kTile16, Nkv, D, vec);
+    }
+    cp_async_commit();
+
+    // S = Q K_t^T and dP = dO V_t^T: q rows mr.., kv columns 32 nh..
+    float s[4][4], dp[4][4];
+    score_pair<T, DP>(s, dp, qs + mr * LD, kt + nh * 32 * LD, dos + mr * LD, vt + nh * 32 * LD);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = kv0 + nh * 32 + n * 8 + (lane & 3) * 2 + (e & 1);  // kv row
+        const int r = e >> 1;
+        const float p = q_ok[r] && j < Nkv ? exp2f(s[n][e] * scale2 - l2[r]) : 0.f;
+        dp[n][e] = p * (dp[n][e] - dd[r]) * scale;
+      }
+    stage_tile<T, 4, kLdx>(dss, dp, mr, nh * 32);
+    __syncthreads();  // dS is visible to every warp
+
+    // dq += dS K_t: q rows gr.., head-dim columns gc..
+    grad_tile<T, LD, NT>(acc, dss + gr * kLdx, kt + gc);
+  }
+
+  __syncthreads();  // every warp is done with Q: its tile takes dq
+#pragma unroll
+  for (int m = 0; m < 2; ++m) stage_tile<T, NT, LD>(qs, acc[m], gr + 16 * m, gc);
+  __syncthreads();
+  store_tile16<T, LD>(dq + b * sdq.b + h * sdq.h, sdq.n, qs, q0, Nq, D, vec_out);
 }
 
 // 16-byte copies need 16-byte aligned bases and row/head/batch strides
@@ -822,6 +1023,97 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+
+// 16-byte copies of 16-bit values need 16-byte aligned bases and strides
+bool aligned16_half(const void* p, Strides s) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * 2) % 16 == 0 &&
+         (s.h * 2) % 16 == 0 && (s.n * 2) % 16 == 0;
+}
+
+template <typename T, int NC>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const float* lse, float* dsum, void* dq, int B,
+                          int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                          Strides so, Strides sdo, Strides sdq, float scale,
+                          cudaStream_t stream) {
+  const size_t smem = size_t(6 * kTile16 * (64 * NC + 8) + kTile16 * kLdx) * sizeof(T) +
+                      2 * kTile16 * sizeof(float);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_mma<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16_half(q, sq) && aligned16_half(k, sk) && aligned16_half(v, sv) &&
+                  aligned16_half(dout, sdo);
+  const int vec_o = aligned16_half(o, so);
+  const int vec_out = aligned16_half(dq, sdq) && D % 8 == 0;
+  const dim3 grid(B * H, (Nq + kTile16 - 1) / kTile16);
+  flash_bwd_dq_kernel_mma<T, NC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), H,
+      Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, vec, vec_o, vec_out);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* dsum, void* dk, void* dv, int B,
+                           int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                           Strides sdo, Strides sdk, Strides sdv, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = size_t(6 * kTile16 * (64 * NC + 8) + 2 * kTile16 * kLdx) * sizeof(T) +
+                      4 * kTile16 * sizeof(float);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel_mma<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16_half(q, sq) && aligned16_half(k, sk) && aligned16_half(v, sv) &&
+                  aligned16_half(dout, sdo);
+  const int vec_out = aligned16_half(dk, sdk) && aligned16_half(dv, sdv) && D % 8 == 0;
+  const dim3 grid(B * H, (Nkv + kTile16 - 1) / kTile16);
+  flash_bwd_dkv_kernel_mma<T, NC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, Nq,
+      Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, vec, vec_out);
+  return cudaGetLastError();
+}
+
+// the 16-bit launchers by head dim padded to 64 * NC
+template <typename T>
+cudaError_t launch_dq16(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* dsum, void* dq, int B, int H,
+                        int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
+                        Strides sdo, Strides sdq, float scale, cudaStream_t stream) {
+#define DQ16_ARGS q, k, v, o, dout, lse, dsum, dq, B, H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, stream
+  switch ((D + 63) / 64) {
+    case 1: return launch_dq_mma<T, 1>(DQ16_ARGS);
+    case 2: return launch_dq_mma<T, 2>(DQ16_ARGS);
+    case 3: return launch_dq_mma<T, 3>(DQ16_ARGS);
+    default: return launch_dq_mma<T, 4>(DQ16_ARGS);
+  }
+#undef DQ16_ARGS
+}
+
+template <typename T>
+cudaError_t launch_dkv16(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* dsum, void* dk, void* dv, int B, int H,
+                         int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+                         Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
+#define DKV16_ARGS q, k, v, dout, lse, dsum, dk, dv, B, H, Nq, Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, stream
+  switch ((D + 63) / 64) {
+    case 1: return launch_dkv_mma<T, 1>(DKV16_ARGS);
+    case 2: return launch_dkv_mma<T, 2>(DKV16_ARGS);
+    case 3: return launch_dkv_mma<T, 3>(DKV16_ARGS);
+    default: return launch_dkv_mma<T, 4>(DKV16_ARGS);
+  }
+#undef DKV16_ARGS
+}
+
 bool bad_shape(int B, int H, int Nq, int Nkv, int D) {
   return B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > kMaxD;
 }
@@ -856,12 +1148,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
         case 3: return int(launch_dq_f32<3>(DQ_ARGS));
         default: return int(launch_dq_f32<4>(DQ_ARGS));
       }
-    case 1:
-      return int(launch_dq<__nv_bfloat16>(q, k, v, o, dout, l, ds, dq, B, H, Nq, Nkv, D, sq,
-                                          sk, sv, so, sdo, sdq, scale, s));
-    case 2:
-      return int(launch_dq<__half>(q, k, v, o, dout, l, ds, dq, B, H, Nq, Nkv, D, sq, sk, sv,
-                                   so, sdo, sdq, scale, s));
+    case 1: return int(launch_dq16<__nv_bfloat16>(DQ_ARGS));
+    case 2: return int(launch_dq16<__half>(DQ_ARGS));
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -889,12 +1177,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     case 0:
       if (D <= 128) return int(launch_dkv_f32<1>(DKV_ARGS));
       return int(launch_dkv_f32<2>(DKV_ARGS));
-    case 1:
-      return int(launch_dkv<__nv_bfloat16>(q, k, v, dout, l, ds, dk, dv, B, H, Nq, Nkv, D, sq,
-                                           sk, sv, sdo, sdk, sdv, scale, s));
-    case 2:
-      return int(launch_dkv<__half>(q, k, v, dout, l, ds, dk, dv, B, H, Nq, Nkv, D, sq, sk, sv,
-                                    sdo, sdk, sdv, scale, s));
+    case 1: return int(launch_dkv16<__nv_bfloat16>(DKV_ARGS));
+    case 2: return int(launch_dkv16<__half>(DKV_ARGS));
     default:
       return int(cudaErrorInvalidValue);
   }

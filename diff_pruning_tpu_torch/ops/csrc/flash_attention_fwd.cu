@@ -29,7 +29,8 @@
 // bf16/f16 (`flash_fwd_kernel_mma`, tensor cores):
 // - 128 threads (4 warps) per (batch*head, 64-row query tile); each warp owns
 //   16 query rows; `mma.sync.aligned.m16n8k16` with f32 accumulators,
-//   operands from shared memory through `ldmatrix` (V with `.trans`), in the
+//   operands from shared memory through `ldmatrix` (V with `.trans`;
+//   tensor_core.cuh, shared with the backward), in the
 //   FA2 register layout: S, the running max and sum stay in registers, and
 //   P is rounded to the input type in registers, where its accumulator
 //   layout is already the A operand of the PV product;
@@ -69,6 +70,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
 constexpr int kBlockQ = 64;
@@ -87,16 +90,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
-}
-
-// two f32 values as one 32-bit register of the input type, lo in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16*) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half*) {
-  __half2 v = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -328,35 +321,6 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ----------------------------------------------------------- bf16/f16 path
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col), f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1, __nv_bfloat16*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1, __half*) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <typename T, int NC>  // head dim padded to 64 * NC
 __global__ void __launch_bounds__(128, 2)

@@ -263,8 +263,10 @@ def test_group_norm_backward_kernel_matches_plain(cuda):
 @pytest.mark.cuda
 def test_flash_attention_backward_kernels_match_plain(cuda):
     """The forward's lse and the dq and dk/dv kernels against the plain
-    versions, then one autograd step through head-split views, then a
-    repeat of the f32 kernels that must be bit-identical (no atomics)."""
+    versions (f32 on the CUDA cores, bf16 and f16 on the tensor cores), also
+    through head-split D = 179 views of fused projections (rows only 2-byte
+    aligned), then one autograd step through head-split views, then a
+    repeat of the kernels that must be bit-identical (no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     # the UNet's (256, 256) and (16, 256), a pruned D, ragged N, several
     # heads, Nq != Nkv, partial 32- and 64-row tiles at full width (200), and
@@ -272,23 +274,35 @@ def test_flash_attention_backward_kernels_match_plain(cuda):
     cases = [(4, 1, 256, 256, 256), (4, 1, 16, 16, 256), (2, 1, 256, 256, 179),
              (2, 1, 100, 100, 64), (2, 4, 70, 70, 32), (2, 2, 33, 77, 56),
              (2, 1, 200, 200, 256), (2, 1, 64, 300, 128)]
-    for b, h, nq, nkv, d in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+
+    def fused(b, n, heads, dh, dtype):  # head-split views of a (B, N, 3 heads dh) projection
+        t = torch.randn((b, n, 3 * heads * dh), generator=gen, device=cuda).to(dtype)
+        return [z.view(b, n, heads, dh).transpose(1, 2) for z in t.split(heads * dh, dim=-1)]
+
+    runs = [(b, h, nq, nkv, d, dtype, None) for b, h, nq, nkv, d in cases for dtype in TOL]
+    runs += [(2, heads, 64, 64, 179, dtype, heads) for heads in (1, 2) for dtype in TOL]
+    for b, h, nq, nkv, d, dtype, heads in runs:
+        if heads is None:
             q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
                        for n in (nq, nkv, nkv))
             do = torch.randn((b, h, nq, d), generator=gen, device=cuda).to(dtype)
-            scale, what = d ** -0.5, f"attention bwd {(b, h, nq, nkv, d)} {dtype}"
-            _, lse = A.flash_attention_forward_lse(q, k, v, scale)
-            o, plse = A.reference_attention_lse(q, k, v, scale)
-            _check_rel(lse, plse, torch.float32, what + " lse")
-            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, plse, scale)
-            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, plse, scale)
-            _check_rel(dsum, pdsum, torch.float32, what + " dsum")
-            _check_rel(dq, pdq, dtype, what + " dq")
-            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
-            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
-            _check_rel(dk, pdk, dtype, what + " dk")
-            _check_rel(dv, pdv, dtype, what + " dv")
+        else:
+            q, k, v = fused(b, nq, heads, d, dtype)
+            do = fused(b, nq, heads, d, dtype)[0]
+        scale, what = d ** -0.5, f"attention bwd {(b, h, nq, nkv, d)} {dtype}"
+        if heads is not None:
+            what += " fused views"
+        _, lse = A.flash_attention_forward_lse(q, k, v, scale)
+        o, plse = A.reference_attention_lse(q, k, v, scale)
+        _check_rel(lse, plse, torch.float32, what + " lse")
+        dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, plse, scale)
+        pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, plse, scale)
+        _check_rel(dsum, pdsum, torch.float32, what + " dsum")
+        _check_rel(dq, pdq, dtype, what + " dq")
+        dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+        pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
+        _check_rel(dk, pdk, dtype, what + " dk")
+        _check_rel(dv, pdv, dtype, what + " dv")
     t = torch.randn((2, 64, 3 * 4 * 40), generator=gen, device=cuda, requires_grad=True)
     tr = t.detach().clone().requires_grad_()
     w = torch.randn((2, 4, 64, 40), generator=gen, device=cuda)
@@ -303,9 +317,11 @@ def test_flash_attention_backward_kernels_match_plain(cuda):
     assert ops.LAUNCHES["attention_bwd_dkv"] == before["attention_bwd_dkv"] + 1
     (reference_attention(*heads(tr), 40 ** -0.5) * w).sum().backward()
     _check_rel(t.grad, tr.grad, torch.float32, "attention autograd")
-    q, k, v, do = (torch.randn((4, 1, 256, 256), generator=gen, device=cuda) for _ in range(4))
-    o, lse = A.reference_attention_lse(q, k, v, 256 ** -0.5)
-    runs = [A.flash_attention_backward(q, k, v, o, do, lse, 256 ** -0.5) for _ in range(2)]
-    for name, a, b in zip(("dq", "dk", "dv"), *runs):
-        assert torch.equal(a, b), f"attention bwd f32 repeat: {name} differs"
+    for dtype in TOL:
+        q, k, v, do = (torch.randn((4, 1, 256, 256), generator=gen, device=cuda).to(dtype)
+                       for _ in range(4))
+        o, lse = A.reference_attention_lse(q, k, v, 256 ** -0.5)
+        again = [A.flash_attention_backward(q, k, v, o, do, lse, 256 ** -0.5) for _ in range(2)]
+        for name, a, b in zip(("dq", "dk", "dv"), *again):
+            assert torch.equal(a, b), f"attention bwd {dtype} repeat: {name} differs"
     torch.cuda.synchronize()
