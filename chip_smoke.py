@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
 
-Drives the port's three paths through its own kernels, on the full-width
+Drives the port's four paths, through its own kernels on the full-width
 CIFAR-10 UNet (35.75M params) from a seeded random checkpoint, and checks
 them: the serving path (DDIM-100 sampling), the pruning path (the
-Diff-Pruning sweep, scoring, slicing and the prune CLI) and the finetune
+Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
 path (the train CLI on the pruned checkpoint, f32 and bf16, and its
-resume). Every phase raises on failure; none is caught, so any failure
-exits non-zero before the result lines.
+resume) and the evaluation path (the fid_score and fidelity CLIs through
+the full-width FID InceptionV3, which runs no kernel of the port). Every
+phase raises on failure; none is caught, so any failure exits non-zero
+before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
@@ -78,7 +80,22 @@ exits non-zero before the result lines.
    kernels on and off (CUDA events, in turns), peak memory, the optimizer +
    EMA ms per step, and torch.profiler breakdowns of one train step of each
    (with the dq and dk/dv kernels' device ms).
-15. The kernels' JSON line, nvidia-smi's line, then the result line.
+15. Evaluation path, f32, TF32 off, the FID Inception's random init at
+   seed 0 (no pt_inception weights are in the repository): pool3 features
+   of 8 images on the card against the port's plain CPU forward (both
+   resize modes, 32x32 and 512x512 inputs); the fid_score CLI saves the
+   statistics of 2048 procedural 32x32 PNGs, scores phases 5 and 6's
+   sample folders and the procedural folder itself against them, then the
+   same with ``--clean`` (and the resize-mode warning when clean statistics
+   are read in torch mode); the fidelity CLI on the dense samples against
+   the procedural folder with a .pth of the random init plus a seeded fc
+   head. Then Inception imgs/s at B = 128 in both modes (CUDA events, in
+   turns), the CLI's wall time, the host's decode and resize of the folder
+   alone (16 threads and one), and a torch.profiler breakdown of one
+   512-image ``features_of_path``. No kernel of the port runs here: the
+   JAX evaluation path reaches no ``pl.pallas_call``.
+16. The evaluation JSON line, the kernels' JSON line, nvidia-smi's line,
+   then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -127,6 +144,14 @@ TRAIN_STEPS, TRAIN_LOSS_RTOL = 3, 1e-4
 # train-step tolerances against the JAX step (tests/test_torch_training.py),
 # since bf16 rounds activations and grads at other places on the two sides
 TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 5e-2
+# the evaluation path: the card's pool3 features against the port's plain CPU
+# forward, relative error in norm (both f32 with TF32 off; summation order
+# only); |FID| of a folder against its own statistics, relative to the trace
+# of its covariance: 0 in exact arithmetic, but each of the up to 2048
+# eigenvalues that are 0 in exact arithmetic (the features' spread is
+# low-rank) adds up to ~sqrt(float64 eps) x the largest through the square
+# roots, ~3e-5 of the trace in all; the procedural folder's size
+EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -425,7 +450,14 @@ def profile_classes(fn):
     return profile_kernels(fn)[:4]
 
 
-def profile_kernels(fn):
+def eval_kernel_class(name: str) -> str:
+    """The evaluation path's classes: cuDNN convolutions, pools, the rest."""
+    if kernel_class(name) == "convolutions":
+        return "convolutions"
+    return "pools" if "pool" in name.lower() else "the rest"
+
+
+def profile_kernels(fn, classify=kernel_class):
     """:func:`profile_classes`'s four results, then device ms by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -444,8 +476,8 @@ def profile_kernels(fn):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
-        busy[kernel_class(evt.key)] += us / 1e3
-        counts[kernel_class(evt.key)] += evt.count
+        busy[classify(evt.key)] += us / 1e3
+        counts[classify(evt.key)] += evt.count
         by_name[evt.key] += us / 1e3
     return dict(busy), span, sum(counts.values()), dict(counts), dict(by_name)
 
@@ -529,6 +561,170 @@ def compare_rel(got, want, tol):
     ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
           and err <= tol * float(want.float().abs().max()))
     return err, ok
+
+
+def run_cli(main_fn, argv):
+    """Runs a CLI's ``main`` with its output captured, then prints it:
+    (return value, output, wall seconds up to a device sync)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue(), seconds
+
+
+def evaluation_path(tmp, sample_dirs, gpu, tag):
+    """Phase 15 (see the module docstring); returns its figures."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diff_pruning_tpu_torch.cli import fid_score, fidelity
+    from diff_pruning_tpu_torch.data.datasets import get_dataset
+    from diff_pruning_tpu_torch.data.procedural import make_procedural_dataset
+    from diff_pruning_tpu_torch.eval.fid import features_of_path
+    from diff_pruning_tpu_torch.eval.inception import (fid_inception, inception_pool3,
+                                                       random_init_fid_inception_state_dict)
+    from diff_pruning_tpu_torch.eval.resize import resize_bicubic_pil
+
+    dev = torch.device("cuda", 0)
+    sd = random_init_fid_inception_state_dict(0)
+    plain, card = fid_inception(sd, "cpu"), fid_inception(sd, dev)
+
+    def pool3(model, x, mode):
+        with torch.inference_mode():
+            if mode == "clean":
+                return inception_pool3(model, resize_bicubic_pil(x, 299, 299), resize=False)
+            return inception_pool3(model, x)
+
+    out = {"card": gpu, "inception": "random init, seed 0", "feature_rel_err": {}}
+    for hw in (32, 512):
+        x = torch.from_numpy(make_procedural_dataset(n=8, hw=hw, seed=1)).float() / 255.0
+        for mode in ("torch", "clean"):
+            want = pool3(plain, x, mode)
+            got = pool3(card, x.to(dev), mode).cpu()
+            err = float((got - want).norm() / want.norm())
+            out["feature_rel_err"][f"{mode}/{hw}"] = err
+            print(f"check inception pool3 {mode} {hw}x{hw} -> 299, 8 images, f32: card against "
+                  f"the plain CPU forward, relative error in norm {err:.3e} "
+                  f"(tol {EVAL_FEATURE_RTOL}), |feature| max {float(want.abs().max()):.2f}")
+            assert got.shape == (8, 2048) and bool(torch.isfinite(got).all())
+            assert err <= EVAL_FEATURE_RTOL, (mode, hw, err)
+
+    # the fid_score CLI: stats of a procedural folder, then sample folders against them
+    proc = os.path.join(tmp, "procedural")
+    os.makedirs(proc)
+    for i, im in enumerate(make_procedural_dataset(n=EVAL_IMAGES, hw=32, seed=0)):
+        Image.fromarray(im).save(os.path.join(proc, f"{i:05d}.png"))
+    stats, clean_stats = (os.path.join(tmp, f"procedural_{m}.npz") for m in ("torch", "clean"))
+    seed = ["--random-init-seed", "0", "--device", "cuda"]
+    _, _, t_save = run_cli(fid_score.main, [proc, stats, "--save-stats"] + seed)
+    fids = {}
+    for name, d in sample_dirs.items():
+        fids[name], _, _ = run_cli(fid_score.main, [d, stats] + seed)
+    fids["procedural_self"], _, t_self = run_cli(fid_score.main, [proc, stats] + seed)
+    with np.load(stats) as z:
+        trace = float(np.trace(z["sigma"]))
+        assert z["mu"].shape == (2048,) and z["sigma"].shape == (2048, 2048)
+    print(f"fid_score CLI, random-init Inception seed 0, 2048 procedural 32x32 PNGs: "
+          f"--save-stats {t_save:.2f} s ({EVAL_IMAGES / t_save:.1f} imgs/s), the folder against "
+          f"its stats {t_self:.2f} s ({EVAL_IMAGES / t_self:.1f} imgs/s) (wall, B={B}, f32) {tag}; "
+          f"FID dense {fids['dense']:.4f}, pruned {fids['pruned']:.4f}, self "
+          f"{fids['procedural_self']:.3e} (tol {EVAL_SELF_FID_RTOL} x trace {trace:.4f})")
+    assert all(math.isfinite(v) for v in fids.values()), fids
+    assert abs(fids["procedural_self"]) <= EVAL_SELF_FID_RTOL * trace, fids
+    _, _, t_clean = run_cli(fid_score.main, [proc, clean_stats, "--save-stats", "--clean"] + seed)
+    fids["dense_clean"], _, _ = run_cli(fid_score.main,
+                                        [sample_dirs["dense"], clean_stats, "--clean"] + seed)
+    _, text, _ = run_cli(fid_score.main, [sample_dirs["dense"], clean_stats] + seed)
+    assert "resize_mode=clean but this run uses torch" in text, text
+    print(f"fid_score CLI --clean: --save-stats {t_clean:.2f} s "
+          f"({EVAL_IMAGES / t_clean:.1f} imgs/s) {tag}; FID dense {fids['dense_clean']:.4f}; "
+          "clean stats read in torch mode warn")
+    assert math.isfinite(fids["dense_clean"])
+
+    # the fidelity CLI, with the random init plus a seeded fc head as a .pth
+    rng = np.random.default_rng(7)
+    weights = os.path.join(tmp, "fid_inception_random_fc.pth")
+    torch.save({**sd, "fc.weight": torch.from_numpy(
+        rng.standard_normal((1008, 2048)).astype(np.float32) * 0.02),
+        "fc.bias": torch.from_numpy(rng.standard_normal(1008).astype(np.float32) * 0.1)},
+        weights)
+    metrics, _, t_fidelity = run_cli(fidelity.main, [
+        "--input1", sample_dirs["dense"], "--input2", proc, "--weights", weights,
+        "--device", "cuda"])
+    print(f"fidelity CLI, dense samples against the procedural folder: {t_fidelity:.2f} s "
+          f"(wall) {tag}")
+    assert all(math.isfinite(v) for v in metrics.values()), metrics
+    # the Inception Score is exp of a mean KL >= 0: [1, 1008] up to float rounding
+    assert 1.0 - 1e-9 <= metrics["inception_score_mean"] <= 1008.0, metrics
+    assert 0.0 <= metrics["precision"] <= 1.0 and 0.0 <= metrics["recall"] <= 1.0, metrics
+
+    # timings: the Inception at B = 128 on a batch of the folder's decoded size
+    macs = 0
+
+    def count(mod, inp, res):
+        nonlocal macs
+        macs += res.numel() * mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+
+    hooks = [m.register_forward_hook(count) for m in card.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    pool3(card, torch.zeros((1, 299, 299, 3), device=dev), "torch")
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.rand((B, 256, 256, 3), generator=gen, device=dev)
+    ms_torch, ms_clean = in_turns([lambda: pool3(card, x, "torch"),
+                                   lambda: pool3(card, x, "clean")], iters=5)
+    tflops = 2 * macs * B / (ms_torch / 1e3) / 1e12
+    print(f"time inception B={B} 256x256 -> 299, f32: torch mode {ms_torch:.2f} ms "
+          f"({B * 1e3 / ms_torch:.1f} imgs/s, {tflops:.1f} TFLOP/s of convolutions at "
+          f"{macs / 1e9:.3f} GMACs an image), clean mode {ms_clean:.2f} ms "
+          f"({B * 1e3 / ms_clean:.1f} imgs/s) (CUDA events, in turns, 5 calls each) {tag}")
+    # the host's share: the folder's decode and 256x256 resize alone, as
+    # features_of_path runs it (16 threads), and on one thread
+    ds = get_dataset(proc)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=16) as pool:
+        assert len(list(pool.map(ds.load, range(EVAL_IMAGES)))) == EVAL_IMAGES
+    t_decode = time.perf_counter() - t0
+    n1 = min(256, EVAL_IMAGES)
+    t0 = time.perf_counter()
+    for i in range(n1):
+        ds.load(i)
+    t_decode1 = (time.perf_counter() - t0) * EVAL_IMAGES / n1
+    print(f"host decode + 256x256 resize of the {EVAL_IMAGES} PNGs (PIL): "
+          f"{EVAL_IMAGES / t_decode:.1f} imgs/s on 16 threads, {EVAL_IMAGES / t_decode1:.1f} on "
+          f"one ({n1} images), "
+          f"{os.cpu_count()} CPUs {tag}")
+    busy, span, launches, counts, _ = profile_kernels(
+        lambda: features_of_path(proc, card, batch_size=B, max_images=512), eval_kernel_class)
+    print_profile("features_of_path, 512 procedural PNGs", busy, span, launches, counts,
+                  ("512 images", 1), tag)
+    out.update(
+        fid=fids, fid_trace=trace, inception_gmacs_per_image=macs / 1e9,
+        inception_imgs_per_s={"torch": B * 1e3 / ms_torch, "clean": B * 1e3 / ms_clean},
+        inception_ms_b128={"torch": ms_torch, "clean": ms_clean}, inception_tflops=tflops,
+        fid_cli_seconds={"save_stats": t_save, "self": t_self, "save_stats_clean": t_clean},
+        fid_cli_imgs_per_s={"save_stats": EVAL_IMAGES / t_save, "self": EVAL_IMAGES / t_self,
+                            "save_stats_clean": EVAL_IMAGES / t_clean},
+        fidelity=metrics, fidelity_cli_seconds=t_fidelity,
+        host_decode_imgs_per_s={"16_threads": EVAL_IMAGES / t_decode,
+                                "1_thread": EVAL_IMAGES / t_decode1},
+        profile_512={"busy_ms": busy, "span_ms": span, "launches": launches,
+                     "idle_share": 1 - sum(busy.values()) / span})
+    return out
 
 
 def main() -> None:
@@ -1089,7 +1285,6 @@ def main() -> None:
         ("group_norm_bwd", "torch.bfloat16"): FT_BF16_STEPS * sum(gn_ft.values()),
         ("attention_bwd", "torch.bfloat16"): FT_BF16_STEPS * sum(attn_ft.values())}, bwd_dtypes
     torch.backends.cudnn.deterministic = False
-    tmpdir.cleanup()
 
     # -- 13. timings: backward per op at the dense shapes, then the sweep step
     per_step_bwd, bwd_host_us = {}, {}
@@ -1342,7 +1537,14 @@ def main() -> None:
         del net, st, step
     torch.cuda.synchronize()
 
-    # -- 15. result lines
+    # -- 15. evaluation path: the FID Inception and the fid_score and fidelity CLIs
+    ops.reset_launch_counts()
+    evaluation = evaluation_path(tmp, {name: os.path.join(tmp, name + "_samples")
+                                       for name in ("dense", "pruned")}, gpu, tag)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES  # no kernel of the port on this path
+    tmpdir.cleanup()
+
+    # -- 16. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -1437,6 +1639,7 @@ def main() -> None:
                       "finetune_imgs_per_sec": {f"{n}/{d}": v for (n, d), v in train_ms.items()},
                       "train_step_peak_gb": {f"{n}/{d}": v for (n, d), v in peak_gb.items()},
                       "optimizer_ema_ms": opt_ms, "train_step_profile": train_prof}))
+    print(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

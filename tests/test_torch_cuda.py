@@ -1,7 +1,7 @@
 """The port's kernels, forward and backward, against their plain versions,
 on an NVIDIA GPU.
 
-Marked ``cuda``: without a card each test skips. On a machine with one:
+One test, marked ``cuda``: without a card it skips. On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -53,8 +53,7 @@ def _check(got, want, dtype, what):
     assert bool((err <= bound).all()), f"{what}: max abs err {err.max().item():.3e}"
 
 
-@pytest.mark.cuda
-def test_group_norm_kernel_matches_plain(cuda):
+def _check_group_norm_forward(cuda):
     """y, and the (B, G) statistics the forward writes under autograd."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     # (B, N, C, groups, silu): C/g = 4, 12, 16, 5 and 3, the pruned 2, 7 and
@@ -71,7 +70,7 @@ def test_group_norm_kernel_matches_plain(cuda):
             what = f"gn {(b, n, c, g, silu)} {dtype}"
             before = ops.LAUNCHES["group_norm"]
             got = group_norm(x, scale, bias, groups=g, with_silu=silu)
-            assert ops.LAUNCHES["group_norm"] == before + 1
+            assert ops.LAUNCHES["group_norm"] == before + 1, what + " launch count"
             want = group_norm_reference(x, scale, bias, groups=g, with_silu=silu)
             _check(got, want, dtype, what)
             y, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=g,
@@ -92,8 +91,7 @@ def test_group_norm_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-def test_flash_attention_kernel_matches_plain(cuda):
+def _check_flash_attention_forward(cuda):
     """o, and the lse the forward writes under autograd."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     # (B, H, Nq, Nkv, D): the UNet's (256, 256) and (16, 256), a pruned D, a
@@ -109,7 +107,7 @@ def test_flash_attention_kernel_matches_plain(cuda):
             what = f"attention {(b, h, nq, nkv, d)} {dtype}"
             before = ops.LAUNCHES["attention"]
             got = flash_attention(q, k, v, d ** -0.5)
-            assert ops.LAUNCHES["attention"] == before + 1
+            assert ops.LAUNCHES["attention"] == before + 1, what + " launch count"
             want = reference_attention(q, k, v, d ** -0.5)
             _check(got, want, dtype, what)
             o, lse = A.flash_attention_forward_lse(q, k, v, d ** -0.5)
@@ -141,8 +139,7 @@ def _check_rel(got, want, dtype, what):
         f"{what}: max abs err {err:.3e} against max |want| {scale:.3e}"
 
 
-@pytest.mark.cuda
-def test_group_norm_backward_kernel_matches_plain(cuda):
+def _check_group_norm_backward(cuda):
     """The forward's saved statistics and the backward kernel against the
     plain versions, through strided x and dy, back-to-back launches with
     another batch size (the kernel's tickets), a repeat that must be
@@ -169,7 +166,7 @@ def test_group_norm_backward_kernel_matches_plain(cuda):
         before = ops.LAUNCHES["group_norm_bwd"]
         got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=g,
                                     with_silu=silu)
-        assert ops.LAUNCHES["group_norm_bwd"] == before + 1
+        assert ops.LAUNCHES["group_norm_bwd"] == before + 1, what + " launch count"
         want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
                                                groups=g, with_silu=silu)
         for a, w, name in zip(got, want, ("dx", "dscale", "dbias")):
@@ -252,16 +249,15 @@ def test_group_norm_backward_kernel_matches_plain(cuda):
     xr = x.detach().clone().requires_grad_()
     before = dict(ops.LAUNCHES)
     group_norm(x.permute(0, 2, 3, 1), scale, bias, groups=32, with_silu=True).sum().backward()
-    assert ops.LAUNCHES["group_norm"] == before["group_norm"] + 1
-    assert ops.LAUNCHES["group_norm_bwd"] == before["group_norm_bwd"] + 1
+    for op in ("group_norm", "group_norm_bwd"):
+        assert ops.LAUNCHES[op] == before[op] + 1, f"gn autograd: {op} launch count"
     group_norm_reference(xr.permute(0, 2, 3, 1), scale.detach(), bias.detach(), groups=32,
                          with_silu=True).sum().backward()
     _check_rel(x.grad, xr.grad, torch.float32, "gn autograd dx")
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-def test_flash_attention_backward_kernels_match_plain(cuda):
+def _check_flash_attention_backward(cuda):
     """The forward's lse and the dq and dk/dv kernels against the plain
     versions (f32 on the CUDA cores, bf16 and f16 on the tensor cores), also
     through head-split D = 179 views of fused projections (rows only 2-byte
@@ -312,9 +308,8 @@ def test_flash_attention_backward_kernels_match_plain(cuda):
 
     before = dict(ops.LAUNCHES)
     (flash_attention(*heads(t), 40 ** -0.5) * w).sum().backward()
-    assert ops.LAUNCHES["attention_lse"] == before["attention_lse"] + 1
-    assert ops.LAUNCHES["attention_bwd_dq"] == before["attention_bwd_dq"] + 1
-    assert ops.LAUNCHES["attention_bwd_dkv"] == before["attention_bwd_dkv"] + 1
+    for op in ("attention_lse", "attention_bwd_dq", "attention_bwd_dkv"):
+        assert ops.LAUNCHES[op] == before[op] + 1, f"attention autograd: {op} launch count"
     (reference_attention(*heads(tr), 40 ** -0.5) * w).sum().backward()
     _check_rel(t.grad, tr.grad, torch.float32, "attention autograd")
     for dtype in TOL:
@@ -325,3 +320,14 @@ def test_flash_attention_backward_kernels_match_plain(cuda):
         for name, a, b in zip(("dq", "dk", "dv"), *again):
             assert torch.equal(a, b), f"attention bwd {dtype} repeat: {name} differs"
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(cuda):
+    """The four checks in turn: the GroupNorm forward, the attention forward,
+    the GroupNorm backward and the attention backward kernels against their
+    plain versions. Every failure message names the kernel ("gn", "gn bwd",
+    "attention", "attention bwd") and the case."""
+    for check in (_check_group_norm_forward, _check_flash_attention_forward,
+                  _check_group_norm_backward, _check_flash_attention_backward):
+        check(cuda)
