@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
 
-Drives the port's four paths, through its own kernels on the full-width
-CIFAR-10 UNet (35.75M params) from a seeded random checkpoint, and checks
-them: the serving path (DDIM-100 sampling), the pruning path (the
+Drives the port's five paths, through its own kernels, from seeded random
+checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
+params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
 path (the train CLI on the pruned checkpoint, f32 and bf16, and its
 resume) and the evaluation path (the fid_score and fidelity CLIs through
-the full-width FID InceptionV3, which runs no kernel of the port). Every
-phase raises on failure; none is caught, so any failure exits non-zero
-before the result lines.
+the full-width FID InceptionV3, which runs no kernel of the port); and the
+class-conditional LDM serving path (the ldm_sample CLI on cin256-v2 + vq-f4,
+456.76M params). Every phase raises on failure; none is caught, so any
+failure exits non-zero before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
@@ -94,8 +95,30 @@ before the result lines.
    alone (16 threads and one), and a torch.profiler breakdown of one
    512-image ``features_of_path``. No kernel of the port runs here: the
    JAX evaluation path reaches no ``pl.pallas_call``.
-16. The evaluation JSON line, the kernels' JSON line, nvidia-smi's line,
-   then the result line.
+16. LDM serving path, f32, TF32 off: cin256-v2 UNetCond + vq-f4 first
+   stage + ClassEmbedder(1001) from a seeded init on the card, the
+   zero-initialised convs (every ResBlock's out_conv, every transformer's
+   proj_out, the final conv) drawn like the others, saved with
+   ``save_ldm`` and loaded back with ``load_ldm`` (parameter counts and
+   bit-equal weights). The GroupNorm and attention forward kernels against
+   their plain versions at every shape of one UNet call (2B rows; 61
+   GroupNorm and 32 attention calls: self-attention (1024, 384), (256,
+   576), (64, 960) and the class-token cross-attention, Nkv = 1), of the
+   decode (B rows; its 4096-token D = 512 attention and its GroupNorm
+   slabs up to 2 MB a group) and of the UNet pruned at 0.3 (magnitude,
+   local), with the lse; a 16-bit forward and a backward at D = 384 must
+   raise ValueError and launch nothing. The CFG sampler (scale 3) kernels on against
+   off from one x_T, DDIM-20, PLMS-10 and DPM-10, through the decode,
+   launch counts equal to calls x steps. Then imgs/s of CFG DDIM-20 +
+   decode at B = 16, kernels on and off in turns; one UNet call and one
+   decode, timed and profiled by kernel class; per-op ms at every shape
+   (kernel, plain, SDPA / F.group_norm, bound, TFLOP/s). Last, the main
+   path: the ldm_sample CLI on the saved model (2 classes x 16 images, B =
+   16, so its UNet calls and decodes take the rows checked above; 20
+   steps) with --method ddim, plms and dpm, launch counters reset just
+   before each and read just after.
+17. The evaluation and LDM JSON lines, the kernels' JSON line,
+   nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -152,6 +175,20 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 5e-2
 # low-rank) adds up to ~sqrt(float64 eps) x the largest through the square
 # roots, ~3e-5 of the trace in all; the procedural folder's size
 EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
+# the LDM serving path (phase 16): cin256-v2 + vq-f4 + ClassEmbedder(1001)
+# parameter counts (the JAX package's, tests/test_torch_ldm.py); the batch
+# at which imgs/s and the ops are timed (2 LDM_B UNet rows a CFG call): 16,
+# not the CLI's default 50, at which the phase alone takes about 5 minutes
+# on an H100 (a CFG DDIM-20 batch of 50 and its decode, ~30 s);
+# the batch of the kernels-on-against-off trajectories; DDIM steps, and the
+# PLMS and DPM-Solver steps; the guidance scale. Kernels on against off, the
+# relative error in norm of the final latents and images: each forward
+# differs by f32 summation order (~1e-6 relative), and 20 CFG steps at scale
+# 3 feed each step's difference, amplified (1 + 2 x 3)-fold in the guided
+# eps, into the next
+LDM_PARAMS = {"unet": 400_920_579, "first_stage": 55_322_782, "cond_stage": 512_512}
+LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 10, 3.0
+LDM_REL_TOL = 1e-3
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -725,6 +762,386 @@ def evaluation_path(tmp, sample_dirs, gpu, tag):
         profile_512={"busy_ms": busy, "span_ms": span, "launches": launches,
                      "idle_share": 1 - sum(busy.values()) / span})
     return out
+
+
+def ldm_op_shapes(unet_cfg, fs_cfg):
+    """Counters of (N, C, eps, silu) per GroupNorm call and (Nq, Nkv, heads,
+    D) per attention call: one UNet call and one first-stage decode, on the
+    meta device (shapes only)."""
+    import torch
+
+    from diff_pruning_tpu_torch.models.layers import CrossAttention, GroupNorm, SelfAttention2D
+    from diff_pruning_tpu_torch.models.unet_cond import UNetCond
+    from diff_pruning_tpu_torch.models.vae import make_first_stage
+
+    def shapes(model, fwd):
+        gn, attn = collections.Counter(), collections.Counter()
+
+        def on_gn(mod, args, kwargs, out):
+            x = args[0]
+            gn[(x.shape[2] * x.shape[3], x.shape[1], mod.eps,
+                bool(kwargs.get("with_silu", False)))] += 1
+
+        def on_attn(mod, args, kwargs, out):
+            x = args[0]
+            d = mod.inner.size // mod.heads
+            if isinstance(mod, SelfAttention2D):
+                n = x.shape[2] * x.shape[3]
+                attn[(n, n, mod.heads, d)] += 1
+            else:
+                ctx = args[1] if len(args) > 1 and args[1] is not None else x
+                attn[(x.shape[1], ctx.shape[1], mod.heads, d)] += 1
+
+        hooks = [m.register_forward_hook(on_gn if isinstance(m, GroupNorm) else on_attn,
+                                         with_kwargs=True)
+                 for m in model.modules()
+                 if isinstance(m, (GroupNorm, SelfAttention2D, CrossAttention))]
+        with torch.no_grad():
+            fwd(model)
+        for h in hooks:
+            h.remove()
+        return gn, attn
+
+    meta = torch.device("meta")
+    hw, ch = unet_cfg.image_size, unet_cfg.in_channels
+    unet = shapes(UNetCond(unet_cfg, device=meta), lambda m: m(
+        torch.zeros((1, hw, hw, ch), device=meta), torch.zeros((1,), dtype=torch.int64,
+                                                               device=meta),
+        context=torch.zeros((1, 1, unet_cfg.context_dim), device=meta)))
+    decode = shapes(make_first_stage(fs_cfg, device=meta),
+                    lambda m: m.decode(torch.zeros((1, hw, hw, ch), device=meta)))
+    return unet, decode
+
+
+def sdpa_backend(fn) -> str:
+    """Which backend F.scaled_dot_product_attention took, from the names of
+    the kernels it launched."""
+    names = " ".join(profile_kernels(fn)[4]).lower()
+    for key, name in (("flash", "flash"), ("fmha", "efficient (CUTLASS fmha)"),
+                      ("efficient", "efficient"), ("cudnn", "cuDNN")):
+        if key in names:
+            return name
+    return "math (matmul + softmax)"
+
+
+def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
+    """Phase 16's per-op timings at ``rows`` batch rows: the GroupNorm and
+    attention forwards (kernel, plain, library call, bound), summed over the
+    calls of one ``what``; returns {op: totals}."""
+    import torch
+    import torch.nn.functional as F
+
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+
+    out = {}
+    for op, cases in (("group_norm", gn_cases), ("attention", attn_cases)):
+        tot = collections.defaultdict(float)
+        for shape, calls in sorted(cases.items()):
+            if op == "group_norm":
+                n, c, eps, silu = shape
+                x = torch.randn((rows, n, c), generator=gen, device=dev)
+                s, b = torch.rand(c, generator=gen, device=dev) + 0.5, torch.zeros(c, device=dev)
+                kw = dict(groups=32, eps=eps, with_silu=silu)
+                fns = [lambda: group_norm_reference(x, s, b, **kw), lambda: group_norm(x, s, b, **kw)]
+                if not silu:  # F.group_norm on its own (B, C, N) layout
+                    xl = x.transpose(1, 2).contiguous()
+                    fns.append(lambda: F.group_norm(xl, 32, s, b, eps=eps))
+                el = rows * n * c
+                nbytes, flops = 2 * el * 4 + 2 * c * 4, el * (9 if silu else 5)
+                iters = 5 if el > 2e8 else 20
+            else:
+                nq, nkv, h, d = shape
+                q = torch.randn((rows, h, nq, d), generator=gen, device=dev)
+                k, v = (torch.randn((rows, h, nkv, d), generator=gen, device=dev)
+                        for _ in range(2))
+                fns = [lambda: reference_attention(q, k, v, d ** -0.5),
+                       lambda: flash_attention(q, k, v, d ** -0.5),
+                       lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)]
+                nbytes = 4 * rows * h * (2 * nq + 2 * nkv) * d
+                flops = 4 * rows * h * nq * nkv * d
+                iters = 3 if nq * nkv > 4e6 else 10
+            pm, km, *lib = in_turns(fns, iters=iters)
+            bms, by = bound(nbytes, flops, "float32")
+            tot["kernel"] += km * calls
+            tot["plain"] += pm * calls
+            tot["flops"] += flops * calls
+            add_bound(tot, "", bms * calls, by)
+            extra = ""
+            if lib:
+                tot["library"] += lib[0] * calls
+                tot["kernel_where_library"] += km * calls
+            if op == "attention":
+                backend = sdpa_backend(fns[2])
+                tot.setdefault("backends", set()).add(backend)
+                extra = (f", {flops / km / 1e9:.2f} TFLOP/s (plain {flops / pm / 1e9:.2f}, "
+                         f"SDPA {flops / lib[0] / 1e9:.2f} via {backend})")
+            print(f"time ldm {op} fwd {shape} x{calls}/{what} rows={rows} float32: kernel "
+                  f"{km:.4f} ms, plain {pm:.4f} ms, library "
+                  f"{f'{lib[0]:.4f} ms' if lib else '-'}, bound {bms:.4f} ms ({by}){extra} {tag}")
+            del fns
+        if "backends" in tot:
+            tot["backends"] = sorted(tot["backends"])
+        tot["tflops"] = tot["flops"] / tot["kernel"] / 1e9
+        tot["bound_by"] = bound_by(tot)
+        out[op] = dict(tot)
+        print(f"time ldm {op} fwd per {what} rows={rows} float32: kernel {tot['kernel']:.4f} ms, "
+              f"plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms ({tot['bound_by']}), "
+              f"library {tot.get('library', 0.0):.4f} ms against kernel "
+              f"{tot.get('kernel_where_library', 0.0):.4f} ms on the calls it covers, "
+              f"{tot['tflops']:.2f} TFLOP/s {tag}")
+    return out
+
+
+def ldm_path(tmp, gen, gpu, tag, worst):
+    """Phase 16 (see the module docstring); returns its figures."""
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import ldm_sample
+    from diff_pruning_tpu_torch.models.latent_diffusion import LatentDiffusion, load_ldm
+    from diff_pruning_tpu_torch.models.unet_cond import cin256_v2_config
+    from diff_pruning_tpu_torch.models.vae import first_stage_config, make_first_stage
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from diff_pruning_tpu_torch.pruning.importance import make_importance
+    from diff_pruning_tpu_torch.pruning.pruner import prune
+    from diff_pruning_tpu_torch.pruning.surgery import unflatten_params
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict, save_ldm
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    # the model: a seeded init on the card, the zero-initialised leaves drawn
+    # like every other conv, saved and loaded back through load_ldm
+    ucfg, fcfg = cin256_v2_config(), first_stage_config("vq-f4")
+    built = LatentDiffusion(ucfg, n_classes=1001, device=dev,
+                            first_stage=make_first_stage(fcfg, device=dev))
+    g0 = torch.Generator(device=dev).manual_seed(10)
+    built.init(g0)
+    nudged = 0
+    for name, mod in built.unet.named_modules():
+        if name.endswith(("out_conv", "proj_out")) or name == "out.2":
+            mod.reset_parameters(g0)
+            nudged += 1
+    model_dir = os.path.join(tmp, "ldm")
+    t0 = time.perf_counter()
+    save_ldm(model_dir, built)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ldm = load_ldm(model_dir, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    counts = {part: sum(p.numel() for p in getattr(ldm, part).parameters())
+              for part in ("unet", "first_stage", "cond_stage")}
+    print(f"ldm: cin256-v2 UNetCond {counts['unet']:,} params, vq-f4 first stage "
+          f"{counts['first_stage']:,}, ClassEmbedder {counts['cond_stage']:,}; seeded init with "
+          f"{nudged} zero-initialised convs redrawn; save_ldm {t_save:.1f} s, load_ldm "
+          f"{t_load:.1f} s")
+    assert counts == LDM_PARAMS, counts
+    for name, p in built.state_dict().items():
+        part, _, rest = name.partition(".")
+        assert torch.equal(getattr(ldm, part).state_dict()[rest], p), name
+    del built
+
+    (gn_unet, attn_unet), (gn_dec, attn_dec) = ldm_op_shapes(ucfg, fcfg)
+    per_call = {"group_norm": sum(gn_unet.values()), "attention": sum(attn_unet.values())}
+    per_decode = {"group_norm": sum(gn_dec.values()), "attention": sum(attn_dec.values())}
+    print(f"ldm: {per_call['group_norm']} GroupNorm and {per_call['attention']} attention calls "
+          f"per UNet call ({dict(attn_unet)}); the decode: {per_decode['group_norm']} and "
+          f"{per_decode['attention']} ({dict(attn_dec)})")
+    assert per_call == {"group_norm": 61, "attention": 32}, per_call
+    # the attention widths of the UNetCond pruned at 0.3 (magnitude, local)
+    params = unflatten_params(flat_from_state_dict(ldm.unet.state_dict()))
+    res = prune(ldm.unet.graph, params, make_importance("magnitude"), sparsity=0.3)
+    del params
+    (_, attn_pruned), _ = ldm_op_shapes(ucfg.with_channel_sizes(res.channel_sizes), fcfg)
+    print(f"ldm: pruned at 0.3 (magnitude, local): attention shapes {dict(attn_pruned)}")
+
+    # each kernel against its plain version at every LDM shape, f32
+    rows_unet, rows_dec = 2 * LDM_B, LDM_B
+    attn_checks = ([(s, rows_unet, "unet") for s in sorted(attn_unet)]
+                   + [(s, rows_dec, "decode") for s in sorted(attn_dec)]
+                   + [(s, rows_unet, "pruned unet") for s in sorted(attn_pruned)])
+    for (nq, nkv, h, d), rows, where in attn_checks:
+        q = torch.randn((rows, h, nq, d), generator=gen, device=dev)
+        k, v = (torch.randn((rows, h, nkv, d), generator=gen, device=dev) for _ in range(2))
+        got = flash_attention(q, k, v, d ** -0.5)
+        err, ok = compare(got, reference_attention(q, k, v, d ** -0.5), "float32")
+        o, lse = A.flash_attention_forward_lse(q, k, v, d ** -0.5)
+        lse_err, lse_ok = compare_rel(lse, A.reference_attention_lse(q, k, v, d ** -0.5)[1],
+                                      BWD_TOL["float32"])
+        worst[("attention_ldm", "float32")] = max(worst[("attention_ldm", "float32")], err)
+        worst[("attention_lse_ldm", "float32")] = max(worst[("attention_lse_ldm", "float32")],
+                                                      lse_err)
+        print(f"check ldm attention ({where}) rows={rows} heads={h} Nq={nq} Nkv={nkv} D={d} "
+              f"float32: max_abs_err={err:.3e} tol={TOL['float32']}, lse {lse_err:.3e} (tol "
+              f"{BWD_TOL['float32']} x max|want|) {'ok' if ok and lse_ok else 'FAIL'}")
+        assert ok and lse_ok and torch.equal(o, got), (nq, nkv, d)
+        del q, k, v, got, o, lse
+    for (n, c, eps, silu), rows, where in ([(s, rows_unet, "unet") for s in sorted(gn_unet)]
+                                           + [(s, rows_dec, "decode") for s in sorted(gn_dec)]):
+        x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
+        scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+        kw = dict(groups=32, eps=eps, with_silu=silu)
+        err, ok = compare(group_norm(x, scale, bias, **kw),
+                          group_norm_reference(x, scale, bias, **kw), "float32")
+        worst[("group_norm_ldm", "float32")] = max(worst[("group_norm_ldm", "float32")], err)
+        print(f"check ldm group_norm ({where}) rows={rows} N={n} C={c} C/g={c // 32} "
+              f"slab {n * c // 32 * 4 / 1024:.0f} KB eps={eps} silu={silu} float32: "
+              f"max_abs_err={err:.3e} tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
+        assert ok, (n, c, eps, silu)
+        del x
+    torch.cuda.synchronize()
+
+    # what no kernel takes raises on the card, and launches nothing: a
+    # 16-bit forward and every backward above D = 256
+    q = torch.randn((2, 1, 64, 384), generator=gen, device=dev)
+    lse = torch.zeros((2, 1, 64), device=dev)
+    before = dict(ops.LAUNCHES)
+    for what, fn in (
+            ("bf16 forward", lambda: flash_attention(*[q.bfloat16()] * 3, 0.05)),
+            ("f16 forward", lambda: flash_attention(*[q.half()] * 3, 0.05)),
+            ("f32 backward", lambda: A.flash_attention_backward(q, q, q, q, q, lse, 0.05)),
+            ("f32 forward under autograd",
+             lambda: flash_attention(q.clone().requires_grad_(), q, q, 0.05))):
+        try:
+            fn()
+        except ValueError as err:
+            print(f"check ldm attention D=384 {what}: raises ValueError ({err}) ok")
+        else:
+            raise AssertionError(f"attention {what} at D = 384 did not raise")
+    assert ops.LAUNCHES == before, "a refused attention call launched"
+
+    # the whole CFG sampler, kernels on against off, from one x_T
+    hw = ucfg.image_size
+    x_T = torch.randn((LDM_CMP_B, hw, hw, 3), generator=gen, device=dev)
+    labels = torch.tensor([1, 207, 360, 999][:LDM_CMP_B], device=dev)
+    compare_out = {}
+    for method, steps in (("ddim", LDM_STEPS), ("plms", LDM_MULTI_STEPS),
+                          ("dpm", LDM_MULTI_STEPS)):
+        calls = steps + (method == "plms")
+        sample = ldm.make_cfg_sampler(ddim_steps=steps, guidance_scale=LDM_SCALE,
+                                      latent_hw=hw, latent_ch=3, method=method)
+        runs = {}
+        for on in (True, False):
+            ops.set_kernels_enabled(on)
+            try:
+                ops.reset_launch_counts()
+                lat = sample(None, labels, LDM_CMP_B, x_T=x_T)
+                img = ldm.decode_first_stage(lat)
+                torch.cuda.synchronize()
+                runs[on] = (lat, img, dict(ops.LAUNCHES))
+            finally:
+                ops.set_kernels_enabled(True)
+        (lat_on, img_on, c_on), (lat_off, img_off, c_off) = runs[True], runs[False]
+        want = {"group_norm": calls * 61 + per_decode["group_norm"],
+                "attention": calls * 32 + per_decode["attention"]}
+        rel_lat = float((lat_on - lat_off).norm() / lat_off.norm())
+        rel_img = float((img_on - img_off).norm() / img_off.norm())
+        compare_out[method] = {"steps": steps, "unet_calls": calls, "rel_latent": rel_lat,
+                               "rel_image": rel_img, "launches": c_on}
+        print(f"ldm sampler {method}-{steps} CFG scale {LDM_SCALE} B={LDM_CMP_B} + decode, "
+              f"kernels on vs off from one x_T: latents rel err in norm {rel_lat:.3e}, images "
+              f"{rel_img:.3e} (tol {LDM_REL_TOL}), |latent| max {float(lat_off.abs().max()):.2f}, "
+              f"image mean {float(img_off.mean()):.3f}; launches on {c_on}, off {c_off}")
+        assert bool(torch.isfinite(lat_on).all()) and bool(torch.isfinite(img_on).all())
+        assert rel_lat <= LDM_REL_TOL and rel_img <= LDM_REL_TOL, (method, rel_lat, rel_img)
+        assert {k: c_on[k] for k in want} == want and not any(c_off.values()), (c_on, c_off)
+        assert c_on["attention_lse"] == c_on["group_norm_bwd"] == 0, c_on
+        del runs, lat_on, lat_off, img_on, img_off
+
+    # imgs/s of CFG DDIM-20 + the decode at the CLI's batch, kernels on and off
+    sample = ldm.make_cfg_sampler(ddim_steps=LDM_STEPS, guidance_scale=LDM_SCALE,
+                                  latent_hw=hw, latent_ch=3)
+    warm = ldm.make_cfg_sampler(ddim_steps=2, guidance_scale=LDM_SCALE, latent_hw=hw,
+                                latent_ch=3)
+    tlabels = torch.arange(LDM_B, device=dev) % 1000
+
+    def batch(on, fn=sample):
+        ops.set_kernels_enabled(on)
+        try:
+            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, tlabels, LDM_B)), iters=1,
+                           warmup=0)
+        finally:
+            ops.set_kernels_enabled(True)
+
+    for on in (False, True):
+        batch(on, warm)
+    off1, on1, on2, off2 = batch(False), batch(True), batch(True), batch(False)
+    ips = {"kernels_on": LDM_B * 2e3 / (on1 + on2), "kernels_off": LDM_B * 2e3 / (off1 + off2)}
+    print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={LDM_B} ({2 * LDM_B} UNet rows) float32: "
+          f"kernels on {ips['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), kernels off "
+          f"{ips['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) (CUDA events, in turns "
+          f"off-on-on-off) {tag}")
+    dec_lat = torch.randn((LDM_B, hw, hw, 3), generator=gen, device=dev)
+    with torch.inference_mode():
+        ctx = ldm.get_learned_conditioning(torch.cat([tlabels, torch.full_like(tlabels, 1000)]))
+    x2 = torch.randn((2 * LDM_B, hw, hw, 3), generator=gen, device=dev)
+    tb = torch.full((2 * LDM_B,), 500, device=dev)
+
+    def unet_call():
+        with torch.inference_mode():
+            return ldm.apply_unet(x2, tb, ctx)
+
+    def decode_call():
+        return ldm.decode_first_stage(dec_lat)
+
+    unet_ms, decode_ms = in_turns([unet_call, decode_call], iters=3)
+    print(f"time ldm one CFG UNet call rows={2 * LDM_B} {unet_ms:.1f} ms, one decode B={LDM_B} "
+          f"{decode_ms:.1f} ms (kernels on, CUDA events) {tag}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        unet_call()
+        torch.cuda.synchronize()
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda e: -e.count)
+    print("ldm one UNet call, kernels by launches: " + "; ".join(
+        f"{e.key[:90]} x{e.count} {getattr(e, 'self_device_time_total', 0.0) / 1e3:.2f} ms"
+        for e in top[:8]))
+    profiles = {}
+    for what, fn in (("UNet call", unet_call), ("decode", decode_call)):
+        busy, span, launches, kcounts, _ = profile_kernels(fn)
+        print_profile(f"ldm one {what} kernels on rows={2 * LDM_B if what == 'UNet call' else LDM_B}"
+                      " float32", busy, span, launches, kcounts, (what, 1), tag)
+        profiles[what] = {"busy_ms": busy, "span_ms": span, "launches": launches,
+                          "idle_share": 1 - sum(busy.values()) / span}
+    ops_unet = time_ldm_ops(gn_unet, attn_unet, rows_unet, gen, dev, tag, "UNet call")
+    ops_dec = time_ldm_ops(gn_dec, attn_dec, rows_dec, gen, dev, tag, "decode")
+
+    # the main path: the ldm_sample CLI on the saved model
+    cli = {}
+    for method in ("ddim", "plms", "dpm"):
+        out = os.path.join(tmp, f"ldm_{method}")
+        ops.reset_launch_counts()
+        stats, _, seconds = run_cli(ldm_sample.main, [
+            "--model_path", model_dir, "--output_dir", out, "--num_classes", "2", "--ipc",
+            str(LDM_B), "--batch_size", str(LDM_B), "--ddim_steps", str(LDM_STEPS), "--method",
+            method, "--device", "cuda"])
+        launches = dict(ops.LAUNCHES)
+        pngs = [f for f in os.listdir(out) if f.endswith(".png")]
+        calls = 2 * (LDM_STEPS + (method == "plms"))
+        want = {"group_norm": calls * 61 + 2 * per_decode["group_norm"],
+                "attention": calls * 32 + 2 * per_decode["attention"]}
+        cli[method] = {"seconds": seconds, "pngs": len(pngs), "launches": launches,
+                       "imgs_per_s": stats["imgs_per_s"]}
+        print(f"ldm_sample CLI --method {method} --ddim_steps {LDM_STEPS}, 2 classes x {LDM_B}, "
+              f"B={LDM_B}: "
+              f"{len(pngs)} PNGs, {seconds:.1f} s wall (load included), sampling "
+              f"{stats['imgs_per_s']:.2f} imgs/s {tag}; launches {launches}")
+        assert len(pngs) == 2 * LDM_B and stats["nonfinite"] == 0, stats
+        assert {k: launches[k] for k in want} == want, (launches, want)
+    print(f"ldm phase {time.perf_counter() - t_phase:.1f} s")
+    return {"card": gpu, "params": counts, "b": LDM_B, "imgs_per_s": ips,
+            "batch_ms": {"on": [on1, on2], "off": [off1, off2]},
+            "unet_call_ms": unet_ms, "decode_ms": decode_ms, "profiles": profiles,
+            "compare": compare_out, "cli": cli, "ops_unet_call": ops_unet,
+            "ops_decode": ops_dec, "per_call": per_call, "per_decode": per_decode,
+            "attn_pruned": {str(k): v for k, v in attn_pruned.items()},
+            "save_s": t_save, "load_s": t_load}
 
 
 def main() -> None:
@@ -1542,9 +1959,12 @@ def main() -> None:
     evaluation = evaluation_path(tmp, {name: os.path.join(tmp, name + "_samples")
                                        for name in ("dense", "pruned")}, gpu, tag)
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES  # no kernel of the port on this path
+
+    # -- 16. the class-conditional LDM serving path (cin256-v2 + vq-f4)
+    ldm = ldm_path(tmp, gen, gpu, tag, worst)
     tmpdir.cleanup()
 
-    # -- 16. result lines
+    # -- 17. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -1573,6 +1993,25 @@ def main() -> None:
     def paths(key):
         return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key])
 
+    def ldm_of(op):
+        """The LDM serving path's figures (phase 16): launches of the
+        ldm_sample CLI's DDIM run, f32 max abs error over the LDM shapes,
+        and ms, plain, bound and library summed over one CFG UNet call's
+        calls (2 LDM_B rows) and over one decode's (LDM_B rows)."""
+        out = {"launches_ldm_cli": ldm["cli"]["ddim"]["launches"][op],
+               "max_abs_err_ldm": worst[(f"{op}_ldm", "float32")]}
+        for part, tot in (("unet_call", ldm["ops_unet_call"][op]),
+                          ("decode", ldm["ops_decode"][op])):
+            out.update({f"ms_ldm_{part}": tot["kernel"], f"plain_ms_ldm_{part}": tot["plain"],
+                        f"bound_ms_ldm_{part}": tot["bound"],
+                        f"bound_by_ldm_{part}": tot["bound_by"],
+                        f"library_ms_ldm_{part}": tot.get("library"),
+                        f"ms_where_library_ldm_{part}": tot.get("kernel_where_library"),
+                        f"tflops_ldm_{part}": tot["tflops"]})
+            if "backends" in tot:
+                out[f"library_backend_ldm_{part}"] = tot["backends"]
+        return out
+
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
     gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
@@ -1591,7 +2030,7 @@ def main() -> None:
               library_ms_bf16=bf16_fwd["group_norm"]["library"],
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"],
-              **paths("group_norm")),
+              **paths("group_norm"), **ldm_of("group_norm")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
@@ -1617,7 +2056,8 @@ def main() -> None:
               max_abs_err_lse=worst[("attention_lse", "float32")],
               launches_with_lse=ft_counts["attention_lse"],
               launches_serving_dense=results["dense"]["launches"]["attention"],
-              **paths("attention")),
+              max_abs_err_lse_ldm=worst[("attention_lse_ldm", "float32")],
+              **paths("attention"), **ldm_of("attention")),
         entry("flash_attention_bwd_dq", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
@@ -1640,6 +2080,7 @@ def main() -> None:
                       "train_step_peak_gb": {f"{n}/{d}": v for (n, d), v in peak_gb.items()},
                       "optimizer_ema_ms": opt_ms, "train_step_profile": train_prof}))
     print(json.dumps({"evaluation": evaluation}))
+    print(json.dumps({"ldm": ldm}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

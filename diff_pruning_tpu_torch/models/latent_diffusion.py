@@ -1,0 +1,242 @@
+"""LatentDiffusion, the CompVis LDM wrapper: counterpart of
+``diff_pruning_tpu/models/latent_diffusion.py`` (the class-conditional
+``cin256-v2`` ImageNet model, ldm_exp/ldm/models/diffusion/ddpm.py).
+
+Sqrt-spaced linear betas (linear_start 0.0015, linear_end 0.0195),
+ClassEmbedder conditioning (uncond class = n_classes - 1), and
+classifier-free-guidance sampling (ddim.py:164-203: eps = e_uc + scale
+(e_c - e_uc), cond and uncond rows through one UNet call) by DDIM, PLMS or
+DPM-Solver++(2M), as host loops over the UNet under
+``torch.inference_mode()``.
+
+Not in this serving slice (each raises where a caller can reach it): the
+training loss ``get_loss_at_t`` (the LDM prune/train slice), the concat-mode
+sampler, ``SpatialRescaler`` and the identity cond stage
+(``cli/sample_diffusion.py``), a text cond stage, and ``mesh`` /
+``tensor_parallel`` sharding (multi-GPU).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..schedulers.ddim import ddim_prev_timesteps, ddim_step
+from ..schedulers.ddpm import DiffusionSchedule
+from .unet_cond import UNetCond, UNetCondConfig, cin256_v2_config
+
+
+def ldm_schedule(num_train_timesteps: int = 1000, linear_start: float = 0.0015,
+                 linear_end: float = 0.0195, device="cpu") -> DiffusionSchedule:
+    """CompVis make_beta_schedule('linear'): sqrt-spaced (util.py)."""
+    return DiffusionSchedule.create(num_train_timesteps=num_train_timesteps,
+                                    beta_schedule="scaled_linear", beta_start=linear_start,
+                                    beta_end=linear_end, device=device)
+
+
+def compvis_ddim_timesteps(num_steps: int, num_train_timesteps: int = 1000) -> np.ndarray:
+    """make_ddim_timesteps('uniform'): arange(0, T, T // S) + 1, descending."""
+    c = num_train_timesteps // num_steps
+    seq = np.arange(0, num_train_timesteps, c) + 1
+    return seq[::-1].astype(np.int64).copy()
+
+
+class ClassEmbedder(nn.Module):
+    """ldm/modules/encoders/modules.py ClassEmbedder: an embedding table ->
+    (B, 1, embed_dim) context; class n_classes - 1 is the CFG uncond. Param
+    ``embedding/weight`` (n_classes, embed_dim)."""
+
+    def __init__(self, n_classes: int, embed_dim: int, *, device):
+        super().__init__()
+        self.n_classes, self.embed_dim = n_classes, embed_dim
+        self.embedding = nn.Module()
+        self.embedding.weight = nn.Parameter(torch.empty((n_classes, embed_dim),
+                                                         device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.embedding.weight.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        return self.embedding.weight[labels][:, None, :]
+
+
+class LatentDiffusion(nn.Module):
+    """(UNetCond ``unet``, ClassEmbedder ``cond_stage``, optional first stage
+    ``first_stage``) and the schedule; the pruning target is the unet. The
+    state dict's top-level keys are the JAX param tree's (``unet``,
+    ``cond_stage``, ``first_stage``)."""
+
+    def __init__(self, unet_cfg: UNetCondConfig, *, n_classes: int = 1001, first_stage=None,
+                 scale_factor: float = 1.0, num_train_timesteps: int = 1000,
+                 linear_start: float = 0.0015, linear_end: float = 0.0195,
+                 cond_stage=None, device):
+        super().__init__()
+        if cond_stage is not None:
+            raise NotImplementedError(
+                "a cond stage other than the ClassEmbedder (text, identity) is not ported "
+                "yet: it comes with cli/sample_diffusion.py and the text models")
+        self.unet = UNetCond(unet_cfg, device=device)
+        self.cond_stage = ClassEmbedder(n_classes, unet_cfg.context_dim, device=device)
+        self.first_stage = first_stage  # VQModel / AutoencoderKL or None
+        self.n_classes = n_classes
+        self.uncond_class = n_classes - 1
+        self.scale_factor = scale_factor
+        self.linear_start, self.linear_end = linear_start, linear_end
+        self.schedule = ldm_schedule(num_train_timesteps, linear_start, linear_end,
+                                     device=device)
+
+    def init(self, generator: torch.Generator) -> "LatentDiffusion":
+        """Random initialisation of every part (the UNet's zero-initialised
+        leaves included)."""
+        self.unet.init(generator)
+        self.cond_stage.reset_parameters(generator)
+        if self.first_stage is not None:
+            self.first_stage.init(generator)
+        return self
+
+    def get_learned_conditioning(self, labels: torch.Tensor) -> torch.Tensor:
+        return self.cond_stage(labels)
+
+    def apply_unet(self, x: torch.Tensor, t, context: torch.Tensor) -> torch.Tensor:
+        return self.unet(x, t, context=context)
+
+    def get_loss_at_t(self, *args, **kwargs):
+        raise NotImplementedError("the LDM training loss comes with the LDM prune/train "
+                                  "slice (cli/ldm_prune.py, cli/ldm_train.py)")
+
+    def make_cfg_sampler(self, *, ddim_steps: int = 20, guidance_scale: float = 3.0,
+                         eta: float = 0.0, latent_hw=64, latent_ch: int = 3,
+                         method: str = "ddim", mesh=None, tensor_parallel: bool = False,
+                         uncond_input=None) -> Callable:
+        """Class-conditional CFG sampler over latents: returns
+        ``sample(generator, labels, batch_size, *, x_T=None) -> latents``
+        (B, h, w, latent_ch) f32 NHWC on the model's device.
+
+        Each step batches the uncond and cond rows through one UNet call
+        (x_in = cat([x] * 2), ldm/models/diffusion/ddim.py:188-192). ``x_T``
+        is the initial noise; without it the noise is drawn from
+        ``generator``, as is the per-step noise of eta > 0. ``method``:
+        'ddim', 'plms' (S + 1 UNet calls) or 'dpm' (DPM-Solver++(2M)); the
+        last two need eta == 0."""
+        if method not in ("ddim", "plms", "dpm"):
+            raise ValueError(f"unknown method {method!r}")
+        if method in ("plms", "dpm") and eta != 0.0:
+            raise ValueError(f"{method} requires eta == 0")
+        if mesh is not None or tensor_parallel:
+            raise NotImplementedError("sharded sampling (mesh, tensor_parallel) comes with "
+                                      "the multi-GPU slice")
+        if uncond_input is not None:
+            raise NotImplementedError("uncond_input belongs to a text cond stage, which is "
+                                      "not ported yet")
+        lat_h, lat_w = ((latent_hw, latent_hw) if isinstance(latent_hw, int)
+                        else tuple(latent_hw))
+        ts = compvis_ddim_timesteps(ddim_steps, self.schedule.num_train_timesteps)
+        prev = ddim_prev_timesteps(ts)
+        steps = [(int(t), int(tp)) for t, tp in zip(ts, prev)]
+        device = self.schedule.alphas_cumprod.device
+
+        def sample(generator: Optional[torch.Generator], labels: torch.Tensor,
+                   batch_size: int, *, x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+            with torch.inference_mode():
+                labels = torch.as_tensor(labels, device=device)
+                ctx_c = self.get_learned_conditioning(labels)
+                ctx_u = self.get_learned_conditioning(
+                    torch.full((batch_size,), self.uncond_class, dtype=torch.int64,
+                               device=device))
+                ctx = torch.cat([ctx_u, ctx_c], dim=0)
+                if x_T is None:
+                    x = torch.randn((batch_size, lat_h, lat_w, latent_ch), generator=generator,
+                                    device=device)
+                else:
+                    x = x_T.to(device=device, dtype=torch.float32)
+
+                def eps_fn(x, t):
+                    tb = torch.full((2 * batch_size,), t, dtype=torch.int64, device=device)
+                    e_u, e_c = self.apply_unet(torch.cat([x, x], dim=0), tb, ctx).chunk(2)
+                    return e_u + guidance_scale * (e_c - e_u)
+
+                if method == "plms":
+                    from ..schedulers.plms import plms_sample
+
+                    return plms_sample(eps_fn, self.schedule, x, ts, prev)
+                if method == "dpm":
+                    from ..schedulers.dpm_solver import dpm_solver_sample
+
+                    return dpm_solver_sample(eps_fn, self.schedule, x, ts, prev)
+                for t, tp in steps:
+                    eps = eps_fn(x, t)
+                    noise = (torch.randn(x.shape, generator=generator, device=device)
+                             if eta > 0 else None)
+                    x = ddim_step(self.schedule, x, eps, t, tp, eta=eta, noise=noise)
+                return x
+
+        return sample
+
+    def decode_first_stage(self, latents: torch.Tensor) -> torch.Tensor:
+        """NHWC latents -> NHWC images in [0, 1]."""
+        if self.first_stage is None:
+            raise ValueError("no first stage attached")
+        with torch.inference_mode():
+            img = self.first_stage.decode(latents / self.scale_factor)
+            return ((img + 1.0) / 2.0).clamp(0.0, 1.0)
+
+
+def load_ldm(model_path: Optional[str], config_path: Optional[str] = None, seed: int = 0, *,
+             device) -> LatentDiffusion:
+    """An LDM from a model dir in the JAX package's layout
+    (``utils/checkpoint.py``: ``unet/``, ``cond_stage/``, optional
+    ``first_stage/``, ``ldm.json``), or, without ``model_path``, a random
+    init from ``seed``; the UNet config from ``config_path``, the dir's
+    ``unet/config.json`` or cin256-v2. The counterpart of
+    ``diff_pruning_tpu/cli/ldm_prune.py:load_ldm``; the port's LDM CLIs
+    import it from here. Weights load strictly."""
+    from ..utils.checkpoint import load_params_npz
+    from .vae import AutoencoderConfig, make_first_stage
+
+    def path(*parts):
+        return os.path.join(model_path, *parts) if model_path else None
+
+    if config_path:
+        with open(config_path) as f:
+            ucfg = UNetCondConfig.from_json(f.read())
+    elif model_path and os.path.exists(path("unet", "config.json")):
+        with open(path("unet", "config.json")) as f:
+            ucfg = UNetCondConfig.from_json(f.read())
+    else:
+        ucfg = cin256_v2_config()
+    meta = {}
+    if model_path and os.path.exists(path("ldm.json")):
+        with open(path("ldm.json")) as f:
+            meta = json.load(f)
+
+    state = first_stage = None
+    if model_path:
+        state = {"unet": load_params_npz(path("unet", "params.npz")),
+                 "cond_stage": load_params_npz(path("cond_stage", "params.npz"))}
+        if os.path.exists(path("first_stage", "params.npz")):
+            with open(path("first_stage", "config.json")) as f:
+                vcfg = AutoencoderConfig.from_json(f.read())
+            first_stage = make_first_stage(vcfg, device=device)
+            state["first_stage"] = load_params_npz(path("first_stage", "params.npz"))
+        # without ldm.json the embedding table's row count is n_classes
+        if "n_classes" not in meta and "embedding.weight" in state["cond_stage"]:
+            meta["n_classes"] = int(state["cond_stage"]["embedding.weight"].shape[0])
+
+    ldm = LatentDiffusion(
+        ucfg, n_classes=int(meta.get("n_classes", 1001)), first_stage=first_stage,
+        scale_factor=float(meta.get("scale_factor", 1.0)),
+        num_train_timesteps=int(meta.get("num_train_timesteps", 1000)),
+        linear_start=float(meta.get("linear_start", 0.0015)),
+        linear_end=float(meta.get("linear_end", 0.0195)), device=device)
+    if state is None:
+        ldm.init(torch.Generator(device=device).manual_seed(seed))
+    else:
+        for name, sd in state.items():
+            getattr(ldm, name).load_state_dict(sd)
+    return ldm.eval()

@@ -1,4 +1,6 @@
-"""Graph-registering layers: the main-path subset of ``diff_pruning_tpu/models/layers.py``.
+"""Graph-registering layers: the main-path subset of ``diff_pruning_tpu/models/layers.py``
+(the DDPM UNet's, and the LDM UNet's transformer layers: ``LayerNorm``,
+``CrossAttention``, ``FeedForward``, ``SpatialTransformer``).
 
 Each layer is an ``nn.Module`` built with resolved channel sizes (pruned or
 not). Construction registers the layer's parameter axes into a
@@ -17,6 +19,7 @@ the GroupNorm kernel read (B, H*W, C) contiguously. Parameters are named
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,7 +28,7 @@ from torch import nn
 from .. import ops
 from ..ops.attention import flash_attention, reference_attention
 from ..ops.group_norm import group_norm, group_norm_reference
-from ..pruning.graph import CatVar, ChannelGraph, ChannelVar, VarLike
+from ..pruning.graph import AxisRef, CatVar, ChannelGraph, ChannelVar, VarLike
 
 
 class Scope:
@@ -168,13 +171,152 @@ class SelfAttention2D(nn.Module):
         q = split_heads(self.to_q(tokens))
         k = split_heads(self.to_k(tokens))
         v = split_heads(self.to_v(tokens))
-        fn = flash_attention if ops.kernels_enabled("attention") else reference_attention
-        out = fn(q, k, v, dim_head ** -0.5)
+        out = _attend(q, k, v, dim_head ** -0.5)
         out = self.to_out(out.transpose(1, 2).reshape(b, h * w, inner))
         out = out.view(b, h, w, c).permute(0, 3, 1, 2) + x
         if self.rescale_output_factor != 1.0:
             out = out / self.rescale_output_factor
         return out
+
+
+def _attend(q, k, v, scale):
+    """The ``attention`` switch: the kernel's wrapper, or the plain version."""
+    fn = flash_attention if ops.kernels_enabled("attention") else reference_attention
+    return fn(q, k, v, scale)
+
+
+class LayerNorm(nn.Module):
+    """nn.LayerNorm over the last dim, statistics in f32
+    (BasicTransformerBlock norms, ldm_exp/ldm/modules/attention.py:204-206)."""
+
+    def __init__(self, scope: Scope, var: VarLike, eps: float = 1e-5, *, device):
+        super().__init__()
+        scope.ref("scale", 0, var, "norm")
+        scope.ref("bias", 0, var, "bias")
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones((var.size,), device=device))
+        self.bias = nn.Parameter(torch.zeros((var.size,), device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), (x.shape[-1],), self.scale.to(torch.float32),
+                         self.bias.to(torch.float32), self.eps)
+        return y.to(x.dtype)
+
+
+class CrossAttention(nn.Module):
+    """CompVis CrossAttention (ldm_exp/ldm/modules/attention.py:152-196):
+    bias-free q/k/v, heads split from the projections, to_out Linear (bias).
+    Self-attention when ``context`` is None. ``inner`` carries the
+    head-grouping constraint. Tokens are (B, N, C); with the ``attention``
+    switch on the wrapper takes the head-split views of the projections
+    (the class token's cross-attention too: Nkv = 1)."""
+
+    def __init__(self, scope: Scope, query: VarLike, inner: ChannelVar, heads: int,
+                 context: Optional[VarLike] = None, *, device):
+        super().__init__()
+        if isinstance(query, CatVar):
+            raise ValueError("attention output cannot target a concat var")
+        inner.require_group_div(heads)
+        self.inner, self.heads = inner, heads
+        ctx = context if context is not None else query
+        self.to_q = Linear(scope("to_q"), query, inner, use_bias=False, device=device)
+        self.to_k = Linear(scope("to_k"), ctx, inner, use_bias=False, device=device)
+        self.to_v = Linear(scope("to_v"), ctx, inner, use_bias=False, device=device)
+        self.to_out = Linear(scope("to_out"), inner, query, device=device)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        b = x.shape[0]
+        inner, h = self.inner.size, self.heads
+        dim_head = inner // h
+
+        def split(t):  # (B, N, inner) -> (B, heads, N, dim_head) view
+            return t.view(b, t.shape[1], h, dim_head).transpose(1, 2)
+
+        out = _attend(split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx)),
+                      dim_head ** -0.5)
+        return self.to_out(out.transpose(1, 2).reshape(b, x.shape[1], inner))
+
+
+class FeedForward(nn.Module):
+    """GEGLU FeedForward (attention.py:37-64): ``proj`` (d -> 2 inner) whose
+    two halves (value, gate) are indexed by the same ff-inner var, registered
+    as a two-part AxisRef so that surgery slices both halves alike; then
+    exact GELU gating and Linear(inner -> d). ``proj.kernel`` is (2 inner, d)
+    here and (d, 2 inner) in the checkpoint, like every 2-D kernel."""
+
+    def __init__(self, scope: Scope, var: ChannelVar, inner: ChannelVar, *, device):
+        super().__init__()
+        g, f = scope.graph, inner.size
+        path = f"{scope.path}/proj" if scope.path else "proj"
+        g.ref(f"{path}/kernel", 0, var, "in")
+        g.refs.append(AxisRef(f"{path}/kernel", 1, ((inner, 0), (inner, f)), "out"))
+        g.refs.append(AxisRef(f"{path}/bias", 0, ((inner, 0), (inner, f)), "bias"))
+        g._by_var = None
+        self.proj = nn.Module()
+        self.proj.kernel = nn.Parameter(torch.empty((2 * f, var.size), device=device))
+        self.proj.bias = nn.Parameter(torch.empty((2 * f,), device=device))
+        self.out = Linear(scope("out"), inner, var, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d = self.proj.kernel.shape[1]
+        _uniform_(self.proj.kernel, math.sqrt(3.0 / d), generator)
+        _uniform_(self.proj.bias, math.sqrt(1.0 / d), generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        val, gate = F.linear(x, self.proj.kernel, self.proj.bias).chunk(2, dim=-1)
+        return self.out(val * F.gelu(gate))
+
+
+class SpatialTransformer(nn.Module):
+    """CompVis SpatialTransformer (attention.py:218-258): GN (eps 1e-6) ->
+    1x1 proj_in -> depth x BasicTransformerBlock (pre-LN self-attention,
+    cross-attention on ``context``, GEGLU ff, each residual) -> 1x1 proj_out
+    (zero-initialised) + the input. NCHW in and out."""
+
+    def __init__(self, scope: Scope, var: ChannelVar, inner: ChannelVar, heads: int,
+                 context: Optional[VarLike], depth: int = 1, norm_num_groups: int = 32,
+                 attn_inner_vars=None, *, device):
+        super().__init__()
+        dev = dict(device=device)
+        self.inner = inner
+        self.norm = GroupNorm(scope("norm"), var, norm_num_groups, 1e-6, **dev)
+        self.proj_in = Conv2D(scope("proj_in"), var, inner, 1, 1, 0, **dev)
+        self.transformer_blocks = nn.ModuleDict()
+        for d in range(depth):
+            bs = scope(f"transformer_blocks/{d}")
+            a1_inner, a2_inner, ff_inner = attn_inner_vars[d]
+            blk = nn.ModuleDict()
+            blk["norm1"] = LayerNorm(bs("norm1"), inner, **dev)
+            blk["attn1"] = CrossAttention(bs("attn1"), inner, a1_inner, heads, **dev)
+            blk["norm2"] = LayerNorm(bs("norm2"), inner, **dev)
+            blk["attn2"] = CrossAttention(bs("attn2"), inner, a2_inner, heads, context, **dev)
+            blk["norm3"] = LayerNorm(bs("norm3"), inner, **dev)
+            blk["ff"] = FeedForward(bs("ff"), inner, ff_inner, **dev)
+            self.transformer_blocks[str(d)] = blk
+        self.proj_out = Conv2D(scope("proj_out"), inner, var, 1, 1, 0, **dev)
+
+    def zero_init_(self) -> None:
+        """proj_out starts at zero (attention.py:240 zero_module)."""
+        with torch.no_grad():
+            self.proj_out.kernel.zero_()
+            self.proj_out.bias.zero_()
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, _, hh, ww = x.shape
+        h = self.proj_in(self.norm(x))
+        h = h.permute(0, 2, 3, 1).reshape(b, hh * ww, self.inner.size)
+        for blk in self.transformer_blocks.values():
+            h = blk["attn1"](blk["norm1"](h)) + h
+            h = blk["attn2"](blk["norm2"](h), context) + h
+            h = blk["ff"](blk["norm3"](h)) + h
+        h = h.view(b, hh, ww, self.inner.size).permute(0, 3, 1, 2)
+        return self.proj_out(h) + x
 
 
 def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,

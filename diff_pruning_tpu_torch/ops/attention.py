@@ -27,8 +27,13 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   accumulators), with p and ds exchanged between warps through shared
   memory in the input type.
 
-The kernels take any head dim up to 256 (zero-padded in shared memory) and
-read head-split views through their strides, so the layer passes ``(B, N,
+The forward kernel takes head dims up to 1024 in f32 (a second tiling above
+256: 16-row tiles of the whole head dim, for the LDM's one-head
+transformers) and up to 256 in bf16/f16; the backward kernels take head dims
+up to 256 (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``). Wider heads raise
+``ValueError`` on the card; the plain versions take any. The kernels
+zero-pad the head dim in shared memory and read head-split views through
+their strides, so the layer passes ``(B, N,
 heads*dh)`` projections without a transpose copy; outputs are (B, H, N, D)
 views of contiguous (B, N, H, D) tensors, so merging the heads back is
 free. Their source notes say what bounds them on the H100.
@@ -50,7 +55,10 @@ import torch
 
 from . import LAUNCHES
 
-MAX_HEAD_DIM = 256
+# the widest head dim each kernel takes, by input type; the 16-bit forward
+# and every backward above 256 are ROADMAP queue 1, the LDM prune/train slice
+MAX_HEAD_DIM_FWD = {torch.float32: 1024, torch.bfloat16: 256, torch.float16: 256}
+MAX_HEAD_DIM_BWD = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIBS = {}
 
@@ -114,6 +122,7 @@ class _FlashAttentionFn(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = reference_attention_lse(q, k, v, scale)
         else:
+            _check(q, k, v, backward=True)  # refuse now what the backward could not take
             o, lse = _launch(q, k, v, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
@@ -173,7 +182,7 @@ def _lib(name: str):
     return lib
 
 
-def _check(q, k, v):
+def _check(q, k, v, backward=False):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -185,10 +194,13 @@ def _check(q, k, v):
                          f"{tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
+    max_d = MAX_HEAD_DIM_BWD if backward else MAX_HEAD_DIM_FWD[q.dtype]
+    what = " backward" if backward else ""
     b, h, nq, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM or nq < 1 or k.shape[2] < 1:
-        raise ValueError(f"flash_attention: head dim {d} (max {MAX_HEAD_DIM}), "
-                         f"Nq {nq}, Nkv {k.shape[2]}")
+    if not 1 <= d <= max_d or nq < 1 or k.shape[2] < 1:
+        raise ValueError(f"flash_attention{what}: head dim {d} (the kernel takes 1..{max_d} "
+                         f"in {q.dtype}; wider heads: ROADMAP queue 1, the LDM prune/train "
+                         f"slice), Nq {nq}, Nkv {k.shape[2]}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
 
@@ -239,7 +251,7 @@ def flash_attention_backward(q, k, v, o, do, lse, scale: float):
 
 def _check_bwd(q, k, v, do, *rows):
     """Checks the backward's inputs; returns dO in q's dtype, d contiguous."""
-    _check(q, k, v)
+    _check(q, k, v, backward=True)
     b, h, nq, _ = q.shape
     if do.shape != q.shape or do.device != q.device:
         raise ValueError(f"flash_attention backward: dO {tuple(do.shape)} for q "

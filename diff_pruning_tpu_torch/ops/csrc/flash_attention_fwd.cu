@@ -37,7 +37,11 @@
 // - rows of 2*(D_pad + 8) bytes put the 8 rows of an ldmatrix on distinct
 //   banks.
 //
-// Both paths:
+// f32 with 256 < D <= 1024 (`flash_fwd_kernel_f32_wide`, the LDM's one-head
+// transformers and its first stage): 16-row query and kv tiles of the whole
+// head dim; see its note below. bf16/f16 inputs take D <= 256 only.
+//
+// All paths:
 // - K and V tiles stream through a two-slot cp.async ring in the order
 //   K0, V0, K1, V1, ...: while S = Q K_t^T is computed, V_t is in flight; once
 //   K_t is consumed, K_{t+1} is issued and overlaps the softmax and P V_t;
@@ -76,7 +80,8 @@ namespace {
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;       // the 64-row kernels (every input type)
+constexpr int kMaxDWide = 1024;  // f32 only: flash_fwd_kernel_f32_wide
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -109,17 +114,17 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // waits until at most one committed group is still in flight
 __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// Copies rows [row0, row0 + 64) x columns [0, DP) of one head into shared
+// Copies rows [row0, row0 + ROWS) x columns [0, DP) of one head into shared
 // memory (row stride ld elements), zero-filling rows >= nvalid and columns
 // >= D. vec: base and row stride are 16-byte aligned.
-template <typename T, int DP, int NT>
+template <typename T, int DP, int NT, int ROWS = 64>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long sn, int row0,
                                           int nvalid, int D, bool vec) {
   const int tid = threadIdx.x;
   if (vec) {
     constexpr int kChunk = 16 / sizeof(T);
     constexpr int kPerRow = DP / kChunk;
-    for (int idx = tid; idx < 64 * kPerRow; idx += NT) {
+    for (int idx = tid; idx < ROWS * kPerRow; idx += NT) {
       const int r = idx / kPerRow;
       const int c = (idx - r * kPerRow) * kChunk;
       const int row = row0 + r;
@@ -132,7 +137,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
       cp_async16(dst + r * ld + c, from, bytes);
     }
   } else if constexpr (sizeof(T) == 4) {
-    for (int idx = tid; idx < 64 * DP; idx += NT) {
+    for (int idx = tid; idx < ROWS * DP; idx += NT) {
       const int r = idx / DP;
       const int c = idx - r * DP;
       const int row = row0 + r;
@@ -141,6 +146,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
     }
   } else {
     // no cp.async below 4 bytes: 8 loads in flight per thread, then stores
+    static_assert(ROWS == 64, "the 16-bit element copy takes 64-row tiles");
     constexpr int U = 8;  // 64 * DP is a multiple of NT * U
     for (int base = tid; base < 64 * DP; base += NT * U) {
       T vals[U];
@@ -317,6 +323,196 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     if (lse != nullptr && tx == 0) lse[size_t(bh) * Nq + qr] = m_run[i] + logf(l_run[i]);
+  }
+}
+
+// ------------------------------------------------- f32 path, 256 < D <= 1024
+
+// Wide head dims (the LDM's one-head transformers: D = 384, 576, 960, and
+// the first stage's D = 512 at 4096 tokens). A 64-row f32 tile of D = 960
+// alone is 245,760 bytes, more than a block's shared memory, so the tiles
+// shrink instead: 16 query rows and 16 kv rows a block, each a whole row of
+// the head dim (padded to DP = 128 * NC2, zero-filled), Q resident, K and V
+// streamed through the same two-slot cp.async ring as above. At D = 1024:
+// 3 * 16 * 1028 * 4 + 16 * 260 * 4 + 16 * 17 * 4 + 64 = 215,040 bytes.
+// 16-row query tiles also give (64 tokens, B = 16, 2 CFG halves) 128 blocks
+// for the 132 SMs, where splitting D across blocks would recompute QK^T.
+//
+// - S = Q K^T (16 x 16): thread t owns a 4 x 4 micro-tile (t / 16) of S and
+//   one of 16 slices of the head dim (t % 16: float4 columns 4 (t % 16) +
+//   64 k), so each step of 4 columns is 8 float4 loads for 64 FMAs; the 16
+//   partial tiles are summed through shared memory (red, rows 260 floats
+//   apart so the 16 slices' float4 stores land on distinct banks), in a
+//   fixed order: no atomics;
+// - softmax: thread t then owns S[t / 16][t % 16]; row max and sum combine
+//   across the row's 16 lanes with shuffles; the row's rescale factor goes
+//   to shared memory and P to ps ([kv][row], rows 17 floats apart);
+// - O += P V: thread (ty = t / 32, tx = t % 32) owns rows ty and ty + 8 and
+//   columns 4 tx + 128 c (c < NC2): per kv row, 2 broadcast loads of P and
+//   NC2 float4 loads of V for 8 NC2 FMAs; at most 64 accumulators.
+template <int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int H, int Nq, int Nkv, int D, Strides sq,
+                          Strides sk, Strides sv, Strides so, float scale, int vec,
+                          int vec_out) {
+  constexpr int BQ = 16, BK = 16;
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 4;     // 16-byte rows, 4 banks apart
+  constexpr int LDR = 256 + 4;   // one slice's partial S
+  constexpr int LDP = BQ + 1;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;              // [16][LD] query rows
+  float* ks = qs + BQ * LD;      // [16][LD] kv rows
+  float* vs = ks + BK * LD;      // [16][LD] kv rows
+  float* red = vs + BK * LD;     // [16 slices][LDR]: partial S, [row * 16 + kv]
+  float* ps = red + 16 * LDR;    // [16 kv][LDP]: P[row][kv] at [kv][row]
+  float* alpha_s = ps + BK * LDP;  // [16] each row's rescale factor, then its sum
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+
+  load_tile<float, DP, 256, BQ>(qs, LD, qb, sq.n, q0, Nq, D, vec);
+  load_tile<float, DP, 256, BK>(ks, LD, kb, sk.n, 0, Nkv, D, vec);
+  cp_async_commit();
+  load_tile<float, DP, 256, BK>(vs, LD, vb, sv.n, 0, Nkv, D, vec);
+  cp_async_commit();
+
+  // S micro-tile and head-dim slice
+  const int tile = tid >> 4;
+  const int slice = tid & 15;
+  const int tr = (tile >> 2) * 4;  // first query row of the micro-tile
+  const int tc = (tile & 3) * 4;   // first kv row of the micro-tile
+  // softmax element
+  const int srow = tid >> 4;
+  const int scol = tid & 15;
+  float m_run = -INFINITY, l_run = 0.f;
+  // O rows and columns
+  const int ty = tid >> 5;
+  const int tx = tid & 31;
+  float acc[2][4 * NC2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NC2; ++c) acc[i][c] = 0.f;
+
+  for (int kv0 = 0; kv0 < Nkv; kv0 += BK) {
+    cp_async_wait_1();  // Q and K_t have landed (V_t may be in flight)
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 4 * slice; d < DP; d += 64) {
+      float4 qf[4], kf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qf[i] = *reinterpret_cast<const float4*>(qs + (tr + i) * LD + d);
+        kf[i] = *reinterpret_cast<const float4*>(ks + (tc + i) * LD + d);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(red + slice * LDR + (tr + i) * 16 + tc) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+    __syncthreads();  // every thread is done with K_t, and the partials are visible
+    if (kv0 + BK < Nkv) load_tile<float, DP, 256, BK>(ks, LD, kb, sk.n, kv0 + BK, Nkv, D, vec);
+    cp_async_commit();
+
+    {
+      float x = 0.f;
+#pragma unroll
+      for (int sl = 0; sl < 16; ++sl) x += red[sl * LDR + srow * 16 + scol];
+      x = kv0 + scol < Nkv ? x * scale : -INFINITY;
+      float tile_max = x;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      // the first tile always holds a valid column, so m_new is finite
+      const float m_new = fmaxf(m_run, tile_max);
+      const float alpha = expf(m_run - m_new);
+      const float p = expf(x - m_new);
+      float psum = p;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run = l_run * alpha + psum;
+      m_run = m_new;
+      ps[scol * LDP + srow] = p;
+      if (scol == 0) alpha_s[srow] = alpha;
+    }
+
+    cp_async_wait_1();  // V_t has landed (K_{t+1} may be in flight)
+    __syncthreads();    // ... and P and the rescale factors are visible
+    const float a0 = alpha_s[ty], a1 = alpha_s[ty + 8];
+#pragma unroll
+    for (int c = 0; c < 4 * NC2; ++c) {
+      acc[0][c] *= a0;
+      acc[1][c] *= a1;
+    }
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      const float p0 = ps[j * LDP + ty], p1 = ps[j * LDP + ty + 8];
+#pragma unroll
+      for (int c = 0; c < NC2; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + 128 * c + tx * 4);
+        acc[0][4 * c + 0] = fmaf(p0, vv.x, acc[0][4 * c + 0]);
+        acc[0][4 * c + 1] = fmaf(p0, vv.y, acc[0][4 * c + 1]);
+        acc[0][4 * c + 2] = fmaf(p0, vv.z, acc[0][4 * c + 2]);
+        acc[0][4 * c + 3] = fmaf(p0, vv.w, acc[0][4 * c + 3]);
+        acc[1][4 * c + 0] = fmaf(p1, vv.x, acc[1][4 * c + 0]);
+        acc[1][4 * c + 1] = fmaf(p1, vv.y, acc[1][4 * c + 1]);
+        acc[1][4 * c + 2] = fmaf(p1, vv.z, acc[1][4 * c + 2]);
+        acc[1][4 * c + 3] = fmaf(p1, vv.w, acc[1][4 * c + 3]);
+      }
+    }
+    __syncthreads();  // every thread is done with V_t, P and the rescale factors
+    if (kv0 + BK < Nkv) load_tile<float, DP, 256, BK>(vs, LD, vb, sv.n, kv0 + BK, Nkv, D, vec);
+    cp_async_commit();
+  }
+
+  if (scol == 0) {
+    alpha_s[srow] = l_run;
+    if (lse != nullptr && q0 + srow < Nq) lse[size_t(bh) * Nq + q0 + srow] = m_run + logf(l_run);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + ty + 8 * i;
+    if (qr >= Nq) continue;
+    float* orow = o + b * so.b + h * so.h + qr * so.n;
+    const float inv = 1.f / alpha_s[ty + 8 * i];
+#pragma unroll
+    for (int c = 0; c < NC2; ++c) {
+      const int col = 128 * c + tx * 4;
+      if (vec_out && col < D) {  // D % 4 == 0: the whole float4 is in range
+        *reinterpret_cast<float4*>(orow + col) =
+            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
+                        acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < D) orow[col + e] = acc[i][4 * c + e] * inv;
+      }
+    }
   }
 }
 
@@ -527,6 +723,26 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+template <int NC2>
+cudaError_t launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                            dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                            Strides sv, Strides so, float scale, int vec, int vec_out,
+                            cudaStream_t stream) {
+  constexpr int LD = 128 * NC2 + 4;
+  const size_t smem = (size_t(3 * 16) * LD + 16 * (256 + 4) + 16 * 17 + 16) * sizeof(float);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = set_smem(flash_fwd_kernel_f32_wide<NC2>, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  flash_fwd_kernel_f32_wide<NC2><<<grid, 256, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H, Nq, Nkv, D, sq, sk, sv,
+      so, scale, vec, vec_out);
+  return cudaGetLastError();
+}
+
 template <typename T, int NC>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
                        dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
@@ -558,10 +774,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   };
   const int vec = aligned(q, sq) && aligned(k, sk) && aligned(v, sv);
   const int vec_out = aligned(o, so) && (D * es) % 16 == 0;
-  const dim3 grid(B * H, (Nq + kBlockQ - 1) / kBlockQ);
+  dim3 grid(B * H, (Nq + kBlockQ - 1) / kBlockQ);
   const int nc = (D + 63) / 64;
 #define FA_ARGS q, k, v, o, lse, grid, H, Nq, Nkv, D, sq, sk, sv, so, scale, vec, vec_out, stream
   if constexpr (sizeof(T) == 4) {
+    if (D > kMaxD) {  // 16-row tiles of the whole head dim
+      grid.y = (Nq + 15) / 16;
+      switch ((D + 127) / 128) {
+        case 3: return launch_f32_wide<3>(FA_ARGS);
+        case 4: return launch_f32_wide<4>(FA_ARGS);
+        case 5: return launch_f32_wide<5>(FA_ARGS);
+        case 6: return launch_f32_wide<6>(FA_ARGS);
+        case 7: return launch_f32_wide<7>(FA_ARGS);
+        default: return launch_f32_wide<8>(FA_ARGS);
+      }
+    }
     switch (nc) {
       case 1: return launch_f32<1>(FA_ARGS);
       case 2: return launch_f32<2>(FA_ARGS);
@@ -590,7 +817,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long svb, long long svh, long long svn,
                                    long long sob, long long soh, long long son,
                                    float scale, void* stream) {
-  if (B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > kMaxD)
+  if (B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > (dtype == 0 ? kMaxDWide : kMaxD))
     return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn}, so{sob, soh, son};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

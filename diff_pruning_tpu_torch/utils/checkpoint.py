@@ -10,6 +10,15 @@ The module tree is named after the JAX param tree, so keys map ``/`` <->
 ``.``; the only per-leaf transforms are for kernels: 4-D HWIO <-> OIHW and
 2-D (din, dout) <-> (dout, din).
 
+An LDM model dir (``save_ldm``; read by ``models.latent_diffusion.load_ldm``)
+is laid out as the JAX package writes it: ``unet/{config.json,
+params.npz}``, ``cond_stage/params.npz`` (the class table,
+``embedding/weight``), ``first_stage/{config.json, params.npz}`` when there
+is one, and ``ldm.json`` (n_classes, scale_factor and the schedule). Its
+leaves need no transform beyond the kernels': LayerNorm ``scale``/``bias``,
+embedding tables and the VQ codebook are the same arrays in both packages,
+the GEGLU ``proj/kernel`` and 1x1 convs are kernels.
+
 Train state (``save_train_state``/``load_train_state``/``restore_opt_state``)
 has the JAX package's on-disk layout too: ``<path>/step-N/`` holding
 ``params.npz``, ``ema_params.npz`` (flat JAX paths), ``opt_state.npz``
@@ -105,6 +114,22 @@ def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
     with open(os.path.join(d, "config.json")) as f:
         cfg = config_cls.from_json(f.read())
     return cfg, load_params_npz(os.path.join(d, "params.npz"))
+
+
+def save_ldm(model_dir: str, ldm) -> None:
+    """Writes ``ldm`` (a ``models.latent_diffusion.LatentDiffusion``) as a
+    model dir in the JAX package's layout (its ``cli/ldm_prune.py`` save and
+    ``write_ldm_meta``)."""
+    save_model(model_dir, ldm.unet.cfg, ldm.unet, subfolder="unet")
+    os.makedirs(os.path.join(model_dir, "cond_stage"), exist_ok=True)
+    save_params_npz(os.path.join(model_dir, "cond_stage", "params.npz"),
+                    ldm.cond_stage.state_dict())
+    if ldm.first_stage is not None:
+        save_model(model_dir, ldm.first_stage.cfg, ldm.first_stage, subfolder="first_stage")
+    with open(os.path.join(model_dir, "ldm.json"), "w") as f:
+        json.dump({"n_classes": ldm.n_classes, "scale_factor": ldm.scale_factor,
+                   "num_train_timesteps": ldm.schedule.num_train_timesteps,
+                   "linear_start": ldm.linear_start, "linear_end": ldm.linear_end}, f, indent=2)
 
 
 def save_train_state(path: str, *, step: int, params: Mapping[str, torch.Tensor],

@@ -61,7 +61,8 @@ def _check_group_norm_forward(cuda):
     cases = [(4, 1024, 128, 32, True), (4, 256, 384, 32, True), (4, 16, 512, 32, False),
              (3, 64, 160, 32, True), (2, 100, 96, 32, False), (2, 7, 24, 8, True),
              (2, 256, 64, 32, True), (2, 64, 224, 32, True), (2, 16, 320, 32, False),
-             (2, 4096, 512, 32, True)]
+             (2, 4096, 512, 32, True), (2, 64, 1920, 32, True), (2, 1024, 192, 32, False),
+             (2, 16384, 256, 32, True), (2, 65536, 128, 32, True)]
     for b, n, c, g, silu in cases:
         for dtype in TOL:
             x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
@@ -96,29 +97,37 @@ def _check_flash_attention_forward(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     # (B, H, Nq, Nkv, D): the UNet's (256, 256) and (16, 256), a pruned D, a
     # ragged N, several heads, cross-attention lengths, D = 8 and 40, and
-    # Nq != Nkv past one kv tile
+    # Nq != Nkv past one kv tile; in f32 only, the wide head dims (the LDM
+    # UNet's self- and class-token cross-attention, its first stage's 4096
+    # tokens, a pruned D = 269, ragged tiles, several heads)
     cases = [(4, 1, 256, 256, 256), (4, 1, 16, 16, 256), (2, 1, 256, 256, 179),
              (2, 1, 100, 100, 64), (2, 4, 70, 70, 32), (2, 2, 33, 77, 56),
              (2, 2, 40, 40, 8), (2, 3, 64, 64, 40), (1, 1, 300, 130, 256)]
-    for b, h, nq, nkv, d in cases:
-        for dtype in TOL:
-            q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
-                       for n in (nq, nkv, nkv))
-            what = f"attention {(b, h, nq, nkv, d)} {dtype}"
-            before = ops.LAUNCHES["attention"]
-            got = flash_attention(q, k, v, d ** -0.5)
-            assert ops.LAUNCHES["attention"] == before + 1, what + " launch count"
-            want = reference_attention(q, k, v, d ** -0.5)
-            _check(got, want, dtype, what)
-            o, lse = A.flash_attention_forward_lse(q, k, v, d ** -0.5)
-            assert torch.equal(o, got), what + " o with lse"
-            _check_rel(lse, A.reference_attention_lse(q, k, v, d ** -0.5)[1], torch.float32,
-                       what + " lse")
+    wide = [(4, 1, 1024, 1024, 384), (4, 1, 1024, 1, 384), (4, 1, 256, 256, 576),
+            (4, 1, 256, 1, 576), (4, 1, 64, 64, 960), (4, 1, 64, 1, 960),
+            (2, 1, 4096, 4096, 512), (2, 1, 100, 37, 1024), (2, 1, 33, 50, 269),
+            (2, 3, 40, 40, 300)]
+    runs = [(case, dtype) for case in cases for dtype in TOL]
+    runs += [(case, torch.float32) for case in wide]
+    for (b, h, nq, nkv, d), dtype in runs:
+        q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
+                   for n in (nq, nkv, nkv))
+        what = f"attention {(b, h, nq, nkv, d)} {dtype}"
+        before = ops.LAUNCHES["attention"]
+        got = flash_attention(q, k, v, d ** -0.5)
+        assert ops.LAUNCHES["attention"] == before + 1, what + " launch count"
+        want = reference_attention(q, k, v, d ** -0.5)
+        _check(got, want, dtype, what)
+        o, lse = A.flash_attention_forward_lse(q, k, v, d ** -0.5)
+        assert torch.equal(o, got), what + " o with lse"
+        _check_rel(lse, A.reference_attention_lse(q, k, v, d ** -0.5)[1], torch.float32,
+                   what + " lse")
     # head-split views of (B, N, heads*dh) projections, as the layer passes
-    # them (dh = 179: rows not 16-byte aligned), and a head dim cut from a
-    # wider tensor (D = 37 of 64)
+    # them (dh = 179 and 269: rows not 16-byte aligned), and a head dim cut
+    # from a wider tensor (D = 37 of 64)
     for dtype in TOL:
-        for heads, dh in ((4, 40), (1, 179)):
+        for heads, dh in ((4, 40), (1, 179)) + (((1, 269), (2, 960)) if dtype == torch.float32
+                                                else ()):
             t = torch.randn((2, 64, 3 * heads * dh), generator=gen, device=cuda).to(dtype)
             q, k, v = (z.view(2, 64, heads, dh).transpose(1, 2)
                        for z in t.split(heads * dh, dim=-1))
@@ -128,6 +137,19 @@ def _check_flash_attention_forward(cuda):
                    for _ in range(3))
         _check(flash_attention(q, k, v, 37 ** -0.5), reference_attention(q, k, v, 37 ** -0.5),
                dtype, f"attention D=37 of 64 {dtype}")
+    # what no kernel takes raises, and launches nothing: a 16-bit forward and
+    # any backward (also under autograd) above D = 256
+    before = dict(ops.LAUNCHES)
+    for dtype in TOL:
+        q = torch.randn((1, 1, 16, 320), generator=gen, device=cuda).to(dtype)
+        if dtype != torch.float32:
+            with pytest.raises(ValueError, match="head dim 320"):
+                flash_attention(q, q, q, 0.1)
+        with pytest.raises(ValueError, match="backward: head dim 320"):
+            A.flash_attention_backward(q, q, q, q, q, torch.zeros((1, 1, 16), device=cuda), 0.1)
+        with pytest.raises(ValueError, match="backward: head dim 320"):
+            flash_attention(q.requires_grad_(), q, q, 0.1)
+    assert ops.LAUNCHES == before, "a refused call launched"
     torch.cuda.synchronize()
 
 

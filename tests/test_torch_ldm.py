@@ -1,0 +1,344 @@
+"""The port's class-conditional LDM serving slice against the JAX package, on
+the CPU: UNetCond (with its transformer layers), the VQ and KL first
+stages, the LatentDiffusion wrapper, the CFG samplers (DDIM, PLMS,
+DPM-Solver++), the LDM model dir and the ``ldm_sample`` CLI.
+
+Parameters and inputs are made with numpy from a seed and handed to both
+packages through the flat ``a/b/kernel`` layout (every leaf random, so the
+zero-initialised ones of a fresh model carry signal); JAX runs with f32
+matmuls, the port with TF32 off. Tolerances:
+
+- single forwards (UNetCond, encode, decode), f32: atol = rtol = 5e-5, the
+  port's UNet tolerance (tests/test_torch_unet.py): the two packages sum in
+  other orders through tens of layers;
+- CFG trajectories (4 steps, scale 3, then the decode): the relative error
+  in norm <= 1e-5 (0.5-1.3e-6 measured on the CPU). Guidance multiplies the
+  cond-uncond difference by 3 at every step and the steps feed each other,
+  so the order-of-summation differences of one forward can grow;
+- everything structural (graphs, parameter counts, timesteps, checkpoint
+  arrays, VQ indices, file names): exactly equal.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from diff_pruning_tpu.models import latent_diffusion as jl
+from diff_pruning_tpu.models import unet_cond as ju
+from diff_pruning_tpu.models import vae as jv
+from diff_pruning_tpu.pruning.surgery import flatten_params, unflatten_params
+from diff_pruning_tpu.utils import checkpoint as jckpt
+from diff_pruning_tpu_torch import ops
+from diff_pruning_tpu_torch.models import latent_diffusion as tl
+from diff_pruning_tpu_torch.models import unet_cond as tu
+from diff_pruning_tpu_torch.models import vae as tv
+from diff_pruning_tpu_torch.utils import checkpoint as tckpt
+
+torch.set_num_threads(2)
+ATOL = RTOL = 5e-5
+TRAJ_RTOL = 1e-5
+PRESETS = ["cin256_v2_config", "celebahq_ldm_vq4_config", "ffhq_ldm_vq4_config",
+           "lsun_bedrooms_ldm_vq4_config", "lsun_churches_ldm_kl8_config",
+           "cin_ldm_vq_f8_config", "txt2img_1p4B_config", "bsr_sr_config",
+           "layout2img_openimages256_config", "semantic_synthesis256_config",
+           "semantic_synthesis512_config", "text2img256_config", "rdm768_config",
+           "inpainting_big_config", "tiny_cond_config"]
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+def numpy_params(jinit, seed):
+    """Flat JAX-layout params with torch-like init scales and non-trivial norms."""
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for path, s in flatten_params(jax.eval_shape(jinit, jax.random.key(0))).items():
+        leaf = path.rsplit("/", 1)[-1]
+        if leaf == "kernel":
+            bound = np.sqrt(3.0 / np.prod(s.shape[:-1]))
+            a = rng.uniform(-bound, bound, s.shape)
+        elif leaf == "scale":
+            a = 1.0 + 0.2 * rng.standard_normal(s.shape)
+        else:
+            a = 0.1 * rng.standard_normal(s.shape)
+        flat[path] = a.astype(np.float32)
+    return flat
+
+
+def _jax_tree(flat):
+    return unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
+
+
+def _graph_signature(g):
+    vars_ = [(v.name, v.size, v.prunable, v.group_div, v.round_to) for v in g.vars.values()]
+    refs = [(r.param, r.axis, tuple((v.name, off) for v, off in r.parts), r.role)
+            for r in g.refs]
+    return vars_, refs
+
+
+def _tiny_vae_config(kind):
+    """Two levels (f2), attention at the 8x8 level and in the mid block."""
+    return jv.AutoencoderConfig(
+        block_out_channels=(32, 64), layers_per_block=1, latent_channels=3,
+        norm_num_groups=8, sample_size=16, attn_resolutions=(8,),
+        num_vq_embeddings=16 if kind == "vq" else None, vq_embed_dim=3 if kind == "vq" else None)
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=ATOL, rtol=RTOL,
+                               err_msg=what)
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _unet_forward_both(jcfg, flat, x, t, ctx):
+    jm = ju.UNetCond(jcfg)
+    with jax.default_matmul_precision("float32"):
+        want = jm(_jax_tree(flat), jnp.asarray(x), jnp.asarray(t),
+                  context=None if ctx is None else jnp.asarray(ctx))
+    tm = tu.UNetCond(tu.UNetCondConfig.from_json(jcfg.to_json()), device="cpu")
+    tm.load_state_dict(tckpt.state_dict_from_flat(flat))
+    with torch.inference_mode():
+        got = tm.eval()(torch.from_numpy(x), torch.from_numpy(t),
+                        context=None if ctx is None else torch.from_numpy(ctx))
+    return tm, np.asarray(want), got.numpy()
+
+
+def test_ldm_models_match_jax(tmp_path):
+    """Graphs and parameter counts (every preset; cin256-v2 and vq-f4 at
+    full width on the meta device against jax.eval_shape), tiny UNetCond
+    forwards (spatial transformer with class-token cross-attention; the
+    AttentionBlock, scale-shift and resblock up/down variants), VQ and KL
+    encode/quantize/decode, and checkpoints across the packages both ways,
+    including one pruned by the JAX package."""
+    rng = np.random.default_rng(0)
+    for name in PRESETS:
+        jcfg = getattr(ju, name)()
+        tcfg = getattr(tu, name)()
+        assert tcfg.to_json() == jcfg.to_json(), name
+        assert tu.UNetCondConfig.from_json(tcfg.to_json()) == tcfg, name
+        tm = tu.UNetCond(tcfg, device="meta")
+        jm = ju.UNetCond(jcfg)
+        assert _graph_signature(tm.graph) == _graph_signature(jm.graph), name
+        assert tm.attn_heads == jm.attn_heads, name
+    # full width: cin256-v2 + vq-f4 + ClassEmbedder(1001), counted without
+    # materialising 456M parameters
+    for jmodel, tmodel, want in (
+            (ju.UNetCond(ju.cin256_v2_config()), tu.UNetCond(tu.cin256_v2_config(),
+                                                            device="meta"), 400_920_579),
+            (jv.make_first_stage(jv.first_stage_config("vq-f4")),
+             tv.make_first_stage(tv.first_stage_config("vq-f4"), device="meta"), 55_322_782),
+            (jl.ClassEmbedder(1001, 512), tl.ClassEmbedder(1001, 512, device="meta"), 512_512)):
+        shapes = jax.eval_shape(jmodel.init, jax.random.key(0))
+        n_jax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+        assert sum(p.numel() for p in tmodel.parameters()) == n_jax == want
+        assert {k.replace(".", "/") for k in tmodel.state_dict()} == set(flatten_params(shapes))
+    for name, fs_cfg in tv.FIRST_STAGE_PRESETS.items():
+        assert fs_cfg().to_json() == jv.first_stage_config(name).to_json(), name
+
+    # UNetCond forwards: the tiny spatial-transformer model (2 heads, context
+    # (B, 1, 16): cross-attention on one token) and the other block kinds
+    tiny = ju.tiny_cond_config()
+    variants = [tiny, dataclasses.replace(tiny, use_spatial_transformer=False, context_dim=None,
+                                          use_scale_shift_norm=True, resblock_updown=True)]
+    x = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    t = np.array([3, 700], np.int32)
+    ctx = rng.standard_normal((2, 1, 16)).astype(np.float32)
+    for i, jcfg in enumerate(variants):
+        flat = numpy_params(ju.UNetCond(jcfg).init, 1 + i)
+        c = ctx if jcfg.context_dim else None
+        tm, want, got = _unet_forward_both(jcfg, flat, x, t, c)
+        assert got.shape == want.shape == (2, 8, 8, 3)
+        _close(got, want, f"UNetCond variant {i}")
+        # the kernel switches off route the layers to the same plain math on the CPU
+        try:
+            ops.set_kernels_enabled(False)
+            with torch.inference_mode():
+                off = tm(torch.from_numpy(x), torch.from_numpy(t),
+                         context=None if c is None else torch.from_numpy(c)).numpy()
+        finally:
+            ops.set_kernels_enabled(True)
+        np.testing.assert_array_equal(off, got)
+
+    # first stages: encode, quantize (VQ) / moments and posterior mean (KL), decode
+    img = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    z = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    for kind in ("vq", "kl"):
+        vcfg = _tiny_vae_config(kind)
+        jm = jv.make_first_stage(vcfg)
+        tm = tv.make_first_stage(tv.AutoencoderConfig.from_json(vcfg.to_json()), device="cpu")
+        assert _graph_signature(tm.graph) == _graph_signature(jm.graph), kind
+        flat = numpy_params(jm.init, 5)
+        tm.load_state_dict(tckpt.state_dict_from_flat(flat))
+        jp = _jax_tree(flat)
+        with jax.default_matmul_precision("float32"), torch.inference_mode():
+            _close(tm.decode(torch.from_numpy(z)).numpy(), jm.decode(jp, jnp.asarray(z)),
+                   f"{kind} decode")
+            if kind == "vq":
+                enc = tm.encode(torch.from_numpy(img))
+                _close(enc.numpy(), jm.encode(jp, jnp.asarray(img)), "vq encode")
+                zq, idx = tm.quantize_latents(enc)
+                jzq, jidx = jm.quantize(jp, jnp.asarray(enc.numpy()))
+                np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+                np.testing.assert_array_equal(zq.numpy(), np.asarray(jzq))
+                _close(tm.decode(torch.from_numpy(z), force_not_quantize=False).numpy(),
+                       jm.decode(jp, jnp.asarray(z), force_not_quantize=False), "vq decode q")
+            else:
+                _close(tm.encode_moments(torch.from_numpy(img)).numpy(),
+                       jm.encode_moments(jp, jnp.asarray(img)), "kl moments")
+                _close(tm.encode(torch.from_numpy(img)).numpy(),
+                       jm.encode(jp, jnp.asarray(img)), "kl mean")
+                draw = tm.encode(torch.from_numpy(img), generator=torch.Generator().manual_seed(0))
+                assert draw.shape == (2, 8, 8, 3) and bool(torch.isfinite(draw).all())
+
+    # checkpoints: a JAX LDM dir (UNet pruned by the JAX package, VQ first
+    # stage, 5 classes) loads in the port and writes back the same arrays;
+    # an LDM dir written by the port loads in the JAX package
+    from diff_pruning_tpu.cli.ldm_prune import load_ldm as jax_load_ldm
+    from diff_pruning_tpu.cli.ldm_prune import write_ldm_meta
+    from diff_pruning_tpu.pruning.importance import make_importance
+    from diff_pruning_tpu.pruning.pruner import apply_pruning, prune
+
+    jldm = jl.LatentDiffusion(tiny, n_classes=5, first_stage=jv.make_first_stage(
+        _tiny_vae_config("vq")), scale_factor=0.7)
+    params = _jax_tree(numpy_params(jldm.init, 6))
+    res = prune(jldm.unet.graph, params["unet"], make_importance("magnitude"), sparsity=0.3)
+    pcfg = tiny.with_channel_sizes(res.channel_sizes)
+    params["unet"] = apply_pruning(params["unet"], jldm.unet.graph, res)
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jckpt.save_model(jdir, pcfg, params["unet"], subfolder="unet")
+    os.makedirs(os.path.join(jdir, "cond_stage"))
+    jckpt.save_params_npz(os.path.join(jdir, "cond_stage", "params.npz"), params["cond_stage"])
+    jckpt.save_model(jdir, jldm.first_stage.cfg, params["first_stage"], subfolder="first_stage")
+    write_ldm_meta(jdir, jldm)
+    tldm = tl.load_ldm(jdir, device="cpu")
+    assert tldm.unet.cfg.channel_sizes == res.channel_sizes
+    assert (tldm.n_classes, tldm.scale_factor) == (5, 0.7)
+    tckpt.save_ldm(pdir, tldm)
+    for sub in ("unet", "cond_stage", "first_stage"):
+        with np.load(os.path.join(jdir, sub, "params.npz")) as a, \
+                np.load(os.path.join(pdir, sub, "params.npz")) as b:
+            assert sorted(a.files) == sorted(b.files), sub
+            for k in a.files:
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k], err_msg=f"{sub}/{k}")
+    for name in ("ldm.json", "unet/config.json", "first_stage/config.json"):
+        with open(os.path.join(jdir, name)) as a, open(os.path.join(pdir, name)) as b:
+            assert (name == "ldm.json" or a.read() == b.read()), name
+    fresh = tl.LatentDiffusion(tu.tiny_cond_config(), n_classes=5, device="cpu",
+                               first_stage=tv.make_first_stage(tv.AutoencoderConfig.from_json(
+                                   _tiny_vae_config("kl").to_json()), device="cpu"))
+    fresh.init(torch.Generator().manual_seed(7))
+    fdir = str(tmp_path / "fresh")
+    tckpt.save_ldm(fdir, fresh)
+    jback, jparams = jax_load_ldm(fdir, None)
+    jback.unet.graph.validate(jparams["unet"])
+    assert jback.n_classes == 5 and jback.first_stage.cfg == jv.AutoencoderConfig.from_json(
+        fresh.first_stage.cfg.to_json())
+    sd = {**{f"unet.{k}": v for k, v in fresh.unet.state_dict().items()},
+          **{f"cond_stage.{k}": v for k, v in fresh.cond_stage.state_dict().items()},
+          **{f"first_stage.{k}": v for k, v in fresh.first_stage.state_dict().items()}}
+    want = tckpt.flat_from_state_dict(sd)
+    got = {k: np.asarray(v) for k, v in flatten_params(jparams).items()}
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # the fresh model's zero-initialised leaves are the JAX init's
+    jinit = flatten_params(ju.UNetCond(tiny).init(jax.random.key(0)))
+    tinit = tckpt.flat_from_state_dict(fresh.unet.state_dict())
+    for k, v in jinit.items():
+        assert (not np.any(np.asarray(v))) == (not np.any(tinit[k])), k
+
+
+def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
+    """The LDM schedule and timesteps; CFG trajectories (DDIM, PLMS,
+    DPM-Solver++; 4 steps, scale 3) from JAX's own x_T, then the decode;
+    the sampler's refusals; the ldm_sample CLI on --device cpu (files,
+    numbering across classes with a partial batch, image shapes) and its
+    refusal without a GPU and of the multi-host flags."""
+    js, ts_ = jl.ldm_schedule(), tl.ldm_schedule()
+    np.testing.assert_allclose(ts_.alphas_cumprod.numpy(), np.asarray(js.alphas_cumprod),
+                               rtol=1e-6)
+    for s in (4, 20, 250):
+        np.testing.assert_array_equal(tl.compvis_ddim_timesteps(s), jl.compvis_ddim_timesteps(s))
+
+    tiny = ju.tiny_cond_config()
+    jldm = jl.LatentDiffusion(tiny, n_classes=5, first_stage=jv.make_first_stage(
+        _tiny_vae_config("vq")), scale_factor=0.8)
+    flat = numpy_params(jldm.init, 8)
+    jparams = _jax_tree(flat)
+    model_dir = str(tmp_path / "ldm")
+    jckpt.save_model(model_dir, tiny, jparams["unet"], subfolder="unet")
+    os.makedirs(os.path.join(model_dir, "cond_stage"))
+    jckpt.save_params_npz(os.path.join(model_dir, "cond_stage", "params.npz"),
+                          jparams["cond_stage"])
+    jckpt.save_model(model_dir, jldm.first_stage.cfg, jparams["first_stage"],
+                     subfolder="first_stage")
+    from diff_pruning_tpu.cli.ldm_prune import write_ldm_meta
+
+    write_ldm_meta(model_dir, jldm)
+    tldm = tl.load_ldm(model_dir, device="cpu")
+    labels = np.array([0, 3, 1], np.int32)
+    key = jax.random.key(9)
+    x_T = np.asarray(jax.random.normal(jax.random.split(key)[1], (3, 8, 8, 3)))
+    for method in ("ddim", "plms", "dpm"):
+        with jax.default_matmul_precision("float32"):
+            sampler = jldm.make_cfg_sampler(jparams, ddim_steps=4, guidance_scale=3.0,
+                                            latent_hw=8, latent_ch=3, method=method)
+            want = sampler(key, jnp.asarray(labels), 3)
+            want_img = np.asarray(jldm.decode_first_stage(jparams, want))
+        sample = tldm.make_cfg_sampler(ddim_steps=4, guidance_scale=3.0, latent_hw=8,
+                                       latent_ch=3, method=method)
+        got = sample(None, torch.from_numpy(labels), 3, x_T=torch.from_numpy(x_T.copy()))
+        got_img = tldm.decode_first_stage(got)
+        assert got.shape == (3, 8, 8, 3) and got_img.shape == (3, 16, 16, 3)
+        assert _rel(got.numpy(), want) <= TRAJ_RTOL, (method, _rel(got.numpy(), want))
+        assert _rel(got_img.numpy(), want_img) <= TRAJ_RTOL, method
+    for method in ("plms", "dpm"):
+        with pytest.raises(ValueError, match="eta == 0"):
+            tldm.make_cfg_sampler(method=method, eta=0.5)
+    with pytest.raises(NotImplementedError):
+        tldm.get_loss_at_t()
+    # DDIM with eta > 0 draws its noise from the generator: same seed, same samples
+    sample = tldm.make_cfg_sampler(ddim_steps=4, eta=1.0, latent_hw=8, latent_ch=3)
+    a, b = (sample(torch.Generator().manual_seed(1), torch.from_numpy(labels), 3)
+            for _ in range(2))
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+    from diff_pruning_tpu_torch.cli import ldm_sample
+
+    out = tmp_path / "samples"
+    stats = ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out),
+                             "--num_classes", "2", "--ipc", "3", "--batch_size", "2",
+                             "--ddim_steps", "2", "--method", "plms", "--device", "cpu"])
+    assert "allow_tf32=False" in capsys.readouterr().out
+    pngs = sorted(os.listdir(out))
+    assert pngs == [f"{i:06d}.png" for i in range(6)] and stats["images"] == 6
+    assert stats["nonfinite"] == 0
+    from PIL import Image
+
+    assert np.asarray(Image.open(out / pngs[-1])).shape == (16, 16, 3)
+    # without a first stage the latents are mapped from [-1, 1]
+    os.rename(os.path.join(model_dir, "first_stage"), str(tmp_path / "first_stage"))
+    ldm_sample.main(["--model_path", model_dir, "--output_dir", str(tmp_path / "latent"),
+                     "--num_classes", "1", "--ipc", "1", "--batch_size", "1",
+                     "--ddim_steps", "2", "--method", "dpm", "--device", "cpu"])
+    assert np.asarray(Image.open(tmp_path / "latent" / "000000.png")).shape == (8, 8, 3)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out)])
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out), "--multihost",
+                         "--device", "cpu"])

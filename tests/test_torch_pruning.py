@@ -64,8 +64,10 @@ def numpy_params(jmodel, seed):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port imports with ``jax`` and the JAX package
-    blocked (a blocked import raises), and none pulls either in."""
+    """Every module of the port imports with ``jax``, the JAX package and
+    ``triton`` blocked (a blocked import raises) and no ``nvcc``
+    (CUDA_HOME points nowhere), none pulls jax or the JAX package in, and
+    the CLIs parse their arguments so."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'diff_pruning_tpu', 'triton'):\n"
@@ -74,6 +76,9 @@ def test_port_imports_nothing_of_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_sample\n"
+        "for cli in (ddpm_sample, ldm_sample):\n"
+        "    cli.parse_args(['--model_path', 'm', '--output_dir', 'o'])\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'diff_pruning_tpu'))]\n"
         "assert not bad, bad\n"
@@ -83,7 +88,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 43
+    assert int(res.stdout.strip()) >= 49
 
 
 def _tiny_sweep_inputs():

@@ -112,9 +112,10 @@ def test_cifar10_full_width_params_and_forward():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
-def test_checkpoint_round_trip_from_jax(tmp_path):
+def test_checkpoints_cross_both_ways(tmp_path):
     """A checkpoint written by the JAX package loads here and is written back
-    byte-for-byte the same arrays."""
+    byte-for-byte the same arrays; one written here loads in the JAX package,
+    validates against its graph and gives the same forward."""
     cfg = junet.tiny_unet_config()
     jmodel = junet.UNet2D(cfg)
     flat = numpy_params(jmodel, seed=5)
@@ -131,12 +132,10 @@ def test_checkpoint_round_trip_from_jax(tmp_path):
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
-
-def test_checkpoint_from_port_loads_in_jax(tmp_path):
     cfg = tunet.tiny_unet_config()
     m = tunet.UNet2D(cfg, device="cpu").init(torch.Generator().manual_seed(6))
-    tckpt.save_model(str(tmp_path), cfg, m)
-    jcfg, jparams = jckpt.load_model(str(tmp_path))
+    tckpt.save_model(str(tmp_path / "fresh"), cfg, m)
+    jcfg, jparams = jckpt.load_model(str(tmp_path / "fresh"))
     jmodel = junet.UNet2D(jcfg)
     jmodel.graph.validate(jparams)
     flat = {k: np.asarray(v) for k, v in flatten_params(jparams).items()}
