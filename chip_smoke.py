@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
 
-Drives the port's five paths, through its own kernels, from seeded random
+Drives the port's six paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
 path (the train CLI on the pruned checkpoint, f32 and bf16, and its
 resume) and the evaluation path (the fid_score and fidelity CLIs through
 the full-width FID InceptionV3, which runs no kernel of the port); and the
-class-conditional LDM serving path (the ldm_sample CLI on cin256-v2 + vq-f4,
-456.76M params). Every phase raises on failure; none is caught, so any
-failure exits non-zero before the result lines.
+class-conditional LDM's serving path (the ldm_sample CLI on cin256-v2 +
+vq-f4, 456.76M params) and pruning path (the ldm_prune CLI's self-sampled
+sweep, through the wide f32 attention backward). Every phase raises on
+failure; none is caught, so any failure exits non-zero before the result
+lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
@@ -106,7 +108,7 @@ failure exits non-zero before the result lines.
    576), (64, 960) and the class-token cross-attention, Nkv = 1), of the
    decode (B rows; its 4096-token D = 512 attention and its GroupNorm
    slabs up to 2 MB a group) and of the UNet pruned at 0.3 (magnitude,
-   local), with the lse; a 16-bit forward and a backward at D = 384 must
+   local), with the lse; a 16-bit forward and backward at D = 384 must
    raise ValueError and launch nothing. The CFG sampler (scale 3) kernels on against
    off from one x_T, DDIM-20, PLMS-10 and DPM-10, through the decode,
    launch counts equal to calls x steps. Then imgs/s of CFG DDIM-20 +
@@ -117,7 +119,32 @@ failure exits non-zero before the result lines.
    16, so its UNet calls and decodes take the rows checked above; 20
    steps) with --method ddim, plms and dpm, launch counters reset just
    before each and read just after.
-17. The evaluation and LDM JSON lines, the kernels' JSON line,
+17. LDM prune path, f32, TF32 off, on phase 16's model, B = 6 (the CLI's
+   default): (a) the wide f32 dq and dk/dv kernels (256 < D <= 1024)
+   against their plain versions at every attention backward shape of one
+   sweep step (forward hooks; (1024, 384), (256, 576), (64, 960), each with
+   Nkv = Nq and the class token's Nkv = 1, where dq and dk are zero in
+   exact arithmetic and 1e-6 of the call's largest gradient is added to
+   their tolerance), and at the widths of the UNet the CLI writes (268, 404,
+   672); (b) the GroupNorm backward at the step's shapes (C 192-1920, slabs
+   chunked past 104 KB) and the pruned UNet's; an f32 forward and backward
+   at D = 384 under autograd launch the kernels; (c) one sweep step (t = 0)
+   kernels on against off from the same latents, labels and noise (cuDNN
+   deterministic): loss, every grad and the Diff-Pruning scores, launches
+   61 GroupNorm and 32 attention forwards (with lse), 61 GroupNorm
+   backwards, 32 dq and 32 dk/dv; a repeat with the kernels on must be
+   bit-identical; (d) the main path: the ldm_prune CLI (diff-pruning, 3
+   sweep steps for 1000, 2 vis classes for 4, CFG DDIM-20 latents) with
+   launch counters reset just before and read just after, equal to steps x
+   (20 CFG calls + the grad step) + the vis grid; its model dir reloads at
+   the pinned 203,294,971 UNet params and ldm_sample draws finite images
+   from it; (e) timings: the sweep step split into CFG sampling (20 CFG
+   UNet calls of 12 rows, one timed) and forward + backward, kernels on and
+   off in turns; a profile of one 12-row CFG call and cuDNN's 3x3 192 ->
+   192 convolution at 64 x 64 timed at 12, 16 and 32 rows; per-op backward
+   ms at the step's shapes against plain, the library call (the SDPA f32
+   backward, autograd of F.group_norm) and the bound.
+18. The evaluation, LDM and LDM prune JSON lines, the kernels' JSON line,
    nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
@@ -189,6 +216,16 @@ EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 LDM_PARAMS = {"unet": 400_920_579, "first_stage": 55_322_782, "cond_stage": 512_512}
 LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 10, 3.0
 LDM_REL_TOL = 1e-3
+# the LDM prune path (phase 17): the CLI's batch (labels a sweep step, 2
+# LDM_PRUNE_B UNet rows a CFG call, LDM_PRUNE_B rows in the grad step), its
+# sweep steps (cut from 1000) and vis classes (cut from 4); the UNet pruned
+# locally at 0.3 with round_to 2 (pinned from the JAX package's pruner in
+# tests/test_torch_ldm_prune.py). Kernels on against off: the sweep's
+# tolerances (SWEEP_*), the backward kernels' (BWD_TOL) with, at Nkv = 1,
+# 1e-6 of the call's largest gradient added for dq and dk, which are zero in
+# exact arithmetic there (p = 1: both sides hold only f32 noise)
+LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES = 6, 3, ("25", "187")
+LDM_PRUNED_PARAMS_AT_0_3 = 203_294_971
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -238,9 +275,9 @@ def gn_fwd_work(n, c, silu, dname):
     return 2 * el * NBYTES[dname] + 2 * c * 4, el * (9 if silu else 5)
 
 
-def gn_bwd_work(n, c, silu, dname):
-    el = B * n * c
-    return 3 * el * NBYTES[dname] + B * 32 * 8 + 4 * c * 4, el * (28 if silu else 12)
+def gn_bwd_work(n, c, silu, dname, rows=B):
+    el = rows * n * c
+    return 3 * el * NBYTES[dname] + rows * 32 * 8 + 4 * c * 4, el * (28 if silu else 12)
 
 
 def attn_fwd_work(n, h, d, dname):
@@ -255,6 +292,17 @@ def attn_dq_work(n, h, d, dname):
 def attn_dkv_work(n, h, d, dname):
     rows = B * h * n
     return 6 * rows * d * NBYTES[dname] + 2 * rows * 4, 8 * rows * n * d
+
+
+def ldm_bwd_work(rows, nq, nkv, d):
+    """((bytes, flops) of the dq kernel, (bytes, flops) of the dk/dv kernel)
+    for one f32 attention backward of ``rows`` one-head rows: dq reads q, k,
+    v, o, dO and lse and writes dq and dsum; dk/dv reads q, k, v, dO, lse and
+    dsum and writes dk and dv."""
+    rows_q, rows_kv = rows * nq * d * 4, rows * nkv * d * 4
+    return ((4 * rows_q + 2 * rows_kv + 2 * rows * nq * 4,
+             rows * (6 * nq * nkv * d + 2 * nq * d)),
+            (2 * rows_q + 4 * rows_kv + 2 * rows * nq * 4, rows * 8 * nq * nkv * d))
 
 
 def add_bound(tot, prefix, ms, by):
@@ -333,10 +381,10 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
 
 # the kernels whose registers and spills phase 2 prints one by one: the
 # attention backward (``flash_bwd_dq_kernel_f32<NC>``,
-# ``flash_bwd_dkv_kernel_mma<T, NC>``) and the GroupNorm backward
-# (``gn_bwd_kernel<T, silu>``)
+# ``flash_bwd_dkv_kernel_f32_wide<NC2>``, ``flash_bwd_dkv_kernel_mma<T, NC>``)
+# and the GroupNorm backward (``gn_bwd_kernel<T, silu>``)
 PTXAS_KERNELS = {
-    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32|mma))"
+    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32_wide|f32|mma))"
                             r"I(13__nv_bfloat16|6__half)?Li(\d)E",
                             lambda m: f"{m.group(1)}<" + (
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
@@ -894,7 +942,8 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
 
 
 def ldm_path(tmp, gen, gpu, tag, worst):
-    """Phase 16 (see the module docstring); returns its figures."""
+    """Phase 16 (see the module docstring); returns the loaded model, its
+    model dir and the phase's figures."""
     import numpy as np
     import torch
 
@@ -997,16 +1046,19 @@ def ldm_path(tmp, gen, gpu, tag, worst):
     torch.cuda.synchronize()
 
     # what no kernel takes raises on the card, and launches nothing: a
-    # 16-bit forward and every backward above D = 256
+    # 16-bit forward and backward above D = 256 (phase 17 runs the f32 one)
     q = torch.randn((2, 1, 64, 384), generator=gen, device=dev)
     lse = torch.zeros((2, 1, 64), device=dev)
     before = dict(ops.LAUNCHES)
     for what, fn in (
             ("bf16 forward", lambda: flash_attention(*[q.bfloat16()] * 3, 0.05)),
             ("f16 forward", lambda: flash_attention(*[q.half()] * 3, 0.05)),
-            ("f32 backward", lambda: A.flash_attention_backward(q, q, q, q, q, lse, 0.05)),
-            ("f32 forward under autograd",
-             lambda: flash_attention(q.clone().requires_grad_(), q, q, 0.05))):
+            ("bf16 backward",
+             lambda: A.flash_attention_backward(*[q.bfloat16()] * 5, lse, 0.05)),
+            ("f16 backward", lambda: A.flash_attention_backward(*[q.half()] * 5, lse, 0.05)),
+            ("bf16 forward under autograd",
+             lambda: flash_attention(q.bfloat16().requires_grad_(), q.bfloat16(), q.bfloat16(),
+                                     0.05))):
         try:
             fn()
         except ValueError as err:
@@ -1135,13 +1187,348 @@ def ldm_path(tmp, gen, gpu, tag, worst):
         assert len(pngs) == 2 * LDM_B and stats["nonfinite"] == 0, stats
         assert {k: launches[k] for k in want} == want, (launches, want)
     print(f"ldm phase {time.perf_counter() - t_phase:.1f} s")
-    return {"card": gpu, "params": counts, "b": LDM_B, "imgs_per_s": ips,
+    return ldm, model_dir, {"card": gpu, "params": counts, "b": LDM_B, "imgs_per_s": ips,
             "batch_ms": {"on": [on1, on2], "off": [off1, off2]},
             "unet_call_ms": unet_ms, "decode_ms": decode_ms, "profiles": profiles,
             "compare": compare_out, "cli": cli, "ops_unet_call": ops_unet,
             "ops_decode": ops_dec, "per_call": per_call, "per_decode": per_decode,
             "attn_pruned": {str(k): v for k, v in attn_pruned.items()},
             "save_s": t_save, "load_s": t_load}
+
+
+def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
+    """Phase 17 (see the module docstring); returns its figures."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import ldm_prune, ldm_sample
+    from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_ldm_grads
+    from diff_pruning_tpu_torch.models.latent_diffusion import load_ldm
+    from diff_pruning_tpu_torch.models.vae import first_stage_config
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+    from diff_pruning_tpu_torch.ops.attention import flash_attention
+    from diff_pruning_tpu_torch.pruning.importance import make_importance
+    from diff_pruning_tpu_torch.pruning.pruner import prune
+    from diff_pruning_tpu_torch.pruning.surgery import unflatten_params
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    rows = LDM_PRUNE_B
+    ucfg = ldm.unet.cfg
+    hw = ucfg.image_size
+    # every backward shape of one sweep step (forward hooks, shapes only), of
+    # the dense UNet and of the one the CLI writes (0.3, round_to 2)
+    (gn_dense, attn_dense), _ = ldm_op_shapes(ucfg, first_stage_config("vq-f4"))
+    res = prune(ldm.unet.graph, {}, make_importance("random"), sparsity=0.3, round_to=2)
+    pcfg = ucfg.with_channel_sizes(res.channel_sizes)
+    (gn_pruned, attn_pruned), _ = ldm_op_shapes(pcfg, first_stage_config("vq-f4"))
+    per_step = {"group_norm": sum(gn_dense.values()), "attention": sum(attn_dense.values())}
+    print(f"ldm prune: per sweep step {per_step['group_norm']} GroupNorm and "
+          f"{per_step['attention']} attention calls forward and backward at {rows} rows; "
+          f"attention shapes {dict(attn_dense)}, pruned {dict(attn_pruned)}")
+
+    # (a) the wide f32 dq and dk/dv against their plain versions, through
+    # head-split views of (B, N, D) projections as the layers pass them
+    def views(n, d):
+        return torch.randn((rows, n, d), generator=gen, device=dev).view(rows, n, 1, d) \
+            .transpose(1, 2)
+
+    for (nq, nkv, h, d), where in ([(s, "unet") for s in sorted(attn_dense)]
+                                   + [(s, "pruned unet") for s in sorted(attn_pruned)]):
+        q, do = views(nq, d), views(nq, d)
+        k, v = views(nkv, d), views(nkv, d)
+        scale = d ** -0.5
+        _, lse = A.flash_attention_forward_lse(q, k, v, scale)
+        o, plse = A.reference_attention_lse(q, k, v, scale)
+        dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, plse, scale)
+        pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, plse, scale)
+        dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+        pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
+        tol = BWD_TOL["float32"]
+        floor = 1e-6 * max(float(g.abs().max()) for g in (pdq, pdk, pdv)) if nkv == 1 else 0.0
+        errs = {}
+        for what, a, w, fl in (("lse", lse, plse, 0.0), ("dsum", dsum, pdsum, 0.0),
+                               ("dq", dq, pdq, floor), ("dk", dk, pdk, floor),
+                               ("dv", dv, pdv, 0.0)):
+            err = float((a - w).abs().max())
+            ok = bool(torch.isfinite(a).all()) and err <= tol * float(w.abs().max()) + fl
+            assert ok, f"ldm attention backward {what} at {(nq, nkv, d)}: {err:.3e}"
+            errs[what] = err
+        for key, names in (("attention_bwd_dq_ldm", ("dq", "dsum")),
+                           ("attention_bwd_dkv_ldm", ("dk", "dv"))):
+            worst[(key, "float32")] = max(worst[(key, "float32")], *(errs[n] for n in names))
+        print(f"check ldm attention bwd ({where}) rows={rows} Nq={nq} Nkv={nkv} D={d} float32: "
+              + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+              + f" tol={tol} x max|want|" + (f" + {floor:.3e} (Nkv = 1)" if floor else "")
+              + " ok")
+        del q, k, v, do, o, dq, dk, dv, pdq, pdk, pdv
+    # (b) the GroupNorm backward at the sweep's shapes (slabs chunked past
+    # 104 KB: 4096 x 192 and wider)
+    for (n, c, eps, silu), where in ([(s, "unet") for s in sorted(gn_dense)]
+                                     + [(s, "pruned unet") for s in sorted(gn_pruned)]):
+        x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
+        dy = torch.randn((rows, n, c), generator=gen, device=dev)
+        scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+        mean, rstd = G.group_norm_stats_reference(x, 32, eps=eps)
+        kw = dict(groups=32, with_silu=silu)
+        got = G.group_norm_backward(x, scale, bias, dy, mean, rstd, **kw)
+        want = G.group_norm_backward_reference(x, scale, bias, dy, mean, rstd, **kw)
+        errs = {}
+        for what, a, w in zip(("dx", "dscale", "dbias"), got, want):
+            errs[what], ok = compare_rel(a, w, BWD_TOL["float32"])
+            assert ok, f"ldm group_norm backward {what} at {(n, c, silu)}: {errs[what]:.3e}"
+        worst[("group_norm_bwd_ldm", "float32")] = max(worst[("group_norm_bwd_ldm", "float32")],
+                                                       *errs.values())
+        slab = 2 * n * c // 32 * 4 / 1024
+        print(f"check ldm group_norm bwd ({where}) rows={rows} N={n} C={c} C/g={c // 32} "
+              f"x+dy slab {slab:.0f} KB{' (chunked)' if slab > 104 else ''} silu={silu} "
+              f"float32: " + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+              + f" tol={BWD_TOL['float32']} x max|want| ok")
+        del x, dy
+    # an f32 backward at D = 384 launches the wide kernels, through autograd too
+    q = torch.randn((2, 1, 64, 384), generator=gen, device=dev, requires_grad=True)
+    before = dict(ops.LAUNCHES)
+    flash_attention(q, q, q, 0.05).sum().backward()
+    for op in ("attention", "attention_lse", "attention_bwd_dq", "attention_bwd_dkv"):
+        assert ops.LAUNCHES[op] == before[op] + 1, (op, before, ops.LAUNCHES)
+    print("check ldm attention D=384 f32 under autograd: forward with lse, dq and dk/dv "
+          "launched once each ok")
+    torch.cuda.synchronize()
+
+    # (c) one full-width sweep step, kernels on against off on the same
+    # latents, labels, noise and t, then on again (bit-identical)
+    torch.backends.cudnn.deterministic = True
+    sgen = torch.Generator(device=dev).manual_seed(11)
+    lat = torch.randn((rows, hw, hw, 3), generator=sgen, device=dev)
+    labels = torch.randint(0, ldm.n_classes - 1, (rows,), generator=sgen, device=dev)
+    noise = torch.randn((rows, hw, hw, 3), generator=sgen, device=dev)
+
+    def step(on):
+        ops.set_kernels_enabled(on)
+        try:
+            ops.reset_launch_counts()
+            res = accumulate_ldm_grads(ldm, lambda t: (lat, labels, noise), max_steps=1)
+            torch.cuda.synchronize()
+            return (res.losses, dict(ops.LAUNCHES),
+                    {n: g.clone() for n, g in res.grads.items()})
+        finally:
+            ops.set_kernels_enabled(True)
+            ldm.unet.zero_grad(set_to_none=True)
+
+    loss_on, c_on, g_on = step(True)
+    loss_off, c_off, g_off = step(False)
+    loss_again, _, g_again = step(True)
+    want_counts = {"group_norm": per_step["group_norm"], "group_norm_bwd": per_step["group_norm"],
+                   "attention": per_step["attention"], "attention_lse": per_step["attention"],
+                   "attention_bwd_dq": per_step["attention"],
+                   "attention_bwd_dkv": per_step["attention"]}
+    assert c_on == want_counts and not any(c_off.values()), (c_on, c_off)
+    np.testing.assert_allclose(loss_on, loss_off, rtol=SWEEP_LOSS_RTOL)
+    floor = 1e-6 * max(float(g.abs().max()) for g in g_off.values())
+    worst_grad, worst_name = 0.0, ""
+    for name, g in g_off.items():
+        err, gmax = float((g_on[name] - g).abs().max()), float(g.abs().max())
+        assert bool(torch.isfinite(g_on[name]).all()) and \
+            err <= SWEEP_GRAD_TOL * gmax + floor, f"ldm sweep grad {name}: {err:.3e} ({gmax:.3e})"
+        if err / max(gmax, floor) > worst_grad:
+            worst_grad, worst_name = err / max(gmax, floor), f"{name} (max |grad| {gmax:.3e})"
+    identical = all(torch.equal(g_again[n], g) for n, g in g_on.items())
+    assert identical and np.array_equal(loss_again, loss_on), "ldm sweep step not reproducible"
+    params = unflatten_params(flat_from_state_dict(ldm.unet.state_dict()))
+    s_on = unflatten_params(flat_from_state_dict(g_on))
+    s_off = unflatten_params(flat_from_state_dict(g_off))
+    del g_on, g_off, g_again
+    imp, graph, worst_score = make_importance("diff-pruning"), ldm.unet.graph, 0.0
+    for var in graph.prunable_vars():
+        a, b = imp(graph, params, var, grads=s_on), imp(graph, params, var, grads=s_off)
+        err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+        assert err <= SWEEP_SCORE_RTOL, f"ldm diff-pruning scores of {var.name}: {err:.3e}"
+        worst_score = max(worst_score, err)
+    del params, s_on, s_off
+    print(f"ldm sweep step cin256-v2 B={rows} t=0 f32, kernels on vs off: loss {loss_on[0]:.6f} "
+          f"against {loss_off[0]:.6f} (tol {SWEEP_LOSS_RTOL} rel); worst grad err / param max "
+          f"{worst_grad:.3e} at {worst_name} (tol {SWEEP_GRAD_TOL}); worst diff-pruning score "
+          f"err / var max {worst_score:.3e} (tol {SWEEP_SCORE_RTOL}); repeat bit-identical: "
+          f"{identical}; launches on {c_on}")
+    torch.backends.cudnn.deterministic = False
+
+    # (d) the main path: the ldm_prune CLI on the saved model
+    out = os.path.join(tmp, "ldm_pruned")
+    ops.reset_launch_counts()
+    stats, _, cli_seconds = run_cli(ldm_prune.main, [
+        "--model_path", model_dir, "--save_path", out, "--pruner", "diff-pruning",
+        "--max_steps", str(LDM_PRUNE_STEPS), "--batch_size", str(rows), "--ddim_steps",
+        str(LDM_STEPS), "--classes", *LDM_PRUNE_CLASSES, "--device", "cuda"])
+    cli_counts = dict(ops.LAUNCHES)
+    steps, losses = stats["steps_run"], stats["losses"]
+    broke = losses[-1] / max(losses) < 0.1  # the CLI's default thr
+    grad_steps = steps - broke
+    calls = steps * LDM_STEPS + len(LDM_PRUNE_CLASSES) * LDM_STEPS
+    want_cli = {"group_norm": (calls + steps) * 61 + len(LDM_PRUNE_CLASSES) * 24,
+                "group_norm_bwd": grad_steps * 61,
+                "attention": (calls + steps) * 32 + len(LDM_PRUNE_CLASSES),
+                "attention_lse": steps * 32, "attention_bwd_dq": grad_steps * 32,
+                "attention_bwd_dkv": grad_steps * 32}
+    print(f"main path ldm_prune CLI: diff-pruning, {steps} sweep steps (losses {losses}) in "
+          f"{stats['sweep_seconds']:.2f} s, {stats['params_before']:,} -> {stats['params']:,} "
+          f"params, whole CLI {cli_seconds:.2f} s (host clock, B={rows}, CFG DDIM-{LDM_STEPS}, "
+          f"f32) {tag}; launches {cli_counts}")
+    assert steps == LDM_PRUNE_STEPS and cli_counts == want_cli, (steps, cli_counts, want_cli)
+    assert stats["params"] == LDM_PRUNED_PARAMS_AT_0_3, stats["params"]
+    pruned = load_ldm(out, device=dev)
+    n_reloaded = sum(p.numel() for p in pruned.unet.parameters())
+    assert n_reloaded == LDM_PRUNED_PARAMS_AT_0_3 and pruned.first_stage is not None
+    assert os.path.isfile(os.path.join(out, "samples.png"))
+    del pruned
+    samples, _, sample_seconds = run_cli(ldm_sample.main, [
+        "--model_path", out, "--output_dir", os.path.join(tmp, "ldm_pruned_s"),
+        "--num_classes", "1", "--ipc", str(rows), "--batch_size", str(rows), "--ddim_steps",
+        str(LDM_MULTI_STEPS), "--device", "cuda"])
+    print(f"main path check: the pruned LDM reloads at {n_reloaded:,} UNet params (pinned "
+          f"{LDM_PRUNED_PARAMS_AT_0_3:,}); ldm_sample drew {samples['images']} images, "
+          f"{samples['nonfinite']} non-finite values, in {sample_seconds:.1f} s")
+    assert samples["images"] == rows and samples["nonfinite"] == 0
+
+    # (e) timings: the sweep step split into its CFG sampling (LDM_STEPS CFG
+    # UNet calls of 2 x rows rows; the DDIM updates are a few elementwise
+    # ops) and its forward + backward, kernels on and off; each op against
+    # plain and the library call at the step's shapes
+    uparams = [p for p in ldm.unet.parameters()]
+    tb = torch.zeros((rows,), dtype=torch.int64, device=dev)
+    x2, tb2 = torch.cat([lat, lat]), torch.full((2 * rows,), 500, device=dev)
+    with torch.inference_mode():
+        ctx2 = ldm.get_learned_conditioning(torch.cat([torch.full_like(labels, 1000), labels]))
+
+    def timed(on, fn):
+        ops.set_kernels_enabled(on)
+        try:
+            return cuda_ms(fn, iters=1, warmup=0)
+        finally:
+            ops.set_kernels_enabled(True)
+
+    def cfg_call():
+        with torch.inference_mode():
+            ldm.apply_unet(x2, tb2, ctx2)
+
+    def fwd_bwd():
+        ldm.get_loss_at_t(lat, labels, tb, noise).backward(inputs=uparams)
+
+    for on in (False, True):
+        timed(on, cfg_call)
+        timed(on, fwd_bwd)
+    call = [timed(on, cfg_call) for on in (False, True, True, False)]
+    grad = [timed(on, fwd_bwd) for on in (False, True, True, False)]
+    ldm.unet.zero_grad(set_to_none=True)
+    busy, span, launches, kcounts, _ = profile_kernels(cfg_call)
+    print_profile(f"ldm prune one CFG UNet call kernels on rows={2 * rows} float32", busy, span,
+                  launches, kcounts, ("call", 1), tag)
+    # the convolution that takes most of such a call: cuDNN's 3x3, 192 -> 192
+    # channels at 64 x 64 (NHWC f32), by batch rows
+    w = torch.randn((192, 192, 3, 3), generator=gen, device=dev)
+    conv_ms = {}
+    for n in (2 * rows, 16, 32):
+        xc = torch.randn((n, 192, 64, 64), generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            conv_ms[n] = cuda_ms(lambda: F.conv2d(xc, w, None, 1, 1), iters=3, warmup=1)
+        del xc
+    print("time ldm conv 3x3 192->192 at 64x64 NHWC float32: " + ", ".join(
+        f"{n} rows {ms:.2f} ms ({ms / n:.3f} a row)" for n, ms in conv_ms.items()) + f" {tag}")
+    step_ms = {"cfg_call_on": (call[1] + call[2]) / 2, "cfg_call_off": (call[0] + call[3]) / 2,
+               "fwd_bwd_on": (grad[1] + grad[2]) / 2, "fwd_bwd_off": (grad[0] + grad[3]) / 2}
+    for on in ("on", "off"):
+        step_ms[f"sampling_{on}"] = LDM_STEPS * step_ms[f"cfg_call_{on}"]
+        step_ms[on] = step_ms[f"sampling_{on}"] + step_ms[f"fwd_bwd_{on}"]
+    print(f"time ldm sweep step cin256-v2 B={rows} f32: kernels on {step_ms['on']:.1f} ms "
+          f"(CFG DDIM-{LDM_STEPS} sampling {step_ms['sampling_on']:.1f} = {LDM_STEPS} x "
+          f"{step_ms['cfg_call_on']:.1f} ms CFG UNet calls at {2 * rows} rows, forward + "
+          f"backward {step_ms['fwd_bwd_on']:.1f}), kernels off {step_ms['off']:.1f} ms "
+          f"(sampling {step_ms['sampling_off']:.1f}, forward + backward "
+          f"{step_ms['fwd_bwd_off']:.1f}) (CUDA events, in turns off-on-on-off); the CLI's "
+          f"sweep took {stats['sweep_seconds'] / steps * 1e3:.1f} ms a step (host clock, "
+          f"kernels on) {tag}")
+    tot = collections.defaultdict(float)
+    for (nq, nkv, h, d), ncalls in sorted(attn_dense.items()):
+        q, do = views(nq, d), views(nq, d)
+        k, v = views(nkv, d), views(nkv, d)
+        scale = d ** -0.5
+        o, lse = A.reference_attention_lse(q, k, v, scale)
+        _, dsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale)
+        ql, kl, vl = (z.detach().clone().requires_grad_() for z in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        backend = sdpa_backend(
+            lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True))
+        fns = [lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
+               lambda: A.flash_attention_backward_dq(q, k, v, o, do, lse, scale),
+               lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
+               lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
+               lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+        ms = in_turns(fns, iters=5)
+        (bq_bytes, fq), (bkv_bytes, fkv) = ldm_bwd_work(rows, nq, nkv, d)
+        bq, byq = bound(bq_bytes, fq, "float32")
+        bkv, bykv = bound(bkv_bytes, fkv, "float32")
+        for key, val in (("dq_plain", ms[0]), ("dq_kernel", ms[1]), ("dkv_plain", ms[2]),
+                         ("dkv_kernel", ms[3]), ("attn_library", ms[4]), ("dq_flops", fq),
+                         ("dkv_flops", fkv)):
+            tot[key] += val * ncalls
+        add_bound(tot, "dq_", bq * ncalls, byq)
+        add_bound(tot, "dkv_", bkv * ncalls, bykv)
+        print(f"time ldm attention bwd {(nq, nkv, d)} x{ncalls}/step rows={rows} float32: dq "
+              f"kernel {ms[1]:.4f} ms, {fq / ms[1] / 1e9:.2f} TFLOP/s (plain {ms[0]:.4f}, bound "
+              f"{bq:.4f} {byq}), dk/dv kernel {ms[3]:.4f} ms, {fkv / ms[3] / 1e9:.2f} TFLOP/s "
+              f"(plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library (SDPA f32 backward, "
+              f"dq+dk+dv, {backend}) {ms[4]:.4f} ms {tag}")
+        del fns, q, k, v, do, o, ql, kl, vl, ol
+    for (n, c, eps, silu), ncalls in sorted(gn_dense.items()):
+        x = torch.randn((rows, n, c), generator=gen, device=dev)
+        dy = torch.randn((rows, n, c), generator=gen, device=dev)
+        s_, b_ = torch.rand(c, generator=gen, device=dev) + 0.5, torch.zeros(c, device=dev)
+        mean, rstd = G.group_norm_stats_reference(x, 32, eps=eps)
+        kw = dict(groups=32, with_silu=silu)
+        fns = [lambda: G.group_norm_backward_reference(x, s_, b_, dy, mean, rstd, **kw),
+               lambda: G.group_norm_backward(x, s_, b_, dy, mean, rstd, **kw)]
+        if not silu:  # autograd of F.group_norm: native_group_norm_backward alone
+            xl = x.transpose(1, 2).contiguous().requires_grad_()
+            sl, bl = (z.clone().requires_grad_() for z in (s_, b_))
+            yl = F.group_norm(xl, 32, sl, bl, eps=eps)
+            dyl = dy.transpose(1, 2).contiguous()
+            fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
+        ms = in_turns(fns, iters=5)
+        bms, by = bound(*gn_bwd_work(n, c, silu, "float32", rows=rows), "float32")
+        tot["gn_kernel"] += ms[1] * ncalls
+        tot["gn_plain"] += ms[0] * ncalls
+        add_bound(tot, "gn_", bms * ncalls, by)
+        if len(ms) == 3:
+            tot["gn_library"] += ms[2] * ncalls
+            tot["gn_kernel_where_library"] += ms[1] * ncalls
+        print(f"time ldm group_norm bwd {(n, c, silu)} x{ncalls}/step rows={rows} float32: "
+              f"kernel {ms[1]:.4f} ms, plain {ms[0]:.4f} ms, library "
+              f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by}) {tag}")
+        del fns, x, dy
+    tot["dq_tflops"] = tot["dq_flops"] / tot["dq_kernel"] / 1e9
+    tot["dkv_tflops"] = tot["dkv_flops"] / tot["dkv_kernel"] / 1e9
+    for prefix in ("dq_", "dkv_", "gn_"):
+        tot[prefix + "bound_by"] = bound_by(tot, prefix)
+    ops_ms = dict(tot)
+    print(f"time ldm backward per sweep step rows={rows} float32: " + ", ".join(
+        f"{k_} {v_:.4f}" if isinstance(v_, float) else f"{k_} {v_}"
+        for k_, v_ in sorted(ops_ms.items())) + f" {tag}")
+    print(f"ldm prune phase {time.perf_counter() - t_phase:.1f} s")
+    return {"card": gpu, "b": rows, "sweep_steps": steps, "losses": losses,
+            "cli_seconds": cli_seconds, "sweep_seconds": stats["sweep_seconds"],
+            "cli_launches": cli_counts, "params": [stats["params_before"], stats["params"]],
+            "sweep_step_ms": step_ms, "compare": {"worst_grad": worst_grad,
+                                                  "worst_score": worst_score,
+                                                  "loss_on": loss_on[0], "loss_off": loss_off[0]},
+            "ops_per_step": ops_ms, "sample_seconds": sample_seconds,
+            "cfg_call_profile": {"busy_ms": busy, "span_ms": span, "launches": launches},
+            "conv_192_ms": {str(n): ms for n, ms in conv_ms.items()},
+            "attn_pruned": {str(k_): v_ for k_, v_ in attn_pruned.items()}}
 
 
 def main() -> None:
@@ -1215,9 +1602,11 @@ def main() -> None:
     if _build.BUILD_INFO["flash_attention_bwd"]["log"]:  # empty when already built
         assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
             "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
-            "flash_bwd_dkv_kernel_mma"}, regs
-        # f32: dq at 4 head-dim paddings, dk/dv at 2; 16-bit: 2 types x 4 x 2 kernels
-        assert len(regs["flash_attention_bwd"]) == 22, regs
+            "flash_bwd_dkv_kernel_mma", "flash_bwd_dq_kernel_f32_wide",
+            "flash_bwd_dkv_kernel_f32_wide"}, regs
+        # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 6 each
+        # (D 257-1024); 16-bit: 2 types x 4 x 2 kernels
+        assert len(regs["flash_attention_bwd"]) == 34, regs
     if _build.BUILD_INFO["group_norm_bwd"]["log"]:
         assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
     for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd"):
@@ -1233,6 +1622,8 @@ def main() -> None:
                 assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
         wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma",),
                  "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
+                                         "flash_bwd_dq_kernel_f32_wide",
+                                         "flash_bwd_dkv_kernel_f32_wide",
                                          "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma"),
                  "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
         for want in wants:
@@ -1961,10 +2352,14 @@ def main() -> None:
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES  # no kernel of the port on this path
 
     # -- 16. the class-conditional LDM serving path (cin256-v2 + vq-f4)
-    ldm = ldm_path(tmp, gen, gpu, tag, worst)
+    ldm_model, ldm_dir, ldm = ldm_path(tmp, gen, gpu, tag, worst)
+
+    # -- 17. the LDM prune path: the wide f32 backward, the sweep, the CLI
+    ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
+    del ldm_model
     tmpdir.cleanup()
 
-    # -- 17. result lines
+    # -- 18. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -1991,7 +2386,26 @@ def main() -> None:
         return out
 
     def paths(key):
-        return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key])
+        return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key],
+                    launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key])
+
+    lp_ops = ldm_prune_fig["ops_per_step"]
+    per_ldm_step = f"f32, summed over one B={LDM_PRUNE_B} LDM sweep step's calls"
+
+    def ldm_wide_bwd(part):
+        """The wide f32 dq or dk/dv kernel: the LDM prune CLI's launches, its
+        max abs error over the LDM shapes and its figures per sweep step."""
+        out = entry(f"flash_attention_bwd_{part}_wide", "cuda", attn_bwd_src,
+                     "diff_pruning_tpu/ops/attention.py:" + ("143" if part == "dq" else "170"),
+                     ldm_prune_fig["cli_launches"][f"attention_bwd_{part}"],
+                     f"attention_bwd_{part}_ldm", lp_ops[f"{part}_kernel"],
+                     lp_ops[f"{part}_plain"], lp_ops[f"{part}_bound"],
+                     lp_ops[f"{part}_bound_by"], None, ms_is=per_ldm_step,
+                     library_ms_dq_dk_dv=lp_ops["attn_library"],
+                     tflops=lp_ops[f"{part}_tflops"],
+                     launch_path="the ldm_prune CLI (phase 17)")
+        out.pop("max_abs_err_bf16")  # f32 only: 16-bit heads above 256 raise
+        return out
 
     def ldm_of(op):
         """The LDM serving path's figures (phase 16): launches of the
@@ -2042,7 +2456,13 @@ def main() -> None:
               library_ms_bf16=bf16_bwd["gn_library"],
               ms_where_library_bf16=bf16_bwd["gn_kernel_where_library"],
               host_us_per_call=bwd_host_us["float32"],
-              host_us_per_call_bf16=bwd_host_us["bfloat16"], **paths("group_norm_bwd")),
+              host_us_per_call_bf16=bwd_host_us["bfloat16"], **paths("group_norm_bwd"),
+              max_abs_err_ldm=worst[("group_norm_bwd_ldm", "float32")],
+              ms_ldm_sweep_step=lp_ops["gn_kernel"], plain_ms_ldm_sweep_step=lp_ops["gn_plain"],
+              bound_ms_ldm_sweep_step=lp_ops["gn_bound"],
+              bound_by_ldm_sweep_step=lp_ops["gn_bound_by"],
+              library_ms_ldm_sweep_step=lp_ops["gn_library"],
+              ms_where_library_ldm_sweep_step=lp_ops["gn_kernel_where_library"]),
         entry("flash_attention_fwd", "cuda",
               "diff_pruning_tpu_torch/ops/csrc/flash_attention_fwd.cu",
               "diff_pruning_tpu/ops/attention.py:97", ft_counts["attention"], "attention",
@@ -2072,6 +2492,8 @@ def main() -> None:
               library_ms_dq_dk_dv=f32_bwd["attn_library"], tflops=f32_bwd["dkv_tflops"],
               ms_bf16_in_train_step=train_prof["dense/bfloat16"]["dkv_ms"], **bf16_bwd_of("dkv"),
               **paths("attention_bwd_dkv")),
+        ldm_wide_bwd("dq"),
+        ldm_wide_bwd("dkv"),
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
                       "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling,
@@ -2081,6 +2503,7 @@ def main() -> None:
                       "optimizer_ema_ms": opt_ms, "train_step_profile": train_prof}))
     print(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"ldm": ldm}))
+    print(json.dumps({"ldm_prune": ldm_prune_fig}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

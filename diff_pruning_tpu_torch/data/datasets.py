@@ -112,15 +112,24 @@ class ImageFolderDataset:
         return _load_image(self.files[idx], self.resolution, self.celeba_crop)
 
 
+_OTHER_SOURCES = "is not ported yet (ROADMAP.md queue 1: the other data sources)"
+
+
 def get_dataset(name_or_path: str, resolution: Optional[int] = None):
-    """'<file>.npz' | a directory | 'celeba:<dir>' | 'cifar10' (looked up under
-    ./data/cifar10). A directory holding ``data.mdb`` is an LSUN lmdb
-    (raises: not ported yet); one with CIFAR-10 batches loads them; one with
-    ``cifar-100-python`` raises (not ported yet); else its image files make
-    an :class:`ImageFolderDataset` at ``resolution`` (default 256). An
-    ``.npz`` or CIFAR-10 batches are used at their stored size."""
+    """'<file>.npz' | a directory | 'celeba:<dir>' | 'cifar10' (looked up as
+    given, then under ./data/cifar10 and ~/data/cifar10, the JAX lookup). A
+    directory holding ``data.mdb`` is an LSUN lmdb; one with CIFAR-10
+    batches loads them; one with ``cifar-100-python`` is CIFAR-100; else its
+    image files make an :class:`ImageFolderDataset` at ``resolution``
+    (default 256). An ``.npz`` or CIFAR-10 batches are used at their stored
+    size. The JAX package's other sources (the prefixes ``lsun:``,
+    ``ffhq:``, ``imagenet:``, ``txt:``, lmdb directories and CIFAR-100)
+    raise ``NotImplementedError``."""
     if name_or_path is None:
         raise ValueError("dataset required")
+    for prefix in ("lsun:", "ffhq:", "imagenet:", "txt:"):
+        if name_or_path.startswith(prefix):
+            raise NotImplementedError(f"{name_or_path}: the {prefix!r} source {_OTHER_SOURCES}")
     if name_or_path.startswith("celeba:"):
         files = list_image_files(name_or_path[len("celeba:"):])
         if not files:
@@ -130,19 +139,20 @@ def get_dataset(name_or_path: str, resolution: Optional[int] = None):
         return load_npz(name_or_path)
     if os.path.isdir(name_or_path):
         if os.path.exists(os.path.join(name_or_path, "data.mdb")):
-            raise NotImplementedError(f"{name_or_path}: LSUN lmdb directories are not ported "
-                                      "yet (ROADMAP.md queue 1: the other data sources)")
+            raise NotImplementedError(f"{name_or_path}: an LSUN lmdb directory {_OTHER_SOURCES}")
         if glob(os.path.join(name_or_path, "*data_batch_*")) or os.path.isdir(
                 os.path.join(name_or_path, "cifar-10-batches-py")):
             return load_cifar10(name_or_path)
         if os.path.isdir(os.path.join(name_or_path, "cifar-100-python")):
-            raise NotImplementedError(f"{name_or_path}: CIFAR-100 is not ported yet "
-                                      "(ROADMAP.md queue 1: the other data sources)")
+            raise NotImplementedError(f"{name_or_path}: CIFAR-100 {_OTHER_SOURCES}")
         files = list_image_files(name_or_path)
         if files:
             return ImageFolderDataset(files, resolution=resolution or 256)
-    if "cifar" in name_or_path.lower() and "100" not in name_or_path:
-        for root in (name_or_path, os.path.join("data", "cifar10")):
+    if "cifar100" in name_or_path.lower().replace("-", ""):
+        raise NotImplementedError(f"{name_or_path}: CIFAR-100 {_OTHER_SOURCES}")
+    if "cifar" in name_or_path.lower():
+        for root in (name_or_path, os.path.join("data", "cifar10"),
+                     os.path.expanduser(os.path.join("~", "data", "cifar10"))):
             try:
                 return load_cifar10(root)
             except (FileNotFoundError, NotADirectoryError):

@@ -21,12 +21,18 @@ forward and backward go through the port's GroupNorm and attention kernels
 (``ops``).
 
 ``thr=None`` runs a fixed number of steps (plain 'taylor' pruning).
+
+The LDM prune sweep (:func:`accumulate_ldm_grads`, the JAX package's
+``cli/ldm_prune.py:153-187``, prune_ldm.py:104-131) differs in two ways:
+each step takes its own latents, labels and noise (the CLI draws CFG
+latents from the current model), and the ``thr`` test comes BEFORE the
+backward, so the breaking step's grads are not accumulated.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,4 +121,48 @@ def accumulate_taylor_grads(
                 loss_max = max(loss_max, loss)
                 if loss < loss_max * thr:
                     break
+    return SweepResult({n: p.grad for n, p in named}, np.asarray(losses), k + 1)
+
+
+def accumulate_ldm_grads(
+    ldm,
+    draw: Callable[[int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    *,
+    max_steps: int,
+    thr: Optional[float] = None,
+    log_every: int = 0,
+) -> SweepResult:
+    """Accumulate d(loss)/d(unet param) of ``ldm.get_loss_at_t`` over
+    timesteps 0, 1, ... into the UNet's ``.grad`` (zeroed first).
+
+    ``draw(t)`` gives step t's ``(latents, labels, noise)``; latents drawn
+    under ``torch.inference_mode()`` are cloned into normal tensors so that
+    autograd can save them. With ``thr``, the running maximum takes the step's
+    loss first, then a step whose loss is below ``thr`` times it stops the
+    sweep before its backward: its grads are not added (the JAX CLI's order;
+    ``thr=0`` never stops). ``losses`` holds every step's loss, the breaking
+    step's included; ``log_every`` prints the JAX CLI's progress line every
+    that many steps."""
+    named = [(n, p) for n, p in ldm.unet.named_parameters() if p.requires_grad]
+    params = [p for _, p in named]
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    losses = []
+    max_loss = -1.0
+    k = 0
+    with torch.enable_grad():
+        for k in range(max_steps):
+            latents, labels, noise = draw(k)
+            if latents.is_inference():
+                latents = latents.clone()
+            tb = torch.full((latents.shape[0],), k, dtype=torch.int64, device=latents.device)
+            loss_t = ldm.get_loss_at_t(latents, labels, tb, noise)
+            loss = float(loss_t.detach())
+            losses.append(loss)
+            max_loss = max(max_loss, loss)
+            if thr is not None and loss / max_loss < thr:
+                break
+            loss_t.backward(inputs=params)
+            if log_every and k % log_every == 0:
+                print(f"  t={k} loss={loss:.5f} ratio={loss / max_loss:.3f}")
     return SweepResult({n: p.grad for n, p in named}, np.asarray(losses), k + 1)

@@ -9,8 +9,11 @@ classifier-free-guidance sampling (ddim.py:164-203: eps = e_uc + scale
 DPM-Solver++(2M), as host loops over the UNet under
 ``torch.inference_mode()``.
 
-Not in this serving slice (each raises where a caller can reach it): the
-training loss ``get_loss_at_t`` (the LDM prune/train slice), the concat-mode
+``get_loss_at_t`` is the loss of the LDM prune sweep (``cli/ldm_prune.py``,
+``diffpruning/sweep.py``): p_losses at the caller's t, the mean MSE in f32,
+differentiable through the port's kernels on the card.
+
+Not ported yet (each raises where a caller can reach it): the concat-mode
 sampler, ``SpatialRescaler`` and the identity cond stage
 (``cli/sample_diffusion.py``), a text cond stage, and ``mesh`` /
 ``tensor_parallel`` sharding (multi-GPU).
@@ -106,9 +109,15 @@ class LatentDiffusion(nn.Module):
     def apply_unet(self, x: torch.Tensor, t, context: torch.Tensor) -> torch.Tensor:
         return self.unet(x, t, context=context)
 
-    def get_loss_at_t(self, *args, **kwargs):
-        raise NotImplementedError("the LDM training loss comes with the LDM prune/train "
-                                  "slice (cli/ldm_prune.py, cli/ldm_train.py)")
+    def get_loss_at_t(self, x0_latents: torch.Tensor, labels: torch.Tensor, t: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+        """p_losses at fixed t (ddpm.py:881-889): the latents noised at ``t``
+        (B,), the UNet's eps with the class context against ``noise``, the
+        mean MSE over everything in f32."""
+        ctx = self.get_learned_conditioning(labels)
+        noisy = self.schedule.add_noise(x0_latents, noise, t)
+        eps = self.apply_unet(noisy, t, ctx)
+        return ((eps - noise).to(torch.float32) ** 2).mean()
 
     def make_cfg_sampler(self, *, ddim_steps: int = 20, guidance_scale: float = 3.0,
                          eta: float = 0.0, latent_hw=64, latent_ch: int = 3,

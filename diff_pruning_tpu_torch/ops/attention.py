@@ -27,11 +27,11 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   accumulators), with p and ds exchanged between warps through shared
   memory in the input type.
 
-The forward kernel takes head dims up to 1024 in f32 (a second tiling above
-256: 16-row tiles of the whole head dim, for the LDM's one-head
-transformers) and up to 256 in bf16/f16; the backward kernels take head dims
-up to 256 (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``). Wider heads raise
-``ValueError`` on the card; the plain versions take any. The kernels
+The forward and backward kernels take head dims up to 1024 in f32 (a second
+tiling above 256, for the LDM's one-head transformers: 16-row tiles of the
+whole head dim in the forward, 16 q rows and 8 kv rows in the backward) and
+up to 256 in bf16/f16 (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``). Wider
+heads raise ``ValueError`` on the card; the plain versions take any. The kernels
 zero-pad the head dim in shared memory and read head-split views through
 their strides, so the layer passes ``(B, N,
 heads*dh)`` projections without a transpose copy; outputs are (B, H, N, D)
@@ -56,9 +56,9 @@ import torch
 from . import LAUNCHES
 
 # the widest head dim each kernel takes, by input type; the 16-bit forward
-# and every backward above 256 are ROADMAP queue 1, the LDM prune/train slice
+# and backward above 256 are ROADMAP queue 1, item 7c (the LDM train slice)
 MAX_HEAD_DIM_FWD = {torch.float32: 1024, torch.bfloat16: 256, torch.float16: 256}
-MAX_HEAD_DIM_BWD = 256
+MAX_HEAD_DIM_BWD = {torch.float32: 1024, torch.bfloat16: 256, torch.float16: 256}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIBS = {}
 
@@ -194,13 +194,13 @@ def _check(q, k, v, backward=False):
                          f"{tuple(v.shape)}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
-    max_d = MAX_HEAD_DIM_BWD if backward else MAX_HEAD_DIM_FWD[q.dtype]
+    max_d = (MAX_HEAD_DIM_BWD if backward else MAX_HEAD_DIM_FWD)[q.dtype]
     what = " backward" if backward else ""
     b, h, nq, d = q.shape
     if not 1 <= d <= max_d or nq < 1 or k.shape[2] < 1:
         raise ValueError(f"flash_attention{what}: head dim {d} (the kernel takes 1..{max_d} "
-                         f"in {q.dtype}; wider heads: ROADMAP queue 1, the LDM prune/train "
-                         f"slice), Nq {nq}, Nkv {k.shape[2]}")
+                         f"in {q.dtype}; 16-bit heads above 256: ROADMAP queue 1, item 7c, "
+                         f"the LDM train slice), Nq {nq}, Nkv {k.shape[2]}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
 

@@ -103,6 +103,37 @@
 // 128 * 4 = 222,208 bytes, dq 6 * 64 * 264 * 2 + 64 * 72 * 2 + 2 * 64 * 4 =
 // 212,480: one block (8 warps) per SM; the launcher raises the limit.
 //
+// f32 with 256 < D <= 1024 (`flash_bwd_dq_kernel_f32_wide<NC2>`,
+// `flash_bwd_dkv_kernel_f32_wide<NC2>`: the LDM's one-head transformers, D =
+// 384, 576, 960 and their pruned widths). One f32 row of D = 1024 is 4 KB,
+// so four 16-row tiles (Q, dO, K, V) would take 263 KB, more than a block's
+// shared memory: the tiles are 16 q rows and 8 kv rows of the whole head dim
+// (padded to DP = 128 * NC2, zero-filled), 48 rows in all. What bounds them
+// is, as above, feeding the FMAs from shared memory; simple first:
+// - scores (`wide_partials`): S = Q K^T and dP = dO V^T, 16 x 8 each, in
+//   one pass: thread t owns a 4 x 4 micro-tile (t / 16; 8 of S, 8 of dP,
+//   8 float4 loads per 64 FMAs) and one of 16 slices of the head dim (float4
+//   columns 4 (t % 16) + 64 j); the 16 partial tiles go through shared
+//   memory and 128 threads sum them in a fixed order (no atomics), each
+//   forming p and ds of one (q, kv) pair;
+// - dq: one block per (batch*head, 16-row q tile); Q and dO resident, K and
+//   V streamed in 8-row tiles, one slot each (V_{t+1} is issued once the
+//   scores are formed, K_{t+1} once dq += dS K_t is done); thread (w, l) of
+//   warp w owns q rows w and w + 8, columns 4 l + 128 c (at most 64
+//   accumulators); the prologue forms D = rowsum(dO * O) (16 lanes a row)
+//   and writes `dsum`;
+// - dk/dv: one block per (batch*head, 8-row kv tile); K and V resident, Q
+//   and dO streamed in 16-row tiles, one slot each (dO_{t+1} is issued once
+//   dV += P^T dO_t is done, Q_{t+1} once dK += dS^T Q_t is); warp w owns kv
+//   row w of dK and dV, lane l columns 4 l + 128 c (at most 64
+//   accumulators). Nkv = 1 (the class-token cross-attention) gives B*H
+//   blocks, each walking every q tile;
+// - the same copies as the D <= 256 kernels: 16-byte cp.async where the
+//   views allow, else 4-byte (pruned widths such as 270 have rows that are
+//   not 16-byte aligned). 16-bit inputs take D <= 256 only.
+// Shared memory at D = 1024: dq 48 * 1028 * 4 + 16 * 260 * 4 + 128 * 4 + 2 *
+// 16 * 4 = 214,656 bytes, dk/dv 215,168.
+//
 // q, k, v, o, dO and the outputs are addressed as [b][h][n][d] through
 // element strides (d contiguous); lse and dsum are contiguous (B*H, Nq) f32.
 // The C entry points return cudaGetLastError() after the launch.
@@ -117,8 +148,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block, all four kernels
-constexpr int kMaxD = 256;
+constexpr int kThreads = 256;  // threads per block, all six kernels
+constexpr int kMaxD = 256;       // the 64-row kernels (every input type)
+constexpr int kMaxDWide = 1024;  // f32 only: the wide kernels
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -185,10 +217,11 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src, long lon
   }
 }
 
-// 64 values of a contiguous (B*H, Nq) f32 row array from q row q0, zeros past Nq
+// ROWS values of a contiguous (B*H, Nq) f32 row array from q row q0, zeros past Nq
+template <int ROWS = kQRows>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int q0, int Nq) {
   const int t = threadIdx.x;
-  if (t < kQRows) {
+  if (t < ROWS) {
     const bool ok = q0 + t < Nq;
     cp_async4(dst + t, ok ? src + q0 + t : src, ok ? 4 : 0);
   }
@@ -517,6 +550,289 @@ size_t dq_smem_f32(int nc) {
 size_t dkv_smem_f32(int nc) {
   return (size_t(2 * kKvRows + 2 * kQRows) * (128 * nc + 4) + size_t(2 * kQRows) * kLdk +
           2 * kQRows) * sizeof(float);
+}
+
+// ------------------------------------------------- f32 path, 256 < D <= 1024
+
+constexpr int kWideQ = 16;  // q rows per tile (wide f32 kernels)
+constexpr int kWideKv = 8;  // kv rows per tile
+constexpr int kWidePairs = kWideQ * kWideKv;  // (q, kv) pairs of a tile: 128
+constexpr int kLdr = 2 * kWidePairs + 4;      // one slice's partial S and dP, 4 banks apart
+
+// One slice's partial sums of S = A1 B1^T and dP = A2 B2^T (16 rows of A, 8
+// of B, shared [..][LD] tiles) over columns [0, dcols), into red: thread t
+// owns the 4 x 4 micro-tile t / 16 (tiles 0-7 of S, 8-15 of dP) and the
+// slice t % 16 (float4 columns 4 (t % 16) + 64 j); red[slice][m * 128 + 8 i +
+// j] is the slice's part of element (i, j) of S (m = 0) or dP (m = 1).
+template <int LD>
+__device__ __forceinline__ void wide_partials(float* red, const float* a1, const float* b1,
+                                              const float* a2, const float* b2, int dcols) {
+  const int tile = threadIdx.x >> 4;
+  const int slice = threadIdx.x & 15;
+  const int m = tile >> 3;             // 0: S, 1: dP (the same for a warp)
+  const int tr = ((tile & 7) >> 1) * 4;  // A rows tr .. tr + 3
+  const int tc = (tile & 1) * 4;         // B rows tc .. tc + 3
+  const float* a = (m ? a2 : a1) + tr * LD;
+  const float* b = (m ? b2 : b1) + tc * LD;
+  float s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 4 * slice; d < dcols; d += 64) {
+    float4 af[4], bf[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      af[i] = *reinterpret_cast<const float4*>(a + i * LD + d);
+      bf[i] = *reinterpret_cast<const float4*>(b + i * LD + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(af[i].x, bf[j].x, s[i][j]);
+        s[i][j] = fmaf(af[i].y, bf[j].y, s[i][j]);
+        s[i][j] = fmaf(af[i].z, bf[j].z, s[i][j]);
+        s[i][j] = fmaf(af[i].w, bf[j].w, s[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(red + slice * kLdr + m * kWidePairs + (tr + i) * kWideKv + tc) =
+        make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+}
+
+// The finished (S, dP) of pair e = 8 i + j (q row i, kv row j of the tile):
+// the 16 slices' partials summed in order
+__device__ __forceinline__ float2 wide_pair(const float* red, int e) {
+  float s = 0.f, dp = 0.f;
+#pragma unroll
+  for (int sl = 0; sl < 16; ++sl) {
+    s += red[sl * kLdr + e];
+    dp += red[sl * kLdr + kWidePairs + e];
+  }
+  return make_float2(s, dp);
+}
+
+template <int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ o,
+                             const float* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ dsum, float* __restrict__ dq, int H, int Nq,
+                             int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
+                             Strides sdo, Strides sdq, float scale, int vec, int vec_out) {
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                     // [16][LD] q rows (resident)
+  float* dos = qs + kWideQ * LD;        // [16][LD]
+  float* ks = dos + kWideQ * LD;        // [8][LD]  kv rows (streamed)
+  float* vs = ks + kWideKv * LD;        // [8][LD]
+  float* red = vs + kWideKv * LD;       // [16 slices][kLdr]
+  float* dss = red + 16 * kLdr;         // [16 q][8 kv] dS
+  float* drows = dss + kWidePairs;      // [16] D = rowsum(dO * O)
+  float* lrows = drows + kWideQ;        // [16] lse
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * kWideQ;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  copy_tile<DP, kWideQ>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, vec);
+  copy_tile<DP, kWideQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, D, vec);
+  copy_tile<DP, kWideKv>(ks, kb, sk.n, 0, Nkv, D, vec);
+  copy_tile<DP, kWideKv>(vs, vb, sv.n, 0, Nkv, D, vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // D = rowsum(dO * O) and lse of the tile's rows: row t / 16 by 16 lanes
+  {
+    const int r = threadIdx.x >> 4;
+    const int row = q0 + r;
+    const float* orow = o + b * so.b + h * so.h + row * so.n;
+    float acc = 0.f;
+    if (row < Nq)
+      for (int c = threadIdx.x & 15; c < D; c += 16) acc = fmaf(dos[r * LD + c], orow[c], acc);
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if ((threadIdx.x & 15) == 0) {
+      drows[r] = acc;
+      lrows[r] = row < Nq ? lse[size_t(bh) * Nq + row] : 0.f;
+      if (row < Nq) dsum[size_t(bh) * Nq + row] = acc;
+    }
+  }
+  // (the first __syncthreads of the loop makes drows and lrows visible)
+
+  float acc[2][4 * NC2];  // dq rows warp and warp + 8, columns 4 lane + 128 c
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * NC2; ++c) acc[i][c] = 0.f;
+  const int dcols = (D + 63) & ~63;  // columns beyond D are zeros
+
+  for (int kv0 = 0; kv0 < Nkv; kv0 += kWideKv) {
+    const bool more = kv0 + kWideKv < Nkv;
+    cp_async_wait<0>();  // K_t and V_t have landed
+    __syncthreads();
+    wide_partials<LD>(red, qs, ks, dos, vs, dcols);  // S = Q K_t^T, dP = dO V_t^T
+    __syncthreads();  // the partials are visible; every thread is done with V_t
+    if (more) copy_tile<DP, kWideKv>(vs, vb, sv.n, kv0 + kWideKv, Nkv, D, vec);
+    cp_async_commit();
+    if (threadIdx.x < kWidePairs) {
+      const int e = threadIdx.x;
+      const int i = e >> 3, j = e & 7;  // q row, kv row in the tile
+      const float2 sdp = wide_pair(red, e);
+      const float p = q0 + i < Nq && kv0 + j < Nkv ? expf(sdp.x * scale - lrows[i]) : 0.f;
+      dss[e] = p * (sdp.y - drows[i]) * scale;
+    }
+    __syncthreads();  // dS is visible to every thread
+
+#pragma unroll
+    for (int j = 0; j < kWideKv; ++j) {  // dq += dS K_t
+      const float d0 = dss[warp * kWideKv + j], d1 = dss[(warp + 8) * kWideKv + j];
+#pragma unroll
+      for (int c = 0; c < NC2; ++c) {
+        const float4 kk = *reinterpret_cast<const float4*>(ks + j * LD + 128 * c + lane * 4);
+        acc[0][4 * c + 0] = fmaf(d0, kk.x, acc[0][4 * c + 0]);
+        acc[0][4 * c + 1] = fmaf(d0, kk.y, acc[0][4 * c + 1]);
+        acc[0][4 * c + 2] = fmaf(d0, kk.z, acc[0][4 * c + 2]);
+        acc[0][4 * c + 3] = fmaf(d0, kk.w, acc[0][4 * c + 3]);
+        acc[1][4 * c + 0] = fmaf(d1, kk.x, acc[1][4 * c + 0]);
+        acc[1][4 * c + 1] = fmaf(d1, kk.y, acc[1][4 * c + 1]);
+        acc[1][4 * c + 2] = fmaf(d1, kk.z, acc[1][4 * c + 2]);
+        acc[1][4 * c + 3] = fmaf(d1, kk.w, acc[1][4 * c + 3]);
+      }
+    }
+    __syncthreads();  // every thread is done with K_t and dS
+    if (more) copy_tile<DP, kWideKv>(ks, kb, sk.n, kv0 + kWideKv, Nkv, D, vec);
+    cp_async_commit();
+  }
+
+  store_tile<2, NC2>(dq + b * sdq.b + h * sdq.h, sdq.n, q0, Nq, D, vec_out, acc, warp, 8,
+                     lane * 4, 128);
+}
+
+template <int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ dsum,
+                              float* __restrict__ dk, float* __restrict__ dv, int H, int Nq,
+                              int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+                              Strides sdk, Strides sdv, float scale, int vec, int vec_out) {
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // [8][LD]  kv rows (resident)
+  float* vs = ks + kWideKv * LD;       // [8][LD]
+  float* qs = vs + kWideKv * LD;       // [16][LD] q rows (streamed)
+  float* dos = qs + kWideQ * LD;       // [16][LD]
+  float* red = dos + kWideQ * LD;      // [16 slices][kLdr]
+  float* ps = red + 16 * kLdr;         // [16 q][8 kv] P
+  float* dss = ps + kWidePairs;        // [16 q][8 kv] dS
+  float* lses = dss + kWidePairs;      // [16]
+  float* dsums = lses + kWideQ;        // [16]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kv0 = blockIdx.y * kWideKv;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + size_t(bh) * Nq;
+  const float* db = dsum + size_t(bh) * Nq;
+
+  copy_tile<DP, kWideKv>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, D, vec);
+  copy_tile<DP, kWideKv>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, D, vec);
+  copy_tile<DP, kWideQ>(qs, qb, sq.n, 0, Nq, D, vec);
+  copy_tile<DP, kWideQ>(dos, dob, sdo.n, 0, Nq, D, vec);
+  copy_rows<kWideQ>(lses, lb, 0, Nq);
+  copy_rows<kWideQ>(dsums, db, 0, Nq);
+  cp_async_commit();
+
+  // dK and dV: kv row warp, columns 4 lane + 128 c
+  float acc_k[1][4 * NC2], acc_v[1][4 * NC2];
+#pragma unroll
+  for (int c = 0; c < 4 * NC2; ++c) acc_k[0][c] = acc_v[0][c] = 0.f;
+  const int dcols = (D + 63) & ~63;  // columns beyond D are zeros
+
+  for (int q0 = 0; q0 < Nq; q0 += kWideQ) {
+    const bool more = q0 + kWideQ < Nq;
+    cp_async_wait<0>();  // Q_t, dO_t and their lse/dsum rows have landed
+    __syncthreads();
+    wide_partials<LD>(red, qs, ks, dos, vs, dcols);  // S = Q_t K^T, dP = dO_t V^T
+    __syncthreads();  // the partials are visible
+    if (threadIdx.x < kWidePairs) {
+      const int e = threadIdx.x;
+      const int i = e >> 3, j = e & 7;  // q row, kv row in the tile
+      const float2 sdp = wide_pair(red, e);
+      const float p = q0 + i < Nq && kv0 + j < Nkv ? expf(sdp.x * scale - lses[i]) : 0.f;
+      ps[e] = p;
+      dss[e] = p * (sdp.y - dsums[i]) * scale;
+    }
+    __syncthreads();  // P and dS are visible to every thread
+
+#pragma unroll 4
+    for (int i = 0; i < kWideQ; ++i) {  // dV += P^T dO_t
+      const float pv = ps[i * kWideKv + warp];
+#pragma unroll
+      for (int c = 0; c < NC2; ++c) {
+        const float4 d4 = *reinterpret_cast<const float4*>(dos + i * LD + 128 * c + lane * 4);
+        acc_v[0][4 * c + 0] = fmaf(pv, d4.x, acc_v[0][4 * c + 0]);
+        acc_v[0][4 * c + 1] = fmaf(pv, d4.y, acc_v[0][4 * c + 1]);
+        acc_v[0][4 * c + 2] = fmaf(pv, d4.z, acc_v[0][4 * c + 2]);
+        acc_v[0][4 * c + 3] = fmaf(pv, d4.w, acc_v[0][4 * c + 3]);
+      }
+    }
+    __syncthreads();  // every thread is done with dO_t
+    if (more) copy_tile<DP, kWideQ>(dos, dob, sdo.n, q0 + kWideQ, Nq, D, vec);
+    cp_async_commit();
+
+#pragma unroll 4
+    for (int i = 0; i < kWideQ; ++i) {  // dK += dS^T Q_t
+      const float dsv = dss[i * kWideKv + warp];
+#pragma unroll
+      for (int c = 0; c < NC2; ++c) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qs + i * LD + 128 * c + lane * 4);
+        acc_k[0][4 * c + 0] = fmaf(dsv, q4.x, acc_k[0][4 * c + 0]);
+        acc_k[0][4 * c + 1] = fmaf(dsv, q4.y, acc_k[0][4 * c + 1]);
+        acc_k[0][4 * c + 2] = fmaf(dsv, q4.z, acc_k[0][4 * c + 2]);
+        acc_k[0][4 * c + 3] = fmaf(dsv, q4.w, acc_k[0][4 * c + 3]);
+      }
+    }
+    __syncthreads();  // every thread is done with Q_t, P, dS and the lse/dsum rows
+    if (more) {
+      copy_tile<DP, kWideQ>(qs, qb, sq.n, q0 + kWideQ, Nq, D, vec);
+      copy_rows<kWideQ>(lses, lb, q0 + kWideQ, Nq);
+      copy_rows<kWideQ>(dsums, db, q0 + kWideQ, Nq);
+    }
+    cp_async_commit();
+  }
+
+  store_tile<1, NC2>(dk + b * sdk.b + h * sdk.h, sdk.n, kv0, Nkv, D, vec_out, acc_k, warp, 0,
+                     lane * 4, 128);
+  store_tile<1, NC2>(dv + b * sdv.b + h * sdv.h, sdv.n, kv0, Nkv, D, vec_out, acc_v, warp, 0,
+                     lane * 4, 128);
+}
+
+size_t dq_smem_f32_wide(int nc2) {
+  return (size_t(2 * kWideQ + 2 * kWideKv) * (128 * nc2 + 4) + 16 * kLdr + kWidePairs +
+          2 * kWideQ) * sizeof(float);
+}
+
+size_t dkv_smem_f32_wide(int nc2) {
+  return (size_t(2 * kWideKv + 2 * kWideQ) * (128 * nc2 + 4) + 16 * kLdr + 2 * kWidePairs +
+          2 * kWideQ) * sizeof(float);
 }
 
 // ----------------------------------------------------------- bf16/f16 path
@@ -1023,6 +1339,58 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+template <int NC2>
+cudaError_t launch_dq_f32_wide(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* dsum, void* dq, int B,
+                               int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                               Strides so, Strides sdo, Strides sdq, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = dq_smem_f32_wide(NC2);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_f32_wide<NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+                  aligned16(dout, sdo);
+  const int vec_out = aligned16(dq, sdq) && D % 4 == 0;
+  const dim3 grid(B * H, (Nq + kWideQ - 1) / kWideQ);
+  flash_bwd_dq_kernel_f32_wide<NC2><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(dout), lse, dsum,
+      static_cast<float*>(dq), H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, vec, vec_out);
+  return cudaGetLastError();
+}
+
+template <int NC2>
+cudaError_t launch_dkv_f32_wide(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* dsum, void* dk, void* dv, int B,
+                                int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                                Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
+                                cudaStream_t stream) {
+  const size_t smem = dkv_smem_f32_wide(NC2);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel_f32_wide<NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+                  aligned16(dout, sdo);
+  const int vec_out = aligned16(dk, sdk) && aligned16(dv, sdv) && D % 4 == 0;
+  const dim3 grid(B * H, (Nkv + kWideKv - 1) / kWideKv);
+  flash_bwd_dkv_kernel_f32_wide<NC2><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Nq, Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, vec, vec_out);
+  return cudaGetLastError();
+}
+
 
 // 16-byte copies of 16-bit values need 16-byte aligned bases and strides
 bool aligned16_half(const void* p, Strides s) {
@@ -1114,13 +1482,14 @@ cudaError_t launch_dkv16(const void* q, const void* k, const void* v, const void
 #undef DKV16_ARGS
 }
 
-bool bad_shape(int B, int H, int Nq, int Nkv, int D) {
-  return B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > kMaxD;
+bool bad_shape(int dtype, int B, int H, int Nq, int Nkv, int D) {
+  return B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > (dtype == 0 ? kMaxDWide : kMaxD);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Strides are in elements.
+// dtype: 0 = float32 (D <= 1024), 1 = bfloat16, 2 = float16 (D <= 256). Strides are
+// in elements.
 // Writes dq and dsum = rowsum(dO * O), (B*H, Nq) f32, which
 // flash_attention_bwd_dkv reads: launch it after this one on the same stream.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -1133,7 +1502,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       long long son, long long sdob, long long sdoh,
                                       long long sdon, long long sdqb, long long sdqh,
                                       long long sdqn, float scale, void* stream) {
-  if (bad_shape(B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
+  if (bad_shape(dtype, B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn}, so{sob, soh, son},
       sdo{sdob, sdoh, sdon}, sdq{sdqb, sdqh, sdqn};
   const float* l = static_cast<const float*>(lse);
@@ -1146,7 +1515,16 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
         case 1: return int(launch_dq_f32<1>(DQ_ARGS));
         case 2: return int(launch_dq_f32<2>(DQ_ARGS));
         case 3: return int(launch_dq_f32<3>(DQ_ARGS));
-        default: return int(launch_dq_f32<4>(DQ_ARGS));
+        case 4: return int(launch_dq_f32<4>(DQ_ARGS));
+        default: break;
+      }
+      switch ((D + 127) / 128) {  // 256 < D <= 1024
+        case 3: return int(launch_dq_f32_wide<3>(DQ_ARGS));
+        case 4: return int(launch_dq_f32_wide<4>(DQ_ARGS));
+        case 5: return int(launch_dq_f32_wide<5>(DQ_ARGS));
+        case 6: return int(launch_dq_f32_wide<6>(DQ_ARGS));
+        case 7: return int(launch_dq_f32_wide<7>(DQ_ARGS));
+        default: return int(launch_dq_f32_wide<8>(DQ_ARGS));
       }
     case 1: return int(launch_dq16<__nv_bfloat16>(DQ_ARGS));
     case 2: return int(launch_dq16<__half>(DQ_ARGS));
@@ -1166,7 +1544,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        long long sdon, long long sdkb, long long sdkh,
                                        long long sdkn, long long sdvb, long long sdvh,
                                        long long sdvn, float scale, void* stream) {
-  if (bad_shape(B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
+  if (bad_shape(dtype, B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn},
       sdo{sdob, sdoh, sdon}, sdk{sdkb, sdkh, sdkn}, sdv{sdvb, sdvh, sdvn};
   const float* l = static_cast<const float*>(lse);
@@ -1176,7 +1554,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   switch (dtype) {
     case 0:
       if (D <= 128) return int(launch_dkv_f32<1>(DKV_ARGS));
-      return int(launch_dkv_f32<2>(DKV_ARGS));
+      if (D <= kMaxD) return int(launch_dkv_f32<2>(DKV_ARGS));
+      switch ((D + 127) / 128) {  // 256 < D <= 1024
+        case 3: return int(launch_dkv_f32_wide<3>(DKV_ARGS));
+        case 4: return int(launch_dkv_f32_wide<4>(DKV_ARGS));
+        case 5: return int(launch_dkv_f32_wide<5>(DKV_ARGS));
+        case 6: return int(launch_dkv_f32_wide<6>(DKV_ARGS));
+        case 7: return int(launch_dkv_f32_wide<7>(DKV_ARGS));
+        default: return int(launch_dkv_f32_wide<8>(DKV_ARGS));
+      }
     case 1: return int(launch_dkv16<__nv_bfloat16>(DKV_ARGS));
     case 2: return int(launch_dkv16<__half>(DKV_ARGS));
     default:

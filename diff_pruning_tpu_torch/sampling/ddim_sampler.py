@@ -27,7 +27,7 @@ class SamplerConfig:
     style: str = "diffusers"  # timestep-sequence family; 'ddim_exp' for paper runs
     eta: float = 0.0
     clip_sample: bool = True  # DDIMScheduler default for DDPM checkpoints
-    kind: str = "ddim"  # 'ddim' | 'ddpm'; 'plms' and 'dpm' come with the samplers slice
+    kind: str = "ddim"  # 'ddim' | 'ddpm'; 'plms' and 'dpm' raise (ROADMAP queue 1, item 4b)
     diffusers_stride: bool = False  # root-pipeline prev-step quirk (scheduling_ddim.py:312)
     # UNet compute dtype; the DDIM/DDPM update always runs in f32
     dtype: str = "float32"
@@ -44,8 +44,9 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
     """
     if cfg.kind in ("plms", "dpm"):
         raise NotImplementedError(
-            f"sampler kind {cfg.kind!r} is not ported yet: it comes with the "
-            "samplers slice (schedulers/plms.py, schedulers/dpm_solver.py)")
+            f"sampler kind {cfg.kind!r} is not wired into make_sampler yet: the "
+            "schedulers exist (schedulers/plms.py, schedulers/dpm_solver.py); their "
+            "wiring and clip_sample are ROADMAP queue 1, item 4b")
     if cfg.kind not in ("ddim", "ddpm"):
         raise ValueError(f"unknown sampler kind {cfg.kind!r}")
     ts = ddim_timesteps(cfg.num_inference_steps, schedule.num_train_timesteps,

@@ -309,8 +309,6 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     for method in ("plms", "dpm"):
         with pytest.raises(ValueError, match="eta == 0"):
             tldm.make_cfg_sampler(method=method, eta=0.5)
-    with pytest.raises(NotImplementedError):
-        tldm.get_loss_at_t()
     # DDIM with eta > 0 draws its noise from the generator: same seed, same samples
     sample = tldm.make_cfg_sampler(ddim_steps=4, eta=1.0, latent_hw=8, latent_ch=3)
     a, b = (sample(torch.Generator().manual_seed(1), torch.from_numpy(labels), 3)

@@ -201,12 +201,21 @@ def test_group_norm_backward_reference_matches_autograd():
                                        err_msg=f"{case} {name}")
 
 
-@pytest.mark.parametrize("shape", [(2, 1, 64, 64, 32), (2, 2, 40, 70, 56)],
-                         ids=["square", "ragged"])
-def test_attention_backward_matches_pallas(shape):
+@pytest.mark.parametrize("shapes", [[(2, 1, 64, 64, 32)], [(2, 2, 40, 70, 56)],
+                                    [(2, 1, 48, 48, 384), (2, 1, 48, 1, 384)]],
+                         ids=["square", "ragged", "wide"])
+def test_attention_backward_matches_pallas(shapes):
     """dq, dk, dv through the port's autograd Function (plain backward on the
     CPU) and the forward's lse, against the Pallas kernels (interpret mode):
-    square, and a ragged head dim with Nq != Nkv."""
+    square, a ragged head dim with Nq != Nkv, and the LDM's wide head dim
+    (D = 384, which the Pallas kernels pad to 128 lanes) with Nkv = Nq and
+    Nkv = 1 (the class-token cross-attention, where dq and dk are zero in
+    exact arithmetic and both sides hold only f32 noise, well inside atol)."""
+    for shape in shapes:
+        _check_attention_backward(shape)
+
+
+def _check_attention_backward(shape):
     from diff_pruning_tpu.ops.attention import _flash_fwd_res
     from diff_pruning_tpu.ops.attention import flash_attention as jax_flash
     from diff_pruning_tpu_torch.ops.attention import reference_attention_lse
@@ -230,7 +239,8 @@ def test_attention_backward_matches_pallas(shape):
         want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
         jlse = _flash_fwd_res(jq, jk, jv, scale, True, with_lse=True)[1][4]
     for a, b_, name in zip(got, want, ("dq", "dk", "dv")):
-        np.testing.assert_allclose(a, np.asarray(b_), atol=1e-4, rtol=1e-4, err_msg=name)
+        np.testing.assert_allclose(a, np.asarray(b_), atol=1e-4, rtol=1e-4,
+                                   err_msg=f"{name} {shape}")
     lse = reference_attention_lse(*(torch.from_numpy(a) for a in (q, k, v)), scale)[1]
     np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:, :nq, 0].reshape(b, h, nq),
-                               atol=1e-5, rtol=1e-5)
+                               atol=1e-5, rtol=1e-5, err_msg=str(shape))

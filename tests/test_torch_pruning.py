@@ -76,9 +76,10 @@ def test_port_imports_nothing_of_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_sample\n"
+        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_prune, ldm_sample\n"
         "for cli in (ddpm_sample, ldm_sample):\n"
         "    cli.parse_args(['--model_path', 'm', '--output_dir', 'o'])\n"
+        "ldm_prune.parse_args(['--save_path', 'o'])\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'diff_pruning_tpu'))]\n"
         "assert not bad, bad\n"
@@ -88,7 +89,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 49
+    assert int(res.stdout.strip()) >= 50
 
 
 def _tiny_sweep_inputs():
@@ -196,9 +197,12 @@ def test_macs_and_params_match_jax(config):
         assert sum(p.numel() for p in pruned.parameters()) == CIFAR_PRUNED_PARAMS_AT_0_3
 
 
-def test_data_batches_match_jax(tmp_path):
+def test_data_batches_match_jax(tmp_path, monkeypatch):
     """load_npz, the CIFAR-10 pickle-batch loader and the first batches of
-    iterate_batches are bit-identical to the JAX package's."""
+    iterate_batches are bit-identical to the JAX package's; 'cifar10' is
+    looked up where the JAX package looks (here ~/data/cifar10), and the
+    JAX package's other sources (lsun:, ffhq:, imagenet:, txt:, CIFAR-100
+    names) raise NotImplementedError naming them."""
     import pickle
 
     from diff_pruning_tpu.data import datasets as jdata
@@ -222,6 +226,18 @@ def test_data_batches_match_jax(tmp_path):
                 a, b = next(tb), next(jb)
                 assert a.dtype == b.dtype == np.float32
                 np.testing.assert_array_equal(a, b)
+    home = tmp_path / "home"
+    (home / "data").mkdir(parents=True)
+    os.rename(d, home / "data" / "cifar10")
+    (tmp_path / "cwd").mkdir()
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.chdir(tmp_path / "cwd")
+    np.testing.assert_array_equal(tdata.get_dataset("cifar10").images,
+                                  jdata.get_dataset("cifar10").images)
+    for name in ("lsun:db", "ffhq:db", "imagenet:root", "txt:list.txt:root", "cifar100",
+                 "CIFAR-100"):
+        with pytest.raises(NotImplementedError, match="the other data sources"):
+            tdata.get_dataset(name)
 
 
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
