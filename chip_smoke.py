@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
 
-Drives the port's six paths, through its own kernels, from seeded random
+Drives the port's seven paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -11,8 +11,10 @@ path (the train CLI on the pruned checkpoint, f32 and bf16, and its
 resume) and the evaluation path (the fid_score and fidelity CLIs through
 the full-width FID InceptionV3, which runs no kernel of the port); and the
 class-conditional LDM's serving path (the ldm_sample CLI on cin256-v2 +
-vq-f4, 456.76M params) and pruning path (the ldm_prune CLI's self-sampled
-sweep, through the wide f32 attention backward). Every phase raises on
+vq-f4, 456.76M params), pruning path (the ldm_prune CLI's self-sampled
+sweep, through the wide f32 attention backward) and finetune path (the
+ldm_train CLI in bf16, through the wide 16-bit attention forward and
+backward). Every phase raises on
 failure; none is caught, so any failure exits non-zero before the result
 lines.
 
@@ -23,8 +25,9 @@ lines.
    attention backward, f32 and bf16/f16, and the GroupNorm backward), and
    counts the tensor-core (HMMA) and FFMA instructions in the SASS
    (cuobjdump) of the attention kernels and the GroupNorm backward: the
-   bf16/f16 attention kernels (forward, dq, dk/dv) must use the tensor
-   cores, the f32 attention kernels and the GroupNorm backward must not.
+   bf16/f16 attention kernels (forward, dq, dk/dv, the wide ones above D =
+   256 too) must use the tensor cores, the f32 attention kernels and the
+   GroupNorm backward must not.
    With ``--compare-bwd LABEL=SRC`` (repeatable) it also builds SRC,
    another version of flash_attention_bwd.cu with the same C interface
    (e.g. the parent commit's, unpacked by ``git archive``), for phase 13.
@@ -108,8 +111,7 @@ lines.
    576), (64, 960) and the class-token cross-attention, Nkv = 1), of the
    decode (B rows; its 4096-token D = 512 attention and its GroupNorm
    slabs up to 2 MB a group) and of the UNet pruned at 0.3 (magnitude,
-   local), with the lse; a 16-bit forward and backward at D = 384 must
-   raise ValueError and launch nothing. The CFG sampler (scale 3) kernels on against
+   local), with the lse. The CFG sampler (scale 3) kernels on against
    off from one x_T, DDIM-20, PLMS-10 and DPM-10, through the decode,
    launch counts equal to calls x steps. Then imgs/s of CFG DDIM-20 +
    decode at B = 16, kernels on and off in turns; one UNet call and one
@@ -144,8 +146,33 @@ lines.
    192 convolution at 64 x 64 timed at 12, 16 and 32 rows; per-op backward
    ms at the step's shapes against plain, the library call (the SDPA f32
    backward, autograd of F.group_norm) and the bound.
-18. The evaluation, LDM and LDM prune JSON lines, the kernels' JSON line,
-   nvidia-smi's line, then the result line.
+18. LDM train path, bf16, on phase 16's model and phase 17's pruned one, B
+   = 16 (the CLI's default): (a) the wide 16-bit attention kernels (the
+   forward, inference launch and with lse; dq; dk/dv) against their plain
+   versions in bf16 and f16 at every attention shape of one train step
+   ((1024, 384), (256, 576), (64, 960), each with Nkv = Nq and 1; the
+   pruned UNet's 268, 404, 672; a ragged D = 320; the encode's 4096-token
+   D = 512 forward), through head-split views; the GroupNorm forward (the
+   UNet's and the encode's) and backward in bf16 at the step's shapes; D =
+   1040 raises in every dtype and launches nothing; (b) one dense bf16
+   train step kernels on against off from the same state, images, labels,
+   noise, t and drop mask (cuDNN deterministic): loss, the step's grads
+   (Adam's first moment), launches a step (32 attention forwards with lse
+   and the encode's one without, 32 dq, 32 dk/dv, 61 GroupNorm backwards,
+   the UNet's and the encode's GroupNorm forwards), every one in bf16; (c)
+   the main path: the ldm_train CLI on the pruned model dir and a
+   2-class folder of procedural 256 x 256 PNGs, 6 steps (cut from 20,000),
+   saving every 3, launch counters reset just before and read just after,
+   equal to steps x the per-step counts; a resume from step 3 into another
+   directory whose step-6 params and AdamW state must be bit-identical; its
+   model dir reloads at 203,294,971 UNet params and ldm_sample draws finite
+   images from it; (d) timings: the train step, dense and pruned, kernels on
+   and off (CUDA events, in turns), split into the encode, the UNet's
+   forward + backward and the optimizer; peak memory; a profile by kernel
+   class; per-op ms of the 16-bit forward with lse, dq and dk/dv at the
+   step's shapes against plain, SDPA and the bound; the seconds of a save.
+19. The evaluation, LDM, LDM prune and LDM train JSON lines, the kernels'
+   JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -226,6 +253,14 @@ LDM_REL_TOL = 1e-3
 # exact arithmetic there (p = 1: both sides hold only f32 noise)
 LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES = 6, 3, ("25", "187")
 LDM_PRUNED_PARAMS_AT_0_3 = 203_294_971
+# the LDM train path (phase 18): the CLI's batch and LR (cin256-v2.yaml: bs
+# 16, base_lr 2e-6 x 16), its steps (cut from 20,000), the save interval,
+# the procedural images of its 2-class folder. f16 (which the kernels take,
+# though the JAX CLI trains in bf16 only) against plain: two f16 ulps forward
+# and under one ulp of the max backward, as tests/test_torch_cuda.py holds it
+LDM_TRAIN_B, LDM_TRAIN_LR, LDM_TRAIN_STEPS, LDM_TRAIN_SAVE, LDM_TRAIN_IMAGES = \
+    16, 2e-6 * 16, 6, 3, 48
+F16_TOL, F16_BWD_TOL = (1e-3, 2e-3), 2e-3
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -294,12 +329,12 @@ def attn_dkv_work(n, h, d, dname):
     return 6 * rows * d * NBYTES[dname] + 2 * rows * 4, 8 * rows * n * d
 
 
-def ldm_bwd_work(rows, nq, nkv, d):
+def ldm_bwd_work(rows, nq, nkv, d, es=4):
     """((bytes, flops) of the dq kernel, (bytes, flops) of the dk/dv kernel)
-    for one f32 attention backward of ``rows`` one-head rows: dq reads q, k,
-    v, o, dO and lse and writes dq and dsum; dk/dv reads q, k, v, dO, lse and
-    dsum and writes dk and dv."""
-    rows_q, rows_kv = rows * nq * d * 4, rows * nkv * d * 4
+    for one attention backward of ``rows`` one-head rows of ``es``-byte
+    elements: dq reads q, k, v, o, dO and lse and writes dq and dsum; dk/dv
+    reads q, k, v, dO, lse and dsum and writes dk and dv."""
+    rows_q, rows_kv = rows * nq * d * es, rows * nkv * d * es
     return ((4 * rows_q + 2 * rows_kv + 2 * rows * nq * 4,
              rows * (6 * nq * nkv * d + 2 * nq * d)),
             (2 * rows_q + 4 * rows_kv + 2 * rows * nq * 4, rows * 8 * nq * nkv * d))
@@ -380,12 +415,18 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
 
 
 # the kernels whose registers and spills phase 2 prints one by one: the
-# attention backward (``flash_bwd_dq_kernel_f32<NC>``,
-# ``flash_bwd_dkv_kernel_f32_wide<NC2>``, ``flash_bwd_dkv_kernel_mma<T, NC>``)
-# and the GroupNorm backward (``gn_bwd_kernel<T, silu>``)
+# attention forward and backward (``flash_fwd_kernel_mma_wide<T, NC2>``,
+# ``flash_bwd_dq_kernel_f32<NC>``, ``flash_bwd_dkv_kernel_f32_wide<NC2>``,
+# ``flash_bwd_dkv_kernel_mma<T, NC>``, ...) and the GroupNorm backward
+# (``gn_bwd_kernel<T, silu>``)
 PTXAS_KERNELS = {
-    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32_wide|f32|mma))"
-                            r"I(13__nv_bfloat16|6__half)?Li(\d)E",
+    "flash_attention_fwd": (r"Compiling entry function '.*?(flash_fwd_\w+?_(?:f32_wide|f32|"
+                            r"mma_wide|mma))I(13__nv_bfloat16|6__half)?Li(\d)E",
+                            lambda m: f"{m.group(1)}<" + (
+                                m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
+                            + f"{m.group(3)}>"),
+    "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32_wide|f32|"
+                            r"mma_wide|mma))I(13__nv_bfloat16|6__half)?Li(\d)E",
                             lambda m: f"{m.group(1)}<" + (
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
                             + f"{m.group(3)}>"),
@@ -812,64 +853,80 @@ def evaluation_path(tmp, sample_dirs, gpu, tag):
     return out
 
 
-def ldm_op_shapes(unet_cfg, fs_cfg):
+def op_calls(model, fwd):
     """Counters of (N, C, eps, silu) per GroupNorm call and (Nq, Nkv, heads,
-    D) per attention call: one UNet call and one first-stage decode, on the
-    meta device (shapes only)."""
+    D) per attention call of ``fwd(model)`` (forward hooks, no grad)."""
     import torch
 
     from diff_pruning_tpu_torch.models.layers import CrossAttention, GroupNorm, SelfAttention2D
+
+    gn, attn = collections.Counter(), collections.Counter()
+
+    def on_gn(mod, args, kwargs, out):
+        x = args[0]
+        gn[(x.shape[2] * x.shape[3], x.shape[1], mod.eps,
+            bool(kwargs.get("with_silu", False)))] += 1
+
+    def on_attn(mod, args, kwargs, out):
+        x = args[0]
+        d = mod.inner.size // mod.heads
+        if isinstance(mod, SelfAttention2D):
+            n = x.shape[2] * x.shape[3]
+            attn[(n, n, mod.heads, d)] += 1
+        else:
+            ctx = args[1] if len(args) > 1 and args[1] is not None else x
+            attn[(x.shape[1], ctx.shape[1], mod.heads, d)] += 1
+
+    hooks = [m.register_forward_hook(on_gn if isinstance(m, GroupNorm) else on_attn,
+                                     with_kwargs=True)
+             for m in model.modules()
+             if isinstance(m, (GroupNorm, SelfAttention2D, CrossAttention))]
+    with torch.no_grad():
+        fwd(model)
+    for h in hooks:
+        h.remove()
+    return gn, attn
+
+
+def ldm_op_shapes(unet_cfg, fs_cfg, encode=False):
+    """:func:`op_calls` of one UNet call and one first-stage decode (with
+    ``encode``, also of one encode of a 256 x 256 image), on the meta device
+    (shapes only)."""
+    import torch
+
     from diff_pruning_tpu_torch.models.unet_cond import UNetCond
     from diff_pruning_tpu_torch.models.vae import make_first_stage
 
-    def shapes(model, fwd):
-        gn, attn = collections.Counter(), collections.Counter()
-
-        def on_gn(mod, args, kwargs, out):
-            x = args[0]
-            gn[(x.shape[2] * x.shape[3], x.shape[1], mod.eps,
-                bool(kwargs.get("with_silu", False)))] += 1
-
-        def on_attn(mod, args, kwargs, out):
-            x = args[0]
-            d = mod.inner.size // mod.heads
-            if isinstance(mod, SelfAttention2D):
-                n = x.shape[2] * x.shape[3]
-                attn[(n, n, mod.heads, d)] += 1
-            else:
-                ctx = args[1] if len(args) > 1 and args[1] is not None else x
-                attn[(x.shape[1], ctx.shape[1], mod.heads, d)] += 1
-
-        hooks = [m.register_forward_hook(on_gn if isinstance(m, GroupNorm) else on_attn,
-                                         with_kwargs=True)
-                 for m in model.modules()
-                 if isinstance(m, (GroupNorm, SelfAttention2D, CrossAttention))]
-        with torch.no_grad():
-            fwd(model)
-        for h in hooks:
-            h.remove()
-        return gn, attn
-
     meta = torch.device("meta")
     hw, ch = unet_cfg.image_size, unet_cfg.in_channels
-    unet = shapes(UNetCond(unet_cfg, device=meta), lambda m: m(
+    unet = op_calls(UNetCond(unet_cfg, device=meta), lambda m: m(
         torch.zeros((1, hw, hw, ch), device=meta), torch.zeros((1,), dtype=torch.int64,
                                                                device=meta),
         context=torch.zeros((1, 1, unet_cfg.context_dim), device=meta)))
-    decode = shapes(make_first_stage(fs_cfg, device=meta),
-                    lambda m: m.decode(torch.zeros((1, hw, hw, ch), device=meta)))
-    return unet, decode
+    fs = make_first_stage(fs_cfg, device=meta)
+    decode = op_calls(fs, lambda m: m.decode(torch.zeros((1, hw, hw, ch), device=meta)))
+    if not encode:
+        return unet, decode
+    res = hw * 2 ** (len(fs_cfg.block_out_channels) - 1)
+    return unet, decode, op_calls(fs, lambda m: m.encode(torch.zeros((1, res, res, 3),
+                                                                     device=meta)))
 
 
 def sdpa_backend(fn) -> str:
-    """Which backend F.scaled_dot_product_attention took, from the names of
-    the kernels it launched."""
-    names = " ".join(profile_kernels(fn)[4]).lower()
-    for key, name in (("flash", "flash"), ("fmha", "efficient (CUTLASS fmha)"),
-                      ("efficient", "efficient"), ("cudnn", "cuDNN")):
+    """Which backend F.scaled_dot_product_attention (or its backward) took,
+    from the ATen ops it dispatched to (torch.profiler's CPU events, which a
+    short profile keeps where its device events can be lost)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    names = " ".join(e.key for e in prof.key_averages()).lower()
+    for key, name in (("flash_attention", "flash"), ("efficient_attention",
+                                                      "efficient (CUTLASS fmha)"),
+                      ("cudnn_attention", "cuDNN")):
         if key in names:
             return name
-    return "math (matmul + softmax)"
+    return "math (matmul + softmax)" if "softmax" in names else "unknown"
 
 
 def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
@@ -1045,28 +1102,6 @@ def ldm_path(tmp, gen, gpu, tag, worst):
         del x
     torch.cuda.synchronize()
 
-    # what no kernel takes raises on the card, and launches nothing: a
-    # 16-bit forward and backward above D = 256 (phase 17 runs the f32 one)
-    q = torch.randn((2, 1, 64, 384), generator=gen, device=dev)
-    lse = torch.zeros((2, 1, 64), device=dev)
-    before = dict(ops.LAUNCHES)
-    for what, fn in (
-            ("bf16 forward", lambda: flash_attention(*[q.bfloat16()] * 3, 0.05)),
-            ("f16 forward", lambda: flash_attention(*[q.half()] * 3, 0.05)),
-            ("bf16 backward",
-             lambda: A.flash_attention_backward(*[q.bfloat16()] * 5, lse, 0.05)),
-            ("f16 backward", lambda: A.flash_attention_backward(*[q.half()] * 5, lse, 0.05)),
-            ("bf16 forward under autograd",
-             lambda: flash_attention(q.bfloat16().requires_grad_(), q.bfloat16(), q.bfloat16(),
-                                     0.05))):
-        try:
-            fn()
-        except ValueError as err:
-            print(f"check ldm attention D=384 {what}: raises ValueError ({err}) ok")
-        else:
-            raise AssertionError(f"attention {what} at D = 384 did not raise")
-    assert ops.LAUNCHES == before, "a refused attention call launched"
-
     # the whole CFG sampler, kernels on against off, from one x_T
     hw = ucfg.image_size
     x_T = torch.randn((LDM_CMP_B, hw, hw, 3), generator=gen, device=dev)
@@ -1197,7 +1232,8 @@ def ldm_path(tmp, gen, gpu, tag, worst):
 
 
 def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
-    """Phase 17 (see the module docstring); returns its figures."""
+    """Phase 17 (see the module docstring); returns the pruned model dir the
+    CLI wrote and the phase's figures."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1519,7 +1555,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
         f"{k_} {v_:.4f}" if isinstance(v_, float) else f"{k_} {v_}"
         for k_, v_ in sorted(ops_ms.items())) + f" {tag}")
     print(f"ldm prune phase {time.perf_counter() - t_phase:.1f} s")
-    return {"card": gpu, "b": rows, "sweep_steps": steps, "losses": losses,
+    return out, {"card": gpu, "b": rows, "sweep_steps": steps, "losses": losses,
             "cli_seconds": cli_seconds, "sweep_seconds": stats["sweep_seconds"],
             "cli_launches": cli_counts, "params": [stats["params_before"], stats["params"]],
             "sweep_step_ms": step_ms, "compare": {"worst_grad": worst_grad,
@@ -1528,6 +1564,404 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
             "ops_per_step": ops_ms, "sample_seconds": sample_seconds,
             "cfg_call_profile": {"busy_ms": busy, "span_ms": span, "launches": launches},
             "conv_192_ms": {str(n): ms for n, ms in conv_ms.items()},
+            "attn_pruned": {str(k_): v_ for k_, v_ in attn_pruned.items()}}
+
+
+def record_fwd_dtypes():
+    """Counts the (op, dtype) of every GroupNorm and attention forward launch
+    (the kernels' launchers, under autograd too); returns (counter, restore)."""
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    seen = collections.Counter()
+    attn, gn = A._launch, G._launch
+
+    def attn_wrapped(q, *args, **kwargs):
+        seen[("attention", str(q.dtype))] += 1
+        return attn(q, *args, **kwargs)
+
+    def gn_wrapped(x, *args, **kwargs):
+        seen[("group_norm", str(x.dtype))] += 1
+        return gn(x, *args, **kwargs)
+
+    A._launch, G._launch = attn_wrapped, gn_wrapped
+
+    def restore():
+        A._launch, G._launch = attn, gn
+
+    return seen, restore
+
+
+def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
+    """Phase 18 (see the module docstring); returns its figures."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import ldm_sample, ldm_train
+    from diff_pruning_tpu_torch.data.procedural import (make_procedural_dataset,
+                                                        write_labeled_folder)
+    from diff_pruning_tpu_torch.models.latent_diffusion import load_ldm
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from diff_pruning_tpu_torch.training.finetune import Optimizer, TrainConfig
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    rows, bf16 = LDM_TRAIN_B, torch.bfloat16
+    models = {"dense": load_ldm(model_dir, device=dev), "pruned": load_ldm(pruned_dir, device=dev)}
+    for m in models.values():
+        m.first_stage.cast_compute_weights(bf16)
+    ucfg, fcfg = models["dense"].unet.cfg, models["dense"].first_stage.cfg
+    hw = ucfg.image_size
+    res = hw * 2 ** (len(fcfg.block_out_channels) - 1)
+    shapes, per_step = {}, {}
+    for name, m in models.items():
+        (gn_u, attn_u), _, (gn_e, attn_e) = ldm_op_shapes(m.unet.cfg, fcfg, encode=True)
+        shapes[name] = (gn_u, attn_u, gn_e, attn_e)
+        n_gn, n_attn = sum(gn_u.values()), sum(attn_u.values())
+        per_step[name] = {"group_norm": n_gn + sum(gn_e.values()), "group_norm_bwd": n_gn,
+                          "attention": n_attn + sum(attn_e.values()), "attention_lse": n_attn,
+                          "attention_bwd_dq": n_attn, "attention_bwd_dkv": n_attn}
+    gn_unet, attn_unet, gn_enc, attn_enc = shapes["dense"]
+    attn_pruned = shapes["pruned"][1]
+    print(f"ldm train: per bf16 train step at B={rows}: launches {per_step['dense']} (the "
+          f"encode: {dict(gn_enc)} GroupNorm, {dict(attn_enc)} attention, no grad); attention "
+          f"shapes {dict(attn_unet)}, pruned {dict(attn_pruned)}")
+    assert per_step["dense"] == per_step["pruned"], per_step
+
+    # (a) the 16-bit attention kernels (the forward, its inference launch and
+    # with lse; dq; dk/dv) against their plain versions at every shape of one
+    # train step, through head-split views of (B, N, D) projections (pruned
+    # widths: rows 8-byte aligned in 16 bits), bf16 and f16
+    def views(n, d, dtype):
+        return torch.randn((rows, n, d), generator=gen, device=dev).to(dtype) \
+            .view(rows, n, 1, d).transpose(1, 2)
+
+    cases = ([(s, "unet") for s in sorted(attn_unet)]
+             + [(s, "pruned unet") for s in sorted(attn_pruned)]
+             + [((64, 64, 1, 320), "ragged"), ((64, 1, 1, 320), "ragged")]
+             + [(s, "encode") for s in sorted(attn_enc)])
+    for dname, (atol, rtol), btol in (("bfloat16", TOL["bfloat16"], BWD_TOL["bfloat16"]),
+                                      ("float16", F16_TOL, F16_BWD_TOL)):
+        dtype = getattr(torch, dname)
+        for (nq, nkv, h, d), where in cases:
+            q, do = views(nq, d, dtype), views(nq, d, dtype)
+            k, v = views(nkv, d, dtype), views(nkv, d, dtype)
+            scale = d ** -0.5
+            errs = {}
+            got = flash_attention(q, k, v, scale)
+            want = reference_attention(q, k, v, scale)
+            err = (got.float() - want.float()).abs()
+            assert bool(torch.isfinite(got).all()) and bool(
+                (err <= atol + rtol * want.float().abs()).all()), (dname, where, nq, nkv, d)
+            errs["o"] = float(err.max())
+            o, lse = A.flash_attention_forward_lse(q, k, v, scale)
+            po, plse = A.reference_attention_lse(q, k, v, scale)
+            assert torch.equal(o, got), (dname, where, nq, nkv, d)
+            errs["lse"], ok = compare_rel(lse, plse, BWD_TOL["float32"])
+            assert ok, (dname, where, nq, nkv, d, errs)
+            if where != "encode":  # no grad through the frozen first stage
+                dq, dsum = A.flash_attention_backward_dq(q, k, v, po, do, plse, scale)
+                pdq, pdsum = A.attention_backward_dq_reference(q, k, v, po, do, plse, scale)
+                dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+                pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
+                floor = (1e-6 * max(float(g.float().abs().max()) for g in (pdq, pdk, pdv))
+                         if nkv == 1 else 0.0)
+                for what, a, w, tol, fl in (("dsum", dsum, pdsum, BWD_TOL["float32"], 0.0),
+                                            ("dq", dq, pdq, btol, floor),
+                                            ("dk", dk, pdk, btol, floor), ("dv", dv, pdv, btol, 0.0)):
+                    e = float((a.float() - w.float()).abs().max())
+                    assert bool(torch.isfinite(a.float()).all()) and \
+                        e <= tol * float(w.float().abs().max()) + fl, (dname, where, what, e)
+                    errs[what] = e
+                worst[("attention_bwd_dq_ldm_train", dname)] = max(
+                    worst[("attention_bwd_dq_ldm_train", dname)], errs["dq"], errs["dsum"])
+                worst[("attention_bwd_dkv_ldm_train", dname)] = max(
+                    worst[("attention_bwd_dkv_ldm_train", dname)], errs["dk"], errs["dv"])
+                del dq, dk, dv, pdq, pdk, pdv
+            worst[("attention_ldm_train", dname)] = max(worst[("attention_ldm_train", dname)],
+                                                        errs["o"])
+            print(f"check ldm train attention ({where}) rows={rows} Nq={nq} Nkv={nkv} D={d} "
+                  f"{dname}: " + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+                  + f" (tol o {(atol, rtol)}, grads {btol} x max|want|"
+                  + (f" + {floor:.3e} at Nkv = 1" if where != "encode" and nkv == 1 else "")
+                  + ", lse and dsum 1e-4 x max|want|) ok")
+            del q, k, v, do, got, want, o, po
+    # the GroupNorm forward (the UNet's and the encode's) and backward (the
+    # UNet's) in bf16 at the step's shapes
+    for (n, c, eps, silu), where in ([(s, "unet") for s in sorted(gn_unet)]
+                                     + [(s, "encode") for s in sorted(gn_enc)]):
+        x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(bf16)
+        scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+        kw = dict(groups=32, eps=eps, with_silu=silu)
+        err, ok = compare(group_norm(x, scale, bias, **kw), group_norm_reference(x, scale, bias,
+                                                                                 **kw), "bfloat16")
+        assert ok, (where, n, c, silu, err)
+        worst[("group_norm_ldm_train", "bfloat16")] = max(
+            worst[("group_norm_ldm_train", "bfloat16")], err)
+        line = f"fwd {err:.3e}"
+        if where == "unet":
+            dy = torch.randn((rows, n, c), generator=gen, device=dev).to(bf16)
+            mean, rstd = G.group_norm_stats_reference(x, 32, eps=eps)
+            got = G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32, with_silu=silu)
+            want = G.group_norm_backward_reference(x, scale, bias, dy, mean, rstd, groups=32,
+                                                   with_silu=silu)
+            for what, a, w in zip(("dx", "dscale", "dbias"), got, want):
+                e, ok = compare_rel(a, w, BWD_TOL["bfloat16"])
+                assert ok, (where, n, c, silu, what, e)
+                worst[("group_norm_bwd_ldm_train", "bfloat16")] = max(
+                    worst[("group_norm_bwd_ldm_train", "bfloat16")], e)
+                line += f" {what} {e:.3e}"
+        print(f"check ldm train group_norm ({where}) rows={rows} N={n} C={c} silu={silu} "
+              f"bfloat16: {line} (tol {TOL['bfloat16']}, bwd {BWD_TOL['bfloat16']} x max|want|) ok")
+        del x
+    # what no kernel takes raises in every dtype and launches nothing: D = 1040
+    q = torch.randn((2, 1, 16, 1040), generator=gen, device=dev)
+    lse = torch.zeros((2, 1, 16), device=dev)
+    before = dict(ops.LAUNCHES)
+    for dtype in (torch.float32, bf16, torch.float16):
+        qd = q.to(dtype)
+        for what, fn in (("forward", lambda: flash_attention(qd, qd, qd, 0.05)),
+                         ("backward", lambda: A.flash_attention_backward(*[qd] * 5, lse, 0.05)),
+                         ("forward under autograd", lambda: flash_attention(
+                             qd.clone().requires_grad_(), qd, qd, 0.05))):
+            try:
+                fn()
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"attention {what} at D = 1040 {dtype} did not raise")
+    assert ops.LAUNCHES == before, "a refused attention call launched"
+    print("check ldm train attention D=1040 f32/bf16/f16 forward, backward and forward under "
+          "autograd: ValueError, nothing launched ok")
+    torch.cuda.synchronize()
+
+    # (b) one dense bf16 train step, kernels on against off, from the same
+    # state on the same images, labels, noise, t and drop mask
+    torch.backends.cudnn.deterministic = True
+    tgen = torch.Generator(device=dev).manual_seed(12)
+    images = torch.rand((rows, res, res, 3), generator=tgen, device=dev) * 2 - 1
+    labels = torch.randint(0, 1000, (rows,), generator=tgen, device=dev)
+    noise = torch.randn((rows, hw, hw, ucfg.out_channels), generator=tgen, device=dev)
+    tt = torch.randint(0, 1000, (rows,), generator=tgen, device=dev)
+    drop = torch.rand((rows,), generator=tgen, device=dev) < 0.1
+    opt = Optimizer(TrainConfig(learning_rate=LDM_TRAIN_LR, weight_decay=0.0, grad_clip=1.0,
+                                use_ema=False))
+    dense = models["dense"]
+    master = {n: p.detach().clone() for n, p in dense.unet.named_parameters()}
+
+    def train_step(on):
+        ops.set_kernels_enabled(on)
+        try:
+            with torch.no_grad():
+                for n, p in dense.unet.named_parameters():
+                    p.copy_(master[n])
+            params = dict(dense.unet.named_parameters())
+            st = opt.init(params)
+            step = ldm_train.make_ldm_train_step(dense, opt, params, compute_dtype=bf16)
+            ops.reset_launch_counts()
+            loss, gnorm = step(st, images, labels, noise, tt, drop)
+            torch.cuda.synchronize()
+            # Adam's first moment: 0.1 x the step's clipped grads
+            return float(loss), float(gnorm), st.mu, dict(ops.LAUNCHES)
+        finally:
+            ops.set_kernels_enabled(True)
+
+    fwd_dtypes, unwrap_fwd = record_fwd_dtypes()
+    bwd_dtypes, unwrap_bwd = record_bwd_dtypes()
+    try:
+        loss_on, gn_on, mu_on, c_on = train_step(True)
+    finally:
+        unwrap_fwd()
+        unwrap_bwd()
+    loss_off, gn_off, mu_off, c_off = train_step(False)
+    with torch.no_grad():
+        for n, p in dense.unet.named_parameters():
+            p.copy_(master[n])
+    del master
+    assert c_on == per_step["dense"] and not any(c_off.values()), (c_on, c_off)
+    want_dtypes = {("attention", "torch.bfloat16"): per_step["dense"]["attention"],
+                   ("group_norm", "torch.bfloat16"): per_step["dense"]["group_norm"]}
+    assert dict(fwd_dtypes) == want_dtypes, fwd_dtypes
+    assert dict(bwd_dtypes) == {
+        ("group_norm_bwd", "torch.bfloat16"): per_step["dense"]["group_norm_bwd"],
+        ("attention_bwd", "torch.bfloat16"): per_step["dense"]["attention_bwd_dq"]}, bwd_dtypes
+    loss_rel = abs(loss_on / loss_off - 1)
+    diff = math.sqrt(sum(float(((mu_on[n] - m) ** 2).sum()) for n, m in mu_off.items()))
+    norm = math.sqrt(sum(float((m ** 2).sum()) for m in mu_off.values()))
+    print(f"ldm train step cin256-v2 B={rows} bf16, kernels on vs off: loss {loss_on:.6f} against "
+          f"{loss_off:.6f}, rel diff {loss_rel:.3e} (tol {TRAIN_BF16_LOSS_RTOL}); grad norm "
+          f"{gn_on:.4f} against {gn_off:.4f}; the step's grads (Adam's mu) |on - off| / |off| "
+          f"{diff / norm:.3e} (tol {TRAIN_BF16_GRAD_RTOL}); launches on {c_on}; forward launches "
+          f"by dtype {dict(fwd_dtypes)}, backward calls by dtype {dict(bwd_dtypes)}")
+    assert math.isfinite(loss_on) and loss_rel <= TRAIN_BF16_LOSS_RTOL, (loss_on, loss_off)
+    assert all(bool(torch.isfinite(m).all()) for m in mu_on.values())
+    assert diff <= TRAIN_BF16_GRAD_RTOL * norm, (diff, norm)
+    del mu_on, mu_off
+
+    # (c) the main path: the ldm_train CLI on phase 17's pruned model dir,
+    # its defaults (B = 16, bf16), then a resume from the first save
+    data = os.path.join(tmp, "ldm_train_data")
+    write_labeled_folder(make_procedural_dataset(LDM_TRAIN_IMAGES, res, seed=13),
+                         np.arange(LDM_TRAIN_IMAGES) % 2, data)
+    base = ["--model_path", pruned_dir, "--dataset", data, "--num_iters", str(LDM_TRAIN_STEPS),
+            "--save_model_steps", str(LDM_TRAIN_SAVE), "--log_steps", "1", "--device", "cuda"]
+    out, out2 = os.path.join(tmp, "ldm_trained"), os.path.join(tmp, "ldm_trained_resumed")
+    ops.reset_launch_counts()
+    stats, _, cli_seconds = run_cli(ldm_train.main, base + ["--output_dir", out])
+    cli_counts = dict(ops.LAUNCHES)
+    want_cli = {k: LDM_TRAIN_STEPS * v for k, v in per_step["pruned"].items()}
+    print(f"main path ldm_train CLI: {stats['steps']} steps of B={rows} bf16 on the pruned "
+          f"model (losses {stats['losses']}), {stats['imgs_per_sec']:.2f} imgs/s, whole CLI "
+          f"{cli_seconds:.2f} s (host clock, load included), saves "
+          f"{[round(x, 2) for x in stats['save_seconds']]} s {tag}; launches {cli_counts}")
+    assert stats["steps"] == LDM_TRAIN_STEPS and np.isfinite(stats["losses"]).all()
+    assert cli_counts == want_cli, (cli_counts, want_cli)
+    resumed, _, resume_seconds = run_cli(ldm_train.main, base + [
+        "--output_dir", out2, "--resume_from_checkpoint",
+        os.path.join(out, "ckpt", f"step-{LDM_TRAIN_SAVE}")])
+    last = f"step-{LDM_TRAIN_STEPS}"
+    identical = {name: npz_equal(os.path.join(out, "ckpt", last, name),
+                                 os.path.join(out2, "ckpt", last, name))
+                 for name in ("params.npz", "opt_state.npz")}
+    print(f"main path ldm_train resume from step {LDM_TRAIN_SAVE}: losses {resumed['losses']}, "
+          f"{resume_seconds:.2f} s; step-{LDM_TRAIN_STEPS} bit-identical to the uninterrupted "
+          f"run: {identical}")
+    assert all(identical.values()) and resumed["losses"] == stats["losses"][LDM_TRAIN_SAVE:]
+    torch.backends.cudnn.deterministic = False
+    trained = load_ldm(out, device=dev)
+    n_trained = sum(p.numel() for p in trained.unet.parameters())
+    assert n_trained == LDM_PRUNED_PARAMS_AT_0_3 and trained.first_stage is not None
+    del trained
+    samples, _, sample_seconds = run_cli(ldm_sample.main, [
+        "--model_path", out, "--output_dir", os.path.join(tmp, "ldm_trained_s"),
+        "--num_classes", "1", "--ipc", "4", "--batch_size", "4", "--ddim_steps",
+        str(LDM_MULTI_STEPS), "--device", "cuda"])
+    print(f"main path check: the trained LDM reloads at {n_trained:,} UNet params; ldm_sample "
+          f"drew {samples['images']} images, {samples['nonfinite']} non-finite values, in "
+          f"{sample_seconds:.1f} s")
+    assert samples["images"] == 4 and samples["nonfinite"] == 0
+
+    # (d) timings: the bf16 train step, kernels on and off, dense and pruned,
+    # split into the encode, the UNet's forward + backward and the optimizer;
+    # peak memory; a profile by kernel class
+    step_ms, profiles = {}, {}
+    for name, m in models.items():
+        params = dict(m.unet.named_parameters())
+        plist = list(params.values())
+        st = opt.init(params)
+        step = ldm_train.make_ldm_train_step(m, opt, params, compute_dtype=bf16)
+
+        def run(on, step=step, st=st):
+            ops.set_kernels_enabled(on)
+            try:
+                step(st, images, labels, noise, tt, drop)
+            finally:
+                ops.set_kernels_enabled(True)
+
+        def encode(m=m):
+            with torch.no_grad():
+                m.first_stage.encode(images.to(bf16))
+
+        def fwd_bwd(m=m, plist=plist):
+            torch.autograd.grad(m.train_loss(images, labels, tt, noise, drop=drop,
+                                             compute_dtype=bf16), plist)
+
+        grads = list(torch.autograd.grad(m.train_loss(images, labels, tt, noise, drop=drop,
+                                                      compute_dtype=bf16), plist))
+        norm_ = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=3)
+        enc_ms, fb_ms = in_turns([encode, fwd_bwd], iters=3)
+        opt_ms = cuda_ms(lambda: opt.update(grads, norm_, st, plist), iters=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        run(True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy, span, launches, counts, _ = profile_kernels(lambda: run(True))
+        print_profile(f"ldm train step {name} kernels on B={rows} bf16", busy, span, launches,
+                      counts, ("step", 1), tag)
+        profiles[name] = {"busy_ms": busy, "span_ms": span, "launches": launches,
+                          "idle_share": 1 - sum(busy.values()) / span}
+        step_ms[name] = {"kernels_on_ms": on, "kernels_off_ms": off,
+                         "kernels_on_imgs_per_s": rows * 1e3 / on,
+                         "kernels_off_imgs_per_s": rows * 1e3 / off, "encode_ms": enc_ms,
+                         "unet_fwd_bwd_ms": fb_ms - enc_ms, "optimizer_ms": opt_ms,
+                         "peak_gb": peak}
+        print(f"time ldm train step {name} B={rows} bf16: kernels on {on:.1f} ms "
+              f"({rows * 1e3 / on:.2f} imgs/s), kernels off {off:.1f} ms ({rows * 1e3 / off:.2f} "
+              f"imgs/s) (CUDA events, in turns off-on-on-off); kernels on: encode {enc_ms:.1f} ms, "
+              f"UNet forward + backward {fb_ms - enc_ms:.1f} ms, optimizer (clip + AdamW) "
+              f"{opt_ms:.1f} ms; peak memory {peak:.2f} GB {tag}")
+        del grads, st, step
+    # per-op: the 16-bit attention forward with lse (the training launch), dq
+    # and dk/dv at the step's shapes, against plain, SDPA and the bound
+    ops_ms = {}
+    for name, attn_cases in (("dense", attn_unet), ("pruned", attn_pruned)):
+        tot = collections.defaultdict(float)
+        backends = set()
+        for (nq, nkv, h, d), ncalls in sorted(attn_cases.items()):
+            q, do = views(nq, d, bf16), views(nq, d, bf16)
+            k, v = views(nkv, d, bf16), views(nkv, d, bf16)
+            scale = d ** -0.5
+            o, lse = A.reference_attention_lse(q, k, v, scale)
+            _, dsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale)
+            ql, kl, vl = (z.detach().clone().requires_grad_() for z in (q, k, v))
+            ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            fns = [lambda: A.reference_attention_lse(q, k, v, scale),
+                   lambda: A.flash_attention_forward_lse(q, k, v, scale),
+                   lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                   lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
+                   lambda: A.flash_attention_backward_dq(q, k, v, o, do, lse, scale),
+                   lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
+                   lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
+                   lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+            ms = in_turns(fns, iters=5)
+            backend = (sdpa_backend(fns[2]), sdpa_backend(fns[7]))
+            backends.add(backend)
+            fwd_bytes = 2 * rows * (2 * nq + 2 * nkv) * d + 4 * rows * nq
+            fwd_flops = 4 * rows * nq * nkv * d
+            (bq_bytes, fq), (bkv_bytes, fkv) = ldm_bwd_work(rows, nq, nkv, d, es=2)
+            bounds = {"fwd": bound(fwd_bytes, fwd_flops, "bfloat16"),
+                      "dq": bound(bq_bytes, fq, "bfloat16"), "dkv": bound(bkv_bytes, fkv, "bfloat16")}
+            for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1]), ("fwd_library", ms[2]),
+                             ("dq_plain", ms[3]), ("dq_kernel", ms[4]), ("dkv_plain", ms[5]),
+                             ("dkv_kernel", ms[6]), ("bwd_library", ms[7]),
+                             ("fwd_flops", fwd_flops), ("dq_flops", fq), ("dkv_flops", fkv)):
+                tot[key] += val * ncalls
+            for part, (bms, by) in bounds.items():
+                add_bound(tot, part + "_", bms * ncalls, by)
+            print(f"time ldm train attention {(nq, nkv, d)} x{ncalls}/step rows={rows} bfloat16: "
+                  f"forward with lse kernel {ms[1]:.4f} ms, {fwd_flops / ms[1] / 1e9:.2f} TFLOP/s "
+                  f"(plain {ms[0]:.4f}, SDPA {ms[2]:.4f} via {backend[0]}, bound "
+                  f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}); dq kernel {ms[4]:.4f} ms, "
+                  f"{fq / ms[4] / 1e9:.2f} TFLOP/s (plain {ms[3]:.4f}, bound {bounds['dq'][0]:.4f} "
+                  f"{bounds['dq'][1]}); dk/dv kernel {ms[6]:.4f} ms, {fkv / ms[6] / 1e9:.2f} "
+                  f"TFLOP/s (plain {ms[5]:.4f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}); "
+                  f"SDPA backward (dq+dk+dv, {backend[1]}) {ms[7]:.4f} ms {tag}")
+            del fns, q, k, v, do, o, ql, kl, vl, ol
+        for part in ("fwd", "dq", "dkv"):
+            tot[part + "_tflops"] = tot[part + "_flops"] / tot[part + "_kernel"] / 1e9
+            tot[part + "_bound_by"] = bound_by(tot, part + "_")
+        tot["sdpa_backends"] = sorted(backends)
+        ops_ms[name] = dict(tot)
+        print(f"time ldm train attention per train step ({name}) rows={rows} bfloat16: " + ", ".join(
+            f"{k_} {v_:.4f}" if isinstance(v_, float) else f"{k_} {v_}"
+            for k_, v_ in sorted(ops_ms[name].items())) + f" {tag}")
+    del models, dense
+    print(f"ldm train phase {time.perf_counter() - t_phase:.1f} s")
+    return {"card": gpu, "b": rows, "per_step": per_step["dense"], "cli_launches": cli_counts,
+            "cli_seconds": cli_seconds, "cli_losses": stats["losses"],
+            "cli_imgs_per_s": stats["imgs_per_sec"], "save_seconds": stats["save_seconds"],
+            "resume_seconds": resume_seconds, "resume_identical": identical,
+            "compare": {"loss_on": loss_on, "loss_off": loss_off, "grad_rel": diff / norm},
+            "train_step": step_ms, "profiles": profiles, "ops_per_step": ops_ms,
+            "sample_seconds": sample_seconds,
             "attn_pruned": {str(k_): v_ for k_, v_ in attn_pruned.items()}}
 
 
@@ -1599,14 +2033,22 @@ def main() -> None:
         for kname, (nregs, st, ld) in sorted(kernels.items()):
             print(f"ptxas: {lib} {kname}: {nregs} registers, spill stores {st} bytes, "
                   f"spill loads {ld} bytes")
-    if _build.BUILD_INFO["flash_attention_bwd"]["log"]:  # empty when already built
+    if _build.BUILD_INFO["flash_attention_fwd"]["log"]:  # empty when already built
+        assert {k.split("<")[0] for k in regs["flash_attention_fwd"]} == {
+            "flash_fwd_kernel_f32", "flash_fwd_kernel_f32_wide", "flash_fwd_kernel_mma",
+            "flash_fwd_kernel_mma_wide"}, regs
+        # f32 at 4 head-dim paddings and 6 wide (D 257-1024); 16-bit: 2 types
+        # x (4 + 6)
+        assert len(regs["flash_attention_fwd"]) == 30, regs
+    if _build.BUILD_INFO["flash_attention_bwd"]["log"]:
         assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
             "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
             "flash_bwd_dkv_kernel_mma", "flash_bwd_dq_kernel_f32_wide",
-            "flash_bwd_dkv_kernel_f32_wide"}, regs
+            "flash_bwd_dkv_kernel_f32_wide", "flash_bwd_dq_kernel_mma_wide",
+            "flash_bwd_dkv_kernel_mma_wide"}, regs
         # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 6 each
-        # (D 257-1024); 16-bit: 2 types x 4 x 2 kernels
-        assert len(regs["flash_attention_bwd"]) == 34, regs
+        # (D 257-1024); 16-bit: 2 types x (4 + 6) x 2 kernels
+        assert len(regs["flash_attention_bwd"]) == 58, regs
     if _build.BUILD_INFO["group_norm_bwd"]["log"]:
         assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
     for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd"):
@@ -1620,11 +2062,13 @@ def main() -> None:
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
             if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
                 assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma",),
+        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_mma_wide"),
                  "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
                                          "flash_bwd_dq_kernel_f32_wide",
                                          "flash_bwd_dkv_kernel_f32_wide",
-                                         "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma"),
+                                         "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma",
+                                         "flash_bwd_dq_kernel_mma_wide",
+                                         "flash_bwd_dkv_kernel_mma_wide"),
                  "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
         for want in wants:
             assert sum(want in kname for kname in sass) >= 2, (want, sorted(sass))
@@ -2355,11 +2799,14 @@ def main() -> None:
     ldm_model, ldm_dir, ldm = ldm_path(tmp, gen, gpu, tag, worst)
 
     # -- 17. the LDM prune path: the wide f32 backward, the sweep, the CLI
-    ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
+    ldm_pruned_dir, ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
     del ldm_model
+
+    # -- 18. the LDM train path: the wide 16-bit attention, the bf16 step, the CLI
+    ldm_train_fig = ldm_train_path(tmp, ldm_dir, ldm_pruned_dir, gen, gpu, tag, worst)
     tmpdir.cleanup()
 
-    # -- 18. result lines
+    # -- 19. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -2387,7 +2834,8 @@ def main() -> None:
 
     def paths(key):
         return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key],
-                    launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key])
+                    launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key],
+                    launches_ldm_train_cli=ldm_train_fig["cli_launches"][key])
 
     lp_ops = ldm_prune_fig["ops_per_step"]
     per_ldm_step = f"f32, summed over one B={LDM_PRUNE_B} LDM sweep step's calls"
@@ -2404,7 +2852,49 @@ def main() -> None:
                      library_ms_dq_dk_dv=lp_ops["attn_library"],
                      tflops=lp_ops[f"{part}_tflops"],
                      launch_path="the ldm_prune CLI (phase 17)")
-        out.pop("max_abs_err_bf16")  # f32 only: 16-bit heads above 256 raise
+        out.pop("max_abs_err_bf16")  # f32 only: phase 18 holds the 16-bit ones
+        return out
+
+    lt_ops = ldm_train_fig["ops_per_step"]
+    per_train_step = (f"bf16, summed over one B={LDM_TRAIN_B} LDM train step's calls (the dense "
+                      f"cin256-v2 UNet; _pruned: the UNet pruned at 0.3)")
+
+    def ldm_wide16(part):
+        """The wide 16-bit attention kernel ``part`` (fwd, dq, dkv): the
+        ldm_train CLI's launches, its max abs error over the train step's
+        shapes (bf16; f16 beside it) and its figures per train step."""
+        source = "diff_pruning_tpu_torch/ops/csrc/flash_attention_" + (
+            "fwd.cu" if part == "fwd" else "bwd.cu")
+        line = {"fwd": "97", "dq": "143", "dkv": "170"}[part]
+        err_key = {"fwd": "attention_ldm_train", "dq": "attention_bwd_dq_ldm_train",
+                   "dkv": "attention_bwd_dkv_ldm_train"}[part]
+        launch_key = {"fwd": "attention_lse", "dq": "attention_bwd_dq",
+                      "dkv": "attention_bwd_dkv"}[part]
+        dense_, pruned_ = lt_ops["dense"], lt_ops["pruned"]
+        lib = "fwd_library" if part == "fwd" else None
+        out = {"name": ("flash_attention_fwd_wide16" if part == "fwd"
+                        else f"flash_attention_bwd_{part}_wide16"),
+               "route": "cuda", "source": source,
+               "replaces": f"diff_pruning_tpu/ops/attention.py:{line}",
+               "launches": ldm_train_fig["cli_launches"][launch_key],
+               "max_abs_err": worst[(err_key, "bfloat16")],
+               "max_abs_err_f16": worst[(err_key, "float16")],
+               "ms": dense_[f"{part}_kernel"], "plain_ms": dense_[f"{part}_plain"],
+               "bound_ms": dense_[f"{part}_bound"], "bound_by": dense_[f"{part}_bound_by"],
+               "library_ms": dense_[lib] if lib else None, "ms_is": per_train_step,
+               "tflops": dense_[f"{part}_tflops"], "sdpa_backends": dense_["sdpa_backends"],
+               "ms_pruned": pruned_[f"{part}_kernel"], "plain_ms_pruned": pruned_[f"{part}_plain"],
+               "bound_ms_pruned": pruned_[f"{part}_bound"],
+               "tflops_pruned": pruned_[f"{part}_tflops"],
+               "launch_path": "the ldm_train CLI (phase 18)"}
+        if part == "fwd":
+            out.update(library_ms_is="F.scaled_dot_product_attention, bf16",
+                       library_ms_pruned=pruned_["fwd_library"],
+                       launches_without_lse=(ldm_train_fig["cli_launches"]["attention"]
+                                             - ldm_train_fig["cli_launches"]["attention_lse"]))
+        else:
+            out.update(library_ms_dq_dk_dv=dense_["bwd_library"],
+                       library_ms_dq_dk_dv_pruned=pruned_["bwd_library"])
         return out
 
     def ldm_of(op):
@@ -2494,6 +2984,9 @@ def main() -> None:
               **paths("attention_bwd_dkv")),
         ldm_wide_bwd("dq"),
         ldm_wide_bwd("dkv"),
+        ldm_wide16("fwd"),
+        ldm_wide16("dq"),
+        ldm_wide16("dkv"),
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
                       "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling,
@@ -2504,6 +2997,7 @@ def main() -> None:
     print(json.dumps({"evaluation": evaluation}))
     print(json.dumps({"ldm": ldm}))
     print(json.dumps({"ldm_prune": ldm_prune_fig}))
+    print(json.dumps({"ldm_train": ldm_train_fig}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
 """Host-side data loading: the subset of ``diff_pruning_tpu/data/datasets.py``
-that the prune, train, fid_score and fidelity CLIs read.
+that the prune, train, ldm_train, fid_score and fidelity CLIs read.
 
 numpy and PIL only, as the JAX package's loaders are: a local ``.npz`` of
 uint8 NHWC images, a local CIFAR-10 python-pickle batch directory
@@ -12,7 +12,10 @@ Inception at the size it does there. ``iterate_batches`` is the plain path
 of the JAX version (shuffle, random horizontal flip, [-1, 1]), drawing from
 the same ``np.random.default_rng(seed)`` in the same order, so its batches
 are bit-identical to the JAX package's for the same seed, and so are the
-batches after a ``skip_batches`` fast-forward for resume. LSUN/FFHQ lmdb,
+batches after a ``skip_batches`` fast-forward for resume; the same holds
+for ``iterate_labeled_batches`` over a class-labeled folder (the LDM train
+CLI's data), which decodes with PIL as the JAX version does where its
+native decoder is not built (that decoder is not ported yet). LSUN/FFHQ lmdb,
 CIFAR-100, the ImageNet and txt-list sources and the ddpm_exp input
 transforms are not ported yet.
 """
@@ -162,6 +165,67 @@ def get_dataset(name_or_path: str, resolution: Optional[int] = None):
             "(nothing is downloaded)")
     raise FileNotFoundError(f"{name_or_path}: the port reads a .npz of uint8 NHWC images, "
                             "a CIFAR-10 batch directory or an image folder")
+
+
+@dataclasses.dataclass
+class LabeledImageFolderDataset:
+    """A class-labeled image folder (the ImageNet layout, root/<class>/*.jpg)
+    for the LDM finetune path: the files, their class indices (the sorted
+    class directories' order) and the class names."""
+
+    files: list
+    labels: np.ndarray
+    class_names: list
+    resolution: int = 256
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+
+def get_labeled_dataset(root: str, resolution: int = 256) -> LabeledImageFolderDataset:
+    """Every image under each class directory of ``root`` (sorted, recursive),
+    labeled by the directory's index among the sorted class directories."""
+    classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+    if not classes:
+        raise FileNotFoundError(f"no class subdirectories under {root}")
+    files, labels = [], []
+    for ci, cname in enumerate(classes):
+        for f in list_image_files(os.path.join(root, cname)):
+            files.append(f)
+            labels.append(ci)
+    return LabeledImageFolderDataset(files, np.asarray(labels, np.int32), classes, resolution)
+
+
+def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int, *,
+                            seed: int = 0, flip: bool = True, skip_batches: int = 0):
+    """Endless shuffled epochs of ``(images, labels)``: NHWC float32 images in
+    [-1, 1] at the dataset's resolution with a random horizontal flip, int32
+    labels; the last partial batch of each epoch dropped. One
+    ``default_rng(seed)`` draws a permutation per epoch and, per batch, the
+    flips, as the JAX version draws them, so the batches are bit-identical
+    to its own for the same seed. ``skip_batches`` fast-forwards for resume:
+    the skipped batches' draws are replayed without decoding an image.
+
+    Images are decoded one by one with PIL (``_load_image``: shorter side to
+    the resolution, then a center crop), the JAX version's path when its
+    native decoder is not built."""
+    rng = np.random.default_rng(seed)
+    n = len(dataset)
+    while True:
+        order = rng.permutation(n)
+        for i in range(0, n - n % batch_size, batch_size):
+            idx = order[i:i + batch_size]
+            if skip_batches > 0:
+                skip_batches -= 1
+                if flip:
+                    rng.random(len(idx))  # keep the flip stream aligned
+                continue
+            imgs = np.stack([_load_image(dataset.files[j], dataset.resolution, False)
+                             for j in idx])
+            if flip:
+                flips = rng.random(len(imgs)) < 0.5
+                imgs[flips] = imgs[flips, :, ::-1]
+            yield normalize(imgs), dataset.labels[idx]
 
 
 def normalize(batch_u8: np.ndarray) -> np.ndarray:

@@ -11,7 +11,9 @@ DPM-Solver++(2M), as host loops over the UNet under
 
 ``get_loss_at_t`` is the loss of the LDM prune sweep (``cli/ldm_prune.py``,
 ``diffpruning/sweep.py``): p_losses at the caller's t, the mean MSE in f32,
-differentiable through the port's kernels on the card.
+differentiable through the port's kernels on the card. ``train_loss`` is
+the LDM train step's (``cli/ldm_train.py``): images encoded by the frozen
+first stage, labels dropped to the uncond class by a mask, in f32 or bf16.
 
 Not ported yet (each raises where a caller can reach it): the concat-mode
 sampler, ``SpatialRescaler`` and the identity cond stage
@@ -110,14 +112,41 @@ class LatentDiffusion(nn.Module):
         return self.unet(x, t, context=context)
 
     def get_loss_at_t(self, x0_latents: torch.Tensor, labels: torch.Tensor, t: torch.Tensor,
-                      noise: torch.Tensor) -> torch.Tensor:
+                      noise: torch.Tensor, *,
+                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """p_losses at fixed t (ddpm.py:881-889): the latents noised at ``t``
-        (B,), the UNet's eps with the class context against ``noise``, the
-        mean MSE over everything in f32."""
+        (B,) with ``noise`` (in the latents' dtype), the UNet's eps with the
+        class context against the noise, the mean MSE over everything in f32.
+        With ``compute_dtype`` (bf16) the context and every UNet parameter are
+        cast to it for the forward and backward (``call_in_dtype``: grads reach
+        the f32 masters), as the JAX train step casts them."""
+        from .unet2d import call_in_dtype
+
         ctx = self.get_learned_conditioning(labels)
+        noise = noise.to(x0_latents.dtype)
         noisy = self.schedule.add_noise(x0_latents, noise, t)
-        eps = self.apply_unet(noisy, t, ctx)
+        if compute_dtype is None:
+            eps = self.apply_unet(noisy, t, ctx)
+        else:
+            eps = call_in_dtype(self.unet, compute_dtype, noisy, t, context=ctx.to(compute_dtype))
         return ((eps - noise).to(torch.float32) ** 2).mean()
+
+    def train_loss(self, images: torch.Tensor, labels: torch.Tensor, t: torch.Tensor,
+                   noise: torch.Tensor, *, drop: Optional[torch.Tensor] = None,
+                   compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The loss of the LDM train step (the JAX ``cli/ldm_train.py``
+        ``loss_fn``): NHWC ``images`` in [-1, 1] encoded by the frozen first
+        stage (no grad, in ``compute_dtype``: its conv and linear weights must
+        have been cast already, ``cast_compute_weights``) and scaled by
+        ``scale_factor``; the labels where ``drop`` is set replaced by the
+        uncond class; then :meth:`get_loss_at_t`. The random draws are the
+        caller's: jax.random's cannot be reproduced here."""
+        with torch.no_grad():
+            z = self.first_stage.encode(images.to(compute_dtype or torch.float32))
+        if drop is not None:
+            labels = torch.where(drop, torch.full_like(labels, self.uncond_class), labels)
+        return self.get_loss_at_t(z * self.scale_factor, labels, t, noise,
+                                  compute_dtype=compute_dtype)
 
     def make_cfg_sampler(self, *, ddim_steps: int = 20, guidance_scale: float = 3.0,
                          eta: float = 0.0, latent_hw=64, latent_ch: int = 3,

@@ -10,8 +10,11 @@ JAX param tree (``input_blocks/1/0/in_conv/kernel`` is
 packages through ``utils/checkpoint.py``.
 
 ``forward`` takes and returns NHWC like the JAX model; inside, activations
-are NCHW in ``torch.channels_last`` memory (see ``layers.py``). Dropout is
-not part of this serving slice: it comes with the LDM train step.
+are NCHW in ``torch.channels_last`` memory (see ``layers.py``). The JAX
+model's ResBlock dropout is not ported: no JAX caller passes it a dropout
+key (the LDM train step, ``cli/ldm_train.py``, runs without one). Mixed
+precision is the caller's: ``call_in_dtype`` (``models/unet2d.py``) runs
+the forward and backward with every parameter cast to bf16.
 """
 
 from __future__ import annotations

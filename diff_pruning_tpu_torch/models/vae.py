@@ -10,8 +10,9 @@ goes through the attention kernel like the UNets' (the vq-f4 decoder's is
 4096 tokens of D = 512).
 
 ``encode`` and ``decode`` take and return NHWC like the JAX models; inside,
-activations are NCHW in ``torch.channels_last`` memory. The VQ training
-quantizer (``quantize_train``) comes with the autoencoder slice.
+activations are NCHW in ``torch.channels_last`` memory. The LDM train step
+encodes in bf16 (``cast_compute_weights``). The VQ training quantizer
+(``quantize_train``) comes with the autoencoder slice.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..pruning.graph import ChannelGraph, ChannelVar
-from .layers import Conv2D, GroupNorm, Scope, SelfAttention2D, downsample_pad, upsample_nearest_2x
+from .layers import (Conv2D, GroupNorm, Linear, Scope, SelfAttention2D, downsample_pad,
+                     upsample_nearest_2x)
 
 
 @dataclasses.dataclass
@@ -252,6 +254,17 @@ class _FirstStage(nn.Module):
         for m in self.modules():
             if hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+        return self
+
+    def cast_compute_weights(self, dtype: torch.dtype) -> "_FirstStage":
+        """Cast conv and linear weights to the compute dtype, in place: the
+        JAX layers cast them to the activation dtype on every call, so a
+        frozen first stage run in bf16 (the LDM train step's encode) gives
+        the same values. GroupNorm's scale and bias stay f32, as the JAX
+        layer reads them; the codebook is left as it is."""
+        for m in self.modules():
+            if isinstance(m, (Conv2D, Linear)):
+                m.to(dtype)
         return self
 
     def _decode(self, z: torch.Tensor) -> torch.Tensor:

@@ -27,11 +27,13 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
   accumulators), with p and ds exchanged between warps through shared
   memory in the input type.
 
-The forward and backward kernels take head dims up to 1024 in f32 (a second
-tiling above 256, for the LDM's one-head transformers: 16-row tiles of the
-whole head dim in the forward, 16 q rows and 8 kv rows in the backward) and
-up to 256 in bf16/f16 (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``). Wider
-heads raise ``ValueError`` on the card; the plain versions take any. The kernels
+The forward and backward kernels take head dims up to 1024 in every input
+type (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``), with a second tiling
+above 256 for the LDM's one-head transformers: 16 query rows a block of the
+whole head dim (f32: 16 kv rows in the forward, 8 in the backward; bf16/f16
+on the tensor cores: 32 kv rows in the forward and dq, 8 in dk/dv, the head
+dim split over the warps). Wider heads raise ``ValueError`` on the card; the
+plain versions take any. The kernels
 zero-pad the head dim in shared memory and read head-split views through
 their strides, so the layer passes ``(B, N,
 heads*dh)`` projections without a transpose copy; outputs are (B, H, N, D)
@@ -55,10 +57,9 @@ import torch
 
 from . import LAUNCHES
 
-# the widest head dim each kernel takes, by input type; the 16-bit forward
-# and backward above 256 are ROADMAP queue 1, item 7c (the LDM train slice)
-MAX_HEAD_DIM_FWD = {torch.float32: 1024, torch.bfloat16: 256, torch.float16: 256}
-MAX_HEAD_DIM_BWD = {torch.float32: 1024, torch.bfloat16: 256, torch.float16: 256}
+# the widest head dim each kernel takes, by input type
+MAX_HEAD_DIM_FWD = {torch.float32: 1024, torch.bfloat16: 1024, torch.float16: 1024}
+MAX_HEAD_DIM_BWD = {torch.float32: 1024, torch.bfloat16: 1024, torch.float16: 1024}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LIBS = {}
 
@@ -199,8 +200,7 @@ def _check(q, k, v, backward=False):
     b, h, nq, d = q.shape
     if not 1 <= d <= max_d or nq < 1 or k.shape[2] < 1:
         raise ValueError(f"flash_attention{what}: head dim {d} (the kernel takes 1..{max_d} "
-                         f"in {q.dtype}; 16-bit heads above 256: ROADMAP queue 1, item 7c, "
-                         f"the LDM train slice), Nq {nq}, Nkv {k.shape[2]}")
+                         f"in {q.dtype}), Nq {nq}, Nkv {k.shape[2]}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: the head dim must be contiguous")
 

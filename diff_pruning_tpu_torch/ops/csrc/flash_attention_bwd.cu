@@ -130,7 +130,12 @@
 //   blocks, each walking every q tile;
 // - the same copies as the D <= 256 kernels: 16-byte cp.async where the
 //   views allow, else 4-byte (pruned widths such as 270 have rows that are
-//   not 16-byte aligned). 16-bit inputs take D <= 256 only.
+//   not 16-byte aligned).
+//
+// bf16/f16 with 256 < D <= 1024 (`flash_bwd_dq_kernel_mma_wide<T, NC2>`,
+// `flash_bwd_dkv_kernel_mma_wide<T, NC2>`): the same heads under bf16
+// training, on the tensor cores: 16 q rows and 32 (dq) or 8 (dk/dv) kv rows
+// a block, the head dim split over the 8 warps; see their note below.
 // Shared memory at D = 1024: dq 48 * 1028 * 4 + 16 * 260 * 4 + 128 * 4 + 2 *
 // 16 * 4 = 214,656 bytes, dk/dv 215,168.
 //
@@ -148,9 +153,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // threads per block, all six kernels
+constexpr int kThreads = 256;  // threads per block, all eight kernels
 constexpr int kMaxD = 256;       // the 64-row kernels (every input type)
-constexpr int kMaxDWide = 1024;  // f32 only: the wide kernels
+constexpr int kMaxDWide = 1024;  // the wide kernels (every input type)
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
@@ -1283,6 +1288,431 @@ flash_bwd_dq_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
   store_tile16<T, LD>(dq + b * sdq.b + h * sdq.h, sdq.n, qs, q0, Nq, D, vec_out);
 }
 
+// --------------------------------------- bf16/f16 path, 256 < D <= 1024
+
+// Wide 16-bit heads (the LDM's one-head transformers under bf16 training:
+// D = 384, 576, 960 and the pruned 268, 404, 672). The 64-row kernels above
+// keep six 64-row tiles; at D = 1024 one 64-row 16-bit tile alone is 132 KB.
+// These keep 16 q rows (one m16 tile) and 32 (dq) or 8 (dk/dv) kv rows of
+// the whole head dim (padded to DP = 128 * NC2, zero-filled), 256 threads
+// (8 warps), and split the head dim over the warps (16 NC2 columns each) in
+// every product, so that no thread holds a whole row:
+// - scores (both kernels): each warp forms the partial S = Q K^T and dP =
+//   dO V^T of its head-dim slice on the tensor cores; the 8 partials meet in
+//   shared memory and are summed in a fixed order (no atomics), p and ds are
+//   formed in f32 and rounded to the input type once;
+// - dq, one block per (batch*head, 16-row q tile): Q's and dO's fragments of
+//   the warp's slice stay in registers (8 NC2 registers), K and V stream in
+//   32-row tiles, one slot each (V_{t+1} is issued once the partials are
+//   formed, K_{t+1} once dq += dS K_t is done); dq += dS K_t with A = dS
+//   (16 x 32, from shared memory) and B = K_t (.trans), the warp's columns:
+//   8 NC2 f32 accumulators a thread, at most 64. The prologue forms D =
+//   rowsum(dO * O) from shared memory (16 lanes a row) and writes `dsum`;
+// - dk/dv, one block per (batch*head, 8-row kv tile): K's and V's B
+//   fragments of the warp's slice stay in registers; Q and dO stream in
+//   16-row tiles through a two-slot cp.async ring (tile t+1 is issued as the
+//   scores of tile t start). The gradients are formed transposed, dK^T +=
+//   Q_t^T dS and dV^T += dO_t^T P (M = the head dim, N = the 8 kv rows, K =
+//   the 16 q rows): A = Q_t^T and dO_t^T by ldmatrix .trans straight from
+//   the streamed tiles, B = dS^T and P^T from two 8 x 16 tiles, and a warp
+//   owns NC2 m-tiles of its slice: 8 NC2 accumulators a thread for dK and dV
+//   together, where 16 kv rows of the whole head dim would take 128 at D =
+//   1024 (an n-tile of 8 kv rows wastes no half of an m16 tile);
+// - what they give up: the 64-row kernels' reuse of a loaded kv tile across
+//   64 q rows (dq) and of a q tile across 64 kv rows (dk/dv), and, for dq,
+//   a ring deeper than one slot (Q, dO, K and V take 200 KB at D = 1024);
+// - copies in the widest chunk the views allow (copy_wide16 in
+//   tensor_core.cuh): 16-byte cp.async for aligned views, 8 or 4 bytes for
+//   the pruned widths' rows (D = 268: 536-byte rows), 2-byte loads else.
+// Shared memory at D = 1024 in bf16: dq 2 * 16 * 1032 * 2 (Q, dO; then the
+// partials, then dq) + 2 * 32 * 1032 * 2 (K, V) + 16 * 40 * 2 + 2 * 16 * 4 =
+// 199,552 bytes; dk/dv 2 * 8 * 1032 * 2 (K, V; then dK, dV) + 2 * 2 * 16 *
+// 1032 * 2 (the ring) + 2 * 8 * 16 * 8 * 4 + 2 * 8 * 24 * 2 + 2 * 32 * 4 =
+// 174,336 bytes: one block (8 warps) per SM.
+constexpr int kWideQ16 = 16;    // q rows a tile (wide 16-bit kernels)
+constexpr int kWideKvDq = 32;   // kv rows a streamed tile of the dq kernel
+constexpr int kWideKvDkv = 8;   // kv rows a block of the dk/dv kernel
+constexpr int kLdRed = kWideKvDq + 4;  // row stride of dq's partial S and dP (f32)
+constexpr int kLdx16 = kWideQ16 + 8;   // row stride of dk/dv's P^T and dS^T tiles
+
+template <typename T>
+__host__ __device__ constexpr int dq16_front_bytes(int dp) {  // Q and dO, or S and dP partials
+  const int tiles = 2 * kWideQ16 * (dp + 8) * int(sizeof(T));
+  const int red = 2 * 8 * kWideQ16 * kLdRed * 4;
+  return tiles > red ? tiles : red;
+}
+
+// The warp's partial 16 x 8N tiles of S = A1 B1^T and dP = A2 B2^T over its
+// KS k-steps: A fragments from registers, B from 8N rows of shared [..][LD]
+// tiles (b1, b2 point at the warp's first column), into the warp's slots of
+// the partial tiles r1, r2 ([16][ldr] f32 each)
+template <typename T, int KS, int N2, int LD>
+__device__ __forceinline__ void partial_scores(float* r1, float* r2, int ldr,
+                                               const uint32_t (&a1)[KS][4],
+                                               const uint32_t (&a2)[KS][4], const T* b1,
+                                               const T* b2) {
+  const int lane = threadIdx.x & 31;
+  // B rows lane % 8 + 8 (lane / 16) of a pair of n-tiles, column half (lane / 8) % 2
+  const int bo = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8;
+  float s[2 * N2][4], dp[2 * N2][4];
+#pragma unroll
+  for (int n = 0; n < 2 * N2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < N2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b1 + bo + np * 16 * LD + kk * 16);
+      mma16816(s[2 * np], a1[kk], b[0], b[1], static_cast<T*>(nullptr));
+      mma16816(s[2 * np + 1], a1[kk], b[2], b[3], static_cast<T*>(nullptr));
+      ldmatrix_x4(b, b2 + bo + np * 16 * LD + kk * 16);
+      mma16816(dp[2 * np], a2[kk], b[0], b[1], static_cast<T*>(nullptr));
+      mma16816(dp[2 * np + 1], a2[kk], b[2], b[3], static_cast<T*>(nullptr));
+    }
+  const int o = (lane >> 2) * ldr + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < 2 * N2; ++n) {
+    *reinterpret_cast<float2*>(r1 + o + n * 8) = make_float2(s[n][0], s[n][1]);
+    *reinterpret_cast<float2*>(r1 + o + 8 * ldr + n * 8) = make_float2(s[n][2], s[n][3]);
+    *reinterpret_cast<float2*>(r2 + o + n * 8) = make_float2(dp[n][0], dp[n][1]);
+    *reinterpret_cast<float2*>(r2 + o + 8 * ldr + n * 8) = make_float2(dp[n][2], dp[n][3]);
+  }
+}
+
+template <typename T, int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel_mma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const T* __restrict__ o,
+                             const T* __restrict__ dout, const float* __restrict__ lse,
+                             float* __restrict__ dsum, T* __restrict__ dq, int H, int Nq,
+                             int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
+                             Strides sdo, Strides sdq, float scale, int granule, int vec_out) {
+  constexpr int BQ = kWideQ16, BK = kWideKvDq;
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 8;
+  constexpr int WC = DP / 8;   // the warp's head-dim columns
+  constexpr int KS = WC / 16;  // its k-steps of the scores (= NC2)
+  constexpr int NT = WC / 8;   // its n-tiles of dq (= 2 NC2)
+  constexpr int LDX = BK + 8;  // dS rows (16-bit)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [16][LD] Q, at the end dq
+  T* dos = qs + BQ * LD;                    // [16][LD] dO
+  float* red_s = reinterpret_cast<float*>(smem_raw);  // [8 warps][16][kLdRed] partial S
+  float* red_dp = red_s + 8 * BQ * kLdRed;            // ... and dP (over Q and dO)
+  T* ks = reinterpret_cast<T*>(smem_raw + dq16_front_bytes<T>(DP));  // [32][LD] K_t
+  T* vs = ks + BK * LD;                     // [32][LD] V_t (first O's rows)
+  T* dss = vs + BK * LD;                    // [16][LDX] dS of the kv tile
+  float* drows = reinterpret_cast<float*>(dss + BQ * LDX);  // [16] D = rowsum(dO * O)
+  float* lrows = drows + BQ;                                // [16] lse
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c0 = warp * WC;
+
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  copy_wide16<T, DP, BQ, kThreads>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, granule);
+  copy_wide16<T, DP, BQ, kThreads>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, D,
+                                   granule);
+  copy_wide16<T, DP, BQ, kThreads>(vs, o + b * so.b + h * so.h, so.n, q0, Nq, D, granule);
+  copy_wide16<T, DP, BK, kThreads>(ks, kb, sk.n, 0, Nkv, D, granule);
+  copy_rows<BQ>(lrows, lse + size_t(bh) * Nq, q0, Nq);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // D = rowsum(dO * O): row t / 16 by 16 lanes, 16-byte loads (zeros past D)
+  const int rr = tid >> 4, rc = (tid & 15) * 2;  // then: row and columns of the scores
+  {
+    float acc = 0.f;
+#pragma unroll
+    for (int c = (tid & 15) * 8; c < DP; c += 128) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(vs + rr * LD + c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dos + rr * LD + c);
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 a = to_f32x2(ow[j], static_cast<T*>(nullptr));
+        const float2 d = to_f32x2(dw[j], static_cast<T*>(nullptr));
+        acc = fmaf(d.x, a.x, acc);
+        acc = fmaf(d.y, a.y, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if ((tid & 15) == 0) {
+      drows[rr] = acc;
+      if (q0 + rr < Nq) dsum[size_t(bh) * Nq + q0 + rr] = acc;
+    }
+  }
+  // Q's and dO's A fragments of the warp's slice
+  uint32_t qf[KS][4], df[KS][4];
+  {
+    const int a_off = (lane & 15) * LD + (lane >> 4) * 8 + c0;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldmatrix_x4(qf[kk], qs + a_off + kk * 16);
+      ldmatrix_x4(df[kk], dos + a_off + kk * 16);
+    }
+  }
+  __syncthreads();  // D is visible; Q, dO and O are in registers or done with
+  copy_wide16<T, DP, BK, kThreads>(vs, vb, sv.n, 0, Nkv, D, granule);
+  cp_async_commit();
+  const float l2 = lrows[rr] * kLog2e, dd = drows[rr];
+  const bool q_ok = q0 + rr < Nq;
+  const float scale2 = scale * kLog2e;
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // dS (A, rows lane % 16, column half lane / 16); K_t (.trans) rows lane %
+  // 8 + 8 ((lane / 8) % 2), column half lane / 16
+  const T* xa = dss + (lane & 15) * LDX + (lane >> 4) * 8;
+  const T* kt = ks + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8 + c0;
+
+  for (int kv0 = 0; kv0 < Nkv; kv0 += BK) {
+    const bool more = kv0 + BK < Nkv;
+    cp_async_wait<0>();  // K_t and V_t have landed
+    __syncthreads();     // ... for every thread; the previous tile's dS is done with
+    partial_scores<T, KS, BK / 16, LD>(red_s + warp * BQ * kLdRed, red_dp + warp * BQ * kLdRed,
+                                       kLdRed, qf, df, ks + c0, vs + c0);
+    __syncthreads();  // the partials are visible; every warp is done with V_t
+    if (more) copy_wide16<T, DP, BK, kThreads>(vs, vb, sv.n, kv0 + BK, Nkv, D, granule);
+    cp_async_commit();
+    {
+      float2 s = make_float2(0.f, 0.f), dp = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {  // in a fixed order
+        const float2 x = *reinterpret_cast<const float2*>(red_s + (w * BQ + rr) * kLdRed + rc);
+        const float2 y = *reinterpret_cast<const float2*>(red_dp + (w * BQ + rr) * kLdRed + rc);
+        s.x += x.x;
+        s.y += x.y;
+        dp.x += y.x;
+        dp.y += y.y;
+      }
+      const float p0 = q_ok && kv0 + rc < Nkv ? exp2f(s.x * scale2 - l2) : 0.f;
+      const float p1 = q_ok && kv0 + rc + 1 < Nkv ? exp2f(s.y * scale2 - l2) : 0.f;
+      *reinterpret_cast<uint32_t*>(dss + rr * LDX + rc) =
+          pack2(p0 * (dp.x - dd) * scale, p1 * (dp.y - dd) * scale, static_cast<T*>(nullptr));
+    }
+    __syncthreads();  // dS is visible to every warp
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // dq += dS K_t: the warp's columns
+      uint32_t a[4];
+      ldmatrix_x4(a, xa + kk * 16);
+#pragma unroll
+      for (int dc = 0; dc < NT / 2; ++dc) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, kt + kk * 16 * LD + dc * 16);
+        mma16816(acc[2 * dc], a, bf[0], bf[1], static_cast<T*>(nullptr));
+        mma16816(acc[2 * dc + 1], a, bf[2], bf[3], static_cast<T*>(nullptr));
+      }
+    }
+    __syncthreads();  // every warp is done with K_t and dS
+    if (more) copy_wide16<T, DP, BK, kThreads>(ks, kb, sk.n, kv0 + BK, Nkv, D, granule);
+    cp_async_commit();
+  }
+
+  // dq rounded once, through the Q tile (the partials are done with)
+  T* row = qs + (lane >> 2) * LD + c0 + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(row + n * 8) =
+        pack2(acc[n][0], acc[n][1], static_cast<T*>(nullptr));
+    *reinterpret_cast<uint32_t*>(row + 8 * LD + n * 8) =
+        pack2(acc[n][2], acc[n][3], static_cast<T*>(nullptr));
+  }
+  __syncthreads();
+  store_wide16<BQ, LD, kThreads>(dq + b * sdq.b + h * sdq.h, sdq.n, qs, q0, Nq, D, vec_out);
+}
+
+template <typename T, int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_mma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ dsum,
+                              T* __restrict__ dk, T* __restrict__ dv, int H, int Nq, int Nkv,
+                              int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+                              Strides sdk, Strides sdv, float scale, int granule, int vec_out) {
+  constexpr int BQ = kWideQ16, BKV = kWideKvDkv;
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 8;
+  constexpr int WC = DP / 8;   // the warp's head-dim columns
+  constexpr int KS = WC / 16;  // its k-steps of the scores, m-tiles of dK^T and dV^T (= NC2)
+  constexpr int TILE = BQ * LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [8][LD] K, at the end dK
+  T* vs = ks + BKV * LD;                    // [8][LD] V, at the end dV
+  T* qs = vs + BKV * LD;                    // 2 slots of [16][LD] q rows (streamed)
+  T* dos = qs + 2 * TILE;                   // 2 slots of [16][LD]
+  float* red_s = reinterpret_cast<float*>(dos + 2 * TILE);  // [8 warps][16 q][8 kv]
+  float* red_dp = red_s + 8 * BQ * BKV;                     // ... of S and of dP
+  T* pts = reinterpret_cast<T*>(red_dp + 8 * BQ * BKV);    // [8 kv][kLdx16] P^T
+  T* dsts = pts + BKV * kLdx16;                             // [8 kv][kLdx16] dS^T
+  float* rows = reinterpret_cast<float*>(dsts + BKV * kLdx16);  // 2 slots of lse[16], D[16]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kv0 = blockIdx.y * BKV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c0 = warp * WC;
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + size_t(bh) * Nq;
+  const float* db = dsum + size_t(bh) * Nq;
+  copy_wide16<T, DP, BKV, kThreads>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, D, granule);
+  copy_wide16<T, DP, BKV, kThreads>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, D, granule);
+  copy_wide16<T, DP, BQ, kThreads>(qs, qb, sq.n, 0, Nq, D, granule);
+  copy_wide16<T, DP, BQ, kThreads>(dos, dob, sdo.n, 0, Nq, D, granule);
+  copy_rows<BQ>(rows, lb, 0, Nq);
+  copy_rows<BQ>(rows + BQ, db, 0, Nq);
+  cp_async_commit();
+
+  uint32_t kf[KS][2], vf[KS][2];  // K's and V's B fragments of the warp's slice
+  float acc_k[KS][4], acc_v[KS][4];  // dK^T and dV^T: m-tiles of the slice x 8 kv
+#pragma unroll
+  for (int m = 0; m < KS; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[m][e] = acc_v[m][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+  // the scores' pair of thread t < 128: q row t / 8, kv row t % 8 of the tile
+  const int pi = tid >> 3, pj = tid & 7;
+  const bool kv_ok = kv0 + pj < Nkv;
+  // A (Q_t, dO_t): rows lane % 16, column half lane / 16; A^T (.trans):
+  // matrix lane / 8 holds q rows 8 (lane / 16) .., head-dim columns 8 ((lane
+  // / 8) % 2) ..; B of the gradients: dS^T (matrices 0, 1) and P^T (2, 3),
+  // kv rows lane % 8, q columns 8 ((lane / 8) % 2) ..
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8 + c0;
+  const int at_off = ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8 + c0;
+  const T* bx = ((lane >> 4) ? pts : dsts) + (lane & 7) * kLdx16 + ((lane >> 3) & 1) * 8;
+  const int ntiles = (Nq + BQ - 1) / BQ;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = t * BQ;
+    const int slot = t & 1;
+    const T* qt = qs + slot * TILE;
+    const T* dot = dos + slot * TILE;
+    const float* lrow = rows + slot * 2 * BQ;
+    const float* drow = lrow + BQ;
+    cp_async_wait<0>();  // tile t has landed
+    __syncthreads();     // ... for every thread; tile t-1's slot, P^T and dS^T are free
+    if (t == 0) {
+      // B rows lane % 8, column half (lane / 8) % 2; matrices 2, 3 from V
+      const T* kv = ((lane >> 4) ? vs : ks) + (lane & 7) * LD + ((lane >> 3) & 1) * 8 + c0;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t r[4];
+        ldmatrix_x4(r, kv + kk * 16);
+        kf[kk][0] = r[0];
+        kf[kk][1] = r[1];
+        vf[kk][0] = r[2];
+        vf[kk][1] = r[3];
+      }
+    }
+    if (t + 1 < ntiles) {
+      const int next = slot ^ 1;
+      copy_wide16<T, DP, BQ, kThreads>(qs + next * TILE, qb, sq.n, q0 + BQ, Nq, D, granule);
+      copy_wide16<T, DP, BQ, kThreads>(dos + next * TILE, dob, sdo.n, q0 + BQ, Nq, D, granule);
+      copy_rows<BQ>(rows + next * 2 * BQ, lb, q0 + BQ, Nq);
+      copy_rows<BQ>(rows + next * 2 * BQ + BQ, db, q0 + BQ, Nq);
+    }
+    cp_async_commit();
+
+    // the warp's partial S = Q_t K^T and dP = dO_t V^T (16 q x 8 kv)
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qt + a_off + kk * 16);
+      mma16816(s, a, kf[kk][0], kf[kk][1], static_cast<T*>(nullptr));
+      ldmatrix_x4(a, dot + a_off + kk * 16);
+      mma16816(dp, a, vf[kk][0], vf[kk][1], static_cast<T*>(nullptr));
+    }
+    {
+      const int o = warp * BQ * BKV + (lane >> 2) * BKV + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(red_s + o) = make_float2(s[0], s[1]);
+      *reinterpret_cast<float2*>(red_s + o + 8 * BKV) = make_float2(s[2], s[3]);
+      *reinterpret_cast<float2*>(red_dp + o) = make_float2(dp[0], dp[1]);
+      *reinterpret_cast<float2*>(red_dp + o + 8 * BKV) = make_float2(dp[2], dp[3]);
+    }
+    __syncthreads();  // the partials are visible
+    if (tid < BQ * BKV) {
+      float sv_ = 0.f, dpv = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {  // in a fixed order
+        sv_ += red_s[w * BQ * BKV + tid];
+        dpv += red_dp[w * BQ * BKV + tid];
+      }
+      const float p = q0 + pi < Nq && kv_ok ? exp2f(sv_ * scale2 - lrow[pi] * kLog2e) : 0.f;
+      reinterpret_cast<uint16_t*>(pts)[pj * kLdx16 + pi] = round16(p, static_cast<T*>(nullptr));
+      reinterpret_cast<uint16_t*>(dsts)[pj * kLdx16 + pi] =
+          round16(p * (dpv - drow[pi]) * scale, static_cast<T*>(nullptr));
+    }
+    __syncthreads();  // P^T and dS^T are visible to every warp
+
+    // dK^T += Q_t^T dS and dV^T += dO_t^T P: the warp's m-tiles
+    uint32_t bfr[4];
+    ldmatrix_x4(bfr, bx);
+#pragma unroll
+    for (int m = 0; m < KS; ++m) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, qt + at_off + m * 16);
+      mma16816(acc_k[m], a, bfr[0], bfr[1], static_cast<T*>(nullptr));
+      ldmatrix_x4_trans(a, dot + at_off + m * 16);
+      mma16816(acc_v[m], a, bfr[2], bfr[3], static_cast<T*>(nullptr));
+    }
+  }
+
+  __syncthreads();  // K and V are in registers: their tiles take dK and dV
+  {
+    uint16_t* dks = reinterpret_cast<uint16_t*>(ks);
+    uint16_t* dvs = reinterpret_cast<uint16_t*>(vs);
+    const int kvr = (lane & 3) * 2;  // kv rows of c0, c1 (c2, c3: the same)
+#pragma unroll
+    for (int m = 0; m < KS; ++m) {
+      const int d = c0 + 16 * m + (lane >> 2);  // head-dim row of c0, c1 (c2, c3: + 8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int at = (kvr + (e & 1)) * LD + d + 8 * (e >> 1);
+        dks[at] = round16(acc_k[m][e], static_cast<T*>(nullptr));
+        dvs[at] = round16(acc_v[m][e], static_cast<T*>(nullptr));
+      }
+    }
+  }
+  __syncthreads();
+  store_wide16<BKV, LD, kThreads>(dk + b * sdk.b + h * sdk.h, sdk.n, ks, kv0, Nkv, D, vec_out);
+  store_wide16<BKV, LD, kThreads>(dv + b * sdv.b + h * sdv.h, sdv.n, vs, kv0, Nkv, D, vec_out);
+}
+
+template <typename T>
+size_t dq_smem_mma_wide(int nc2) {
+  const int dp = 128 * nc2;
+  return dq16_front_bytes<T>(dp) +
+         size_t(2 * kWideKvDq * (dp + 8) + kWideQ16 * (kWideKvDq + 8)) * sizeof(T) +
+         2 * kWideQ16 * sizeof(float);
+}
+
+template <typename T>
+size_t dkv_smem_mma_wide(int nc2) {
+  const int dp = 128 * nc2;
+  return size_t(2 * kWideKvDkv + 4 * kWideQ16) * (dp + 8) * sizeof(T) +
+         2 * 8 * kWideQ16 * kWideKvDkv * sizeof(float) +
+         2 * kWideKvDkv * kLdx16 * sizeof(T) + 4 * kWideQ16 * sizeof(float);
+}
+
 // 16-byte copies need 16-byte aligned bases and row/head/batch strides
 bool aligned16(const void* p, Strides s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * 4) % 16 == 0 &&
@@ -1451,13 +1881,78 @@ cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-// the 16-bit launchers by head dim padded to 64 * NC
+template <typename T, int NC2>
+cudaError_t launch_dq_mma_wide(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* dsum, void* dq, int B,
+                               int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                               Strides so, Strides sdo, Strides sdq, float scale,
+                               cudaStream_t stream) {
+  const size_t smem = dq_smem_mma_wide<T>(NC2);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_mma_wide<T, NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int granule = copy_granule(
+      view_bits(q, sq.b, sq.h, sq.n) | view_bits(k, sk.b, sk.h, sk.n) |
+      view_bits(v, sv.b, sv.h, sv.n) | view_bits(o, so.b, so.h, so.n) |
+      view_bits(dout, sdo.b, sdo.h, sdo.n));
+  const int vec_out = aligned16_half(dq, sdq) && D % 8 == 0;
+  const dim3 grid(B * H, (Nq + kWideQ16 - 1) / kWideQ16);
+  flash_bwd_dq_kernel_mma_wide<T, NC2><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dq), H,
+      Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, granule, vec_out);
+  return cudaGetLastError();
+}
+
+template <typename T, int NC2>
+cudaError_t launch_dkv_mma_wide(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* dsum, void* dk, void* dv, int B,
+                                int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                                Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
+                                cudaStream_t stream) {
+  const size_t smem = dkv_smem_mma_wide<T>(NC2);
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel_mma_wide<T, NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int granule = copy_granule(
+      view_bits(q, sq.b, sq.h, sq.n) | view_bits(k, sk.b, sk.h, sk.n) |
+      view_bits(v, sv.b, sv.h, sv.n) | view_bits(dout, sdo.b, sdo.h, sdo.n));
+  const int vec_out = aligned16_half(dk, sdk) && aligned16_half(dv, sdv) && D % 8 == 0;
+  const dim3 grid(B * H, (Nkv + kWideKvDkv - 1) / kWideKvDkv);
+  flash_bwd_dkv_kernel_mma_wide<T, NC2><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, dsum, static_cast<T*>(dk), static_cast<T*>(dv), H, Nq,
+      Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, granule, vec_out);
+  return cudaGetLastError();
+}
+
+// the 16-bit launchers by head dim padded to 64 * NC (D <= 256) or 128 * NC2
 template <typename T>
 cudaError_t launch_dq16(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* dsum, void* dq, int B, int H,
                         int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
                         Strides sdo, Strides sdq, float scale, cudaStream_t stream) {
 #define DQ16_ARGS q, k, v, o, dout, lse, dsum, dq, B, H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, stream
+  if (D > kMaxD) {
+    switch ((D + 127) / 128) {
+      case 3: return launch_dq_mma_wide<T, 3>(DQ16_ARGS);
+      case 4: return launch_dq_mma_wide<T, 4>(DQ16_ARGS);
+      case 5: return launch_dq_mma_wide<T, 5>(DQ16_ARGS);
+      case 6: return launch_dq_mma_wide<T, 6>(DQ16_ARGS);
+      case 7: return launch_dq_mma_wide<T, 7>(DQ16_ARGS);
+      default: return launch_dq_mma_wide<T, 8>(DQ16_ARGS);
+    }
+  }
   switch ((D + 63) / 64) {
     case 1: return launch_dq_mma<T, 1>(DQ16_ARGS);
     case 2: return launch_dq_mma<T, 2>(DQ16_ARGS);
@@ -1473,6 +1968,16 @@ cudaError_t launch_dkv16(const void* q, const void* k, const void* v, const void
                          int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
                          Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
 #define DKV16_ARGS q, k, v, dout, lse, dsum, dk, dv, B, H, Nq, Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, stream
+  if (D > kMaxD) {
+    switch ((D + 127) / 128) {
+      case 3: return launch_dkv_mma_wide<T, 3>(DKV16_ARGS);
+      case 4: return launch_dkv_mma_wide<T, 4>(DKV16_ARGS);
+      case 5: return launch_dkv_mma_wide<T, 5>(DKV16_ARGS);
+      case 6: return launch_dkv_mma_wide<T, 6>(DKV16_ARGS);
+      case 7: return launch_dkv_mma_wide<T, 7>(DKV16_ARGS);
+      default: return launch_dkv_mma_wide<T, 8>(DKV16_ARGS);
+    }
+  }
   switch ((D + 63) / 64) {
     case 1: return launch_dkv_mma<T, 1>(DKV16_ARGS);
     case 2: return launch_dkv_mma<T, 2>(DKV16_ARGS);
@@ -1482,14 +1987,14 @@ cudaError_t launch_dkv16(const void* q, const void* k, const void* v, const void
 #undef DKV16_ARGS
 }
 
-bool bad_shape(int dtype, int B, int H, int Nq, int Nkv, int D) {
-  return B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > (dtype == 0 ? kMaxDWide : kMaxD);
+bool bad_shape(int B, int H, int Nq, int Nkv, int D) {
+  return B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > kMaxDWide;
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (D <= 1024), 1 = bfloat16, 2 = float16 (D <= 256). Strides are
-// in elements.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; D <= 1024. Strides are in
+// elements.
 // Writes dq and dsum = rowsum(dO * O), (B*H, Nq) f32, which
 // flash_attention_bwd_dkv reads: launch it after this one on the same stream.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -1502,7 +2007,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       long long son, long long sdob, long long sdoh,
                                       long long sdon, long long sdqb, long long sdqh,
                                       long long sdqn, float scale, void* stream) {
-  if (bad_shape(dtype, B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
+  if (bad_shape(B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn}, so{sob, soh, son},
       sdo{sdob, sdoh, sdon}, sdq{sdqb, sdqh, sdqn};
   const float* l = static_cast<const float*>(lse);
@@ -1544,7 +2049,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        long long sdon, long long sdkb, long long sdkh,
                                        long long sdkn, long long sdvb, long long sdvh,
                                        long long sdvn, float scale, void* stream) {
-  if (bad_shape(dtype, B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
+  if (bad_shape(B, H, Nq, Nkv, D)) return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn},
       sdo{sdob, sdoh, sdon}, sdk{sdkb, sdkh, sdkn}, sdv{sdvb, sdvh, sdvn};
   const float* l = static_cast<const float*>(lse);

@@ -39,7 +39,11 @@
 //
 // f32 with 256 < D <= 1024 (`flash_fwd_kernel_f32_wide`, the LDM's one-head
 // transformers and its first stage): 16-row query and kv tiles of the whole
-// head dim; see its note below. bf16/f16 inputs take D <= 256 only.
+// head dim; see its note below.
+//
+// bf16/f16 with 256 < D <= 1024 (`flash_fwd_kernel_mma_wide`, the same heads
+// under bf16 training): 16 query rows and 32 kv rows a block on the tensor
+// cores, the head dim split over the 8 warps; see its note below.
 //
 // All paths:
 // - K and V tiles stream through a two-slot cp.async ring in the order
@@ -81,7 +85,7 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kMaxD = 256;       // the 64-row kernels (every input type)
-constexpr int kMaxDWide = 1024;  // f32 only: flash_fwd_kernel_f32_wide
+constexpr int kMaxDWide = 1024;  // flash_fwd_kernel_f32_wide, flash_fwd_kernel_mma_wide
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -695,6 +699,214 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------- bf16/f16 path, 256 < D <= 1024
+
+// Wide 16-bit heads (the LDM's one-head transformers under bf16 training,
+// D = 384, 576, 960 and the pruned 268, 404, 672; the first stage's D = 512
+// at 4096 tokens). The 64-row kernel above keeps Q and a K and a V tile of
+// 64 rows: (64 + 2 * 64) * (D_pad + 8) * 2 bytes passes a block's 227 KB near
+// D = 600. This tiling takes 16 query rows (one m16 tile) and 32 kv rows a
+// block, each a whole row of the head dim (padded to DP = 128 * NC2,
+// zero-filled), 256 threads (8 warps):
+// - each warp owns one eighth of the head dim (16 NC2 columns): Q's
+//   fragments of its slice stay in registers for the whole kernel (4 NC2
+//   registers), and it owns those columns of the O accumulator (8 NC2
+//   floats a thread, at most 64), so no warp holds a whole 16 x 1024 row;
+// - S = Q K_t^T: each warp forms the partial S of its slice (16 x 32, B
+//   from K_t by ldmatrix), the 8 partials meet in shared memory (over the Q
+//   tile, free once the fragments are in registers) and are summed in a
+//   fixed order, no atomics; thread t then owns row t / 16, columns 2 (t %
+//   16) .. +1 of S for the online softmax (log2 units; row max and sum by
+//   shuffles across the row's 16 lanes), rounds p to the input type once and
+//   writes it to a 16 x 32 tile with the row's rescale factor;
+// - O += P V_t: A = P from that tile (ldmatrix), B = V_t (.trans), each warp
+//   its own columns;
+// - K and V stream through one slot each, as in the 64-row kernel: K_{t+1}
+//   is issued once the partials are formed and overlaps the softmax and P
+//   V_t; V_{t+1} once P V_t is done. What it gives up against the 64-row
+//   kernel: a two-slot ring at 64 kv rows (264 KB at D = 1024), and Q's
+//   reuse across 4 warps of query rows: every kv row is read from shared
+//   memory once per 16 query rows;
+// - copies in the widest chunk the views allow (copy_wide16 in
+//   tensor_core.cuh): 16-byte cp.async for aligned views, 8 or 4 bytes for
+//   the pruned widths' rows, 2-byte loads otherwise.
+// Shared memory at D = 1024 in bf16: 16 * 1032 * 2 (Q, then the partials,
+// then O) + 2 * 32 * 1032 * 2 (K, V) + 16 * 40 * 2 (P) + 32 * 4 = 166,528
+// bytes, one block (8 warps) per SM; at D_pad = 384, 70,016 bytes.
+constexpr int kWideQ16 = 16;   // query rows a block (wide 16-bit kernel)
+constexpr int kWideKv16 = 32;  // kv rows a tile
+
+template <typename T>
+__host__ __device__ constexpr int wide16_front_bytes(int dp) {  // Q, or the partial S
+  const int q = kWideQ16 * (dp + 8) * int(sizeof(T));
+  const int red = 8 * kWideQ16 * (kWideKv16 + 4) * 4;
+  return q > red ? q : red;
+}
+
+template <typename T, int NC2>  // head dim padded to 128 * NC2
+__global__ void __launch_bounds__(256, 1)
+flash_fwd_kernel_mma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                          int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                          Strides so, float scale, int granule, int vec_out) {
+  constexpr int BQ = kWideQ16, BK = kWideKv16;
+  constexpr int DP = 128 * NC2;
+  constexpr int LD = DP + 8;    // rows 16 bytes apart modulo 128: ldmatrix conflict-free
+  constexpr int WC = DP / 8;    // the warp's head-dim columns
+  constexpr int KS = WC / 16;   // its k-steps of S (= NC2)
+  constexpr int NT = WC / 8;    // its n-tiles of O (= 2 NC2)
+  constexpr int LDS = BK + 4;   // partial S rows (f32)
+  constexpr int LDP = BK + 8;   // P rows (16-bit)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);        // [16][LD] Q, at the end O
+  float* red = reinterpret_cast<float*>(smem_raw);  // [8 warps][16][LDS] partial S
+  T* ks = reinterpret_cast<T*>(smem_raw + wide16_front_bytes<T>(DP));  // [32][LD]
+  T* vs = ks + BK * LD;                          // [32][LD]
+  T* ps = vs + BK * LD;                          // [16][LDP] P of the kv tile
+  float* rowf = reinterpret_cast<float*>(ps + BQ * LDP);  // [16] rescale, [16] row sums
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int c0 = warp * WC;
+
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  copy_wide16<T, DP, BQ, 256>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, granule);
+  copy_wide16<T, DP, BK, 256>(ks, kb, sk.n, 0, Nkv, D, granule);
+  cp_async_commit();
+  copy_wide16<T, DP, BK, 256>(vs, vb, sv.n, 0, Nkv, D, granule);
+  cp_async_commit();
+
+  uint32_t qf[KS][4];  // Q's A fragments of the warp's slice
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  // softmax: row rr, columns rc, rc + 1 of the tile; scores in log2 units
+  const int rr = tid >> 4, rc = (tid & 15) * 2;
+  float m_run = -INFINITY, l_run = 0.f;
+  const float scale2 = scale * kLog2e;
+  // ldmatrix addresses (as the 64-row kernel's): A rows lane % 16, column
+  // half lane / 16; K rows lane % 8 + 8 (lane / 16) of a pair of n-tiles,
+  // column half (lane / 8) % 2; V (.trans) rows lane % 8 + 8 ((lane / 8) %
+  // 2), column half lane / 16
+  const int a_off = (lane & 15) * LD + (lane >> 4) * 8 + c0;
+  const T* kl = ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8 + c0;
+  const T* vl = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8 + c0;
+  const T* pl = ps + (lane & 15) * LDP + (lane >> 4) * 8;
+
+  for (int kv0 = 0; kv0 < Nkv; kv0 += BK) {
+    cp_async_wait_1();  // Q and K_t have landed (V_t may be in flight)
+    __syncthreads();
+    if (kv0 == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qs + a_off + kk * 16);
+      __syncthreads();  // every warp holds its fragments: the Q tile takes the partials
+    }
+    float sacc[4][4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, kl + np * 16 * LD + kk * 16);
+        mma16816(sacc[2 * np], qf[kk], bf[0], bf[1], static_cast<T*>(nullptr));
+        mma16816(sacc[2 * np + 1], qf[kk], bf[2], bf[3], static_cast<T*>(nullptr));
+      }
+    float* rw = red + warp * BQ * LDS + (lane >> 2) * LDS + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      *reinterpret_cast<float2*>(rw + n * 8) = make_float2(sacc[n][0], sacc[n][1]);
+      *reinterpret_cast<float2*>(rw + 8 * LDS + n * 8) = make_float2(sacc[n][2], sacc[n][3]);
+    }
+    __syncthreads();  // the partials are visible; every warp is done with K_t
+    if (kv0 + BK < Nkv) copy_wide16<T, DP, BK, 256>(ks, kb, sk.n, kv0 + BK, Nkv, D, granule);
+    cp_async_commit();
+
+    {
+      float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int w = 0; w < 8; ++w) {  // in a fixed order
+        const float2 x = *reinterpret_cast<const float2*>(red + w * BQ * LDS + rr * LDS + rc);
+        s.x += x.x;
+        s.y += x.y;
+      }
+      s.x = kv0 + rc < Nkv ? s.x * scale2 : -INFINITY;
+      s.y = kv0 + rc + 1 < Nkv ? s.y * scale2 : -INFINITY;
+      float tile_max = fmaxf(s.x, s.y);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      // the first tile always holds a valid column, so m_new is finite
+      const float m_new = fmaxf(m_run, tile_max);
+      const float alpha = exp2f(m_run - m_new);
+      const float p0 = exp2f(s.x - m_new), p1 = exp2f(s.y - m_new);
+      float psum = p0 + p1;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run = l_run * alpha + psum;
+      m_run = m_new;
+      *reinterpret_cast<uint32_t*>(ps + rr * LDP + rc) = pack2(p0, p1, static_cast<T*>(nullptr));
+      if ((tid & 15) == 0) rowf[rr] = alpha;
+    }
+
+    cp_async_wait_1();  // V_t has landed (K_{t+1} may be in flight)
+    __syncthreads();    // ... and P and the rescale factors are visible
+    const float a0 = rowf[lane >> 2], a1 = rowf[(lane >> 2) + 8];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      oacc[n][0] *= a0;
+      oacc[n][1] *= a0;
+      oacc[n][2] *= a1;
+      oacc[n][3] *= a1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pa[4];
+      ldmatrix_x4(pa, pl + kk * 16);
+#pragma unroll
+      for (int dc = 0; dc < NT / 2; ++dc) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, vl + kk * 16 * LD + dc * 16);
+        mma16816(oacc[2 * dc], pa, bf[0], bf[1], static_cast<T*>(nullptr));
+        mma16816(oacc[2 * dc + 1], pa, bf[2], bf[3], static_cast<T*>(nullptr));
+      }
+    }
+    __syncthreads();  // every warp is done with V_t, P and the rescale factors
+    if (kv0 + BK < Nkv) copy_wide16<T, DP, BK, 256>(vs, vb, sv.n, kv0 + BK, Nkv, D, granule);
+    cp_async_commit();
+  }
+
+  if ((tid & 15) == 0) {
+    rowf[BQ + rr] = l_run;
+    if (lse != nullptr && q0 + rr < Nq)
+      lse[size_t(bh) * Nq + q0 + rr] = (m_run + log2f(l_run)) * kLn2;
+  }
+  __syncthreads();
+  // O / l rounded once, through the Q tile (the partials are done with)
+  const float i0 = 1.f / rowf[BQ + (lane >> 2)], i1 = 1.f / rowf[BQ + (lane >> 2) + 8];
+  T* orow = qs + (lane >> 2) * LD + c0 + (lane & 3) * 2;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(orow + n * 8) =
+        pack2(oacc[n][0] * i0, oacc[n][1] * i0, static_cast<T*>(nullptr));
+    *reinterpret_cast<uint32_t*>(orow + 8 * LD + n * 8) =
+        pack2(oacc[n][2] * i1, oacc[n][3] * i1, static_cast<T*>(nullptr));
+  }
+  __syncthreads();
+  store_wide16<BQ, LD, 256>(o + b * so.b + h * so.h, so.n, qs, q0, Nq, D, vec_out);
+}
+
 // ------------------------------------------------------------------ launch
 
 template <typename KernelT>
@@ -762,6 +974,27 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
+template <typename T, int NC2>
+cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                            dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                            Strides sv, Strides so, float scale, int granule, int vec_out,
+                            cudaStream_t stream) {
+  constexpr int LD = 128 * NC2 + 8;
+  const size_t smem = wide16_front_bytes<T>(128 * NC2) +
+                      size_t(2 * kWideKv16 * LD + kWideQ16 * (kWideKv16 + 8)) * sizeof(T) +
+                      2 * kWideQ16 * sizeof(float);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = set_smem(flash_fwd_kernel_mma_wide<T, NC2>, smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  flash_fwd_kernel_mma_wide<T, NC2><<<grid, 256, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, H, Nq, Nkv, D, sq, sk, sv, so, scale, granule, vec_out);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                    int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
@@ -796,6 +1029,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
       default: return launch_f32<4>(FA_ARGS);
     }
   } else {
+    if (D > kMaxD) {  // 16-row query tiles of the whole head dim
+      grid.y = (Nq + kWideQ16 - 1) / kWideQ16;
+      const int g = copy_granule(view_bits(q, sq.b, sq.h, sq.n) |
+                                 view_bits(k, sk.b, sk.h, sk.n) | view_bits(v, sv.b, sv.h, sv.n));
+#define FA_WIDE_ARGS q, k, v, o, lse, grid, H, Nq, Nkv, D, sq, sk, sv, so, scale, g, vec_out, stream
+      switch ((D + 127) / 128) {
+        case 3: return launch_mma_wide<T, 3>(FA_WIDE_ARGS);
+        case 4: return launch_mma_wide<T, 4>(FA_WIDE_ARGS);
+        case 5: return launch_mma_wide<T, 5>(FA_WIDE_ARGS);
+        case 6: return launch_mma_wide<T, 6>(FA_WIDE_ARGS);
+        case 7: return launch_mma_wide<T, 7>(FA_WIDE_ARGS);
+        default: return launch_mma_wide<T, 8>(FA_WIDE_ARGS);
+      }
+#undef FA_WIDE_ARGS
+    }
     switch (nc) {
       case 1: return launch_mma<T, 1>(FA_ARGS);
       case 2: return launch_mma<T, 2>(FA_ARGS);
@@ -817,7 +1065,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long svb, long long svh, long long svn,
                                    long long sob, long long soh, long long son,
                                    float scale, void* stream) {
-  if (B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > (dtype == 0 ? kMaxDWide : kMaxD))
+  if (B < 1 || H < 1 || Nq < 1 || Nkv < 1 || D < 1 || D > kMaxDWide)
     return int(cudaErrorInvalidValue);
   const Strides sq{sqb, sqh, sqn}, sk{skb, skh, skn}, sv{svb, svh, svn}, so{sob, soh, son};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -116,11 +116,13 @@ def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
     return cfg, load_params_npz(os.path.join(d, "params.npz"))
 
 
-def save_ldm(model_dir: str, ldm) -> None:
+def save_ldm(model_dir: str, ldm, *, with_unet: bool = True) -> None:
     """Writes ``ldm`` (a ``models.latent_diffusion.LatentDiffusion``) as a
     model dir in the JAX package's layout (its ``cli/ldm_prune.py`` save and
-    ``write_ldm_meta``)."""
-    save_model(model_dir, ldm.unet.cfg, ldm.unet, subfolder="unet")
+    ``write_ldm_meta``); without ``with_unet``, every part but ``unet/``
+    (the LDM train CLI writes those once and the UNet at every save)."""
+    if with_unet:
+        save_model(model_dir, ldm.unet.cfg, ldm.unet, subfolder="unet")
     os.makedirs(os.path.join(model_dir, "cond_stage"), exist_ok=True)
     save_params_npz(os.path.join(model_dir, "cond_stage", "params.npz"),
                     ldm.cond_stage.state_dict())

@@ -100,18 +100,20 @@ def _check_flash_attention_forward(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     # (B, H, Nq, Nkv, D): the UNet's (256, 256) and (16, 256), a pruned D, a
     # ragged N, several heads, cross-attention lengths, D = 8 and 40, and
-    # Nq != Nkv past one kv tile; in f32 only, the wide head dims (the LDM
-    # UNet's self- and class-token cross-attention, its first stage's 4096
-    # tokens, a pruned D = 269, ragged tiles, several heads)
+    # Nq != Nkv past one kv tile; then the wide head dims (the LDM UNet's
+    # self- and class-token cross-attention and those of the UNet pruned at
+    # 0.3, its first stage's 4096 tokens, D = 320 and 1024, a pruned D =
+    # 269, ragged tiles, several heads)
     cases = [(4, 1, 256, 256, 256), (4, 1, 16, 16, 256), (2, 1, 256, 256, 179),
              (2, 1, 100, 100, 64), (2, 4, 70, 70, 32), (2, 2, 33, 77, 56),
              (2, 2, 40, 40, 8), (2, 3, 64, 64, 40), (1, 1, 300, 130, 256)]
     wide = [(4, 1, 1024, 1024, 384), (4, 1, 1024, 1, 384), (4, 1, 256, 256, 576),
             (4, 1, 256, 1, 576), (4, 1, 64, 64, 960), (4, 1, 64, 1, 960),
             (2, 1, 4096, 4096, 512), (2, 1, 100, 37, 1024), (2, 1, 33, 50, 269),
-            (2, 3, 40, 40, 300)]
-    runs = [(case, dtype) for case in cases for dtype in TOL]
-    runs += [(case, torch.float32) for case in wide]
+            (2, 3, 40, 40, 300), (4, 1, 1024, 1024, 268), (4, 1, 1024, 1, 268),
+            (4, 1, 256, 256, 404), (4, 1, 256, 1, 404), (4, 1, 64, 64, 672),
+            (4, 1, 64, 1, 672), (2, 1, 64, 64, 320), (2, 1, 64, 1, 1024)]
+    runs = [(case, dtype) for case in cases + wide for dtype in TOL]
     for (b, h, nq, nkv, d), dtype in runs:
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
                    for n in (nq, nkv, nkv))
@@ -126,11 +128,11 @@ def _check_flash_attention_forward(cuda):
         _check_rel(lse, A.reference_attention_lse(q, k, v, d ** -0.5)[1], torch.float32,
                    what + " lse")
     # head-split views of (B, N, heads*dh) projections, as the layer passes
-    # them (dh = 179 and 269: rows not 16-byte aligned), and a head dim cut
-    # from a wider tensor (D = 37 of 64)
+    # them (dh = 179 and 269: rows not 16-byte aligned; in 16 bits 2-byte
+    # aligned, and dh = 268: 8-byte aligned), and a head dim cut from a wider
+    # tensor (D = 37 of 64)
     for dtype in TOL:
-        for heads, dh in ((4, 40), (1, 179)) + (((1, 269), (2, 960)) if dtype == torch.float32
-                                                else ()):
+        for heads, dh in ((4, 40), (1, 179), (1, 269), (1, 268), (2, 960)):
             t = torch.randn((2, 64, 3 * heads * dh), generator=gen, device=cuda).to(dtype)
             q, k, v = (z.view(2, 64, heads, dh).transpose(1, 2)
                        for z in t.split(heads * dh, dim=-1))
@@ -140,22 +142,24 @@ def _check_flash_attention_forward(cuda):
                    for _ in range(3))
         _check(flash_attention(q, k, v, 37 ** -0.5), reference_attention(q, k, v, 37 ** -0.5),
                dtype, f"attention D=37 of 64 {dtype}")
-    # what no kernel takes raises, and launches nothing: a 16-bit forward and
-    # backward (also under autograd) above D = 256; in f32 both launch
+    # what no kernel takes raises, and launches nothing: a forward and a
+    # backward (also under autograd) above D = 1024, in every dtype; at D =
+    # 320 each dtype launches the forward with lse, dq and dk/dv under autograd
     before = dict(ops.LAUNCHES)
-    for dtype in (torch.bfloat16, torch.float16):
-        q = torch.randn((1, 1, 16, 320), generator=gen, device=cuda).to(dtype)
-        with pytest.raises(ValueError, match="head dim 320"):
+    for dtype in TOL:
+        q = torch.randn((1, 1, 16, 1040), generator=gen, device=cuda).to(dtype)
+        with pytest.raises(ValueError, match="head dim 1040"):
             flash_attention(q, q, q, 0.1)
-        with pytest.raises(ValueError, match="backward: head dim 320.*item 7c"):
+        with pytest.raises(ValueError, match="backward: head dim 1040"):
             A.flash_attention_backward(q, q, q, q, q, torch.zeros((1, 1, 16), device=cuda), 0.1)
-        with pytest.raises(ValueError, match="backward: head dim 320"):
+        with pytest.raises(ValueError, match="backward: head dim 1040"):
             flash_attention(q.requires_grad_(), q, q, 0.1)
     assert ops.LAUNCHES == before, "a refused call launched"
-    q = torch.randn((1, 1, 16, 320), generator=gen, device=cuda, requires_grad=True)
-    flash_attention(q, q, q, 0.1).sum().backward()
+    for dtype in TOL:
+        q = torch.randn((1, 1, 16, 320), generator=gen, device=cuda).to(dtype).requires_grad_()
+        flash_attention(q, q, q, 0.1).float().sum().backward()
     for op in ("attention", "attention_lse", "attention_bwd_dq", "attention_bwd_dkv"):
-        assert ops.LAUNCHES[op] == before[op] + 1, f"f32 D = 320 under autograd: {op}"
+        assert ops.LAUNCHES[op] == before[op] + 3, f"D = 320 under autograd: {op}"
     torch.cuda.synchronize()
 
 
@@ -297,11 +301,13 @@ def _check_flash_attention_backward(cuda):
     """The forward's lse and the dq and dk/dv kernels against the plain
     versions (f32 on the CUDA cores, bf16 and f16 on the tensor cores), also
     through head-split D = 179 views of fused projections (rows only 2-byte
-    aligned); in f32 the wide head dims too (the LDM sweep's one-head
-    self- and class-token cross-attention at its B = 6, its pruned widths,
-    D = 1024, several heads, fused D = 270 views: rows only 8-byte
-    aligned); then one autograd step through head-split views, then a
-    repeat of the kernels that must be bit-identical (no atomics)."""
+    aligned); the wide head dims in every dtype (the LDM sweep's and train
+    step's one-head self- and class-token cross-attention at B = 6, the
+    widths of the UNet pruned at 0.3, D = 320 and 1024, several heads, fused
+    D = 270 views: rows only 8-byte aligned in f32, 4-byte in 16 bits; fused
+    D = 268 and 269 in 16 bits: 8- and 2-byte aligned); then one autograd
+    step through head-split views, then a repeat of the kernels that must be
+    bit-identical (no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     # the UNet's (256, 256) and (16, 256), a pruned D, ragged N, several
     # heads, Nq != Nkv, partial 32- and 64-row tiles at full width (200), and
@@ -316,12 +322,14 @@ def _check_flash_attention_backward(cuda):
 
     wide = [(6, 1, 1024, 1024, 384), (6, 1, 1024, 1, 384), (6, 1, 256, 256, 576),
             (6, 1, 256, 1, 576), (6, 1, 64, 64, 960), (6, 1, 64, 1, 960),
-            (6, 1, 1024, 1024, 268), (6, 1, 256, 1, 404), (6, 1, 64, 64, 672),
+            (6, 1, 1024, 1024, 268), (6, 1, 1024, 1, 268), (6, 1, 256, 256, 404),
+            (6, 1, 256, 1, 404), (6, 1, 64, 64, 672), (6, 1, 64, 1, 672),
+            (2, 1, 64, 64, 320), (2, 1, 64, 1, 320), (2, 1, 64, 64, 1024), (2, 1, 64, 1, 1024),
             (2, 1, 40, 33, 1024), (2, 3, 40, 40, 300), (1, 1, 300, 130, 257)]
-    runs = [(b, h, nq, nkv, d, dtype, None) for b, h, nq, nkv, d in cases for dtype in TOL]
+    runs = [(b, h, nq, nkv, d, dtype, None) for b, h, nq, nkv, d in cases + wide
+            for dtype in TOL]
     runs += [(2, heads, 64, 64, 179, dtype, heads) for heads in (1, 2) for dtype in TOL]
-    runs += [(*case, torch.float32, None) for case in wide]
-    runs += [(2, 1, 100, 100, 270, torch.float32, 1)]
+    runs += [(2, 1, 100, 100, d, dtype, 1) for d in (270, 268, 269) for dtype in TOL]
     for b, h, nq, nkv, d, dtype, heads in runs:
         if heads is None:
             q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
@@ -360,7 +368,7 @@ def _check_flash_attention_backward(cuda):
     (reference_attention(*heads(tr), 40 ** -0.5) * w).sum().backward()
     _check_rel(t.grad, tr.grad, torch.float32, "attention autograd")
     for dtype, (b, nq, nkv, d) in [(dtype, (4, 256, 256, 256)) for dtype in TOL] + [
-            (torch.float32, (6, 256, 256, 576)), (torch.float32, (6, 1024, 1, 384))]:
+            (dtype, shape) for shape in ((6, 256, 256, 576), (6, 1024, 1, 384)) for dtype in TOL]:
         q, do = (torch.randn((b, 1, nq, d), generator=gen, device=cuda).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn((b, 1, nkv, d), generator=gen, device=cuda).to(dtype)

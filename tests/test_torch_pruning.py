@@ -76,10 +76,11 @@ def test_port_imports_nothing_of_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_prune, ldm_sample\n"
+        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_prune, ldm_sample, ldm_train\n"
         "for cli in (ddpm_sample, ldm_sample):\n"
         "    cli.parse_args(['--model_path', 'm', '--output_dir', 'o'])\n"
         "ldm_prune.parse_args(['--save_path', 'o'])\n"
+        "ldm_train.parse_args(['--model_path', 'm', '--dataset', 'd', '--output_dir', 'o'])\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'diff_pruning_tpu'))]\n"
         "assert not bad, bad\n"
@@ -89,7 +90,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 50
+    assert int(res.stdout.strip()) >= 51
 
 
 def _tiny_sweep_inputs():

@@ -35,7 +35,7 @@ from diff_pruning_tpu_torch.utils import checkpoint as tckpt
 torch.set_num_threads(2)
 
 
-def test_timestep_grids_match_jax():
+def _check_timestep_grids():
     for style in ("diffusers", "ddim_exp"):
         for skip in ("uniform", "quad"):
             ts = tddim.ddim_timesteps(100, 1000, skip, style=style)
@@ -52,6 +52,9 @@ def test_timestep_grids_match_jax():
 
 
 def test_step_matches_jax():
+    """The DDIM/DDPM timestep grids and the schedule's tables, then one DDIM
+    (clipped, eta > 0) and one DDPM step, against the JAX package."""
+    _check_timestep_grids()
     for kind in ("ddim-clip", "ddim-eta", "ddpm"):
         _check_step(kind)
 
