@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``diff_pruning_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--compare-bwd LABEL=SRC ...]
+    python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
 Drives the port's seven paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
@@ -22,15 +22,18 @@ lines.
 2. Build: compiles every kernel of the port, CUDA C++ from this
    checkout's sources (one nvcc per source, sm_90a, all at once); prints
    the build seconds and ptxas's registers and spills (per kernel for the
-   attention backward, f32 and bf16/f16, and the GroupNorm backward), and
-   counts the tensor-core (HMMA) and FFMA instructions in the SASS
-   (cuobjdump) of the attention kernels and the GroupNorm backward: the
+   attention forward and backward, f32 and bf16/f16, and the GroupNorm
+   backward; the wide forward kernels must not spill), and counts the
+   tensor-core (HMMA: mma.sync; HGMMA: wgmma) and FFMA instructions in the
+   SASS (cuobjdump) of the attention kernels and the GroupNorm backward: the
    bf16/f16 attention kernels (forward, dq, dk/dv, the wide ones above D =
-   256 too) must use the tensor cores, the f32 attention kernels and the
-   GroupNorm backward must not.
-   With ``--compare-bwd LABEL=SRC`` (repeatable) it also builds SRC,
-   another version of flash_attention_bwd.cu with the same C interface
-   (e.g. the parent commit's, unpacked by ``git archive``), for phase 13.
+   256 too, the wide forward with wgmma) must use the tensor cores, the f32
+   attention kernels and the GroupNorm backward must not.
+   With ``--compare-fwd LABEL=SRC`` or ``--compare-bwd LABEL=SRC``
+   (repeatable) it also builds SRC, another version of
+   flash_attention_fwd.cu or flash_attention_bwd.cu with the same C
+   interface (e.g. the parent commit's, unpacked by ``git archive``), beside
+   the port's own builds, for phases 16 and 18 (forward) or 13 (backward).
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense, the pruned
    and the prune CLI's UNet give them (collected by forward hooks), plus a
@@ -111,12 +114,16 @@ lines.
    576), (64, 960) and the class-token cross-attention, Nkv = 1), of the
    decode (B rows; its 4096-token D = 512 attention and its GroupNorm
    slabs up to 2 MB a group) and of the UNet pruned at 0.3 (magnitude,
-   local), with the lse. The CFG sampler (scale 3) kernels on against
-   off from one x_T, DDIM-20, PLMS-10 and DPM-10, through the decode,
-   launch counts equal to calls x steps. Then imgs/s of CFG DDIM-20 +
-   decode at B = 16, kernels on and off in turns; one UNet call and one
-   decode, timed and profiled by kernel class; per-op ms at every shape
-   (kernel, plain, SDPA / F.group_norm, bound, TFLOP/s). Last, the main
+   local), with the lse; the wide forward at its tile edges (Nq, Nkv in 1,
+   31, 33, 63, 65, 127 at D = 257, 384, 512, 513, 1024; 3-head fused views
+   at D = 268, 269), inference and with lse. The CFG sampler (scale 3)
+   kernels on against off from one x_T, DDIM-20, PLMS-10 and DPM-10,
+   through the decode, launch counts equal to calls x steps. Then imgs/s
+   of CFG DDIM-20 + decode at B = 16 and at the CLI's 50, kernels on and
+   off in turns; one UNet call and one decode, timed and profiled by
+   kernel class; per-op ms at every shape
+   (kernel, plain, SDPA / F.group_norm, bound, TFLOP/s; with
+   ``--compare-fwd`` the other forwards, in the same turns). Last, the main
    path: the ldm_sample CLI on the saved model (2 classes x 16 images, B =
    16, so its UNet calls and decodes take the rows checked above; 20
    steps) with --method ddim, plms and dpm, launch counters reset just
@@ -152,7 +159,8 @@ lines.
    versions in bf16 and f16 at every attention shape of one train step
    ((1024, 384), (256, 576), (64, 960), each with Nkv = Nq and 1; the
    pruned UNet's 268, 404, 672; a ragged D = 320; the encode's 4096-token
-   D = 512 forward), through head-split views; the GroupNorm forward (the
+   D = 512 forward), through head-split views; the wide forward at phase
+   16's tile edges in bf16 and f16; the GroupNorm forward (the
    UNet's and the encode's) and backward in bf16 at the step's shapes; D =
    1040 raises in every dtype and launches nothing; (b) one dense bf16
    train step kernels on against off from the same state, images, labels,
@@ -170,7 +178,9 @@ lines.
    and off (CUDA events, in turns), split into the encode, the UNet's
    forward + backward and the optimizer; peak memory; a profile by kernel
    class; per-op ms of the 16-bit forward with lse, dq and dk/dv at the
-   step's shapes against plain, SDPA and the bound; the seconds of a save.
+   step's shapes, and of the encode's forward, against plain, SDPA and the
+   bound (with ``--compare-fwd`` the other forwards in the same turns); the
+   seconds of a save.
 19. The evaluation, LDM, LDM prune and LDM train JSON lines, the kernels'
    JSON line, nvidia-smi's line, then the result line.
 
@@ -184,6 +194,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -232,8 +243,8 @@ EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # the LDM serving path (phase 16): cin256-v2 + vq-f4 + ClassEmbedder(1001)
 # parameter counts (the JAX package's, tests/test_torch_ldm.py); the batch
 # at which imgs/s and the ops are timed (2 LDM_B UNet rows a CFG call): 16,
-# not the CLI's default 50, at which the phase alone takes about 5 minutes
-# on an H100 (a CFG DDIM-20 batch of 50 and its decode, ~30 s);
+# and the CLI's default 50 for imgs/s alone (a CFG DDIM-20 batch of 50 and
+# its decode take ~30 s on an H100);
 # the batch of the kernels-on-against-off trajectories; DDIM steps, and the
 # PLMS and DPM-Solver steps; the guidance scale. Kernels on against off, the
 # relative error in norm of the final latents and images: each forward
@@ -241,7 +252,7 @@ EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # 3 feed each step's difference, amplified (1 + 2 x 3)-fold in the guided
 # eps, into the next
 LDM_PARAMS = {"unet": 400_920_579, "first_stage": 55_322_782, "cond_stage": 512_512}
-LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 10, 3.0
+LDM_B, LDM_CLI_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 50, 4, 20, 10, 3.0
 LDM_REL_TOL = 1e-3
 # the LDM prune path (phase 17): the CLI's batch (labels a sweep step, 2
 # LDM_PRUNE_B UNet rows a CFG call, LDM_PRUNE_B rows in the grad step), its
@@ -375,8 +386,9 @@ def kernel_class(name: str) -> str:
 
 
 def sass_counts(lib_path):
-    """{kernel: (HMMA count, FFMA count)} from cuobjdump's SASS of a built
-    library, or None where the toolkit has no cuobjdump."""
+    """{kernel: (HMMA count, HGMMA count, FFMA count)} from cuobjdump's SASS
+    of a built library (HMMA: mma.sync; HGMMA: Hopper's warpgroup wgmma), or
+    None where the toolkit has no cuobjdump."""
     from diff_pruning_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(os.path.realpath(_build.nvcc_path())), "cuobjdump")
@@ -388,10 +400,11 @@ def sass_counts(lib_path):
     for line in out.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = [0, 0, 0]
         elif name is not None:
             counts[name][0] += " HMMA" in line
-            counts[name][1] += " FFMA" in line
+            counts[name][1] += " HGMMA" in line
+            counts[name][2] += " FFMA" in line
     return counts
 
 
@@ -399,8 +412,6 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
     """{kernel: (registers, spill store bytes, spill load bytes)} from
     ``nvcc -Xptxas -v``'s log, for the kernels whose mangled name matches
     ``pattern``, named by ``name_of(match)``."""
-    import re
-
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(pattern, line)
@@ -415,16 +426,16 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
 
 
 # the kernels whose registers and spills phase 2 prints one by one: the
-# attention forward and backward (``flash_fwd_kernel_mma_wide<T, NC2>``,
-# ``flash_bwd_dq_kernel_f32<NC>``, ``flash_bwd_dkv_kernel_f32_wide<NC2>``,
-# ``flash_bwd_dkv_kernel_mma<T, NC>``, ...) and the GroupNorm backward
-# (``gn_bwd_kernel<T, silu>``)
+# attention forward and backward (``flash_fwd_kernel_wgmma_wide<T, NW, Z>``,
+# ``flash_fwd_kernel_f32_wide<BQ, NCV>``, ``flash_bwd_dq_kernel_f32<NC>``,
+# ``flash_bwd_dkv_kernel_f32_wide<NC2>``, ``flash_bwd_dkv_kernel_mma<T, NC>``,
+# ...) and the GroupNorm backward (``gn_bwd_kernel<T, silu>``)
 PTXAS_KERNELS = {
     "flash_attention_fwd": (r"Compiling entry function '.*?(flash_fwd_\w+?_(?:f32_wide|f32|"
-                            r"mma_wide|mma))I(13__nv_bfloat16|6__half)?Li(\d)E",
+                            r"wgmma_wide|mma))I(13__nv_bfloat16|6__half)?((?:Li\d+E)+)E",
                             lambda m: f"{m.group(1)}<" + (
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
-                            + f"{m.group(3)}>"),
+                            + ", ".join(re.findall(r"Li(\d+)E", m.group(3))) + ">"),
     "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32_wide|f32|"
                             r"mma_wide|mma))I(13__nv_bfloat16|6__half)?Li(\d)E",
                             lambda m: f"{m.group(1)}<" + (
@@ -437,8 +448,15 @@ PTXAS_KERNELS = {
 }
 
 
-def load_other_bwd(label: str, src: str):
-    """The library of another version of flash_attention_bwd.cu with the
+# the attention libraries another version can stand in for: --compare-fwd
+# and --compare-bwd, and the C functions each binds
+OTHER_LIBS = {"fwd": ("flash_attention_fwd", ("flash_attention_fwd",)),
+              "bwd": ("flash_attention_bwd", ("flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv"))}
+
+
+def load_other(kind: str, label: str, src: str):
+    """The library of another version of flash_attention_{kind}.cu with the
     port's C interface, built as the port builds its own (nvcc, the same
     flags, the port's csrc/ on the include path) and bound as
     ops/attention.py binds it."""
@@ -447,8 +465,9 @@ def load_other_bwd(label: str, src: str):
     from diff_pruning_tpu_torch.ops import _build
     from diff_pruning_tpu_torch.ops import attention as A
 
+    name, fns = OTHER_LIBS[kind]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, f"libflash_attention_bwd-{label}.so")
+    out = os.path.join(_build.BUILD_DIR, f"lib{name}-{label}.so")
     t0 = time.perf_counter()
     # (-I: the port's shared headers, for a version that includes them)
     res = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build._CSRC, "-o", out,
@@ -456,25 +475,27 @@ def load_other_bwd(label: str, src: str):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
     print(f"build: {label}: {src} (nvcc sm_90a) {time.perf_counter() - t0:.2f}s")
-    lib, ours = ctypes.CDLL(out), A._lib("flash_attention_bwd")
-    for fn in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+    lib, ours = ctypes.CDLL(out), A._lib(name)
+    for fn in fns:
         getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
         getattr(lib, fn).restype = getattr(ours, fn).restype
     return lib
 
 
-def with_bwd_lib(lib, fn):
-    """``fn`` as a function that runs it with ops/attention.py's backward
-    library set to ``lib``."""
+def with_lib(kind: str, lib, fn):
+    """``fn`` as a function that runs it with ops/attention.py's
+    flash_attention_{kind} library set to ``lib``."""
     from diff_pruning_tpu_torch.ops import attention as A
 
+    name = OTHER_LIBS[kind][0]
+
     def run():
-        saved = A._LIBS["flash_attention_bwd"]
-        A._LIBS["flash_attention_bwd"] = lib
+        saved = A._LIBS[name]
+        A._LIBS[name] = lib
         try:
             return fn()
         finally:
-            A._LIBS["flash_attention_bwd"] = saved
+            A._LIBS[name] = saved
 
     return run
 
@@ -929,10 +950,60 @@ def sdpa_backend(fn) -> str:
     return "math (matmul + softmax)" if "softmax" in names else "unknown"
 
 
-def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
+# the wide forward kernels' tile edges (phases 16 and 18): Nq and Nkv around
+# the 32- and 64-row query tiles and the 16- to 128-row kv tiles, at the head
+# dims where the tiling changes (D_pad 384, 512, 640, 1024), one head; then
+# head-split views of fused (B, N, 3 heads D) projections with 3 heads at D =
+# 268 and 269 (in 16 bits rows 8- and 2-byte aligned)
+EDGE_NS = (1, 31, 33, 63, 65, 127)
+EDGE_DS = (257, 384, 512, 513, 1024)
+
+
+def check_wide_edges(dnames, gen, dev, worst, key):
+    """Each forward kernel at the tile edges, inference and with lse, against
+    the plain versions, in each of ``dnames``; the largest error goes to
+    ``worst[(key, dname)]``."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops import attention as A
+
+    cases = [(1, 1, nq, nkv, d, False) for d in EDGE_DS for nq in EDGE_NS for nkv in EDGE_NS]
+    cases += [(2, 3, 64, 64, d, True) for d in (268, 269)]
+    for dname in dnames:
+        dtype = getattr(torch, dname)
+        atol, rtol = TOL.get(dname, F16_TOL)
+        errs = []
+        for b, h, nq, nkv, d, fused in cases:
+            if fused:
+                t = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)
+                q, k, v = (z.view(b, nq, h, d).transpose(1, 2) for z in t.split(h * d, dim=-1))
+            else:
+                q = torch.randn((b, h, nq, d), generator=gen, device=dev).to(dtype)
+                k, v = (torch.randn((b, h, nkv, d), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+            got = A.flash_attention(q, k, v, d ** -0.5)
+            want = A.reference_attention(q, k, v, d ** -0.5)
+            err = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (err <= atol + rtol * want.float().abs()).all())
+            o, lse = A.flash_attention_forward_lse(q, k, v, d ** -0.5)
+            lse_err, lse_ok = compare_rel(lse, A.reference_attention_lse(q, k, v, d ** -0.5)[1],
+                                          BWD_TOL["float32"])
+            assert ok and lse_ok and torch.equal(o, got), (dname, b, h, nq, nkv, d, fused,
+                                                           float(err.max()), lse_err)
+            errs.append((float(err.max()), lse_err))
+        worst[(key, dname)] = max(worst[(key, dname)], max(e for e, _ in errs))
+        print(f"check wide attention tile edges {dname}: Nq, Nkv in {EDGE_NS} at D in {EDGE_DS} "
+              f"and 3-head fused views at D = 268, 269 ({len(cases)} shapes), inference and with "
+              f"lse: max_abs_err={max(e for e, _ in errs):.3e} tol={(atol, rtol)}, lse "
+              f"{max(e for _, e in errs):.3e} (tol {BWD_TOL['float32']} x max|want|) ok")
+
+
+def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
     """Phase 16's per-op timings at ``rows`` batch rows: the GroupNorm and
-    attention forwards (kernel, plain, library call, bound), summed over the
-    calls of one ``what``; returns {op: totals}."""
+    attention forwards (kernel, plain, library call, bound, and the other
+    attention forwards of ``others_fwd``, label -> library, in the same
+    turns), summed over the calls of one ``what``; returns {op: totals}."""
     import torch
     import torch.nn.functional as F
 
@@ -963,10 +1034,17 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
                 fns = [lambda: reference_attention(q, k, v, d ** -0.5),
                        lambda: flash_attention(q, k, v, d ** -0.5),
                        lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)]
+                fns += [with_lib("fwd", lib, lambda: flash_attention(q, k, v, d ** -0.5))
+                        for lib in others_fwd.values()]
                 nbytes = 4 * rows * h * (2 * nq + 2 * nkv) * d
                 flops = 4 * rows * h * nq * nkv * d
                 iters = 3 if nq * nkv > 4e6 else 10
             pm, km, *lib = in_turns(fns, iters=iters)
+            other_ms = {}
+            if op == "attention":
+                lib, other_ms = lib[:1], dict(zip(others_fwd, lib[1:]))
+            for label, oms in other_ms.items():
+                tot[f"kernel_{label}"] += oms * calls
             bms, by = bound(nbytes, flops, "float32")
             tot["kernel"] += km * calls
             tot["plain"] += pm * calls
@@ -981,6 +1059,7 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
                 tot.setdefault("backends", set()).add(backend)
                 extra = (f", {flops / km / 1e9:.2f} TFLOP/s (plain {flops / pm / 1e9:.2f}, "
                          f"SDPA {flops / lib[0] / 1e9:.2f} via {backend})")
+            extra += "".join(f", {label} kernel {oms:.4f} ms" for label, oms in other_ms.items())
             print(f"time ldm {op} fwd {shape} x{calls}/{what} rows={rows} float32: kernel "
                   f"{km:.4f} ms, plain {pm:.4f} ms, library "
                   f"{f'{lib[0]:.4f} ms' if lib else '-'}, bound {bms:.4f} ms ({by}){extra} {tag}")
@@ -994,11 +1073,14 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what):
               f"plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms ({tot['bound_by']}), "
               f"library {tot.get('library', 0.0):.4f} ms against kernel "
               f"{tot.get('kernel_where_library', 0.0):.4f} ms on the calls it covers, "
-              f"{tot['tflops']:.2f} TFLOP/s {tag}")
+              f"{tot['tflops']:.2f} TFLOP/s"
+              + "".join(f", {label} kernel {tot[f'kernel_{label}']:.4f} ms"
+                        for label in (others_fwd if op == "attention" else ()))
+              + f" {tag}")
     return out
 
 
-def ldm_path(tmp, gen, gpu, tag, worst):
+def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     """Phase 16 (see the module docstring); returns the loaded model, its
     model dir and the phase's figures."""
     import numpy as np
@@ -1086,6 +1168,7 @@ def ldm_path(tmp, gen, gpu, tag, worst):
               f"{BWD_TOL['float32']} x max|want|) {'ok' if ok and lse_ok else 'FAIL'}")
         assert ok and lse_ok and torch.equal(o, got), (nq, nkv, d)
         del q, k, v, got, o, lse
+    check_wide_edges(("float32",), gen, dev, worst, "attention_ldm")
     for (n, c, eps, silu), rows, where in ([(s, rows_unet, "unet") for s in sorted(gn_unet)]
                                            + [(s, rows_dec, "decode") for s in sorted(gn_dec)]):
         x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
@@ -1147,22 +1230,28 @@ def ldm_path(tmp, gen, gpu, tag, worst):
                                 latent_ch=3)
     tlabels = torch.arange(LDM_B, device=dev) % 1000
 
-    def batch(on, fn=sample):
+    def batch(on, fn=sample, rows=LDM_B):
         ops.set_kernels_enabled(on)
         try:
-            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, tlabels, LDM_B)), iters=1,
+            labels = torch.arange(rows, device=dev) % 1000
+            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, labels, rows)), iters=1,
                            warmup=0)
         finally:
             ops.set_kernels_enabled(True)
 
-    for on in (False, True):
-        batch(on, warm)
-    off1, on1, on2, off2 = batch(False), batch(True), batch(True), batch(False)
-    ips = {"kernels_on": LDM_B * 2e3 / (on1 + on2), "kernels_off": LDM_B * 2e3 / (off1 + off2)}
-    print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={LDM_B} ({2 * LDM_B} UNet rows) float32: "
-          f"kernels on {ips['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), kernels off "
-          f"{ips['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) (CUDA events, in turns "
-          f"off-on-on-off) {tag}")
+    ips, batch_ms = {}, {}
+    for rows in (LDM_B, LDM_CLI_B):
+        for on in (False, True):
+            batch(on, warm, rows)
+        off1, on1, on2, off2 = (batch(False, rows=rows), batch(True, rows=rows),
+                                batch(True, rows=rows), batch(False, rows=rows))
+        ips[rows] = {"kernels_on": rows * 2e3 / (on1 + on2),
+                     "kernels_off": rows * 2e3 / (off1 + off2)}
+        batch_ms[rows] = {"on": [on1, on2], "off": [off1, off2]}
+        print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={rows} ({2 * rows} UNet rows) float32: "
+              f"kernels on {ips[rows]['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), "
+              f"kernels off {ips[rows]['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) "
+              f"(CUDA events, in turns off-on-on-off) {tag}")
     dec_lat = torch.randn((LDM_B, hw, hw, 3), generator=gen, device=dev)
     with torch.inference_mode():
         ctx = ldm.get_learned_conditioning(torch.cat([tlabels, torch.full_like(tlabels, 1000)]))
@@ -1196,8 +1285,9 @@ def ldm_path(tmp, gen, gpu, tag, worst):
                       " float32", busy, span, launches, kcounts, (what, 1), tag)
         profiles[what] = {"busy_ms": busy, "span_ms": span, "launches": launches,
                           "idle_share": 1 - sum(busy.values()) / span}
-    ops_unet = time_ldm_ops(gn_unet, attn_unet, rows_unet, gen, dev, tag, "UNet call")
-    ops_dec = time_ldm_ops(gn_dec, attn_dec, rows_dec, gen, dev, tag, "decode")
+    ops_unet = time_ldm_ops(gn_unet, attn_unet, rows_unet, gen, dev, tag, "UNet call",
+                            others_fwd)
+    ops_dec = time_ldm_ops(gn_dec, attn_dec, rows_dec, gen, dev, tag, "decode", others_fwd)
 
     # the main path: the ldm_sample CLI on the saved model
     cli = {}
@@ -1222,8 +1312,9 @@ def ldm_path(tmp, gen, gpu, tag, worst):
         assert len(pngs) == 2 * LDM_B and stats["nonfinite"] == 0, stats
         assert {k: launches[k] for k in want} == want, (launches, want)
     print(f"ldm phase {time.perf_counter() - t_phase:.1f} s")
-    return ldm, model_dir, {"card": gpu, "params": counts, "b": LDM_B, "imgs_per_s": ips,
-            "batch_ms": {"on": [on1, on2], "off": [off1, off2]},
+    return ldm, model_dir, {"card": gpu, "params": counts, "b": LDM_B,
+            "imgs_per_s": ips[LDM_B], "batch_ms": batch_ms[LDM_B],
+            "imgs_per_s_cli_b": ips[LDM_CLI_B], "batch_ms_cli_b": batch_ms[LDM_CLI_B],
             "unet_call_ms": unet_ms, "decode_ms": decode_ms, "profiles": profiles,
             "compare": compare_out, "cli": cli, "ops_unet_call": ops_unet,
             "ops_decode": ops_dec, "per_call": per_call, "per_decode": per_decode,
@@ -1592,7 +1683,7 @@ def record_fwd_dtypes():
     return seen, restore
 
 
-def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
+def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd):
     """Phase 18 (see the module docstring); returns its figures."""
     import numpy as np
     import torch
@@ -1691,6 +1782,7 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
                   + (f" + {floor:.3e} at Nkv = 1" if where != "encode" and nkv == 1 else "")
                   + ", lse and dsum 1e-4 x max|want|) ok")
             del q, k, v, do, got, want, o, po
+    check_wide_edges(("bfloat16", "float16"), gen, dev, worst, "attention_ldm_train")
     # the GroupNorm forward (the UNet's and the encode's) and backward (the
     # UNet's) in bf16 at the step's shapes
     for (n, c, eps, silu), where in ([(s, "unet") for s in sorted(gn_unet)]
@@ -1921,7 +2013,10 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
                    lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
                    lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
                    lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+            fns += [with_lib("fwd", lib, lambda: A.flash_attention_forward_lse(q, k, v, scale))
+                    for lib in others_fwd.values()]
             ms = in_turns(fns, iters=5)
+            other_ms = dict(zip(others_fwd, ms[8:]))
             backend = (sdpa_backend(fns[2]), sdpa_backend(fns[7]))
             backends.add(backend)
             fwd_bytes = 2 * rows * (2 * nq + 2 * nkv) * d + 4 * rows * nq
@@ -1932,14 +2027,17 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
             for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1]), ("fwd_library", ms[2]),
                              ("dq_plain", ms[3]), ("dq_kernel", ms[4]), ("dkv_plain", ms[5]),
                              ("dkv_kernel", ms[6]), ("bwd_library", ms[7]),
-                             ("fwd_flops", fwd_flops), ("dq_flops", fq), ("dkv_flops", fkv)):
+                             ("fwd_flops", fwd_flops), ("dq_flops", fq), ("dkv_flops", fkv),
+                             *((f"fwd_kernel_{label}", oms) for label, oms in other_ms.items())):
                 tot[key] += val * ncalls
             for part, (bms, by) in bounds.items():
                 add_bound(tot, part + "_", bms * ncalls, by)
             print(f"time ldm train attention {(nq, nkv, d)} x{ncalls}/step rows={rows} bfloat16: "
                   f"forward with lse kernel {ms[1]:.4f} ms, {fwd_flops / ms[1] / 1e9:.2f} TFLOP/s "
                   f"(plain {ms[0]:.4f}, SDPA {ms[2]:.4f} via {backend[0]}, bound "
-                  f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}); dq kernel {ms[4]:.4f} ms, "
+                  f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}"
+                  + "".join(f", {label} kernel {oms:.4f}" for label, oms in other_ms.items())
+                  + f"); dq kernel {ms[4]:.4f} ms, "
                   f"{fq / ms[4] / 1e9:.2f} TFLOP/s (plain {ms[3]:.4f}, bound {bounds['dq'][0]:.4f} "
                   f"{bounds['dq'][1]}); dk/dv kernel {ms[6]:.4f} ms, {fkv / ms[6] / 1e9:.2f} "
                   f"TFLOP/s (plain {ms[5]:.4f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}); "
@@ -1953,6 +2051,33 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst):
         print(f"time ldm train attention per train step ({name}) rows={rows} bfloat16: " + ", ".join(
             f"{k_} {v_:.4f}" if isinstance(v_, float) else f"{k_} {v_}"
             for k_, v_ in sorted(ops_ms[name].items())) + f" {tag}")
+    # the encode's attention (no grad: the inference launch), as above
+    tot = collections.defaultdict(float)
+    for (nq, nkv, h, d), ncalls in sorted(attn_enc.items()):
+        q, k, v = views(nq, d, bf16), views(nkv, d, bf16), views(nkv, d, bf16)
+        scale = d ** -0.5
+        fns = [lambda: reference_attention(q, k, v, scale), lambda: flash_attention(q, k, v, scale),
+               lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)]
+        fns += [with_lib("fwd", lib, lambda: flash_attention(q, k, v, scale))
+                for lib in others_fwd.values()]
+        ms = in_turns(fns, iters=3)
+        other_ms = dict(zip(others_fwd, ms[3:]))
+        flops = 4 * rows * nq * nkv * d
+        bms, by = bound(2 * rows * (2 * nq + 2 * nkv) * d, flops, "bfloat16")
+        for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1]), ("fwd_library", ms[2]),
+                         ("fwd_flops", flops),
+                         *((f"fwd_kernel_{label}", oms) for label, oms in other_ms.items())):
+            tot[key] += val * ncalls
+        add_bound(tot, "fwd_", bms * ncalls, by)
+        print(f"time ldm train encode attention {(nq, nkv, d)} x{ncalls}/step rows={rows} "
+              f"bfloat16: kernel {ms[1]:.4f} ms, {flops / ms[1] / 1e9:.2f} TFLOP/s (plain "
+              f"{ms[0]:.4f}, SDPA {ms[2]:.4f} via {sdpa_backend(fns[2])}, bound {bms:.4f} {by}"
+              + "".join(f", {label} kernel {oms:.4f}" for label, oms in other_ms.items())
+              + f") {tag}")
+        del fns, q, k, v
+    tot["fwd_tflops"] = tot["fwd_flops"] / tot["fwd_kernel"] / 1e9
+    tot["fwd_bound_by"] = bound_by(tot, "fwd_")
+    ops_ms["encode"] = dict(tot)
     del models, dense
     print(f"ldm train phase {time.perf_counter() - t_phase:.1f} s")
     return {"card": gpu, "b": rows, "per_step": per_step["dense"], "cli_launches": cli_counts,
@@ -1973,13 +2098,19 @@ def main() -> None:
     import torch.nn.functional as F
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--compare-fwd", metavar="LABEL=SRC", action="append", default=[],
+                    help="another flash_attention_fwd.cu (same C interface) whose forward "
+                         "phases 16 and 18 time in turns with this checkout's; repeatable")
     ap.add_argument("--compare-bwd", metavar="LABEL=SRC", action="append", default=[],
                     help="another flash_attention_bwd.cu (same C interface) whose dq and dk/dv "
                          "phase 13 times in turns with this checkout's; repeatable")
     args = ap.parse_args()
-    other_srcs = [arg.partition("=")[::2] for arg in args.compare_bwd]  # (label, source)
-    if not all(label and src for label, src in other_srcs):
-        ap.error(f"--compare-bwd takes LABEL=SRC, got {args.compare_bwd}")
+    other_srcs = {}  # kind -> [(label, source)]
+    for kind in OTHER_LIBS:
+        given = getattr(args, f"compare_{kind}")
+        other_srcs[kind] = [arg.partition("=")[::2] for arg in given]
+        if not all(label and src for label, src in other_srcs[kind]):
+            ap.error(f"--compare-{kind} takes LABEL=SRC, got {given}")
 
     # -- 1. device
     if not torch.cuda.is_available():
@@ -2018,8 +2149,14 @@ def main() -> None:
     from diff_pruning_tpu_torch.utils.checkpoint import (flat_from_state_dict, load_model,
                                                          save_model)
 
-    # -- 2. build: one nvcc per CUDA source, all at once
+    # -- 2. build: one nvcc per CUDA source, all at once, and the other
+    # versions of the attention given to compare with, beside them
     t_build = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(max_workers=max(1, sum(map(len, other_srcs.values()))))
+    other_futs = {kind: {label: pool.submit(load_other, kind, label, src) for label, src in srcs}
+                  for kind, srcs in other_srcs.items()}
     _build.build_libraries()
     for name in _build.CUDA_LIBRARIES:
         info = _build.BUILD_INFO[name]
@@ -2036,10 +2173,12 @@ def main() -> None:
     if _build.BUILD_INFO["flash_attention_fwd"]["log"]:  # empty when already built
         assert {k.split("<")[0] for k in regs["flash_attention_fwd"]} == {
             "flash_fwd_kernel_f32", "flash_fwd_kernel_f32_wide", "flash_fwd_kernel_mma",
-            "flash_fwd_kernel_mma_wide"}, regs
+            "flash_fwd_kernel_wgmma_wide"}, regs
         # f32 at 4 head-dim paddings and 6 wide (D 257-1024); 16-bit: 2 types
-        # x (4 + 6)
-        assert len(regs["flash_attention_fwd"]) == 30, regs
+        # x (4 + 4 wide)
+        assert len(regs["flash_attention_fwd"]) == 26, regs
+        for kname, (_, st, ld) in regs["flash_attention_fwd"].items():
+            assert "_wide" not in kname or st == ld == 0, f"{kname} spills"
     if _build.BUILD_INFO["flash_attention_bwd"]["log"]:
         assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
             "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
@@ -2056,13 +2195,16 @@ def main() -> None:
         if sass is None:
             print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
             break
-        for kname, (hmma, ffma) in sorted(sass.items()):
-            print(f"sass: {lib} {kname}: {hmma} HMMA, {ffma} FFMA")
+        for kname, (hmma, hgmma, ffma) in sorted(sass.items()):
+            print(f"sass: {lib} {kname}: {hmma} HMMA, {hgmma} HGMMA, {ffma} FFMA")
             if "_kernel_mma" in kname:  # forward, dq and dk/dv in bf16/f16
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
+            if "_kernel_wgmma" in kname:  # the wide 16-bit forward
+                assert hgmma > 0, f"{kname} has no warpgroup tensor-core instruction"
             if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
-                assert hmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_mma_wide"),
+                assert hmma == hgmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
+        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_wgmma_wide",
+                                         "flash_fwd_kernel_f32_wide"),
                  "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
                                          "flash_bwd_dq_kernel_f32_wide",
                                          "flash_bwd_dkv_kernel_f32_wide",
@@ -2073,8 +2215,10 @@ def main() -> None:
         for want in wants:
             assert sum(want in kname for kname in sass) >= 2, (want, sorted(sass))
     ours = A._lib("flash_attention_bwd")
-    # label -> library of another version of the attention backward
-    others = {label: load_other_bwd(label, src) for label, src in other_srcs}
+    # label -> library of another version of the attention forward / backward
+    others_fwd = {label: fut.result() for label, fut in other_futs["fwd"].items()}
+    others = {label: fut.result() for label, fut in other_futs["bwd"].items()}
+    pool.shutdown()
 
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
     cfg = ddpm_cifar10_config()
@@ -2581,16 +2725,16 @@ def main() -> None:
                 ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
                 fns = [
                     lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
-                    with_bwd_lib(ours, lambda: A.flash_attention_backward_dq(
+                    with_lib("bwd", ours, lambda: A.flash_attention_backward_dq(
                         q, k, v, o, do, lse, scale)),
                     lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
-                    with_bwd_lib(ours, lambda: A.flash_attention_backward_dkv(
+                    with_lib("bwd", ours, lambda: A.flash_attention_backward_dkv(
                         q, k, v, do, lse, dsum, scale)),
                     lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
                 for lib in others.values():  # the other versions, timed in the same turns
-                    fns += [with_bwd_lib(lib, lambda: A.flash_attention_backward_dq(
+                    fns += [with_lib("bwd", lib, lambda: A.flash_attention_backward_dq(
                                 q, k, v, o, do, lse, scale)),
-                            with_bwd_lib(lib, lambda: A.flash_attention_backward_dkv(
+                            with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
                                 q, k, v, do, lse, dsum, scale))]
                 ms = in_turns(fns, iters=20)
                 fq, fkv = attn_dq_work(n, h, d, dname)[1], attn_dkv_work(n, h, d, dname)[1]
@@ -2796,14 +2940,15 @@ def main() -> None:
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES  # no kernel of the port on this path
 
     # -- 16. the class-conditional LDM serving path (cin256-v2 + vq-f4)
-    ldm_model, ldm_dir, ldm = ldm_path(tmp, gen, gpu, tag, worst)
+    ldm_model, ldm_dir, ldm = ldm_path(tmp, gen, gpu, tag, worst, others_fwd)
 
     # -- 17. the LDM prune path: the wide f32 backward, the sweep, the CLI
     ldm_pruned_dir, ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
     del ldm_model
 
     # -- 18. the LDM train path: the wide 16-bit attention, the bf16 step, the CLI
-    ldm_train_fig = ldm_train_path(tmp, ldm_dir, ldm_pruned_dir, gen, gpu, tag, worst)
+    ldm_train_fig = ldm_train_path(tmp, ldm_dir, ldm_pruned_dir, gen, gpu, tag, worst,
+                                   others_fwd)
     tmpdir.cleanup()
 
     # -- 19. result lines
@@ -2888,7 +3033,15 @@ def main() -> None:
                "tflops_pruned": pruned_[f"{part}_tflops"],
                "launch_path": "the ldm_train CLI (phase 18)"}
         if part == "fwd":
-            out.update(library_ms_is="F.scaled_dot_product_attention, bf16",
+            enc = lt_ops["encode"]
+            out.update({f"{label}_ms": dense_[f"fwd_kernel_{label}"] for label in others_fwd})
+            out.update({f"{label}_ms_pruned": pruned_[f"fwd_kernel_{label}"]
+                        for label in others_fwd})
+            out.update({f"{label}_ms_encode": enc[f"fwd_kernel_{label}"] for label in others_fwd})
+            out.update(ms_encode=enc["fwd_kernel"], plain_ms_encode=enc["fwd_plain"],
+                       library_ms_encode=enc["fwd_library"], bound_ms_encode=enc["fwd_bound"],
+                       tflops_encode=enc["fwd_tflops"],
+                       library_ms_is="F.scaled_dot_product_attention, bf16",
                        library_ms_pruned=pruned_["fwd_library"],
                        launches_without_lse=(ldm_train_fig["cli_launches"]["attention"]
                                              - ldm_train_fig["cli_launches"]["attention_lse"]))
@@ -2914,6 +3067,8 @@ def main() -> None:
                         f"tflops_ldm_{part}": tot["tflops"]})
             if "backends" in tot:
                 out[f"library_backend_ldm_{part}"] = tot["backends"]
+            for label in others_fwd if op == "attention" else ():
+                out[f"{label}_ms_ldm_{part}"] = tot[f"kernel_{label}"]
         return out
 
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"

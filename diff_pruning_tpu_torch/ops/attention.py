@@ -29,11 +29,14 @@ and both halves of ``_flash_bwd_call`` (``_bwd_dq_kernel`` and
 
 The forward and backward kernels take head dims up to 1024 in every input
 type (``MAX_HEAD_DIM_FWD``, ``MAX_HEAD_DIM_BWD``), with a second tiling
-above 256 for the LDM's one-head transformers: 16 query rows a block of the
-whole head dim (f32: 16 kv rows in the forward, 8 in the backward; bf16/f16
-on the tensor cores: 32 kv rows in the forward and dq, 8 in dk/dv, the head
-dim split over the warps). Wider heads raise ``ValueError`` on the card; the
-plain versions take any. The kernels
+above 256 for the LDM's one-head transformers. The forward: f32 64 query
+rows a block (32 above a padded head dim of 512), Q resident, K and V
+streamed in head-dim chunks; bf16/f16 64 query rows a block on two
+warpgroups with Hopper's ``wgmma``, O's columns split between them (and
+between two blocks above 512). The backward: 16 query rows a block of the
+whole head dim (f32: 8 kv rows; bf16/f16 on the tensor cores: 32 kv rows in
+dq, 8 in dk/dv, the head dim split over the warps). Wider heads raise
+``ValueError`` on the card; the plain versions take any. The kernels
 zero-pad the head dim in shared memory and read head-split views through
 their strides, so the layer passes ``(B, N,
 heads*dh)`` projections without a transpose copy; outputs are (B, H, N, D)

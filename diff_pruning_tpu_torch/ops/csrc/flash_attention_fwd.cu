@@ -38,25 +38,31 @@
 //   banks.
 //
 // f32 with 256 < D <= 1024 (`flash_fwd_kernel_f32_wide`, the LDM's one-head
-// transformers and its first stage): 16-row query and kv tiles of the whole
-// head dim; see its note below.
+// transformers and its first stage): 64-row query tiles (32 above D_pad =
+// 512), Q resident, K and V in head-dim chunks through one two-slot ring, S
+// accumulated over the chunks in registers; see its note below.
 //
-// bf16/f16 with 256 < D <= 1024 (`flash_fwd_kernel_mma_wide`, the same heads
-// under bf16 training): 16 query rows and 32 kv rows a block on the tensor
-// cores, the head dim split over the 8 warps; see its note below.
+// bf16/f16 with 256 < D <= 1024 (`flash_fwd_kernel_wgmma_wide`, the same
+// heads under bf16 training): 64-row query tiles on two warpgroups with
+// Hopper's `wgmma`, O's columns split between them (and, above D_pad = 512,
+// between two blocks); see its note below.
+//
+// The 64-row kernels (D <= 256): K and V tiles stream through a two-slot
+// cp.async ring in the order K0, V0, K1, V1, ...: while S = Q K_t^T is
+// computed, V_t is in flight; once K_t is consumed, K_{t+1} is issued and
+// overlaps the softmax and P V_t.
 //
 // All paths:
-// - K and V tiles stream through a two-slot cp.async ring in the order
-//   K0, V0, K1, V1, ...: while S = Q K_t^T is computed, V_t is in flight; once
-//   K_t is consumed, K_{t+1} is issued and overlaps the softmax and P V_t;
-// - the head dim is zero-filled in shared memory up to a multiple of 64
-//   (cp.async's src-size), never in device memory; no per-element predicate
-//   in the inner products; rows at or beyond Nq/Nkv are zero-filled, scores
-//   of kv columns at or beyond Nkv are set to -inf; columns at or beyond D
-//   are not written;
+// - the head dim is zero-filled in shared memory up to the kernel's padded
+//   width (cp.async's src-size), never in device memory; no per-element
+//   predicate in the inner products; rows at or beyond Nq/Nkv are
+//   zero-filled, scores of kv columns at or beyond Nkv are set to -inf;
+//   columns at or beyond D are not written;
 // - 16-byte cp.async where the head-split views allow it (base and strides
-//   16-byte aligned), else element copies (4-byte cp.async for f32; plain
-//   loads for 16-bit types, e.g. D = 179 views of a (B, N, 179) projection);
+//   16-byte aligned), else narrower copies (4-byte cp.async for f32; for
+//   16-bit types plain loads in the 64-row kernel, and 8- or 4-byte
+//   cp.async or plain loads in the wide one, e.g. D = 179 or 268 views of a
+//   fused projection);
 // - no atomics: every output element is written by one thread, so results
 //   are bit-reproducible run to run;
 // - `lse` may be null (inference: the launch writes only o). Otherwise it is
@@ -85,7 +91,7 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kMaxD = 256;       // the 64-row kernels (every input type)
-constexpr int kMaxDWide = 1024;  // flash_fwd_kernel_f32_wide, flash_fwd_kernel_mma_wide
+constexpr int kMaxDWide = 1024;  // flash_fwd_kernel_f32_wide, flash_fwd_kernel_wgmma_wide
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -118,17 +124,17 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // waits until at most one committed group is still in flight
 __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::); }
 
-// Copies rows [row0, row0 + ROWS) x columns [0, DP) of one head into shared
+// Copies rows [row0, row0 + 64) x columns [0, DP) of one head into shared
 // memory (row stride ld elements), zero-filling rows >= nvalid and columns
 // >= D. vec: base and row stride are 16-byte aligned.
-template <typename T, int DP, int NT, int ROWS = 64>
+template <typename T, int DP, int NT>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long long sn, int row0,
                                           int nvalid, int D, bool vec) {
   const int tid = threadIdx.x;
   if (vec) {
     constexpr int kChunk = 16 / sizeof(T);
     constexpr int kPerRow = DP / kChunk;
-    for (int idx = tid; idx < ROWS * kPerRow; idx += NT) {
+    for (int idx = tid; idx < 64 * kPerRow; idx += NT) {
       const int r = idx / kPerRow;
       const int c = (idx - r * kPerRow) * kChunk;
       const int row = row0 + r;
@@ -141,7 +147,7 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
       cp_async16(dst + r * ld + c, from, bytes);
     }
   } else if constexpr (sizeof(T) == 4) {
-    for (int idx = tid; idx < ROWS * DP; idx += NT) {
+    for (int idx = tid; idx < 64 * DP; idx += NT) {
       const int r = idx / DP;
       const int c = idx - r * DP;
       const int row = row0 + r;
@@ -150,7 +156,6 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src, long lon
     }
   } else {
     // no cp.async below 4 bytes: 8 loads in flight per thread, then stores
-    static_assert(ROWS == 64, "the 16-bit element copy takes 64-row tiles");
     constexpr int U = 8;  // 64 * DP is a multiple of NT * U
     for (int base = tid; base < 64 * DP; base += NT * U) {
       T vals[U];
@@ -332,189 +337,325 @@ flash_fwd_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------- f32 path, 256 < D <= 1024
 
-// Wide head dims (the LDM's one-head transformers: D = 384, 576, 960, and
-// the first stage's D = 512 at 4096 tokens). A 64-row f32 tile of D = 960
-// alone is 245,760 bytes, more than a block's shared memory, so the tiles
-// shrink instead: 16 query rows and 16 kv rows a block, each a whole row of
-// the head dim (padded to DP = 128 * NC2, zero-filled), Q resident, K and V
-// streamed through the same two-slot cp.async ring as above. At D = 1024:
-// 3 * 16 * 1028 * 4 + 16 * 260 * 4 + 16 * 17 * 4 + 64 = 215,040 bytes.
-// 16-row query tiles also give (64 tokens, B = 16, 2 CFG halves) 128 blocks
-// for the 132 SMs, where splitting D across blocks would recompute QK^T.
+// Replaces, for f32 at 256 < D <= 1024, the TPU kernel `_flash_fwd_call` /
+// `_fwd_kernel` (diff_pruning_tpu/ops/attention.py:97), lse included: the
+// LDM's one-head transformers (D = 384, 576, 960 and the pruned 268, 404,
+// 672) and its first stage (D = 512 at 4096 tokens), exact f32 on the CUDA
+// cores.
 //
-// - S = Q K^T (16 x 16): thread t owns a 4 x 4 micro-tile (t / 16) of S and
-//   one of 16 slices of the head dim (t % 16: float4 columns 4 (t % 16) +
-//   64 k), so each step of 4 columns is 8 float4 loads for 64 FMAs; the 16
-//   partial tiles are summed through shared memory (red, rows 260 floats
-//   apart so the 16 slices' float4 stores land on distinct banks), in a
-//   fixed order: no atomics;
-// - softmax: thread t then owns S[t / 16][t % 16]; row max and sum combine
-//   across the row's 16 lanes with shuffles; the row's rescale factor goes
-//   to shared memory and P to ps ([kv][row], rows 17 floats apart);
-// - O += P V: thread (ty = t / 32, tx = t % 32) owns rows ty and ty + 8 and
-//   columns 4 tx + 128 c (c < NC2): per kv row, 2 broadcast loads of P and
-//   NC2 float4 loads of V for 8 NC2 FMAs; at most 64 accumulators.
-template <int NC2>  // head dim padded to 128 * NC2
+// What bounds it on the H100: the CUDA-core f32 rate. At (1024, 1024, 384)
+// the op does 4 * 1024 * 384 flops per query row against 16 * 384 bytes
+// moved for it, ~250 flops a byte, above the card's f32 balance point (67
+// TFLOP/s over 3.35 TB/s: 20). What keeps a kernel from that rate is how
+// often a K/V row is fetched again from L2 (once per query tile) and how many
+// shared-memory loads feed each FMA.
+//
+// The design: 256 threads per (batch*head, query tile), the tile as large as
+// the registers allow. O stays in registers: 128 f32 a thread, so BQ = 64
+// query rows at D_pad <= 512 and 32 above (BQ * D_pad = 32,768). Q is
+// resident in shared memory (BQ x D_pad, zero-filled past D, <= 132 KB); K
+// and V stream through one cp.async ring of ~34 KB stages, in the order of
+// use, with as many slots as shared memory holds (2, or 3 at D_pad = 384 and
+// 640-768) and one barrier a stage:
+// - S = Q K_t^T over BK = 4096 / BQ kv rows (64, or 128 at BQ = 32): the
+//   stages are K_t's head-dim chunks of DC = 8192 / BK columns (128 or 64),
+//   and S (BQ x BK, 16 a thread) accumulates over them in registers, as a
+//   GEMM's K loop does: no partial S is summed across threads. Thread (ty =
+//   t / TX, tx = t % TX, TX = BK / 4) owns rows ty + TY i and kv columns
+//   tx + TX j (i, j < 4); per 4 head-dim columns 4 float4 loads of Q (one
+//   address, or two, across the warp: broadcast) and 4 of K feed 64 FMAs;
+// - the online softmax on that micro-tile (row max and sum across the TX
+//   lanes of a row by shuffles); P goes to shared memory ([kv][row]) and
+//   each row's rescale factor with it;
+// - O += P V_t: the stages are V_t's 128-column chunks of 64 kv rows. Thread
+//   (py = t / 32, cx = t % 32) owns rows py * BQ / 8 .. + BQ / 8 and columns
+//   4 cx + 128 c of O: per kv row, BQ / 32 broadcast float4 loads of P and
+//   one float4 of V feed 4 * BQ / 8 FMAs (32 at BQ = 64, 16 at 32).
+// While one stage is consumed the next one or two are in flight. K/V bytes
+// fetched from L2 per query row: 2 * Nkv * D * 4 / BQ, against 2 * Nkv * D *
+// 4 / 16 with the 16-row tiles this replaces (4x less at BQ = 64, 2x at 32),
+// plus Q's D * 4 once: 50,688 against 198,144 at (1024, 1024, 384),
+// 264,192 against 1,050,624 at (4096, 4096, 512). Head-dim chunks and V
+// chunks past D, and kv rows past Nkv in a V stage, are skipped; S takes
+// every micro-tile column (the registers leave no room for a second loop
+// shape), so a short tile (Nkv = 1) costs the S of a full one. The FMA
+// loops, not the copies, bound it: without its products it takes a fifth
+// of its time (fwd_breakdown.py).
+//
+// Shared memory: (BQ (D_pad + 4) + slots + BK (BQ + 4) + BQ) * 4 bytes,
+// 217,344-219,776; one block per SM.
+template <int BQ>
+__host__ __device__ constexpr int f32_wide_stage_floats() {
+  // max(a K stage BK x (DC + 4), a V stage 64 x (128 + 4))
+  return (4096 / BQ) * (8192 / (4096 / BQ) + 4) > 64 * 132
+             ? (4096 / BQ) * (8192 / (4096 / BQ) + 4) : 64 * 132;
+}
+
+// floats besides the ring: Q [BQ][D_pad + 4], P [BK][BQ + 4], the row factors
+template <int BQ, int NCV>
+__host__ __device__ constexpr int f32_wide_fixed_floats() {
+  return BQ * (128 * NCV + 4) + (4096 / BQ) * (BQ + 4) + BQ;
+}
+
+// the ring's slots: as many as a block's 227 KB hold
+template <int BQ, int NCV>
+__host__ __device__ constexpr int f32_wide_slots() {
+  return (232448 / 4 - f32_wide_fixed_floats<BQ, NCV>()) / f32_wide_stage_floats<BQ>();
+}
+
+template <int BQ, int NCV>
+__host__ __device__ constexpr int f32_wide_smem_bytes() {
+  return (f32_wide_fixed_floats<BQ, NCV>() +
+          f32_wide_slots<BQ, NCV>() * f32_wide_stage_floats<BQ>()) * 4;
+}
+
+// Copies rows [row0, row0 + R) x columns [col0, col0 + C) of one head (row
+// stride sn elements) into a shared [R][ld] tile, zero-filling rows >= nvalid
+// and columns >= D. vec: base and row stride are 16-byte aligned (col0 % 4 == 0).
+template <int R, int C>
+__device__ __forceinline__ void load_block_f32(float* dst, int ld, const float* src, long long sn,
+                                               int row0, int nvalid, int col0, int D, bool vec) {
+  if (vec) {
+    constexpr int PER_ROW = C / 4;
+    for (int idx = threadIdx.x; idx < R * PER_ROW; idx += 256) {
+      const int r = idx / PER_ROW;
+      const int c = (idx - r * PER_ROW) * 4;
+      const int row = row0 + r, col = col0 + c;
+      int bytes = 0;
+      const float* from = src;
+      if (row < nvalid && col < D) {
+        bytes = (D - col >= 4 ? 4 : D - col) * 4;
+        from = src + row * sn + col;
+      }
+      cp_async16(dst + r * ld + c, from, bytes);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * C; idx += 256) {
+      const int r = idx / C;
+      const int c = idx - r * C;
+      const int row = row0 + r, col = col0 + c;
+      const bool ok = row < nvalid && col < D;
+      cp_async4(dst + r * ld + c, ok ? src + row * sn + col : src, ok ? 4 : 0);
+    }
+  }
+}
+
+template <int BQ, int NCV>  // query rows a block; head dim padded to 128 * NCV
 __global__ void __launch_bounds__(256, 1)
 flash_fwd_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, float* __restrict__ o,
                           float* __restrict__ lse, int H, int Nq, int Nkv, int D, Strides sq,
                           Strides sk, Strides sv, Strides so, float scale, int vec,
                           int vec_out) {
-  constexpr int BQ = 16, BK = 16;
-  constexpr int DP = 128 * NC2;
-  constexpr int LD = DP + 4;     // 16-byte rows, 4 banks apart
-  constexpr int LDR = 256 + 4;   // one slice's partial S
-  constexpr int LDP = BQ + 1;
+  static_assert(BQ * 128 * NCV <= 32768, "O: 128 f32 registers a thread");
+  constexpr int DP = 128 * NCV;
+  constexpr int BK = 4096 / BQ;         // kv rows a tile
+  constexpr int DC = 8192 / BK;         // head-dim columns of a K stage
+  constexpr int NSUB = BK / 64;         // V stages of 64 kv rows per column chunk
+  constexpr int LDQ = DP + 4, LDK = DC + 4, LDV = 128 + 4, LDP = BQ + 4;
+  constexpr int STAGE = f32_wide_stage_floats<BQ>();
+  constexpr int NS = f32_wide_slots<BQ, NCV>();
+  static_assert(NS >= 2, "a ring of two slots at least");
+  constexpr int TX = BK / 4, TY = 256 / TX;  // S: lanes a row, row groups
+  constexpr int RP = BQ / 8;                 // O: rows a thread
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;              // [16][LD] query rows
-  float* ks = qs + BQ * LD;      // [16][LD] kv rows
-  float* vs = ks + BK * LD;      // [16][LD] kv rows
-  float* red = vs + BK * LD;     // [16 slices][LDR]: partial S, [row * 16 + kv]
-  float* ps = red + 16 * LDR;    // [16 kv][LDP]: P[row][kv] at [kv][row]
-  float* alpha_s = ps + BK * LDP;  // [16] each row's rescale factor, then its sum
+  float* qs = smem;                  // [BQ][LDQ]
+  float* ring = qs + BQ * LDQ;       // NS x [STAGE]: K [BK][LDK] or V [64][LDV]
+  float* ps = ring + NS * STAGE;     // [BK][LDP]: P[row][kv] at [kv][row]
+  float* rowf = ps + BK * LDP;       // [BQ]: each row's rescale factor, at the end its sum
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.y * BQ;
   const int tid = threadIdx.x;
+  const int tx = tid % TX, ty = tid / TX;  // S micro-tile
+  const int cx = tid & 31, py = tid >> 5;  // O rows and columns
 
-  const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-
-  load_tile<float, DP, 256, BQ>(qs, LD, qb, sq.n, q0, Nq, D, vec);
-  load_tile<float, DP, 256, BK>(ks, LD, kb, sk.n, 0, Nkv, D, vec);
-  cp_async_commit();
-  load_tile<float, DP, 256, BK>(vs, LD, vb, sv.n, 0, Nkv, D, vec);
-  cp_async_commit();
-
-  // S micro-tile and head-dim slice
-  const int tile = tid >> 4;
-  const int slice = tid & 15;
-  const int tr = (tile >> 2) * 4;  // first query row of the micro-tile
-  const int tc = (tile & 3) * 4;   // first kv row of the micro-tile
-  // softmax element
-  const int srow = tid >> 4;
-  const int scol = tid & 15;
-  float m_run = -INFINITY, l_run = 0.f;
-  // O rows and columns
-  const int ty = tid >> 5;
-  const int tx = tid & 31;
-  float acc[2][4 * NC2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * NC2; ++c) acc[i][c] = 0.f;
-
-  for (int kv0 = 0; kv0 < Nkv; kv0 += BK) {
-    cp_async_wait_1();  // Q and K_t have landed (V_t may be in flight)
+  const int ns = (D + DC - 1) / DC;     // K stages a kv tile
+  const int nvc = (D + 127) / 128;      // V column chunks
+  auto nsub_of = [&](int t) { return min(NSUB, (Nkv - t + 63) / 64); };
+  // the stage the ring takes next: kv tile pt, stage pi (< ns: K chunk pi;
+  // then V column chunk (pi - ns) / nsub, kv rows 64 ((pi - ns) % nsub) on)
+  int pt = 0, pi = 0;
+  auto issue = [&](int slot) {
+    if (pt < Nkv) {
+      float* dst = ring + slot * STAGE;
+      if (pi < ns) {
+        load_block_f32<BK, DC>(dst, LDK, kb, sk.n, pt, Nkv, pi * DC, D, vec);
+      } else {
+        const int nsub = nsub_of(pt);
+        const int c = (pi - ns) / nsub, sub = (pi - ns) - c * nsub;
+        load_block_f32<64, 128>(dst, LDV, vb, sv.n, pt + 64 * sub, Nkv, 128 * c, D, vec);
+      }
+      if (++pi == ns + nvc * nsub_of(pt)) {
+        pt += BK;
+        pi = 0;
+      }
+    }
+    cp_async_commit();
+  };
+  // one barrier a stage: once every thread is past it, the slot of the
+  // stage before is free and takes the stage NS - 1 ahead
+  int slot = 0;
+  auto next_stage = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2));  // this stage has landed
     __syncthreads();
+    issue(slot == 0 ? NS - 1 : slot - 1);
+    const float* at = ring + slot * STAGE;
+    slot = slot == NS - 1 ? 0 : slot + 1;
+    return at;
+  };
+
+  load_block_f32<BQ, DP>(qs, LDQ, q + b * sq.b + h * sq.h, sq.n, q0, Nq, 0, D, vec);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue(i);  // (Q with the first)
+
+  float acc[NCV][RP][4];
+#pragma unroll
+  for (int c = 0; c < NCV; ++c)
+#pragma unroll
+    for (int r = 0; r < RP; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][r][e] = 0.f;
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
+
+  for (int t = 0; t < Nkv; t += BK) {
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 4 * slice; d < DP; d += 64) {
-      float4 qf[4], kf[4];
+    for (int kc = 0; kc < ns; ++kc) {
+      const float* ks = next_stage();
+      const float* qc = qs + kc * DC;
+      const int dl = min(DC, (D - kc * DC + 3) & ~3);  // columns past D are zeros
+#pragma unroll 4
+      for (int d = 0; d < dl; d += 4) {
+        float4 qf[4], kf[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qf[i] = *reinterpret_cast<const float4*>(qs + (tr + i) * LD + d);
-        kf[i] = *reinterpret_cast<const float4*>(ks + (tc + i) * LD + d);
+        for (int i = 0; i < 4; ++i) {
+          qf[i] = *reinterpret_cast<const float4*>(qc + (ty + TY * i) * LDQ + d);
+          kf[i] = *reinterpret_cast<const float4*>(ks + (tx + TX * i) * LDK + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tile_max = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = t + tx + TX * j < Nkv ? s[i][j] * scale : -INFINITY;
+        tile_max = fmaxf(tile_max, s[i][j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
-          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
-          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
-          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(red + slice * LDR + (tr + i) * 16 + tc) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-    __syncthreads();  // every thread is done with K_t, and the partials are visible
-    if (kv0 + BK < Nkv) load_tile<float, DP, 256, BK>(ks, LD, kb, sk.n, kv0 + BK, Nkv, D, vec);
-    cp_async_commit();
-
-    {
-      float x = 0.f;
-#pragma unroll
-      for (int sl = 0; sl < 16; ++sl) x += red[sl * LDR + srow * 16 + scol];
-      x = kv0 + scol < Nkv ? x * scale : -INFINITY;
-      float tile_max = x;
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
+      for (int off = 1; off < TX; off <<= 1)
         tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
       // the first tile always holds a valid column, so m_new is finite
-      const float m_new = fmaxf(m_run, tile_max);
-      const float alpha = expf(m_run - m_new);
-      const float p = expf(x - m_new);
-      float psum = p;
+      const float m_new = fmaxf(m_run[i], tile_max);
+      const float alpha = expf(m_run[i] - m_new);
+      float psum = 0.f;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l_run = l_run * alpha + psum;
-      m_run = m_new;
-      ps[scol * LDP + srow] = p;
-      if (scol == 0) alpha_s[srow] = alpha;
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_new);
+        psum += s[i][j];
+      }
+#pragma unroll
+      for (int off = 1; off < TX; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_run[i] = l_run[i] * alpha + psum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ps[(tx + TX * j) * LDP + ty + TY * i] = s[i][j];
+      if (tx == 0) rowf[ty + TY * i] = alpha;
     }
 
-    cp_async_wait_1();  // V_t has landed (K_{t+1} may be in flight)
-    __syncthreads();    // ... and P and the rescale factors are visible
-    const float a0 = alpha_s[ty], a1 = alpha_s[ty + 8];
+    const int nsub = nsub_of(t);
 #pragma unroll
-    for (int c = 0; c < 4 * NC2; ++c) {
-      acc[0][c] *= a0;
-      acc[1][c] *= a1;
-    }
+    for (int c = 0; c < NCV; ++c) {
+      if (c >= nvc) break;
+      for (int sub = 0; sub < nsub; ++sub) {
+        const float* vs = next_stage();  // ... and P and the rescale factors are visible
+        if (c == 0 && sub == 0) {
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            const float a = rowf[py * RP + r];
+#pragma unroll
+            for (int cc = 0; cc < NCV; ++cc)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[cc][r][e] *= a;
+          }
+        }
+        const float* pp = ps + 64 * sub * LDP + py * RP;
+        const float* vp = vs + 4 * cx;
+        const int jl = min(64, Nkv - t - 64 * sub);
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      const float p0 = ps[j * LDP + ty], p1 = ps[j * LDP + ty + 8];
+        for (int j = 0; j < jl; ++j) {
+          float pr[RP];
 #pragma unroll
-      for (int c = 0; c < NC2; ++c) {
-        const float4 vv = *reinterpret_cast<const float4*>(vs + j * LD + 128 * c + tx * 4);
-        acc[0][4 * c + 0] = fmaf(p0, vv.x, acc[0][4 * c + 0]);
-        acc[0][4 * c + 1] = fmaf(p0, vv.y, acc[0][4 * c + 1]);
-        acc[0][4 * c + 2] = fmaf(p0, vv.z, acc[0][4 * c + 2]);
-        acc[0][4 * c + 3] = fmaf(p0, vv.w, acc[0][4 * c + 3]);
-        acc[1][4 * c + 0] = fmaf(p1, vv.x, acc[1][4 * c + 0]);
-        acc[1][4 * c + 1] = fmaf(p1, vv.y, acc[1][4 * c + 1]);
-        acc[1][4 * c + 2] = fmaf(p1, vv.z, acc[1][4 * c + 2]);
-        acc[1][4 * c + 3] = fmaf(p1, vv.w, acc[1][4 * c + 3]);
+          for (int r = 0; r < RP; r += 4) {
+            const float4 p4 = *reinterpret_cast<const float4*>(pp + j * LDP + r);
+            pr[r] = p4.x;
+            pr[r + 1] = p4.y;
+            pr[r + 2] = p4.z;
+            pr[r + 3] = p4.w;
+          }
+          const float4 vv = *reinterpret_cast<const float4*>(vp + j * LDV);
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            acc[c][r][0] = fmaf(pr[r], vv.x, acc[c][r][0]);
+            acc[c][r][1] = fmaf(pr[r], vv.y, acc[c][r][1]);
+            acc[c][r][2] = fmaf(pr[r], vv.z, acc[c][r][2]);
+            acc[c][r][3] = fmaf(pr[r], vv.w, acc[c][r][3]);
+          }
+        }
       }
     }
-    __syncthreads();  // every thread is done with V_t, P and the rescale factors
-    if (kv0 + BK < Nkv) load_tile<float, DP, 256, BK>(vs, LD, vb, sv.n, kv0 + BK, Nkv, D, vec);
-    cp_async_commit();
   }
 
-  if (scol == 0) {
-    alpha_s[srow] = l_run;
-    if (lse != nullptr && q0 + srow < Nq) lse[size_t(bh) * Nq + q0 + srow] = m_run + logf(l_run);
+  __syncthreads();  // every thread has read the last rescale factors
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = ty + TY * i;
+    if (tx == 0) {
+      rowf[row] = l_run[i];
+      if (lse != nullptr && q0 + row < Nq) lse[size_t(bh) * Nq + q0 + row] = m_run[i] + logf(l_run[i]);
+    }
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qr = q0 + ty + 8 * i;
+  for (int r = 0; r < RP; ++r) {
+    const int qr = q0 + py * RP + r;
     if (qr >= Nq) continue;
     float* orow = o + b * so.b + h * so.h + qr * so.n;
-    const float inv = 1.f / alpha_s[ty + 8 * i];
+    const float inv = 1.f / rowf[py * RP + r];
 #pragma unroll
-    for (int c = 0; c < NC2; ++c) {
-      const int col = 128 * c + tx * 4;
+    for (int c = 0; c < NCV; ++c) {
+      const int col = 128 * c + 4 * cx;
       if (vec_out && col < D) {  // D % 4 == 0: the whole float4 is in range
         *reinterpret_cast<float4*>(orow + col) =
-            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
-                        acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
+            make_float4(acc[c][r][0] * inv, acc[c][r][1] * inv, acc[c][r][2] * inv,
+                        acc[c][r][3] * inv);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (col + e < D) orow[col + e] = acc[i][4 * c + e] * inv;
+          if (col + e < D) orow[col + e] = acc[c][r][e] * inv;
       }
     }
   }
@@ -701,210 +842,424 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------- bf16/f16 path, 256 < D <= 1024
 
-// Wide 16-bit heads (the LDM's one-head transformers under bf16 training,
-// D = 384, 576, 960 and the pruned 268, 404, 672; the first stage's D = 512
-// at 4096 tokens). The 64-row kernel above keeps Q and a K and a V tile of
-// 64 rows: (64 + 2 * 64) * (D_pad + 8) * 2 bytes passes a block's 227 KB near
-// D = 600. This tiling takes 16 query rows (one m16 tile) and 32 kv rows a
-// block, each a whole row of the head dim (padded to DP = 128 * NC2,
-// zero-filled), 256 threads (8 warps):
-// - each warp owns one eighth of the head dim (16 NC2 columns): Q's
-//   fragments of its slice stay in registers for the whole kernel (4 NC2
-//   registers), and it owns those columns of the O accumulator (8 NC2
-//   floats a thread, at most 64), so no warp holds a whole 16 x 1024 row;
-// - S = Q K_t^T: each warp forms the partial S of its slice (16 x 32, B
-//   from K_t by ldmatrix), the 8 partials meet in shared memory (over the Q
-//   tile, free once the fragments are in registers) and are summed in a
-//   fixed order, no atomics; thread t then owns row t / 16, columns 2 (t %
-//   16) .. +1 of S for the online softmax (log2 units; row max and sum by
-//   shuffles across the row's 16 lanes), rounds p to the input type once and
-//   writes it to a 16 x 32 tile with the row's rescale factor;
-// - O += P V_t: A = P from that tile (ldmatrix), B = V_t (.trans), each warp
-//   its own columns;
-// - K and V stream through one slot each, as in the 64-row kernel: K_{t+1}
-//   is issued once the partials are formed and overlaps the softmax and P
-//   V_t; V_{t+1} once P V_t is done. What it gives up against the 64-row
-//   kernel: a two-slot ring at 64 kv rows (264 KB at D = 1024), and Q's
-//   reuse across 4 warps of query rows: every kv row is read from shared
-//   memory once per 16 query rows;
-// - copies in the widest chunk the views allow (copy_wide16 in
-//   tensor_core.cuh): 16-byte cp.async for aligned views, 8 or 4 bytes for
-//   the pruned widths' rows, 2-byte loads otherwise.
-// Shared memory at D = 1024 in bf16: 16 * 1032 * 2 (Q, then the partials,
-// then O) + 2 * 32 * 1032 * 2 (K, V) + 16 * 40 * 2 (P) + 32 * 4 = 166,528
-// bytes, one block (8 warps) per SM; at D_pad = 384, 70,016 bytes.
-constexpr int kWideQ16 = 16;   // query rows a block (wide 16-bit kernel)
-constexpr int kWideKv16 = 32;  // kv rows a tile
+// Replaces, for bf16/f16 at 256 < D <= 1024, the TPU kernel
+// `_flash_fwd_call` / `_fwd_kernel` (diff_pruning_tpu/ops/attention.py:97),
+// lse included: the LDM's one-head transformers under bf16 training (D =
+// 384, 576, 960 and the pruned 268, 404, 672) and its first stage's encode
+// (D = 512 at 4096 tokens), on the tensor cores with Hopper's warpgroup
+// products.
+//
+// What bounds it on the H100: the tensor cores (989 TFLOP/s) by the count of
+// operations, ~500 flops a byte at (1024, 1024, 384); what keeps a kernel
+// from that rate is feeding them: how often a K/V row is fetched again from
+// L2 (once per query tile) and how many shared-memory bytes each product
+// reads.
+//
+// The design: 64-row query tiles, one m64 row of `wgmma` (m64nNk16, f32
+// accumulators), 256 threads = two warpgroups a block:
+// - O (64 x D) is split by columns: each warpgroup owns DW = 64 NW columns
+//   (NW = 3 or 4: 96 or 128 f32 registers a thread), a block DO = 2 DW;
+//   above DO = 512 a cluster of Z = 2 blocks (grid.z) splits the head dim:
+//   each block holds its DO columns of Q, K, V and O;
+// - Q (64 x DO) is resident in shared memory; the block's columns of K and
+//   V tiles (64 kv rows) stream through one cp.async ring (K_0, V_0, K_1,
+//   ...) of as many slots as shared memory holds (2 or 3), one barrier a
+//   stage: each stage's copy overlaps the products of the stages before it;
+// - S = Q K_t^T (64 x 64) from shared memory (A = Q, B = K, both K-major):
+//   each warpgroup forms the block's whole partial S, so the two compute
+//   the same bits; in a cluster the two blocks' partials are added through
+//   distributed shared memory (both add the same two numbers: the same
+//   bits in both, no atomics). The online softmax runs on the accumulator
+//   registers (row max and sum across the 4 lanes of a quad, log2 units),
+//   and P, rounded to the input type once, is the A operand of the PV
+//   product straight from registers (its accumulator layout is already the
+//   A fragment layout);
+// - O += P V_t: A = P from registers, B = V_t from shared memory (MN-major,
+//   the head dim contiguous: transposed B), in n64 column chunks.
+// Each K/V row is fetched from L2 once per 64 query rows (each block of a
+// cluster fetching its half of the columns), against once per 16 rows by
+// the tiling this replaces: bytes per query row 2 D (Q, once) + 2 * 2 Nkv D
+// / 64 (K and V), against 2 D + 2 * 2 Nkv D / 16: 4x less for K and V;
+// 25,344 against 99,072 at (1024, 1024, 384), 132,096 against 525,312 at
+// (4096, 4096, 512).
+// The copies, issued by the same warps as the products, bound it at the
+// main shapes (fwd_breakdown.py), so they are made cheap to issue: a warp's
+// cp.async run along 512 contiguous bytes of a row, the 128-byte swizzle
+// puts their 16-byte chunks on distinct banks, and tiles wholly in range
+// take a path without per-chunk checks. Otherwise copies take the widest
+// chunk the views allow (16, 8 or 4 bytes by cp.async, or 2-byte loads; the
+// pruned widths' rows are 8- or 4-byte aligned), zero-filling rows past
+// Nq/Nkv and columns past D.
+// Shared memory: Q + NS K/V slots (+ 32 KB of partials in a cluster) + 1 KB
+// of alignment: 197,632 bytes at DO = 384 (3 slots) and 512 (2 slots),
+// 230,400 in a cluster; one block per SM.
 
-template <typename T>
-__host__ __device__ constexpr int wide16_front_bytes(int dp) {  // Q, or the partial S
-  const int q = kWideQ16 * (dp + 8) * int(sizeof(T));
-  const int red = 8 * kWideQ16 * (kWideKv16 + 4) * 4;
-  return q > red ? q : red;
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, the byte offsets between 8-row groups (sbo) and, for an MN-major
+// operand, between 64-element column blocks (lbo; unused K-major)
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
+                   "memory");
+}
+// generic-proxy writes to shared memory (cp.async, stores) made visible to wgmma
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <typename T, int NC2>  // head dim padded to 128 * NC2
+// the thread-block cluster (2 blocks splitting the head dim): this block's
+// rank, a barrier over both (release / acquire), and loads of the other
+// block's shared memory
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
+                   "memory");
+}
+// the address of `p` (this block's shared memory) in block `rank`'s
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+template <typename T> struct Gmma;
+#define GMMA_TYPES(T, S)                                                                          \
+  template <> struct Gmma<T> {                                                                    \
+    /* d (64 x 64) += A (64 x 16, shared) B^T (64 x 16, shared), both K-major */                  \
+    static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b) {         \
+      asm volatile(                                                                               \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." S "." S " "                               \
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+          "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                         \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+            "+f"(d[31])                                                                           \
+          : "l"(a), "l"(b), "n"(1));                                                              \
+    }                                                                                             \
+    /* d (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major: transposed) */         \
+    static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4],           \
+                                                uint64_t b) {                                     \
+      asm volatile(                                                                               \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
+          "wgmma.mma_async.sync.aligned.m64n64k16.f32." S "." S " "                               \
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
+          "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                           \
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+            "+f"(d[31])                                                                           \
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));                          \
+    }                                                                                             \
+  };
+GMMA_TYPES(__nv_bfloat16, "bf16")
+GMMA_TYPES(__half, "f16")
+#undef GMMA_TYPES
+
+// The layout of an R x C tile of 16-bit values (C the contiguous dim) that
+// wgmma reads with the 128-byte swizzle: slabs of 64 columns, each R rows of
+// 128 bytes, in which 16-byte chunk c of row r lies at chunk c ^ (r % 8);
+// slabs and tiles 1024-byte aligned. A warp's copies run along the rows of
+// device memory and land on distinct banks.
+//
+// Issues the copy of rows [row0, row0 + R) x columns [col0, col0 + C) of one
+// head (row stride sn elements) into such a tile, rows >= nvalid and columns
+// >= D zero-filled, in chunks of `granule` bytes (copy_granule); at 2 bytes
+// the loads and stores are plain.
+template <int R, int C>
+__device__ __forceinline__ void copy_sw128(void* dst, const void* src, long long sn, int row0,
+                                           int nvalid, int col0, int D, int granule) {
+  constexpr int CH = C / 8;  // chunks a row
+  uint16_t* d0 = static_cast<uint16_t*>(dst);
+  const uint16_t* s0 = static_cast<const uint16_t*>(src);
+  // the whole tile in range: the copies alone, no per-chunk checks (the
+  // copies' issue bounds the kernel)
+  if (granule == 16 && row0 + R <= nvalid && col0 + C <= D) {
+    const uint16_t* s1 = s0 + row0 * sn + col0;
+    for (int i = threadIdx.x; i < R * CH; i += 256) {
+      const int r = i / CH, c = i - r * CH;
+      cp_async_n<16>(d0 + (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3),
+                     s1 + r * sn + 8 * c, 16);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < R * CH; i += 256) {
+    const int r = i / CH, c = i - r * CH;
+    const int row = row0 + r;
+    const int col = col0 + 8 * c;
+    uint16_t* d = d0 + (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+    const int n = row < nvalid ? min(8, D - col) : 0;  // elements to read, <= 0: none
+    const uint16_t* s = n > 0 ? s0 + row * sn + col : s0;  // (zero-fill: nothing is read)
+    if (granule == 16) {
+      cp_async_n<16>(d, s, n > 0 ? 2 * n : 0);
+    } else if (granule == 8) {
+#pragma unroll
+      for (int e = 0; e < 8; e += 4)
+        cp_async_n<8>(d + e, n > e ? s + e : s0, n > e ? 2 * min(4, n - e) : 0);
+    } else if (granule == 4) {
+#pragma unroll
+      for (int e = 0; e < 8; e += 2)
+        cp_async_n<4>(d + e, n > e ? s + e : s0, n > e ? 2 * min(2, n - e) : 0);
+    } else {
+      uint16_t x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = e < n ? s[e] : uint16_t(0);
+      *reinterpret_cast<uint4*>(d) = make_uint4(x[0] | uint32_t(x[1]) << 16,
+                                                x[2] | uint32_t(x[3]) << 16,
+                                                x[4] | uint32_t(x[5]) << 16,
+                                                x[6] | uint32_t(x[7]) << 16);
+    }
+  }
+}
+
+// the ring's slots, each a K or V tile [64][2 DW] of 16-bit values: as many
+// as a block's 227 KB hold beside Q [64][2 DW], 1 KB of alignment and, in a
+// cluster, the S partials (2 x 64 x 64 f32)
+template <int NW, int Z>
+__host__ __device__ constexpr int wide16_slots() {
+  return (232448 - 1024 - 16384 * NW - (Z > 1 ? 32768 : 0)) / (16384 * NW);
+}
+
+template <int NW, int Z>
+__host__ __device__ constexpr int wide16_smem_bytes() {
+  // (+ 1024: the tiles start 1024-byte aligned)
+  return (1 + wide16_slots<NW, Z>()) * 16384 * NW + (Z > 1 ? 32768 : 0) + 1024;
+}
+
+template <typename T, int NW, int Z>  // n64 chunks of O a warpgroup; blocks (a cluster) a tile
 __global__ void __launch_bounds__(256, 1)
-flash_fwd_kernel_mma_wide(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                          int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
-                          Strides so, float scale, int granule, int vec_out) {
-  constexpr int BQ = kWideQ16, BK = kWideKv16;
-  constexpr int DP = 128 * NC2;
-  constexpr int LD = DP + 8;    // rows 16 bytes apart modulo 128: ldmatrix conflict-free
-  constexpr int WC = DP / 8;    // the warp's head-dim columns
-  constexpr int KS = WC / 16;   // its k-steps of S (= NC2)
-  constexpr int NT = WC / 8;    // its n-tiles of O (= 2 NC2)
-  constexpr int LDS = BK + 4;   // partial S rows (f32)
-  constexpr int LDP = BK + 8;   // P rows (16-bit)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* qs = reinterpret_cast<T*>(smem_raw);        // [16][LD] Q, at the end O
-  float* red = reinterpret_cast<float*>(smem_raw);  // [8 warps][16][LDS] partial S
-  T* ks = reinterpret_cast<T*>(smem_raw + wide16_front_bytes<T>(DP));  // [32][LD]
-  T* vs = ks + BK * LD;                          // [32][LD]
-  T* ps = vs + BK * LD;                          // [16][LDP] P of the kv tile
-  float* rowf = reinterpret_cast<float*>(ps + BQ * LDP);  // [16] rescale, [16] row sums
+flash_fwd_kernel_wgmma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                            int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                            Strides so, float scale, int granule, int vec_out) {
+  constexpr int DW = 64 * NW;    // O columns a warpgroup
+  constexpr int DO = 2 * DW;     // head-dim columns a block (Q, K, V and O)
+  constexpr int BK = 64;         // kv rows a tile
+  constexpr int NB = BK / 8;     // n8 blocks of S
+  constexpr int NS = wide16_slots<NW, Z>();
+  static_assert(NS >= 2, "a ring of two slots at least");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  // qs: Q [64][DO], at the end O
+  T* ring = qs + 64 * DO;                  // NS x [BK][DO]: K_t, V_t, K_t+1, ...
+  float* red = reinterpret_cast<float*>(ring + NS * BK * DO);  // Z > 1: 2 x [32][128]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * BQ;
+  const int q0 = blockIdx.y * 64;
+  const uint32_t rank = Z > 1 ? cluster_rank() : 0;  // = blockIdx.z
+  const int c0 = rank * DO;  // the block's first head-dim column
   const int tid = threadIdx.x;
+  const int wg = tid >> 7;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int c0 = warp * WC;
+  const int row_a = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's rows: row_a, +8
 
   const T* kb = k + b * sk.b + h * sk.h;
   const T* vb = v + b * sv.b + h * sv.h;
-  copy_wide16<T, DP, BQ, 256>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, granule);
-  copy_wide16<T, DP, BK, 256>(ks, kb, sk.n, 0, Nkv, D, granule);
-  cp_async_commit();
-  copy_wide16<T, DP, BK, 256>(vs, vb, sv.n, 0, Nkv, D, granule);
-  cp_async_commit();
-
-  uint32_t qf[KS][4];  // Q's A fragments of the warp's slice
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  // softmax: row rr, columns rc, rc + 1 of the tile; scores in log2 units
-  const int rr = tid >> 4, rc = (tid & 15) * 2;
-  float m_run = -INFINITY, l_run = 0.f;
-  const float scale2 = scale * kLog2e;
-  // ldmatrix addresses (as the 64-row kernel's): A rows lane % 16, column
-  // half lane / 16; K rows lane % 8 + 8 (lane / 16) of a pair of n-tiles,
-  // column half (lane / 8) % 2; V (.trans) rows lane % 8 + 8 ((lane / 8) %
-  // 2), column half lane / 16
-  const int a_off = (lane & 15) * LD + (lane >> 4) * 8 + c0;
-  const T* kl = ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8 + c0;
-  const T* vl = vs + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD + (lane >> 4) * 8 + c0;
-  const T* pl = ps + (lane & 15) * LDP + (lane >> 4) * 8;
-
-  for (int kv0 = 0; kv0 < Nkv; kv0 += BK) {
-    cp_async_wait_1();  // Q and K_t have landed (V_t may be in flight)
+  // stage s of the ring: the block's columns of K (s even) or V (odd) of kv
+  // tile s / 2
+  int next = 0;
+  auto issue = [&](int slot) {
+    const int t = (next >> 1) * BK;
+    if (t < Nkv)
+      copy_sw128<BK, DO>(ring + slot * BK * DO, next & 1 ? vb : kb, next & 1 ? sv.n : sk.n, t,
+                         Nkv, c0, D, granule);
+    cp_async_commit();
+    ++next;
+  };
+  // one barrier a stage: once both warpgroups are past it, the slot of the
+  // stage before (its products waited for) is free and takes the stage NS - 1
+  // ahead
+  int slot = 0;
+  auto next_stage = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2));  // this stage has landed
+    fence_proxy_async();
     __syncthreads();
-    if (kv0 == 0) {
+    issue(slot == 0 ? NS - 1 : slot - 1);
+    T* at = ring + slot * BK * DO;
+    slot = slot == NS - 1 ? 0 : slot + 1;
+    return at;
+  };
+  copy_sw128<64, DO>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, c0, D, granule);
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], qs + a_off + kk * 16);
-      __syncthreads();  // every warp holds its fragments: the Q tile takes the partials
-    }
-    float sacc[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kl + np * 16 * LD + kk * 16);
-        mma16816(sacc[2 * np], qf[kk], bf[0], bf[1], static_cast<T*>(nullptr));
-        mma16816(sacc[2 * np + 1], qf[kk], bf[2], bf[3], static_cast<T*>(nullptr));
-      }
-    float* rw = red + warp * BQ * LDS + (lane >> 2) * LDS + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      *reinterpret_cast<float2*>(rw + n * 8) = make_float2(sacc[n][0], sacc[n][1]);
-      *reinterpret_cast<float2*>(rw + 8 * LDS + n * 8) = make_float2(sacc[n][2], sacc[n][3]);
-    }
-    __syncthreads();  // the partials are visible; every warp is done with K_t
-    if (kv0 + BK < Nkv) copy_wide16<T, DP, BK, 256>(ks, kb, sk.n, kv0 + BK, Nkv, D, granule);
-    cp_async_commit();
+  for (int i = 0; i < NS - 1; ++i) issue(i);  // (Q with the first)
 
-    {
-      float2 s = make_float2(0.f, 0.f);
+  float oacc[NW][32];
 #pragma unroll
-      for (int w = 0; w < 8; ++w) {  // in a fixed order
-        const float2 x = *reinterpret_cast<const float2*>(red + w * BQ * LDS + rr * LDS + rc);
-        s.x += x.x;
-        s.y += x.y;
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) oacc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // scores in log2 units
+  float l_part[2] = {0.f, 0.f};             // this lane's share of the row sums
+  const float scale2 = scale * kLog2e;
+  const int ksteps = min(DO, D - c0 + 15) >> 4;  // the block's k-steps holding columns < D
+  // Q and K (K-major) and V (MN-major) in 64-column slabs of 128-byte rows
+  // (copy_sw128): the next 8 rows 1024 bytes on, the next slab 64 rows (8192
+  // bytes) on; k-step kk of S starts in slab kk / 4, 32 (kk % 4) bytes in
+  const uint64_t qdesc = gmma_desc(qs, 16, 1024);
+
+  for (int t = 0, it = 0; t < Nkv; t += BK, ++it) {
+    const T* ks = next_stage();  // Q and K_t have landed
+    float sacc[NB * 4];
+#pragma unroll
+    for (int e = 0; e < NB * 4; ++e) sacc[e] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+    const uint64_t kdesc = gmma_desc(ks, 16, 1024);
+    for (int kk = 0; kk < ksteps; ++kk) {
+      const int step = ((kk >> 2) * 8192 + (kk & 3) * 32) >> 4;  // the start address, >> 4
+      Gmma<T>::ss64(sacc, qdesc + step, kdesc + step);
+    }
+    wgmma_commit_wait();
+    fence_regs(sacc);
+    if constexpr (Z > 1) {
+      // S = this block's partial + the other's: the same sum, in the same
+      // bits, in both (a + b == b + a); the partials alternate between two
+      // buffers, so one cluster barrier a tile keeps a buffer from being
+      // written again before the other block has read it
+      float* mine = red + (it & 1) * 32 * 128;
+      if (wg == 0) {
+#pragma unroll
+        for (int e = 0; e < NB * 4; ++e) mine[e * 128 + tid] = sacc[e];
       }
-      s.x = kv0 + rc < Nkv ? s.x * scale2 : -INFINITY;
-      s.y = kv0 + rc + 1 < Nkv ? s.y * scale2 : -INFINITY;
-      float tile_max = fmaxf(s.x, s.y);
+      cluster_sync();
+      const uint32_t theirs = cluster_map(mine + (tid & 127), rank ^ 1);
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
+      for (int e = 0; e < NB * 4; ++e) sacc[e] += ld_cluster(theirs + e * 128 * 4);
+    }
+
+    // online softmax on rows row_a (e % 4 < 2) and row_a + 8; the
+    // accumulator holds S[row][8 j + 2 (lane % 4) + e % 2] at sacc[4 j + e]
+    float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = t + 8 * j + 2 * (lane & 3) + (e & 1);
+        sacc[4 * j + e] = col < Nkv ? sacc[4 * j + e] * scale2 : -INFINITY;
+        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], sacc[4 * j + e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
       // the first tile always holds a valid column, so m_new is finite
-      const float m_new = fmaxf(m_run, tile_max);
-      const float alpha = exp2f(m_run - m_new);
-      const float p0 = exp2f(s.x - m_new), p1 = exp2f(s.y - m_new);
-      float psum = p0 + p1;
+      const float m_new = fmaxf(m_run[r], tile_max[r]);
+      const float alpha = exp2f(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_part[r] *= alpha;
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l_run = l_run * alpha + psum;
-      m_run = m_new;
-      *reinterpret_cast<uint32_t*>(ps + rr * LDP + rc) = pack2(p0, p1, static_cast<T*>(nullptr));
-      if ((tid & 15) == 0) rowf[rr] = alpha;
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          oacc[n][4 * j + 2 * r] *= alpha;
+          oacc[n][4 * j + 2 * r + 1] *= alpha;
+        }
     }
+    uint32_t pa[BK / 16][4];  // P as the A operand of the k-steps of 16 kv rows
+#pragma unroll
+    for (int e = 0; e < NB * 4; ++e) {
+      sacc[e] = exp2f(sacc[e] - m_run[(e >> 1) & 1]);
+      l_part[(e >> 1) & 1] += sacc[e];
+    }
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kt][e] = pack2(sacc[8 * kt + 2 * e], sacc[8 * kt + 2 * e + 1], static_cast<T*>(nullptr));
 
-    cp_async_wait_1();  // V_t has landed (K_{t+1} may be in flight)
-    __syncthreads();    // ... and P and the rescale factors are visible
-    const float a0 = rowf[lane >> 2], a1 = rowf[(lane >> 2) + 8];
+    const T* vs = next_stage();  // V_t has landed
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= a0;
-      oacc[n][1] *= a0;
-      oacc[n][2] *= a1;
-      oacc[n][3] *= a1;
-    }
+    for (int n = 0; n < NW; ++n) fence_regs(oacc[n]);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      ldmatrix_x4(pa, pl + kk * 16);
+    for (int kt = 0; kt < BK / 16; ++kt)
 #pragma unroll
-      for (int dc = 0; dc < NT / 2; ++dc) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vl + kk * 16 * LD + dc * 16);
-        mma16816(oacc[2 * dc], pa, bf[0], bf[1], static_cast<T*>(nullptr));
-        mma16816(oacc[2 * dc + 1], pa, bf[2], bf[3], static_cast<T*>(nullptr));
+      for (int n = 0; n < NW; ++n) {
+        // all the block's columns, zeros past D included: a branch here
+        // would keep ptxas from pipelining the products
+        const int col = wg * DW + 64 * n;
+        Gmma<T>::rs64(oacc[n], pa[kt], gmma_desc(vs + (col / 64) * BK * 64 + kt * 16 * 64,
+                                                 BK * 128, 1024));
       }
-    }
-    __syncthreads();  // every warp is done with V_t, P and the rescale factors
-    if (kv0 + BK < Nkv) copy_wide16<T, DP, BK, 256>(vs, vb, sv.n, kv0 + BK, Nkv, D, granule);
-    cp_async_commit();
-  }
-
-  if ((tid & 15) == 0) {
-    rowf[BQ + rr] = l_run;
-    if (lse != nullptr && q0 + rr < Nq)
-      lse[size_t(bh) * Nq + q0 + rr] = (m_run + log2f(l_run)) * kLn2;
-  }
-  __syncthreads();
-  // O / l rounded once, through the Q tile (the partials are done with)
-  const float i0 = 1.f / rowf[BQ + (lane >> 2)], i1 = 1.f / rowf[BQ + (lane >> 2) + 8];
-  T* orow = qs + (lane >> 2) * LD + c0 + (lane & 3) * 2;
+    wgmma_commit_wait();
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    *reinterpret_cast<uint32_t*>(orow + n * 8) =
-        pack2(oacc[n][0] * i0, oacc[n][1] * i0, static_cast<T*>(nullptr));
-    *reinterpret_cast<uint32_t*>(orow + 8 * LD + n * 8) =
-        pack2(oacc[n][2] * i1, oacc[n][3] * i1, static_cast<T*>(nullptr));
+    for (int n = 0; n < NW; ++n) fence_regs(oacc[n]);
   }
+  // the other block may still read this one's partials
+  if constexpr (Z > 1) cluster_sync();
+
+  // O / l rounded once into the Q tile (free: both warpgroups passed the
+  // last stage's barrier after their last S), laid out as copy_sw128 lays
+  // out Q, then out along the rows in 16-byte chunks
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_part[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / l;
+    const int row = row_a + 8 * r;
+    if (lse != nullptr && wg == 0 && rank == 0 && (lane & 3) == 0 && q0 + row < Nq)
+      lse[size_t(bh) * Nq + q0 + row] = (m_run[r] + log2f(l)) * kLn2;
+  }
+  uint16_t* ot = reinterpret_cast<uint16_t*>(qs);
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        const int c = (wg * DW + 64 * n) / 8 + j;  // the 16-byte chunk of the row
+        *reinterpret_cast<uint32_t*>(ot + (c >> 3) * 64 * 64 + row * 64 +
+                                     (((c & 7) ^ (row & 7)) << 3) + 2 * (lane & 3)) =
+            pack2(oacc[n][4 * j + 2 * r] * inv[r], oacc[n][4 * j + 2 * r + 1] * inv[r],
+                  static_cast<T*>(nullptr));
+      }
   __syncthreads();
-  store_wide16<BQ, LD, 256>(o + b * so.b + h * so.h, so.n, qs, q0, Nq, D, vec_out);
+  uint16_t* ob = reinterpret_cast<uint16_t*>(o + b * so.b + h * so.h);
+  for (int i = tid; i < 64 * (DO / 8); i += 256) {
+    const int r = i / (DO / 8), c = i - r * (DO / 8);
+    const int row = q0 + r, col = c0 + 8 * c;
+    if (row >= Nq || col >= D) continue;
+    const uint16_t* from = ot + (c >> 3) * 64 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+    if (vec_out) {  // D % 8 == 0: the whole chunk is in range
+      *reinterpret_cast<uint4*>(ob + row * so.n + col) = *reinterpret_cast<const uint4*>(from);
+    } else {
+      for (int e = 0; e < 8 && col + e < D; ++e) ob[row * so.n + col + e] = from[e];
+    }
+  }
 }
 
 // ------------------------------------------------------------------ launch
@@ -935,20 +1290,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-template <int NC2>
+template <int BQ, int NCV>
 cudaError_t launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse,
                             dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
                             Strides sv, Strides so, float scale, int vec, int vec_out,
                             cudaStream_t stream) {
-  constexpr int LD = 128 * NC2 + 4;
-  const size_t smem = (size_t(3 * 16) * LD + 16 * (256 + 4) + 16 * 17 + 16) * sizeof(float);
+  constexpr int smem = f32_wide_smem_bytes<BQ, NCV>();
   static bool ready = false;
   if (!ready) {
-    const cudaError_t err = set_smem(flash_fwd_kernel_f32_wide<NC2>, smem);
+    const cudaError_t err = set_smem(flash_fwd_kernel_f32_wide<BQ, NCV>, smem);
     if (err != cudaSuccess) return err;
     ready = true;
   }
-  flash_fwd_kernel_f32_wide<NC2><<<grid, 256, smem, stream>>>(
+  grid.y = (Nq + BQ - 1) / BQ;
+  flash_fwd_kernel_f32_wide<BQ, NCV><<<grid, 256, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Nq, Nkv, D, sq, sk, sv,
       so, scale, vec, vec_out);
@@ -974,24 +1329,43 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, flo
   return cudaGetLastError();
 }
 
-template <typename T, int NC2>
-cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
-                            dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
-                            Strides sv, Strides so, float scale, int granule, int vec_out,
-                            cudaStream_t stream) {
-  constexpr int LD = 128 * NC2 + 8;
-  const size_t smem = wide16_front_bytes<T>(128 * NC2) +
-                      size_t(2 * kWideKv16 * LD + kWideQ16 * (kWideKv16 + 8)) * sizeof(T) +
-                      2 * kWideQ16 * sizeof(float);
+template <typename T, int NW, int Z>
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                              dim3 grid, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                              Strides sv, Strides so, float scale, int granule, int vec_out,
+                              cudaStream_t stream) {
+  constexpr int smem = wide16_smem_bytes<NW, Z>();
   static bool ready = false;
   if (!ready) {
-    const cudaError_t err = set_smem(flash_fwd_kernel_mma_wide<T, NC2>, smem);
+    const cudaError_t err = set_smem(flash_fwd_kernel_wgmma_wide<T, NW, Z>, smem);
     if (err != cudaSuccess) return err;
     ready = true;
   }
-  flash_fwd_kernel_mma_wide<T, NC2><<<grid, 256, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, H, Nq, Nkv, D, sq, sk, sv, so, scale, granule, vec_out);
+  grid.y = (Nq + 63) / 64;
+  grid.z = Z;
+  if constexpr (Z == 1) {
+    flash_fwd_kernel_wgmma_wide<T, NW, Z><<<grid, 256, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, H, Nq, Nkv, D, sq, sk, sv, so, scale, granule, vec_out);
+  } else {  // the Z blocks of a query tile form a cluster
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(256);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = Z;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, flash_fwd_kernel_wgmma_wide<T, NW, Z>, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, H, Nq, Nkv,
+        D, sq, sk, sv, so, scale, granule, vec_out);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 
@@ -1011,15 +1385,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   const int nc = (D + 63) / 64;
 #define FA_ARGS q, k, v, o, lse, grid, H, Nq, Nkv, D, sq, sk, sv, so, scale, vec, vec_out, stream
   if constexpr (sizeof(T) == 4) {
-    if (D > kMaxD) {  // 16-row tiles of the whole head dim
-      grid.y = (Nq + 15) / 16;
+    if (D > kMaxD) {  // 64-row query tiles to D_pad = 512, 32 above
       switch ((D + 127) / 128) {
-        case 3: return launch_f32_wide<3>(FA_ARGS);
-        case 4: return launch_f32_wide<4>(FA_ARGS);
-        case 5: return launch_f32_wide<5>(FA_ARGS);
-        case 6: return launch_f32_wide<6>(FA_ARGS);
-        case 7: return launch_f32_wide<7>(FA_ARGS);
-        default: return launch_f32_wide<8>(FA_ARGS);
+        case 3: return launch_f32_wide<64, 3>(FA_ARGS);
+        case 4: return launch_f32_wide<64, 4>(FA_ARGS);
+        case 5: return launch_f32_wide<32, 5>(FA_ARGS);
+        case 6: return launch_f32_wide<32, 6>(FA_ARGS);
+        case 7: return launch_f32_wide<32, 7>(FA_ARGS);
+        default: return launch_f32_wide<32, 8>(FA_ARGS);
       }
     }
     switch (nc) {
@@ -1029,19 +1402,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
       default: return launch_f32<4>(FA_ARGS);
     }
   } else {
-    if (D > kMaxD) {  // 16-row query tiles of the whole head dim
-      grid.y = (Nq + kWideQ16 - 1) / kWideQ16;
+    if (D > kMaxD) {  // 64-row query tiles on two warpgroups, the O columns split
       const int g = copy_granule(view_bits(q, sq.b, sq.h, sq.n) |
                                  view_bits(k, sk.b, sk.h, sk.n) | view_bits(v, sv.b, sv.h, sv.n));
 #define FA_WIDE_ARGS q, k, v, o, lse, grid, H, Nq, Nkv, D, sq, sk, sv, so, scale, g, vec_out, stream
-      switch ((D + 127) / 128) {
-        case 3: return launch_mma_wide<T, 3>(FA_WIDE_ARGS);
-        case 4: return launch_mma_wide<T, 4>(FA_WIDE_ARGS);
-        case 5: return launch_mma_wide<T, 5>(FA_WIDE_ARGS);
-        case 6: return launch_mma_wide<T, 6>(FA_WIDE_ARGS);
-        case 7: return launch_mma_wide<T, 7>(FA_WIDE_ARGS);
-        default: return launch_mma_wide<T, 8>(FA_WIDE_ARGS);
-      }
+      if (D <= 384) return launch_wgmma_wide<T, 3, 1>(FA_WIDE_ARGS);
+      if (D <= 512) return launch_wgmma_wide<T, 4, 1>(FA_WIDE_ARGS);
+      if (D <= 768) return launch_wgmma_wide<T, 3, 2>(FA_WIDE_ARGS);
+      return launch_wgmma_wide<T, 4, 2>(FA_WIDE_ARGS);
 #undef FA_WIDE_ARGS
     }
     switch (nc) {

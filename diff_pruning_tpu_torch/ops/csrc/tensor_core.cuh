@@ -61,12 +61,13 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
 
 // ------------------------------------------------ the wide 16-bit kernels
 //
-// Copies of the 16-bit kernels for 256 < D <= 1024 (flash_fwd_kernel_mma_wide,
-// flash_bwd_{dq,dkv}_kernel_mma_wide): head-split views of pruned widths
-// have rows that are only 8- or 4-byte aligned (D = 268 and 404 in bf16:
-// 536- and 808-byte rows), so a launch copies in the widest chunk that the
-// bases and strides of all its inputs allow: 16, 8 or 4 bytes by cp.async,
-// or 2-byte loads and stores (`granule`).
+// Copies of the 16-bit kernels for 256 < D <= 1024
+// (flash_fwd_kernel_wgmma_wide, which lays its tiles out for wgmma with its
+// own copy_core16, and flash_bwd_{dq,dkv}_kernel_mma_wide): head-split
+// views of pruned widths have rows that are only 8- or 4-byte aligned (D =
+// 268 and 404 in bf16: 536- and 808-byte rows), so a launch copies in the
+// widest chunk that the bases and strides of all its inputs allow: 16, 8 or
+// 4 bytes by cp.async, or 2-byte loads and stores (`granule`).
 
 // the base and the byte strides of a [b][h][n][d] view of 2-byte values,
 // or-ed: a power of two divides all of them if it divides this

@@ -113,7 +113,12 @@ def _check_flash_attention_forward(cuda):
             (2, 3, 40, 40, 300), (4, 1, 1024, 1024, 268), (4, 1, 1024, 1, 268),
             (4, 1, 256, 256, 404), (4, 1, 256, 1, 404), (4, 1, 64, 64, 672),
             (4, 1, 64, 1, 672), (2, 1, 64, 64, 320), (2, 1, 64, 1, 1024)]
-    runs = [(case, dtype) for case in cases + wide for dtype in TOL]
+    # the wide kernels' tile edges: Nq and Nkv around the 32- and 64-row query
+    # tiles and the 16-, 32-, 64- and 128-row kv tiles, at the head dims where
+    # the tiling changes (D_pad 384, 512, 640, 1024)
+    edges = [(1, 1, nq, nkv, d) for d in (257, 384, 512, 513, 1024)
+             for nq in (1, 31, 33, 63, 65, 127) for nkv in (1, 31, 33, 63, 65, 127)]
+    runs = [(case, dtype) for case in cases + wide + edges for dtype in TOL]
     for (b, h, nq, nkv, d), dtype in runs:
         q, k, v = (torch.randn((b, h, n, d), generator=gen, device=cuda).to(dtype)
                    for n in (nq, nkv, nkv))
@@ -129,10 +134,11 @@ def _check_flash_attention_forward(cuda):
                    what + " lse")
     # head-split views of (B, N, heads*dh) projections, as the layer passes
     # them (dh = 179 and 269: rows not 16-byte aligned; in 16 bits 2-byte
-    # aligned, and dh = 268: 8-byte aligned), and a head dim cut from a wider
-    # tensor (D = 37 of 64)
+    # aligned, dh = 268: 8-byte aligned and dh = 270: 4-byte aligned; one and
+    # several heads), and a head dim cut from a wider tensor (D = 37 of 64)
     for dtype in TOL:
-        for heads, dh in ((4, 40), (1, 179), (1, 269), (1, 268), (2, 960)):
+        for heads, dh in ((4, 40), (1, 179), (1, 269), (1, 268), (2, 960), (3, 268), (3, 269),
+                          (2, 270)):
             t = torch.randn((2, 64, 3 * heads * dh), generator=gen, device=cuda).to(dtype)
             q, k, v = (z.view(2, 64, heads, dh).transpose(1, 2)
                        for z in t.split(heads * dh, dim=-1))
