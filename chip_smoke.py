@@ -23,17 +23,19 @@ lines.
    checkout's sources (one nvcc per source, sm_90a, all at once); prints
    the build seconds and ptxas's registers and spills (per kernel for the
    attention forward and backward, f32 and bf16/f16, and the GroupNorm
-   backward; the wide forward kernels must not spill), and counts the
-   tensor-core (HMMA: mma.sync; HGMMA: wgmma) and FFMA instructions in the
-   SASS (cuobjdump) of the attention kernels and the GroupNorm backward: the
-   bf16/f16 attention kernels (forward, dq, dk/dv, the wide ones above D =
-   256 too, the wide forward with wgmma) must use the tensor cores, the f32
-   attention kernels and the GroupNorm backward must not.
+   backward; the wide forward kernels and the wgmma backward kernels must
+   not spill), and counts the tensor-core (HMMA: mma.sync; HGMMA: wgmma) and
+   FFMA instructions in the SASS (cuobjdump) of the attention kernels and
+   the GroupNorm backward: the bf16/f16 attention kernels (forward, dq,
+   dk/dv, the wide ones above D = 256 too; the wide forward and the wgmma
+   dq and dk/dv with wgmma) must use the tensor cores, the f32 attention
+   kernels and the GroupNorm backward must not.
    With ``--compare-fwd LABEL=SRC`` or ``--compare-bwd LABEL=SRC``
    (repeatable) it also builds SRC, another version of
    flash_attention_fwd.cu or flash_attention_bwd.cu with the same C
    interface (e.g. the parent commit's, unpacked by ``git archive``), beside
-   the port's own builds, for phases 16 and 18 (forward) or 13 (backward).
+   the port's own builds, for phases 16 and 18 (forward) or 13 and 18
+   (backward).
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense, the pruned
    and the prune CLI's UNet give them (collected by forward hooks), plus a
@@ -49,7 +51,8 @@ lines.
    the library call at the main-path shapes (attention also in TFLOP/s),
    the GroupNorm wrapper's host time per call, dense and pruned sampling
    imgs/s with the kernels on and off, f32 and bf16, and a torch.profiler
-   breakdown of 5 dense DDIM steps by kernel class.
+   breakdown of 5 dense DDIM steps by kernel class. Sampling is timed at
+   DDIM-20 (imgs/s at DDIM-100 are a fifth of these).
 8. Backward kernels against their plain versions, at the same shapes, B =
    128, f32 and bf16: the forward's saved GroupNorm statistics and the
    attention lse, then dx/dscale/dbias and dq/dk/dv.
@@ -119,14 +122,14 @@ lines.
    at D = 268, 269), inference and with lse. The CFG sampler (scale 3)
    kernels on against off from one x_T, DDIM-20, PLMS-10 and DPM-10,
    through the decode, launch counts equal to calls x steps. Then imgs/s
-   of CFG DDIM-20 + decode at B = 16 and at the CLI's 50, kernels on and
-   off in turns; one UNet call and one decode, timed and profiled by
-   kernel class; per-op ms at every shape
+   of CFG DDIM-20 + decode at B = 16, kernels on and off in turns; one
+   UNet call and one decode, timed and profiled by kernel class; per-op ms
+   at every shape
    (kernel, plain, SDPA / F.group_norm, bound, TFLOP/s; with
    ``--compare-fwd`` the other forwards, in the same turns). Last, the main
-   path: the ldm_sample CLI on the saved model (2 classes x 16 images, B =
-   16, so its UNet calls and decodes take the rows checked above; 20
-   steps) with --method ddim, plms and dpm, launch counters reset just
+   path: the ldm_sample CLI on the saved model (1 class x 16 images, B =
+   16, so its UNet calls and decodes take the rows checked above) with
+   --method ddim (20 steps), plms and dpm (10), launch counters reset just
    before each and read just after.
 17. LDM prune path, f32, TF32 off, on phase 16's model, B = 6 (the CLI's
    default): (a) the wide f32 dq and dk/dv kernels (256 < D <= 1024)
@@ -143,13 +146,14 @@ lines.
    61 GroupNorm and 32 attention forwards (with lse), 61 GroupNorm
    backwards, 32 dq and 32 dk/dv; a repeat with the kernels on must be
    bit-identical; (d) the main path: the ldm_prune CLI (diff-pruning, 3
-   sweep steps for 1000, 2 vis classes for 4, CFG DDIM-20 latents) with
-   launch counters reset just before and read just after, equal to steps x
-   (20 CFG calls + the grad step) + the vis grid; its model dir reloads at
-   the pinned 203,294,971 UNet params and ldm_sample draws finite images
-   from it; (e) timings: the sweep step split into CFG sampling (20 CFG
-   UNet calls of 12 rows, one timed) and forward + backward, kernels on and
-   off in turns; a profile of one 12-row CFG call and cuDNN's 3x3 192 ->
+   sweep steps for 1000, 2 vis classes for 4, CFG DDIM-5 latents for 20)
+   with launch counters reset just before and read just after, equal to
+   steps x (5 CFG calls + the grad step) + the vis grid; its model dir
+   reloads at the pinned 203,294,971 UNet params and ldm_sample draws
+   finite images from it; (e) timings: the sweep step at the CLI's default
+   DDIM-20 split into CFG sampling (20 CFG UNet calls of 12 rows, one
+   timed) and forward + backward, kernels on and off in turns; a profile
+   of one 12-row CFG call and cuDNN's 3x3 192 ->
    192 convolution at 64 x 64 timed at 12, 16 and 32 rows; per-op backward
    ms at the step's shapes against plain, the library call (the SDPA f32
    backward, autograd of F.group_norm) and the bound.
@@ -159,8 +163,12 @@ lines.
    versions in bf16 and f16 at every attention shape of one train step
    ((1024, 384), (256, 576), (64, 960), each with Nkv = Nq and 1; the
    pruned UNet's 268, 404, 672; a ragged D = 320; the encode's 4096-token
-   D = 512 forward), through head-split views; the wide forward at phase
-   16's tile edges in bf16 and f16; the GroupNorm forward (the
+   D = 512 forward), through head-split views, dq and dk/dv repeated
+   bit-identically; the wide forward at phase 16's tile edges in bf16 and
+   f16; the wide dq and dk/dv at their tile edges (Nq, Nkv in 1-127 at D =
+   257-1024, 16 rows of 16 heads, and fused views of 3 x 268, 3 x 269 and 2
+   x 270 at 256 tokens: shapes that the wgmma kernels take) against the
+   plain versions in float64, bf16 and f16; the GroupNorm forward (the
    UNet's and the encode's) and backward in bf16 at the step's shapes; D =
    1040 raises in every dtype and launches nothing; (b) one dense bf16
    train step kernels on against off from the same state, images, labels,
@@ -179,7 +187,9 @@ lines.
    forward + backward and the optimizer; peak memory; a profile by kernel
    class; per-op ms of the 16-bit forward with lse, dq and dk/dv at the
    step's shapes, and of the encode's forward, against plain, SDPA and the
-   bound (with ``--compare-fwd`` the other forwards in the same turns); the
+   bound (with ``--compare-fwd`` and ``--compare-bwd`` the other forwards
+   and backwards in the same turns); the bf16 GroupNorm forward and
+   backward per dense step against plain, F.group_norm and the bound; the
    seconds of a save.
 19. The evaluation, LDM, LDM prune and LDM train JSON lines, the kernels'
    JSON line, nvidia-smi's line, then the result line.
@@ -202,6 +212,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 128
+# the DDIM steps of phase 7's sampling imgs/s (the serving path itself, phases
+# 5 and 6, runs DDIM-100): a step's time does not depend on their number
+SAMPLE_TIME_STEPS = 20
 # forward: |kernel - plain| <= atol + rtol * |plain|. f32: both compute in f32
 # and differ only in summation order. bf16: two bf16 ulps; both round an f32
 # result once, and the plain attention also rounds its probabilities.
@@ -242,9 +255,9 @@ TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_RTOL = 2e-2, 5e-2
 EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # the LDM serving path (phase 16): cin256-v2 + vq-f4 + ClassEmbedder(1001)
 # parameter counts (the JAX package's, tests/test_torch_ldm.py); the batch
-# at which imgs/s and the ops are timed (2 LDM_B UNet rows a CFG call): 16,
-# and the CLI's default 50 for imgs/s alone (a CFG DDIM-20 batch of 50 and
-# its decode take ~30 s on an H100);
+# at which imgs/s and the ops are timed and the ldm_sample CLI draws (2 LDM_B
+# UNet rows a CFG call): 16 (the CLI's default, 50, is not timed: a CFG
+# DDIM-20 batch of 50 and its decode take ~30 s on an H100);
 # the batch of the kernels-on-against-off trajectories; DDIM steps, and the
 # PLMS and DPM-Solver steps; the guidance scale. Kernels on against off, the
 # relative error in norm of the final latents and images: each forward
@@ -252,17 +265,18 @@ EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # 3 feed each step's difference, amplified (1 + 2 x 3)-fold in the guided
 # eps, into the next
 LDM_PARAMS = {"unet": 400_920_579, "first_stage": 55_322_782, "cond_stage": 512_512}
-LDM_B, LDM_CLI_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 50, 4, 20, 10, 3.0
+LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 10, 3.0
 LDM_REL_TOL = 1e-3
 # the LDM prune path (phase 17): the CLI's batch (labels a sweep step, 2
 # LDM_PRUNE_B UNet rows a CFG call, LDM_PRUNE_B rows in the grad step), its
-# sweep steps (cut from 1000) and vis classes (cut from 4); the UNet pruned
+# sweep steps (cut from 1000), vis classes (cut from 4) and CFG DDIM steps
+# (cut from the CLI's 20: at 12 rows a CFG call takes ~1 s); the UNet pruned
 # locally at 0.3 with round_to 2 (pinned from the JAX package's pruner in
 # tests/test_torch_ldm_prune.py). Kernels on against off: the sweep's
 # tolerances (SWEEP_*), the backward kernels' (BWD_TOL) with, at Nkv = 1,
 # 1e-6 of the call's largest gradient added for dq and dk, which are zero in
 # exact arithmetic there (p = 1: both sides hold only f32 noise)
-LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES = 6, 3, ("25", "187")
+LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES, LDM_PRUNE_DDIM = 6, 3, ("25", "187"), 5
 LDM_PRUNED_PARAMS_AT_0_3 = 203_294_971
 # the LDM train path (phase 18): the CLI's batch and LR (cin256-v2.yaml: bs
 # 16, base_lr 2e-6 x 16), its steps (cut from 20,000), the save interval,
@@ -277,6 +291,14 @@ F16_TOL, F16_BWD_TOL = (1e-3, 2e-3), 2e-3
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 NBYTES = {"float32": 4, "bfloat16": 2}
+
+
+T_START = time.perf_counter()
+
+
+def mark(phase: int) -> None:
+    """Prints the seconds since the start as ``phase`` begins."""
+    print(f"-- phase {phase} at {time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def gpu_line() -> str:
@@ -437,10 +459,10 @@ PTXAS_KERNELS = {
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
                             + ", ".join(re.findall(r"Li(\d+)E", m.group(3))) + ">"),
     "flash_attention_bwd": (r"Compiling entry function '.*?(flash_bwd_\w+?_(?:f32_wide|f32|"
-                            r"mma_wide|mma))I(13__nv_bfloat16|6__half)?Li(\d)E",
+                            r"wgmma_wide|mma_wide|mma))I(13__nv_bfloat16|6__half)?((?:Li\d+E)+)E",
                             lambda m: f"{m.group(1)}<" + (
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
-                            + f"{m.group(3)}>"),
+                            + ", ".join(re.findall(r"Li(\d+)E", m.group(3))) + ">"),
     "group_norm_bwd": (r"Compiling entry function '.*?gn_bwd_kernelI(f|13__nv_bfloat16|6__half)"
                        r"Lb(\d)E",
                        lambda m: f"gn_bwd_kernel<{m.group(1).lstrip('0123456789')}, "
@@ -999,6 +1021,95 @@ def check_wide_edges(dnames, gen, dev, worst, key):
               f"{max(e for _, e in errs):.3e} (tol {BWD_TOL['float32']} x max|want|) ok")
 
 
+# the wide 16-bit backward's tile edges (phase 18): Nq and Nkv in EDGE_NS at
+# EDGE_DS, at 16 rows of 16 heads, so that the C entry points take the wgmma
+# kernels (launch_dq16, launch_dkv16 in flash_attention_bwd.cu: the 16-row
+# kernels take the short calls); then head-split views of fused (B, N, 3
+# heads D) projections, 3 x 268, 3 x 269 and 2 x 270 (rows 8-, 2- and 4-byte
+# aligned), at 256 tokens
+EDGE_BWD_ROWS, EDGE_BWD_HEADS = 16, 16
+EDGE_BWD_FUSED = ((3, 268), (3, 269), (2, 270))
+
+
+def wgmma_bwd_taken(b, h, nq, nkv):
+    """Whether flash_attention_bwd.cu's entry points take the wgmma dq and
+    dk/dv kernels at (B, H, Nq, Nkv) (launch_dq16, launch_dkv16)."""
+    return (nkv >= 256 or b * h * -(-nq // 64) >= 256, b * h * -(-nkv // 64) >= 64)
+
+
+def bwd16_l2_bytes(nq, nkv, d, q_rows, kv_rows):
+    """Bytes a wide 16-bit dq kernel fetches from L2 per q row and a dk/dv
+    kernel per kv row, from its tiling (valid rows and columns): its own
+    rows once (dq: Q, dO, O; dk/dv: K, V), and each streamed row (dq: K and
+    V; dk/dv: Q, dO, lse and D) once per tile of ``q_rows`` (dq) or
+    ``kv_rows`` (dk/dv) rows."""
+    return (6 * d + 4 * d * nkv / min(q_rows, nq),
+            4 * d + (4 * d + 8) * nq / min(kv_rows, nkv))
+
+
+def check_wide_bwd_edges(gen, dev, worst):
+    """The wide 16-bit dq and dk/dv kernels at their tile edges, bf16 and
+    f16, chained as the backward chains them (dk/dv reads dq's dsum),
+    against the plain versions computed in float64 at the backward's
+    tolerances: where Nkv = 1, dq and dk are zero in exact arithmetic, and
+    at a few q rows the f32 plain version's own cancellation noise (dO v^T -
+    D) reaches the 1e-6 floor that the tolerance adds for them; the largest
+    errors go to ``worst``."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops import attention as A
+
+    cases = [(EDGE_BWD_ROWS, EDGE_BWD_HEADS, nq, nkv, d, False)
+             for d in EDGE_DS for nq in EDGE_NS for nkv in EDGE_NS]
+    cases += [(8, h, 256, 256, d, True) for h, d in EDGE_BWD_FUSED]
+    for dname, btol in (("bfloat16", BWD_TOL["bfloat16"]), ("float16", F16_BWD_TOL)):
+        dtype = getattr(torch, dname)
+        errs = collections.defaultdict(float)
+        for b, h, nq, nkv, d, fused in cases:
+            assert all(wgmma_bwd_taken(b, h, nq, nkv)), (b, h, nq, nkv)
+            if fused:
+                t = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)
+                q, k, v = (z.view(b, nq, h, d).transpose(1, 2) for z in t.split(h * d, dim=-1))
+                do = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)[
+                    ..., :h * d].view(b, nq, h, d).transpose(1, 2)
+            else:
+                q, do = (torch.randn((b, h, nq, d), generator=gen, device=dev).to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((b, h, nkv, d), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+            scale = d ** -0.5
+            o, lse = A.reference_attention_lse(q, k, v, scale)
+            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, lse, scale)
+            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale)
+            f64 = torch.float64
+            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale,
+                                                           compute_dtype=f64)
+            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, lse, pdsum, scale,
+                                                          compute_dtype=f64)
+            floor = (1e-6 * max(float(g.double().abs().max()) for g in (pdq, pdk, pdv))
+                     if nkv == 1 else 0.0)
+            for what, a, w, tol, fl in (("dsum", dsum, pdsum, BWD_TOL["float32"], 0.0),
+                                        ("dq", dq, pdq, btol, floor), ("dk", dk, pdk, btol, floor),
+                                        ("dv", dv, pdv, btol, 0.0)):
+                e = float((a.double() - w.double()).abs().max())
+                assert bool(torch.isfinite(a.float()).all()) and \
+                    e <= tol * float(w.double().abs().max()) + fl, \
+                    (dname, b, h, nq, nkv, d, what, e)
+                errs[what] = max(errs[what], e)
+            del q, k, v, do, o, dq, dk, dv, pdq, pdk, pdv
+        worst[("attention_bwd_dq_ldm_train", dname)] = max(
+            worst[("attention_bwd_dq_ldm_train", dname)], errs["dq"], errs["dsum"])
+        worst[("attention_bwd_dkv_ldm_train", dname)] = max(
+            worst[("attention_bwd_dkv_ldm_train", dname)], errs["dk"], errs["dv"])
+        print(f"check wide attention bwd tile edges {dname}: Nq, Nkv in {EDGE_NS} at D in "
+              f"{EDGE_DS} ({EDGE_BWD_ROWS} rows x {EDGE_BWD_HEADS} heads) and fused views "
+              f"{EDGE_BWD_FUSED} (heads x D, 256 tokens), {len(cases)} shapes, the wgmma dq and "
+              f"dk/dv against the plain versions in float64: "
+              + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+              + f" (tol {btol} x max|want|, + 1e-6 of the call's largest gradient for dq and dk "
+              f"at Nkv = 1; dsum {BWD_TOL['float32']}) ok")
+
+
 def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
     """Phase 16's per-op timings at ``rows`` batch rows: the GroupNorm and
     attention forwards (kernel, plain, library call, bound, and the other
@@ -1230,28 +1341,23 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
                                 latent_ch=3)
     tlabels = torch.arange(LDM_B, device=dev) % 1000
 
-    def batch(on, fn=sample, rows=LDM_B):
+    def batch(on, fn=sample):
         ops.set_kernels_enabled(on)
         try:
-            labels = torch.arange(rows, device=dev) % 1000
-            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, labels, rows)), iters=1,
+            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, tlabels, LDM_B)), iters=1,
                            warmup=0)
         finally:
             ops.set_kernels_enabled(True)
 
-    ips, batch_ms = {}, {}
-    for rows in (LDM_B, LDM_CLI_B):
-        for on in (False, True):
-            batch(on, warm, rows)
-        off1, on1, on2, off2 = (batch(False, rows=rows), batch(True, rows=rows),
-                                batch(True, rows=rows), batch(False, rows=rows))
-        ips[rows] = {"kernels_on": rows * 2e3 / (on1 + on2),
-                     "kernels_off": rows * 2e3 / (off1 + off2)}
-        batch_ms[rows] = {"on": [on1, on2], "off": [off1, off2]}
-        print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={rows} ({2 * rows} UNet rows) float32: "
-              f"kernels on {ips[rows]['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), "
-              f"kernels off {ips[rows]['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) "
-              f"(CUDA events, in turns off-on-on-off) {tag}")
+    for on in (False, True):
+        batch(on, warm)
+    off1, on1, on2, off2 = batch(False), batch(True), batch(True), batch(False)
+    ips = {"kernels_on": LDM_B * 2e3 / (on1 + on2), "kernels_off": LDM_B * 2e3 / (off1 + off2)}
+    batch_ms = {"on": [on1, on2], "off": [off1, off2]}
+    print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={LDM_B} ({2 * LDM_B} UNet rows) float32: "
+          f"kernels on {ips['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), "
+          f"kernels off {ips['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) "
+          f"(CUDA events, in turns off-on-on-off) {tag}")
     dec_lat = torch.randn((LDM_B, hw, hw, 3), generator=gen, device=dev)
     with torch.inference_mode():
         ctx = ldm.get_learned_conditioning(torch.cat([tlabels, torch.full_like(tlabels, 1000)]))
@@ -1291,30 +1397,30 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
 
     # the main path: the ldm_sample CLI on the saved model
     cli = {}
-    for method in ("ddim", "plms", "dpm"):
+    for method, steps in (("ddim", LDM_STEPS), ("plms", LDM_MULTI_STEPS),
+                          ("dpm", LDM_MULTI_STEPS)):
         out = os.path.join(tmp, f"ldm_{method}")
         ops.reset_launch_counts()
         stats, _, seconds = run_cli(ldm_sample.main, [
-            "--model_path", model_dir, "--output_dir", out, "--num_classes", "2", "--ipc",
-            str(LDM_B), "--batch_size", str(LDM_B), "--ddim_steps", str(LDM_STEPS), "--method",
+            "--model_path", model_dir, "--output_dir", out, "--num_classes", "1", "--ipc",
+            str(LDM_B), "--batch_size", str(LDM_B), "--ddim_steps", str(steps), "--method",
             method, "--device", "cuda"])
         launches = dict(ops.LAUNCHES)
         pngs = [f for f in os.listdir(out) if f.endswith(".png")]
-        calls = 2 * (LDM_STEPS + (method == "plms"))
-        want = {"group_norm": calls * 61 + 2 * per_decode["group_norm"],
-                "attention": calls * 32 + 2 * per_decode["attention"]}
+        calls = steps + (method == "plms")
+        want = {"group_norm": calls * 61 + per_decode["group_norm"],
+                "attention": calls * 32 + per_decode["attention"]}
         cli[method] = {"seconds": seconds, "pngs": len(pngs), "launches": launches,
                        "imgs_per_s": stats["imgs_per_s"]}
-        print(f"ldm_sample CLI --method {method} --ddim_steps {LDM_STEPS}, 2 classes x {LDM_B}, "
+        print(f"ldm_sample CLI --method {method} --ddim_steps {steps}, 1 class x {LDM_B}, "
               f"B={LDM_B}: "
               f"{len(pngs)} PNGs, {seconds:.1f} s wall (load included), sampling "
               f"{stats['imgs_per_s']:.2f} imgs/s {tag}; launches {launches}")
-        assert len(pngs) == 2 * LDM_B and stats["nonfinite"] == 0, stats
+        assert len(pngs) == LDM_B and stats["nonfinite"] == 0, stats
         assert {k: launches[k] for k in want} == want, (launches, want)
     print(f"ldm phase {time.perf_counter() - t_phase:.1f} s")
     return ldm, model_dir, {"card": gpu, "params": counts, "b": LDM_B,
-            "imgs_per_s": ips[LDM_B], "batch_ms": batch_ms[LDM_B],
-            "imgs_per_s_cli_b": ips[LDM_CLI_B], "batch_ms_cli_b": batch_ms[LDM_CLI_B],
+            "imgs_per_s": ips, "batch_ms": batch_ms,
             "unet_call_ms": unet_ms, "decode_ms": decode_ms, "profiles": profiles,
             "compare": compare_out, "cli": cli, "ops_unet_call": ops_unet,
             "ops_decode": ops_dec, "per_call": per_call, "per_decode": per_decode,
@@ -1490,12 +1596,12 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
     stats, _, cli_seconds = run_cli(ldm_prune.main, [
         "--model_path", model_dir, "--save_path", out, "--pruner", "diff-pruning",
         "--max_steps", str(LDM_PRUNE_STEPS), "--batch_size", str(rows), "--ddim_steps",
-        str(LDM_STEPS), "--classes", *LDM_PRUNE_CLASSES, "--device", "cuda"])
+        str(LDM_PRUNE_DDIM), "--classes", *LDM_PRUNE_CLASSES, "--device", "cuda"])
     cli_counts = dict(ops.LAUNCHES)
     steps, losses = stats["steps_run"], stats["losses"]
     broke = losses[-1] / max(losses) < 0.1  # the CLI's default thr
     grad_steps = steps - broke
-    calls = steps * LDM_STEPS + len(LDM_PRUNE_CLASSES) * LDM_STEPS
+    calls = (steps + len(LDM_PRUNE_CLASSES)) * LDM_PRUNE_DDIM
     want_cli = {"group_norm": (calls + steps) * 61 + len(LDM_PRUNE_CLASSES) * 24,
                 "group_norm_bwd": grad_steps * 61,
                 "attention": (calls + steps) * 32 + len(LDM_PRUNE_CLASSES),
@@ -1503,8 +1609,8 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
                 "attention_bwd_dkv": grad_steps * 32}
     print(f"main path ldm_prune CLI: diff-pruning, {steps} sweep steps (losses {losses}) in "
           f"{stats['sweep_seconds']:.2f} s, {stats['params_before']:,} -> {stats['params']:,} "
-          f"params, whole CLI {cli_seconds:.2f} s (host clock, B={rows}, CFG DDIM-{LDM_STEPS}, "
-          f"f32) {tag}; launches {cli_counts}")
+          f"params, whole CLI {cli_seconds:.2f} s (host clock, B={rows}, CFG "
+          f"DDIM-{LDM_PRUNE_DDIM}, f32) {tag}; launches {cli_counts}")
     assert steps == LDM_PRUNE_STEPS and cli_counts == want_cli, (steps, cli_counts, want_cli)
     assert stats["params"] == LDM_PRUNED_PARAMS_AT_0_3, stats["params"]
     pruned = load_ldm(out, device=dev)
@@ -1521,10 +1627,11 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
           f"{samples['nonfinite']} non-finite values, in {sample_seconds:.1f} s")
     assert samples["images"] == rows and samples["nonfinite"] == 0
 
-    # (e) timings: the sweep step split into its CFG sampling (LDM_STEPS CFG
-    # UNet calls of 2 x rows rows; the DDIM updates are a few elementwise
-    # ops) and its forward + backward, kernels on and off; each op against
-    # plain and the library call at the step's shapes
+    # (e) timings: the sweep step at the CLI's default DDIM-20 split into its
+    # CFG sampling (LDM_STEPS CFG UNet calls of 2 x rows rows; the DDIM
+    # updates are a few elementwise ops) and its forward + backward, kernels
+    # on and off; each op against plain and the library call at the step's
+    # shapes
     uparams = [p for p in ldm.unet.parameters()]
     tb = torch.zeros((rows,), dtype=torch.int64, device=dev)
     x2, tb2 = torch.cat([lat, lat]), torch.full((2 * rows,), 500, device=dev)
@@ -1577,8 +1684,8 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
           f"backward {step_ms['fwd_bwd_on']:.1f}), kernels off {step_ms['off']:.1f} ms "
           f"(sampling {step_ms['sampling_off']:.1f}, forward + backward "
           f"{step_ms['fwd_bwd_off']:.1f}) (CUDA events, in turns off-on-on-off); the CLI's "
-          f"sweep took {stats['sweep_seconds'] / steps * 1e3:.1f} ms a step (host clock, "
-          f"kernels on) {tag}")
+          f"sweep at DDIM-{LDM_PRUNE_DDIM} took {stats['sweep_seconds'] / steps * 1e3:.1f} ms a "
+          f"step (host clock, kernels on) {tag}")
     tot = collections.defaultdict(float)
     for (nq, nkv, h, d), ncalls in sorted(attn_dense.items()):
         q, do = views(nq, d), views(nq, d)
@@ -1683,7 +1790,7 @@ def record_fwd_dtypes():
     return seen, restore
 
 
-def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd):
+def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd, others_bwd):
     """Phase 18 (see the module docstring); returns its figures."""
     import numpy as np
     import torch
@@ -1773,16 +1880,26 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
                     worst[("attention_bwd_dq_ldm_train", dname)], errs["dq"], errs["dsum"])
                 worst[("attention_bwd_dkv_ldm_train", dname)] = max(
                     worst[("attention_bwd_dkv_ldm_train", dname)], errs["dk"], errs["dv"])
-                del dq, dk, dv, pdq, pdk, pdv
+                # a repeat is bit-identical (no atomics; the clusters add their
+                # partials in rank order)
+                dq2, dsum2 = A.flash_attention_backward_dq(q, k, v, po, do, plse, scale)
+                dk2, dv2 = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+                assert all(torch.equal(a, b) for a, b in ((dq, dq2), (dsum, dsum2), (dk, dk2),
+                                                           (dv, dv2))), (dname, where, nq, nkv, d)
+                del dq, dk, dv, pdq, pdk, pdv, dq2, dk2, dv2
             worst[("attention_ldm_train", dname)] = max(worst[("attention_ldm_train", dname)],
                                                         errs["o"])
+            taken = "" if where == "encode" else "; dq by the {} kernel, dk/dv by the {}, a " \
+                "repeat bit-identical".format(*("wgmma" if w else "16-row"
+                                                for w in wgmma_bwd_taken(rows, h, nq, nkv)))
             print(f"check ldm train attention ({where}) rows={rows} Nq={nq} Nkv={nkv} D={d} "
                   f"{dname}: " + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
                   + f" (tol o {(atol, rtol)}, grads {btol} x max|want|"
                   + (f" + {floor:.3e} at Nkv = 1" if where != "encode" and nkv == 1 else "")
-                  + ", lse and dsum 1e-4 x max|want|) ok")
+                  + ", lse and dsum 1e-4 x max|want|)" + taken + " ok")
             del q, k, v, do, got, want, o, po
     check_wide_edges(("bfloat16", "float16"), gen, dev, worst, "attention_ldm_train")
+    check_wide_bwd_edges(gen, dev, worst)
     # the GroupNorm forward (the UNet's and the encode's) and backward (the
     # UNet's) in bf16 at the step's shapes
     for (n, c, eps, silu), where in ([(s, "unet") for s in sorted(gn_unet)]
@@ -1991,6 +2108,15 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
               f"UNet forward + backward {fb_ms - enc_ms:.1f} ms, optimizer (clip + AdamW) "
               f"{opt_ms:.1f} ms; peak memory {peak:.2f} GB {tag}")
         del grads, st, step
+    # L2 bytes a row of the wide 16-bit backward at the step's shapes: the
+    # wgmma kernels' 64-row tiles against the 16-row kernels' (16 q rows in
+    # dq, 8 kv rows in dk/dv), and which of them the call takes
+    for nq, nkv, h, d in sorted(set(attn_unet) | set(attn_pruned), reverse=True):
+        new, old = bwd16_l2_bytes(nq, nkv, d, 64, 64), bwd16_l2_bytes(nq, nkv, d, 16, 8)
+        print(f"ldm train bwd L2 bytes a row {(nq, nkv, d)}: dq {new[0]:,.0f} (16-row kernel "
+              f"{old[0]:,.0f}) a q row, dk/dv {new[1]:,.0f} ({old[1]:,.0f}) a kv row; at B={rows} "
+              "the call takes dq by the {}, dk/dv by the {} kernel".format(
+                  *("wgmma" if w else "16-row" for w in wgmma_bwd_taken(rows, h, nq, nkv))))
     # per-op: the 16-bit attention forward with lse (the training launch), dq
     # and dk/dv at the step's shapes, against plain, SDPA and the bound
     ops_ms = {}
@@ -2015,8 +2141,16 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
                    lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
             fns += [with_lib("fwd", lib, lambda: A.flash_attention_forward_lse(q, k, v, scale))
                     for lib in others_fwd.values()]
+            for lib in others_bwd.values():  # the other backwards, in the same turns
+                fns += [with_lib("bwd", lib, lambda: A.flash_attention_backward_dq(
+                            q, k, v, o, do, lse, scale)),
+                        with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
+                            q, k, v, do, lse, dsum, scale))]
             ms = in_turns(fns, iters=5)
-            other_ms = dict(zip(others_fwd, ms[8:]))
+            nf = 8 + len(others_fwd)
+            other_ms = dict(zip(others_fwd, ms[8:nf]))
+            other_bwd_ms = {label: ms[nf + 2 * i: nf + 2 * i + 2]
+                            for i, label in enumerate(others_bwd)}
             backend = (sdpa_backend(fns[2]), sdpa_backend(fns[7]))
             backends.add(backend)
             fwd_bytes = 2 * rows * (2 * nq + 2 * nkv) * d + 4 * rows * nq
@@ -2028,7 +2162,9 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
                              ("dq_plain", ms[3]), ("dq_kernel", ms[4]), ("dkv_plain", ms[5]),
                              ("dkv_kernel", ms[6]), ("bwd_library", ms[7]),
                              ("fwd_flops", fwd_flops), ("dq_flops", fq), ("dkv_flops", fkv),
-                             *((f"fwd_kernel_{label}", oms) for label, oms in other_ms.items())):
+                             *((f"fwd_kernel_{label}", oms) for label, oms in other_ms.items()),
+                             *((f"{part}_kernel_{label}", t) for label, pair in other_bwd_ms.items()
+                               for part, t in zip(("dq", "dkv"), pair))):
                 tot[key] += val * ncalls
             for part, (bms, by) in bounds.items():
                 add_bound(tot, part + "_", bms * ncalls, by)
@@ -2041,7 +2177,9 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
                   f"{fq / ms[4] / 1e9:.2f} TFLOP/s (plain {ms[3]:.4f}, bound {bounds['dq'][0]:.4f} "
                   f"{bounds['dq'][1]}); dk/dv kernel {ms[6]:.4f} ms, {fkv / ms[6] / 1e9:.2f} "
                   f"TFLOP/s (plain {ms[5]:.4f}, bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}); "
-                  f"SDPA backward (dq+dk+dv, {backend[1]}) {ms[7]:.4f} ms {tag}")
+                  f"SDPA backward (dq+dk+dv, {backend[1]}) {ms[7]:.4f} ms"
+                  + "".join(f"; {label} dq {a:.4f} ms, dk/dv {b:.4f} ms"
+                            for label, (a, b) in other_bwd_ms.items()) + f" {tag}")
             del fns, q, k, v, do, o, ql, kl, vl, ol
         for part in ("fwd", "dq", "dkv"):
             tot[part + "_tflops"] = tot[part + "_flops"] / tot[part + "_kernel"] / 1e9
@@ -2078,6 +2216,66 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd)
     tot["fwd_tflops"] = tot["fwd_flops"] / tot["fwd_kernel"] / 1e9
     tot["fwd_bound_by"] = bound_by(tot, "fwd_")
     ops_ms["encode"] = dict(tot)
+    # the bf16 GroupNorm forward (the UNet's and the encode's) and backward
+    # (the UNet's) at the dense step's shapes, against plain, F.group_norm
+    # (its autograd for the backward; the no-SiLU calls) and the bound
+    tot = collections.defaultdict(float)
+    gn_fwd_calls = collections.Counter(gn_unet) + collections.Counter(gn_enc)
+    for (n, c, eps, silu), ncalls in sorted(gn_fwd_calls.items()):
+        x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(bf16)
+        dy = torch.randn((rows, n, c), generator=gen, device=dev).to(bf16)
+        sc = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bi = torch.randn((c,), generator=gen, device=dev) * 0.1
+        kw = dict(groups=32, eps=eps, with_silu=silu)
+        mean, rstd = G.group_norm_stats_reference(x, 32, eps=eps)
+        bwd_calls = gn_unet.get((n, c, eps, silu), 0)
+        fns = [lambda: group_norm_reference(x, sc, bi, **kw), lambda: group_norm(x, sc, bi, **kw)]
+        if bwd_calls:
+            fns += [lambda: G.group_norm_backward_reference(x, sc, bi, dy, mean, rstd, groups=32,
+                                                            with_silu=silu),
+                    lambda: G.group_norm_backward(x, sc, bi, dy, mean, rstd, groups=32,
+                                                  with_silu=silu)]
+        if not silu:  # F.group_norm on its own (B, C, N) layout, and its autograd
+            xl = x.transpose(1, 2).contiguous().requires_grad_()
+            sl, bl = (z.to(bf16, copy=True).requires_grad_() for z in (sc, bi))
+            fns.append(lambda: F.group_norm(xl, 32, sl, bl, eps=eps))
+            if bwd_calls:
+                yl = F.group_norm(xl, 32, sl, bl, eps=eps)
+                dyl = dy.transpose(1, 2).contiguous()
+                fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
+        el = rows * n * c
+        ms = in_turns(fns, iters=5 if el > 2e8 else 10)
+        fb = bound(2 * el * 2 + 2 * c * 4, el * (9 if silu else 5), "bfloat16")
+        for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1])):
+            tot[key] += val * ncalls
+        add_bound(tot, "fwd_", fb[0] * ncalls, fb[1])
+        line = f"forward kernel {ms[1]:.4f} ms (plain {ms[0]:.4f}, bound {fb[0]:.4f} {fb[1]}"
+        lib = ms[4:] if bwd_calls else ms[2:]
+        if lib:
+            tot["fwd_library"] += lib[0] * ncalls
+            tot["fwd_kernel_where_library"] += ms[1] * ncalls
+            line += f", F.group_norm {lib[0]:.4f}"
+        line += ")"
+        if bwd_calls:
+            bb = bound(*gn_bwd_work(n, c, silu, "bfloat16", rows=rows), "bfloat16")
+            tot["bwd_plain"] += ms[2] * bwd_calls
+            tot["bwd_kernel"] += ms[3] * bwd_calls
+            add_bound(tot, "bwd_", bb[0] * bwd_calls, bb[1])
+            line += f"; backward kernel {ms[3]:.4f} ms (plain {ms[2]:.4f}, bound {bb[0]:.4f} {bb[1]}"
+            if len(lib) == 2:
+                tot["bwd_library"] += lib[1] * bwd_calls
+                tot["bwd_kernel_where_library"] += ms[3] * bwd_calls
+                line += f", autograd of F.group_norm {lib[1]:.4f}"
+            line += ")"
+        print(f"time ldm train group_norm {(n, c, silu)} x{ncalls} fwd, x{bwd_calls} bwd/step "
+              f"rows={rows} bfloat16: {line} {tag}")
+        del fns, x, dy
+    for part in ("fwd", "bwd"):
+        tot[part + "_bound_by"] = bound_by(tot, part + "_")
+    ops_ms["group_norm"] = dict(tot)
+    print(f"time ldm train group_norm per train step (dense) rows={rows} bfloat16: " + ", ".join(
+        f"{k_} {v_:.4f}" if isinstance(v_, float) else f"{k_} {v_}"
+        for k_, v_ in sorted(ops_ms["group_norm"].items())) + f" {tag}")
     del models, dense
     print(f"ldm train phase {time.perf_counter() - t_phase:.1f} s")
     return {"card": gpu, "b": rows, "per_step": per_step["dense"], "cli_launches": cli_counts,
@@ -2103,7 +2301,7 @@ def main() -> None:
                          "phases 16 and 18 time in turns with this checkout's; repeatable")
     ap.add_argument("--compare-bwd", metavar="LABEL=SRC", action="append", default=[],
                     help="another flash_attention_bwd.cu (same C interface) whose dq and dk/dv "
-                         "phase 13 times in turns with this checkout's; repeatable")
+                         "phases 13 and 18 time in turns with this checkout's; repeatable")
     args = ap.parse_args()
     other_srcs = {}  # kind -> [(label, source)]
     for kind in OTHER_LIBS:
@@ -2149,6 +2347,7 @@ def main() -> None:
     from diff_pruning_tpu_torch.utils.checkpoint import (flat_from_state_dict, load_model,
                                                          save_model)
 
+    mark(2)
     # -- 2. build: one nvcc per CUDA source, all at once, and the other
     # versions of the attention given to compare with, beside them
     t_build = time.perf_counter()
@@ -2184,14 +2383,22 @@ def main() -> None:
             "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
             "flash_bwd_dkv_kernel_mma", "flash_bwd_dq_kernel_f32_wide",
             "flash_bwd_dkv_kernel_f32_wide", "flash_bwd_dq_kernel_mma_wide",
-            "flash_bwd_dkv_kernel_mma_wide"}, regs
+            "flash_bwd_dkv_kernel_mma_wide", "flash_bwd_dq_kernel_wgmma_wide",
+            "flash_bwd_dkv_kernel_wgmma_wide"}, regs
         # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 6 each
-        # (D 257-1024); 16-bit: 2 types x (4 + 6) x 2 kernels
-        assert len(regs["flash_attention_bwd"]) == 58, regs
+        # (D 257-1024); 16-bit: 2 types x ((4 + 6) x 2 kernels + the wgmma
+        # pair's 5 tilings each)
+        assert len(regs["flash_attention_bwd"]) == 78, regs
+        for kname, (_, st, ld) in regs["flash_attention_bwd"].items():
+            assert "_wgmma" not in kname or st == ld == 0, f"{kname} spills"
     if _build.BUILD_INFO["group_norm_bwd"]["log"]:
         assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
-    for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd"):
-        sass = sass_counts(_build.load_library(lib)._name)
+    sass_libs = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd")
+    with ThreadPoolExecutor(max_workers=len(sass_libs)) as sass_pool:  # a cuobjdump each
+        sass_of = dict(zip(sass_libs, sass_pool.map(
+            lambda lib: sass_counts(_build.load_library(lib)._name), sass_libs)))
+    for lib in sass_libs:
+        sass = sass_of[lib]
         if sass is None:
             print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
             break
@@ -2199,7 +2406,7 @@ def main() -> None:
             print(f"sass: {lib} {kname}: {hmma} HMMA, {hgmma} HGMMA, {ffma} FFMA")
             if "_kernel_mma" in kname:  # forward, dq and dk/dv in bf16/f16
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
-            if "_kernel_wgmma" in kname:  # the wide 16-bit forward
+            if "_kernel_wgmma" in kname:  # the wide 16-bit forward, dq and dk/dv
                 assert hgmma > 0, f"{kname} has no warpgroup tensor-core instruction"
             if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
                 assert hmma == hgmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
@@ -2210,7 +2417,9 @@ def main() -> None:
                                          "flash_bwd_dkv_kernel_f32_wide",
                                          "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma",
                                          "flash_bwd_dq_kernel_mma_wide",
-                                         "flash_bwd_dkv_kernel_mma_wide"),
+                                         "flash_bwd_dkv_kernel_mma_wide",
+                                         "flash_bwd_dq_kernel_wgmma_wide",
+                                         "flash_bwd_dkv_kernel_wgmma_wide"),
                  "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
         for want in wants:
             assert sum(want in kname for kname in sass) >= 2, (want, sorted(sass))
@@ -2220,6 +2429,7 @@ def main() -> None:
     others = {label: fut.result() for label, fut in other_futs["bwd"].items()}
     pool.shutdown()
 
+    mark(3)
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
     cfg = ddpm_cifar10_config()
     pcfg = pruned_config(cfg)
@@ -2267,6 +2477,7 @@ def main() -> None:
             assert ok, f"attention kernel disagrees at N={n} D={d} {dname}"
     torch.cuda.synchronize()
 
+    mark(4)
     # -- 4. full-width forward, kernels on and off on the same weights
     model = UNet2D(cfg, device=dev)
     model.load_state_dict(dense.state_dict())
@@ -2292,6 +2503,7 @@ def main() -> None:
 
     tmpdir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     tmp = tmpdir.name
+    mark(5)
     # -- 5./6. serving path through the sampling CLI: dense, then pruned
     results = {}
     for name, m, c, gn_n, attn_n in (("dense", dense, cfg, gn_dense, attn_dense),
@@ -2319,6 +2531,7 @@ def main() -> None:
         assert counts["group_norm_bwd"] == counts["attention_lse"] == 0, counts
         results[name] = {"stats": stats, "launches": counts}
 
+    mark(7)
     # -- 7. timings: forward per op at the dense shapes (f32 and bf16), then sampling
     per_forward = {}
     for op, cases in (("group_norm", gn_dense), ("attention", attn_dense)):
@@ -2391,7 +2604,8 @@ def main() -> None:
     pmodel.eval()
     sampling = collections.defaultdict(dict)
     for (name, net), dname in itertools.product((("dense", model), ("pruned", pmodel)), TOL):
-        sample = make_sampler(net, sched, SamplerConfig(num_inference_steps=100, dtype=dname))
+        sample = make_sampler(net, sched, SamplerConfig(num_inference_steps=SAMPLE_TIME_STEPS,
+                                                        dtype=dname))
         warm = make_sampler(net, sched, SamplerConfig(num_inference_steps=2, dtype=dname))
 
         def run(on, sample=sample):
@@ -2416,12 +2630,13 @@ def main() -> None:
             ops.set_kernels_enabled(True)
         on, off = B * 2000 / (on1 + on2), B * 2000 / (off1 + off2)
         sampling[name][dname] = {"kernels_on": on, "kernels_off": off}
-        print(f"time sampling {name} DDIM-100 B={B} {dname}: kernels on "
+        print(f"time sampling {name} DDIM-{SAMPLE_TIME_STEPS} B={B} {dname}: kernels on "
               f"{on:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), kernels off "
               f"{off:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
     torch.cuda.synchronize()
     del model, pmodel
 
+    mark(8)
     # -- 8. backward kernels against plain versions at the UNet's shapes, B = 128
     for n, c, silu in gn_cases:
         for dname in BWD_TOL:
@@ -2485,6 +2700,7 @@ def main() -> None:
                   + f" tol={tol} x max|want| ok")
     torch.cuda.synchronize()
 
+    mark(9)
     # -- 9. the sweep at full width, kernels on against off, then on again
     torch.backends.cudnn.deterministic = True
     smodel = UNet2D(cfg, device=dev)
@@ -2556,6 +2772,7 @@ def main() -> None:
     del grads_on, grads_off, grads_again, g_on, g_off, res_on, res_off, res_again
     smodel.zero_grad(set_to_none=True)
 
+    mark(10)
     # -- 10. pruning path (main path): the prune CLI on the seeded dense checkpoint
     torch.backends.cudnn.deterministic = False
     data = os.path.join(tmp, "data.npz")
@@ -2603,6 +2820,7 @@ def main() -> None:
           f"{samples['nonfinite']} non-finite values, {samples['imgs_per_s']:.2f} imgs/s")
     assert samples["images"] == B and samples["nonfinite"] == 0
 
+    mark(11)
     # -- 11. finetune path, f32: the train CLI on the prune CLI's checkpoint, then a resume
     assert pcfg_cli.channel_sizes == ftcfg.channel_sizes
     torch.backends.cudnn.deterministic = True
@@ -2657,6 +2875,7 @@ def main() -> None:
     assert n_ema == PRUNED_PARAMS_AT_0_3
     assert ema_samples["images"] == B and ema_samples["nonfinite"] == 0
 
+    mark(12)
     # -- 12. finetune path, bf16
     ft16_out = os.path.join(tmp, "finetuned_bf16")
     bwd_dtypes, unwrap = record_bwd_dtypes()
@@ -2682,6 +2901,7 @@ def main() -> None:
         ("attention_bwd", "torch.bfloat16"): FT_BF16_STEPS * sum(attn_ft.values())}, bwd_dtypes
     torch.backends.cudnn.deterministic = False
 
+    mark(13)
     # -- 13. timings: backward per op at the dense shapes, then the sweep step
     per_step_bwd, bwd_host_us = {}, {}
     for dname in TOL:
@@ -2799,6 +3019,7 @@ def main() -> None:
     torch.backends.cudnn.deterministic = False
     torch.cuda.synchronize()
 
+    mark(14)
     # -- 14. the train step: kernels on against off, then timings and profiles
     torch.backends.cudnn.deterministic = True
     tgen = torch.Generator(device=dev).manual_seed(6)
@@ -2933,24 +3154,29 @@ def main() -> None:
         del net, st, step
     torch.cuda.synchronize()
 
+    mark(15)
     # -- 15. evaluation path: the FID Inception and the fid_score and fidelity CLIs
     ops.reset_launch_counts()
     evaluation = evaluation_path(tmp, {name: os.path.join(tmp, name + "_samples")
                                        for name in ("dense", "pruned")}, gpu, tag)
     assert not any(ops.LAUNCHES.values()), ops.LAUNCHES  # no kernel of the port on this path
 
+    mark(16)
     # -- 16. the class-conditional LDM serving path (cin256-v2 + vq-f4)
     ldm_model, ldm_dir, ldm = ldm_path(tmp, gen, gpu, tag, worst, others_fwd)
 
+    mark(17)
     # -- 17. the LDM prune path: the wide f32 backward, the sweep, the CLI
     ldm_pruned_dir, ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
     del ldm_model
 
+    mark(18)
     # -- 18. the LDM train path: the wide 16-bit attention, the bf16 step, the CLI
     ldm_train_fig = ldm_train_path(tmp, ldm_dir, ldm_pruned_dir, gen, gpu, tag, worst,
-                                   others_fwd)
+                                   others_fwd, others)
     tmpdir.cleanup()
 
+    mark(19)
     # -- 19. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
@@ -3048,7 +3274,18 @@ def main() -> None:
         else:
             out.update(library_ms_dq_dk_dv=dense_["bwd_library"],
                        library_ms_dq_dk_dv_pruned=pruned_["bwd_library"])
+            out.update({f"{label}_ms": dense_[f"{part}_kernel_{label}"] for label in others})
+            out.update({f"{label}_ms_pruned": pruned_[f"{part}_kernel_{label}"]
+                        for label in others})
         return out
+
+    def ldm_train_gn(part):
+        """The bf16 GroupNorm forward or backward summed over one dense
+        LDM train step's calls (phase 18)."""
+        t = lt_ops["group_norm"]
+        return {f"{k_}_ldm_train_step_bf16": t.get(f"{part}_{k_}")
+                for k_ in ("kernel", "plain", "bound", "bound_by", "library",
+                           "kernel_where_library")}
 
     def ldm_of(op):
         """The LDM serving path's figures (phase 16): launches of the
@@ -3089,7 +3326,7 @@ def main() -> None:
               library_ms_bf16=bf16_fwd["group_norm"]["library"],
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"],
-              **paths("group_norm"), **ldm_of("group_norm")),
+              **paths("group_norm"), **ldm_of("group_norm"), **ldm_train_gn("fwd")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
@@ -3107,7 +3344,8 @@ def main() -> None:
               bound_ms_ldm_sweep_step=lp_ops["gn_bound"],
               bound_by_ldm_sweep_step=lp_ops["gn_bound_by"],
               library_ms_ldm_sweep_step=lp_ops["gn_library"],
-              ms_where_library_ldm_sweep_step=lp_ops["gn_kernel_where_library"]),
+              ms_where_library_ldm_sweep_step=lp_ops["gn_kernel_where_library"],
+              **ldm_train_gn("bwd")),
         entry("flash_attention_fwd", "cuda",
               "diff_pruning_tpu_torch/ops/csrc/flash_attention_fwd.cu",
               "diff_pruning_tpu/ops/attention.py:97", ft_counts["attention"], "attention",
@@ -3145,6 +3383,7 @@ def main() -> None:
     ]
     print(json.dumps({"sweep_step_ms": {"kernels_on": step_on, "kernels_off": step_off},
                       "prune_cli_seconds": cli_seconds, "sampling_imgs_per_s": sampling,
+                      "sampling_ddim_steps": SAMPLE_TIME_STEPS,
                       "finetune_cli_seconds": {"float32": ft_seconds, "bfloat16": ft16_seconds},
                       "finetune_imgs_per_sec": {f"{n}/{d}": v for (n, d), v in train_ms.items()},
                       "train_step_peak_gb": {f"{n}/{d}": v for (n, d), v in peak_gb.items()},

@@ -33,9 +33,12 @@ above 256 for the LDM's one-head transformers. The forward: f32 64 query
 rows a block (32 above a padded head dim of 512), Q resident, K and V
 streamed in head-dim chunks; bf16/f16 64 query rows a block on two
 warpgroups with Hopper's ``wgmma``, O's columns split between them (and
-between two blocks above 512). The backward: 16 query rows a block of the
-whole head dim (f32: 8 kv rows; bf16/f16 on the tensor cores: 32 kv rows in
-dq, 8 in dk/dv, the head dim split over the warps). Wider heads raise
+between two blocks above 512). The backward: f32 16 query rows and 8 kv
+rows a block of the whole head dim; bf16/f16 64 rows a block on two
+warpgroups with ``wgmma`` (dq: 64 query rows; dk/dv: 64 kv rows), the head
+dim split over a cluster of blocks where one cannot hold it, and for the
+short calls (Nkv = 1, 64 tokens) 16 query rows and 32 (dq) or 8 (dk/dv) kv
+rows on ``mma.sync``, the head dim split over the warps. Wider heads raise
 ``ValueError`` on the card; the plain versions take any. The kernels
 zero-pad the head dim in shared memory and read head-split views through
 their strides, so the layer passes ``(B, N,
@@ -86,25 +89,29 @@ def reference_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v), lse
 
 
-def attention_backward_dq_reference(q, k, v, o, do, lse, scale: float):
+def attention_backward_dq_reference(q, k, v, o, do, lse, scale: float,
+                                    compute_dtype=torch.float32):
     """``(dq, dsum)``: the plain version of the dq kernel, the TPU dq kernel's
-    math (``diff_pruning_tpu/ops/attention.py:143-167``) in f32, with
-    ``dsum = rowsum(dO * O)``, (B, H, Nq) f32, which the dk/dv part reads."""
-    f32 = torch.float32
+    math (``diff_pruning_tpu/ops/attention.py:143-167``) in f32 (or
+    ``compute_dtype``), with ``dsum = rowsum(dO * O)``, (B, H, Nq), which the
+    dk/dv part reads."""
+    f32 = compute_dtype
     qf, kf, dof = q.to(f32), k.to(f32), do.to(f32)
     dsum = (dof * o.to(f32)).sum(-1)
-    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse.to(f32)[..., None])
     ds = p * (torch.matmul(dof, v.to(f32).transpose(-1, -2)) - dsum[..., None]) * scale
     return torch.matmul(ds, kf).to(q.dtype), dsum
 
 
-def attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale: float):
+def attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale: float,
+                                     compute_dtype=torch.float32):
     """``(dk, dv)``: the plain version of the dk/dv kernel, the TPU dkv
-    kernel's math (``diff_pruning_tpu/ops/attention.py:170-202``) in f32."""
-    f32 = torch.float32
+    kernel's math (``diff_pruning_tpu/ops/attention.py:170-202``) in f32 (or
+    ``compute_dtype``)."""
+    f32 = compute_dtype
     qf, dof = q.to(f32), do.to(f32)
-    p = torch.exp(torch.matmul(qf, k.to(f32).transpose(-1, -2)) * scale - lse[..., None])
-    ds = p * (torch.matmul(dof, v.to(f32).transpose(-1, -2)) - dsum[..., None]) * scale
+    p = torch.exp(torch.matmul(qf, k.to(f32).transpose(-1, -2)) * scale - lse.to(f32)[..., None])
+    ds = p * (torch.matmul(dof, v.to(f32).transpose(-1, -2)) - dsum.to(f32)[..., None]) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf)
     dv = torch.matmul(p.transpose(-1, -2), dof)
     return dk.to(k.dtype), dv.to(v.dtype)

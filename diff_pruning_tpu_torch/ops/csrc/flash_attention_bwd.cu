@@ -132,12 +132,20 @@
 //   views allow, else 4-byte (pruned widths such as 270 have rows that are
 //   not 16-byte aligned).
 //
-// bf16/f16 with 256 < D <= 1024 (`flash_bwd_dq_kernel_mma_wide<T, NC2>`,
-// `flash_bwd_dkv_kernel_mma_wide<T, NC2>`): the same heads under bf16
-// training, on the tensor cores: 16 q rows and 32 (dq) or 8 (dk/dv) kv rows
-// a block, the head dim split over the 8 warps; see their note below.
 // Shared memory at D = 1024: dq 48 * 1028 * 4 + 16 * 260 * 4 + 128 * 4 + 2 *
 // 16 * 4 = 214,656 bytes, dk/dv 215,168.
+//
+// bf16/f16 with 256 < D <= 1024: the same heads under bf16 training, on the
+// tensor cores, in two tilings that the entry points choose by shape. The
+// long calls take `flash_bwd_dq_kernel_wgmma_wide<T, NW, Z>` and
+// `flash_bwd_dkv_kernel_wgmma_wide<T, NC, Z>`: 64 rows a block on two
+// warpgroups with Hopper's `wgmma`, the head dim split over a cluster where
+// one block cannot hold it. The short ones (few 64-row tiles and a short
+// loop: the class token's Nkv = 1, the 64-token heads) take
+// `flash_bwd_dq_kernel_mma_wide<T, NC2>` and
+// `flash_bwd_dkv_kernel_mma_wide<T, NC2>`: 16 q rows and 32 (dq) or 8
+// (dk/dv) kv rows a block, `mma.sync`, the head dim split over the 8 warps.
+// See their notes below.
 //
 // q, k, v, o, dO and the outputs are addressed as [b][h][n][d] through
 // element strides (d contiguous); lse and dsum are contiguous (B*H, Nq) f32.
@@ -168,10 +176,6 @@ constexpr int kQRows = 64;   // q rows per tile (f32 kernels)
 constexpr int kKvRows = 32;  // kv rows per tile (f32 kernels)
 constexpr int kLdt = 68;     // row stride of dq's dS exchange tile: 64 + 4
 constexpr int kLdk = 36;     // row stride of dk/dv's P and dS exchange tiles: 32 + 4
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // cp.async with zero-fill: bytes of the copy beyond src_bytes are zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
@@ -1291,7 +1295,10 @@ flash_bwd_dq_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 // --------------------------------------- bf16/f16 path, 256 < D <= 1024
 
 // Wide 16-bit heads (the LDM's one-head transformers under bf16 training:
-// D = 384, 576, 960 and the pruned 268, 404, 672). The 64-row kernels above
+// D = 384, 576, 960 and the pruned 268, 404, 672), the short calls (the
+// wgmma kernels below take the rest: launch_dq16, launch_dkv16). Small
+// blocks fill the card where the calls are short: Nkv = 1 gives dk/dv B*H
+// blocks of 8 kv rows here against B*H clusters of 64. The 64-row kernels above
 // keep six 64-row tiles; at D = 1024 one 64-row 16-bit tile alone is 132 KB.
 // These keep 16 q rows (one m16 tile) and 32 (dq) or 8 (dk/dv) kv rows of
 // the whole head dim (padded to DP = 128 * NC2, zero-filled), 256 threads
@@ -1713,6 +1720,512 @@ size_t dkv_smem_mma_wide(int nc2) {
          2 * kWideKvDkv * kLdx16 * sizeof(T) + 4 * kWideQ16 * sizeof(float);
 }
 
+// ------------------------- bf16/f16 path, 256 < D <= 1024, on wgmma (64-row tiles)
+
+// Replaces, for bf16/f16 at 256 < D <= 1024, `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` of `_flash_bwd_call` (diff_pruning_tpu/ops/attention.py:
+// 143, 170, 205): the LDM's one-head transformers under bf16 training (D =
+// 384, 576, 960 and the pruned 268, 404, 672, each also against the class
+// token, Nkv = 1).
+//
+// What bounds them on the H100: the tensor cores (989 TFLOP/s) by the count
+// of operations at the main shapes (~500 flops a byte at (1024, 1024, 384));
+// what keeps a kernel from that rate is feeding them: how often a streamed
+// row is fetched again from L2, and the shared-memory bytes each product
+// reads. The 16-row kernels above fetch every K/V row once per 16 q rows
+// (dq) and every Q/dO row once per 8 kv rows (dk/dv); these fetch them once
+// per 64: bytes from L2 per call 4 B Nq Nkv D / 64 for each kernel, against
+// / 16 and / 8.
+//
+// The design (both kernels; Hopper's warpgroup products, tensor_core.cuh):
+// - 64 rows a block on two warpgroups (256 threads), one m64 row of
+//   `wgmma` (f32 accumulators). The block holds its 64 rows of two inputs
+//   of DB head-dim columns resident in shared memory (dq: Q and dO; dk/dv:
+//   K and V) and streams tiles of the other two (dq: 32-row K_t and V_t;
+//   dk/dv: Q_t and dO_t, with their lse and D, 64 rows where two such
+//   stages fit, DB = 192, else 32) through a cp.async ring of 2-4 stages,
+//   one barrier a stage: each stage's copy overlaps the products of the
+//   stages before it. Operands lie in the 128-byte swizzle (copy_sw128), so
+//   a warp's copies run along the rows and its products read distinct banks.
+// - The two score products are split between the warpgroups, m64nNk16
+//   from shared memory over the block's head-dim columns: dq forms S = Q
+//   K_t^T in warpgroup 0 and dP = dO V_t^T in warpgroup 1; dk/dv forms them
+//   transposed, S^T = K Q_t^T and dP^T = V dO_t^T, so that its rows are kv
+//   rows. Each warpgroup writes its accumulator to shared memory in its
+//   register order (conflict-free), and after one barrier every thread
+//   reads the (row, column) pairs it holds of both: the same values in both
+//   warpgroups. Where a cluster splits the head dim, the partials of its Z
+//   blocks are added in rank order through distributed shared memory (the
+//   same sum, in the same bits, in every block; no atomics), and the
+//   cluster barrier replaces the block's.
+// - p = exp2(s scale log2e - lse log2e) and ds = p (dp - D) scale in f32
+//   on the accumulator layout, rounded once to the input type as the
+//   register A operand of the gradient products (m64n64k16, B = the streamed
+//   tile, MN-major): dq += dS K_t, each warpgroup half of the block's
+//   columns; dk/dv: warpgroup 0 dK += dS^T Q_t and warpgroup 1 dV += P^T
+//   dO_t over all of the block's columns.
+// - Registers bound the block's columns: dq keeps 64 x DB / 2 f32 a
+//   warpgroup (DB = 128 NW: 384, or 256 and 384 in clusters), dk/dv 64 x DB
+//   (DB = 64 NC: 192 or 256, always in a cluster of Z = 2-4 blocks); Z
+//   blocks a tile cover the head dim padded to DB Z.
+// - dq forms D = rowsum(dO * O) as the diagonal of dO O^T (O's columns
+//   copied into the ring's last slot before the loop), with the products
+//   and k-steps that form dP, and both in the column chains in which dk/dv
+//   forms dP^T (score_chains): where a row's one valid kv row is its O row
+//   (Nkv = 1), dp - D is exactly 0 in both wgmma kernels, so dq and dk,
+//   zero in exact arithmetic, come out 0 rather than as f32 noise. The
+//   cluster adds the parts in rank order;
+//   rank 0 writes `dsum`.
+// - Rows past Nq/Nkv and columns past D are zero-filled in shared memory
+//   and their p set to exactly 0; copies take the widest chunk the views
+//   allow (16, 8 or 4 bytes by cp.async, or 2-byte loads). The gradients
+//   leave through the resident tiles, rounded once, in 16-byte stores where
+//   aligned.
+// - The short calls go to the 16-row kernels above: a grid of few 64-row
+//   tiles leaves most SMs idle and a short loop cannot hide the prologue.
+//   The wgmma dq takes calls with Nkv >= 256 or at least 256 q tiles, the
+//   wgmma dk/dv calls with at least 64 kv tiles. Device ms a call at B =
+//   16 (bwd_dispatch.py; NVIDIA H100 80GB HBM3, 700 W), wgmma against
+//   16-row: dq (1024, 1024, 384) 0.222 / 0.610, (1024, 1, 384) 0.030 /
+//   0.044, (256, 256, 576) 0.054 / 0.060, but (256, 1, 576) 0.018 / 0.012
+//   and (64, 64, 960) 0.027 / 0.013; dk/dv (1024, 1024, 384) 0.450 / 0.727,
+//   (256, 256, 576) 0.085 / 0.102, but (1024, 1, 384) 0.107 / 0.074 and
+//   (64, 64, 960) 0.025 / 0.013.
+// Shared memory: the resident pair 256 DB bytes, a stage 4 R DB (R rows),
+// the partials 2 x 64 x R f32 (two buffers in a cluster), 2 KB of row
+// values and alignment: 215,040 bytes for dq at DB = 384 (2 stages) and
+// for dk/dv at DB = 192 (64-row stages, 2), 231,424 at DB = 256 (4
+// stages); one block an SM.
+
+constexpr int kDqRows = 32;  // kv rows a stage of the dq kernel
+
+// the S and dP (or S^T and dP^T) partials of a block: two products of 64 x
+// R f32 in register order ([2][R / 2][128]), in two buffers in a cluster
+__host__ __device__ constexpr int bwd16_red_floats(int r, int z) {
+  return (z > 1 ? 2 : 1) * 2 * (r / 2) * 128;
+}
+// the ring's stages (two R-row tiles of DB columns each): as many as the
+// block's 227 KB hold, up to 4, beside the resident pair, the partials and
+// 2 KB of row values and alignment
+template <int DB, int R, int Z>
+__host__ __device__ constexpr int bwd16_stages() {
+  return (232448 - 2048 - 4 * bwd16_red_floats(R, Z) - 256 * DB) / (4 * R * DB) < 4
+             ? (232448 - 2048 - 4 * bwd16_red_floats(R, Z) - 256 * DB) / (4 * R * DB)
+             : 4;
+}
+template <int DB, int R, int Z>
+__host__ __device__ constexpr int bwd16_smem_bytes() {
+  return (256 + 4 * R * bwd16_stages<DB, R, Z>()) * DB + 4 * bwd16_red_floats(R, Z) + 2048;
+}
+
+// the score products by width: m64n32k16 and m64n64k16 from shared memory
+template <typename T>
+__device__ __forceinline__ void gmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  Gmma<T>::ss32(d, a, b);
+}
+template <typename T>
+__device__ __forceinline__ void gmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  Gmma<T>::ss64(d, a, b);
+}
+
+// NCH n64 accumulators of a warpgroup (columns col0 + 64 n ..) rounded into
+// a shared [64][..] tile laid out as copy_sw128 lays it out
+template <typename T, int NCH>
+__device__ __forceinline__ void acc_to_sw128(T* tile, const float (&acc)[NCH][32], int col0) {
+  uint16_t* out = reinterpret_cast<uint16_t*>(tile);
+  const int lane = threadIdx.x & 31;
+  const int row_a = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < NCH; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_a + 8 * r;
+        const int c = (col0 + 64 * n) / 8 + j;  // the 16-byte chunk of the row
+        *reinterpret_cast<uint32_t*>(out + (c >> 3) * 64 * 64 + row * 64 +
+                                     (((c & 7) ^ (row & 7)) << 3) + 2 * (lane & 3)) =
+            pack2(acc[n][4 * j + 2 * r], acc[n][4 * j + 2 * r + 1], static_cast<T*>(nullptr));
+      }
+}
+
+// The cluster's scores at this thread's NE accumulator positions: the sum
+// over the Z blocks, in rank order, of the partials in `part` (this block's
+// [2][NE][128] buffer: warpgroup 0's product, then warpgroup 1's); `both`:
+// the second product too, else only the first
+template <int Z, int NE>
+__device__ __forceinline__ void sum_partials(float (&s)[NE], float (&x)[NE], const float* part,
+                                             uint32_t rank, bool both) {
+  const int i = threadIdx.x & 127;
+#pragma unroll
+  for (int e = 0; e < NE; ++e) s[e] = x[e] = 0.f;
+#pragma unroll
+  for (int r = 0; r < Z; ++r) {
+    if (r == int(rank)) {
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        s[e] += part[e * 128 + i];
+        if (both) x[e] += part[(NE + e) * 128 + i];
+      }
+    } else {
+      const uint32_t at = cluster_map(part + i, r);
+#pragma unroll
+      for (int e = 0; e < NE; ++e) {
+        s[e] += ld_cluster(at + e * 128 * 4);
+        if (both) x[e] += ld_cluster(at + (NE + e) * 128 * 4);
+      }
+    }
+  }
+}
+
+// the block's barrier, or the cluster's where Z blocks split the head dim
+template <int Z>
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (Z > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// acc = A B^T (64 x 32) over the block's k-steps, m64n32k16 from shared
+// memory (A: a 64-row tile, B: an R-row tile, both K-major in copy_sw128's
+// slabs), accumulated as the dk/dv kernel accumulates its S^T and dP^T:
+// one chain a 192-column group where the dq block holds 384 columns (NW =
+// 3), the chains then added in order; so that dq's D and the dk/dv
+// kernel's dP^T come out in the same bits where they are equal in exact
+// arithmetic (Nkv = 1)
+template <typename T, int NW, int R>
+__device__ __forceinline__ void score_chains(float (&acc)[16], uint64_t a, uint64_t b,
+                                             int ksteps) {
+  auto at = [](int kk, int rows) {  // k-step kk's start in 64-column slabs of `rows` rows
+    return uint64_t(((kk >> 2) * rows * 128 + (kk & 3) * 32) >> 4);
+  };
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  fence_regs(acc);
+  wgmma_fence();
+  if constexpr (NW == 3) {
+    constexpr int KC = 12;  // k-steps of the first chain: 192 columns
+    float hi[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) hi[e] = 0.f;
+    fence_regs(hi);
+    for (int kk = 0; kk < min(ksteps, KC); ++kk) Gmma<T>::ss32(acc, a + at(kk, 64), b + at(kk, R));
+    for (int kk = KC; kk < ksteps; ++kk) Gmma<T>::ss32(hi, a + at(kk, 64), b + at(kk, R));
+    wgmma_commit_wait();
+    fence_regs(acc);
+    fence_regs(hi);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[e] += hi[e];
+  } else {
+    for (int kk = 0; kk < ksteps; ++kk) Gmma<T>::ss32(acc, a + at(kk, 64), b + at(kk, R));
+    wgmma_commit_wait();
+    fence_regs(acc);
+  }
+}
+
+template <typename T, int NW, int Z>  // n64 chunks of dq a warpgroup; blocks (a cluster) a tile
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel_wgmma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ o,
+                               const T* __restrict__ dout, const float* __restrict__ lse,
+                               float* __restrict__ dsum, T* __restrict__ dq, int H, int Nq,
+                               int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
+                               Strides sdo, Strides sdq, float scale, int granule, int vec_out) {
+  constexpr int DB = 128 * NW;  // head-dim columns a block
+  constexpr int BK = kDqRows;   // kv rows a stage
+  constexpr int TILE = BK * DB;
+  constexpr int NS = bwd16_stages<DB, BK, Z>();
+  static_assert(NS >= 2, "a ring of two stages at least");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  T* dos = qs + 64 * DB;    // qs: Q [64][DB], at the end dq; dos: dO [64][DB]
+  T* ring = dos + 64 * DB;  // NS stages of K_t [32][DB], V_t [32][DB]; first O in the last
+  float* red = reinterpret_cast<float*>(ring + NS * 2 * TILE);  // (2 x) [2][16][128] partials
+  float* dpart = red + bwd16_red_floats(BK, Z);  // [64] this block's part of rowsum(dO * O)
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.y * 64;
+  const uint32_t rank = Z > 1 ? cluster_rank() : 0;  // = blockIdx.z
+  const int c0 = rank * DB;  // the block's first head-dim column
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int row_a = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's rows: row_a, +8
+
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  int next = 0;  // the next stage to issue: K and V of kv tile `next`
+  auto issue = [&](int slot) {
+    const int t = next * BK;
+    if (t < Nkv) {
+      copy_sw128<BK, DB>(ring + slot * 2 * TILE, kb, sk.n, t, Nkv, c0, D, granule);
+      copy_sw128<BK, DB>(ring + slot * 2 * TILE + TILE, vb, sv.n, t, Nkv, c0, D, granule);
+    }
+    cp_async_commit();
+    ++next;
+  };
+  // one barrier a stage: once every thread is past it, the slot of the stage
+  // before (its products waited for) is free and takes the stage NS - 1 ahead
+  int slot = 0;
+  auto next_stage = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2));  // this stage has landed
+    fence_proxy_async();
+    __syncthreads();
+    issue(slot == 0 ? NS - 1 : slot - 1);
+    T* at = ring + slot * 2 * TILE;
+    slot = slot == NS - 1 ? 0 : slot + 1;
+    return at;
+  };
+  copy_sw128<64, DB>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, c0, D, granule);
+  copy_sw128<64, DB>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, c0, D, granule);
+  T* os = ring + (NS - 1) * 2 * TILE;  // O [64][DB], in the slot the first stage refills
+  copy_sw128<64, DB>(os, o + b * so.b + h * so.h, so.n, q0, Nq, c0, D, granule);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue(i);  // (Q, dO and O with the first)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2));  // Q, dO and O have landed
+  fence_proxy_async();
+  __syncthreads();
+
+  // D = rowsum(dO * O) over the block's columns: the diagonal of dO O^T,
+  // formed by the products and k-steps that form dP = dO V_t^T below, so that
+  // dp - D is exactly 0 where a row's one valid kv row is its O row (Nkv =
+  // 1: dq, zero in exact arithmetic, comes out 0); warpgroup h forms dO
+  // against O's rows 32 h .. 32 h + 31
+  const int ksteps = min(DB, D - c0 + 15) >> 4;  // the block's k-steps holding columns < D
+  const uint64_t dodesc = gmma_desc(dos, 16, 1024);
+  {
+    float oacc[16];  // (O's rows in 64-row slabs: R = 64)
+    score_chains<T, NW, 64>(oacc, dodesc, gmma_desc(os + wg * 32 * 64, 16, 1024), ksteps);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int row = row_a + 8 * ((e >> 1) & 1);
+      if (row == 32 * wg + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1)) dpart[row] = oacc[e];
+    }
+  }
+  tile_sync<Z>();
+  float dd[2], l2[2];
+  bool q_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    dd[r] = 0.f;
+#pragma unroll
+    for (int z = 0; z < Z; ++z)  // the cluster's parts, in rank order
+      dd[r] += z == int(rank) ? dpart[row] : ld_cluster(cluster_map(dpart + row, z));
+    q_ok[r] = q0 + row < Nq;
+    l2[r] = q_ok[r] ? lse[size_t(bh) * Nq + q0 + row] * kLog2e : 0.f;
+    if (rank == 0 && wg == 0 && (lane & 3) == 0 && q_ok[r])
+      dsum[size_t(bh) * Nq + q0 + row] = dd[r];
+  }
+
+  float dacc[NW][32];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dacc[n][e] = 0.f;
+  const float scale2 = scale * kLog2e;
+  // warpgroup 0 forms S = Q K_t^T, warpgroup 1 dP = dO V_t^T: A (64 rows) and
+  // B (32 rows) K-major in 64-column slabs of 128-byte rows, k-step kk in
+  // slab kk / 4, 32 (kk % 4) bytes in
+  const uint64_t adesc = wg ? dodesc : gmma_desc(qs, 16, 1024);
+  for (int t = 0, it = 0; t < Nkv; t += BK, ++it) {
+    const T* st = next_stage();  // K_t and V_t have landed
+    float sacc[16];
+    score_chains<T, NW, BK>(sacc, adesc, gmma_desc(wg ? st + TILE : st, 16, 1024), ksteps);
+    // the partials alternate between two buffers in a cluster, so one
+    // cluster barrier a tile keeps a buffer from being written again before
+    // the other blocks have read it
+    float* part = red + (Z > 1 ? (it & 1) * bwd16_red_floats(BK, 1) : 0);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) part[(wg * 16 + e) * 128 + (tid & 127)] = sacc[e];
+    tile_sync<Z>();
+    float s[16], dp[16];
+    sum_partials<Z>(s, dp, part, rank, true);
+    // dS on rows row_a (e % 4 < 2) and row_a + 8, kv column 8 (e / 4) + 2
+    // (lane % 4) + e % 2 of the tile, as the A operand of the 2 k-steps
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      float ds[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = ((e + u) >> 1) & 1;
+        const int col = t + 8 * ((e + u) >> 2) + 2 * (lane & 3) + u;
+        const float p = q_ok[r] && col < Nkv ? exp2f(s[e + u] * scale2 - l2[r]) : 0.f;
+        ds[u] = p * (dp[e + u] - dd[r]) * scale;
+      }
+      pa[e >> 3][(e & 7) >> 1] = pack2(ds[0], ds[1], static_cast<T*>(nullptr));
+    }
+#pragma unroll
+    for (int n = 0; n < NW; ++n) fence_regs(dacc[n]);
+    wgmma_fence();
+    // dq += dS K_t: B = K_t MN-major (the head dim contiguous), the
+    // warpgroup's n64 chunks of the block's columns
+#pragma unroll
+    for (int kt = 0; kt < BK / 16; ++kt)
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+        Gmma<T>::rs64(dacc[n], pa[kt],
+                      gmma_desc(st + (wg * NW + n) * BK * 64 + kt * 16 * 64, BK * 128, 1024));
+    wgmma_commit_wait();
+#pragma unroll
+    for (int n = 0; n < NW; ++n) fence_regs(dacc[n]);
+  }
+  // the other blocks may still read this one's partials and D part
+  if constexpr (Z > 1) cluster_sync();
+  // dq rounded once into the Q tile (free: every S is formed), then out
+  acc_to_sw128<T, NW>(qs, dacc, wg * 64 * NW);
+  __syncthreads();
+  store_sw128<64, DB>(dq + b * sdq.b + h * sdq.h, sdq.n, qs, q0, Nq, c0, D, vec_out);
+}
+
+// q rows a stage of the dk/dv kernel: 64 where the shared memory holds two
+// stages of them (a block of 192 columns), else 32
+__host__ __device__ constexpr int bwd16_dkv_rows(int nc) { return nc == 3 ? 64 : 32; }
+
+template <typename T, int NC, int Z>  // n64 chunks of dK and dV; blocks (a cluster) a tile
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel_wgmma_wide(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ dsum,
+                                T* __restrict__ dk, T* __restrict__ dv, int H, int Nq, int Nkv,
+                                int D, Strides sq, Strides sk, Strides sv, Strides sdo,
+                                Strides sdk, Strides sdv, float scale, int granule,
+                                int vec_out) {
+  constexpr int DB = 64 * NC;  // head-dim columns a block
+  constexpr int BQ = bwd16_dkv_rows(NC);  // q rows a stage
+  constexpr int NE = BQ / 2;              // accumulators of a score product
+  constexpr int TILE = BQ * DB;
+  constexpr int NS = bwd16_stages<DB, BQ, Z>();
+  static_assert(NS >= 2, "a ring of two stages at least");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+  T* vs = ks + 64 * DB;    // ks: K [64][DB], at the end dK; vs: V, at the end dV
+  T* ring = vs + 64 * DB;  // NS stages of Q_t [32][DB], dO_t [32][DB]
+  float* red = reinterpret_cast<float*>(ring + NS * 2 * TILE);  // (2 x) [2][16][128] partials
+  float* rows = red + bwd16_red_floats(BQ, Z);  // NS x (lse [BQ], D [BQ]) of the stages' rows
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kv0 = blockIdx.y * 64;
+  const uint32_t rank = Z > 1 ? cluster_rank() : 0;  // = blockIdx.z
+  const int c0 = rank * DB;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int lane = tid & 31;
+  const int row_a = ((tid >> 5) & 3) * 16 + (lane >> 2);  // this thread's kv rows: row_a, +8
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lb = lse + size_t(bh) * Nq;
+  const float* db = dsum + size_t(bh) * Nq;
+  int next = 0;  // the next stage to issue: Q, dO, lse and D of q tile `next`
+  auto issue = [&](int slot) {
+    const int t = next * BQ;
+    if (t < Nq) {
+      copy_sw128<BQ, DB>(ring + slot * 2 * TILE, qb, sq.n, t, Nq, c0, D, granule);
+      copy_sw128<BQ, DB>(ring + slot * 2 * TILE + TILE, dob, sdo.n, t, Nq, c0, D, granule);
+      copy_rows<BQ>(rows + slot * 2 * BQ, lb, t, Nq);
+      copy_rows<BQ>(rows + slot * 2 * BQ + BQ, db, t, Nq);
+    }
+    cp_async_commit();
+    ++next;
+  };
+  int slot = 0;
+  auto next_stage = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(NS - 2));  // this stage has landed
+    fence_proxy_async();
+    __syncthreads();
+    issue(slot == 0 ? NS - 1 : slot - 1);
+    const int at = slot;
+    slot = slot == NS - 1 ? 0 : slot + 1;
+    return at;
+  };
+  copy_sw128<64, DB>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, c0, D, granule);
+  copy_sw128<64, DB>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, c0, D, granule);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) issue(i);  // (K and V with the first)
+
+  // warpgroup 0: dK (64 kv rows x the block's columns), 1: dV
+  float gacc[NC][32];
+#pragma unroll
+  for (int n = 0; n < NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) gacc[n][e] = 0.f;
+  bool kv_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kv_ok[r] = kv0 + row_a + 8 * r < Nkv;
+  const float scale2 = scale * kLog2e;
+  const int ksteps = min(DB, D - c0 + 15) >> 4;
+  // warpgroup 0 forms S^T = K Q_t^T, warpgroup 1 dP^T = V dO_t^T (A: 64
+  // resident rows, B: 32 streamed rows, both K-major)
+  const uint64_t adesc = gmma_desc(wg ? vs : ks, 16, 1024);
+  for (int t = 0, it = 0; t < Nq; t += BQ, ++it) {
+    const int sl = next_stage();  // Q_t, dO_t and their rows have landed
+    const T* st = ring + sl * 2 * TILE + wg * TILE;  // warpgroup 0: Q_t, 1: dO_t
+    const float* lrow = rows + sl * 2 * BQ;
+    const float* drow = lrow + BQ;
+    float sacc[NE];
+#pragma unroll
+    for (int e = 0; e < NE; ++e) sacc[e] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+    const uint64_t bdesc = gmma_desc(st, 16, 1024);
+    for (int kk = 0; kk < ksteps; ++kk)
+      gmma_ss<T>(sacc, adesc + (((kk >> 2) * 8192 + (kk & 3) * 32) >> 4),
+                 bdesc + (((kk >> 2) * BQ * 128 + (kk & 3) * 32) >> 4));
+    wgmma_commit_wait();
+    fence_regs(sacc);
+    float* part = red + (Z > 1 ? (it & 1) * bwd16_red_floats(BQ, 1) : 0);
+#pragma unroll
+    for (int e = 0; e < NE; ++e) part[(wg * NE + e) * 128 + (tid & 127)] = sacc[e];
+    tile_sync<Z>();
+    float s[NE], dp[NE];
+    sum_partials<Z>(s, dp, part, rank, wg == 0);  // warpgroup 1 needs only S
+    // kv rows row_a (e % 4 < 2) and row_a + 8, q column 8 (e / 4) + 2 (lane
+    // % 4) + e % 2 of the tile: dS^T (warpgroup 0) or P^T (1) as the A
+    // operand of the BQ / 16 k-steps
+    uint32_t pa[BQ / 16][4];
+#pragma unroll
+    for (int e = 0; e < NE; e += 2) {
+      float x[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = ((e + u) >> 1) & 1;
+        const int col = 8 * ((e + u) >> 2) + 2 * (lane & 3) + u;
+        const float p =
+            kv_ok[r] && t + col < Nq ? exp2f(s[e + u] * scale2 - lrow[col] * kLog2e) : 0.f;
+        x[u] = wg ? p : p * (dp[e + u] - drow[col]) * scale;
+      }
+      pa[e >> 3][(e & 7) >> 1] = pack2(x[0], x[1], static_cast<T*>(nullptr));
+    }
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(gacc[n]);
+    wgmma_fence();
+    // dK += dS^T Q_t, dV += P^T dO_t: B = the streamed tile MN-major
+#pragma unroll
+    for (int kt = 0; kt < BQ / 16; ++kt)
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+        Gmma<T>::rs64(gacc[n], pa[kt], gmma_desc(st + n * BQ * 64 + kt * 16 * 64, BQ * 128, 1024));
+    wgmma_commit_wait();
+#pragma unroll
+    for (int n = 0; n < NC; ++n) fence_regs(gacc[n]);
+  }
+  if constexpr (Z > 1) cluster_sync();  // the other blocks may still read the partials
+  // dK into K's tile, dV into V's (each read only by its own warpgroup's
+  // products, all done), rounded once, then out
+  acc_to_sw128<T, NC>(wg ? vs : ks, gacc, 0);
+  __syncthreads();
+  store_sw128<64, DB>(dk + b * sdk.b + h * sdk.h, sdk.n, ks, kv0, Nkv, c0, D, vec_out);
+  store_sw128<64, DB>(dv + b * sdv.b + h * sdv.h, sdv.n, vs, kv0, Nkv, c0, D, vec_out);
+}
+
 // 16-byte copies need 16-byte aligned bases and row/head/batch strides
 bool aligned16(const void* p, Strides s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * 4) % 16 == 0 &&
@@ -1936,7 +2449,90 @@ cudaError_t launch_dkv_mma_wide(const void* q, const void* k, const void* v, con
   return cudaGetLastError();
 }
 
-// the 16-bit launchers by head dim padded to 64 * NC (D <= 256) or 128 * NC2
+// launches `kernel` on a grid of (B*H, tiles, Z) blocks, the Z blocks of a
+// tile forming a cluster
+template <int Z, typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  grid.z = Z;
+  if constexpr (Z == 1) {
+    kernel<<<grid, kThreads, smem, stream>>>(args...);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 1;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = Z;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int NW, int Z>
+cudaError_t launch_dq_wgmma_wide(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, const float* lse, float* dsum, void* dq,
+                                 int B, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                                 Strides sv, Strides so, Strides sdo, Strides sdq, float scale,
+                                 cudaStream_t stream) {
+  constexpr int smem = bwd16_smem_bytes<128 * NW, kDqRows, Z>();
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel_wgmma_wide<T, NW, Z>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int granule = copy_granule(
+      view_bits(q, sq.b, sq.h, sq.n) | view_bits(k, sk.b, sk.h, sk.n) |
+      view_bits(v, sv.b, sv.h, sv.n) | view_bits(o, so.b, so.h, so.n) |
+      view_bits(dout, sdo.b, sdo.h, sdo.n));
+  const int vec_out = aligned16_half(dq, sdq) && D % 8 == 0;
+  return launch_clusters<Z>(flash_bwd_dq_kernel_wgmma_wide<T, NW, Z>,
+                            dim3(B * H, (Nq + 63) / 64), smem, stream, static_cast<const T*>(q),
+                            static_cast<const T*>(k), static_cast<const T*>(v),
+                            static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum,
+                            static_cast<T*>(dq), H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale,
+                            granule, vec_out);
+}
+
+template <typename T, int NC, int Z>
+cudaError_t launch_dkv_wgmma_wide(const void* q, const void* k, const void* v, const void* dout,
+                                  const float* lse, const float* dsum, void* dk, void* dv,
+                                  int B, int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                                  Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
+                                  cudaStream_t stream) {
+  constexpr int smem = bwd16_smem_bytes<64 * NC, bwd16_dkv_rows(NC), Z>();
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dkv_kernel_wgmma_wide<T, NC, Z>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int granule = copy_granule(
+      view_bits(q, sq.b, sq.h, sq.n) | view_bits(k, sk.b, sk.h, sk.n) |
+      view_bits(v, sv.b, sv.h, sv.n) | view_bits(dout, sdo.b, sdo.h, sdo.n));
+  const int vec_out = aligned16_half(dk, sdk) && aligned16_half(dv, sdv) && D % 8 == 0;
+  return launch_clusters<Z>(flash_bwd_dkv_kernel_wgmma_wide<T, NC, Z>,
+                            dim3(B * H, (Nkv + 63) / 64), smem, stream,
+                            static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
+                            static_cast<T*>(dk), static_cast<T*>(dv), H, Nq, Nkv, D, sq, sk, sv,
+                            sdo, sdk, sdv, scale, granule, vec_out);
+}
+
+// the 16-bit launchers by head dim: padded to 64 * NC (D <= 256), or the
+// wgmma kernels' tilings
 template <typename T>
 cudaError_t launch_dq16(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* dsum, void* dq, int B, int H,
@@ -1944,6 +2540,17 @@ cudaError_t launch_dq16(const void* q, const void* k, const void* v, const void*
                         Strides sdo, Strides sdq, float scale, cudaStream_t stream) {
 #define DQ16_ARGS q, k, v, o, dout, lse, dsum, dq, B, H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, stream
   if (D > kMaxD) {
+    // the wgmma kernel (one block of 384 columns, or Z blocks of 384 or 256 a
+    // cluster) where its loop or its grid is long; the 16-row kernel for the
+    // short calls (both measured: the note above the wgmma kernels)
+    if (Nkv >= 256 || B * H * ((Nq + 63) / 64) >= 256) {
+      // (the score chains of launch_dkv16's tiling at each head dim)
+      if (D <= 384) return launch_dq_wgmma_wide<T, 3, 1>(DQ16_ARGS);
+      if (D <= 512) return launch_dq_wgmma_wide<T, 2, 2>(DQ16_ARGS);
+      if (D <= 576) return launch_dq_wgmma_wide<T, 3, 2>(DQ16_ARGS);
+      if (D <= 768) return launch_dq_wgmma_wide<T, 2, 3>(DQ16_ARGS);
+      return launch_dq_wgmma_wide<T, 2, 4>(DQ16_ARGS);
+    }
     switch ((D + 127) / 128) {
       case 3: return launch_dq_mma_wide<T, 3>(DQ16_ARGS);
       case 4: return launch_dq_mma_wide<T, 4>(DQ16_ARGS);
@@ -1969,6 +2576,15 @@ cudaError_t launch_dkv16(const void* q, const void* k, const void* v, const void
                          Strides sdk, Strides sdv, float scale, cudaStream_t stream) {
 #define DKV16_ARGS q, k, v, dout, lse, dsum, dk, dv, B, H, Nq, Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, stream
   if (D > kMaxD) {
+    // the wgmma kernel (Z blocks of 192 or 256 columns a cluster) where its
+    // grid holds 64 kv tiles; the 8-row kernel for the short calls
+    if (B * H * ((Nkv + 63) / 64) >= 64) {
+      if (D <= 384) return launch_dkv_wgmma_wide<T, 3, 2>(DKV16_ARGS);
+      if (D <= 512) return launch_dkv_wgmma_wide<T, 4, 2>(DKV16_ARGS);
+      if (D <= 576) return launch_dkv_wgmma_wide<T, 3, 3>(DKV16_ARGS);
+      if (D <= 768) return launch_dkv_wgmma_wide<T, 4, 3>(DKV16_ARGS);
+      return launch_dkv_wgmma_wide<T, 4, 4>(DKV16_ARGS);
+    }
     switch ((D + 127) / 128) {
       case 3: return launch_dkv_mma_wide<T, 3>(DKV16_ARGS);
       case 4: return launch_dkv_mma_wide<T, 4>(DKV16_ARGS);

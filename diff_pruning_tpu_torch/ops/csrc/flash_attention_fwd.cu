@@ -107,10 +107,6 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half_rn(x);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // cp.async with zero-fill: bytes of the copy beyond src_bytes are zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -894,153 +890,6 @@ flash_fwd_kernel_mma(const T* __restrict__ q, const T* __restrict__ k,
 // of alignment: 197,632 bytes at DO = 384 (3 slots) and 512 (2 slots),
 // 230,400 in a cluster; one block per SM.
 
-// wgmma's shared-memory matrix descriptor for the 128-byte swizzle: start
-// address, the byte offsets between 8-row groups (sbo) and, for an MN-major
-// operand, between 64-element column blocks (lbo; unused K-major)
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" :::
-                   "memory");
-}
-// generic-proxy writes to shared memory (cp.async, stores) made visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// the thread-block cluster (2 blocks splitting the head dim): this block's
-// rank, a barrier over both (release / acquire), and loads of the other
-// block's shared memory
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
-                   "memory");
-}
-// the address of `p` (this block's shared memory) in block `rank`'s
-__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-template <typename T> struct Gmma;
-#define GMMA_TYPES(T, S)                                                                          \
-  template <> struct Gmma<T> {                                                                    \
-    /* d (64 x 64) += A (64 x 16, shared) B^T (64 x 16, shared), both K-major */                  \
-    static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b) {         \
-      asm volatile(                                                                               \
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                                            \
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32." S "." S " "                               \
-          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
-          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
-          "%32, %33, p, 1, 1, 0, 0;\n}\n"                                                         \
-          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
-            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-            "+f"(d[31])                                                                           \
-          : "l"(a), "l"(b), "n"(1));                                                              \
-    }                                                                                             \
-    /* d (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major: transposed) */         \
-    static __device__ __forceinline__ void rs64(float (&d)[32], const uint32_t (&a)[4],           \
-                                                uint64_t b) {                                     \
-      asm volatile(                                                                               \
-          "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                                            \
-          "wgmma.mma_async.sync.aligned.m64n64k16.f32." S "." S " "                               \
-          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
-          "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "     \
-          "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                                           \
-          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),  \
-            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
-            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
-            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
-            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
-            "+f"(d[31])                                                                           \
-          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));                          \
-    }                                                                                             \
-  };
-GMMA_TYPES(__nv_bfloat16, "bf16")
-GMMA_TYPES(__half, "f16")
-#undef GMMA_TYPES
-
-// The layout of an R x C tile of 16-bit values (C the contiguous dim) that
-// wgmma reads with the 128-byte swizzle: slabs of 64 columns, each R rows of
-// 128 bytes, in which 16-byte chunk c of row r lies at chunk c ^ (r % 8);
-// slabs and tiles 1024-byte aligned. A warp's copies run along the rows of
-// device memory and land on distinct banks.
-//
-// Issues the copy of rows [row0, row0 + R) x columns [col0, col0 + C) of one
-// head (row stride sn elements) into such a tile, rows >= nvalid and columns
-// >= D zero-filled, in chunks of `granule` bytes (copy_granule); at 2 bytes
-// the loads and stores are plain.
-template <int R, int C>
-__device__ __forceinline__ void copy_sw128(void* dst, const void* src, long long sn, int row0,
-                                           int nvalid, int col0, int D, int granule) {
-  constexpr int CH = C / 8;  // chunks a row
-  uint16_t* d0 = static_cast<uint16_t*>(dst);
-  const uint16_t* s0 = static_cast<const uint16_t*>(src);
-  // the whole tile in range: the copies alone, no per-chunk checks (the
-  // copies' issue bounds the kernel)
-  if (granule == 16 && row0 + R <= nvalid && col0 + C <= D) {
-    const uint16_t* s1 = s0 + row0 * sn + col0;
-    for (int i = threadIdx.x; i < R * CH; i += 256) {
-      const int r = i / CH, c = i - r * CH;
-      cp_async_n<16>(d0 + (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3),
-                     s1 + r * sn + 8 * c, 16);
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < R * CH; i += 256) {
-    const int r = i / CH, c = i - r * CH;
-    const int row = row0 + r;
-    const int col = col0 + 8 * c;
-    uint16_t* d = d0 + (c >> 3) * R * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
-    const int n = row < nvalid ? min(8, D - col) : 0;  // elements to read, <= 0: none
-    const uint16_t* s = n > 0 ? s0 + row * sn + col : s0;  // (zero-fill: nothing is read)
-    if (granule == 16) {
-      cp_async_n<16>(d, s, n > 0 ? 2 * n : 0);
-    } else if (granule == 8) {
-#pragma unroll
-      for (int e = 0; e < 8; e += 4)
-        cp_async_n<8>(d + e, n > e ? s + e : s0, n > e ? 2 * min(4, n - e) : 0);
-    } else if (granule == 4) {
-#pragma unroll
-      for (int e = 0; e < 8; e += 2)
-        cp_async_n<4>(d + e, n > e ? s + e : s0, n > e ? 2 * min(2, n - e) : 0);
-    } else {
-      uint16_t x[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) x[e] = e < n ? s[e] : uint16_t(0);
-      *reinterpret_cast<uint4*>(d) = make_uint4(x[0] | uint32_t(x[1]) << 16,
-                                                x[2] | uint32_t(x[3]) << 16,
-                                                x[4] | uint32_t(x[5]) << 16,
-                                                x[6] | uint32_t(x[7]) << 16);
-    }
-  }
-}
-
 // the ring's slots, each a K or V tile [64][2 DW] of 16-bit values: as many
 // as a block's 227 KB hold beside Q [64][2 DW], 1 KB of alignment and, in a
 // cluster, the S partials (2 x 64 x 64 f32)
@@ -1248,18 +1097,7 @@ flash_fwd_kernel_wgmma_wide(const T* __restrict__ q, const T* __restrict__ k,
                   static_cast<T*>(nullptr));
       }
   __syncthreads();
-  uint16_t* ob = reinterpret_cast<uint16_t*>(o + b * so.b + h * so.h);
-  for (int i = tid; i < 64 * (DO / 8); i += 256) {
-    const int r = i / (DO / 8), c = i - r * (DO / 8);
-    const int row = q0 + r, col = c0 + 8 * c;
-    if (row >= Nq || col >= D) continue;
-    const uint16_t* from = ot + (c >> 3) * 64 * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
-    if (vec_out) {  // D % 8 == 0: the whole chunk is in range
-      *reinterpret_cast<uint4*>(ob + row * so.n + col) = *reinterpret_cast<const uint4*>(from);
-    } else {
-      for (int e = 0; e < 8 && col + e < D; ++e) ob[row * so.n + col + e] = from[e];
-    }
-  }
+  store_sw128<64, DO>(o + b * so.b + h * so.h, so.n, ot, q0, Nq, c0, D, vec_out);
 }
 
 // ------------------------------------------------------------------ launch

@@ -23,7 +23,9 @@ Tolerances, |kernel - plain| <= atol + rtol * |plain|:
   dtype (16-bit: under one ulp of the max, 2^-8 and 2^-11). With Nkv = 1
   (a cross-attention on one token) p = 1, so dq and dk are zero in exact
   arithmetic and both sides hold only f32 noise: there the sweep's rule
-  adds 1e-6 of the call's largest gradient (in practice dv's).
+  adds 1e-6 of the call's largest gradient (in practice dv's). The wide
+  16-bit backward's tile edges are held to the same rule against the plain
+  versions computed in float64, whose own noise is far below that floor.
 """
 
 import pytest
@@ -360,6 +362,40 @@ def _check_flash_attention_backward(cuda):
         _check_rel(dq, pdq, dtype, what + " dq", floor)
         _check_rel(dk, pdk, dtype, what + " dk", floor)
         _check_rel(dv, pdv, dtype, what + " dv")
+    # the wide 16-bit dq and dk/dv at their tile edges (Nq, Nkv around the
+    # 32- and 64-row tiles, at the head dims where the tilings change), 16
+    # rows of 16 heads so that the entry points take the wgmma kernels, and
+    # fused 3 x 268, 3 x 269 and 2 x 270 views at 256 tokens, chained as the
+    # backward chains them, against the plain versions in float64: where Nkv
+    # = 1, dq and dk are zero in exact arithmetic and the f32 plain version's
+    # own cancellation noise reaches the floor the tolerance adds for them
+    edges = [(16, 16, nq, nkv, d, None) for d in (257, 384, 512, 513, 1024)
+             for nq in (1, 31, 33, 63, 65, 127) for nkv in (1, 31, 33, 63, 65, 127)]
+    edges += [(8, heads, 256, 256, d, heads) for heads, d in ((3, 268), (3, 269), (2, 270))]
+    for dtype in (torch.bfloat16, torch.float16):
+        for b, h, nq, nkv, d, heads in edges:
+            if heads is None:
+                q, do = (torch.randn((b, h, nq, d), generator=gen, device=cuda).to(dtype)
+                         for _ in range(2))
+                k, v = (torch.randn((b, h, nkv, d), generator=gen, device=cuda).to(dtype)
+                        for _ in range(2))
+            else:
+                q, k, v = fused(b, nq, heads, d, dtype)
+                do = fused(b, nq, heads, d, dtype)[0]
+            scale, what = d ** -0.5, f"attention bwd edge {(b, h, nq, nkv, d)} {dtype}"
+            o, lse = A.reference_attention_lse(q, k, v, scale)
+            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, lse, scale)
+            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale)
+            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale,
+                                                           compute_dtype=torch.float64)
+            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, lse, pdsum, scale,
+                                                          compute_dtype=torch.float64)
+            floor = 1e-6 * max(float(g.double().abs().max()) for g in (pdq, pdk, pdv)) \
+                if nkv == 1 else 0.0
+            _check_rel(dsum, pdsum, torch.float32, what + " dsum")
+            _check_rel(dq, pdq, dtype, what + " dq", floor)
+            _check_rel(dk, pdk, dtype, what + " dk", floor)
+            _check_rel(dv, pdv, dtype, what + " dv")
     t = torch.randn((2, 64, 3 * 4 * 40), generator=gen, device=cuda, requires_grad=True)
     tr = t.detach().clone().requires_grad_()
     w = torch.randn((2, 4, 64, 40), generator=gen, device=cuda)
