@@ -23,9 +23,10 @@ lines.
    checkout's sources (one nvcc per source, sm_90a, all at once); prints
    the build seconds and ptxas's registers and spills (per kernel for the
    attention forward and backward, f32 and bf16/f16, and the GroupNorm
-   backward; the wide forward kernels and the wgmma backward kernels must
-   not spill), and counts the tensor-core (HMMA: mma.sync; HGMMA: wgmma) and
-   FFMA instructions in the SASS (cuobjdump) of the attention kernels and
+   backward; the wide forward kernels, the wide f32 backward kernels and
+   the wgmma backward kernels must not spill), and counts the tensor-core
+   (HMMA: mma.sync; HGMMA: wgmma) and FFMA instructions in the SASS
+   (cuobjdump) of the attention kernels and
    the GroupNorm backward: the bf16/f16 attention kernels (forward, dq,
    dk/dv, the wide ones above D = 256 too; the wide forward and the wgmma
    dq and dk/dv with wgmma) must use the tensor cores, the f32 attention
@@ -34,7 +35,7 @@ lines.
    (repeatable) it also builds SRC, another version of
    flash_attention_fwd.cu or flash_attention_bwd.cu with the same C
    interface (e.g. the parent commit's, unpacked by ``git archive``), beside
-   the port's own builds, for phases 16 and 18 (forward) or 13 and 18
+   the port's own builds, for phases 16 and 18 (forward) or 13, 17 and 18
    (backward).
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense, the pruned
@@ -138,8 +139,12 @@ lines.
    Nkv = Nq and the class token's Nkv = 1, where dq and dk are zero in
    exact arithmetic and 1e-6 of the call's largest gradient is added to
    their tolerance), and at the widths of the UNet the CLI writes (268, 404,
-   672); (b) the GroupNorm backward at the step's shapes (C 192-1920, slabs
-   chunked past 104 KB) and the pruned UNet's; an f32 forward and backward
+   672); then at their tile edges (Nq, Nkv in 1-127 at D = 257-1024 where
+   the cluster of 192-column blocks grows, at 16 rows x 16 heads and at 1 x
+   2, so that dk/dv runs unsplit and split over 2 q parts, 4 at Nq = 257;
+   fused 3 x 268, 3 x 269 and 2 x 270 views at 256 tokens) against the
+   plain versions in float64; (b) the GroupNorm backward at the step's
+   shapes (C 192-1920, slabs chunked past 104 KB) and the pruned UNet's; an f32 forward and backward
    at D = 384 under autograd launch the kernels; (c) one sweep step (t = 0)
    kernels on against off from the same latents, labels and noise (cuDNN
    deterministic): loss, every grad and the Diff-Pruning scores, launches
@@ -156,7 +161,9 @@ lines.
    of one 12-row CFG call and cuDNN's 3x3 192 ->
    192 convolution at 64 x 64 timed at 12, 16 and 32 rows; per-op backward
    ms at the step's shapes against plain, the library call (the SDPA f32
-   backward, autograd of F.group_norm) and the bound.
+   backward, autograd of F.group_norm) and the bound (with ``--compare-bwd``
+   the other backwards' dq and dk/dv in the same turns), and the L2 bytes a
+   row of the wide dq and dk/dv from their tiling.
 18. LDM train path, bf16, on phase 16's model and phase 17's pruned one, B
    = 16 (the CLI's default): (a) the wide 16-bit attention kernels (the
    forward, inference launch and with lse; dq; dk/dv) against their plain
@@ -1037,66 +1044,89 @@ def wgmma_bwd_taken(b, h, nq, nkv):
     return (nkv >= 256 or b * h * -(-nq // 64) >= 256, b * h * -(-nkv // 64) >= 64)
 
 
-def bwd16_l2_bytes(nq, nkv, d, q_rows, kv_rows):
-    """Bytes a wide 16-bit dq kernel fetches from L2 per q row and a dk/dv
-    kernel per kv row, from its tiling (valid rows and columns): its own
-    rows once (dq: Q, dO, O; dk/dv: K, V), and each streamed row (dq: K and
-    V; dk/dv: Q, dO, lse and D) once per tile of ``q_rows`` (dq) or
-    ``kv_rows`` (dk/dv) rows."""
-    return (6 * d + 4 * d * nkv / min(q_rows, nq),
-            4 * d + (4 * d + 8) * nq / min(kv_rows, nkv))
+def f32_wide_bwd_split(b, h, nq, nkv, d):
+    """The q parts (1, 2 or 4) over which flash_attention_bwd.cu's wide f32
+    dk/dv splits its loop at (B, H, Nq, Nkv, D) (launch_dkv_f32_wide): more
+    blocks of its cluster of ceil(D / 192) where the grid is short, each
+    part 2 q tiles of 32 rows or more."""
+    zd = -(-d // 192)
+    zq = 1
+    if b * h * -(-nkv // 32) * zd < 132:
+        while 2 * zq * zd <= 8 and 4 * zq <= -(-nq // 32):
+            zq *= 2
+    return zq
+
+
+def bwd_l2_bytes(nq, nkv, d, q_rows, kv_rows, es=2):
+    """Bytes a wide dq kernel fetches from L2 per q row and a dk/dv kernel
+    per kv row, from its tiling (valid rows and columns, ``es`` bytes an
+    element): its own rows once (dq: Q, dO, O; dk/dv: K, V), and each
+    streamed row (dq: K and V; dk/dv: Q, dO, lse and D) once per tile of
+    ``q_rows`` (dq) or ``kv_rows`` (dk/dv) rows."""
+    return (3 * es * d + 2 * es * d * nkv / min(q_rows, nq),
+            2 * es * d + (2 * es * d + 8) * nq / min(kv_rows, nkv))
+
+
+def bwd_edge_errors(b, h, nq, nkv, d, fused, dtype, btol, gen, dev):
+    """dq and dk/dv at one shape (fused: head-split views of (B, N, 3 H D)
+    projections), chained as the backward chains them (dk/dv reads dq's
+    dsum), against the plain versions computed in float64 at the backward's
+    tolerances: where Nkv = 1, dq and dk are zero in exact arithmetic, and
+    at a few q rows the f32 plain version's own cancellation noise (dO v^T -
+    D) reaches the 1e-6 floor that the tolerance adds for them; returns the
+    largest error of each output."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops import attention as A
+
+    if fused:
+        t = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)
+        q, k, v = (z.view(b, nq, h, d).transpose(1, 2) for z in t.split(h * d, dim=-1))
+        do = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)[
+            ..., :h * d].view(b, nq, h, d).transpose(1, 2)
+    else:
+        q, do = (torch.randn((b, h, nq, d), generator=gen, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((b, h, nkv, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+    scale = d ** -0.5
+    o, lse = A.reference_attention_lse(q, k, v, scale)
+    dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, lse, scale)
+    dk, dv = A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale)
+    f64 = torch.float64
+    pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale, compute_dtype=f64)
+    pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, lse, pdsum, scale,
+                                                  compute_dtype=f64)
+    floor = (1e-6 * max(float(g.double().abs().max()) for g in (pdq, pdk, pdv))
+             if nkv == 1 else 0.0)
+    errs = {}
+    for what, a, w, tol, fl in (("dsum", dsum, pdsum, BWD_TOL["float32"], 0.0),
+                                ("dq", dq, pdq, btol, floor), ("dk", dk, pdk, btol, floor),
+                                ("dv", dv, pdv, btol, 0.0)):
+        e = float((a.double() - w.double()).abs().max())
+        assert bool(torch.isfinite(a.float()).all()) and \
+            e <= tol * float(w.double().abs().max()) + fl, \
+            (str(dtype), b, h, nq, nkv, d, fused, what, e)
+        errs[what] = e
+    return errs
 
 
 def check_wide_bwd_edges(gen, dev, worst):
     """The wide 16-bit dq and dk/dv kernels at their tile edges, bf16 and
-    f16, chained as the backward chains them (dk/dv reads dq's dsum),
-    against the plain versions computed in float64 at the backward's
-    tolerances: where Nkv = 1, dq and dk are zero in exact arithmetic, and
-    at a few q rows the f32 plain version's own cancellation noise (dO v^T -
-    D) reaches the 1e-6 floor that the tolerance adds for them; the largest
-    errors go to ``worst``."""
+    f16, against the plain versions in float64 (bwd_edge_errors); the
+    largest errors go to ``worst``."""
     import torch
-
-    from diff_pruning_tpu_torch.ops import attention as A
 
     cases = [(EDGE_BWD_ROWS, EDGE_BWD_HEADS, nq, nkv, d, False)
              for d in EDGE_DS for nq in EDGE_NS for nkv in EDGE_NS]
     cases += [(8, h, 256, 256, d, True) for h, d in EDGE_BWD_FUSED]
     for dname, btol in (("bfloat16", BWD_TOL["bfloat16"]), ("float16", F16_BWD_TOL)):
-        dtype = getattr(torch, dname)
         errs = collections.defaultdict(float)
         for b, h, nq, nkv, d, fused in cases:
             assert all(wgmma_bwd_taken(b, h, nq, nkv)), (b, h, nq, nkv)
-            if fused:
-                t = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)
-                q, k, v = (z.view(b, nq, h, d).transpose(1, 2) for z in t.split(h * d, dim=-1))
-                do = torch.randn((b, nq, 3 * h * d), generator=gen, device=dev).to(dtype)[
-                    ..., :h * d].view(b, nq, h, d).transpose(1, 2)
-            else:
-                q, do = (torch.randn((b, h, nq, d), generator=gen, device=dev).to(dtype)
-                         for _ in range(2))
-                k, v = (torch.randn((b, h, nkv, d), generator=gen, device=dev).to(dtype)
-                        for _ in range(2))
-            scale = d ** -0.5
-            o, lse = A.reference_attention_lse(q, k, v, scale)
-            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, lse, scale)
-            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale)
-            f64 = torch.float64
-            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale,
-                                                           compute_dtype=f64)
-            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, lse, pdsum, scale,
-                                                          compute_dtype=f64)
-            floor = (1e-6 * max(float(g.double().abs().max()) for g in (pdq, pdk, pdv))
-                     if nkv == 1 else 0.0)
-            for what, a, w, tol, fl in (("dsum", dsum, pdsum, BWD_TOL["float32"], 0.0),
-                                        ("dq", dq, pdq, btol, floor), ("dk", dk, pdk, btol, floor),
-                                        ("dv", dv, pdv, btol, 0.0)):
-                e = float((a.double() - w.double()).abs().max())
-                assert bool(torch.isfinite(a.float()).all()) and \
-                    e <= tol * float(w.double().abs().max()) + fl, \
-                    (dname, b, h, nq, nkv, d, what, e)
+            for what, e in bwd_edge_errors(b, h, nq, nkv, d, fused, getattr(torch, dname), btol,
+                                           gen, dev).items():
                 errs[what] = max(errs[what], e)
-            del q, k, v, do, o, dq, dk, dv, pdq, pdk, pdv
         worst[("attention_bwd_dq_ldm_train", dname)] = max(
             worst[("attention_bwd_dq_ldm_train", dname)], errs["dq"], errs["dsum"])
         worst[("attention_bwd_dkv_ldm_train", dname)] = max(
@@ -1108,6 +1138,46 @@ def check_wide_bwd_edges(gen, dev, worst):
               + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
               + f" (tol {btol} x max|want|, + 1e-6 of the call's largest gradient for dq and dk "
               f"at Nkv = 1; dsum {BWD_TOL['float32']}) ok")
+
+
+# the wide f32 backward's tile edges (phase 17): Nq and Nkv in EDGE_NS
+# around its 32-row tiles at the head dims where its cluster grows
+# (192-column slices: 2 blocks up to 384, 3 up to 576, 6 at 1024), at 16
+# rows of 16 heads (dk/dv unsplit) and at 1 row of 2 heads (dk/dv splitting
+# its q loop over 2 blocks; over 4 at 257 q rows), plus EDGE_BWD_FUSED's
+# views at 256 tokens at 8 and 1 rows
+EDGE_F32_DS = (257, 384, 385, 576, 577, 1024)
+EDGE_F32_SIZES = ((EDGE_BWD_ROWS, EDGE_BWD_HEADS), (1, 2))
+
+
+def check_wide_bwd_edges_f32(gen, dev, worst):
+    """The wide f32 dq and dk/dv kernels at their tile edges against the
+    plain versions in float64 (bwd_edge_errors), through each route of the
+    entry points; the largest errors go to ``worst``."""
+    import torch
+
+    cases = [(b, h, nq, nkv, d, False) for b, h in EDGE_F32_SIZES for d in EDGE_F32_DS
+             for nq in EDGE_NS for nkv in EDGE_NS]
+    cases += [(1, 2, 257, nkv, d, False) for d in EDGE_F32_DS[:2] for nkv in (1, 33)]
+    cases += [(b, h, 256, 256, d, True) for b in (8, 1) for h, d in EDGE_BWD_FUSED]
+    routes = {f32_wide_bwd_split(b, h, nq, nkv, d) for b, h, nq, nkv, d, _ in cases}
+    assert routes == {1, 2, 4}, routes
+    errs = collections.defaultdict(float)
+    for b, h, nq, nkv, d, fused in cases:
+        for what, e in bwd_edge_errors(b, h, nq, nkv, d, fused, torch.float32,
+                                       BWD_TOL["float32"], gen, dev).items():
+            errs[what] = max(errs[what], e)
+    worst[("attention_bwd_dq_ldm", "float32")] = max(
+        worst[("attention_bwd_dq_ldm", "float32")], errs["dq"], errs["dsum"])
+    worst[("attention_bwd_dkv_ldm", "float32")] = max(
+        worst[("attention_bwd_dkv_ldm", "float32")], errs["dk"], errs["dv"])
+    print(f"check wide attention bwd tile edges float32: Nq, Nkv in {EDGE_NS} at D in "
+          f"{EDGE_F32_DS} at (rows, heads) {EDGE_F32_SIZES}, Nq = 257 at 1 x 2, and fused views "
+          f"{EDGE_BWD_FUSED} (heads x D, 256 tokens) at 8 and 1 rows, {len(cases)} shapes, dk/dv in q parts "
+          f"{sorted(routes)}, against the plain versions in float64: "
+          + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+          + f" (tol {BWD_TOL['float32']} x max|want|, + 1e-6 of the call's largest gradient for "
+          f"dq and dk at Nkv = 1) ok")
 
 
 def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
@@ -1428,9 +1498,11 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
             "save_s": t_save, "load_s": t_load}
 
 
-def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
-    """Phase 17 (see the module docstring); returns the pruned model dir the
-    CLI wrote and the phase's figures."""
+def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
+    """Phase 17 (see the module docstring); ``others_bwd`` (label -> library
+    of another attention backward) are timed in the same turns as the
+    port's dq and dk/dv; returns the pruned model dir the CLI wrote and the
+    phase's figures."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1497,8 +1569,11 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
         print(f"check ldm attention bwd ({where}) rows={rows} Nq={nq} Nkv={nkv} D={d} float32: "
               + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
               + f" tol={tol} x max|want|" + (f" + {floor:.3e} (Nkv = 1)" if floor else "")
+              + (f"; the kernels' max |dq| {float(dq.abs().max()):.3e}, max |dk| "
+                 f"{float(dk.abs().max()):.3e} (0 in exact arithmetic)" if nkv == 1 else "")
               + " ok")
         del q, k, v, do, o, dq, dk, dv, pdq, pdk, pdv
+    check_wide_bwd_edges_f32(gen, dev, worst)
     # (b) the GroupNorm backward at the sweep's shapes (slabs chunked past
     # 104 KB: 4096 x 192 and wider)
     for (n, c, eps, silu), where in ([(s, "unet") for s in sorted(gn_dense)]
@@ -1702,13 +1777,23 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
                lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
                lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
                lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+        for lib in others_bwd.values():  # the other backwards, in the same turns
+            fns += [with_lib("bwd", lib, lambda: A.flash_attention_backward_dq(
+                        q, k, v, o, do, lse, scale)),
+                    with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
+                        q, k, v, do, lse, dsum, scale))]
         ms = in_turns(fns, iters=5)
+        other_ms = {label: ms[5 + 2 * i: 7 + 2 * i] for i, label in enumerate(others_bwd)}
         (bq_bytes, fq), (bkv_bytes, fkv) = ldm_bwd_work(rows, nq, nkv, d)
         bq, byq = bound(bq_bytes, fq, "float32")
         bkv, bykv = bound(bkv_bytes, fkv, "float32")
+        l2 = bwd_l2_bytes(nq, nkv, d, 32, 32, es=4)
+        l2_old = bwd_l2_bytes(nq, nkv, d, 16, 8, es=4)
         for key, val in (("dq_plain", ms[0]), ("dq_kernel", ms[1]), ("dkv_plain", ms[2]),
                          ("dkv_kernel", ms[3]), ("attn_library", ms[4]), ("dq_flops", fq),
-                         ("dkv_flops", fkv)):
+                         ("dkv_flops", fkv),
+                         *((f"{part}_kernel_{label}", t) for label, pair in other_ms.items()
+                           for part, t in zip(("dq", "dkv"), pair))):
             tot[key] += val * ncalls
         add_bound(tot, "dq_", bq * ncalls, byq)
         add_bound(tot, "dkv_", bkv * ncalls, bykv)
@@ -1716,7 +1801,12 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst):
               f"kernel {ms[1]:.4f} ms, {fq / ms[1] / 1e9:.2f} TFLOP/s (plain {ms[0]:.4f}, bound "
               f"{bq:.4f} {byq}), dk/dv kernel {ms[3]:.4f} ms, {fkv / ms[3] / 1e9:.2f} TFLOP/s "
               f"(plain {ms[2]:.4f}, bound {bkv:.4f} {bykv}), library (SDPA f32 backward, "
-              f"dq+dk+dv, {backend}) {ms[4]:.4f} ms {tag}")
+              f"dq+dk+dv, {backend}) {ms[4]:.4f} ms"
+              + "".join(f"; {label} dq {a:.4f} ms, dk/dv {b:.4f} ms"
+                        for label, (a, b) in other_ms.items())
+              + f"; L2 bytes a row: dq {l2[0]:,.0f} a q row, dk/dv {l2[1]:,.0f} a kv row "
+              f"(16-q-row and 8-kv-row tiles {l2_old[0]:,.0f}, {l2_old[1]:,.0f}); dk/dv in "
+              f"{f32_wide_bwd_split(rows, 1, nq, nkv, d)} q parts {tag}")
         del fns, q, k, v, do, o, ql, kl, vl, ol
     for (n, c, eps, silu), ncalls in sorted(gn_dense.items()):
         x = torch.randn((rows, n, c), generator=gen, device=dev)
@@ -2112,7 +2202,7 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
     # wgmma kernels' 64-row tiles against the 16-row kernels' (16 q rows in
     # dq, 8 kv rows in dk/dv), and which of them the call takes
     for nq, nkv, h, d in sorted(set(attn_unet) | set(attn_pruned), reverse=True):
-        new, old = bwd16_l2_bytes(nq, nkv, d, 64, 64), bwd16_l2_bytes(nq, nkv, d, 16, 8)
+        new, old = bwd_l2_bytes(nq, nkv, d, 64, 64), bwd_l2_bytes(nq, nkv, d, 16, 8)
         print(f"ldm train bwd L2 bytes a row {(nq, nkv, d)}: dq {new[0]:,.0f} (16-row kernel "
               f"{old[0]:,.0f}) a q row, dk/dv {new[1]:,.0f} ({old[1]:,.0f}) a kv row; at B={rows} "
               "the call takes dq by the {}, dk/dv by the {} kernel".format(
@@ -2301,7 +2391,7 @@ def main() -> None:
                          "phases 16 and 18 time in turns with this checkout's; repeatable")
     ap.add_argument("--compare-bwd", metavar="LABEL=SRC", action="append", default=[],
                     help="another flash_attention_bwd.cu (same C interface) whose dq and dk/dv "
-                         "phases 13 and 18 time in turns with this checkout's; repeatable")
+                         "phases 13, 17 and 18 time in turns with this checkout's; repeatable")
     args = ap.parse_args()
     other_srcs = {}  # kind -> [(label, source)]
     for kind in OTHER_LIBS:
@@ -2385,12 +2475,13 @@ def main() -> None:
             "flash_bwd_dkv_kernel_f32_wide", "flash_bwd_dq_kernel_mma_wide",
             "flash_bwd_dkv_kernel_mma_wide", "flash_bwd_dq_kernel_wgmma_wide",
             "flash_bwd_dkv_kernel_wgmma_wide"}, regs
-        # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 6 each
-        # (D 257-1024); 16-bit: 2 types x ((4 + 6) x 2 kernels + the wgmma
-        # pair's 5 tilings each)
-        assert len(regs["flash_attention_bwd"]) == 78, regs
+        # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 1 each
+        # (D 257-1024: clusters of 192-column blocks); 16-bit: 2 types x ((4 +
+        # 6) x 2 kernels + the wgmma pair's 5 tilings each)
+        assert len(regs["flash_attention_bwd"]) == 68, regs
         for kname, (_, st, ld) in regs["flash_attention_bwd"].items():
-            assert "_wgmma" not in kname or st == ld == 0, f"{kname} spills"
+            assert not ("_wgmma" in kname or "_f32_wide" in kname) or st == ld == 0, \
+                f"{kname} spills"
     if _build.BUILD_INFO["group_norm_bwd"]["log"]:
         assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
     sass_libs = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd")
@@ -2421,8 +2512,9 @@ def main() -> None:
                                          "flash_bwd_dq_kernel_wgmma_wide",
                                          "flash_bwd_dkv_kernel_wgmma_wide"),
                  "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
-        for want in wants:
-            assert sum(want in kname for kname in sass) >= 2, (want, sorted(sass))
+        for want in wants:  # (one instance of each wide f32 kernel, two or more of the others)
+            least = 1 if want.endswith("_f32_wide") else 2
+            assert sum(want in kname for kname in sass) >= least, (want, sorted(sass))
     ours = A._lib("flash_attention_bwd")
     # label -> library of another version of the attention forward / backward
     others_fwd = {label: fut.result() for label, fut in other_futs["fwd"].items()}
@@ -3167,7 +3259,8 @@ def main() -> None:
 
     mark(17)
     # -- 17. the LDM prune path: the wide f32 backward, the sweep, the CLI
-    ldm_pruned_dir, ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst)
+    ldm_pruned_dir, ldm_prune_fig = ldm_prune_path(tmp, ldm_model, ldm_dir, gen, gpu, tag, worst,
+                                                   others)
     del ldm_model
 
     mark(18)
@@ -3222,7 +3315,8 @@ def main() -> None:
                      lp_ops[f"{part}_bound_by"], None, ms_is=per_ldm_step,
                      library_ms_dq_dk_dv=lp_ops["attn_library"],
                      tflops=lp_ops[f"{part}_tflops"],
-                     launch_path="the ldm_prune CLI (phase 17)")
+                     launch_path="the ldm_prune CLI (phase 17)",
+                     **{f"{label}_ms": lp_ops[f"{part}_kernel_{label}"] for label in others})
         out.pop("max_abs_err_bf16")  # f32 only: phase 18 holds the 16-bit ones
         return out
 

@@ -33,8 +33,10 @@ above 256 for the LDM's one-head transformers. The forward: f32 64 query
 rows a block (32 above a padded head dim of 512), Q resident, K and V
 streamed in head-dim chunks; bf16/f16 64 query rows a block on two
 warpgroups with Hopper's ``wgmma``, O's columns split between them (and
-between two blocks above 512). The backward: f32 16 query rows and 8 kv
-rows a block of the whole head dim; bf16/f16 64 rows a block on two
+between two blocks above 512). The backward: f32 32 kv rows (dk/dv) and
+32 or 64 query rows (dq) a block, the head dim split over a cluster of
+192-column blocks (dk/dv's q loop also split over 2-4 more where its grid
+is short, as at Nkv = 1); bf16/f16 64 rows a block on two
 warpgroups with ``wgmma`` (dq: 64 query rows; dk/dv: 64 kv rows), the head
 dim split over a cluster of blocks where one cannot hold it, and for the
 short calls (Nkv = 1, 64 tokens) 16 query rows and 32 (dq) or 8 (dk/dv) kv

@@ -103,37 +103,16 @@
 // 128 * 4 = 222,208 bytes, dq 6 * 64 * 264 * 2 + 64 * 72 * 2 + 2 * 64 * 4 =
 // 212,480: one block (8 warps) per SM; the launcher raises the limit.
 //
-// f32 with 256 < D <= 1024 (`flash_bwd_dq_kernel_f32_wide<NC2>`,
-// `flash_bwd_dkv_kernel_f32_wide<NC2>`: the LDM's one-head transformers, D =
-// 384, 576, 960 and their pruned widths). One f32 row of D = 1024 is 4 KB,
-// so four 16-row tiles (Q, dO, K, V) would take 263 KB, more than a block's
-// shared memory: the tiles are 16 q rows and 8 kv rows of the whole head dim
-// (padded to DP = 128 * NC2, zero-filled), 48 rows in all. What bounds them
-// is, as above, feeding the FMAs from shared memory; simple first:
-// - scores (`wide_partials`): S = Q K^T and dP = dO V^T, 16 x 8 each, in
-//   one pass: thread t owns a 4 x 4 micro-tile (t / 16; 8 of S, 8 of dP,
-//   8 float4 loads per 64 FMAs) and one of 16 slices of the head dim (float4
-//   columns 4 (t % 16) + 64 j); the 16 partial tiles go through shared
-//   memory and 128 threads sum them in a fixed order (no atomics), each
-//   forming p and ds of one (q, kv) pair;
-// - dq: one block per (batch*head, 16-row q tile); Q and dO resident, K and
-//   V streamed in 8-row tiles, one slot each (V_{t+1} is issued once the
-//   scores are formed, K_{t+1} once dq += dS K_t is done); thread (w, l) of
-//   warp w owns q rows w and w + 8, columns 4 l + 128 c (at most 64
-//   accumulators); the prologue forms D = rowsum(dO * O) (16 lanes a row)
-//   and writes `dsum`;
-// - dk/dv: one block per (batch*head, 8-row kv tile); K and V resident, Q
-//   and dO streamed in 16-row tiles, one slot each (dO_{t+1} is issued once
-//   dV += P^T dO_t is done, Q_{t+1} once dK += dS^T Q_t is); warp w owns kv
-//   row w of dK and dV, lane l columns 4 l + 128 c (at most 64
-//   accumulators). Nkv = 1 (the class-token cross-attention) gives B*H
-//   blocks, each walking every q tile;
-// - the same copies as the D <= 256 kernels: 16-byte cp.async where the
-//   views allow, else 4-byte (pruned widths such as 270 have rows that are
-//   not 16-byte aligned).
-//
-// Shared memory at D = 1024: dq 48 * 1028 * 4 + 16 * 260 * 4 + 128 * 4 + 2 *
-// 16 * 4 = 214,656 bytes, dk/dv 215,168.
+// f32 with 256 < D <= 1024 (`flash_bwd_dq_kernel_f32_wide<BQ>`,
+// `flash_bwd_dkv_kernel_f32_wide<BQ>`: the LDM's one-head transformers, D =
+// 384, 576, 960 and their pruned widths, under the Diff-Pruning sweep at 6
+// rows). One f32 row of D = 1024 is 4 KB, so a block cannot hold the four
+// 64-row tiles of the D <= 256 kernels, nor dK and dV of 32 whole rows in
+// registers: the head dim is split over a thread-block cluster of ceil(D /
+// 192) blocks of 192 columns each (2 at D <= 384, 3 at 576, 5 at 960), which
+// add their partial S and dP in rank order through distributed shared
+// memory, once a tile, and otherwise run as the D <= 256 kernels do on their
+// own columns. See their notes below.
 //
 // bf16/f16 with 256 < D <= 1024: the same heads under bf16 training, on the
 // tensor cores, in two tilings that the entry points choose by shape. The
@@ -563,68 +542,350 @@ size_t dkv_smem_f32(int nc) {
 
 // ------------------------------------------------- f32 path, 256 < D <= 1024
 
-constexpr int kWideQ = 16;  // q rows per tile (wide f32 kernels)
-constexpr int kWideKv = 8;  // kv rows per tile
-constexpr int kWidePairs = kWideQ * kWideKv;  // (q, kv) pairs of a tile: 128
-constexpr int kLdr = 2 * kWidePairs + 4;      // one slice's partial S and dP, 4 banks apart
+// Replaces, for f32 at 256 < D <= 1024, `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` of `_flash_bwd_call` (diff_pruning_tpu/ops/attention.py:
+// 143, 170, 205): exact f32 on the CUDA cores (no TF32, no tensor cores).
+//
+// What bounds them on the H100: the f32 FMA rate (67 TFLOP/s): at (1024,
+// 1024, 384) dq does 6 and dk/dv 8 flops per (q, kv, d) against a few bytes
+// a row. What keeps a kernel from that rate: shared-memory wavefronts per
+// FMA (a warp's float4 load of 32 distinct addresses costs 4 wavefronts, a
+// broadcast one 1, and an SM serves one wavefront a cycle against 4 warp
+// FMA instructions), the bytes each block fetches again from L2, copies,
+// barriers and exchanges that do not overlap the math (one block of 8 warps
+// an SM), and at the sweep's 6 rows a grid too small for 132 SMs.
+//
+// The layout: the head dim over a cluster, not a ring of head-dim chunks.
+// With chunks a block would hold all of K and V (dk/dv) or Q and dO (dq) of
+// its rows over the whole head dim (32 rows x 1024 x 2 x 4 B = 256 KB, over
+// the 227 KB), stream Q_t and dO_t twice a tile (once for the scores, once
+// for the gradients), and keep dK and dV of whole rows in registers (256 a
+// thread at 32 rows); its grid would be B*H x row tiles. Split over a
+// cluster of z = ceil(D / 192) blocks, a block holds 192 columns of its
+// resident rows, streams each tile once, keeps 48 accumulators a thread, and
+// the grid is z times larger: 384 blocks at (1024, 1024, 384) and 6 rows,
+// 2.9 waves of one block an SM. The price is one exchange a tile: each
+// block's partial S and dP (2 x 32 x 32 f32) are read by the other z - 1
+// through distributed shared memory (two float4 loads a thread a block)
+// and added in rank order (the same bits in every block; no atomics).
+//
+// Both kernels, 256 threads, one block an SM, 32 x 32 tiles:
+// - scores (score_part): warps 0-3 form S (A = the kv side, K or K_t; B =
+//   the q side, Q_t or Q), warps 4-7 dP (V or V_t against dO); a warp's 8 A
+//   rows against a lane's 4 B rows, the 4 lanes l / 8 splitting the columns
+//   and reduced by two xor shuffles: per 16 columns 24 wavefronts feed 128
+//   FMAs a lane. Where the tile holds at most 4 valid A rows (Nkv = 1) a
+//   warp forms only its one (score_rows), and warps with none skip theirs;
+// - p = exp(s scale - lse) and ds = p (dp - D) scale once per (kv, q) pair
+//   of the tile, from the cluster's sums, into shared memory;
+// - gradients in 4 x 12 register micro-tiles: per row of the streamed tile
+//   one float4 of dS or P (4 rows, broadcast) and 3 float4 of the streamed
+//   tile (8 distinct each: one wavefront) feed 48 FMAs; warps whose columns
+//   are all past D, or whose rows are all past Nkv, skip theirs;
+// - the loop, per tile t: wait for tile t's stage, one barrier, issue tile t
+//   + 1's copies (cp.async, a ring of 3 stages: tile t - 1's, t's, t + 1's
+//   in flight); form the partial scores of t, write them (two buffers) and
+//   arrive on the cluster barrier; form tile t - 1's gradient while the
+//   other blocks' partials arrive; wait, sum the cluster's scores and form
+//   p and dS of t. The gradient hides the cluster barrier; the copies, the
+//   exchange and the barriers still take about half of the time (parts
+//   timed by bwd_breakdown.py);
+// - copies: 16-byte cp.async where the views allow it, else 4-byte (pruned
+//   widths such as 270, fused 3-head views); rows past Nq/Nkv and columns
+//   past D zero-filled and their p exactly 0; columns past D never written.
+//   (Bulk copies, one TMA instruction a row from one warp, were measured
+//   slower: 0.652 against 0.578 ms for dq at (1024, 1024, 384).)
+// - dq (`flash_bwd_dq_kernel_f32_wide<32>`): one cluster per (batch*head,
+//   32-row q tile); Q and dO resident, K_t and V_t streamed; each half of
+//   the block takes 16 kv rows of every tile into its own dq sums (added at
+//   the end), so that a thread holds 4 x 12 of dq, not 2 x 12. (64 q rows a
+//   block fetch each K_t row half as often, but leave no room for a third
+//   stage and give 192 blocks at (1024, 1024, 384), 1.45 waves. Device ms on
+//   an H100 (bwd_dispatch.py), before the loop above: 0.710 against 32
+//   rows' 0.709 there, 0.102 against 0.133 at (256, 256, 576); the loop
+//   above brought the 32-row kernel to 0.578 and 0.111.)
+//   The prologue forms this block's part of D = rowsum(dO * O) (O's
+//   columns in the ring's last stage) in score_part's summation order
+//   (row_dot), adds the cluster's parts in rank order and rank 0 writes
+//   `dsum`: where a row's one valid kv row is its O row (Nkv = 1), dp - D is
+//   exactly 0 here and in the dk/dv kernel, so dq and dk, zero in exact
+//   arithmetic, come out 0.
+// - dk/dv (`flash_bwd_dkv_kernel_f32_wide<32>`): one cluster per
+//   (batch*head, 32-row kv tile); K and V resident, Q_t and dO_t with their
+//   lse and D rows streamed; dK in warps 0-3, dV in 4-7. The split route
+//   (launch_dkv_f32_wide): where B*H x kv tiles x z < 132, zq = 2 or 4 more
+//   blocks of each head-dim slice split the q loop (a cluster of z x zq <=
+//   8, 2 q tiles a part or more; part p takes q tiles p, p + zq, ...), then
+//   add their dK and dV in part order through distributed shared memory,
+//   each part writing 32 / zq rows: no atomics, no second launch.
+// L2 bytes a row at (1024, 1024, 384): dq (3 + 2 x 1024 / 32) x 384 x 4 =
+// 102,912 a q row (201,216 with blocks of 16 q rows), dk/dv 2 x 384 x 4 +
+// (2 x 384 x 4 + 8) x 1024 / 32 = 101,632 a kv row (397,312 with blocks of
+// 8 kv rows).
+// Shared memory (floats, LD = 196): dq 2 x 32 LD + 3 stages x 64 LD + 2 x
+// 2048 + 2 x 32 x 36 + 96 = 226,688 bytes; dk/dv 64 LD + 2 x 2048 + 2 x 32
+// x 36 + 3 stages x (64 LD + 64) = 227,072 bytes.
 
-// One slice's partial sums of S = A1 B1^T and dP = A2 B2^T (16 rows of A, 8
-// of B, shared [..][LD] tiles) over columns [0, dcols), into red: thread t
-// owns the 4 x 4 micro-tile t / 16 (tiles 0-7 of S, 8-15 of dP) and the
-// slice t % 16 (float4 columns 4 (t % 16) + 64 j); red[slice][m * 128 + 8 i +
-// j] is the slice's part of element (i, j) of S (m = 0) or dP (m = 1).
-template <int LD>
-__device__ __forceinline__ void wide_partials(float* red, const float* a1, const float* b1,
-                                              const float* a2, const float* b2, int dcols) {
-  const int tile = threadIdx.x >> 4;
-  const int slice = threadIdx.x & 15;
-  const int m = tile >> 3;             // 0: S, 1: dP (the same for a warp)
-  const int tr = ((tile & 7) >> 1) * 4;  // A rows tr .. tr + 3
-  const int tc = (tile & 1) * 4;         // B rows tc .. tc + 3
-  const float* a = (m ? a2 : a1) + tr * LD;
-  const float* b = (m ? b2 : b1) + tc * LD;
-  float s[4][4];
+constexpr int kWideDB = 192;           // head-dim columns a block (the cluster splits D)
+constexpr int kWideLD = kWideDB + 4;   // row stride of the wide kernels' tiles (floats)
+constexpr int kWideRows = 32;          // rows of every tile: q, kv, streamed
+constexpr int kWideLdx = kWideRows + 4;  // row stride of the P^T, dS^T and dS tiles
+constexpr int kWidePart = 2 * 2 * 128 * 4;  // a block's partial S and dP: [2][2][128][4] floats
+constexpr int kMaxCluster = 8;         // blocks a cluster (the portable limit)
+
+// Issues the copy of rows [row0, row0 + 32) x columns [col0, col0 + kWideDB)
+// of one head (row stride sn elements) into a shared [32][kWideLD] tile,
+// zero-filling rows >= nvalid and columns >= D. vec: base and strides
+// 16-byte aligned (col0 is a multiple of 4).
+__device__ __forceinline__ void copy_slab(float* dst, const float* src, long long sn, int row0,
+                                          int nvalid, int col0, int D, bool vec) {
+  if (vec) {
+    constexpr int kPerRow = kWideDB / 4;
+    static_assert(kWideRows * kPerRow % kThreads == 0, "whole rounds of copies");
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kWideRows * kPerRow / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kPerRow;
+      const int c = (idx - r * kPerRow) * 4;
+      const int row = row0 + r, col = col0 + c;
+      int bytes = 0;
+      const float* from = src;
+      if (row < nvalid && col < D) {
+        bytes = (D - col >= 4 ? 4 : D - col) * 4;
+        from = src + row * sn + col;
+      }
+      cp_async16(dst + r * kWideLD + c, from, bytes);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kWideRows * kWideDB / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kWideDB;
+      const int c = idx - r * kWideDB;
+      const int row = row0 + r, col = col0 + c;
+      const bool ok = row < nvalid && col < D;
+      cp_async4(dst + r * kWideLD + c, ok ? src + row * sn + col : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// One warp's part of a partial score product over the block's columns [0,
+// dk) (a multiple of 16; zeros past D; dk = 0: all zeros): out = sum_d
+// A[a][d] B[b][d] for the warp's A rows wa + 4 i (i < NA, the kv side) and
+// the lane's B rows (l & 7) + 8 j (j < 4, the q side), the 4 lanes l >> 3
+// splitting the columns (d = 4 (l >> 3) + 16 m, a chain of fmaf in column
+// order each). Per 16 columns a warp loads B's 32 rows (4 float4 loads of 4
+// wavefronts) and A's 8 rows (8 broadcast loads of one wavefront each) for
+// 128 FMAs a lane. Two xor shuffles (16, then 8) reduce-scatter the four
+// parts, as (p0 + p2) + (p1 + p3) in every lane (row_dot's order), leaving
+// each lane out[ii][j] for A row wa + 8 (l >> 3) + 4 ii. NA = 1 where the
+// tile holds at most 4 valid A rows (Nkv = 1): the warp forms its one row,
+// in the same order, into lanes 0-7's out[0] (the others' are 0).
+template <int NA>
+__device__ __forceinline__ void score_part(float (&out)[2][4], const float* a, const float* b,
+                                           int wa, int dk) {
+  const int lane = threadIdx.x & 31;
+  const float* ar = a + wa * kWideLD;
+  const float* br = b + (lane & 7) * kWideLD;
+  float s[NA][4];
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 2
-  for (int d = 4 * slice; d < dcols; d += 64) {
-    float4 af[4], bf[4];
+  for (int d = 4 * (lane >> 3); d < dk; d += 16) {
+    float4 bf[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      af[i] = *reinterpret_cast<const float4*>(a + i * LD + d);
-      bf[i] = *reinterpret_cast<const float4*>(b + i * LD + d);
+    for (int j = 0; j < 4; ++j) bf[j] = *reinterpret_cast<const float4*>(br + 8 * j * kWideLD + d);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const float4 af = *reinterpret_cast<const float4*>(ar + 4 * i * kWideLD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(af.x, bf[j].x, s[i][j]);
+        s[i][j] = fmaf(af.y, bf[j].y, s[i][j]);
+        s[i][j] = fmaf(af.z, bf[j].z, s[i][j]);
+        s[i][j] = fmaf(af.w, bf[j].w, s[i][j]);
+      }
     }
+  }
+  if constexpr (NA == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x = s[0][j];
+      x += __shfl_xor_sync(0xffffffffu, x, 16);
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      out[0][j] = lane < 8 ? x : 0.f;
+      out[1][j] = 0.f;
+    }
+  } else {
+    const bool hi2 = lane & 16, hi1 = lane & 8;
+    float t[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(af[i].x, bf[j].x, s[i][j]);
-        s[i][j] = fmaf(af[i].y, bf[j].y, s[i][j]);
-        s[i][j] = fmaf(af[i].z, bf[j].z, s[i][j]);
-        s[i][j] = fmaf(af[i].w, bf[j].w, s[i][j]);
+      for (int j = 0; j < 4; ++j) {  // lanes with bit 4 keep rows i + 4
+        const float give = hi2 ? s[i][j] : s[i + 4][j];
+        t[i][j] = (hi2 ? s[i + 4][j] : s[i][j]) + __shfl_xor_sync(0xffffffffu, give, 16);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // lanes with bit 3 keep rows i + 2 of those
+        const float give = hi1 ? t[i][j] : t[i + 2][j];
+        out[i][j] = (hi1 ? t[i + 2][j] : t[i][j]) + __shfl_xor_sync(0xffffffffu, give, 8);
       }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(red + slice * kLdr + m * kWidePairs + (tr + i) * kWideKv + tc) =
-        make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
 }
 
-// The finished (S, dP) of pair e = 8 i + j (q row i, kv row j of the tile):
-// the 16 slices' partials summed in order
-__device__ __forceinline__ float2 wide_pair(const float* red, int e) {
-  float s = 0.f, dp = 0.f;
-#pragma unroll
-  for (int sl = 0; sl < 16; ++sl) {
-    s += red[sl * kLdr + e];
-    dp += red[sl * kLdr + kWidePairs + e];
+// the warp's partial scores: score_part over its 8 A rows, or its one where
+// the tile holds at most 4 valid A rows (`rows`: the tile's valid A rows;
+// warps with none form zeros)
+__device__ __forceinline__ void score_rows(float (&out)[2][4], const float* a, const float* b,
+                                           int wa, int dk, int rows) {
+  if (rows <= 4) {
+    score_part<1>(out, a, b, wa, wa < rows ? dk : 0);
+  } else {
+    score_part<8>(out, a, b, wa, wa < rows ? dk : 0);
   }
-  return make_float2(s, dp);
 }
 
-template <int NC2>  // head dim padded to 128 * NC2
+// <x, y> over the block's columns [0, dk) for the 8 rows of a warp (lanes l
+// and l ^ 8, l ^ 16, l ^ 24 share row l & 7), in score_part's order: where
+// O's row equals the one valid V row (Nkv = 1), D = rowsum(dO * O) and dP
+// come out in the same bits, so that dq and dk, zero in exact arithmetic,
+// come out 0
+__device__ __forceinline__ float row_dot(const float* x, const float* y, int dk) {
+  float s = 0.f;
+  for (int d = 4 * ((threadIdx.x & 31) >> 3); d < dk; d += 16) {
+    const float4 a = *reinterpret_cast<const float4*>(x + d);
+    const float4 b = *reinterpret_cast<const float4*>(y + d);
+    s = fmaf(a.x, b.x, s);
+    s = fmaf(a.y, b.y, s);
+    s = fmaf(a.z, b.z, s);
+    s = fmaf(a.w, b.w, s);
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 16);
+  return s + __shfl_xor_sync(0xffffffffu, s, 8);
+}
+
+// Writes a warp's partial scores (score_part's lanes) into this block's
+// buffer `part`: [m][ii][t % 128][j] (m = 0 S, 1 dP: the product of warps 4
+// m .. 4 m + 3), one float4 per row ii of the lane's, conflict-free
+__device__ __forceinline__ void put_scores(float* part, const float (&sc)[2][4]) {
+  float* at = part + (threadIdx.x >> 7) * 2 * 128 * 4 + (threadIdx.x & 127) * 4;
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii)
+    *reinterpret_cast<float4*>(at + ii * 128 * 4) =
+        make_float4(sc[ii][0], sc[ii][1], sc[ii][2], sc[ii][3]);
+}
+
+// The cluster's sums of this thread's 4 partial S and dP (row ii = `half`
+// of the lanes' at its position, put_scores), over the blocks of ranks
+// rank0 + r (r < z) in rank order (the same bits in every block; no
+// atomics): two float4 loads a block
+__device__ __forceinline__ void sum_scores(float (&s)[4], float (&dp)[4], const float* part,
+                                           int half, uint32_t rank, int rank0, int z) {
+  const float* at = part + (half * 128 + (threadIdx.x & 127)) * 4;
+  constexpr int kDp = 2 * 128 * 4;  // dP's offset from S's
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j] = dp[j] = 0.f;
+  for (int r = 0; r < z; ++r) {
+    float4 a, b;
+    if (rank0 + r == int(rank)) {
+      a = *reinterpret_cast<const float4*>(at);
+      b = *reinterpret_cast<const float4*>(at + kDp);
+    } else {
+      const uint32_t rem = cluster_map(at, rank0 + r);
+      a = ld_cluster4(rem);
+      b = ld_cluster4(rem + kDp * 4);
+    }
+    s[0] += a.x, s[1] += a.y, s[2] += a.z, s[3] += a.w;
+    dp[0] += b.x, dp[1] += b.y, dp[2] += b.z, dp[3] += b.w;
+  }
+}
+
+// acc[r][4 m + e] += a[r] * b[m].e: R rows of a thread's tile, 3 float4 columns
+template <int R>
+__device__ __forceinline__ void fma_slab(float (&acc)[R][12], const float (&a)[R],
+                                         const float4 (&b)[3]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      acc[r][4 * m + 0] = fmaf(a[r], b[m].x, acc[r][4 * m + 0]);
+      acc[r][4 * m + 1] = fmaf(a[r], b[m].y, acc[r][4 * m + 1]);
+      acc[r][4 * m + 2] = fmaf(a[r], b[m].z, acc[r][4 * m + 2]);
+      acc[r][4 * m + 3] = fmaf(a[r], b[m].w, acc[r][4 * m + 3]);
+    }
+}
+
+// acc += X^T G over the tile's first n rows: X a shared [32][kWideLdx] tile
+// (this thread's R values of a row at x), G a shared [32][kWideLD] tile (its
+// 3 float4 at g, 32 columns apart): per row one load of R values and 3
+// float4 loads of one wavefront each feed 12 R FMAs
+template <int R>
+__device__ __forceinline__ void grad_slab(float (&acc)[R][12], const float* x, const float* g,
+                                          int n) {
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    float a[R];
+    if constexpr (R == 4) {
+      const float4 x4 = *reinterpret_cast<const float4*>(x + j * kWideLdx);
+      a[0] = x4.x, a[1] = x4.y, a[2] = x4.z, a[3] = x4.w;
+    } else {
+      const float2 x2 = *reinterpret_cast<const float2*>(x + j * kWideLdx);
+      a[0] = x2.x, a[1] = x2.y;
+    }
+    const float* gj = g + j * kWideLD;
+    const float4 gf[3] = {*reinterpret_cast<const float4*>(gj),
+                          *reinterpret_cast<const float4*>(gj + 32),
+                          *reinterpret_cast<const float4*>(gj + 64)};
+    fma_slab<R>(acc, a, gf);
+  }
+}
+
+// rows row0 + r (r < R) and columns col0 + 32 m .. + 3 (m < 3) of a
+// thread's register tile to device memory, rows < nvalid and columns < D
+template <int R>
+__device__ __forceinline__ void store_slab(float* base, long long sn, int row0, int nvalid,
+                                           int col0, int D, bool vec_out,
+                                           const float (&acc)[R][12]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (row0 + r >= nvalid) continue;
+    float* out = base + (row0 + r) * sn;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const int col = col0 + 32 * m;
+      if (vec_out && col < D) {  // D % 4 == 0: the whole float4 is in range
+        *reinterpret_cast<float4*>(out + col) = make_float4(
+            acc[r][4 * m], acc[r][4 * m + 1], acc[r][4 * m + 2], acc[r][4 * m + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < D) out[col + e] = acc[r][4 * m + e];
+      }
+    }
+  }
+}
+
+// The streamed tiles' ring (both kernels): stage x of the loop in slot x %
+// NS. Tile t's products run in iteration t and its gradient in t + 1, so at
+// iteration t's barrier the slot of tile t - 2 is free and takes tile t + NS
+// - 2: 3 stages hold the gradient's tile, the current one and one in
+// flight, a whole iteration ahead.
+constexpr int kWideStages = 3;
+
+// shared memory of the dq kernel: Q, dO [32][LD]; 3 stages of K_t and V_t
+// [32][LD]; two buffers of partials and of dS [32][36]; lse, D and this
+// block's part of D
+constexpr int kWideDqSmem =
+    (2 * kWideRows * kWideLD + kWideStages * 2 * kWideRows * kWideLD + 2 * kWidePart +
+     2 * kWideRows * kWideLdx + 3 * kWideRows) * 4;
+static_assert(kWideDqSmem <= 232448, "a block's shared memory");
+
+template <int BQ>  // q rows a block
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, const float* __restrict__ o,
@@ -632,216 +893,294 @@ flash_bwd_dq_kernel_f32_wide(const float* __restrict__ q, const float* __restric
                              float* __restrict__ dsum, float* __restrict__ dq, int H, int Nq,
                              int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides so,
                              Strides sdo, Strides sdq, float scale, int vec, int vec_out) {
-  constexpr int DP = 128 * NC2;
-  constexpr int LD = DP + 4;
+  static_assert(BQ == kWideRows, "the tiles are 32 x 32");
+  constexpr int TILE = kWideRows * kWideLD;
+  constexpr int NS = kWideStages;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                     // [16][LD] q rows (resident)
-  float* dos = qs + kWideQ * LD;        // [16][LD]
-  float* ks = dos + kWideQ * LD;        // [8][LD]  kv rows (streamed)
-  float* vs = ks + kWideKv * LD;        // [8][LD]
-  float* red = vs + kWideKv * LD;       // [16 slices][kLdr]
-  float* dss = red + 16 * kLdr;         // [16 q][8 kv] dS
-  float* drows = dss + kWidePairs;      // [16] D = rowsum(dO * O)
-  float* lrows = drows + kWideQ;        // [16] lse
+  float* qs = smem;                      // [32][LD] Q (resident)
+  float* dos = qs + TILE;                // [32][LD] dO
+  float* ring = dos + TILE;              // NS x (K_t [32][LD], V_t [32][LD]); first O in the last
+  float* parts = ring + NS * 2 * TILE;   // 2 x [2][8][128] this block's partial S and dP
+  float* dss = parts + 2 * kWidePart;    // 2 x [32 kv][36] dS
+  float* lrow = dss + 2 * kWideRows * kWideLdx;  // [32] lse
+  float* drow = lrow + kWideRows;        // [32] D = rowsum(dO * O)
+  float* dpart = drow + kWideRows;       // [32] this block's part of D
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.y * kWideQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int q0 = blockIdx.y * BQ;
+  const int z = gridDim.z;                   // blocks a cluster: head-dim slices
+  const uint32_t rank = cluster_rank();      // = blockIdx.z
+  const int c0 = int(rank) * kWideDB;        // the block's first head-dim column
+  const int dk = min(kWideDB, (D - c0 + 15) & ~15);  // its columns holding columns < D
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int half = warp >> 2;  // scores: 0 S = Q K_t^T, 1 dP = dO V_t^T
+  const int wa = warp & 3;
 
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
-  copy_tile<DP, kWideQ>(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, D, vec);
-  copy_tile<DP, kWideQ>(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, D, vec);
-  copy_tile<DP, kWideKv>(ks, kb, sk.n, 0, Nkv, D, vec);
-  copy_tile<DP, kWideKv>(vs, vb, sv.n, 0, Nkv, D, vec);
-  cp_async_commit();
-  cp_async_wait<0>();
+  const int tiles = (Nkv + kWideRows - 1) / kWideRows;
+  int next = 0;  // the next stage to issue: K and V of kv tile `next`
+  auto issue = [&]() {
+    const int t = next * kWideRows;
+    if (t < Nkv) {
+      float* st = ring + (next % NS) * 2 * TILE;
+      copy_slab(st, kb, sk.n, t, Nkv, c0, D, vec);
+      copy_slab(st + TILE, vb, sv.n, t, Nkv, c0, D, vec);
+    }
+    cp_async_commit();
+    ++next;
+  };
+  float* os = ring + (NS - 1) * 2 * TILE;  // O [32][LD], in the slot of stage NS - 1
+  copy_slab(qs, q + b * sq.b + h * sq.h, sq.n, q0, Nq, c0, D, vec);
+  copy_slab(dos, dout + b * sdo.b + h * sdo.h, sdo.n, q0, Nq, c0, D, vec);
+  copy_slab(os, o + b * so.b + h * so.h, so.n, q0, Nq, c0, D, vec);
+  for (int i = 0; i < NS - 2; ++i) issue();  // (Q, dO and O with the first)
+  cp_async_wait<NS - 3>();  // Q, dO and O have landed
   __syncthreads();
 
-  // D = rowsum(dO * O) and lse of the tile's rows: row t / 16 by 16 lanes
-  {
-    const int r = threadIdx.x >> 4;
-    const int row = q0 + r;
-    const float* orow = o + b * so.b + h * so.h + row * so.n;
-    float acc = 0.f;
-    if (row < Nq)
-      for (int c = threadIdx.x & 15; c < D; c += 16) acc = fmaf(dos[r * LD + c], orow[c], acc);
+  // D = rowsum(dO * O): this block's part (row 8 w + l % 8), then the
+  // cluster's parts added in rank order; rank 0 writes `dsum`
+  if (warp < 4) {
+    const int r = 8 * warp + (lane & 7);
+    const float x = row_dot(os + r * kWideLD, dos + r * kWideLD, dk);
+    if (lane < 8) dpart[r] = x;
+  }
+  if (tid < BQ) lrow[tid] = q0 + tid < Nq ? lse[size_t(bh) * Nq + q0 + tid] : 0.f;
+  cluster_sync();
+  if (tid < BQ) {
+    float dd = 0.f;
+    for (int r = 0; r < z; ++r)
+      dd += r == int(rank) ? dpart[tid] : ld_cluster(cluster_map(dpart + tid, r));
+    drow[tid] = dd;
+    if (rank == 0 && q0 + tid < Nq) dsum[size_t(bh) * Nq + q0 + tid] = dd;
+  }
+  // (the first stage's barrier makes lrow and drow visible)
+
+  // dq, each half of the block over half of every kv tile (rows 16 h ..):
+  // rows 16 (w % 2) + 4 (l % 4) + r, columns 96 (w % 4 / 2) + 4 (l / 4) +
+  // 32 m + e of the block's; the halves' sums are added at the end
+  const int gr = 16 * (wa & 1) + 4 * (lane & 3);
+  const int gc = 96 * (wa >> 1) + 4 * (lane >> 2);
+  float acc[4][12];
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if ((threadIdx.x & 15) == 0) {
-      drows[r] = acc;
-      lrows[r] = row < Nq ? lse[size_t(bh) * Nq + row] : 0.f;
-      if (row < Nq) dsum[size_t(bh) * Nq + row] = acc;
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 12; ++e) acc[r][e] = 0.f;
+  const int a_row = wa + 8 * (lane >> 3) + 4 * half;  // the kv row of this thread's scores
+  const bool cols_ok = gc < D - c0;  // (warps whose columns are all past D skip dq)
+  // dq += dS K over this half's rows of kv tile `it` (n valid rows)
+  auto grad = [&](int it, int n) {
+    const float* sp = ring + (it % NS) * 2 * TILE + 16 * half * kWideLD;
+    grad_slab<4>(acc, dss + (it & 1) * kWideRows * kWideLdx + 16 * half * kWideLdx + gr, sp + gc,
+                 max(0, min(16, n - 16 * half)));
+  };
+
+  for (int it = 0; it < tiles; ++it) {
+    const int t = it * kWideRows;
+    cp_async_wait<NS - 3>();  // K_t and V_t have landed
+    __syncthreads();          // ... and every thread is done with tile t - 2's stage
+    issue();
+    const float* st = ring + (it % NS) * 2 * TILE;
+    float sc[2][4];
+    score_rows(sc, half ? st + TILE : st, half ? dos : qs, wa, dk, Nkv - t);
+    float* part = parts + (it & 1) * kWidePart;
+    put_scores(part, sc);
+    cluster_arrive();  // this block's partials are written
+    // while the cluster's partials meet: dq += dS K_{t-1}
+    if (it > 0 && cols_ok) grad(it - 1, kWideRows);
+    cluster_wait();   // every block's partials of tile t are visible
+    float s[4], dp[4];
+    sum_scores(s, dp, part, half, rank, 0, z);
+    const bool kv_ok = t + a_row < Nkv;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = (lane & 7) + 8 * j;  // q row in the tile
+      const float p = kv_ok && q0 + r < Nq ? expf(s[j] * scale - lrow[r]) : 0.f;
+      dss[(it & 1) * kWideRows * kWideLdx + a_row * kWideLdx + r] = p * (dp[j] - drow[r]) * scale;
     }
   }
-  // (the first __syncthreads of the loop makes drows and lrows visible)
-
-  float acc[2][4 * NC2];  // dq rows warp and warp + 8, columns 4 lane + 128 c
+  __syncthreads();  // dS of the last tile is visible
+  if (cols_ok) grad(tiles - 1, Nkv - (tiles - 1) * kWideRows);
+  float* red = qs;  // [32][kWideDB]: half 1's dq, in Q's room (Q is done with)
+  if (half) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 4 * NC2; ++c) acc[i][c] = 0.f;
-  const int dcols = (D + 63) & ~63;  // columns beyond D are zeros
-
-  for (int kv0 = 0; kv0 < Nkv; kv0 += kWideKv) {
-    const bool more = kv0 + kWideKv < Nkv;
-    cp_async_wait<0>();  // K_t and V_t have landed
-    __syncthreads();
-    wide_partials<LD>(red, qs, ks, dos, vs, dcols);  // S = Q K_t^T, dP = dO V_t^T
-    __syncthreads();  // the partials are visible; every thread is done with V_t
-    if (more) copy_tile<DP, kWideKv>(vs, vb, sv.n, kv0 + kWideKv, Nkv, D, vec);
-    cp_async_commit();
-    if (threadIdx.x < kWidePairs) {
-      const int e = threadIdx.x;
-      const int i = e >> 3, j = e & 7;  // q row, kv row in the tile
-      const float2 sdp = wide_pair(red, e);
-      const float p = q0 + i < Nq && kv0 + j < Nkv ? expf(sdp.x * scale - lrows[i]) : 0.f;
-      dss[e] = p * (sdp.y - drows[i]) * scale;
-    }
-    __syncthreads();  // dS is visible to every thread
-
-#pragma unroll
-    for (int j = 0; j < kWideKv; ++j) {  // dq += dS K_t
-      const float d0 = dss[warp * kWideKv + j], d1 = dss[(warp + 8) * kWideKv + j];
-#pragma unroll
-      for (int c = 0; c < NC2; ++c) {
-        const float4 kk = *reinterpret_cast<const float4*>(ks + j * LD + 128 * c + lane * 4);
-        acc[0][4 * c + 0] = fmaf(d0, kk.x, acc[0][4 * c + 0]);
-        acc[0][4 * c + 1] = fmaf(d0, kk.y, acc[0][4 * c + 1]);
-        acc[0][4 * c + 2] = fmaf(d0, kk.z, acc[0][4 * c + 2]);
-        acc[0][4 * c + 3] = fmaf(d0, kk.w, acc[0][4 * c + 3]);
-        acc[1][4 * c + 0] = fmaf(d1, kk.x, acc[1][4 * c + 0]);
-        acc[1][4 * c + 1] = fmaf(d1, kk.y, acc[1][4 * c + 1]);
-        acc[1][4 * c + 2] = fmaf(d1, kk.z, acc[1][4 * c + 2]);
-        acc[1][4 * c + 3] = fmaf(d1, kk.w, acc[1][4 * c + 3]);
-      }
-    }
-    __syncthreads();  // every thread is done with K_t and dS
-    if (more) copy_tile<DP, kWideKv>(ks, kb, sk.n, kv0 + kWideKv, Nkv, D, vec);
-    cp_async_commit();
+      for (int m = 0; m < 3; ++m)
+        *reinterpret_cast<float4*>(red + (gr + r) * kWideDB + gc + 32 * m) =
+            make_float4(acc[r][4 * m], acc[r][4 * m + 1], acc[r][4 * m + 2], acc[r][4 * m + 3]);
   }
-
-  store_tile<2, NC2>(dq + b * sdq.b + h * sdq.h, sdq.n, q0, Nq, D, vec_out, acc, warp, 8,
-                     lane * 4, 128);
+  cluster_sync();  // (the other blocks may still read this one's partials until here)
+  if (half) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const float4 x = *reinterpret_cast<const float4*>(red + (gr + r) * kWideDB + gc + 32 * m);
+      acc[r][4 * m] += x.x, acc[r][4 * m + 1] += x.y, acc[r][4 * m + 2] += x.z,
+          acc[r][4 * m + 3] += x.w;
+    }
+  store_slab<4>(dq + b * sdq.b + h * sdq.h, sdq.n, q0 + gr, Nq, c0 + gc, D, vec_out, acc);
 }
 
-template <int NC2>  // head dim padded to 128 * NC2
+// shared memory of the dk/dv kernel: K, V [32][LD]; two buffers of
+// partials; P^T, dS^T [32][36]; 3 stages of Q_t and dO_t [32][LD] with
+// their lse and D [32]
+constexpr int kWideDkvStage = 2 * kWideRows * kWideLD + 2 * kWideRows;
+constexpr int kWideDkvSmem = (2 * kWideRows * kWideLD + 2 * kWidePart +
+                              2 * kWideRows * kWideLdx + kWideStages * kWideDkvStage) * 4;
+static_assert(kWideDkvSmem <= 232448, "a block's shared memory");
+
+template <int BQ>  // q rows a stage
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ dsum,
                               float* __restrict__ dk, float* __restrict__ dv, int H, int Nq,
                               int Nkv, int D, Strides sq, Strides sk, Strides sv, Strides sdo,
-                              Strides sdk, Strides sdv, float scale, int vec, int vec_out) {
-  constexpr int DP = 128 * NC2;
-  constexpr int LD = DP + 4;
+                              Strides sdk, Strides sdv, float scale, int zd, int vec,
+                              int vec_out) {
+  static_assert(BQ == kWideRows, "the tiles are 32 x 32");
+  constexpr int TILE = kWideRows * kWideLD;
+  constexpr int NS = kWideStages;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                    // [8][LD]  kv rows (resident)
-  float* vs = ks + kWideKv * LD;       // [8][LD]
-  float* qs = vs + kWideKv * LD;       // [16][LD] q rows (streamed)
-  float* dos = qs + kWideQ * LD;       // [16][LD]
-  float* red = dos + kWideQ * LD;      // [16 slices][kLdr]
-  float* ps = red + 16 * kLdr;         // [16 q][8 kv] P
-  float* dss = ps + kWidePairs;        // [16 q][8 kv] dS
-  float* lses = dss + kWidePairs;      // [16]
-  float* dsums = lses + kWideQ;        // [16]
+  float* ks = smem;                       // [32][LD] K (resident)
+  float* vs = ks + TILE;                  // [32][LD] V
+  float* parts = vs + TILE;               // 2 x [2][8][128] this block's partial S^T and dP^T
+  float* pts = parts + 2 * kWidePart;     // [32 q][36] P^T
+  float* dsts = pts + kWideRows * kWideLdx;  // [32 q][36] dS^T
+  float* ring = dsts + kWideRows * kWideLdx;  // NS x (Q_t, dO_t [32][LD]; lse, D [32])
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int kv0 = blockIdx.y * kWideKv;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int kv0 = blockIdx.y * kWideRows;
+  // a cluster of zd x zq blocks: zd head-dim slices, each split over zq
+  // parts of the q loop (zq > 1 for the short calls)
+  const int zq = gridDim.z / zd;
+  const uint32_t rank = cluster_rank();  // = blockIdx.z
+  const int dsl = int(rank) % zd;        // the block's head-dim slice
+  const int qp = int(rank) / zd;         // its part of the q loop: q tiles qp, qp + zq, ...
+  const int c0 = dsl * kWideDB;
+  const int dkc = min(kWideDB, (D - c0 + 15) & ~15);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int half = warp >> 2;  // scores: 0 S^T = K Q_t^T, 1 dP^T = V dO_t^T; then dK, dV
+  const int wa = warp & 3;
 
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* lb = lse + size_t(bh) * Nq;
   const float* db = dsum + size_t(bh) * Nq;
-
-  copy_tile<DP, kWideKv>(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, D, vec);
-  copy_tile<DP, kWideKv>(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, D, vec);
-  copy_tile<DP, kWideQ>(qs, qb, sq.n, 0, Nq, D, vec);
-  copy_tile<DP, kWideQ>(dos, dob, sdo.n, 0, Nq, D, vec);
-  copy_rows<kWideQ>(lses, lb, 0, Nq);
-  copy_rows<kWideQ>(dsums, db, 0, Nq);
-  cp_async_commit();
-
-  // dK and dV: kv row warp, columns 4 lane + 128 c
-  float acc_k[1][4 * NC2], acc_v[1][4 * NC2];
-#pragma unroll
-  for (int c = 0; c < 4 * NC2; ++c) acc_k[0][c] = acc_v[0][c] = 0.f;
-  const int dcols = (D + 63) & ~63;  // columns beyond D are zeros
-
-  for (int q0 = 0; q0 < Nq; q0 += kWideQ) {
-    const bool more = q0 + kWideQ < Nq;
-    cp_async_wait<0>();  // Q_t, dO_t and their lse/dsum rows have landed
-    __syncthreads();
-    wide_partials<LD>(red, qs, ks, dos, vs, dcols);  // S = Q_t K^T, dP = dO_t V^T
-    __syncthreads();  // the partials are visible
-    if (threadIdx.x < kWidePairs) {
-      const int e = threadIdx.x;
-      const int i = e >> 3, j = e & 7;  // q row, kv row in the tile
-      const float2 sdp = wide_pair(red, e);
-      const float p = q0 + i < Nq && kv0 + j < Nkv ? expf(sdp.x * scale - lses[i]) : 0.f;
-      ps[e] = p;
-      dss[e] = p * (sdp.y - dsums[i]) * scale;
-    }
-    __syncthreads();  // P and dS are visible to every thread
-
-#pragma unroll 4
-    for (int i = 0; i < kWideQ; ++i) {  // dV += P^T dO_t
-      const float pv = ps[i * kWideKv + warp];
-#pragma unroll
-      for (int c = 0; c < NC2; ++c) {
-        const float4 d4 = *reinterpret_cast<const float4*>(dos + i * LD + 128 * c + lane * 4);
-        acc_v[0][4 * c + 0] = fmaf(pv, d4.x, acc_v[0][4 * c + 0]);
-        acc_v[0][4 * c + 1] = fmaf(pv, d4.y, acc_v[0][4 * c + 1]);
-        acc_v[0][4 * c + 2] = fmaf(pv, d4.z, acc_v[0][4 * c + 2]);
-        acc_v[0][4 * c + 3] = fmaf(pv, d4.w, acc_v[0][4 * c + 3]);
-      }
-    }
-    __syncthreads();  // every thread is done with dO_t
-    if (more) copy_tile<DP, kWideQ>(dos, dob, sdo.n, q0 + kWideQ, Nq, D, vec);
-    cp_async_commit();
-
-#pragma unroll 4
-    for (int i = 0; i < kWideQ; ++i) {  // dK += dS^T Q_t
-      const float dsv = dss[i * kWideKv + warp];
-#pragma unroll
-      for (int c = 0; c < NC2; ++c) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qs + i * LD + 128 * c + lane * 4);
-        acc_k[0][4 * c + 0] = fmaf(dsv, q4.x, acc_k[0][4 * c + 0]);
-        acc_k[0][4 * c + 1] = fmaf(dsv, q4.y, acc_k[0][4 * c + 1]);
-        acc_k[0][4 * c + 2] = fmaf(dsv, q4.z, acc_k[0][4 * c + 2]);
-        acc_k[0][4 * c + 3] = fmaf(dsv, q4.w, acc_k[0][4 * c + 3]);
-      }
-    }
-    __syncthreads();  // every thread is done with Q_t, P, dS and the lse/dsum rows
-    if (more) {
-      copy_tile<DP, kWideQ>(qs, qb, sq.n, q0 + kWideQ, Nq, D, vec);
-      copy_rows<kWideQ>(lses, lb, q0 + kWideQ, Nq);
-      copy_rows<kWideQ>(dsums, db, q0 + kWideQ, Nq);
+  int next = 0;  // the next stage to issue: Q, dO, lse and D of the block's q tile `next`
+  auto issue = [&]() {
+    const int t = (next * zq + qp) * BQ;
+    if (t < Nq) {
+      float* st = ring + (next % NS) * kWideDkvStage;
+      copy_slab(st, qb, sq.n, t, Nq, c0, D, vec);
+      copy_slab(st + TILE, dob, sdo.n, t, Nq, c0, D, vec);
+      copy_rows<BQ>(st + 2 * TILE, lb, t, Nq);
+      copy_rows<BQ>(st + 2 * TILE + BQ, db, t, Nq);
     }
     cp_async_commit();
+    ++next;
+  };
+  copy_slab(ks, k + b * sk.b + h * sk.h, sk.n, kv0, Nkv, c0, D, vec);
+  copy_slab(vs, v + b * sv.b + h * sv.h, sv.n, kv0, Nkv, c0, D, vec);
+  for (int i = 0; i < NS - 2; ++i) issue();  // (K and V with the first)
+
+  // dK (warps 0-3) or dV (4-7): kv rows 16 (w % 2) + 4 (l % 4) + r, columns
+  // 96 (w % 4 / 2) + 4 (l / 4) + 32 m + e of the block's: per q row one
+  // float4 of dS^T or P^T (4 kv rows) and 3 float4 of Q_t or dO_t feed 48
+  // FMAs; warps whose rows are all past Nkv or whose columns are all past D
+  // skip theirs
+  const int gr = 16 * (wa & 1) + 4 * (lane & 3);
+  const int gc = 96 * (wa >> 1) + 4 * (lane >> 2);
+  float acc[4][12];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int e = 0; e < 12; ++e) acc[r][e] = 0.f;
+  const bool grad_ok = kv0 + 16 * (wa & 1) < Nkv && gc < D - c0;
+  const float* xs = (half ? pts : dsts) + gr;
+  const int a_row = wa + 8 * (lane >> 3) + 4 * half;  // the kv row of this thread's scores
+  const bool kv_ok = kv0 + a_row < Nkv;
+  const int tiles = ((Nq + BQ - 1) / BQ + zq - 1) / zq;  // q tiles a block (the same in all)
+  auto rows_of = [&](int i) { return max(0, min(BQ, Nq - (i * zq + qp) * BQ)); };
+
+  for (int it = 0; it < tiles; ++it) {
+    const int t = (it * zq + qp) * BQ;
+    cp_async_wait<NS - 3>();  // Q_t, dO_t and their rows have landed
+    __syncthreads();          // ... and every thread is done with tile t - 2's stage
+    issue();
+    const float* st = ring + (it % NS) * kWideDkvStage;
+    const float* lrow = st + 2 * TILE;
+    const float* drow = lrow + BQ;
+    float sc[2][4];  // (t >= Nq: this part's share ran out, the barriers go on)
+    score_rows(sc, half ? vs : ks, half ? st + TILE : st, wa, t < Nq ? dkc : 0, Nkv - kv0);
+    float* part = parts + (it & 1) * kWidePart;
+    put_scores(part, sc);
+    cluster_arrive();  // this block's partials are written
+    // while the cluster's partials meet: dK += dS^T Q_{t-1}, dV += P^T dO_{t-1}
+    if (it > 0 && grad_ok) {
+      const float* sp = ring + ((it - 1) % NS) * kWideDkvStage;
+      grad_slab<4>(acc, xs, sp + half * TILE + gc, rows_of(it - 1));
+    }
+    __syncthreads();  // every thread is done with P^T and dS^T of tile t - 1
+    cluster_wait();   // every block's partials of tile t are visible
+    float s[4], dp[4];
+    sum_scores(s, dp, part, half, rank, qp * zd, zd);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = (lane & 7) + 8 * j;  // q row in the tile
+      const float p = kv_ok && t + r < Nq ? expf(s[j] * scale - lrow[r]) : 0.f;
+      pts[r * kWideLdx + a_row] = p;
+      dsts[r * kWideLdx + a_row] = p * (dp[j] - drow[r]) * scale;
+    }
   }
+  __syncthreads();  // P^T and dS^T of the last tile are visible
+  if (grad_ok) {
+    const float* sp = ring + ((tiles - 1) % NS) * kWideDkvStage;
+    grad_slab<4>(acc, xs, sp + half * TILE + gc, rows_of(tiles - 1));
+  }
+  cluster_sync();  // the other blocks may still read this one's partials until here
 
-  store_tile<1, NC2>(dk + b * sdk.b + h * sdk.h, sdk.n, kv0, Nkv, D, vec_out, acc_k, warp, 0,
-                     lane * 4, 128);
-  store_tile<1, NC2>(dv + b * sdv.b + h * sdv.h, sdv.n, kv0, Nkv, D, vec_out, acc_v, warp, 0,
-                     lane * 4, 128);
-}
-
-size_t dq_smem_f32_wide(int nc2) {
-  return (size_t(2 * kWideQ + 2 * kWideKv) * (128 * nc2 + 4) + 16 * kLdr + kWidePairs +
-          2 * kWideQ) * sizeof(float);
-}
-
-size_t dkv_smem_f32_wide(int nc2) {
-  return (size_t(2 * kWideKv + 2 * kWideQ) * (128 * nc2 + 4) + 16 * kLdr + 2 * kWidePairs +
-          2 * kWideQ) * sizeof(float);
+  float* dkb = dk + b * sdk.b + h * sdk.h;
+  float* dvb = dv + b * sdv.b + h * sdv.h;
+  if (zq == 1) {
+    store_slab<4>(half ? dvb : dkb, half ? sdv.n : sdk.n, kv0 + gr, Nkv, c0 + gc, D, vec_out, acc);
+    return;
+  }
+  // the split route: the zq blocks of a head-dim slice add their dK and dV
+  // in q-part order through distributed shared memory, each block the kv
+  // rows qp * 32 / zq .. of both
+  float* red = ks;  // [2][32][kWideDB]: dK, dV, in K's and V's room (K and V are done with)
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+      *reinterpret_cast<float4*>(red + (half * kWideRows + gr + r) * kWideDB + gc + 32 * m) =
+          make_float4(acc[r][4 * m], acc[r][4 * m + 1], acc[r][4 * m + 2], acc[r][4 * m + 3]);
+  cluster_sync();
+  const int rows = kWideRows / zq;
+  for (int idx = tid; idx < 2 * rows * kWideDB; idx += kThreads) {
+    const int which = idx / (rows * kWideDB);
+    const int rem = idx - which * rows * kWideDB;
+    const int row = qp * rows + rem / kWideDB;
+    const int col = rem % kWideDB;
+    const int off = (which * kWideRows + row) * kWideDB + col;
+    float x = 0.f;
+    for (int p = 0; p < zq; ++p) {
+      const int rk = p * zd + dsl;
+      x += rk == int(rank) ? red[off] : ld_cluster(cluster_map(red + off, rk));
+    }
+    if (kv0 + row < Nkv && c0 + col < D)
+      (which ? dvb + (kv0 + row) * sdv.n : dkb + (kv0 + row) * sdk.n)[c0 + col] = x;
+  }
+  cluster_sync();  // the other blocks may still read this one's dK and dV
 }
 
 // ----------------------------------------------------------- bf16/f16 path
@@ -2282,59 +2621,6 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
-template <int NC2>
-cudaError_t launch_dq_f32_wide(const void* q, const void* k, const void* v, const void* o,
-                               const void* dout, const float* lse, float* dsum, void* dq, int B,
-                               int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
-                               Strides so, Strides sdo, Strides sdq, float scale,
-                               cudaStream_t stream) {
-  const size_t smem = dq_smem_f32_wide(NC2);
-  static bool ready = false;  // the attribute is set once per kernel
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel_f32_wide<NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
-  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
-                  aligned16(dout, sdo);
-  const int vec_out = aligned16(dq, sdq) && D % 4 == 0;
-  const dim3 grid(B * H, (Nq + kWideQ - 1) / kWideQ);
-  flash_bwd_dq_kernel_f32_wide<NC2><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(o), static_cast<const float*>(dout), lse, dsum,
-      static_cast<float*>(dq), H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale, vec, vec_out);
-  return cudaGetLastError();
-}
-
-template <int NC2>
-cudaError_t launch_dkv_f32_wide(const void* q, const void* k, const void* v, const void* dout,
-                                const float* lse, const float* dsum, void* dk, void* dv, int B,
-                                int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
-                                Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
-                                cudaStream_t stream) {
-  const size_t smem = dkv_smem_f32_wide(NC2);
-  static bool ready = false;  // the attribute is set once per kernel
-  if (!ready) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dkv_kernel_f32_wide<NC2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
-  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
-                  aligned16(dout, sdo);
-  const int vec_out = aligned16(dk, sdk) && aligned16(dv, sdv) && D % 4 == 0;
-  const dim3 grid(B * H, (Nkv + kWideKv - 1) / kWideKv);
-  flash_bwd_dkv_kernel_f32_wide<NC2><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), lse, dsum, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Nq, Nkv, D, sq, sk, sv, sdo, sdk, sdv, scale, vec, vec_out);
-  return cudaGetLastError();
-}
-
-
 // 16-byte copies of 16-bit values need 16-byte aligned bases and strides
 bool aligned16_half(const void* p, Strides s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * 2) % 16 == 0 &&
@@ -2449,13 +2735,13 @@ cudaError_t launch_dkv_mma_wide(const void* q, const void* k, const void* v, con
   return cudaGetLastError();
 }
 
-// launches `kernel` on a grid of (B*H, tiles, Z) blocks, the Z blocks of a
+// launches `kernel` on a grid of (B*H, tiles, z) blocks, the z blocks of a
 // tile forming a cluster
-template <int Z, typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, size_t smem,
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int z, size_t smem,
                             cudaStream_t stream, Args... args) {
-  grid.z = Z;
-  if constexpr (Z == 1) {
+  grid.z = z;
+  if (z == 1) {
     kernel<<<grid, kThreads, smem, stream>>>(args...);
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -2467,13 +2753,78 @@ cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, size_t smem,
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = 1;
     attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = Z;
+    attr[0].val.clusterDim.z = z;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
+}
+
+// the wide f32 kernels' head-dim slices of kWideDB columns: a cluster's blocks
+int f32_wide_slices(int D) { return (D + kWideDB - 1) / kWideDB; }
+
+cudaError_t launch_dq_f32_wide(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* dsum, void* dq, int B,
+                               int H, int Nq, int Nkv, int D, Strides sq, Strides sk, Strides sv,
+                               Strides so, Strides sdo, Strides sdq, float scale,
+                               cudaStream_t stream) {
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel_f32_wide<kWideRows>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kWideDqSmem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+                  aligned16(o, so) && aligned16(dout, sdo);
+  const int vec_out = aligned16(dq, sdq) && D % 4 == 0;
+  return launch_clusters(flash_bwd_dq_kernel_f32_wide<kWideRows>,
+                         dim3(B * H, (Nq + kWideRows - 1) / kWideRows), f32_wide_slices(D),
+                         kWideDqSmem, stream, static_cast<const float*>(q),
+                         static_cast<const float*>(k), static_cast<const float*>(v),
+                         static_cast<const float*>(o), static_cast<const float*>(dout), lse, dsum,
+                         static_cast<float*>(dq), H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale,
+                         vec, vec_out);
+}
+
+cudaError_t launch_dkv_f32_wide(const void* q, const void* k, const void* v, const void* dout,
+                                const float* lse, const float* dsum, void* dk, void* dv, int B,
+                                int H, int Nq, int Nkv, int D, Strides sq, Strides sk,
+                                Strides sv, Strides sdo, Strides sdk, Strides sdv, float scale,
+                                cudaStream_t stream) {
+  static bool ready = false;  // the attribute is set once per kernel
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_f32_wide<kWideRows>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kWideDkvSmem);
+    if (err != cudaSuccess) return err;
+    ready = true;
+  }
+  const int vec = aligned16(q, sq) && aligned16(k, sk) && aligned16(v, sv) &&
+                  aligned16(dout, sdo);
+  const int vec_out = aligned16(dk, sdk) && aligned16(dv, sdv) && D % 4 == 0;
+  const int zd = f32_wide_slices(D);
+  const int kv_tiles = (Nkv + kWideRows - 1) / kWideRows;
+  // the split route: where the grid leaves SMs idle, zq = 2 or 4 blocks of
+  // each head-dim slice split the q loop (a cluster of zd x zq <= 8), each
+  // part 2 q tiles or more. Device ms a call at 6 rows (bwd_dispatch.py, H100
+  // 80GB HBM3, 700 W), split against not: (1024, 1, 384) 0.050 / 0.162,
+  // (256, 1, 576) 0.035 / 0.045; but (256, 256, 576), 144 blocks, 0.133 /
+  // 0.128, and (an earlier build) one q tile a part, (64, 64, 672) 0.023 /
+  // 0.020
+  int zq = 1;
+  if (B * H * kv_tiles * zd < 132) {
+    const int q_tiles = (Nq + kWideRows - 1) / kWideRows;
+    while (2 * zq * zd <= kMaxCluster && 4 * zq <= q_tiles) zq *= 2;
+  }
+  return launch_clusters(flash_bwd_dkv_kernel_f32_wide<kWideRows>, dim3(B * H, kv_tiles), zd * zq,
+                         kWideDkvSmem, stream, static_cast<const float*>(q), static_cast<const float*>(k),
+                         static_cast<const float*>(v), static_cast<const float*>(dout), lse, dsum,
+                         static_cast<float*>(dk), static_cast<float*>(dv), H, Nq, Nkv, D, sq, sk,
+                         sv, sdo, sdk, sdv, scale, zd, vec, vec_out);
 }
 
 template <typename T, int NW, int Z>
@@ -2496,8 +2847,8 @@ cudaError_t launch_dq_wgmma_wide(const void* q, const void* k, const void* v, co
       view_bits(v, sv.b, sv.h, sv.n) | view_bits(o, so.b, so.h, so.n) |
       view_bits(dout, sdo.b, sdo.h, sdo.n));
   const int vec_out = aligned16_half(dq, sdq) && D % 8 == 0;
-  return launch_clusters<Z>(flash_bwd_dq_kernel_wgmma_wide<T, NW, Z>,
-                            dim3(B * H, (Nq + 63) / 64), smem, stream, static_cast<const T*>(q),
+  return launch_clusters(flash_bwd_dq_kernel_wgmma_wide<T, NW, Z>,
+                            dim3(B * H, (Nq + 63) / 64), Z, smem, stream, static_cast<const T*>(q),
                             static_cast<const T*>(k), static_cast<const T*>(v),
                             static_cast<const T*>(o), static_cast<const T*>(dout), lse, dsum,
                             static_cast<T*>(dq), H, Nq, Nkv, D, sq, sk, sv, so, sdo, sdq, scale,
@@ -2523,8 +2874,8 @@ cudaError_t launch_dkv_wgmma_wide(const void* q, const void* k, const void* v, c
       view_bits(q, sq.b, sq.h, sq.n) | view_bits(k, sk.b, sk.h, sk.n) |
       view_bits(v, sv.b, sv.h, sv.n) | view_bits(dout, sdo.b, sdo.h, sdo.n));
   const int vec_out = aligned16_half(dk, sdk) && aligned16_half(dv, sdv) && D % 8 == 0;
-  return launch_clusters<Z>(flash_bwd_dkv_kernel_wgmma_wide<T, NC, Z>,
-                            dim3(B * H, (Nkv + 63) / 64), smem, stream,
+  return launch_clusters(flash_bwd_dkv_kernel_wgmma_wide<T, NC, Z>,
+                            dim3(B * H, (Nkv + 63) / 64), Z, smem, stream,
                             static_cast<const T*>(q), static_cast<const T*>(k),
                             static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
                             static_cast<T*>(dk), static_cast<T*>(dv), H, Nq, Nkv, D, sq, sk, sv,
@@ -2639,14 +2990,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
         case 4: return int(launch_dq_f32<4>(DQ_ARGS));
         default: break;
       }
-      switch ((D + 127) / 128) {  // 256 < D <= 1024
-        case 3: return int(launch_dq_f32_wide<3>(DQ_ARGS));
-        case 4: return int(launch_dq_f32_wide<4>(DQ_ARGS));
-        case 5: return int(launch_dq_f32_wide<5>(DQ_ARGS));
-        case 6: return int(launch_dq_f32_wide<6>(DQ_ARGS));
-        case 7: return int(launch_dq_f32_wide<7>(DQ_ARGS));
-        default: return int(launch_dq_f32_wide<8>(DQ_ARGS));
-      }
+      return int(launch_dq_f32_wide(DQ_ARGS));  // 256 < D <= 1024
     case 1: return int(launch_dq16<__nv_bfloat16>(DQ_ARGS));
     case 2: return int(launch_dq16<__half>(DQ_ARGS));
     default:
@@ -2676,14 +3020,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
     case 0:
       if (D <= 128) return int(launch_dkv_f32<1>(DKV_ARGS));
       if (D <= kMaxD) return int(launch_dkv_f32<2>(DKV_ARGS));
-      switch ((D + 127) / 128) {  // 256 < D <= 1024
-        case 3: return int(launch_dkv_f32_wide<3>(DKV_ARGS));
-        case 4: return int(launch_dkv_f32_wide<4>(DKV_ARGS));
-        case 5: return int(launch_dkv_f32_wide<5>(DKV_ARGS));
-        case 6: return int(launch_dkv_f32_wide<6>(DKV_ARGS));
-        case 7: return int(launch_dkv_f32_wide<7>(DKV_ARGS));
-        default: return int(launch_dkv_f32_wide<8>(DKV_ARGS));
-      }
+      return int(launch_dkv_f32_wide(DKV_ARGS));  // 256 < D <= 1024
     case 1: return int(launch_dkv16<__nv_bfloat16>(DKV_ARGS));
     case 2: return int(launch_dkv16<__half>(DKV_ARGS));
     default:

@@ -218,9 +218,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// the thread-block cluster (blocks splitting the head dim): this block's
-// rank, a barrier over all of them (release / acquire), and loads of
-// another block's shared memory
+// the thread-block cluster (blocks splitting the head dim or a loop): this
+// block's rank, a barrier over all of them (release / acquire), and loads
+// of another block's shared memory
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -229,6 +229,15 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" :::
                    "memory");
+}
+// the two halves of cluster_sync, for work between them: arrive once this
+// thread's reads and writes are done, wait before what must follow every
+// thread's arrival (alternate them, as cluster_sync does)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 // the address of `p` (this block's shared memory) in block `rank`'s
 __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
@@ -239,6 +248,14 @@ __device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
 __device__ __forceinline__ float ld_cluster(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {  // (16-byte aligned)
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
   return v;
 }
 

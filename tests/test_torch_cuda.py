@@ -313,9 +313,11 @@ def _check_flash_attention_backward(cuda):
     step's one-head self- and class-token cross-attention at B = 6, the
     widths of the UNet pruned at 0.3, D = 320 and 1024, several heads, fused
     D = 270 views: rows only 8-byte aligned in f32, 4-byte in 16 bits; fused
-    D = 268 and 269 in 16 bits: 8- and 2-byte aligned); then one autograd
-    step through head-split views, then a repeat of the kernels that must be
-    bit-identical (no atomics)."""
+    D = 268 and 269 in 16 bits: 8- and 2-byte aligned); the wide kernels at
+    their tile edges against the plain versions in float64 in every dtype
+    (in f32 through both routes of dk/dv: unsplit, and its q loop split over
+    2 and 4 blocks); then one autograd step through head-split views, then a
+    repeat of the kernels that must be bit-identical (no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     # the UNet's (256, 256) and (16, 256), a pruned D, ragged N, several
     # heads, Nq != Nkv, partial 32- and 64-row tiles at full width (200), and
@@ -362,18 +364,29 @@ def _check_flash_attention_backward(cuda):
         _check_rel(dq, pdq, dtype, what + " dq", floor)
         _check_rel(dk, pdk, dtype, what + " dk", floor)
         _check_rel(dv, pdv, dtype, what + " dv")
-    # the wide 16-bit dq and dk/dv at their tile edges (Nq, Nkv around the
-    # 32- and 64-row tiles, at the head dims where the tilings change), 16
-    # rows of 16 heads so that the entry points take the wgmma kernels, and
-    # fused 3 x 268, 3 x 269 and 2 x 270 views at 256 tokens, chained as the
-    # backward chains them, against the plain versions in float64: where Nkv
-    # = 1, dq and dk are zero in exact arithmetic and the f32 plain version's
-    # own cancellation noise reaches the floor the tolerance adds for them
+    # the wide dq and dk/dv at their tile edges (Nq, Nkv around the 32- and
+    # 64-row tiles, at the head dims where the tilings change), chained as
+    # the backward chains them, against the plain versions in float64: where
+    # Nkv = 1, dq and dk are zero in exact arithmetic and the f32 plain
+    # version's own cancellation noise reaches the floor the tolerance adds
+    # for them. 16-bit: 16 rows of 16 heads so that the entry points take
+    # the wgmma kernels, and fused 3 x 268, 3 x 269 and 2 x 270 views at 256
+    # tokens. f32: the head dims where the cluster of 192-column blocks
+    # grows, at 16 rows of 16 heads (dk/dv unsplit) and
+    # at 1 row of 2 heads (dk/dv splitting its q loop over 2 blocks; over 4
+    # at 257 q rows), and the fused views at 8 rows and at 1
+    ns = (1, 31, 33, 63, 65, 127)
+    fused3 = ((3, 268), (3, 269), (2, 270))
     edges = [(16, 16, nq, nkv, d, None) for d in (257, 384, 512, 513, 1024)
-             for nq in (1, 31, 33, 63, 65, 127) for nkv in (1, 31, 33, 63, 65, 127)]
-    edges += [(8, heads, 256, 256, d, heads) for heads, d in ((3, 268), (3, 269), (2, 270))]
-    for dtype in (torch.bfloat16, torch.float16):
-        for b, h, nq, nkv, d, heads in edges:
+             for nq in ns for nkv in ns]
+    edges += [(8, heads, 256, 256, d, heads) for heads, d in fused3]
+    edges32 = [(b, h, nq, nkv, d, None) for b, h in ((16, 16), (1, 2))
+               for d in (257, 384, 385, 576, 577, 1024) for nq in ns for nkv in ns]
+    edges32 += [(1, 2, 257, nkv, d, None) for d in (257, 384) for nkv in (1, 33)]
+    edges32 += [(b, heads, 256, 256, d, heads) for b in (8, 1) for heads, d in fused3]
+    for dtype, cases in ((torch.bfloat16, edges), (torch.float16, edges),
+                         (torch.float32, edges32)):
+        for b, h, nq, nkv, d, heads in cases:
             if heads is None:
                 q, do = (torch.randn((b, h, nq, d), generator=gen, device=cuda).to(dtype)
                          for _ in range(2))
