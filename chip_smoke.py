@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's seven paths, through its own kernels, from seeded random
+Drives the port's eight paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -14,7 +14,9 @@ class-conditional LDM's serving path (the ldm_sample CLI on cin256-v2 +
 vq-f4, 456.76M params), pruning path (the ldm_prune CLI's self-sampled
 sweep, through the wide f32 attention backward) and finetune path (the
 ldm_train CLI in bf16, through the wide 16-bit attention forward and
-backward). Every phase raises on
+backward); and the unconditional LDMs' sampling path (the sample_diffusion
+CLI on CelebA-HQ LDM-VQ-4 and LSUN-churches LDM-KL-8) with the DDPM
+samplers beyond DDIM. Every phase raises on
 failure; none is caught, so any failure exits non-zero before the result
 lines.
 
@@ -198,8 +200,34 @@ lines.
    and backwards in the same turns); the bf16 GroupNorm forward and
    backward per dense step against plain, F.group_norm and the bound; the
    seconds of a save.
-19. The evaluation, LDM, LDM prune and LDM train JSON lines, the kernels'
-   JSON line, nvidia-smi's line, then the result line.
+19. Unconditional LDM path, f32, TF32 off: (a) two model dirs in the JAX
+   package's layout from a seeded init on the card, full width and depth,
+   the zero-initialised convs redrawn: CelebA-HQ LDM-VQ-4 (274,056,163
+   UNet params, 14-28 heads of 32 in its legacy AttentionBlocks, GroupNorm
+   at 7, 21, 35 and 49 channels a group) + vq-f4, and LSUN-churches
+   LDM-KL-8 (294,966,916; 8 heads of 24, 48 and 96; scale-shift ResBlocks,
+   GroupNorm without SiLU) + kl-f8; (c) every GroupNorm and attention shape
+   of a UNet call and a decode of each against the plain versions, the
+   attention through head-split views of (B, N, heads x D) projections as
+   the layer passes them; (d) one CelebA-HQ DDIM-20 eta-1 trajectory
+   (make_concat_sampler, B = 4) kernels on against off from the same x_T
+   and per-step noise, latents and the vq-f4 decode of them within 1e-3 of
+   their max; (g) a UNet call and a decode at 16 rows, kernels off and on
+   in turns, a profile of the 16-row call by kernel class, one UNet call
+   at the CLI's 50 rows (kernels on), the decode's peak memory at 50,
+   DDIM-20 + decode imgs/s at B = 16 (one batch off, one on), per-op
+   ms of a UNet call (kernel, plain, F.group_norm / SDPA, bound; the
+   decode's are phase 16's); (b) the main path: the sample_diffusion CLI
+   on the CelebA-HQ dir (16 images, B = 16, DDIM-20 for 250, eta 1), 16
+   finite 256 x 256 PNGs, launch counters reset just before and read just
+   after, equal to 20 UNet calls + one decode; (e) the CLI on the churches
+   dir at B = 4, DDIM-5 (the KL decode), and with --vanilla_sample at B = 1
+   (the 1000-step DDPM chain), launches exact; (f) make_sampler's plms and
+   dpm kinds on the dense CIFAR UNet, DDIM-20, B = 128, kernels on against
+   off from one x_T, and ddpm_sample --mode sequence and interpolation
+   (PNG sizes checked). Prints the phase's seconds.
+20. The evaluation, LDM, LDM prune, LDM train and unconditional LDM JSON
+   lines, the kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -293,6 +321,16 @@ LDM_PRUNED_PARAMS_AT_0_3 = 203_294_971
 LDM_TRAIN_B, LDM_TRAIN_LR, LDM_TRAIN_STEPS, LDM_TRAIN_SAVE, LDM_TRAIN_IMAGES = \
     16, 2e-6 * 16, 6, 3, 48
 F16_TOL, F16_BWD_TOL = (1e-3, 2e-3), 2e-3
+# the unconditional LDM path (phase 19): parameter counts (UNet, first stage)
+# of CelebA-HQ LDM-VQ-4 and LSUN-churches LDM-KL-8 (the JAX package's presets,
+# tests/test_torch_ldm.py); sample_diffusion's batch, DDIM steps and eta on
+# CelebA-HQ (cut from its defaults' 50 rows, 250 steps), the churches runs'
+# batch and DDIM steps; the on-against-off trajectory's batch; the CIFAR
+# PLMS and DPM-Solver++ steps. On against off: the largest difference within
+# LDM_REL_TOL of the largest value (latents, images)
+UNCOND_PARAMS = {"celebahq": (274_056_163, 55_322_782), "churches": (294_966_916, 83_653_863)}
+UNCOND_B, UNCOND_STEPS, UNCOND_ETA, CHURCH_B, CHURCH_STEPS = 16, 20, 1.0, 4, 5
+UNCOND_CMP_B, CIFAR_MULTI_STEPS, UNCOND_CLI_B = 4, 20, 50
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -949,10 +987,11 @@ def ldm_op_shapes(unet_cfg, fs_cfg, encode=False):
 
     meta = torch.device("meta")
     hw, ch = unet_cfg.image_size, unet_cfg.in_channels
+    ctx = (None if unet_cfg.context_dim is None
+           else torch.zeros((1, 1, unet_cfg.context_dim), device=meta))
     unet = op_calls(UNetCond(unet_cfg, device=meta), lambda m: m(
         torch.zeros((1, hw, hw, ch), device=meta), torch.zeros((1,), dtype=torch.int64,
-                                                               device=meta),
-        context=torch.zeros((1, 1, unet_cfg.context_dim), device=meta)))
+                                                               device=meta), context=ctx))
     fs = make_first_stage(fs_cfg, device=meta)
     decode = op_calls(fs, lambda m: m.decode(torch.zeros((1, hw, hw, ch), device=meta)))
     if not encode:
@@ -1878,6 +1917,353 @@ def record_fwd_dtypes():
         A._launch, G._launch = attn, gn
 
     return seen, restore
+
+
+def seeded_uncond_dir(path, ucfg, fcfg, seed, dev):
+    """A model dir in the JAX package's layout (``unet/``, ``first_stage/``)
+    of a seeded init on the card, every convolution that the reference
+    zero-initialises (ResBlocks' out_conv, the final conv) drawn like the
+    others: a fresh UNet's eps is exactly 0. Returns (UNet params, first-stage
+    params, the convs redrawn, save seconds)."""
+    import torch
+
+    from diff_pruning_tpu_torch.models.unet_cond import UNetCond
+    from diff_pruning_tpu_torch.models.vae import make_first_stage
+    from diff_pruning_tpu_torch.utils.checkpoint import save_model
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    unet = UNetCond(ucfg, device=dev).init(g)
+    fs = make_first_stage(fcfg, device=dev).init(g)
+    nudged = 0
+    for mod in unet.modules():
+        own = list(mod.parameters(recurse=False))
+        if hasattr(mod, "reset_parameters") and own and not any(bool(p.any()) for p in own):
+            mod.reset_parameters(g)
+            nudged += 1
+    t0 = time.perf_counter()
+    save_model(path, ucfg, unet, subfolder="unet")
+    save_model(path, fcfg, fs, subfolder="first_stage")
+    counts = (sum(p.numel() for p in unet.parameters()), sum(p.numel() for p in fs.parameters()))
+    return counts[0], counts[1], nudged, time.perf_counter() - t0
+
+
+def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
+    """Phase 19 (see the module docstring); returns the phase's figures.
+    ``cifar``: the dense CIFAR UNet's checkpoint dir (``ckpt``, phase 5's),
+    its schedule on the card (``sched``) and its GroupNorm and attention calls
+    a forward (``per_call``)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import ddpm_sample, sample_diffusion
+    from diff_pruning_tpu_torch.models.latent_diffusion import ldm_schedule, make_concat_sampler
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.models.unet_cond import (UNetCond, celebahq_ldm_vq4_config,
+                                                         lsun_churches_ldm_kl8_config)
+    from diff_pruning_tpu_torch.models.vae import first_stage_config, make_first_stage
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out = {"card": gpu, "laps_s": {}}
+
+    def lap(what):
+        """Seconds since the phase began, at the end of ``what``."""
+        out["laps_s"][what] = time.perf_counter() - t_phase
+    # (a) the two model dirs, full width and depth, f32
+    models = {"celebahq": (celebahq_ldm_vq4_config(), first_stage_config("vq-f4"), 20),
+              "churches": (lsun_churches_ldm_kl8_config(), first_stage_config("kl-f8"), 21)}
+    dirs, shapes = {}, {}
+    for name, (ucfg, fcfg, seed) in models.items():
+        dirs[name] = os.path.join(tmp, f"uncond_{name}")
+        n_unet, n_fs, nudged, t_save = seeded_uncond_dir(dirs[name], ucfg, fcfg, seed, dev)
+        torch.cuda.empty_cache()
+        shapes[name] = ldm_op_shapes(ucfg, fcfg)
+        (gn_u, attn_u), (gn_d, attn_d) = shapes[name]
+        print(f"uncond ldm {name}: UNetCond {n_unet:,} params, first stage {n_fs:,}; "
+              f"{nudged} zero-initialised convs redrawn; saved in {t_save:.1f} s; a UNet "
+              f"call {sum(gn_u.values())} GroupNorm and {sum(attn_u.values())} attention calls "
+              f"{dict(attn_u)}, a decode {sum(gn_d.values())} and {sum(attn_d.values())} "
+              f"{dict(attn_d)}")
+        assert (n_unet, n_fs) == UNCOND_PARAMS[name], (name, n_unet, n_fs)
+        assert nudged > 0
+        out[name] = {"params": {"unet": n_unet, "first_stage": n_fs}, "save_s": t_save,
+                     "per_call": {"group_norm": sum(gn_u.values()),
+                                  "attention": sum(attn_u.values())},
+                     "per_decode": {"group_norm": sum(gn_d.values()),
+                                    "attention": sum(attn_d.values())},
+                     "attention_shapes": {str(k): v for k, v in attn_u.items()},
+                     "group_norm_odd_c_per_group": sorted(
+                         {c // 32 for (_, c, _, _) in gn_u if (c // 32) % 2})}
+
+    # (c) every GroupNorm and attention shape of both models against plain,
+    # f32, at the CLI runs' rows; attention through (B, N, heads * D) views
+    # viewed as (B, heads, N, D), as SelfAttention2D passes them
+    for name, rows in (("celebahq", UNCOND_B), ("churches", CHURCH_B)):
+        (gn_u, attn_u), (gn_d, attn_d) = shapes[name]
+        for (nq, nkv, h, d), where in ([(s_, "unet") for s_ in sorted(attn_u)]
+                                       + [(s_, "decode") for s_ in sorted(attn_d)]):
+            q, k, v = (torch.randn((rows, n, h * d), generator=gen, device=dev)
+                       .view(rows, n, h, d).transpose(1, 2) for n in (nq, nkv, nkv))
+            err, ok = compare(flash_attention(q, k, v, d ** -0.5),
+                              reference_attention(q, k, v, d ** -0.5), "float32")
+            worst[("attention_uncond", "float32")] = max(worst[("attention_uncond",
+                                                                "float32")], err)
+            print(f"check uncond {name} attention ({where}) rows={rows} heads={h} Nq={nq} "
+                  f"Nkv={nkv} D={d} (head-split views) float32: max_abs_err={err:.3e} "
+                  f"tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
+            assert ok, (name, nq, nkv, h, d)
+            del q, k, v
+        for (n, c, eps, silu), where in ([(s_, "unet") for s_ in sorted(gn_u)]
+                                         + [(s_, "decode") for s_ in sorted(gn_d)]):
+            x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
+            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            kw = dict(groups=32, eps=eps, with_silu=silu)
+            err, ok = compare(group_norm(x, scale, bias, **kw),
+                              group_norm_reference(x, scale, bias, **kw), "float32")
+            worst[("group_norm_uncond", "float32")] = max(worst[("group_norm_uncond",
+                                                                 "float32")], err)
+            print(f"check uncond {name} group_norm ({where}) rows={rows} N={n} C={c} "
+                  f"C/g={c // 32} eps={eps} silu={silu} float32: max_abs_err={err:.3e} "
+                  f"tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
+            assert ok, (name, n, c, eps, silu)
+            del x
+    torch.cuda.synchronize()
+    lap("model dirs and kernel checks")
+
+    # the CelebA-HQ model, loaded as the CLI loads it
+    ucfg, fcfg, _ = models["celebahq"]
+    (gn_u, attn_u), (gn_d, attn_d) = shapes["celebahq"]
+    per_call = (sum(gn_u.values()), sum(attn_u.values()))
+    per_decode = (sum(gn_d.values()), sum(attn_d.values()))
+    _, ustate = load_model(dirs["celebahq"], "unet", config_cls=type(ucfg))
+    unet = UNetCond(ucfg, device=dev)
+    unet.load_state_dict(ustate)
+    unet.eval()
+    _, fstate = load_model(dirs["celebahq"], "first_stage", config_cls=type(fcfg))
+    fs = make_first_stage(fcfg, device=dev)
+    fs.load_state_dict(fstate)
+    fs.eval()
+    del ustate, fstate
+    sched = ldm_schedule(device=dev)
+    hw = ucfg.image_size
+
+    def decode(lat):
+        with torch.inference_mode():
+            return ((fs.decode(lat, force_not_quantize=False) + 1.0) / 2.0).clamp(0.0, 1.0)
+
+    def switched(on, fn):
+        ops.set_kernels_enabled(on)
+        try:
+            return fn()
+        finally:
+            ops.set_kernels_enabled(True)
+
+    # (d) one DDIM-20 eta-1 trajectory, kernels on against off, from the same
+    # x_T and per-step noise; then the decode of those latents
+    sampler = make_concat_sampler(unet, sched, ddim_steps=UNCOND_STEPS, eta=UNCOND_ETA)
+    empty = torch.zeros((UNCOND_CMP_B, hw, hw, 0), device=dev)
+    x_T = torch.randn((UNCOND_CMP_B, hw, hw, 3), generator=gen, device=dev)
+    noise = [torch.randn_like(x_T) for _ in range(UNCOND_STEPS)]
+    runs = {}
+    for on in (True, False):
+        ops.reset_launch_counts()
+        lat = switched(on, lambda: sampler(None, empty, x_T=x_T, noise=noise))
+        torch.cuda.synchronize()
+        runs[on] = (lat, dict(ops.LAUNCHES))
+    (lat_on, c_on), (lat_off, c_off) = runs[True], runs[False]
+    lat_err, lat_ok = compare_rel(lat_on, lat_off, LDM_REL_TOL)
+    img_on, img_off = (switched(on, lambda: decode(lat_off)) for on in (True, False))
+    img_err, img_ok = compare_rel(img_on, img_off, LDM_REL_TOL)
+    e2e = float((decode(lat_on) - img_off).abs().max())
+    print(f"uncond celebahq DDIM-{UNCOND_STEPS} eta {UNCOND_ETA} B={UNCOND_CMP_B}, kernels on "
+          f"vs off from one x_T and per-step noise: latents max abs err {lat_err:.3e} "
+          f"(tol {LDM_REL_TOL} x max {float(lat_off.abs().max()):.3f}), the vq-f4 decode of "
+          f"the same latents {img_err:.3e} (tol {LDM_REL_TOL} x max); each side's own "
+          f"latents decoded on and off: {e2e:.3e}; launches on {c_on}, off {c_off}")
+    assert lat_ok and img_ok, (lat_err, img_err)
+    assert c_on["group_norm"] == UNCOND_STEPS * per_call[0], c_on
+    assert c_on["attention"] == UNCOND_STEPS * per_call[1] and not any(c_off.values()), c_on
+    out["on_off"] = {"latent_max_abs_err": lat_err, "image_max_abs_err": img_err,
+                     "image_end_to_end_max_abs_err": e2e, "launches": c_on}
+    del runs, lat_on, lat_off, img_on, img_off
+
+    # (g) timings: a UNet call at 16 rows and the decode at 16, kernels off
+    # and on in turns; a UNet call at the CLI's 50 rows, kernels on, once;
+    # peak memory of a decode at 50; per-op ms
+    def turns(fn):
+        """``fn(on)`` timed kernels off, on, on, off, one call each after a
+        warm-up of each: (off ms, on ms), each the mean of its two calls.
+        These calls take 0.1-0.4 s of device time, far above the events'
+        resolution and the host's share."""
+        for on in (False, True):
+            fn(on)
+        off1, on1, on2, off2 = (cuda_ms(lambda: fn(on), iters=1, warmup=0)
+                                for on in (False, True, True, False))
+        return (off1 + off2) / 2, (on1 + on2) / 2
+
+    def unet_call(rows):
+        xr = torch.randn((rows, hw, hw, 3), generator=gen, device=dev)
+        tb = torch.full((rows,), 501, device=dev)
+
+        def call(on):
+            with torch.inference_mode():
+                return switched(on, lambda: unet(xr, tb))
+
+        return call
+
+    timing = {}
+    call16 = unet_call(UNCOND_B)
+    off, on = turns(call16)
+    timing[f"unet_call_ms_{UNCOND_B}"] = {"kernels_on": on, "kernels_off": off}
+    print(f"time uncond celebahq one UNet call rows={UNCOND_B} float32: kernels on {on:.2f} "
+          f"ms, off {off:.2f} ms (CUDA events, in turns off-on-on-off) {tag}")
+    busy, span, launches, kcounts, _ = profile_kernels(lambda: call16(True))
+    print_profile(f"uncond celebahq one UNet call kernels on rows={UNCOND_B} float32", busy,
+                  span, launches, kcounts, ("UNet call", 1), tag)
+    out["profile_unet_call"] = {"busy_ms": busy, "span_ms": span, "launches": launches,
+                                "idle_share": 1 - sum(busy.values()) / span}
+    # at the CLI's default rows, where cuDNN's choice may change (ROADMAP
+    # queue 2, F): one call after a warm-up, kernels on
+    call50 = unet_call(UNCOND_CLI_B)
+    on = cuda_ms(lambda: call50(True), iters=1, warmup=1)
+    timing[f"unet_call_ms_{UNCOND_CLI_B}"] = {"kernels_on": on}
+    print(f"time uncond celebahq one UNet call rows={UNCOND_CLI_B} float32: kernels on "
+          f"{on:.2f} ms ({on / UNCOND_CLI_B:.3f} ms a row; CUDA events, one call after a "
+          f"warm-up) {tag}")
+    dec_lat = torch.randn((UNCOND_B, hw, hw, 3), generator=gen, device=dev)
+    off, on = turns(lambda on: switched(on, lambda: decode(dec_lat)))
+    timing["decode_ms_16"] = {"kernels_on": on, "kernels_off": off}
+    print(f"time uncond vq-f4 decode (quantized) B={UNCOND_B} float32: kernels on {on:.2f} ms, "
+          f"off {off:.2f} ms (CUDA events, in turns off-on-on-off) {tag}")
+    big = torch.randn((UNCOND_CLI_B, hw, hw, 3), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    decode(big)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    timing["decode_peak_gb_50"] = peak
+    print(f"uncond vq-f4 decode B={UNCOND_CLI_B}: peak memory {peak:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held before it (the VQ lookup chunked) {tag}")
+    del big
+    # the UNet call and the decode at these rows are warm from the turns
+    # above: one batch each, kernels off then on
+    sample20 = make_concat_sampler(unet, sched, ddim_steps=UNCOND_STEPS, eta=UNCOND_ETA)
+    empty16 = torch.zeros((UNCOND_B, hw, hw, 0), device=dev)
+    off, on = (cuda_ms(lambda: switched(on_, lambda: decode(sample20(gen, empty16))),
+                       iters=1, warmup=0) for on_ in (False, True))
+    timing["imgs_per_s"] = {"kernels_on": UNCOND_B * 1e3 / on,
+                            "kernels_off": UNCOND_B * 1e3 / off}
+    timing["batch_ms"] = {"on": on, "off": off}
+    print(f"time uncond celebahq DDIM-{UNCOND_STEPS} + decode B={UNCOND_B} float32: kernels on "
+          f"{timing['imgs_per_s']['kernels_on']:.3f} imgs/s ({on:.0f} ms), off "
+          f"{timing['imgs_per_s']['kernels_off']:.3f} ({off:.0f} ms) (CUDA events, one batch "
+          f"each, off then on) {tag}")
+    out["timing"] = timing
+    # per op at a UNet call's shapes (the vq-f4 decode's are phase 16's, at the
+    # same 16 rows)
+    out["ops_unet_call"] = time_ldm_ops(gn_u, attn_u, UNCOND_B, gen, dev, tag,
+                                        "uncond UNet call", others_fwd)
+    lap("checks, on against off, timings")
+    del unet, fs, sampler, sample20
+    torch.cuda.empty_cache()
+
+    # (b) the main path: sample_diffusion on the CelebA-HQ dir
+    logdir = os.path.join(tmp, "uncond_celebahq_samples")
+    ops.reset_launch_counts()
+    stats, _, seconds = run_cli(sample_diffusion.main, [
+        "--model_path", dirs["celebahq"], "--logdir", logdir, "--n_samples", str(UNCOND_B),
+        "--batch_size", str(UNCOND_B), "--custom_steps", str(UNCOND_STEPS), "--eta",
+        str(UNCOND_ETA), "--device", "cuda"])
+    launches = dict(ops.LAUNCHES)
+    pngs = sorted(os.listdir(os.path.join(logdir, "img")))
+    want = {"group_norm": UNCOND_STEPS * per_call[0] + per_decode[0],
+            "attention": UNCOND_STEPS * per_call[1] + per_decode[1]}
+    size = Image.open(os.path.join(logdir, "img", pngs[-1])).size
+    print(f"sample_diffusion CLI celebahq DDIM-{UNCOND_STEPS} eta {UNCOND_ETA}, {UNCOND_B} "
+          f"images, B={UNCOND_B}: {len(pngs)} PNGs of {size}, {seconds:.1f} s wall (load "
+          f"included), sampling {stats['imgs_per_s']:.3f} imgs/s {tag}; launches {launches}")
+    res = hw * 2 ** (len(fcfg.block_out_channels) - 1)  # 256 for vq-f4's 64 x 64 latents
+    assert pngs == [f"{i:06d}.png" for i in range(UNCOND_B)] and size == (res, res), pngs
+    assert stats["nonfinite"] == 0 and stats["images"] == UNCOND_B, stats
+    assert all(ops.kernels_enabled(op) for op in ("group_norm", "attention"))
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert launches["attention_lse"] == launches["group_norm_bwd"] == 0, launches
+    out["cli"] = {"seconds": seconds, "imgs_per_s": stats["imgs_per_s"], "pngs": len(pngs),
+                  "launches": launches}
+    lap("sample_diffusion celebahq")
+
+    # (e) the churches dir: the KL decode, then the full 1000-step DDPM chain
+    (gn_cu, attn_cu), (gn_cd, attn_cd) = shapes["churches"]
+    for extra, b, steps in (([], CHURCH_B, CHURCH_STEPS), (["--vanilla_sample"], 1, 1000)):
+        logdir = os.path.join(tmp, f"uncond_churches_{len(extra)}")
+        ops.reset_launch_counts()
+        stats, _, seconds = run_cli(sample_diffusion.main, [
+            "--model_path", dirs["churches"], "--logdir", logdir, "--n_samples", str(b),
+            "--batch_size", str(b), "--custom_steps", str(steps), "--device", "cuda"] + extra)
+        launches = dict(ops.LAUNCHES)
+        pngs = sorted(os.listdir(os.path.join(logdir, "img")))
+        size = Image.open(os.path.join(logdir, "img", pngs[0])).size
+        what = "vanilla DDPM-1000" if extra else f"DDIM-{steps}"
+        print(f"sample_diffusion CLI churches {what}, B={b}: {len(pngs)} PNGs of {size}, "
+              f"{seconds:.1f} s wall (load included) {tag}; launches {launches}")
+        cucfg, cfcfg, _ = models["churches"]
+        res = cucfg.image_size * 2 ** (len(cfcfg.block_out_channels) - 1)  # 256 (kl-f8)
+        assert len(pngs) == b and size == (res, res) and stats["nonfinite"] == 0, stats
+        assert launches["group_norm"] == steps * sum(gn_cu.values()) + sum(gn_cd.values())
+        assert launches["attention"] == steps * sum(attn_cu.values()) + sum(attn_cd.values())
+        out[f"churches_cli_{'vanilla' if extra else 'ddim'}"] = {
+            "seconds": seconds, "launches": launches, "imgs_per_s": stats["imgs_per_s"]}
+    lap("sample_diffusion churches")
+
+    # (f) the DDPM samplers on the dense CIFAR UNet: PLMS and DPM-Solver++,
+    # kernels on against off; then the sequence and interpolation grids
+    ccfg, cstate = load_model(cifar["ckpt"])
+    cmodel = UNet2D(ccfg, device=dev)
+    cmodel.load_state_dict(cstate)
+    cmodel.eval()
+    x_T = torch.randn((B, 32, 32, 3), generator=gen, device=dev)
+    gn_c, attn_c = cifar["per_call"]
+    for kind in ("plms", "dpm"):
+        sample = make_sampler(cmodel, cifar["sched"],
+                              SamplerConfig(num_inference_steps=CIFAR_MULTI_STEPS, kind=kind))
+        runs = {}
+        for on in (True, False):
+            ops.reset_launch_counts()
+            runs[on] = (switched(on, lambda: sample(None, B, 32, 3, x_T=x_T)),
+                        dict(ops.LAUNCHES))
+        (img_on, c_on), (img_off, c_off) = runs[True], runs[False]
+        err, ok = compare_rel(img_on, img_off, LDM_REL_TOL)
+        calls = CIFAR_MULTI_STEPS + (kind == "plms")
+        print(f"sampler cifar10 {kind}-{CIFAR_MULTI_STEPS} B={B} f32 (clip_sample), kernels on "
+              f"vs off from one x_T: max abs err {err:.3e} (tol {LDM_REL_TOL} x max); "
+              f"launches on {c_on}")
+        assert ok, (kind, err)
+        assert (c_on["group_norm"], c_on["attention"]) == (calls * gn_c, calls * attn_c), c_on
+        assert not any(c_off.values()), c_off
+        out[f"cifar_{kind}"] = {"max_abs_err": err, "launches": c_on}
+        del runs, img_on, img_off
+    for mode, cols, rows_ in (("sequence", 11, 4), ("interpolation", 11, 1)):
+        res, _, seconds = run_cli(ddpm_sample.main, [
+            "--model_path", cifar["ckpt"], "--output_dir", os.path.join(tmp, f"grid_{mode}"),
+            "--mode", mode, "--ddim_steps", str(CIFAR_MULTI_STEPS), "--device", "cuda"])
+        arr = np.asarray(Image.open(res["path"]))
+        print(f"ddpm_sample CLI --mode {mode} --ddim_steps {CIFAR_MULTI_STEPS}: {res['path']} "
+              f"{arr.shape}, {seconds:.1f} s wall")
+        assert arr.shape == (34 * rows_ + 2, 34 * cols + 2, 3), (mode, arr.shape)
+    del cmodel
+    lap("cifar samplers and grids")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"uncond ldm phase {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
+    return out
 
 
 def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd, others_bwd):
@@ -3267,10 +3653,17 @@ def main() -> None:
     # -- 18. the LDM train path: the wide 16-bit attention, the bf16 step, the CLI
     ldm_train_fig = ldm_train_path(tmp, ldm_dir, ldm_pruned_dir, gen, gpu, tag, worst,
                                    others_fwd, others)
-    tmpdir.cleanup()
 
     mark(19)
-    # -- 19. result lines
+    # -- 19. the unconditional LDM path (CelebA-HQ LDM-VQ-4, LSUN-churches
+    # LDM-KL-8) and the DDPM samplers beyond DDIM
+    uncond = uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, {
+        "sched": sched, "ckpt": os.path.join(tmp, "dense"),
+        "per_call": (sum(gn_dense.values()), sum(attn_dense.values()))})
+    tmpdir.cleanup()
+
+    mark(20)
+    # -- 20. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -3402,6 +3795,25 @@ def main() -> None:
                 out[f"{label}_ms_ldm_{part}"] = tot[f"kernel_{label}"]
         return out
 
+    def uncond_of(op):
+        """The unconditional LDM path's figures (phase 19): launches of the
+        sample_diffusion CLI's CelebA-HQ run, f32 max abs error over both
+        models' shapes, and ms, plain, bound and library summed over one
+        CelebA-HQ UNet call's calls (UNCOND_B rows; its vq-f4 decode's are
+        phase 16's ``*_ldm_decode``)."""
+        res = {"launches_uncond_ldm_cli": uncond["cli"]["launches"][op],
+               "max_abs_err_uncond_ldm": worst[(f"{op}_uncond", "float32")]}
+        for part, tot in (("unet_call", uncond["ops_unet_call"][op]),):
+            res.update({f"ms_uncond_{part}": tot["kernel"],
+                        f"plain_ms_uncond_{part}": tot["plain"],
+                        f"bound_ms_uncond_{part}": tot["bound"],
+                        f"bound_by_uncond_{part}": tot["bound_by"],
+                        f"library_ms_uncond_{part}": tot.get("library"),
+                        f"ms_where_library_uncond_{part}": tot.get("kernel_where_library")})
+            if "backends" in tot:
+                res[f"library_backend_uncond_{part}"] = tot["backends"]
+        return res
+
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
     gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
@@ -3420,7 +3832,8 @@ def main() -> None:
               library_ms_bf16=bf16_fwd["group_norm"]["library"],
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"],
-              **paths("group_norm"), **ldm_of("group_norm"), **ldm_train_gn("fwd")),
+              **paths("group_norm"), **ldm_of("group_norm"), **ldm_train_gn("fwd"),
+              **uncond_of("group_norm")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
@@ -3454,7 +3867,7 @@ def main() -> None:
               launches_with_lse=ft_counts["attention_lse"],
               launches_serving_dense=results["dense"]["launches"]["attention"],
               max_abs_err_lse_ldm=worst[("attention_lse_ldm", "float32")],
-              **paths("attention"), **ldm_of("attention")),
+              **paths("attention"), **ldm_of("attention"), **uncond_of("attention")),
         entry("flash_attention_bwd_dq", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
@@ -3486,6 +3899,7 @@ def main() -> None:
     print(json.dumps({"ldm": ldm}))
     print(json.dumps({"ldm_prune": ldm_prune_fig}))
     print(json.dumps({"ldm_train": ldm_train_fig}))
+    print(json.dumps({"uncond_ldm": uncond}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

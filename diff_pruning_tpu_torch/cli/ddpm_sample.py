@@ -1,12 +1,16 @@
-"""CLI: large-batch DDIM sampling for FID (counterpart of
-``diff_pruning_tpu/cli/ddpm_sample.py``, mode ``fid``).
+"""CLI: large-batch sampling for FID, trajectory and interpolation grids
+(counterpart of ``diff_pruning_tpu/cli/ddpm_sample.py``).
 
     python -m diff_pruning_tpu_torch.cli.ddpm_sample --model_path DIR \\
         --output_dir OUT --total_samples 50000 --batch_size 128 --device cuda
 
 Loads a ``(config.json, params.npz)`` checkpoint in the JAX package's
-layout, samples DDIM (or DDPM) trajectories batch by batch and writes PNGs,
-each batch encoded while the next one runs. ``--device cuda`` without a GPU
+layout. ``--mode fid`` samples DDIM, DDPM, PLMS or DPM-Solver++
+trajectories batch by batch and writes PNGs, each batch encoded while the
+next one runs. ``--mode sequence`` writes ``sequence.png``: 4 samples, every
+``len // 10``-th state of their DDIM trajectories as columns
+(diffusion.py:429). ``--mode interpolation`` writes ``interpolation.png``:
+11 slerp interpolants of two noises, denoised (diffusion.py:452). ``--device cuda`` without a GPU
 raises: the CLI never carries on on the CPU. TF32 is off for matmuls and
 convolutions (printed at the start).
 """
@@ -31,14 +35,15 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=0.0)
     p.add_argument("--sampler", type=str, default="ddim",
                    choices=["ddim", "ddpm", "plms", "dpm"],
-                   help="trajectory kind (plms and dpm are not ported yet)")
+                   help="trajectory kind (plms: ldm_exp plms.py; plms and dpm need eta 0)")
     p.add_argument("--no_clip", action="store_true")
     p.add_argument("--use_ema", action="store_true",
                    help="load unet_ema subfolder if present")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mode", type=str, default="fid",
                    choices=["fid", "sequence", "interpolation"],
-                   help="fid: bulk PNGs (sequence and interpolation are not ported yet)")
+                   help="fid: bulk PNGs; sequence: trajectory grid (diffusion.py:429); "
+                        "interpolation: slerp grid (:452)")
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
@@ -67,12 +72,11 @@ def pin_f32_precision() -> None:
 
 
 def main(argv=None) -> dict:
-    """Returns ``{"params", "macs", "images", "nonfinite", "seconds", "imgs_per_s"}``."""
+    """Returns ``{"params", "macs", "images", "nonfinite", "seconds",
+    "imgs_per_s"}``; in the grid modes ``{"params", "macs", "path", "shape"}``
+    (the grid's images before tiling)."""
     args = parse_args(argv)
     pin_f32_precision()
-    if args.mode != "fid":
-        raise NotImplementedError(f"--mode {args.mode} comes with the port of "
-                                  "sampling/trajectories.py")
     device = resolve_device(args.device)
     import torch
 
@@ -97,6 +101,9 @@ def main(argv=None) -> dict:
     print("#MACS: {:.4f} G".format(macs / 1e9))
 
     schedule = DiffusionSchedule.create(device=device)
+    if args.mode != "fid":
+        return {"params": n_params, "macs": macs,
+                **write_grid(args, model, schedule, hw, cfg.in_channels, device)}
     sampler = make_sampler(model, schedule, SamplerConfig(
         num_inference_steps=args.ddim_steps,
         skip_type=args.skip_type,
@@ -129,6 +136,36 @@ def main(argv=None) -> dict:
         print(f"WARNING: {stats['nonfinite']} non-finite sample values")
     return {"params": n_params, "macs": macs, **stats, "seconds": dt,
             "imgs_per_s": stats["images"] / dt}
+
+
+def write_grid(args, model, schedule, hw: int, channels: int, device) -> dict:
+    """``--mode sequence`` or ``interpolation``: one PNG grid in
+    ``--output_dir``, as the JAX CLI writes it."""
+    import torch
+
+    from ..sampling.ddim_sampler import save_image_grid
+    from ..sampling.trajectories import sample_interpolation, sample_trajectory
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    steps = dict(num_inference_steps=args.ddim_steps, skip_type=args.skip_type,
+                 style=args.style, generator=generator)
+    if args.mode == "sequence":
+        traj = sample_trajectory(model, schedule, batch_size=4, hw=hw, channels=channels,
+                                 **steps)
+        # rows = samples, cols = every 10th state
+        sel = traj[:: max(1, traj.shape[0] // 10)]
+        imgs = sel.transpose(0, 1).reshape(-1, hw, hw, channels)
+        path = os.path.join(args.output_dir, "sequence.png")
+        save_image_grid(imgs, path, nrow=sel.shape[0])
+        print(f"wrote sequence.png ({sel.shape[0]} states x 4 samples)")
+    else:
+        imgs = sample_interpolation(model, schedule, hw=hw, channels=channels, n_alphas=11,
+                                    **steps)
+        path = os.path.join(args.output_dir, "interpolation.png")
+        save_image_grid(imgs, path, nrow=11)
+        print("wrote interpolation.png")
+    return {"path": path, "shape": tuple(imgs.shape)}
 
 
 if __name__ == "__main__":

@@ -15,9 +15,13 @@ differentiable through the port's kernels on the card. ``train_loss`` is
 the LDM train step's (``cli/ldm_train.py``): images encoded by the frozen
 first stage, labels dropped to the uncond class by a mask, in f32 or bf16.
 
-Not ported yet (each raises where a caller can reach it): the concat-mode
-sampler, ``SpatialRescaler`` and the identity cond stage
-(``cli/sample_diffusion.py``), a text cond stage, and ``mesh`` /
+The unconditional models (``cli/sample_diffusion.py``) sample through
+``make_concat_sampler``: conditioning planes ride along the channel axis
+(none for the unconditional case). ``SpatialRescaler`` and
+``IdentityCondStage`` are the other cond stages of the CompVis configs.
+
+Not ported yet (each raises where a caller can reach it): a text cond stage
+and ``uncond_input`` (ROADMAP queue 1, item 9), and ``mesh`` /
 ``tensor_parallel`` sharding (multi-GPU).
 """
 
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +37,8 @@ from torch import nn
 
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step
 from ..schedulers.ddpm import DiffusionSchedule
+from ..schedulers.dpm_solver import dpm_solver_sample
+from ..schedulers.plms import plms_sample
 from .unet_cond import UNetCond, UNetCondConfig, cin256_v2_config
 
 
@@ -49,6 +55,42 @@ def compvis_ddim_timesteps(num_steps: int, num_train_timesteps: int = 1000) -> n
     c = num_train_timesteps // num_steps
     seq = np.arange(0, num_train_timesteps, c) + 1
     return seq[::-1].astype(np.int64).copy()
+
+
+def _compvis_solver(schedule: DiffusionSchedule, ddim_steps: int, eta: float,
+                    method: str) -> Callable:
+    """The trajectory both LDM samplers run over ``compvis_ddim_timesteps``:
+    returns ``solve(eps_fn, shape, generator, x_T, noise) -> latents`` f32.
+    ``x_T`` is the initial noise and ``noise[i]`` DDIM's at step i (eta > 0);
+    what is not given is drawn from ``generator``. 'ddim', 'plms' (S + 1
+    ``eps_fn`` calls) or 'dpm' (DPM-Solver++(2M)); the last two need eta == 0.
+    Never clips."""
+    if method not in ("ddim", "plms", "dpm"):
+        raise ValueError(f"unknown method {method!r}")
+    if method in ("plms", "dpm") and eta != 0.0:
+        raise ValueError(f"{method} requires eta == 0")
+    ts = compvis_ddim_timesteps(ddim_steps, schedule.num_train_timesteps)
+    prev = ddim_prev_timesteps(ts)
+    device = schedule.alphas_cumprod.device
+
+    def solve(eps_fn: Callable, shape, generator: Optional[torch.Generator],
+              x_T: Optional[torch.Tensor] = None,
+              noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        x = (torch.randn(shape, generator=generator, device=device) if x_T is None
+             else x_T.to(device=device, dtype=torch.float32))
+        if method == "plms":
+            return plms_sample(eps_fn, schedule, x, ts, prev)
+        if method == "dpm":
+            return dpm_solver_sample(eps_fn, schedule, x, ts, prev)
+        for i, (t, tp) in enumerate(zip(ts.tolist(), prev.tolist())):
+            z = None
+            if eta > 0:
+                z = (torch.randn(shape, generator=generator, device=device) if noise is None
+                     else noise[i].to(device=device, dtype=torch.float32))
+            x = ddim_step(schedule, x, eps_fn(x, t), t, tp, eta=eta, noise=z)
+        return x
+
+    return solve
 
 
 class ClassEmbedder(nn.Module):
@@ -71,23 +113,137 @@ class ClassEmbedder(nn.Module):
         return self.embedding.weight[labels][:, None, :]
 
 
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel at a = -0.5 (jax.image's 'cubic'; torch's bicubic
+    uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel: Callable, device) -> torch.Tensor:
+    """(n_in, n_out) f32 weights of one axis of ``jax.image.resize`` (its
+    ``compute_weight_mat``, antialiased): half-pixel centres, the kernel
+    widened by the downsampling factor, each output's weights normalised over
+    the input, zero where the output's centre lies outside it."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample_f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample_f[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]
+         ).abs() / max(inv_scale, 1.0)
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+class SpatialRescaler(nn.Module):
+    """ldm/modules/encoders/modules.py:106-135: ``n_stages`` resizes of the
+    NHWC input by ``multiplier``, then an optional 1x1 ``channel_mapper``
+    (params ``channel_mapper/kernel`` and, with ``bias``,
+    ``channel_mapper/bias``, as in the JAX package). The resizes compute what
+    ``jax.image.resize`` does: 'nearest' takes the floor index (torch's
+    F.interpolate nearest), the others its antialiased triangle ('linear',
+    'bilinear', 'trilinear', 'area') or Keys cubic ('bicubic') filter. The
+    kernel is held OIHW, as the port's convolutions, and crosses to the JAX
+    package's HWIO through ``utils/checkpoint.py``."""
+
+    _KERNELS = {"nearest": None, "linear": _triangle, "bilinear": _triangle,
+                "trilinear": _triangle, "bicubic": _keys_cubic, "area": _triangle}
+
+    def __init__(self, n_stages: int = 1, method: str = "bilinear", multiplier: float = 0.5,
+                 in_channels: int = 3, out_channels: Optional[int] = None, bias: bool = False,
+                 *, device):
+        super().__init__()
+        if n_stages < 0:
+            raise ValueError(f"n_stages must be >= 0, got {n_stages}")
+        if method not in self._KERNELS:
+            raise ValueError(f"unknown method {method!r}")
+        self.n_stages, self.method, self.multiplier = n_stages, method, multiplier
+        self.channel_mapper = None
+        if out_channels is not None:
+            self.channel_mapper = nn.Module()
+            self.channel_mapper.kernel = nn.Parameter(
+                torch.empty((out_channels, in_channels, 1, 1), device=device))
+            if bias:
+                self.channel_mapper.bias = nn.Parameter(torch.zeros((out_channels,),
+                                                                    device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.channel_mapper is not None:
+            with torch.no_grad():
+                self.channel_mapper.kernel.normal_(0.0, 0.02, generator=generator)
+                if hasattr(self.channel_mapper, "bias"):
+                    self.channel_mapper.bias.zero_()
+
+    def _resize(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        oh, ow = int(h * self.multiplier), int(w * self.multiplier)
+        if self.method == "nearest":
+            iy = torch.arange(oh, device=x.device) * h // oh
+            ix = torch.arange(ow, device=x.device) * w // ow
+            return x[:, iy][:, :, ix]
+        kernel = self._KERNELS[self.method]
+        if not x.is_floating_point():
+            x = x.to(torch.float32)
+        if oh != h:  # jax.image.resize skips the axes whose size stays
+            x = torch.einsum("bhwc,hH->bHwc", x, _resize_weights(h, oh, kernel, x.device)
+                             .to(x.dtype))
+        if ow != w:
+            x = torch.einsum("bhwc,wW->bhWc", x, _resize_weights(w, ow, kernel, x.device)
+                             .to(x.dtype))
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.n_stages):
+            x = self._resize(x)
+        if self.channel_mapper is not None:
+            x = x @ self.channel_mapper.kernel[:, :, 0, 0].t().to(x.dtype)
+            if hasattr(self.channel_mapper, "bias"):
+                x = x + self.channel_mapper.bias.to(x.dtype)
+        return x
+
+
+class IdentityCondStage(nn.Module):
+    """``cond_stage_config: torch.nn.Identity`` (the RDM yaml,
+    configs/retrieval-augmented-diffusion/768x768.yaml): the conditioning is
+    handed to the UNet as given; no parameters."""
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+
+    def forward(self, cond: torch.Tensor) -> torch.Tensor:
+        return cond
+
+
 class LatentDiffusion(nn.Module):
-    """(UNetCond ``unet``, ClassEmbedder ``cond_stage``, optional first stage
+    """(UNetCond ``unet``, cond stage ``cond_stage``, optional first stage
     ``first_stage``) and the schedule; the pruning target is the unet. The
     state dict's top-level keys are the JAX param tree's (``unet``,
-    ``cond_stage``, ``first_stage``)."""
+    ``cond_stage``, ``first_stage``). ``cond_stage`` is a
+    :class:`SpatialRescaler` or an :class:`IdentityCondStage`; without one,
+    the ClassEmbedder (cin256-v2)."""
 
     def __init__(self, unet_cfg: UNetCondConfig, *, n_classes: int = 1001, first_stage=None,
                  scale_factor: float = 1.0, num_train_timesteps: int = 1000,
                  linear_start: float = 0.0015, linear_end: float = 0.0195,
                  cond_stage=None, device):
         super().__init__()
-        if cond_stage is not None:
+        if cond_stage is not None and not isinstance(cond_stage, (SpatialRescaler,
+                                                                  IdentityCondStage)):
             raise NotImplementedError(
-                "a cond stage other than the ClassEmbedder (text, identity) is not ported "
-                "yet: it comes with cli/sample_diffusion.py and the text models")
+                f"cond stage {type(cond_stage).__name__}: a text cond stage is not ported "
+                "yet (ROADMAP queue 1, item 9)")
         self.unet = UNetCond(unet_cfg, device=device)
-        self.cond_stage = ClassEmbedder(n_classes, unet_cfg.context_dim, device=device)
+        if cond_stage is None:
+            cond_stage = ClassEmbedder(n_classes, unet_cfg.context_dim, device=device)
+        self.cond_stage = cond_stage
         self.first_stage = first_stage  # VQModel / AutoencoderKL or None
         self.n_classes = n_classes
         self.uncond_class = n_classes - 1
@@ -153,34 +309,26 @@ class LatentDiffusion(nn.Module):
                          method: str = "ddim", mesh=None, tensor_parallel: bool = False,
                          uncond_input=None) -> Callable:
         """Class-conditional CFG sampler over latents: returns
-        ``sample(generator, labels, batch_size, *, x_T=None) -> latents``
-        (B, h, w, latent_ch) f32 NHWC on the model's device.
+        ``sample(generator, labels, batch_size, *, x_T=None, noise=None) ->
+        latents`` (B, h, w, latent_ch) f32 NHWC on the model's device.
 
         Each step batches the uncond and cond rows through one UNet call
-        (x_in = cat([x] * 2), ldm/models/diffusion/ddim.py:188-192). ``x_T``
-        is the initial noise; without it the noise is drawn from
-        ``generator``, as is the per-step noise of eta > 0. ``method``:
-        'ddim', 'plms' (S + 1 UNet calls) or 'dpm' (DPM-Solver++(2M)); the
-        last two need eta == 0."""
-        if method not in ("ddim", "plms", "dpm"):
-            raise ValueError(f"unknown method {method!r}")
-        if method in ("plms", "dpm") and eta != 0.0:
-            raise ValueError(f"{method} requires eta == 0")
+        (x_in = cat([x] * 2), ldm/models/diffusion/ddim.py:188-192). ``x_T``,
+        ``noise`` and ``method`` as for :func:`_compvis_solver`."""
+        solve = _compvis_solver(self.schedule, ddim_steps, eta, method)
         if mesh is not None or tensor_parallel:
             raise NotImplementedError("sharded sampling (mesh, tensor_parallel) comes with "
                                       "the multi-GPU slice")
         if uncond_input is not None:
             raise NotImplementedError("uncond_input belongs to a text cond stage, which is "
-                                      "not ported yet")
+                                      "not ported yet (ROADMAP queue 1, item 9)")
         lat_h, lat_w = ((latent_hw, latent_hw) if isinstance(latent_hw, int)
                         else tuple(latent_hw))
-        ts = compvis_ddim_timesteps(ddim_steps, self.schedule.num_train_timesteps)
-        prev = ddim_prev_timesteps(ts)
-        steps = [(int(t), int(tp)) for t, tp in zip(ts, prev)]
         device = self.schedule.alphas_cumprod.device
 
         def sample(generator: Optional[torch.Generator], labels: torch.Tensor,
-                   batch_size: int, *, x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   batch_size: int, *, x_T: Optional[torch.Tensor] = None,
+                   noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
             with torch.inference_mode():
                 labels = torch.as_tensor(labels, device=device)
                 ctx_c = self.get_learned_conditioning(labels)
@@ -188,31 +336,14 @@ class LatentDiffusion(nn.Module):
                     torch.full((batch_size,), self.uncond_class, dtype=torch.int64,
                                device=device))
                 ctx = torch.cat([ctx_u, ctx_c], dim=0)
-                if x_T is None:
-                    x = torch.randn((batch_size, lat_h, lat_w, latent_ch), generator=generator,
-                                    device=device)
-                else:
-                    x = x_T.to(device=device, dtype=torch.float32)
 
                 def eps_fn(x, t):
                     tb = torch.full((2 * batch_size,), t, dtype=torch.int64, device=device)
                     e_u, e_c = self.apply_unet(torch.cat([x, x], dim=0), tb, ctx).chunk(2)
                     return e_u + guidance_scale * (e_c - e_u)
 
-                if method == "plms":
-                    from ..schedulers.plms import plms_sample
-
-                    return plms_sample(eps_fn, self.schedule, x, ts, prev)
-                if method == "dpm":
-                    from ..schedulers.dpm_solver import dpm_solver_sample
-
-                    return dpm_solver_sample(eps_fn, self.schedule, x, ts, prev)
-                for t, tp in steps:
-                    eps = eps_fn(x, t)
-                    noise = (torch.randn(x.shape, generator=generator, device=device)
-                             if eta > 0 else None)
-                    x = ddim_step(self.schedule, x, eps, t, tp, eta=eta, noise=noise)
-                return x
+                return solve(eps_fn, (batch_size, lat_h, lat_w, latent_ch), generator,
+                             x_T, noise)
 
         return sample
 
@@ -223,6 +354,38 @@ class LatentDiffusion(nn.Module):
         with torch.inference_mode():
             img = self.first_stage.decode(latents / self.scale_factor)
             return ((img + 1.0) / 2.0).clamp(0.0, 1.0)
+
+
+def make_concat_sampler(unet, schedule: DiffusionSchedule, *, ddim_steps: int = 50,
+                        eta: float = 0.0, latent_ch: int = 3,
+                        method: str = "ddim") -> Callable:
+    """Concat-mode sampler (``concat_mode: true`` LatentDiffusion, and the
+    unconditional models with no planes): at every step the fixed
+    conditioning planes ride along the channel axis, eps = unet(cat([x,
+    cond], C), t) (ddpm.py apply_model's c_concat path;
+    scripts/inpaint.py:76-86).
+
+    Returns ``sample(generator, cond, *, x_T=None, noise=None) -> latents``
+    (B, h, w, latent_ch) f32 NHWC; ``cond`` is (B, h, w, Cc) with
+    ``unet.cfg.in_channels == latent_ch + Cc`` (Cc = 0: unconditional).
+    ``x_T``, ``noise`` and ``method`` as for :func:`_compvis_solver`."""
+    solve = _compvis_solver(schedule, ddim_steps, eta, method)
+    device = schedule.alphas_cumprod.device
+
+    def sample(generator: Optional[torch.Generator], cond: torch.Tensor, *,
+               x_T: Optional[torch.Tensor] = None,
+               noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        with torch.inference_mode():
+            cond = torch.as_tensor(cond, device=device, dtype=torch.float32)
+            b, h, w = cond.shape[:3]
+
+            def eps_fn(x, t):
+                tb = torch.full((b,), t, dtype=torch.int64, device=device)
+                return unet(torch.cat([x, cond], dim=-1), tb)
+
+            return solve(eps_fn, (b, h, w, latent_ch), generator, x_T, noise)
+
+    return sample
 
 
 def load_ldm(model_path: Optional[str], config_path: Optional[str] = None, seed: int = 0, *,

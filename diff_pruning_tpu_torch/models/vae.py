@@ -29,6 +29,10 @@ from ..pruning.graph import ChannelGraph, ChannelVar
 from .layers import (Conv2D, GroupNorm, Linear, Scope, SelfAttention2D, downsample_pad,
                      upsample_nearest_2x)
 
+# elements of one (rows x codes) distance tensor of the VQ lookup: 2^25 f32,
+# 128 MB (4096 rows of vq-f4's 8192 codes)
+QUANTIZE_CHUNK_ELEMS = 1 << 25
+
 
 @dataclasses.dataclass
 class AutoencoderConfig:
@@ -309,12 +313,17 @@ class VQModel(_FirstStage):
 
     def quantize_latents(self, z: torch.Tensor):
         """Nearest-codebook lookup (vae.py VectorQuantizer:332), the JAX
-        model's ``quantize``: ``(zq, indices)``."""
+        model's ``quantize``: ``(zq, indices)``. The distances are formed for
+        QUANTIZE_CHUNK_ELEMS // codes rows at a time (each row's own, so the
+        chunking changes no result): at B = 50 of vq-f4 all at once they
+        would take three 6.7 GB tensors."""
         emb = self.quantize.embedding.weight.to(z.dtype)
         flat = z.reshape(-1, z.shape[-1])
-        d = (flat.pow(2).sum(1, keepdim=True) - 2.0 * flat @ emb.t()
-             + emb.pow(2).sum(1)[None, :])
-        idx = torch.argmin(d, dim=1)
+        e2 = emb.pow(2).sum(1)[None, :]
+        rows = max(1, QUANTIZE_CHUNK_ELEMS // emb.shape[0])
+        idx = torch.cat([
+            torch.argmin(part.pow(2).sum(1, keepdim=True) - 2.0 * part @ emb.t() + e2, dim=1)
+            for part in flat.split(rows)])
         return emb[idx].reshape(z.shape), idx.reshape(z.shape[:-1])
 
     def decode(self, z: torch.Tensor, force_not_quantize: bool = True) -> torch.Tensor:

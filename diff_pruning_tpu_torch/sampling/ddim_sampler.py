@@ -1,4 +1,5 @@
-"""DDIM/DDPM sampling: counterpart of ``diff_pruning_tpu/sampling/ddim_sampler.py``.
+"""DDIM/DDPM/PLMS/DPM-Solver++ sampling: counterpart of
+``diff_pruning_tpu/sampling/ddim_sampler.py``.
 
 The JAX sampler compiles the trajectory as one ``lax.scan``; here it is a
 Python loop over the timesteps under ``torch.inference_mode()``, each step
@@ -18,6 +19,8 @@ import torch
 
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step, ddim_timesteps, ddpm_step
 from ..schedulers.ddpm import DiffusionSchedule
+from ..schedulers.dpm_solver import dpm_solver_sample
+from ..schedulers.plms import plms_sample
 
 
 @dataclasses.dataclass
@@ -27,7 +30,8 @@ class SamplerConfig:
     style: str = "diffusers"  # timestep-sequence family; 'ddim_exp' for paper runs
     eta: float = 0.0
     clip_sample: bool = True  # DDIMScheduler default for DDPM checkpoints
-    kind: str = "ddim"  # 'ddim' | 'ddpm'; 'plms' and 'dpm' raise (ROADMAP queue 1, item 4b)
+    kind: str = "ddim"  # 'ddim' | 'ddpm' | 'plms' (ldm_exp plms.py) |
+    # 'dpm' (DPM-Solver++ 2M, schedulers/dpm_solver.py); the last two need eta == 0
     diffusers_stride: bool = False  # root-pipeline prev-step quirk (scheduling_ddim.py:312)
     # UNet compute dtype; the DDIM/DDPM update always runs in f32
     dtype: str = "float32"
@@ -40,15 +44,15 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
     ``x_T`` is the initial noise (B, hw, hw, C); without it the noise is
     drawn from ``generator``, as is the per-step noise of eta > 0 and of
     ``kind="ddpm"``. For a compute dtype other than f32 the sampler holds a
-    copy of the model whose conv/linear weights are cast once.
+    copy of the model whose conv/linear weights are cast once. ``plms``
+    calls the model S + 1 times, ``dpm`` S times.
     """
-    if cfg.kind in ("plms", "dpm"):
-        raise NotImplementedError(
-            f"sampler kind {cfg.kind!r} is not wired into make_sampler yet: the "
-            "schedulers exist (schedulers/plms.py, schedulers/dpm_solver.py); their "
-            "wiring and clip_sample are ROADMAP queue 1, item 4b")
-    if cfg.kind not in ("ddim", "ddpm"):
+    if cfg.kind not in ("ddim", "ddpm", "plms", "dpm"):
         raise ValueError(f"unknown sampler kind {cfg.kind!r}")
+    if cfg.kind in ("plms", "dpm") and cfg.eta != 0.0:
+        # deterministic solvers: running them at eta = 0 would misreport the
+        # sampler asked for (plms.py:49)
+        raise ValueError(f"{cfg.kind} requires eta == 0")
     ts = ddim_timesteps(cfg.num_inference_steps, schedule.num_train_timesteps,
                         cfg.skip_type, style=cfg.style)
     prev = ddim_prev_timesteps(ts, schedule.num_train_timesteps,
@@ -70,6 +74,18 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
                                 device=device)
             else:
                 x = x_T.to(device=device, dtype=torch.float32)
+            if cfg.kind in ("plms", "dpm"):
+                def eps_fn(x, t):
+                    tb = torch.full((batch_size,), t, dtype=torch.int64, device=device)
+                    return net(x.to(compute_dtype), tb, labels)
+
+                if cfg.kind == "plms":
+                    x = plms_sample(eps_fn, schedule, x, ts, prev,
+                                    clip_sample=cfg.clip_sample)
+                else:
+                    x = dpm_solver_sample(eps_fn, schedule, x, ts, prev,
+                                          clip_sample=cfg.clip_sample)
+                return (x / 2.0 + 0.5).clamp(0.0, 1.0)
             for t, tp in steps:
                 tb = torch.full((batch_size,), t, dtype=torch.int64, device=device)
                 eps = net(x.to(compute_dtype), tb, labels)

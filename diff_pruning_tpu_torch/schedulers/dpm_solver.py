@@ -24,9 +24,12 @@ def _alpha_sigma(schedule: DiffusionSchedule, t: int):
 
 
 def dpm_solver_sample(eps_fn: Callable, schedule: DiffusionSchedule, x: torch.Tensor,
-                      ts: Sequence[int], prev: Sequence[int]) -> torch.Tensor:
+                      ts: Sequence[int], prev: Sequence[int], *,
+                      clip_sample: bool = False) -> torch.Tensor:
     """The whole DPM-Solver++(2M) trajectory. ``eps_fn(x, t) -> eps`` wraps
-    the model (with any CFG batching); ``ts``/``prev`` as for DDIM."""
+    the model (with any CFG batching); ``ts``/``prev`` as for DDIM.
+    ``clip_sample`` clips each x0 prediction to [-1, 1] and re-derives eps
+    from it, as the DDIM step does."""
     ts, prev = [int(t) for t in ts], [int(t) for t in prev]
     n = len(ts)
     prev_x0 = prev_lam = None
@@ -36,6 +39,9 @@ def dpm_solver_sample(eps_fn: Callable, schedule: DiffusionSchedule, x: torch.Te
         e = eps_fn(x, t).to(torch.float32)
         xf = x.to(torch.float32)
         x0 = (xf - s_c * e) / a_c
+        if clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+            e = (xf - a_c * x0) / s_c
         lam_c = torch.log(a_c / s_c)
         if i == 0 or i == n - 1:
             nxt = a_n * x0 + s_n * e  # DDIM(eta=0)

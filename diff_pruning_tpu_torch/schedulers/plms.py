@@ -39,23 +39,25 @@ def plms_combine(e_t: torch.Tensor, old: Sequence[torch.Tensor], count: int) -> 
 
 
 def plms_sample(eps_fn: Callable, schedule: DiffusionSchedule, x: torch.Tensor,
-                ts: Sequence[int], prev: Sequence[int]) -> torch.Tensor:
+                ts: Sequence[int], prev: Sequence[int], *,
+                clip_sample: bool = False) -> torch.Tensor:
     """The whole PLMS trajectory. ``eps_fn(x, t) -> eps`` wraps the model
     (with any CFG batching); ``ts``/``prev`` are the descending timesteps and
-    their predecessors (prev[i] == ts[i + 1], -1 last), as for DDIM."""
+    their predecessors (prev[i] == ts[i + 1], -1 last), as for DDIM.
+    ``clip_sample`` clips x0 to [-1, 1] in every DDIM update."""
     ts, prev = [int(t) for t in ts], [int(t) for t in prev]
     t0, tp0 = ts[0], prev[0]
     # t_next is the next timestep of the descending sequence (for S == 1: t0)
     t_next = ts[1] if len(ts) > 1 else ts[0]
     e_t = eps_fn(x, t0)
-    x_trial = ddim_step(schedule, x, e_t, t0, tp0, eta=0.0)
+    x_trial = ddim_step(schedule, x, e_t, t0, tp0, eta=0.0, clip_sample=clip_sample)
     e_next = eps_fn(x_trial, t_next)
     e_prime = (e_t.to(torch.float32) + e_next.to(torch.float32)) / 2.0
-    x = ddim_step(schedule, x, e_prime, t0, tp0, eta=0.0)
+    x = ddim_step(schedule, x, e_prime, t0, tp0, eta=0.0, clip_sample=clip_sample)
     old = [e_t.to(torch.float32)]
     for t, tp in zip(ts[1:], prev[1:]):
         e_t = eps_fn(x, t)
         e_prime = plms_combine(e_t, old, len(old))
-        x = ddim_step(schedule, x, e_prime, t, tp, eta=0.0)
+        x = ddim_step(schedule, x, e_prime, t, tp, eta=0.0, clip_sample=clip_sample)
         old = [e_t.to(torch.float32)] + old[:2]
     return x

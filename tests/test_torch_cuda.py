@@ -68,6 +68,11 @@ def _check_group_norm_forward(cuda):
              (2, 256, 64, 32, True), (2, 64, 224, 32, True), (2, 16, 320, 32, False),
              (2, 4096, 512, 32, True), (2, 64, 1920, 32, True), (2, 1024, 192, 32, False),
              (2, 16384, 256, 32, True), (2, 65536, 128, 32, True)]
+    # the unconditional LDMs' odd channels a group: CelebA-HQ LDM-VQ-4's C =
+    # 224, 672, 1120 and 1568 (7, 21, 35 and 49 a group), with SiLU and
+    # without (LSUN-churches' scale-shift ResBlocks)
+    cases += [(2, 4096, 224, 32, True), (2, 4096, 224, 32, False), (2, 1024, 672, 32, True),
+              (2, 256, 1120, 32, True), (2, 64, 1568, 32, False), (2, 1024, 1568, 32, True)]
     for b, n, c, g, silu in cases:
         for dtype in TOL:
             x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
@@ -114,7 +119,8 @@ def _check_flash_attention_forward(cuda):
             (2, 1, 4096, 4096, 512), (2, 1, 100, 37, 1024), (2, 1, 33, 50, 269),
             (2, 3, 40, 40, 300), (4, 1, 1024, 1024, 268), (4, 1, 1024, 1, 268),
             (4, 1, 256, 256, 404), (4, 1, 256, 1, 404), (4, 1, 64, 64, 672),
-            (4, 1, 64, 1, 672), (2, 1, 64, 64, 320), (2, 1, 64, 1, 1024)]
+            (4, 1, 64, 1, 672), (2, 1, 64, 64, 320), (2, 1, 64, 1, 1024),
+            (2, 1, 1024, 1024, 512)]  # the last: kl-f8's mid attention
     # the wide kernels' tile edges: Nq and Nkv around the 32- and 64-row query
     # tiles and the 16-, 32-, 64- and 128-row kv tiles, at the head dims where
     # the tiling changes (D_pad 384, 512, 640, 1024)
@@ -146,6 +152,16 @@ def _check_flash_attention_forward(cuda):
                        for z in t.split(heads * dh, dim=-1))
             _check(flash_attention(q, k, v, dh ** -0.5), reference_attention(q, k, v, dh ** -0.5),
                    dtype, f"attention strided {heads}x{dh} {dtype}")
+        # the multi-head legacy AttentionBlocks of the unconditional LDMs, as
+        # SelfAttention2D passes them: (B, N, heads * dh) projections viewed as
+        # (B, heads, N, dh) (CelebA-HQ: 14-28 heads of 32; LSUN-churches: 8 heads
+        # of 24, 48 and 96)
+        for heads, dh, n in ((14, 32, 1024), (21, 32, 256), (28, 32, 64), (8, 24, 1024),
+                             (8, 48, 256), (8, 48, 64), (8, 96, 16), (8, 96, 4)):
+            q, k, v = (torch.randn((2, n, heads * dh), generator=gen, device=cuda).to(dtype)
+                       .view(2, n, heads, dh).transpose(1, 2) for _ in range(3))
+            _check(flash_attention(q, k, v, dh ** -0.5), reference_attention(q, k, v, dh ** -0.5),
+                   dtype, f"attention {heads} heads x {dh}, N = {n} {dtype}")
         q, k, v = (torch.randn((2, 2, 50, 64), generator=gen, device=cuda).to(dtype)[..., :37]
                    for _ in range(3))
         _check(flash_attention(q, k, v, 37 ** -0.5), reference_attention(q, k, v, 37 ** -0.5),

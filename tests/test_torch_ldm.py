@@ -20,6 +20,7 @@ matmuls, the port with TF32 off. Tolerances:
 """
 
 import dataclasses
+import itertools
 import os
 
 import numpy as np
@@ -203,6 +204,70 @@ def test_ldm_models_match_jax(tmp_path):
                 draw = tm.encode(torch.from_numpy(img), generator=torch.Generator().manual_seed(0))
                 assert draw.shape == (2, 8, 8, 3) and bool(torch.isfinite(draw).all())
 
+    # the VQ lookup in row chunks is bit-identical to the whole one
+    vq = tv.make_first_stage(tv.AutoencoderConfig.from_json(_tiny_vae_config("vq").to_json()),
+                             device="cpu")
+    vq.load_state_dict(tckpt.state_dict_from_flat(numpy_params(jv.make_first_stage(
+        _tiny_vae_config("vq")).init, 5)))
+    zz = torch.from_numpy(rng.standard_normal((3, 7, 5, 3)).astype(np.float32))
+    whole = vq.quantize_latents(zz)
+    try:
+        tv.QUANTIZE_CHUNK_ELEMS, saved = 16 * 4, tv.QUANTIZE_CHUNK_ELEMS  # 4 rows a chunk
+        chunked = vq.quantize_latents(zz)
+    finally:
+        tv.QUANTIZE_CHUNK_ELEMS = saved
+    assert torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1])
+
+    # the other cond stages: SpatialRescaler (every method, 0-2 stages, with
+    # and without the channel mapper and its bias; down- and upsampling, on a
+    # non-square input) and the identity
+    img = rng.standard_normal((2, 16, 12, 3)).astype(np.float32)
+    cases = [(m, n, 0.5, i % 3) for i, (m, n) in enumerate(itertools.product(
+        sorted(jl.SpatialRescaler._METHODS), (0, 1, 2)))]
+    cases += [(m, 1, 1.5, 1) for m in sorted(jl.SpatialRescaler._METHODS)]
+    for method, n_stages, mult, mapper in cases:
+        kw = dict(n_stages=n_stages, method=method, multiplier=mult, in_channels=3,
+                  out_channels=None if mapper == 0 else 5, bias=mapper == 2)
+        jr = jl.SpatialRescaler(**kw)
+        flat = numpy_params(jr.init, 11)
+        tr = tl.SpatialRescaler(**kw, device="cpu")
+        assert set(tckpt.flat_from_state_dict(tr.state_dict())) == set(flat), kw
+        tr.load_state_dict(tckpt.state_dict_from_flat(flat))
+        with jax.default_matmul_precision("float32"):
+            want = jr(_jax_tree(flat) if flat else {}, jnp.asarray(img))
+        with torch.inference_mode():
+            got = tr(torch.from_numpy(img))
+        assert got.shape == want.shape, kw
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0,
+                                   err_msg=str(kw))
+    ident = tl.IdentityCondStage()
+    assert not list(ident.parameters()) and jl.IdentityCondStage().init(None) == {}
+    assert torch.equal(ident(torch.from_numpy(img)), torch.from_numpy(img))
+    uncond = dataclasses.replace(tiny, use_spatial_transformer=False, context_dim=None)
+    for jstage, tstage in ((jl.SpatialRescaler(n_stages=1, out_channels=4, bias=True),
+                            tl.SpatialRescaler(n_stages=1, out_channels=4, bias=True,
+                                               device="cpu")),
+                           (jl.IdentityCondStage(), tl.IdentityCondStage())):
+        jm = jl.LatentDiffusion(uncond, cond_stage=jstage)
+        tm = tl.LatentDiffusion(tu.UNetCondConfig.from_json(uncond.to_json()),
+                                cond_stage=tstage, device="cpu")
+        assert tm.cond_stage is tstage
+        flat = {k: v for k, v in numpy_params(jm.init, 12).items()
+                if k.startswith("cond_stage/")}
+        assert set(flat) == {f"cond_stage/{k}" for k in
+                             tckpt.flat_from_state_dict(tstage.state_dict())}
+        stage_flat = {k.split("/", 1)[1]: v for k, v in flat.items()}
+        tm.init(torch.Generator().manual_seed(0))
+        tstage.load_state_dict(tckpt.state_dict_from_flat(stage_flat))
+        with jax.default_matmul_precision("float32"):
+            want = jm.get_learned_conditioning(
+                {"cond_stage": _jax_tree(stage_flat) if stage_flat else {}}, jnp.asarray(img))
+        with torch.inference_mode():
+            got = tm.get_learned_conditioning(torch.from_numpy(img))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tl.LatentDiffusion(tiny, cond_stage=torch.nn.Identity(), device="cpu")
+
     # checkpoints: a JAX LDM dir (UNet pruned by the JAX package, VQ first
     # stage, 5 classes) loads in the port and writes back the same arrays;
     # an LDM dir written by the port loads in the JAX package
@@ -315,6 +380,72 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
             for _ in range(2))
     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
 
+    # the concat sampler on a no-context UNetCond, unconditional (Cc = 0) and
+    # with 2 conditioning planes, from JAX's x_T and per-step noise
+    uncond = dataclasses.replace(tiny, use_spatial_transformer=False, context_dim=None)
+    ckey = jax.random.key(4)
+    k, ik = jax.random.split(ckey)
+    cx_T = jax.random.normal(ik, (2, 8, 8, 3))
+    cnoise = []
+    for _ in tl.compvis_ddim_timesteps(4):
+        k, nk = jax.random.split(k)
+        cnoise.append(torch.from_numpy(np.array(jax.random.normal(nk, (2, 8, 8, 3)))))
+    for cc in (0, 2):
+        ucfg = dataclasses.replace(uncond, in_channels=3 + cc)
+        jm = ju.UNetCond(ucfg)
+        uflat = numpy_params(jm.init, 13 + cc)
+        tm = tu.UNetCond(tu.UNetCondConfig.from_json(ucfg.to_json()), device="cpu")
+        tm.load_state_dict(tckpt.state_dict_from_flat(uflat))
+        tm.eval()
+        cond = np.random.default_rng(cc).standard_normal((2, 8, 8, cc)).astype(np.float32)
+        for method, eta in (("ddim", 0.0), ("ddim", 1.0), ("plms", 0.0), ("dpm", 0.0)):
+            kw = dict(ddim_steps=4, eta=eta, latent_ch=3, method=method)
+            with jax.default_matmul_precision("float32"):
+                want = jl.make_concat_sampler(jm, _jax_tree(uflat), js, **kw)(
+                    ckey, jnp.asarray(cond))
+            got = tl.make_concat_sampler(tm, ts_, **kw)(
+                None, torch.from_numpy(cond), x_T=torch.from_numpy(np.array(cx_T)),
+                noise=cnoise)
+            assert got.shape == (2, 8, 8, 3)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0,
+                                       err_msg=f"concat {method} eta {eta} Cc {cc}")
+    concat = tl.make_concat_sampler(tm, ts_, ddim_steps=4, eta=1.0)
+    a, b = (concat(torch.Generator().manual_seed(2), torch.from_numpy(cond)) for _ in range(2))
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+    for method in ("plms", "dpm"):
+        with pytest.raises(ValueError, match="eta == 0"):
+            tl.make_concat_sampler(tm, ts_, method=method, eta=1.0)
+
+    # sample_diffusion on model dirs that the JAX package wrote (VQ and KL
+    # first stages, as tests/test_sample_diffusion_cli.py writes them)
+    from diff_pruning_tpu_torch.cli import sample_diffusion
+    from PIL import Image
+
+    ucfg = ju.UNetCondConfig(
+        image_size=8, in_channels=3, out_channels=3, model_channels=32, num_res_blocks=1,
+        attention_resolutions=(2,), channel_mult=(1, 2), num_heads=2, context_dim=None,
+        use_spatial_transformer=False, norm_num_groups=8)
+    for kind in ("vq", "kl"):
+        vcfg = jv.AutoencoderConfig(block_out_channels=(8, 8), layers_per_block=1,
+                                    latent_channels=3, norm_num_groups=4,
+                                    num_vq_embeddings=16 if kind == "vq" else None,
+                                    mid_block_attention=False, sample_size=16)
+        udir = str(tmp_path / f"uncond_{kind}")
+        jckpt.save_model(udir, ucfg, ju.UNetCond(ucfg).init(jax.random.key(0)),
+                         subfolder="unet")
+        jckpt.save_model(udir, vcfg, jv.make_first_stage(vcfg).init(jax.random.key(1)),
+                         subfolder="first_stage")
+        for extra, n in (([], 3), (["--vanilla_sample"], 1)):
+            logdir = tmp_path / f"sd_{kind}_{len(extra)}"
+            stats = sample_diffusion.main(["--model_path", udir, "--logdir", str(logdir),
+                                           "--n_samples", str(n), "--batch_size", "2",
+                                           "--custom_steps", "2", "--device", "cpu"] + extra)
+            files = sorted(os.listdir(logdir / "img"))
+            assert files == [f"{i:06d}.png" for i in range(n)], (kind, extra)
+            assert stats["images"] == n and stats["nonfinite"] == 0
+            assert np.asarray(Image.open(logdir / "img" / files[0])).shape == (16, 16, 3)
+        assert "allow_tf32=False" in capsys.readouterr().out
+
     from diff_pruning_tpu_torch.cli import ldm_sample
 
     out = tmp_path / "samples"
@@ -337,6 +468,8 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_diffusion.main(["--model_path", udir, "--logdir", str(out)])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out), "--multihost",
                          "--device", "cpu"])

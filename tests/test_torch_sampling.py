@@ -9,6 +9,12 @@ Tolerances:
 - a 5-step trajectory on the tiny UNet, images in [0, 1]: atol 5e-5; each
   step carries the UNet's sum-order differences (a few 1e-6, see
   tests/test_torch_unet.py) through the DDIM update.
+- unclipped trajectories: at t near 999 the x0 prediction divides eps's
+  differences by sqrt(alpha_bar) ~ 0.0064, and a random UNet's unclipped
+  samples carry that to the output (DDIM's own: 3e-4 with the port's UNet).
+  So the port's loops get the JAX UNet's eps (``_jax_eps``) and are held to
+  atol 5e-5; the port's own UNet through them to a relative error in norm
+  of 1e-5 (tests/test_torch_ldm.py's trajectory tolerance).
 """
 
 import os
@@ -95,28 +101,105 @@ def _tiny_checkpoint(seed):
     return cfg, UNet2D(cfg, device="cpu").init(torch.Generator().manual_seed(seed))
 
 
+def _jax_eps(jmodel, jparams):
+    """The JAX UNet as a model of the port's samplers: the port's loops then
+    get the same eps as the JAX ones (see the module docstring)."""
+    with jax.default_matmul_precision("float32"):
+        fn = jax.jit(lambda x, t: jmodel(jparams, x, t))
+
+    def model(x, t, labels=None):
+        with jax.default_matmul_precision("float32"):
+            return torch.from_numpy(np.array(fn(jnp.asarray(x.numpy()),
+                                                jnp.asarray(t.numpy(), jnp.int32))))
+
+    return model
+
+
 def test_ddim_trajectory_matches_jax():
+    """DDIM, PLMS and DPM-Solver++ trajectories through make_sampler (clip_sample
+    on and off), DPM-Solver++'s raw latents through the scheduler, and
+    sample_trajectory and sample_interpolation, against the JAX package from
+    the noise the JAX functions draw."""
     cfg, model = _tiny_checkpoint(0)
+    model.eval()
     flat = tckpt.flat_from_state_dict(model.state_dict())
     jmodel = junet.UNet2D(junet.UNet2DConfig.from_json(cfg.to_json()))
     jparams = unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
-    scfg = dict(num_inference_steps=5)
+    jeps = _jax_eps(jmodel, jparams)
+    js, ts_ = JaxSchedule.create(), TorchSchedule.create()
     key = jax.random.key(3)
-    with jax.default_matmul_precision("float32"):
-        want = jsampler.make_sampler(jmodel, jparams, JaxSchedule.create(),
-                                     jsampler.SamplerConfig(**scfg))(key, 2, 16, 3)
     # the JAX sampler's own initial noise (ddim_sampler.py: split, then normal)
     x_T = jax.random.normal(jax.random.split(key)[1], (2, 16, 16, 3))
-    sample = tsampler.make_sampler(model.eval(), TorchSchedule.create(),
-                                   tsampler.SamplerConfig(**scfg))
-    got = sample(None, 2, 16, 3, x_T=torch.from_numpy(np.array(x_T)))
-    assert got.shape == (2, 16, 16, 3)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0)
-    # the kinds whose wiring is not ported yet raise, naming the ROADMAP item
+    tx_T = torch.from_numpy(np.array(x_T))
+    for kind, clip in (("ddim", True), ("plms", True), ("dpm", True), ("plms", False),
+                       ("dpm", False)):
+        scfg = dict(num_inference_steps=5, kind=kind, clip_sample=clip)
+        with jax.default_matmul_precision("float32"):
+            want = jsampler.make_sampler(jmodel, jparams, js,
+                                         jsampler.SamplerConfig(**scfg))(key, 2, 16, 3)
+        sample = tsampler.make_sampler(model if clip else jeps, ts_,
+                                       tsampler.SamplerConfig(**scfg))
+        got = sample(None, 2, 16, 3, x_T=tx_T)
+        assert got.shape == (2, 16, 16, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0,
+                                   err_msg=f"{kind} clip_sample={clip}")
+    # DPM-Solver++(2M)'s raw latents, straight through the schedulers
+    from diff_pruning_tpu.schedulers import dpm_solver as jdpm
+    from diff_pruning_tpu_torch.schedulers import dpm_solver as tdpm
+
+    steps = jddim.ddim_timesteps(5, 1000, "uniform")
+    prev = jddim.ddim_prev_timesteps(steps)
+    for clip in (False, True):
+        with jax.default_matmul_precision("float32"):
+            want = jdpm.dpm_solver_sample(
+                lambda x, t: jmodel(jparams, x, jnp.full((2,), t, jnp.int32)), js, x_T,
+                jnp.asarray(steps, jnp.int32), jnp.asarray(prev, jnp.int32), clip_sample=clip)
+        got = tdpm.dpm_solver_sample(
+            lambda x, t: jeps(x, torch.full((2,), t, dtype=torch.int64)), ts_, tx_T,
+            steps, prev, clip_sample=clip)
+        # the raw latents (unclipped ones reach |x| ~ 50 here): relative error in
+        # norm, as tests/test_torch_ldm.py holds trajectories; then as images
+        want = np.asarray(want, np.float64)
+        rel = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+        assert rel <= 1e-5, (clip, rel)
+        np.testing.assert_allclose((got / 2 + 0.5).clamp(0, 1).numpy(),
+                                   np.clip(want / 2 + 0.5, 0, 1), atol=5e-5, rtol=0,
+                                   err_msg=f"dpm clip_sample={clip}")
+    # every state of a trajectory, and the slerp interpolants, from the JAX
+    # draws; both never clip: the JAX UNet's eps to 5e-5, the port's own UNet
+    # by relative error in norm
+    from diff_pruning_tpu.sampling import trajectories as jtraj
+    from diff_pruning_tpu_torch.sampling import trajectories as ttraj
+
+    with jax.default_matmul_precision("float32"):
+        want = jtraj.sample_trajectory(jmodel, jparams, js, key=key, batch_size=2, hw=16,
+                                       num_inference_steps=4)
+        want_i = jtraj.sample_interpolation(jmodel, jparams, js, key=key, hw=16, n_alphas=5,
+                                            num_inference_steps=4)
+    k1, k2, _ = jax.random.split(key, 3)
+    z1, z2 = (torch.from_numpy(np.array(jax.random.normal(k, (16, 16, 3)))) for k in (k1, k2))
+    x0 = torch.from_numpy(np.array(jax.random.normal(key, (2, 16, 16, 3))))
+    for m in (jeps, model):
+        got = ttraj.sample_trajectory(m, ts_, batch_size=2, hw=16, num_inference_steps=4,
+                                      x_T=x0)
+        got_i = ttraj.sample_interpolation(m, ts_, hw=16, n_alphas=5, num_inference_steps=4,
+                                           z1=z1, z2=z2)
+        assert got.shape == (5, 2, 16, 16, 3) and got_i.shape == (5, 16, 16, 3)
+        for g, w in ((got, want), (got_i, want_i)):
+            w = np.asarray(w)
+            if m is jeps:
+                np.testing.assert_allclose(g.numpy(), w, atol=5e-5, rtol=0)
+            else:
+                assert np.linalg.norm(g.numpy() - w) <= 1e-5 * np.linalg.norm(w)
+    alphas = np.linspace(0, 1, 4).astype(np.float32)
+    np.testing.assert_allclose(
+        ttraj.slerp(z1, z2, torch.from_numpy(alphas)).numpy(),
+        np.asarray(jtraj.slerp(jnp.asarray(z1.numpy()), jnp.asarray(z2.numpy()),
+                               jnp.asarray(alphas))), atol=1e-6, rtol=1e-6)
+    # the deterministic solvers refuse eta > 0, as the JAX sampler does
     for kind in ("plms", "dpm"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            tsampler.make_sampler(model, TorchSchedule.create(),
-                                  tsampler.SamplerConfig(kind=kind))
+        with pytest.raises(ValueError, match="eta == 0"):
+            tsampler.make_sampler(model, ts_, tsampler.SamplerConfig(kind=kind, eta=0.5))
 
 
 def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
@@ -137,6 +220,28 @@ def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
     arr = sample_many(lambda *a: next(batches), generator=None, total_images=5,
                       batch_size=2, hw=4)
     np.testing.assert_array_equal(arr[:, 0, 0, 0], [0, 0, 1, 1, 0.5])
+    # the other sampler kinds, and the trajectory and interpolation grids
+    for kind in ("plms", "dpm"):
+        stats = ddpm_sample.main(args[:3] + [str(tmp_path / kind)] + args[4:]
+                                 + ["--sampler", kind, "--device", "cpu"])
+        assert stats["images"] == 5 and stats["nonfinite"] == 0, kind
+        assert len(os.listdir(tmp_path / kind)) == 5
+    from PIL import Image
+
+    hw = cfg.sample_size
+    # ddim_exp at 3 steps: t = 999, 666, 333, 0, so 5 states, each a column
+    states = len(tddim.ddim_timesteps(3, 1000, "uniform", style="ddim_exp")) + 1
+    for mode, nrow, nimg in (("sequence", states, 4 * states), ("interpolation", 11, 11)):
+        out = ddpm_sample.main(args[:3] + [str(tmp_path / mode)] + args[4:]
+                               + ["--mode", mode, "--device", "cpu"])
+        assert out["shape"] == (nimg, hw, hw, 3), (mode, out)
+        # save_image_grid: 2-pixel padding around every image
+        rows = nimg // nrow
+        assert np.asarray(Image.open(out["path"])).shape == (
+            (hw + 2) * rows + 2, (hw + 2) * nrow + 2, 3), mode
+        assert os.path.basename(out["path"]) == f"{mode}.png"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ddpm_sample.main(args + ["--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ddpm_sample.main(args + ["--mode", "sequence", "--device", "cuda"])
