@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's eight paths, through its own kernels, from seeded random
+Drives the port's nine paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -16,7 +16,10 @@ sweep, through the wide f32 attention backward) and finetune path (the
 ldm_train CLI in bf16, through the wide 16-bit attention forward and
 backward); and the unconditional LDMs' sampling path (the sample_diffusion
 CLI on CelebA-HQ LDM-VQ-4 and LSUN-churches LDM-KL-8) with the DDPM
-samplers beyond DDIM. Every phase raises on
+samplers beyond DDIM; and the paper's timestep-stage ablation (the
+prune_ssim and compute_ssim CLIs on the CIFAR UNet) with cost-aware global
+pruning (ddpm_prune --cost_aware --match_params) and prune_finetune. Every
+phase raises on
 failure; none is caught, so any failure exits non-zero before the result
 lines.
 
@@ -226,8 +229,35 @@ lines.
    dpm kinds on the dense CIFAR UNet, DDIM-20, B = 128, kernels on against
    off from one x_T, and ddpm_sample --mode sequence and interpolation
    (PNG sizes checked). Prints the phase's seconds.
-20. The evaluation, LDM, LDM prune, LDM train and unconditional LDM JSON
-   lines, the kernels' JSON line, nvidia-smi's line, then the result line.
+20. Ablation and cost-aware path, full CIFAR-10 width, TF32 off, on phase
+   5's dense checkpoint and phase 10's seeded .npz: (a) the prune CLI
+   twice (diff-pruning, ratio 0.3, --global_pruning, --max_sparsity 0.75,
+   5 sweep steps, B = 128, cuDNN deterministic so both sweeps give the same
+   grads), importance-only, then --cost_aware hybrid --match_params; launch
+   counters reset just before and read just after each, equal to steps x a
+   step's calls; the cost-aware param count within 1 % of the importance-
+   only run's (else the bisection's closest probe after its 24 probes);
+   both dirs reloaded at their printed counts; (b) every GroupNorm and
+   attention shape of both pruned UNets (forward hooks), and one-head D =
+   113, 115 and 121 at 256 tokens (other scores' allocation), against the
+   plain versions, forward and backward, f32 and bf16, B = 128 (phases 3
+   and 8's checks and tolerances), the channels a group and head dims
+   printed; (c)
+   prune_finetune on the cost-aware flags, 6 bf16 steps, saves and DDIM-100
+   vis every 3: finite losses, launches exact, every backward of the
+   finetune in bf16 (the sweep's in f32), the same channel sizes as (a),
+   unet_ema reloaded and sampled by the sampling CLI (DDIM-20); (d) the main
+   path: prune_ssim --stages 1 10 --ddim_steps 20 --n_vis 64 --batch_size 64
+   (cut from 1911 sweep steps and DDIM-100), launches = 11 sweep steps + 3
+   x 20 sampler forwards, each stage dir reloaded, then compute_ssim of
+   stage_base against itself (1 within 1e-6, MSE 0) and against each
+   stage (printed; seeded weights, so no order is asserted); (e) DDIM-20
+   sampling imgs/s of the two pruned UNets (the same param budget) at B =
+   128, f32 and bf16, kernels off, on, on, off (CUDA events). Prints the
+   phase's seconds.
+21. The evaluation, LDM, LDM prune, LDM train, unconditional LDM and
+   ablation JSON lines, the kernels' JSON line, nvidia-smi's line, then the
+   result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -331,6 +361,19 @@ F16_TOL, F16_BWD_TOL = (1e-3, 2e-3), 2e-3
 UNCOND_PARAMS = {"celebahq": (274_056_163, 55_322_782), "churches": (294_966_916, 83_653_863)}
 UNCOND_B, UNCOND_STEPS, UNCOND_ETA, CHURCH_B, CHURCH_STEPS = 16, 20, 1.0, 4, 5
 UNCOND_CMP_B, CIFAR_MULTI_STEPS, UNCOND_CLI_B = 4, 20, 50
+# the ablation and cost-aware path (phase 20): the prune CLI's sweep steps (cut
+# from up to 1000); the finetune's bf16 steps (cut from 100k) and save (and
+# vis) interval; prune_ssim's stages (cut from 1, 10, 50, 100, 250, 500 and
+# 1000), DDIM steps (cut from 100), images a set and sweep batch. SSIM of a
+# folder against itself is 1 exactly in f32: equal inputs give equal filter
+# outputs, so each ratio's numerator and denominator are the same number
+ABL_PRUNE_STEPS, ABL_FT_STEPS, ABL_FT_SAVE = 5, 6, 3
+ABL_STAGES, ABL_DDIM, ABL_N_VIS, ABL_B = (1, 10), 20, 64, 64
+ABL_SELF_SSIM_TOL = 1e-6
+# one-head attention (N, heads, D) that other scores give the cost-aware
+# allocation (the JAX package's, from the seed-0 init with magnitude scores:
+# head dims 113, 115 and 121 at 256 tokens), checked beside the card's own
+ABL_EXTRA_ATTN = ((256, 1, 113), (256, 1, 115), (256, 1, 121))
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -755,6 +798,120 @@ def op_shapes(model):
     for h in hooks:
         h.remove()
     return gn, attn
+
+
+def check_forward_kernels(gn_cases, attn_cases, gen, dev, worst, suffixes=("",)):
+    """The GroupNorm and attention forward kernels against their plain
+    versions at B rows, f32 and bf16, at each (N, C, silu) of ``gn_cases``
+    and (N, heads, D) of ``attn_cases`` (phases 3 and 20); raises on a
+    disagreement. Each op's largest error goes to ``worst`` under the op's
+    name plus each of ``suffixes``."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+
+    for n, c, silu in gn_cases:
+        for dname in TOL:
+            dtype = getattr(torch, dname)
+            x = (torch.randn((B, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            got = group_norm(x, scale, bias, groups=32, with_silu=silu)
+            want = group_norm_reference(x, scale, bias, groups=32, with_silu=silu)
+            err, ok = compare(got, want, dname)
+            for sfx in suffixes:
+                worst[("group_norm" + sfx, dname)] = max(worst[("group_norm" + sfx, dname)],
+                                                         err)
+            print(f"check group_norm B={B} N={n} C={c} C/g={c // 32} silu={silu} {dname}: "
+                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            assert ok, f"group_norm kernel disagrees at N={n} C={c} silu={silu} {dname}"
+    for n, h, d in attn_cases:
+        for dname in TOL:
+            dtype = getattr(torch, dname)
+            q, k, v = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            got = flash_attention(q, k, v, d ** -0.5)
+            want = reference_attention(q, k, v, d ** -0.5)
+            err, ok = compare(got, want, dname)
+            for sfx in suffixes:
+                worst[("attention" + sfx, dname)] = max(worst[("attention" + sfx, dname)], err)
+            print(f"check attention B={B} heads={h} N={n} D={d} {dname}: "
+                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
+            assert ok, f"attention kernel disagrees at N={n} D={d} {dname}"
+
+
+def check_backward_kernels(gn_cases, attn_cases, gen, dev, worst, suffixes=("",)):
+    """The GroupNorm backward (with the forward's statistics) and the
+    attention forward's lse, dq and dk/dv kernels against their plain
+    versions at B rows, f32 and bf16 (phases 8 and 20); as
+    :func:`check_forward_kernels`."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    for n, c, silu in gn_cases:
+        for dname in BWD_TOL:
+            dtype, tol = getattr(torch, dname), BWD_TOL[dname]
+            x = (torch.randn((B, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            dy = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
+            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            _, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=32,
+                                                            with_silu=silu)
+            pmean, prstd = G.group_norm_stats_reference(x, 32)
+            got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=32,
+                                        with_silu=silu)
+            want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
+                                                   groups=32, with_silu=silu)
+            errs = {}
+            for what, a, w, wt in (("mean", mean, pmean, "float32"),
+                                   ("rstd", rstd, prstd, "float32"),
+                                   ("dx", got[0], want[0], dname),
+                                   ("dscale", got[1], want[1], dname),
+                                   ("dbias", got[2], want[2], dname)):
+                err, ok = compare_rel(a, w, BWD_TOL[wt])
+                assert ok, f"group_norm backward {what} disagrees at N={n} C={c} silu={silu} " \
+                           f"{dname}: {err:.3e}"
+                errs[what] = err
+            for sfx in suffixes:
+                key, skey = ("group_norm_bwd" + sfx, dname), ("group_norm_stats" + sfx, dname)
+                worst[key] = max(worst[key], errs["dx"], errs["dscale"], errs["dbias"])
+                worst[skey] = max(worst[skey], errs["mean"], errs["rstd"])
+            print(f"check group_norm bwd B={B} N={n} C={c} silu={silu} {dname}: "
+                  + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+                  + f" tol={tol} x max|want| ok")
+    for n, h, d in attn_cases:
+        for dname in BWD_TOL:
+            dtype, tol = getattr(torch, dname), BWD_TOL[dname]
+            q, k, v, do = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
+                           for _ in range(4))
+            scale = d ** -0.5
+            _, lse = A.flash_attention_forward_lse(q, k, v, scale)
+            o, plse = A.reference_attention_lse(q, k, v, scale)
+            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, plse, scale)
+            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, plse, scale)
+            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
+            errs = {}
+            for what, a, w, wt in (("lse", lse, plse, "float32"),
+                                   ("dsum", dsum, pdsum, "float32"),
+                                   ("dq", dq, pdq, dname), ("dk", dk, pdk, dname),
+                                   ("dv", dv, pdv, dname)):
+                err, ok = compare_rel(a, w, BWD_TOL[wt])
+                assert ok, f"attention backward {what} disagrees at N={n} D={d} {dname}: " \
+                           f"{err:.3e}"
+                errs[what] = err
+            for sfx in suffixes:
+                for key, parts in (("attention_lse", ("lse",)),
+                                   ("attention_bwd_dq", ("dq", "dsum")),
+                                   ("attention_bwd_dkv", ("dk", "dv"))):
+                    worst[(key + sfx, dname)] = max(worst[(key + sfx, dname)],
+                                                    *(errs[p] for p in parts))
+            print(f"check attention bwd B={B} heads={h} N={n} D={d} {dname}: "
+                  + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
+                  + f" tol={tol} x max|want| ok")
 
 
 def compare(got, want, dtype):
@@ -2764,6 +2921,217 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
             "attn_pruned": {str(k_): v_ for k_, v_ in attn_pruned.items()}}
 
 
+def ablation_path(tmp, gen, gpu, tag, worst, ctx):
+    """Phase 20 (see the module docstring); returns the phase's figures.
+    ``ctx``: ``ckpt`` (the dense CIFAR UNet's checkpoint dir, phase 5's),
+    ``data`` (phase 10's seeded .npz), ``sched`` and ``per_call`` (the
+    GroupNorm and attention calls of one UNet forward)."""
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import (compute_ssim, ddpm_prune, ddpm_sample,
+                                            prune_finetune, prune_ssim)
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"laps_s": {}}
+
+    def lap(what):
+        """Seconds since the phase began, at the end of ``what``."""
+        out["laps_s"][what] = time.perf_counter() - t_phase
+
+    g, a = ctx["per_call"]
+
+    def launches(steps, forwards):
+        """The counts of ``steps`` forward + backward steps and ``forwards``
+        inference forwards of a UNet with the CIFAR UNet's calls."""
+        return {"group_norm": (steps + forwards) * g, "group_norm_bwd": steps * g,
+                "attention": (steps + forwards) * a, "attention_lse": steps * a,
+                "attention_bwd_dq": steps * a, "attention_bwd_dkv": steps * a}
+
+    def reload(path, subfolder="unet"):
+        pcfg, state = load_model(path, subfolder=subfolder)
+        net = UNet2D(pcfg, device=dev)
+        net.load_state_dict(state)
+        return pcfg, net.eval(), sum(p.numel() for p in net.parameters())
+
+    # (a) the prune CLI twice on one seeded batch (cuDNN deterministic, so both
+    # sweeps give the same grads): importance-only, then cost-aware at its
+    # param budget
+    prune_flags = ["--pruner", "diff-pruning", "--pruning_ratio", "0.3", "--global_pruning",
+                   "--max_sparsity", "0.75", "--max_steps", str(ABL_PRUNE_STEPS),
+                   "--batch_size", str(B), "--skip_vis"]
+    cost_flags = ["--cost_aware", "hybrid", "--match_params"]
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, extra in (("importance", []), ("cost_aware", cost_flags)):
+        d = os.path.join(tmp, f"ablation_{name}")
+        ops.reset_launch_counts()
+        stats, _, secs = run_cli(ddpm_prune.main, ["--model_path", ctx["ckpt"], "--save_path", d,
+                                                   "--dataset", ctx["data"], "--device", "cuda"]
+                                 + prune_flags + extra)
+        counts = dict(ops.LAUNCHES)
+        steps = stats["steps_run"]
+        pcfg, net, n = reload(d)
+        print(f"ablation prune CLI {name}: {stats['params_before']} -> {n} params, "
+              f"{stats['macs_before'] / 1e9:.4f}G -> {stats['macs'] / 1e9:.4f}G MACs, sweep "
+              f"{steps} steps, whole CLI {secs:.2f}s (host clock, B={B}, f32) {tag}; launches "
+              f"{counts}; channel sizes {json.dumps(stats['channel_sizes'], sort_keys=True)}")
+        assert 1 <= steps <= ABL_PRUNE_STEPS and counts == launches(steps, 0), (name, counts)
+        assert n == stats["params"] and pcfg.channel_sizes == stats["channel_sizes"], name
+        runs[name] = {"cfg": pcfg, "net": net, "stats": stats}
+        out.setdefault("prune_cli", {})[name] = {
+            "params": n, "macs": stats["macs"], "steps": steps, "seconds": secs,
+            "launches": counts, "channel_sizes": stats["channel_sizes"]}
+    torch.backends.cudnn.deterministic = False
+    mp = runs["cost_aware"]["stats"]["match_params"]
+    n_imp, n_cost = runs["importance"]["stats"]["params"], runs["cost_aware"]["stats"]["params"]
+    off_by = abs(n_cost - n_imp) / n_imp
+    print(f"ablation match_params: channel sparsity {mp['sparsity']:.4f}, {n_cost} params "
+          f"against the importance-only run's {n_imp}: {off_by:.4%} off after {mp['probes']} "
+          f"probes" + ("" if off_by <= 0.01 else " (the bisection's closest probe)"))
+    assert mp["target"] == n_imp and mp["params"] == n_cost, (mp, n_imp, n_cost)
+    assert off_by <= 0.01 or mp["probes"] == 24, (mp, off_by)
+    out["match_params"] = dict(mp, off_by=off_by)
+    lap("prune_cli")
+
+    # (b) every kernel at both pruned UNets' GroupNorm and attention shapes
+    shapes = {name: op_shapes(UNet2D(r["cfg"], device="cpu").eval()) for name, r in runs.items()}
+    gn_cases = sorted(set().union(*(gn for gn, _ in shapes.values())))
+    attn_cases = sorted(set(ABL_EXTRA_ATTN).union(*(at for _, at in shapes.values())))
+    check_forward_kernels(gn_cases, attn_cases, gen, dev, worst, ("", "_cost"))
+    check_backward_kernels(gn_cases, attn_cases, gen, dev, worst, ("", "_cost"))
+    torch.cuda.synchronize()
+    per_group = sorted({c // 32 for _, c, _ in gn_cases})
+    head_dims = sorted({d for _, _, d in attn_cases})
+    out["kernels"] = {"group_norm_shapes": [list(c) for c in gn_cases],
+                      "attention_shapes": [list(c) for c in attn_cases],
+                      "channels_a_group": per_group, "head_dims": head_dims,
+                      "max_abs_err": {f"{op}/{dname}": worst[(op + "_cost", dname)]
+                                      for op in ("group_norm", "group_norm_bwd", "attention",
+                                                 "attention_lse", "attention_bwd_dq",
+                                                 "attention_bwd_dkv")
+                                      for dname in TOL}}
+    print(f"ablation kernels: forward and backward, f32 and bf16, B={B}, held against plain "
+          f"at {len(gn_cases)} GroupNorm and {len(attn_cases)} attention shapes (the two "
+          f"pruned UNets' and {len(ABL_EXTRA_ATTN)} more): channels a group {per_group}, head "
+          f"dims {head_dims}; max abs errors "
+          f"{json.dumps(out['kernels']['max_abs_err'])} {tag}")
+    lap("kernels")
+
+    # (c) prune_finetune: the cost-aware prune, then bf16 steps, saves and vis
+    pf = os.path.join(tmp, "ablation_finetune")
+    bwd_dtypes, unwrap = record_bwd_dtypes()
+    torch.backends.cudnn.deterministic = True
+    ops.reset_launch_counts()
+    try:
+        chained, _, pf_secs = run_cli(prune_finetune.main, [
+            "--model_path", ctx["ckpt"], "--dataset", ctx["data"], "--output_dir", pf,
+            "--batch_size", str(B), "--num_iters", str(ABL_FT_STEPS), "--mixed_precision", "bf16",
+            "--device", "cuda", "--prune_args=" + " ".join(prune_flags[4:] + cost_flags),
+            f"--train_args=--save_model_steps {ABL_FT_SAVE} --log_steps {ABL_FT_SAVE} "
+            f"--vis_samples {FT_VIS}"])
+    finally:
+        unwrap()
+        torch.backends.cudnn.deterministic = False
+    counts = dict(ops.LAUNCHES)
+    sweep = chained["prune"]["steps_run"]
+    losses = chained["train"]["losses"]
+    print(f"ablation prune_finetune: sweep {sweep} steps, {ABL_FT_STEPS} bf16 steps, losses "
+          f"{losses}; whole CLI {pf_secs:.2f}s {tag}; launches {counts}; backward calls by "
+          f"dtype {dict(bwd_dtypes)}")
+    # DDIM-100 vis grids at each save
+    assert counts == launches(sweep + ABL_FT_STEPS, ABL_FT_STEPS // ABL_FT_SAVE * 100), counts
+    assert dict(bwd_dtypes) == {
+        ("group_norm_bwd", "torch.float32"): sweep * g, ("attention_bwd", "torch.float32"): sweep * a,
+        ("group_norm_bwd", "torch.bfloat16"): ABL_FT_STEPS * g,
+        ("attention_bwd", "torch.bfloat16"): ABL_FT_STEPS * a}, bwd_dtypes
+    assert len(losses) == ABL_FT_STEPS and all(math.isfinite(v) for v in losses), losses
+    assert chained["prune"]["channel_sizes"] == runs["cost_aware"]["stats"]["channel_sizes"]
+    _, ema, n_ema = reload(pf, subfolder="unet_ema")
+    del ema
+    drawn = ddpm_sample.main(["--model_path", pf, "--use_ema", "--output_dir",
+                              os.path.join(tmp, "ablation_finetune_s"), "--total_samples", str(B),
+                              "--batch_size", str(B), "--ddim_steps", str(SAMPLE_TIME_STEPS),
+                              "--device", "cuda"])
+    print(f"ablation prune_finetune check: unet_ema reloads at {n_ema} params; the sampling CLI "
+          f"drew {drawn['images']} images from it, {drawn['nonfinite']} non-finite")
+    assert n_ema == n_cost and drawn["images"] == B and drawn["nonfinite"] == 0
+    out["prune_finetune"] = {"seconds": pf_secs, "losses": losses, "launches": counts,
+                             "sweep_steps": sweep}
+    lap("prune_finetune")
+
+    # (d) the main path: the stage ablation, then compute_ssim over its folders
+    sd = os.path.join(tmp, "ablation_ssim")
+    ops.reset_launch_counts()
+    ab, _, ab_secs = run_cli(prune_ssim.main, [
+        "--model_path", ctx["ckpt"], "--save_path", sd, "--dataset", ctx["data"], "--stages",
+        *map(str, ABL_STAGES), "--ddim_steps", str(ABL_DDIM), "--n_vis", str(ABL_N_VIS),
+        "--batch_size", str(ABL_B), "--device", "cuda"])
+    counts = dict(ops.LAUNCHES)
+    print(f"main path prune_ssim: stages {list(ABL_STAGES)}, sweeps of B={ABL_B}, "
+          f"DDIM-{ABL_DDIM} x {ABL_N_VIS} images a set; whole CLI {ab_secs:.2f}s, stages "
+          f"{ab['seconds']} s (host clock, f32) {tag}; params {ab['params']}; launches {counts}")
+    # the sweeps, then the base set and one set a stage
+    assert counts == launches(sum(ABL_STAGES), (1 + len(ABL_STAGES)) * ABL_DDIM), counts
+    assert ab["steps_run"] == {s: s for s in ABL_STAGES}, ab["steps_run"]
+    ssim = {}
+    for stage in ("base",) + ABL_STAGES:
+        folder = os.path.join(sd, f"stage_{stage}")
+        assert len([f for f in os.listdir(folder) if f.endswith(".png")]) == ABL_N_VIS, folder
+        if stage != "base":
+            assert reload(folder)[2] == ab["params"][stage], stage
+        ssim[stage], _, _ = run_cli(compute_ssim.main, [os.path.join(sd, "stage_base"), folder,
+                                                        "--device", "cuda"])
+    print(f"main path compute_ssim against stage_base (seeded weights: no order expected): "
+          + ", ".join(f"stage_{k} SSIM {v['ssim']:.6f} MSE {v['mse']:.6f}"
+                      for k, v in ssim.items()))
+    assert abs(ssim["base"]["ssim"] - 1.0) <= ABL_SELF_SSIM_TOL and ssim["base"]["mse"] == 0.0
+    assert all(np.isfinite([v["ssim"], v["mse"]]).all() for v in ssim.values())
+    out["prune_ssim"] = {"seconds": ab_secs, "stage_seconds": ab["seconds"],
+                         "params": ab["params"], "launches": counts,
+                         "ssim": {str(k): v for k, v in ssim.items()}}
+    lap("prune_ssim")
+
+    # (e) DDIM sampling imgs/s of the two pruned UNets (the same param budget)
+    out["sampling_imgs_per_s"] = {}
+    for (name, r), dname in itertools.product(runs.items(), TOL):
+        sample = make_sampler(r["net"], ctx["sched"], SamplerConfig(
+            num_inference_steps=SAMPLE_TIME_STEPS, dtype=dname))
+        warm = make_sampler(r["net"], ctx["sched"], SamplerConfig(num_inference_steps=2,
+                                                                  dtype=dname))
+
+        def run(on, sample=sample):
+            ops.set_kernels_enabled(on)
+            try:
+                return cuda_ms(lambda: sample(gen, B, 32, 3), iters=1, warmup=0)
+            finally:
+                ops.set_kernels_enabled(True)
+
+        for on in (False, True):
+            ops.set_kernels_enabled(on)
+            warm(gen, B, 32, 3)
+        ops.set_kernels_enabled(True)
+        off1, on1, on2, off2 = run(False), run(True), run(True), run(False)
+        rate_on = B * 2 * 1000 / (on1 + on2)
+        rate_off = B * 2 * 1000 / (off1 + off2)
+        out["sampling_imgs_per_s"][f"{name}/{dname}"] = {
+            "kernels_on": rate_on, "kernels_off": rate_off, "ms": [off1, on1, on2, off2]}
+        print(f"time sampling {name} ({r['stats']['params']} params) DDIM-{SAMPLE_TIME_STEPS} "
+              f"B={B} {dname}: kernels on {rate_on:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), "
+              f"kernels off {rate_off:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
+    del runs
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ablation phase {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -2927,32 +3295,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(2)
     worst = collections.defaultdict(float)
     gn_cases = sorted(set(gn_dense) | set(gn_pruned) | set(gn_ft))
-    for n, c, silu in gn_cases:
-        for dname in TOL:
-            dtype = getattr(torch, dname)
-            x = (torch.randn((B, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
-            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
-            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
-            got = group_norm(x, scale, bias, groups=32, with_silu=silu)
-            want = group_norm_reference(x, scale, bias, groups=32, with_silu=silu)
-            err, ok = compare(got, want, dname)
-            worst[("group_norm", dname)] = max(worst[("group_norm", dname)], err)
-            print(f"check group_norm B={B} N={n} C={c} C/g={c // 32} silu={silu} {dname}: "
-                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
-            assert ok, f"group_norm kernel disagrees at N={n} C={c} silu={silu} {dname}"
     attn_cases = sorted(set(attn_dense) | set(attn_pruned) | set(attn_ft) | {(100, 1, 256)})
-    for n, h, d in attn_cases:
-        for dname in TOL:
-            dtype = getattr(torch, dname)
-            q, k, v = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
-                       for _ in range(3))
-            got = flash_attention(q, k, v, d ** -0.5)
-            want = reference_attention(q, k, v, d ** -0.5)
-            err, ok = compare(got, want, dname)
-            worst[("attention", dname)] = max(worst[("attention", dname)], err)
-            print(f"check attention B={B} heads={h} N={n} D={d} {dname}: "
-                  f"max_abs_err={err:.3e} tol={TOL[dname]} {'ok' if ok else 'FAIL'}")
-            assert ok, f"attention kernel disagrees at N={n} D={d} {dname}"
+    check_forward_kernels(gn_cases, attn_cases, gen, dev, worst)
     torch.cuda.synchronize()
 
     mark(4)
@@ -3116,66 +3460,7 @@ def main() -> None:
 
     mark(8)
     # -- 8. backward kernels against plain versions at the UNet's shapes, B = 128
-    for n, c, silu in gn_cases:
-        for dname in BWD_TOL:
-            dtype, tol = getattr(torch, dname), BWD_TOL[dname]
-            x = (torch.randn((B, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
-            dy = torch.randn((B, n, c), generator=gen, device=dev).to(dtype)
-            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
-            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
-            _, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=32,
-                                                            with_silu=silu)
-            pmean, prstd = G.group_norm_stats_reference(x, 32)
-            got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=32,
-                                        with_silu=silu)
-            want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
-                                                   groups=32, with_silu=silu)
-            errs = {}
-            for what, a, w, wt in (("mean", mean, pmean, "float32"),
-                                   ("rstd", rstd, prstd, "float32"),
-                                   ("dx", got[0], want[0], dname),
-                                   ("dscale", got[1], want[1], dname),
-                                   ("dbias", got[2], want[2], dname)):
-                err, ok = compare_rel(a, w, BWD_TOL[wt])
-                assert ok, f"group_norm backward {what} disagrees at N={n} C={c} silu={silu} " \
-                           f"{dname}: {err:.3e}"
-                errs[what] = err
-            key = ("group_norm_bwd", dname)
-            worst[key] = max(worst[key], errs["dx"], errs["dscale"], errs["dbias"])
-            worst[("group_norm_stats", dname)] = max(worst[("group_norm_stats", dname)],
-                                                     errs["mean"], errs["rstd"])
-            print(f"check group_norm bwd B={B} N={n} C={c} silu={silu} {dname}: "
-                  + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                  + f" tol={tol} x max|want| ok")
-    for n, h, d in attn_cases:
-        for dname in BWD_TOL:
-            dtype, tol = getattr(torch, dname), BWD_TOL[dname]
-            q, k, v, do = (torch.randn((B, h, n, d), generator=gen, device=dev).to(dtype)
-                           for _ in range(4))
-            scale = d ** -0.5
-            _, lse = A.flash_attention_forward_lse(q, k, v, scale)
-            o, plse = A.reference_attention_lse(q, k, v, scale)
-            dq, dsum = A.flash_attention_backward_dq(q, k, v, o, do, plse, scale)
-            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, o, do, plse, scale)
-            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
-            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
-            errs = {}
-            for what, a, w, wt in (("lse", lse, plse, "float32"),
-                                   ("dsum", dsum, pdsum, "float32"),
-                                   ("dq", dq, pdq, dname), ("dk", dk, pdk, dname),
-                                   ("dv", dv, pdv, dname)):
-                err, ok = compare_rel(a, w, BWD_TOL[wt])
-                assert ok, f"attention backward {what} disagrees at N={n} D={d} {dname}: " \
-                           f"{err:.3e}"
-                errs[what] = err
-            worst[("attention_lse", dname)] = max(worst[("attention_lse", dname)], errs["lse"])
-            worst[("attention_bwd_dq", dname)] = max(worst[("attention_bwd_dq", dname)],
-                                                     errs["dq"], errs["dsum"])
-            worst[("attention_bwd_dkv", dname)] = max(worst[("attention_bwd_dkv", dname)],
-                                                      errs["dk"], errs["dv"])
-            print(f"check attention bwd B={B} heads={h} N={n} D={d} {dname}: "
-                  + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
-                  + f" tol={tol} x max|want| ok")
+    check_backward_kernels(gn_cases, attn_cases, gen, dev, worst)
     torch.cuda.synchronize()
 
     mark(9)
@@ -3660,10 +3945,17 @@ def main() -> None:
     uncond = uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, {
         "sched": sched, "ckpt": os.path.join(tmp, "dense"),
         "per_call": (sum(gn_dense.values()), sum(attn_dense.values()))})
-    tmpdir.cleanup()
 
     mark(20)
-    # -- 20. result lines
+    # -- 20. the ablation and cost-aware path: the cost-aware prune, every kernel
+    # at its UNet's shapes, prune_finetune, prune_ssim and compute_ssim
+    ablation = ablation_path(tmp, gen, gpu, tag, worst, {
+        "sched": sched, "ckpt": os.path.join(tmp, "dense"), "data": data,
+        "per_call": (sum(gn_dense.values()), sum(attn_dense.values()))})
+    tmpdir.cleanup()
+
+    mark(21)
+    # -- 21. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -3692,7 +3984,9 @@ def main() -> None:
     def paths(key):
         return dict(launches_prune_cli=cli_counts[key], launches_finetune_bf16=ft16_counts[key],
                     launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key],
-                    launches_ldm_train_cli=ldm_train_fig["cli_launches"][key])
+                    launches_ldm_train_cli=ldm_train_fig["cli_launches"][key],
+                    launches_prune_ssim_cli=ablation["prune_ssim"]["launches"][key],
+                    max_abs_err_cost_aware_unets=worst[(key + "_cost", "float32")])
 
     lp_ops = ldm_prune_fig["ops_per_step"]
     per_ldm_step = f"f32, summed over one B={LDM_PRUNE_B} LDM sweep step's calls"
@@ -3900,6 +4194,7 @@ def main() -> None:
     print(json.dumps({"ldm_prune": ldm_prune_fig}))
     print(json.dumps({"ldm_train": ldm_train_fig}))
     print(json.dumps({"uncond_ldm": uncond}))
+    print(json.dumps({"ablation": ablation}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

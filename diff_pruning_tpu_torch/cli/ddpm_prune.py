@@ -16,9 +16,7 @@ Differences from the JAX CLI:
 * the sweep is one host loop (the JAX package's on-device ``lax.while_loop``
   exists to avoid TPU round-trips); ``--host_loop`` is accepted and changes
   nothing;
-* ``--cost_aware``/``--match_params`` raise (the cost model, the JAX
-  package's ``pruning/cost.py``, is not ported yet); there are no multihost
-  flags and no diffusers-directory loading yet;
+* there are no multihost flags and no diffusers-directory loading yet;
 * the data is a local ``.npz`` or CIFAR-10 batch directory
   (``data/datasets.py``), or the model's own samples
   (``--use_generated_samples``); the sweep noise comes from a
@@ -64,12 +62,26 @@ def parse_args(argv=None):
                         "--global_pruning rankings (default: mean)")
     p.add_argument("--cost_aware", type=str, default=None,
                    choices=["macs", "bytes", "hybrid"],
-                   help="not ported yet (needs the cost model): raises")
+                   help="rank global-pruning candidates by importance per "
+                        "unit HARDWARE cost (pruning/cost.py) instead of "
+                        "importance alone; beyond the reference, which "
+                        "implicitly optimizes MACs. Requires "
+                        "--global_pruning. 'bytes' targets memory traffic, "
+                        "'macs' the reference's objective, 'hybrid' a "
+                        "roofline blend of the two")
     p.add_argument("--match_params", action="store_true",
-                   help="with --cost_aware; not ported yet: raises")
+                   help="with --cost_aware: binary-search the channel "
+                        "sparsity so the final PARAM count matches what "
+                        "importance-only pruning yields at --pruning_ratio "
+                        "(naive cost division is aggressive: cross-layer "
+                        "cost ratios are ~100x; this keeps the comparison "
+                        "and the deployment budget in params, the unit the "
+                        "paper reports)")
     p.add_argument("--max_sparsity", type=float, default=1.0,
                    help="cap any single var's drop fraction in global mode "
-                        "(metapruner.py:172-194)")
+                        "(metapruner.py:172-194); 0.75 recommended with "
+                        "--cost_aware so cost division cannot floor whole "
+                        "layers")
     p.add_argument("--use_generated_samples", action="store_true",
                    help="accumulate Taylor grads on the model's OWN samples "
                         "instead of dataset images "
@@ -105,16 +117,15 @@ def load_unet(model_path: str):
 
 def main(argv=None) -> dict:
     """Returns ``{"params_before", "params", "macs_before", "macs", "steps_run",
-    "sweep_seconds", "channel_sizes"}`` (``steps_run`` 0 when no sweep ran)."""
+    "sweep_seconds", "channel_sizes"}`` (``steps_run`` 0 when no sweep ran),
+    and with ``--match_params`` ``"match_params": {"sparsity", "params",
+    "target", "probes"}``."""
     args = parse_args(argv)
     from .ddpm_sample import pin_f32_precision, resolve_device
 
     pin_f32_precision()
-    if args.cost_aware or args.match_params:
-        raise NotImplementedError(
-            "--cost_aware/--match_params need the cost model (pruning/cost.py), which "
-            "the port has not ported yet (ROADMAP queue 1, item 6)")
     device = resolve_device(args.device)
+    import numpy as np
     import torch
 
     from ..diffpruning.sweep import accumulate_taylor_grads
@@ -178,8 +189,54 @@ def main(argv=None) -> dict:
             print(f"  sweep: {res.steps_run} timesteps in {stats['sweep_seconds']:.1f}s")
 
         imp = make_importance(args.pruner, seed=args.seed, normalizer=args.normalizer)
-        result = prune(model.graph, params, imp, sparsity=args.pruning_ratio, grads=grads,
-                       global_pruning=args.global_pruning, max_sparsity=args.max_sparsity)
+        cost_w = None
+        if args.cost_aware:
+            if not args.global_pruning:
+                raise SystemExit("--cost_aware requires --global_pruning "
+                                 "(cost division ranks the global pool)")
+            from ..pruning.cost import var_cost_weights
+
+            # traced at the serving batch: at B = 1 weight traffic dominates
+            # the byte model and the ranking degenerates
+            cost_w = var_cost_weights(model, (args.batch_size, hw, hw, cfg.in_channels),
+                                      mode=args.cost_aware)
+
+        def _prune_at(s, cw):
+            return prune(model.graph, params, imp, sparsity=s, grads=grads,
+                         global_pruning=args.global_pruning, cost_weights=cw,
+                         max_sparsity=args.max_sparsity)
+
+        result = _prune_at(args.pruning_ratio, cost_w)
+        if cost_w is not None and args.match_params:
+            # equal-params calibration: hit the param budget importance-only
+            # pruning yields at the requested ratio, within 1 %
+            def n_params_of(r):
+                return sum(int(np.size(a)) for a in flatten_params(
+                    apply_pruning(params, model.graph, r)).values())
+
+            target = n_params_of(_prune_at(args.pruning_ratio, None))
+            lo, hi = 0.0, 0.95
+            best = None  # (abs err, sparsity, result, n): channel drops are
+            # discrete, so 1 % may be unreachable on small models; keep the
+            # closest allocation seen rather than whatever the last probe was
+            for probes in range(1, 25):
+                mid = (lo + hi) / 2
+                r = _prune_at(mid, cost_w)
+                n = n_params_of(r)
+                err = abs(n - target)
+                if best is None or err < best[0]:
+                    best = (err, mid, r, n)
+                if err / target < 0.01:
+                    break
+                if n > target:
+                    lo = mid
+                else:
+                    hi = mid
+            _, mid, result, n = best
+            stats.update(match_params={"sparsity": mid, "params": n, "target": target,
+                                       "probes": probes})
+            print(f"match_params: channel sparsity {mid:.4f} -> "
+                  f"{n/1e6:.3f}M (target {target/1e6:.3f}M)")
         new_params = apply_pruning(params, model.graph, result)
         new_cfg = cfg.with_channel_sizes(result.channel_sizes)
         if args.pruner == "reinit":  # ddpm_prune.py:125-131

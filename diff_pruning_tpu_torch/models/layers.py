@@ -60,6 +60,9 @@ class Conv2D(nn.Module):
         scope.ref("kernel", 3, cout, "out")
         if use_bias:
             scope.ref("bias", 0, cout, "bias")
+        # plain attributes, outside the state_dict: pruning/cost.py charges
+        # each call's cost to them
+        self.cin, self.cout = cin, cout
         self.stride, self.padding = stride, padding
         k = kernel_size
         self.kernel = nn.Parameter(torch.empty((cout.size, cin.size, k, k), device=device))
@@ -86,6 +89,7 @@ class Linear(nn.Module):
         scope.ref("kernel", 1, dout, "out")
         if use_bias:
             scope.ref("bias", 0, dout, "bias")
+        self.din, self.dout = din, dout  # plain attributes, as Conv2D's
         self.kernel = nn.Parameter(torch.empty((dout.size, din.size), device=device))
         self.bias = nn.Parameter(torch.empty((dout.size,), device=device)) if use_bias else None
 

@@ -2,8 +2,7 @@
 
 Counterpart of ``diff_pruning_tpu/pruning/pruner.py`` (numpy only, the same
 selection): the same scores give the same keep-indices in both packages.
-``cost_weights`` is plain numpy and stays; its source, ``pruning/cost.py``,
-is not ported yet.
+``cost_weights`` come from ``pruning/cost.py``.
 
 Functional MetaPruner (ddpm_exp/torch_pruning/pruner/algorithms/metapruner.py).
 Local mode scores each var independently and drops its lowest-importance
@@ -103,8 +102,7 @@ def prune(
     ``sparsity_per_var`` sets per-var targets in local mode and acts as a
     per-var cap in global mode.
 
-    ``cost_weights`` ({var: cost per channel}; the JAX package's
-    ``pruning/cost.py`` computes them) turns
+    ``cost_weights`` ({var: cost per channel}, see ``pruning/cost.py``) turns
     global mode bandwidth-aware: candidates are ranked by importance per
     unit hardware cost, so the pool preferentially drops channels that cost
     machine time rather than just MACs — beyond the reference, which has no

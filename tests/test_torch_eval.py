@@ -1,7 +1,7 @@
 """The port's evaluation slice against the JAX package, on the CPU: the FID
-Inception, FID, the fidelity metrics (IS, KID, precision/recall), the
-procedural data, the image-folder loader and the fid_score and fidelity
-CLIs.
+Inception, FID, the fidelity metrics (IS, KID, precision/recall), SSIM, the
+procedural data, the image-folder loader and the fid_score, fidelity and
+compute_ssim CLIs.
 
 Inputs are made with numpy from a seed and handed to both packages; the JAX
 side runs with f32 matmuls (its convolutions are at HIGHEST precision
@@ -33,10 +33,12 @@ from diff_pruning_tpu.eval import fid as jfid
 from diff_pruning_tpu.eval import fidelity as jfidelity
 from diff_pruning_tpu.eval import inception as jinc
 from diff_pruning_tpu.eval import resize as jresize
+from diff_pruning_tpu.eval import ssim as jssim
 from diff_pruning_tpu_torch.eval import fid as tfid
 from diff_pruning_tpu_torch.eval import fidelity as tfidelity
 from diff_pruning_tpu_torch.eval import inception as tinc
 from diff_pruning_tpu_torch.eval import resize as tresize
+from diff_pruning_tpu_torch.eval import ssim as tssim
 
 torch.set_num_threads(2)
 FEATURE_RTOL = 1e-5
@@ -128,7 +130,10 @@ def test_fid_and_fidelity_metrics_match_jax(tmp_path, capsys):
     and precision/recall (within one sample, 1/N: a point at a near-tie
     distance may fall on either side of the radius) match JAX's; stats
     files written by either package load in the other; the resize-mode
-    warning appears."""
+    warning appears. SSIM, per image and averaged, within 1e-5 of JAX's
+    (both f32, the JAX side at HIGHEST precision: the 11 x 11 filters sum
+    in other orders), 1 for identical images; pairwise_ssim_mse of two
+    folders within 1e-5 too."""
     rng = np.random.default_rng(3)
     for hw in ((32, 32), (300, 200)):
         for out in ((299, 299), (64, 48)):
@@ -171,6 +176,26 @@ def test_fid_and_fidelity_metrics_match_jax(tmp_path, capsys):
             assert 0.0 < want["precision"] < 1.0 and 0.0 < want["recall"] < 1.0, want
             for key in ("precision", "recall"):
                 assert abs(got[key] - want[key]) <= 1.0 / 240, (k, key, got, want)
+
+    a = rng.uniform(0, 1, (6, 32, 32, 3)).astype(np.float32)
+    b = np.clip(a + 0.15 * rng.standard_normal(a.shape), 0, 1).astype(np.float32)
+    for size_average in (True, False):
+        got = tssim.ssim(torch.from_numpy(a), torch.from_numpy(b), size_average=size_average)
+        want = np.asarray(jssim.ssim(jnp.asarray(a), jnp.asarray(b),
+                                     size_average=size_average))
+        assert got.shape == want.shape and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    assert float(tssim.ssim(torch.from_numpy(a), torch.from_numpy(a))) == pytest.approx(
+        1.0, abs=1e-6)
+    u8 = (rng.uniform(0, 1, (5, 24, 24, 3)) * 255).astype(np.uint8)
+    u8b = np.clip(u8.astype(int) + rng.integers(-40, 40, u8.shape), 0, 255).astype(np.uint8)
+    da, db = _write_folder(str(tmp_path / "sa"), u8), _write_folder(str(tmp_path / "sb"), u8b)
+    got = tssim.pairwise_ssim_mse(da, db, batch_size=2)
+    want = jssim.pairwise_ssim_mse(da, db, batch_size=2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert tssim.pairwise_ssim_mse(da, da)[0] == pytest.approx(1.0, abs=1e-6)
+    with pytest.raises(ValueError, match="no matching filenames"):
+        tssim.pairwise_ssim_mse(da, _write_folder(str(tmp_path / "sc"), []))
 
     # stats files cross the packages both ways, and a mode mismatch warns
     mu, sigma = s_t
@@ -215,14 +240,16 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
     ISC to 1e-5; KID to 1e-5 of the mean kernel value (the random init's
     features are ~80 in RMS, so the cubic kernel is ~1e11 and KID is an f32
     cancellation on both sides; features 3e-7 apart move each kernel value
-    by ~1e-6 relative); precision/recall equal. ``--device cuda`` raises
+    by ~1e-6 relative); precision/recall equal; compute_ssim prints
+    the JAX CLI's SSIM and MSE lines. ``--device cuda`` raises
     where no GPU is present, and the CLIs leave TF32 off."""
+    from diff_pruning_tpu.cli import compute_ssim as jssim_cli
     from diff_pruning_tpu.cli import fid_score as jfid_cli
     from diff_pruning_tpu.cli import fidelity as jfidelity_cli
     from diff_pruning_tpu.data import datasets as jdata
     from diff_pruning_tpu.data import procedural as jproc
     from diff_pruning_tpu.utils import compile_cache
-    from diff_pruning_tpu_torch.cli import fid_score, fidelity
+    from diff_pruning_tpu_torch.cli import compute_ssim, fid_score, fidelity
     from diff_pruning_tpu_torch.data import datasets as tdata
     from diff_pruning_tpu_torch.data import procedural as tproc
 
@@ -302,7 +329,20 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
         assert abs(got[key] - want[key]) <= 1e-5 * scale, (key, got[key], want[key])
     assert got["precision"] == want["precision"] and got["recall"] == want["recall"]
 
+    want = _run(jssim_cli.main, [da, db, "--batch-size", "3"])[1].splitlines()
+    got, out = _run(compute_ssim.main, [da, db, "--batch-size", "3", "--device", "cpu"])
+    lines = out.splitlines()[-2:]
+    assert [ln.split()[0] for ln in lines] == [ln.split()[0] for ln in want] == ["SSIM:",
+                                                                               "MSE:"]
+    assert lines == [f"SSIM: {got['ssim']:.6f}", f"MSE: {got['mse']:.6f}"]
+    # SSIM's variances are differences of nearly equal f32 filter outputs
+    # (these images have flat regions), so the two sum orders may part by
+    # ~1e-6; the MSE is one f32 mean a side; both as printed (6 decimals)
+    for ln, w, tol in zip(lines, want, (1e-5, 1e-6)):
+        assert abs(float(ln.split()[1]) - float(w.split()[1])) <= tol, (lines, want)
+
     for main, args in ((fid_score.main, [da, db, "--random-init-seed", "0"]),
-                       (fidelity.main, ["--input1", da, "--input2", db, "--weights", weights])):
+                       (fidelity.main, ["--input1", da, "--input2", db, "--weights", weights]),
+                       (compute_ssim.main, [da, db])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args + ["--device", "cuda"])

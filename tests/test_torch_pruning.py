@@ -12,7 +12,8 @@ side runs with f32 matmuls. Each tolerance is stated where it is used:
   the JAX scores. Both are the same f32 sum-order differences carried
   through the backward;
 - everything that is integer or selection (steps run, keep-indices, channel
-  sizes, MACs, params, data batches): exactly equal.
+  sizes, MACs, params, per-channel cost weights, data batches): exactly
+  equal.
 """
 
 import os
@@ -64,23 +65,28 @@ def numpy_params(jmodel, seed):
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port imports with ``jax``, the JAX package and
-    ``triton`` blocked (a blocked import raises) and no ``nvcc``
+    """Every module of the port imports with ``jax``, the JAX package,
+    ``triton`` and ``matplotlib`` blocked (a blocked import raises) and no ``nvcc``
     (CUDA_HOME points nowhere), none pulls jax or the JAX package in, and
     the CLIs parse their arguments so."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('jax', 'diff_pruning_tpu', 'triton'):\n"
+        "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         "import diff_pruning_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "from diff_pruning_tpu_torch.cli import ddpm_sample, ldm_prune, ldm_sample, ldm_train\n"
+        "from diff_pruning_tpu_torch.cli import (compute_ssim, ddpm_sample, ldm_prune,\n"
+        "                                        ldm_sample, ldm_train, prune_finetune,\n"
+        "                                        prune_ssim)\n"
         "for cli in (ddpm_sample, ldm_sample):\n"
         "    cli.parse_args(['--model_path', 'm', '--output_dir', 'o'])\n"
         "ldm_prune.parse_args(['--save_path', 'o'])\n"
-        "ldm_train.parse_args(['--model_path', 'm', '--dataset', 'd', '--output_dir', 'o'])\n"
+        "for cli in (ldm_train, prune_finetune):\n"
+        "    cli.parse_args(['--model_path', 'm', '--dataset', 'd', '--output_dir', 'o'])\n"
+        "prune_ssim.parse_args(['--model_path', 'm', '--save_path', 'o', '--dataset', 'd'])\n"
+        "compute_ssim.parse_args(['a', 'b'])\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'diff_pruning_tpu'))]\n"
         "assert not bad, bad\n"
@@ -90,7 +96,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 51
+    assert int(res.stdout.strip()) >= 58
 
 
 def _tiny_sweep_inputs():
@@ -174,11 +180,37 @@ def test_keep_indices_match_jax(mode):
     jsliced = jflatten(jpruner.apply_pruning(jparams, jmodel.graph, want))
     for k, v in jsliced.items():
         np.testing.assert_array_equal(sliced[k], np.asarray(v), err_msg=k)
+    if mode == "global":
+        # cost-aware: each package's own cost weights (equal, as
+        # test_macs_and_params_match_jax holds them), under the 0.75 cap
+        from diff_pruning_tpu.pruning.cost import var_cost_weights as jcost
+        from diff_pruning_tpu_torch.pruning.cost import var_cost_weights
+
+        shape = (8, 16, 16, 3)
+        tcw = var_cost_weights(tunet.UNet2D(tunet.tiny_unet_config(), device="meta"), shape)
+        jcw = jcost(jmodel, jparams, shape)
+        assert tcw == jcw
+        kw.update(max_sparsity=0.75)
+        for name in PRUNERS:
+            want = jpruner.prune(jmodel.graph, jparams, jimp.make_importance(name, seed=3),
+                                 grads=jgrads, cost_weights=jcw, **kw)
+            got = tpruner.prune(tgraph, params, timp.make_importance(name, seed=3),
+                                grads=tgrads, cost_weights=tcw, **kw)
+            assert got.channel_sizes == want.channel_sizes, name
+            assert sorted(got.keep) == sorted(want.keep), name
+            for var, idx in want.keep.items():
+                np.testing.assert_array_equal(got.keep[var], idx, err_msg=f"{name} {var} cost")
 
 
 @pytest.mark.parametrize("config", ["tiny_unet_config", "ddpm_cifar10_config"])
-def test_macs_and_params_match_jax(config):
+def test_macs_and_params_match_jax(config, monkeypatch):
+    """MACs and params, and the per-channel cost weights of every mode
+    (pruning/cost.py), equal the JAX package's; the hybrid mode's
+    FLOP-per-byte ratio is the H100's in the port and the TPU's in the JAX
+    package, so it is compared with the port's set to the JAX one."""
+    from diff_pruning_tpu.pruning.cost import var_cost_weights as jcost
     from diff_pruning_tpu.pruning.flops import count_ops_and_params as jcount
+    from diff_pruning_tpu_torch.pruning import cost as tcost
     from diff_pruning_tpu_torch.pruning.flops import count_ops_and_params
 
     jmodel = junet.UNet2D(getattr(junet, config)())
@@ -187,6 +219,18 @@ def test_macs_and_params_match_jax(config):
     jparams = jax.eval_shape(jmodel.init, jax.random.key(0))
     assert count_ops_and_params(tmodel, (1, hw, hw, 3)) == jcount(
         jmodel, jparams, (1, hw, hw, 3))
+    assert tcost.H100_FLOP_PER_BYTE == 989e12 / 3.35e12
+    for shape in ((1, hw, hw, 3), (128, hw, hw, 3)):
+        for mode, dtype_bytes in (("macs", 2), ("bytes", 2), ("bytes", 4)):
+            got = tcost.var_cost_weights(tmodel, shape, mode=mode, dtype_bytes=dtype_bytes)
+            assert got == jcost(jmodel, jparams, shape, mode=mode, dtype_bytes=dtype_bytes)
+            assert len(got) == len(tmodel.graph.prunable_vars()), (shape, mode)
+        with monkeypatch.context() as m:
+            m.setattr(tcost, "H100_FLOP_PER_BYTE", 240.0)
+            assert tcost.var_cost_weights(tmodel, shape, mode="hybrid") == jcost(
+                jmodel, jparams, shape, mode="hybrid")
+    with pytest.raises(ValueError, match="unknown cost mode"):
+        tcost.var_cost_weights(tmodel, mode="flops")
     if config == "ddpm_cifar10_config":
         assert count_ops_and_params(tmodel) == (6_053_953_536, 35_746_307)
         # the pruned size at ratio 0.3, from the JAX package's own pruner
@@ -244,10 +288,17 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The prune CLI end to end on the tiny config: TF32 pinned off, a
     checkpoint that both packages load, the JAX CLI's report lines, the vis
-    grid; the options it does not port raise, and --device cuda without a
-    GPU raises."""
+    grid; --cost_aware --match_params writes the JAX CLI's allocation
+    (magnitude scores: the same channel sizes, params and report line) and
+    refuses local pruning. The stage ablation (prune_ssim): every stage's
+    dir loads in both packages and validates, every sample set starts from
+    one initial noise, and stage 2's selection is the JAX pruner's on the
+    port's own stage-2 grads. prune_finetune's output loads in the JAX
+    package. --device cuda without a GPU raises in each CLI."""
+    from diff_pruning_tpu.cli import ddpm_prune as jddpm_prune
     from diff_pruning_tpu.utils import checkpoint as jckpt
-    from diff_pruning_tpu_torch.cli import ddpm_prune
+    from diff_pruning_tpu.utils import compile_cache
+    from diff_pruning_tpu_torch.cli import ddpm_prune, prune_finetune, prune_ssim
 
     cfg = tunet.tiny_unet_config()
     model = tunet.UNet2D(cfg, device="cpu").init(torch.Generator().manual_seed(16))
@@ -275,8 +326,118 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     pruned = tunet.UNet2D(tcfg, device="cpu")
     pruned.load_state_dict(state)
     assert sum(p.numel() for p in pruned.parameters()) == stats["params"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ddpm_prune.main(base + ["--global_pruning", "--cost_aware", "bytes", "--device", "cpu"])
+
+    # the JAX CLI would point this process's JAX at an on-disk compile cache
+    monkeypatch.setattr(compile_cache, "enable_persistent_compilation_cache",
+                        lambda *a, **k: None)
+    cost = ["--model_path", str(tmp_path / "dense"), "--batch_size", "4", "--pruner",
+            "magnitude", "--pruning_ratio", "0.3", "--cost_aware", "bytes", "--skip_vis"]
+    with pytest.raises(SystemExit, match="requires --global_pruning"):
+        ddpm_prune.main(cost + ["--save_path", str(tmp_path / "bad"), "--device", "cpu"])
+    cost += ["--global_pruning", "--match_params", "--max_sparsity", "0.75"]
+    reports = {}
+    for pkg, main, extra in (("jax", jddpm_prune.main, []),
+                             ("torch", ddpm_prune.main, ["--device", "cpu"])):
+        capsys.readouterr()
+        with jax.default_matmul_precision("float32"):
+            main(cost + ["--save_path", str(tmp_path / f"cost_{pkg}")] + extra)
+        reports[pkg] = [ln for ln in capsys.readouterr().out.splitlines()
+                        if ln.startswith(("match_params:", "#Params:", "#MACS:"))]
+    assert reports["torch"] == reports["jax"] and len(reports["jax"]) == 3, reports
+    jcfg, jparams = jckpt.load_model(str(tmp_path / "cost_jax"))
+    tcfg, state = tckpt.load_model(str(tmp_path / "cost_torch"))
+    assert tcfg.channel_sizes == jcfg.channel_sizes != cfg.channel_sizes
+    tflat, jflat = tckpt.flat_from_state_dict(state), jflatten(jparams)
+    assert sorted(tflat) == sorted(jflat)
+    for k, v in jflat.items():
+        np.testing.assert_array_equal(tflat[k], np.asarray(v), err_msg=k)
+
+    # the stage ablation: the samplers' initial noise recorded from the
+    # generator each call receives
+    from diff_pruning_tpu.pruning.surgery import unflatten_params as junflatten_
+    from diff_pruning_tpu_torch.data.datasets import get_dataset, iterate_batches
+    from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_taylor_grads
+    from diff_pruning_tpu_torch.sampling import ddim_sampler
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+
+    x_T, real_make_sampler = [], ddim_sampler.make_sampler
+
+    def recording_make_sampler(model, schedule, scfg):
+        sample = real_make_sampler(model, schedule, scfg)
+
+        def recorded(generator, batch_size, hw, channels, *args, **kwargs):
+            twin = torch.Generator().set_state(generator.get_state())
+            x_T.append(torch.randn((batch_size, hw, hw, channels), generator=twin))
+            assert scfg.num_inference_steps == 2
+            return sample(generator, batch_size, hw, channels, *args, **kwargs)
+
+        return recorded
+
+    monkeypatch.setattr(ddim_sampler, "make_sampler", recording_make_sampler)
+    ssim_dir = tmp_path / "ssim"
+    ablation = prune_ssim.main(["--model_path", str(tmp_path / "dense"), "--save_path",
+                                str(ssim_dir), "--dataset", str(tmp_path / "data.npz"),
+                                "--stages", "2", "1", "--ddim_steps", "2", "--n_vis", "4",
+                                "--batch_size", "4", "--device", "cpu"])
+    monkeypatch.setattr(ddim_sampler, "make_sampler", real_make_sampler)
+    text = capsys.readouterr().out
+    assert text.index("stage 1: saved model + 4 samples") < text.index("stage 2: saved")
+    assert len(x_T) == 3 and all(torch.equal(x, x_T[0]) for x in x_T)
+    assert ablation["steps_run"] == {1: 1, 2: 2}
+    for stage in ("base", 1, 2):
+        pngs = sorted(f.name for f in (ssim_dir / f"stage_{stage}").glob("*.png"))
+        assert pngs == [f"{i:06d}.png" for i in range(4)], (stage, pngs)
+    for stage in (1, 2):
+        d = str(ssim_dir / f"stage_{stage}")
+        jcfg, jparams = jckpt.load_model(d)
+        junet.UNet2D(jcfg).graph.validate(jparams)
+        tcfg, state = tckpt.load_model(d)
+        net = tunet.UNet2D(tcfg, device="cpu")
+        net.load_state_dict(state)
+        assert tcfg.channel_sizes == jcfg.channel_sizes == ablation["channel_sizes"][stage]
+        assert sum(p.numel() for p in net.parameters()) == ablation["params"][stage]
+    # stage 2 against the JAX pruner on the port's own 2-step grads
+    dense_cfg, dense_state = tckpt.load_model(str(tmp_path / "dense"))
+    dense = tunet.UNet2D(dense_cfg, device="cpu")
+    dense.load_state_dict(dense_state)
+    x0 = torch.from_numpy(next(iterate_batches(get_dataset(str(tmp_path / "data.npz")), 4,
+                                               seed=0)))
+    noise = torch.randn(x0.shape, generator=torch.Generator().manual_seed(0))
+    accumulate_taylor_grads(dense, DiffusionSchedule.create(), x0, noise, thr=None,
+                            max_steps=2)
+    jdense = {k: jnp.asarray(v) for k, v in tckpt.flat_from_state_dict(dense_state).items()}
+    jdense = junflatten_(jdense)
+    jgrads = junflatten_({k: jnp.asarray(v) for k, v in tckpt.flat_grads(dense).items()})
+    jmodel = junet.UNet2D(junet.UNet2DConfig.from_json(dense_cfg.to_json()))
+    want = jpruner.prune(jmodel.graph, jdense, jimp.make_importance("diff-pruning"),
+                         sparsity=0.3, grads=jgrads)
+    assert want.channel_sizes == ablation["channel_sizes"][2]
+    _, stage2 = jckpt.load_model(str(ssim_dir / "stage_2"))
+    stage2 = jflatten(stage2)
+    for k, v in jflatten(jpruner.apply_pruning(jdense, jmodel.graph, want)).items():
+        np.testing.assert_array_equal(np.asarray(stage2[k]), np.asarray(v), err_msg=k)
+
+    # prune, then finetune, in one command; the output loads in the JAX package
+    pf = tmp_path / "pf"
+    chained = prune_finetune.main([
+        "--model_path", str(tmp_path / "dense"), "--dataset", str(tmp_path / "data.npz"),
+        "--output_dir", str(pf), "--batch_size", "4", "--num_iters", "2", "--device", "cpu",
+        "--prune_args=--max_steps 2 --skip_vis",
+        "--train_args=--save_model_steps 2 --log_steps 2 --vis_samples 4"])
+    assert chained["prune"]["steps_run"] == 2 and chained["train"]["steps"] == 2
+    assert all(np.isfinite(chained["train"]["losses"]))
+    for sub in ("unet", "unet_ema"):
+        jcfg, jparams = jckpt.load_model(str(pf), subfolder=sub)
+        junet.UNet2D(jcfg).graph.validate(jparams)
+        assert jcfg.channel_sizes == chained["prune"]["channel_sizes"]
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        ddpm_prune.main(base + ["--pruner", "magnitude"])
+    for main, argv in (
+            (ddpm_prune.main, base + ["--pruner", "magnitude"]),
+            (prune_ssim.main, ["--model_path", str(tmp_path / "dense"), "--save_path",
+                               str(tmp_path / "x"), "--dataset", str(tmp_path / "data.npz")]),
+            (prune_finetune.main, ["--model_path", str(tmp_path / "dense"), "--dataset",
+                                   str(tmp_path / "data.npz"), "--output_dir",
+                                   str(tmp_path / "y")])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)

@@ -67,11 +67,70 @@ def _graph_signature(g):
     return vars_, refs
 
 
-def test_graph_matches_jax():
+def test_graph_matches_jax(tmp_path):
+    """The two graphs field by field and var_adjacency equal; on the tiny
+    UNet the regularizers (pruning/regularize.py) against the JAX package's,
+    both f32: the L1 penalty, the group norms and the new grads within 1e-6
+    relative (of the largest value of each output). With grads 1e-3 as
+    large the added decay dominates the new grads, and they agree within
+    1e-5: the per-channel scores' f32 sum orders (~1e-7 relative) enter an
+    exponent, base^((max - s) / (max - min)), which scales them by ln(base)
+    x max / (max - min). The visualizers draw their PNGs."""
+    from diff_pruning_tpu.pruning import regularize as jreg
+    from diff_pruning_tpu.pruning.visualize import var_adjacency as jadjacency
+    from diff_pruning_tpu_torch.pruning import regularize as treg
+    from diff_pruning_tpu_torch.pruning import visualize as tvis
+
     for config in ("tiny_unet_config", "ddpm_cifar10_config"):
         jg = junet.UNet2D(getattr(junet, config)()).graph
         tg = tunet.UNet2D(getattr(tunet, config)(), device="meta").graph
         assert _graph_signature(tg) == _graph_signature(jg), config
+        names, adj = tvis.var_adjacency(tg)
+        jnames, jadj = jadjacency(jg)
+        assert names == jnames and np.array_equal(adj, jadj) and adj.sum() > 0, config
+
+    jmodel = junet.UNet2D(junet.tiny_unet_config())
+    tg = tunet.UNet2D(tunet.tiny_unet_config(), device="meta").graph
+    flat = numpy_params(jmodel, seed=21)
+    rng = np.random.default_rng(22)
+    unit = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in flat.items()}
+    jp = unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
+    tp = unflatten_params({k: torch.from_numpy(v) for k, v in flat.items()})
+
+    def close(got, want, tol, what):
+        got, want = got.numpy().astype(np.float64), np.asarray(want, np.float64)
+        assert got.shape == want.shape, what
+        assert np.abs(got - want).max() <= tol * np.abs(want).max(), what
+
+    close(treg.l1_norm_scale_penalty(tg, tp, coeff=1e-3),
+          jreg.l1_norm_scale_penalty(jmodel.graph, jp, coeff=1e-3), 1e-6, "l1")
+    norms, jnorms = treg.group_l2_norms(tg, tp), jreg.group_l2_norms(jmodel.graph, jp)
+    assert sorted(norms) == sorted(jnorms) == sorted(v.name for v in tg.prunable_vars())
+    for k, v in jnorms.items():
+        close(norms[k], v, 1e-6, k)
+    for grad_scale, tol in ((1.0, 1e-6), (1e-3, 1e-5)):
+        gflat = {k: (grad_scale * v).astype(np.float32) for k, v in unit.items()}
+        jgr = unflatten_params({k: jnp.asarray(v) for k, v in gflat.items()})
+        tgr = unflatten_params({k: torch.from_numpy(v) for k, v in gflat.items()})
+        for name in ("group_lasso_grads", "taylor_scaled_grads", "scaling_factor_grads"):
+            got = flatten_params(getattr(treg, name)(tg, tp, tgr, reg=1e-2))
+            want = flatten_params(getattr(jreg, name)(jmodel.graph, jp, jgr, reg=1e-2))
+            assert sorted(got) == sorted(want), name
+            decayed = 0
+            for k, w in want.items():
+                assert isinstance(got[k], torch.Tensor) and got[k].dtype == torch.float32
+                close(got[k], w, tol, f"{name} {k} x{grad_scale}")
+                decayed += not np.array_equal(np.asarray(w), gflat[k])
+            assert decayed > 0, name
+            assert all(torch.equal(torch.from_numpy(gflat[k]), g)  # the inputs stay as given
+                       for k, g in flatten_params(tgr).items())
+    tvis.draw_dependency_graph(tg, str(tmp_path / "graph.png"))
+    res_scores = {k: v.numpy() for k, v in list(norms.items())[:2]}
+    tvis.draw_importance_bars(res_scores, str(tmp_path / "bars"),
+                              keep={k: np.arange(0, len(v), 2) for k, v in res_scores.items()})
+    assert (tmp_path / "graph.png").is_file()
+    assert sorted(f.name for f in (tmp_path / "bars").iterdir()) == ["imp_000.png",
+                                                                     "imp_001.png"]
 
 
 @pytest.mark.parametrize("attn", [True, False])
