@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's nine paths, through its own kernels, from seeded random
+Drives the port's ten paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM-100 sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -18,7 +18,9 @@ backward); and the unconditional LDMs' sampling path (the sample_diffusion
 CLI on CelebA-HQ LDM-VQ-4 and LSUN-churches LDM-KL-8) with the DDPM
 samplers beyond DDIM; and the paper's timestep-stage ablation (the
 prune_ssim and compute_ssim CLIs on the CIFAR UNet) with cost-aware global
-pruning (ddpm_prune --cost_aware --match_params) and prune_finetune. Every
+pruning (ddpm_prune --cost_aware --match_params) and prune_finetune; and
+first-stage training (the autoencoder_train CLI on vq-f4, through the
+GroupNorm and attention backward at the codec's shapes). Every
 phase raises on
 failure; none is caught, so any failure exits non-zero before the result
 lines.
@@ -56,7 +58,7 @@ lines.
 7. Timings (CUDA events, in turns): per-op forward kernel against plain and
    the library call at the main-path shapes (attention also in TFLOP/s),
    the GroupNorm wrapper's host time per call, dense and pruned sampling
-   imgs/s with the kernels on and off, f32 and bf16, and a torch.profiler
+   imgs/s with the kernels off then on (one batch each), f32 and bf16, and a torch.profiler
    breakdown of 5 dense DDIM steps by kernel class. Sampling is timed at
    DDIM-20 (imgs/s at DDIM-100 are a fifth of these).
 8. Backward kernels against their plain versions, at the same shapes, B =
@@ -128,7 +130,7 @@ lines.
    at D = 268, 269), inference and with lse. The CFG sampler (scale 3)
    kernels on against off from one x_T, DDIM-20, PLMS-10 and DPM-10,
    through the decode, launch counts equal to calls x steps. Then imgs/s
-   of CFG DDIM-20 + decode at B = 16, kernels on and off in turns; one
+   of CFG DDIM-20 + decode at B = 16, one batch kernels off, then one on; one
    UNet call and one decode, timed and profiled by kernel class; per-op ms
    at every shape
    (kernel, plain, SDPA / F.group_norm, bound, TFLOP/s; with
@@ -162,7 +164,7 @@ lines.
    reloads at the pinned 203,294,971 UNet params and ldm_sample draws
    finite images from it; (e) timings: the sweep step at the CLI's default
    DDIM-20 split into CFG sampling (20 CFG UNet calls of 12 rows, one
-   timed) and forward + backward, kernels on and off in turns; a profile
+   timed) and forward + backward, kernels off then on, one each; a profile
    of one 12-row CFG call and cuDNN's 3x3 192 ->
    192 convolution at 64 x 64 timed at 12, 16 and 32 rows; per-op backward
    ms at the step's shapes against plain, the library call (the SDPA f32
@@ -253,11 +255,39 @@ lines.
    stage_base against itself (1 within 1e-6, MSE 0) and against each
    stage (printed; seeded weights, so no order is asserted); (e) DDIM-20
    sampling imgs/s of the two pruned UNets (the same param budget) at B =
-   128, f32 and bf16, kernels off, on, on, off (CUDA events). Prints the
+   128, f32 and bf16, one batch kernels off, then one on (CUDA events). Prints the
    phase's seconds.
-21. The evaluation, LDM, LDM prune, LDM train, unconditional LDM and
-   ablation JSON lines, the kernels' JSON line, nvidia-smi's line, then the
-   result line.
+21. First-stage training path, vq-f4 at full width (55,322,782 params),
+   B = 12 at 256 x 256 (the autoencoder_train CLI's defaults), on phase
+   16's model dir: (a) every GroupNorm (N 4096-65,536, C 128-512; 1 and 2
+   MB f32 slabs) and attention ((4096, 4096, 512)) shape of one train step
+   (forward hooks) against the plain versions, the forward, its statistics
+   and lse, the backward (dx, dscale, dbias; dq, dk, dv), f32 and bf16;
+   (b) one train step kernels on against off, f32 and bf16, from the same
+   state and batch (cuDNN deterministic; the codebook drawn at the
+   latents' scale), every term live (disc_start 0): total_loss, d_weight
+   and disc_loss (f32 1e-4, bf16 2e-2 relative), the first Adam moments
+   of both networks (f32: each param within 1e-3 of its max; bf16: 5e-2
+   in norm), the share of VQ indices that differ, launches a step (84
+   GroupNorm forwards, 42 backwards, 4 attention forwards of which 2 with
+   lse, 2 dq, 2 dk/dv) and their dtypes; (c) the main path: the
+   autoencoder_train CLI, --lpips random, --disc_start 0, 4 steps (cut
+   from 100,000) saving every 2, on phase 18's PNGs, launch counters reset
+   just before and read just after, equal to 4 steps' calls; a resume
+   from step 2 into another directory whose step-4 generator,
+   discriminator and both Adam states must be bit-identical; first_stage/
+   reloaded at 55,322,782 params and decoded; 4 bf16 steps; 2 f32 steps
+   on phase 19's kl-f8 dir (the KL branch), launches exact; (d) the step's
+   ms and imgs/s, kernels off, on, on, off (one step each), split into the
+   generator's forward, the adaptive weight, the generator's backward and
+   Adam, and the discriminator pass; peak memory; a profile by kernel
+   class; per-op ms of the GroupNorm forward and backward at (65,536, 128)
+   and of the attention forward with lse, dq and dk/dv at (4096, 4096,
+   512), against plain, F.group_norm (and its autograd), SDPA (and its
+   backward) and the bound, f32 and bf16. Prints the phase's seconds.
+22. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation
+   and first-stage training JSON lines, the kernels' JSON line,
+   nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -374,6 +404,16 @@ ABL_SELF_SSIM_TOL = 1e-6
 # allocation (the JAX package's, from the seed-0 init with magnitude scores:
 # head dims 113, 115 and 121 at 256 tokens), checked beside the card's own
 ABL_EXTRA_ATTN = ((256, 1, 113), (256, 1, 115), (256, 1, 121))
+# the first-stage training path (phase 21): the autoencoder_train CLI's batch
+# (the autoencoder_kl yamls' 12) and resolution, its steps (cut from 100,000)
+# and save interval, the steps of its KL run, its LR (4.5e-6 x 12)
+AE_B, AE_RES, AE_STEPS, AE_SAVE, AE_KL_STEPS, AE_LR = 12, 256, 4, 2, 2, 4.5e-6 * 12
+# the step kernels on against off: the phase-18 tolerances, or NOISE_FACTOR x
+# what the off run moves when its images move by one ulp, whichever is
+# larger: the random codec amplifies f32 rounding through its 44 normalised
+# calls (each call's own difference is ~1e-7), and the kernels round
+# differently at every call, not only at the input
+NOISE_FACTOR = 10
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -409,11 +449,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(fns, iters: int):
+def in_turns(fns, iters: int, warmup: int = 2):
     """Mean ms of each of ``fns``, timed in order and then in reverse order
-    (two functions: a, b, b, a)."""
-    first = [cuda_ms(f, iters) for f in fns]
-    second = [cuda_ms(f, iters) for f in reversed(fns)][::-1]
+    (two functions: a, b, b, a), each timing after ``warmup`` calls."""
+    first = [cuda_ms(f, iters, warmup) for f in fns]
+    second = [cuda_ms(f, iters, warmup) for f in reversed(fns)][::-1]
     return [(a + b) / 2 for a, b in zip(first, second)]
 
 
@@ -1057,27 +1097,27 @@ def evaluation_path(tmp, sample_dirs, gpu, tag):
     gen = torch.Generator(device=dev).manual_seed(8)
     x = torch.rand((B, 256, 256, 3), generator=gen, device=dev)
     ms_torch, ms_clean = in_turns([lambda: pool3(card, x, "torch"),
-                                   lambda: pool3(card, x, "clean")], iters=5)
+                                   lambda: pool3(card, x, "clean")], iters=2)
     tflops = 2 * macs * B / (ms_torch / 1e3) / 1e12
     print(f"time inception B={B} 256x256 -> 299, f32: torch mode {ms_torch:.2f} ms "
           f"({B * 1e3 / ms_torch:.1f} imgs/s, {tflops:.1f} TFLOP/s of convolutions at "
           f"{macs / 1e9:.3f} GMACs an image), clean mode {ms_clean:.2f} ms "
-          f"({B * 1e3 / ms_clean:.1f} imgs/s) (CUDA events, in turns, 5 calls each) {tag}")
+          f"({B * 1e3 / ms_clean:.1f} imgs/s) (CUDA events, in turns, 2 calls each) {tag}")
     # the host's share: the folder's decode and 256x256 resize alone, as
     # features_of_path runs it (16 threads), and on one thread
     ds = get_dataset(proc)
+    n16, n1 = min(512, EVAL_IMAGES), min(128, EVAL_IMAGES)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=16) as pool:
-        assert len(list(pool.map(ds.load, range(EVAL_IMAGES)))) == EVAL_IMAGES
-    t_decode = time.perf_counter() - t0
-    n1 = min(256, EVAL_IMAGES)
+        assert len(list(pool.map(ds.load, range(n16)))) == n16
+    t_decode = (time.perf_counter() - t0) * EVAL_IMAGES / n16
     t0 = time.perf_counter()
     for i in range(n1):
         ds.load(i)
     t_decode1 = (time.perf_counter() - t0) * EVAL_IMAGES / n1
-    print(f"host decode + 256x256 resize of the {EVAL_IMAGES} PNGs (PIL): "
-          f"{EVAL_IMAGES / t_decode:.1f} imgs/s on 16 threads, {EVAL_IMAGES / t_decode1:.1f} on "
-          f"one ({n1} images), "
+    print(f"host decode + 256x256 resize of the PNGs (PIL): "
+          f"{EVAL_IMAGES / t_decode:.1f} imgs/s on 16 threads ({n16} images), "
+          f"{EVAL_IMAGES / t_decode1:.1f} on one ({n1} images), "
           f"{os.cpu_count()} CPUs {tag}")
     busy, span, launches, counts, _ = profile_kernels(
         lambda: features_of_path(proc, card, batch_size=B, max_images=512), eval_kernel_class)
@@ -1402,7 +1442,7 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
                     fns.append(lambda: F.group_norm(xl, 32, s, b, eps=eps))
                 el = rows * n * c
                 nbytes, flops = 2 * el * 4 + 2 * c * 4, el * (9 if silu else 5)
-                iters = 5 if el > 2e8 else 20
+                iters = 2 if el > 2e8 else 5
             else:
                 nq, nkv, h, d = shape
                 q = torch.randn((rows, h, nq, d), generator=gen, device=dev)
@@ -1415,7 +1455,7 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
                         for lib in others_fwd.values()]
                 nbytes = 4 * rows * h * (2 * nq + 2 * nkv) * d
                 flops = 4 * rows * h * nq * nkv * d
-                iters = 3 if nq * nkv > 4e6 else 10
+                iters = 2 if nq * nkv > 4e6 else 5
             pm, km, *lib = in_turns(fns, iters=iters)
             other_ms = {}
             if op == "attention":
@@ -1617,13 +1657,13 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
 
     for on in (False, True):
         batch(on, warm)
-    off1, on1, on2, off2 = batch(False), batch(True), batch(True), batch(False)
-    ips = {"kernels_on": LDM_B * 2e3 / (on1 + on2), "kernels_off": LDM_B * 2e3 / (off1 + off2)}
-    batch_ms = {"on": [on1, on2], "off": [off1, off2]}
+    off1, on1 = batch(False), batch(True)
+    ips = {"kernels_on": LDM_B * 1e3 / on1, "kernels_off": LDM_B * 1e3 / off1}
+    batch_ms = {"on": [on1], "off": [off1]}
     print(f"time ldm CFG DDIM-{LDM_STEPS} + decode B={LDM_B} ({2 * LDM_B} UNet rows) float32: "
-          f"kernels on {ips['kernels_on']:.3f} imgs/s ({on1:.0f}, {on2:.0f} ms), "
-          f"kernels off {ips['kernels_off']:.3f} imgs/s ({off1:.0f}, {off2:.0f} ms) "
-          f"(CUDA events, in turns off-on-on-off) {tag}")
+          f"kernels on {ips['kernels_on']:.3f} imgs/s ({on1:.0f} ms), "
+          f"kernels off {ips['kernels_off']:.3f} imgs/s ({off1:.0f} ms) "
+          f"(CUDA events, one batch each, off then on) {tag}")
     dec_lat = torch.randn((LDM_B, hw, hw, 3), generator=gen, device=dev)
     with torch.inference_mode():
         ctx = ldm.get_learned_conditioning(torch.cat([tlabels, torch.full_like(tlabels, 1000)]))
@@ -1637,7 +1677,7 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     def decode_call():
         return ldm.decode_first_stage(dec_lat)
 
-    unet_ms, decode_ms = in_turns([unet_call, decode_call], iters=3)
+    unet_ms, decode_ms = in_turns([unet_call, decode_call], iters=1, warmup=0)
     print(f"time ldm one CFG UNet call rows={2 * LDM_B} {unet_ms:.1f} ms, one decode B={LDM_B} "
           f"{decode_ms:.1f} ms (kernels on, CUDA events) {tag}")
     from torch.profiler import ProfilerActivity, profile
@@ -1923,11 +1963,9 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
     def fwd_bwd():
         ldm.get_loss_at_t(lat, labels, tb, noise).backward(inputs=uparams)
 
-    for on in (False, True):
-        timed(on, cfg_call)
-        timed(on, fwd_bwd)
-    call = [timed(on, cfg_call) for on in (False, True, True, False)]
-    grad = [timed(on, fwd_bwd) for on in (False, True, True, False)]
+    # one timed call each way (the CLI above ran the step's shapes)
+    call = [timed(on, cfg_call) for on in (False, True)]
+    grad = [timed(on, fwd_bwd) for on in (False, True)]
     ldm.unet.zero_grad(set_to_none=True)
     busy, span, launches, kcounts, _ = profile_kernels(cfg_call)
     print_profile(f"ldm prune one CFG UNet call kernels on rows={2 * rows} float32", busy, span,
@@ -1944,8 +1982,8 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
         del xc
     print("time ldm conv 3x3 192->192 at 64x64 NHWC float32: " + ", ".join(
         f"{n} rows {ms:.2f} ms ({ms / n:.3f} a row)" for n, ms in conv_ms.items()) + f" {tag}")
-    step_ms = {"cfg_call_on": (call[1] + call[2]) / 2, "cfg_call_off": (call[0] + call[3]) / 2,
-               "fwd_bwd_on": (grad[1] + grad[2]) / 2, "fwd_bwd_off": (grad[0] + grad[3]) / 2}
+    step_ms = {"cfg_call_on": call[1], "cfg_call_off": call[0],
+               "fwd_bwd_on": grad[1], "fwd_bwd_off": grad[0]}
     for on in ("on", "off"):
         step_ms[f"sampling_{on}"] = LDM_STEPS * step_ms[f"cfg_call_{on}"]
         step_ms[on] = step_ms[f"sampling_{on}"] + step_ms[f"fwd_bwd_{on}"]
@@ -1954,7 +1992,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
           f"{step_ms['cfg_call_on']:.1f} ms CFG UNet calls at {2 * rows} rows, forward + "
           f"backward {step_ms['fwd_bwd_on']:.1f}), kernels off {step_ms['off']:.1f} ms "
           f"(sampling {step_ms['sampling_off']:.1f}, forward + backward "
-          f"{step_ms['fwd_bwd_off']:.1f}) (CUDA events, in turns off-on-on-off); the CLI's "
+          f"{step_ms['fwd_bwd_off']:.1f}) (CUDA events, one each, off then on); the CLI's "
           f"sweep at DDIM-{LDM_PRUNE_DDIM} took {stats['sweep_seconds'] / steps * 1e3:.1f} ms a "
           f"step (host clock, kernels on) {tag}")
     tot = collections.defaultdict(float)
@@ -1978,7 +2016,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
                         q, k, v, o, do, lse, scale)),
                     with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
                         q, k, v, do, lse, dsum, scale))]
-        ms = in_turns(fns, iters=5)
+        ms = in_turns(fns, iters=2)
         other_ms = {label: ms[5 + 2 * i: 7 + 2 * i] for i, label in enumerate(others_bwd)}
         (bq_bytes, fq), (bkv_bytes, fkv) = ldm_bwd_work(rows, nq, nkv, d)
         bq, byq = bound(bq_bytes, fq, "float32")
@@ -2018,7 +2056,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
             yl = F.group_norm(xl, 32, sl, bl, eps=eps)
             dyl = dy.transpose(1, 2).contiguous()
             fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
-        ms = in_turns(fns, iters=5)
+        ms = in_turns(fns, iters=2)
         bms, by = bound(*gn_bwd_work(n, c, silu, "float32", rows=rows), "float32")
         tot["gn_kernel"] += ms[1] * ncalls
         tot["gn_plain"] += ms[0] * ncalls
@@ -2717,19 +2755,22 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
         grads = list(torch.autograd.grad(m.train_loss(images, labels, tt, noise, drop=drop,
                                                       compute_dtype=bf16), plist))
         norm_ = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=3)
-        enc_ms, fb_ms = in_turns([encode, fwd_bwd], iters=3)
+        for fn in (lambda: run(False), lambda: run(True), encode):  # one warm-up each
+            fn()
+        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=1, warmup=0)
+        enc_ms, fb_ms = in_turns([encode, fwd_bwd], iters=1, warmup=0)
         opt_ms = cuda_ms(lambda: opt.update(grads, norm_, st, plist), iters=3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         run(True)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        busy, span, launches, counts, _ = profile_kernels(lambda: run(True))
-        print_profile(f"ldm train step {name} kernels on B={rows} bf16", busy, span, launches,
-                      counts, ("step", 1), tag)
-        profiles[name] = {"busy_ms": busy, "span_ms": span, "launches": launches,
-                          "idle_share": 1 - sum(busy.values()) / span}
+        if name == "dense":  # a profile of the dense step
+            busy, span, launches, counts, _ = profile_kernels(lambda: run(True))
+            print_profile(f"ldm train step {name} kernels on B={rows} bf16", busy, span,
+                          launches, counts, ("step", 1), tag)
+            profiles[name] = {"busy_ms": busy, "span_ms": span, "launches": launches,
+                              "idle_share": 1 - sum(busy.values()) / span}
         step_ms[name] = {"kernels_on_ms": on, "kernels_off_ms": off,
                          "kernels_on_imgs_per_s": rows * 1e3 / on,
                          "kernels_off_imgs_per_s": rows * 1e3 / off, "encode_ms": enc_ms,
@@ -2779,7 +2820,7 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
                             q, k, v, o, do, lse, scale)),
                         with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
                             q, k, v, do, lse, dsum, scale))]
-            ms = in_turns(fns, iters=5)
+            ms = in_turns(fns, iters=2)
             nf = 8 + len(others_fwd)
             other_ms = dict(zip(others_fwd, ms[8:nf]))
             other_bwd_ms = {label: ms[nf + 2 * i: nf + 2 * i + 2]
@@ -2877,7 +2918,7 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
                 dyl = dy.transpose(1, 2).contiguous()
                 fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
         el = rows * n * c
-        ms = in_turns(fns, iters=5 if el > 2e8 else 10)
+        ms = in_turns(fns, iters=2 if el > 2e8 else 5)
         fb = bound(2 * el * 2 + 2 * c * 4, el * (9 if silu else 5), "bfloat16")
         for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1])):
             tot[key] += val * ncalls
@@ -3116,18 +3157,535 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
             ops.set_kernels_enabled(on)
             warm(gen, B, 32, 3)
         ops.set_kernels_enabled(True)
-        off1, on1, on2, off2 = run(False), run(True), run(True), run(False)
-        rate_on = B * 2 * 1000 / (on1 + on2)
-        rate_off = B * 2 * 1000 / (off1 + off2)
+        off1, on1 = run(False), run(True)
+        rate_on, rate_off = B * 1000 / on1, B * 1000 / off1
         out["sampling_imgs_per_s"][f"{name}/{dname}"] = {
-            "kernels_on": rate_on, "kernels_off": rate_off, "ms": [off1, on1, on2, off2]}
+            "kernels_on": rate_on, "kernels_off": rate_off, "ms": [off1, on1]}
         print(f"time sampling {name} ({r['stats']['params']} params) DDIM-{SAMPLE_TIME_STEPS} "
-              f"B={B} {dname}: kernels on {rate_on:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), "
-              f"kernels off {rate_off:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
+              f"B={B} {dname}: kernels on {rate_on:.2f} imgs/s ({on1:.1f} ms), "
+              f"kernels off {rate_off:.2f} imgs/s ({off1:.1f} ms) {tag}")
     del runs
     torch.cuda.synchronize()
     out["seconds"] = time.perf_counter() - t_phase
     print(f"ablation phase {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
+    return out
+
+
+def ae_op_shapes(fs_cfg, res):
+    """:func:`op_calls` of one encode and one decode of a ``res`` x ``res``
+    image by the first stage ``fs_cfg`` (the generator pass's calls, and the
+    discriminator pass's again without grad), on the meta device."""
+    import torch
+
+    from diff_pruning_tpu_torch.models.vae import make_first_stage
+
+    meta = torch.device("meta")
+    return op_calls(make_first_stage(fs_cfg, device=meta), lambda m: m.decode(m.encode(
+        torch.zeros((1, res, res, fs_cfg.in_channels), device=meta))))
+
+
+def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
+    """Phase 21 (see the module docstring); returns its figures. ``ctx``:
+    ``vq_dir`` (phase 16's model dir: its ``first_stage/`` is vq-f4),
+    ``kl_dir`` (phase 19's LSUN-churches dir: kl-f8) and ``data`` (phase
+    18's folder of 256 x 256 PNGs)."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import autoencoder_train
+    from diff_pruning_tpu_torch.eval.lpips import LPIPS, init_lpips_params
+    from diff_pruning_tpu_torch.models.discriminator import NLayerDiscriminator
+    from diff_pruning_tpu_torch.models.vae import AutoencoderConfig, make_first_stage
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+    from diff_pruning_tpu_torch.training import autoencoder as AE
+    from diff_pruning_tpu_torch.utils.checkpoint import load_params_npz
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out = {"card": gpu, "b": AE_B, "laps_s": {}}
+
+    def lap(what):
+        out["laps_s"][what] = time.perf_counter() - t_phase
+
+    def load_first_stage(model_dir):
+        with open(os.path.join(model_dir, "first_stage", "config.json")) as f:
+            cfg = AutoencoderConfig.from_json(f.read())
+        m = make_first_stage(cfg, device="cpu")
+        m.load_state_dict(load_params_npz(os.path.join(model_dir, "first_stage", "params.npz")))
+        return cfg, m.to(dev)
+
+    cfg, model = load_first_stage(ctx["vq_dir"])
+    rows = AE_B
+    per_step = {}
+    for name, fcfg in (("vq", cfg), ("kl", load_first_stage(ctx["kl_dir"])[0])):
+        gn_c, attn_c = ae_op_shapes(fcfg, AE_RES)
+        n_gn, n_attn = sum(gn_c.values()), sum(attn_c.values())
+        # the generator pass with grad (GroupNorm and attention forwards that
+        # save their statistics, then their backwards), the discriminator
+        # pass's reconstruction without
+        per_step[name] = {"group_norm": 2 * n_gn, "group_norm_bwd": n_gn,
+                          "attention": 2 * n_attn, "attention_lse": n_attn,
+                          "attention_bwd_dq": n_attn, "attention_bwd_dkv": n_attn}
+        if name == "vq":
+            gn_cases, attn_cases = gn_c, attn_c
+    print(f"ae train: vq-f4 at {AE_RES} x {AE_RES}, B={rows}: launches a step {per_step['vq']} "
+          f"(kl-f8: {per_step['kl']}); GroupNorm shapes {dict(gn_cases)}, attention "
+          f"{dict(attn_cases)}")
+    assert per_step["vq"] == {"group_norm": 84, "group_norm_bwd": 42, "attention": 4,
+                              "attention_lse": 2, "attention_bwd_dq": 2,
+                              "attention_bwd_dkv": 2}, per_step
+
+    # (a) every GroupNorm and attention shape of one train step, forward and
+    # backward, f32 and bf16, against the plain versions
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for (n, c, eps, silu) in sorted(gn_cases):
+            x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            dy = torch.randn((rows, n, c), generator=gen, device=dev).to(dtype)
+            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            kw = dict(groups=32, eps=eps, with_silu=silu)
+            err, ok = compare(group_norm(x, scale, bias, **kw),
+                              group_norm_reference(x, scale, bias, **kw), dname)
+            assert ok, ("ae gn fwd", n, c, silu, dname, err)
+            worst[("group_norm_ae", dname)] = max(worst[("group_norm_ae", dname)], err)
+            _, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, **kw)
+            pmean, prstd = G.group_norm_stats_reference(x, 32, eps=eps)
+            serr = max(compare_rel(mean, pmean, BWD_TOL["float32"])[0],
+                       compare_rel(rstd, prstd, BWD_TOL["float32"])[0])
+            assert all(compare_rel(a, w, BWD_TOL["float32"])[1]
+                       for a, w in ((mean, pmean), (rstd, prstd))), ("ae gn stats", n, c)
+            got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=32,
+                                        with_silu=silu)
+            want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd, groups=32,
+                                                   with_silu=silu)
+            line = f"fwd {err:.3e}, stats {serr:.3e}"
+            for what, a, w in zip(("dx", "dscale", "dbias"), got, want):
+                e, ok = compare_rel(a, w, BWD_TOL[dname])
+                assert ok, ("ae gn bwd", n, c, silu, dname, what, e)
+                worst[("group_norm_bwd_ae", dname)] = max(worst[("group_norm_bwd_ae", dname)], e)
+                line += f", {what} {e:.3e}"
+            print(f"check ae group_norm rows={rows} N={n} C={c} C/g={c // 32} slab "
+                  f"{n * c // 32 * NBYTES[dname] // 1024} KB silu={silu} {dname}: {line} (tol "
+                  f"{TOL[dname]}, stats and bwd {BWD_TOL['float32']}/{BWD_TOL[dname]} x "
+                  "max|want|) ok")
+            del x, dy, got, want
+        for (nq, nkv, h, d) in sorted(attn_cases):
+            def views(n):  # head-split views of (B, N, D) projections, as the layer passes them
+                return torch.randn((rows, n, d), generator=gen, device=dev).to(dtype) \
+                    .view(rows, n, 1, d).transpose(1, 2)
+
+            q, k, v, do = views(nq), views(nkv), views(nkv), views(nq)
+            scale = d ** -0.5
+            errs = {}
+            errs["o"], ok = compare(flash_attention(q, k, v, scale),
+                                    reference_attention(q, k, v, scale), dname)
+            assert ok, ("ae attention", dname, errs)
+            o, lse = A.flash_attention_forward_lse(q, k, v, scale)
+            po, plse = A.reference_attention_lse(q, k, v, scale)
+            errs["o_lse"], ok = compare(o, po, dname)
+            assert ok, ("ae attention with lse", dname, errs)
+            errs["lse"], ok = compare_rel(lse, plse, BWD_TOL["float32"])
+            assert ok, ("ae lse", dname, errs)
+            dq, dsum = A.flash_attention_backward_dq(q, k, v, po, do, plse, scale)
+            pdq, pdsum = A.attention_backward_dq_reference(q, k, v, po, do, plse, scale)
+            dk, dv = A.flash_attention_backward_dkv(q, k, v, do, plse, pdsum, scale)
+            pdk, pdv = A.attention_backward_dkv_reference(q, k, v, do, plse, pdsum, scale)
+            for what, a, w, tol in (("dsum", dsum, pdsum, BWD_TOL["float32"]),
+                                    ("dq", dq, pdq, BWD_TOL[dname]),
+                                    ("dk", dk, pdk, BWD_TOL[dname]),
+                                    ("dv", dv, pdv, BWD_TOL[dname])):
+                errs[what], ok = compare_rel(a, w, tol)
+                assert ok, ("ae attention bwd", dname, what, errs)
+            worst[("attention_ae", dname)] = max(worst[("attention_ae", dname)], errs["o"],
+                                                 errs["o_lse"])
+            worst[("attention_bwd_dq_ae", dname)] = max(worst[("attention_bwd_dq_ae", dname)],
+                                                        errs["dq"], errs["dsum"])
+            worst[("attention_bwd_dkv_ae", dname)] = max(
+                worst[("attention_bwd_dkv_ae", dname)], errs["dk"], errs["dv"])
+            print(f"check ae attention rows={rows} Nq={nq} Nkv={nkv} D={d} {dname}: "
+                  + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+                  + f" (tol o {TOL[dname]}, grads {BWD_TOL[dname]} x max|want|, lse and dsum "
+                  f"{BWD_TOL['float32']} x max|want|) ok")
+            del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv
+    torch.cuda.synchronize()
+    lap("kernels")
+
+    # (b) one train step, kernels on against off, f32 and bf16, from the same
+    # state and batch (cuDNN deterministic), every term live (disc_start 0)
+    torch.backends.cudnn.deterministic = True
+    tgen = torch.Generator(device=dev).manual_seed(21)
+    images = torch.rand((rows, AE_RES, AE_RES, 3), generator=tgen, device=dev) * 2 - 1
+    disc = NLayerDiscriminator(input_nc=cfg.in_channels, device="cpu").init(
+        torch.Generator().manual_seed(1)).to(dev)
+    lpips = LPIPS(device="cpu")
+    lpips.load_state_dict(init_lpips_params(torch.Generator().manual_seed(7)))
+    lpips.to(dev)
+    loss_cfg = AE.GANLossConfig(disc_start=0, disc_weight=0.5)
+    # a codebook at the latents' scale, where training takes it: at init its
+    # codes lie within 1/8192 of 0, ~1e-4 of |z|, and the straight-through
+    # value z + (zq - z).detach() then carries zq to only ~1e-3 of itself in
+    # f32, so the decoder's input would follow the encoder's last bits
+    with torch.no_grad():
+        cb = model.quantize.embedding.weight
+        cb.copy_(torch.randn(cb.shape, generator=gen, device=dev)
+                 * model.encode(images[:2]).std())
+    masters = [{n: p.detach().clone() for n, p in net.named_parameters()}
+               for net in (model, disc)]
+
+    def fresh(mp):
+        """The models at the masters, a fresh state and a step function."""
+        with torch.no_grad():
+            for net, master in zip((model, disc), masters):
+                for n, p in net.named_parameters():
+                    p.copy_(master[n])
+        gopt, dopt = AE.make_ae_optimizers(AE_LR)
+        st = AE.init_ae_train_state(model, disc, gopt, dopt)
+        return st, AE.make_autoencoder_train_step(model, loss_cfg, lpips, disc, gopt, dopt,
+                                                  mixed_precision=mp)
+
+    lookup = model.quantize_latents
+
+    def one_step(on, mp, chosen, replay, x=images):
+        """One step from the masters. The VQ lookups are pinned: without
+        ``replay`` each call's indices are appended to ``chosen``, with it
+        they are taken from there in order, so both runs quantize alike: a
+        near-tie flips with f32 summation order, and the decoder's global
+        attention spreads one flipped code over the whole image."""
+        def pinned(z):
+            if replay:
+                idx = chosen.pop(0)
+                return model.quantize.embedding.weight.to(z.dtype)[idx], idx
+            zq, idx = lookup(z)
+            chosen.append(idx)
+            return zq, idx
+
+        ops.set_kernels_enabled(on)
+        model.quantize_latents = pinned
+        try:
+            st, step = fresh(mp)
+            ops.reset_launch_counts()
+            m = {k: float(v) for k, v in step(st, x).items()}
+            torch.cuda.synchronize()
+            # Adam's first moments: 0.5 x the step's grads
+            return m, st.gen_opt.mu, st.disc_opt.mu, dict(ops.LAUNCHES)
+        finally:
+            ops.set_kernels_enabled(True)
+            del model.quantize_latents
+
+    def codes(on, mp):
+        """The step's VQ indices of the batch, kernels on or off."""
+        ops.set_kernels_enabled(on)
+        try:
+            with torch.no_grad():
+                cast = {n: p.to(torch.bfloat16 if mp == "bf16" else torch.float32)
+                        for n, p in model.named_parameters()}
+                return torch.func.functional_call(AE._Codec(model, 0.25), {
+                    "model." + n: p for n, p in cast.items()}, (images.to(
+                        next(iter(cast.values())).dtype), None))[1]["idx"]
+        finally:
+            ops.set_kernels_enabled(True)
+
+    # the off run again on images one ulp away (random direction): what f32
+    # rounding at the input alone moves, the step's own noise floor
+    nudged = torch.where(torch.rand(images.shape, generator=gen, device=dev) < 0.5,
+                         torch.nextafter(images, torch.full_like(images, 2.0)),
+                         torch.nextafter(images, torch.full_like(images, -2.0)))
+    compare_fig = {}
+    for mp, dname in (("no", "float32"), ("bf16", "bfloat16")):
+        chosen = []
+        m_off, gmu_off, dmu_off, c_off = one_step(False, mp, chosen, replay=False)
+        m_nud, gmu_nud, dmu_nud, _ = one_step(False, mp, list(chosen), replay=True, x=nudged)
+        fwd_dtypes, unwrap_fwd = record_fwd_dtypes()
+        bwd_dtypes, unwrap_bwd = record_bwd_dtypes()
+        try:
+            m_on, gmu_on, dmu_on, c_on = one_step(True, mp, chosen, replay=True)
+        finally:
+            unwrap_fwd()
+            unwrap_bwd()
+        assert not chosen, len(chosen)  # the generator's and the discriminator's lookups
+        assert c_on == per_step["vq"] and not any(c_off.values()), (c_on, c_off)
+        assert dict(fwd_dtypes) == {
+            ("group_norm", f"torch.{dname}"): per_step["vq"]["group_norm"],
+            ("attention", f"torch.{dname}"): per_step["vq"]["attention"]}, fwd_dtypes
+        assert dict(bwd_dtypes) == {
+            ("group_norm_bwd", f"torch.{dname}"): per_step["vq"]["group_norm_bwd"],
+            ("attention_bwd", f"torch.{dname}"): per_step["vq"]["attention_bwd_dq"]}, bwd_dtypes
+        rtol = TRAIN_LOSS_RTOL if mp == "no" else TRAIN_BF16_LOSS_RTOL
+        keys = ("total_loss", "d_weight", "disc_loss")
+        rel = {k: abs(m_on[k] - m_off[k]) / max(abs(m_off[k]), 1e-12) for k in keys}
+        rel_floor = {k: abs(m_nud[k] - m_off[k]) / max(abs(m_off[k]), 1e-12) for k in keys}
+        flips = float((codes(True, mp) != codes(False, mp)).float().mean())
+        grads, grads_floor, worst_param = {}, {}, {}
+        for net, on_, nud_, off_ in (("gen", gmu_on, gmu_nud, gmu_off),
+                                     ("disc", dmu_on, dmu_nud, dmu_off)):
+            assert all(bool(torch.isfinite(t).all()) for t in on_.values()), net
+            norm = math.sqrt(sum(float((t ** 2).sum()) for t in off_.values()))
+            grads[net], grads_floor[net] = (
+                math.sqrt(sum(float(((a[n] - t) ** 2).sum()) for n, t in off_.items())) / norm
+                for a in (on_, nud_))
+            # each param's grads against its max, or against NOISE_FACTOR x the
+            # nudged run's own difference (plus 1e-6 of the largest grad)
+            floor = 1e-6 * max(float(t.abs().max()) for t in off_.values())
+            worst_param[net] = max((float((on_[n] - t).abs().max()) / (max(
+                SWEEP_GRAD_TOL * float(t.abs().max()),
+                NOISE_FACTOR * float((nud_[n] - t).abs().max())) + floor), n)
+                for n, t in off_.items())
+        print(f"ae train step vq-f4 B={rows} {dname}, kernels on vs off: "
+              + ", ".join(f"{k} {m_on[k]:.7f} against {m_off[k]:.7f} (rel {rel[k]:.3e}; the "
+                          f"nudged off run {rel_floor[k]:.3e})" for k in keys)
+              + f" (tol max({rtol}, {NOISE_FACTOR} x nudged)); the step's grads (Adam's mu) "
+              f"|on - off| / |off|: generator {grads['gen']:.3e} (nudged "
+              f"{grads_floor['gen']:.3e}), discriminator {grads['disc']:.3e} (nudged "
+              f"{grads_floor['disc']:.3e}); worst param |on - off| over its tolerance: "
+              f"generator {worst_param['gen'][0]:.3f} ({worst_param['gen'][1]}), "
+              f"discriminator {worst_param['disc'][0]:.3f} ({worst_param['disc'][1]}) (tol "
+              + (f"each param within max({SWEEP_GRAD_TOL} of its max, {NOISE_FACTOR} x nudged)"
+                 if mp == "no" else f"max({TRAIN_BF16_GRAD_RTOL}, {NOISE_FACTOR} x nudged) in "
+                 "norm") + "); the VQ lookups pinned to the off run's (an unpinned encode's "
+              f"indices differ on vs off at {flips:.2e} of the rows); launches on {c_on}; "
+              f"forward launches by dtype {dict(fwd_dtypes)}, backward calls by dtype "
+              f"{dict(bwd_dtypes)}")
+        assert all(math.isfinite(m_on[k]) for k in m_on)
+        assert all(rel[k] <= max(rtol, NOISE_FACTOR * rel_floor[k]) for k in keys), rel
+        if mp == "no":
+            assert max(w for w, _ in worst_param.values()) <= 1.0, worst_param
+        else:
+            assert all(grads[k] <= max(TRAIN_BF16_GRAD_RTOL, NOISE_FACTOR * grads_floor[k])
+                       for k in grads), grads
+        compare_fig[dname] = {"metrics_on": m_on, "metrics_off": m_off, "rel": rel,
+                              "rel_nudged": rel_floor, "grad_rel": grads,
+                              "grad_rel_nudged": grads_floor, "index_flips": flips,
+                              "worst_param": {k: list(v) for k, v in worst_param.items()}}
+        del gmu_on, gmu_off, gmu_nud, dmu_on, dmu_off, dmu_nud
+    out["compare"] = compare_fig
+    lap("on against off")
+
+    # (c) the main path: the autoencoder_train CLI on phase 16's vq-f4 at
+    # full width, B = 12, 256 x 256, every term live; a resume from step 2
+    base = ["--model_path", ctx["vq_dir"], "--dataset", ctx["data"], "--resolution",
+            str(AE_RES), "--train_batch_size", str(rows), "--lpips", "random", "--disc_start",
+            "0", "--log_steps", "1", "--device", "cuda"]
+    first, second = os.path.join(tmp, "ae_trained"), os.path.join(tmp, "ae_resumed")
+    ops.reset_launch_counts()
+    stats, _, cli_seconds = run_cli(autoencoder_train.main, base + [
+        "--output_dir", first, "--num_iters", str(AE_STEPS), "--save_model_steps",
+        str(AE_SAVE)])
+    cli_counts = dict(ops.LAUNCHES)
+    want_cli = {k: AE_STEPS * v for k, v in per_step["vq"].items()}
+    print(f"main path autoencoder_train CLI: {stats['steps']} steps of B={rows} f32 on vq-f4 "
+          f"(losses {stats['losses']}), {stats['imgs_per_sec']:.2f} imgs/s, whole CLI "
+          f"{cli_seconds:.2f} s (host clock, load included), saves "
+          f"{[round(x, 2) for x in stats['save_seconds']]} s {tag}; launches {cli_counts}")
+    assert stats["steps"] == AE_STEPS and all(math.isfinite(x) for x in stats["losses"])
+    assert cli_counts == want_cli, (cli_counts, want_cli)
+    pair = os.path.join(tmp, "ae_step2")
+    for sub in ("gen", "disc"):  # the pair as it stood at step 2
+        shutil.copytree(os.path.join(first, "ckpt", sub, f"step-{AE_SAVE}"),
+                        os.path.join(pair, sub, f"step-{AE_SAVE}"))
+        with open(os.path.join(pair, sub, "LATEST"), "w") as f:
+            f.write(f"step-{AE_SAVE}")
+    resumed, _, resume_seconds = run_cli(autoencoder_train.main, base + [
+        "--output_dir", second, "--num_iters", str(AE_STEPS), "--save_model_steps",
+        str(AE_SAVE), "--resume_from_checkpoint", pair])
+    last = f"step-{AE_STEPS}"
+    identical = {f"{sub}/{name}": npz_equal(os.path.join(first, "ckpt", sub, last, name),
+                                            os.path.join(second, "ckpt", sub, last, name))
+                 for sub in ("gen", "disc") for name in ("params.npz", "opt_state.npz")}
+    print(f"main path autoencoder_train resume from step {AE_SAVE}: losses "
+          f"{resumed['losses']}, {resume_seconds:.2f} s; step-{AE_STEPS} bit-identical to the "
+          f"uninterrupted run: {identical}")
+    assert all(identical.values()) and resumed["losses"] == stats["losses"][AE_SAVE:]
+    torch.backends.cudnn.deterministic = False
+    tcfg, trained = load_first_stage(first)
+    n_trained = sum(p.numel() for p in trained.parameters())
+    with torch.no_grad():
+        z = trained.encode(images[:2])
+        dec = trained.decode(z, force_not_quantize=False)
+    print(f"main path check: first_stage/ reloads at {n_trained:,} params; encode {tuple(z.shape)}"
+          f", decode {tuple(dec.shape)}, finite {bool(torch.isfinite(dec).all())}")
+    assert n_trained == LDM_PARAMS["first_stage"] and tcfg == cfg and bool(torch.isfinite(dec).all())
+    del trained, z, dec
+    ops.reset_launch_counts()
+    bf16_stats, _, bf16_seconds = run_cli(autoencoder_train.main, base + [
+        "--output_dir", os.path.join(tmp, "ae_bf16"), "--num_iters", str(AE_STEPS),
+        "--save_model_steps", str(AE_STEPS), "--mixed_precision", "bf16"])
+    bf16_counts = dict(ops.LAUNCHES)
+    print(f"main path autoencoder_train --mixed_precision bf16: losses {bf16_stats['losses']}, "
+          f"{bf16_stats['imgs_per_sec']:.2f} imgs/s, {bf16_seconds:.2f} s {tag}; launches "
+          f"{bf16_counts}")
+    assert all(math.isfinite(x) for x in bf16_stats["losses"]) and bf16_counts == want_cli
+    ops.reset_launch_counts()
+    kl_stats, _, kl_seconds = run_cli(autoencoder_train.main, [
+        "--model_path", ctx["kl_dir"], "--dataset", ctx["data"], "--resolution", str(AE_RES),
+        "--train_batch_size", str(rows), "--lpips", "random", "--disc_start", "0",
+        "--log_steps", "1", "--num_iters", str(AE_KL_STEPS), "--save_model_steps",
+        str(AE_KL_STEPS), "--output_dir", os.path.join(tmp, "ae_kl"), "--device", "cuda"])
+    kl_counts = dict(ops.LAUNCHES)
+    print(f"main path autoencoder_train on kl-f8: losses {kl_stats['losses']}, kl_loss "
+          f"{kl_stats['last']['kl_loss']:.4f}, {kl_stats['imgs_per_sec']:.2f} imgs/s, "
+          f"{kl_seconds:.2f} s {tag}; launches {kl_counts}")
+    assert all(math.isfinite(x) for x in kl_stats["losses"]) and kl_stats["last"]["kl_loss"] > 0
+    assert kl_counts == {k: AE_KL_STEPS * v for k, v in per_step["kl"].items()}, kl_counts
+    out.update(per_step=per_step["vq"], per_step_kl=per_step["kl"], cli_launches=cli_counts,
+               cli_seconds=cli_seconds, cli_losses=stats["losses"],
+               cli_imgs_per_s=stats["imgs_per_sec"], save_seconds=stats["save_seconds"],
+               resume_seconds=resume_seconds, resume_identical=identical,
+               bf16_cli_losses=bf16_stats["losses"], bf16_cli_imgs_per_s=bf16_stats["imgs_per_sec"],
+               kl_cli_losses=kl_stats["losses"], kl_cli_imgs_per_s=kl_stats["imgs_per_sec"])
+    lap("CLI")
+
+    # (d) timings: the step, kernels off, on, on, off (one step each, CUDA
+    # events), split into its parts; peak memory; a profile by kernel class
+    step_ms, profiles = {}, {}
+    for mp, dname in (("no", "float32"), ("bf16", "bfloat16")):
+        st, step = fresh(mp)
+
+        events = {}
+
+        def mark(what):
+            events[what] = torch.cuda.Event(enable_timing=True)
+            events[what].record()
+
+        def run(on, step=step, st=st, marks=None):
+            ops.set_kernels_enabled(on)
+            try:
+                if marks:
+                    marks("start")
+                step(st, images, marks=marks)
+            finally:
+                ops.set_kernels_enabled(True)
+
+        # (b) ran both precisions both ways: no warm-up; the first "on" turn
+        # is also split by the step's marks and read for peak memory
+        ms = []
+        for i, on in enumerate((False, True, True, False)):
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            ms.append(cuda_ms(lambda on=on, i=i: run(on, marks=mark if i == 1 else None),
+                              iters=1, warmup=0))
+            if i == 1:
+                peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        off, on = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        parts = {"generator_forward_ms": events["start"].elapsed_time(events["d_weight"]),
+                 "d_weight_ms": events["d_weight"].elapsed_time(events["gen_backward"]),
+                 "generator_backward_adam_ms": events["gen_backward"].elapsed_time(
+                     events["disc"]),
+                 "discriminator_pass_ms": events["disc"].elapsed_time(events["end"])}
+        busy, span, launches, counts, _ = profile_kernels(lambda: run(True))
+        print_profile(f"ae train step kernels on B={rows} {dname}", busy, span, launches,
+                      counts, ("step", 1), tag)
+        profiles[dname] = {"busy_ms": busy, "span_ms": span, "launches": launches,
+                           "idle_share": 1 - sum(busy.values()) / span}
+        step_ms[dname] = {"kernels_on_ms": on, "kernels_off_ms": off, "turns_ms": ms,
+                          "kernels_on_imgs_per_s": rows * 1e3 / on,
+                          "kernels_off_imgs_per_s": rows * 1e3 / off, "peak_gb": peak, **parts}
+        print(f"time ae train step vq-f4 B={rows} {dname}: kernels on {on:.1f} ms "
+              f"({rows * 1e3 / on:.2f} imgs/s), kernels off {off:.1f} ms "
+              f"({rows * 1e3 / off:.2f} imgs/s) (CUDA events, one step each, off-on-on-off: "
+              f"{', '.join(f'{t:.1f}' for t in ms)}); "
+              "kernels on: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+              + f"; peak memory {peak:.2f} GB {tag}")
+        del st, step
+    out.update(train_step=step_ms, profiles=profiles)
+    lap("step timings")
+
+    # per op at the step's headline shapes: the GroupNorm forward and backward
+    # at (65,536, 128) with SiLU, the attention forward with lse, dq and dk/dv
+    # at (4096, 4096, 512), against plain, the library call and the bound
+    ops_ms = {}
+    n, c = 65536, 128
+    assert (n, c, 1e-6, True) in gn_cases, sorted(gn_cases)
+    nq, nkv, _, d = max(attn_cases)
+    for dname in ("float32", "bfloat16"):
+        dtype, es = getattr(torch, dname), NBYTES[dname]
+        x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        dy = torch.randn((rows, n, c), generator=gen, device=dev).to(dtype)
+        sc = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bi = torch.randn((c,), generator=gen, device=dev) * 0.1
+        kw = dict(groups=32, eps=1e-6, with_silu=True)
+        mean, rstd = G.group_norm_stats_reference(x, 32, eps=1e-6)
+        # F.group_norm on its own (B, C, N) layout and its autograd (no SiLU:
+        # the nearest library call)
+        xl = x.transpose(1, 2).contiguous().requires_grad_()
+        sl, bl = (z_.to(dtype, copy=True).requires_grad_() for z_ in (sc, bi))
+        yl = F.group_norm(xl, 32, sl, bl, eps=1e-6)
+        dyl = dy.transpose(1, 2).contiguous()
+        fns = [lambda: group_norm_reference(x, sc, bi, **kw), lambda: group_norm(x, sc, bi, **kw),
+               lambda: F.group_norm(xl, 32, sl, bl, eps=1e-6),
+               lambda: G.group_norm_backward_reference(x, sc, bi, dy, mean, rstd, groups=32,
+                                                       with_silu=True),
+               lambda: G.group_norm_backward(x, sc, bi, dy, mean, rstd, groups=32,
+                                             with_silu=True),
+               lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True)]
+        g_ms = in_turns(fns, iters=3)
+        el = rows * n * c
+        gfb = bound(2 * el * es + 2 * c * 4, el * 9, dname)
+        gbb = bound(*gn_bwd_work(n, c, True, dname, rows=rows), dname)
+        del x, dy, xl, yl, dyl, fns
+
+        def views(n_):
+            return torch.randn((rows, n_, d), generator=gen, device=dev).to(dtype) \
+                .view(rows, n_, 1, d).transpose(1, 2)
+
+        q, k, v, do = views(nq), views(nkv), views(nkv), views(nq)
+        scale = d ** -0.5
+        o, lse = A.reference_attention_lse(q, k, v, scale)
+        _, dsum = A.attention_backward_dq_reference(q, k, v, o, do, lse, scale)
+        ql, kl, vl = (z_.detach().clone().requires_grad_() for z_ in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+        fns = [lambda: A.reference_attention_lse(q, k, v, scale),
+               lambda: A.flash_attention_forward_lse(q, k, v, scale),
+               lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+               lambda: A.attention_backward_dq_reference(q, k, v, o, do, lse, scale),
+               lambda: A.flash_attention_backward_dq(q, k, v, o, do, lse, scale),
+               lambda: A.attention_backward_dkv_reference(q, k, v, do, lse, dsum, scale),
+               lambda: A.flash_attention_backward_dkv(q, k, v, do, lse, dsum, scale),
+               lambda: torch.autograd.grad(ol, (ql, kl, vl), do, retain_graph=True)]
+        a_ms = in_turns(fns, iters=3)
+        fwd_flops = 4 * rows * nq * nkv * d
+        afb = bound(es * rows * (2 * nq + 2 * nkv) * d + 4 * rows * nq, fwd_flops, dname)
+        (bq_bytes, fq), (bkv_bytes, fkv) = ldm_bwd_work(rows, nq, nkv, d, es=es)
+        dqb, dkvb = bound(bq_bytes, fq, dname), bound(bkv_bytes, fkv, dname)
+        backends = (sdpa_backend(fns[2]), sdpa_backend(fns[7]))
+        ops_ms[dname] = {
+            "gn_shape": [n, c], "attn_shape": [nq, nkv, d],
+            "gn_fwd": {"kernel": g_ms[1], "plain": g_ms[0], "library": g_ms[2],
+                       "bound": gfb[0], "bound_by": gfb[1]},
+            "gn_bwd": {"kernel": g_ms[4], "plain": g_ms[3], "library": g_ms[5],
+                       "bound": gbb[0], "bound_by": gbb[1]},
+            "attn_fwd": {"kernel": a_ms[1], "plain": a_ms[0], "library": a_ms[2],
+                         "bound": afb[0], "bound_by": afb[1],
+                         "tflops": fwd_flops / a_ms[1] / 1e9},
+            "dq": {"kernel": a_ms[4], "plain": a_ms[3], "bound": dqb[0], "bound_by": dqb[1],
+                   "tflops": fq / a_ms[4] / 1e9},
+            "dkv": {"kernel": a_ms[6], "plain": a_ms[5], "bound": dkvb[0], "bound_by": dkvb[1],
+                    "tflops": fkv / a_ms[6] / 1e9},
+            "sdpa_bwd": a_ms[7], "sdpa_backends": list(backends)}
+        for what, t in ops_ms[dname].items():
+            if isinstance(t, dict):
+                print(f"time ae {what} rows={rows} {dname} at "
+                      f"{(n, c) if what.startswith('gn') else (nq, nkv, d)}: kernel "
+                      f"{t['kernel']:.4f} ms, plain {t['plain']:.4f}, "
+                      + (f"library {t['library']:.4f}, " if "library" in t else "")
+                      + f"bound {t['bound']:.4f} ({t['bound_by']})"
+                      + (f", {t['tflops']:.2f} TFLOP/s" if "tflops" in t else "") + f" {tag}")
+        print(f"time ae SDPA backward (dq+dk+dv, {backends[1]}) rows={rows} {dname} at "
+              f"{(nq, nkv, d)}: {a_ms[7]:.4f} ms {tag}")
+        del q, k, v, do, o, ql, kl, vl, ol, fns
+    out["ops"] = ops_ms
+    del model, disc, lpips, images, masters
+    lap("op timings")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"ae train phase {out['seconds']:.1f} s (" + ", ".join(
         f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
     return out
 
@@ -3381,7 +3939,7 @@ def main() -> None:
                            lambda: flash_attention(q, k, v, d ** -0.5),
                            lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)]
                     nbytes, flops = attn_fwd_work(n, h, d, dname)
-                ms = in_turns(fns, iters=20)
+                ms = in_turns(fns, iters=5)
                 pm, km = ms[0], ms[1]
                 bms, by = bound(nbytes, flops, dname)
                 tot["kernel"] += km * calls
@@ -3441,20 +3999,16 @@ def main() -> None:
             ops.set_kernels_enabled(on)
             warm(gen, B, 32, 3)
         ops.set_kernels_enabled(True)
-        off1, on1, on2, off2 = run(False), run(True), run(True), run(False)
-        if name == "dense":  # profile of 5 DDIM steps
+        off1, on1 = run(False), run(True)
+        if name == "dense":  # profile of 5 DDIM steps, kernels on
             prof = make_sampler(net, sched, SamplerConfig(num_inference_steps=5, dtype=dname))
-            for on in (True, False):
-                ops.set_kernels_enabled(on)
-                print_profile(f"sampling dense DDIM step kernels {'on' if on else 'off'} "
-                              f"B={B} {dname}", *profile_classes(lambda: prof(gen, B, 32, 3)),
-                              ("step", 5), tag)
-            ops.set_kernels_enabled(True)
-        on, off = B * 2000 / (on1 + on2), B * 2000 / (off1 + off2)
+            print_profile(f"sampling dense DDIM step kernels on B={B} {dname}",
+                          *profile_classes(lambda: prof(gen, B, 32, 3)), ("step", 5), tag)
+        on, off = B * 1000 / on1, B * 1000 / off1
         sampling[name][dname] = {"kernels_on": on, "kernels_off": off}
         print(f"time sampling {name} DDIM-{SAMPLE_TIME_STEPS} B={B} {dname}: kernels on "
-              f"{on:.2f} imgs/s ({on1:.1f}, {on2:.1f} ms), kernels off "
-              f"{off:.2f} imgs/s ({off1:.1f}, {off2:.1f} ms) {tag}")
+              f"{on:.2f} imgs/s ({on1:.1f} ms), kernels off "
+              f"{off:.2f} imgs/s ({off1:.1f} ms) {tag}")
     torch.cuda.synchronize()
     del model, pmodel
 
@@ -3684,7 +4238,7 @@ def main() -> None:
                 yl = F.group_norm(xl, 32, sl, bl, eps=1e-6)
                 dyl = dy.transpose(1, 2).contiguous()
                 fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
-            ms = in_turns(fns, iters=20)
+            ms = in_turns(fns, iters=5)
             bms, by = bound(*gn_bwd_work(n, c, silu, dname), dname)
             tot["gn_kernel"] += ms[1] * calls
             tot["gn_plain"] += ms[0] * calls
@@ -3719,7 +4273,7 @@ def main() -> None:
                                 q, k, v, o, do, lse, scale)),
                             with_lib("bwd", lib, lambda: A.flash_attention_backward_dkv(
                                 q, k, v, do, lse, dsum, scale))]
-                ms = in_turns(fns, iters=20)
+                ms = in_turns(fns, iters=5)
                 fq, fkv = attn_dq_work(n, h, d, dname)[1], attn_dkv_work(n, h, d, dname)[1]
                 bq, byq = bound(*attn_dq_work(n, h, d, dname), dname)
                 bkv, bykv = bound(*attn_dkv_work(n, h, d, dname), dname)
@@ -3771,7 +4325,10 @@ def main() -> None:
         finally:
             ops.set_kernels_enabled(True)
 
-    off_ms, on_ms = in_turns([lambda: sweep_steps(False), lambda: sweep_steps(True)], iters=2)
+    sweep_steps(False)  # one warm-up each
+    sweep_steps(True)
+    off_ms, on_ms = in_turns([lambda: sweep_steps(False), lambda: sweep_steps(True)], iters=1,
+                             warmup=0)
     step_on, step_off = on_ms / SWEEP_STEPS, off_ms / SWEEP_STEPS
     print(f"time sweep step (forward + backward) cifar10 35.75M B={B} f32: kernels on "
           f"{step_on:.2f} ms, kernels off {step_off:.2f} ms (CUDA events, in turns "
@@ -3873,7 +4430,9 @@ def main() -> None:
             finally:
                 ops.set_kernels_enabled(True)
 
-        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=3)
+        run(False)  # one warm-up each
+        run(True)
+        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=1, warmup=0)
         dname = "bfloat16" if prec == "bf16" else "float32"
         train_ms[(name, dname)] = {"kernels_on_ms": on, "kernels_off_ms": off,
                                    "kernels_on_imgs_per_s": B * 1e3 / on,
@@ -3883,22 +4442,23 @@ def main() -> None:
         run(True)
         torch.cuda.synchronize()
         peak_gb[(name, dname)] = torch.cuda.max_memory_allocated(dev) / 1e9
-        train_ms[(name, dname)]["host_ms"] = host_us_per_call(lambda: run(True), calls=3) / 1e3
+        train_ms[(name, dname)]["host_ms"] = host_us_per_call(lambda: run(True), calls=1) / 1e3
         print(f"time train step {name} B={B} {dname}: kernels on {on:.2f} ms "
               f"({B * 1e3 / on:.1f} imgs/s), kernels off {off:.2f} ms ({B * 1e3 / off:.1f} "
-              f"imgs/s) (CUDA events, in turns off-on-on-off, 3 steps each, dropout 0.1); host "
+              f"imgs/s) (CUDA events, in turns off-on-on-off, 1 step each, dropout 0.1); host "
               f"{train_ms[(name, dname)]['host_ms']:.2f} ms a step kernels on (perf_counter over "
-              f"3 steps without a sync); peak memory {peak_gb[(name, dname)]:.2f} GB {tag}")
-        busy, span, launches, counts, by_name = profile_kernels(lambda: run(True))
-        print_profile(f"train step {name} kernels on B={B} {dname}", busy, span, launches,
-                      counts, ("step", 1), tag)
-        prof = train_prof[f"{name}/{dname}"] = {
-            "busy_ms": sum(busy.values()), "span_ms": span, "launches": launches,
-            "idle_share": 1 - sum(busy.values()) / span,
-            "dq_ms": sum(v for k, v in by_name.items() if "flash_bwd_dq" in k),
-            "dkv_ms": sum(v for k, v in by_name.items() if "flash_bwd_dkv" in k)}
-        print(f"profile train step {name} B={B} {dname}: dq kernel {prof['dq_ms']:.3f} ms, "
-              f"dk/dv kernel {prof['dkv_ms']:.3f} ms device time per step {tag}")
+              f"1 step without a sync); peak memory {peak_gb[(name, dname)]:.2f} GB {tag}")
+        if name == "dense":  # a profile of the dense step
+            busy, span, launches, counts, by_name = profile_kernels(lambda: run(True))
+            print_profile(f"train step {name} kernels on B={B} {dname}", busy, span, launches,
+                          counts, ("step", 1), tag)
+            prof = train_prof[f"{name}/{dname}"] = {
+                "busy_ms": sum(busy.values()), "span_ms": span, "launches": launches,
+                "idle_share": 1 - sum(busy.values()) / span,
+                "dq_ms": sum(v for k, v in by_name.items() if "flash_bwd_dq" in k),
+                "dkv_ms": sum(v for k, v in by_name.items() if "flash_bwd_dkv" in k)}
+            print(f"profile train step {name} B={B} {dname}: dq kernel {prof['dq_ms']:.3f} "
+                  f"ms, dk/dv kernel {prof['dkv_ms']:.3f} ms device time per step {tag}")
         if (name, prec) == ("dense", "no"):
             opt = make_optimizer(tcfg)
             plist = list(st.params.values())
@@ -3952,10 +4512,17 @@ def main() -> None:
     ablation = ablation_path(tmp, gen, gpu, tag, worst, {
         "sched": sched, "ckpt": os.path.join(tmp, "dense"), "data": data,
         "per_call": (sum(gn_dense.values()), sum(attn_dense.values()))})
-    tmpdir.cleanup()
 
     mark(21)
-    # -- 21. result lines
+    # -- 21. the first-stage training path: the five kernels' backward at the
+    # vq-f4 codec's shapes, the step kernels on against off, the CLI
+    ae = ae_train_path(tmp, gen, gpu, tag, worst, {
+        "vq_dir": ldm_dir, "kl_dir": os.path.join(tmp, "uncond_churches"),
+        "data": os.path.join(tmp, "ldm_train_data")})
+    tmpdir.cleanup()
+
+    mark(22)
+    # -- 22. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -3986,7 +4553,32 @@ def main() -> None:
                     launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key],
                     launches_ldm_train_cli=ldm_train_fig["cli_launches"][key],
                     launches_prune_ssim_cli=ablation["prune_ssim"]["launches"][key],
-                    max_abs_err_cost_aware_unets=worst[(key + "_cost", "float32")])
+                    max_abs_err_cost_aware_unets=worst[(key + "_cost", "float32")],
+                    **ae_of(key))
+
+    def ae_of(key):
+        """The first-stage training path's figures (phase 21): launches of the
+        autoencoder_train CLI's f32 run, the max abs error over a vq-f4 train
+        step's shapes (f32 and bf16), and ms, plain, bound and library of one
+        call at the step's headline shape (B = 12)."""
+        err_key = {"group_norm": "group_norm_ae", "group_norm_bwd": "group_norm_bwd_ae",
+                   "attention": "attention_ae", "attention_bwd_dq": "attention_bwd_dq_ae",
+                   "attention_bwd_dkv": "attention_bwd_dkv_ae"}[key]
+        op = {"group_norm": "gn_fwd", "group_norm_bwd": "gn_bwd", "attention": "attn_fwd",
+              "attention_bwd_dq": "dq", "attention_bwd_dkv": "dkv"}[key]
+        res = {"launches_ae_cli": ae["cli_launches"][key],
+               "max_abs_err_ae": worst[(err_key, "float32")],
+               "max_abs_err_ae_bf16": worst[(err_key, "bfloat16")],
+               "ae_shape": (ae["ops"]["float32"]["gn_shape"] if key.startswith("group_norm")
+                            else ae["ops"]["float32"]["attn_shape"])}
+        for dname, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+            t = ae["ops"][dname][op]
+            res.update({f"ms_ae{sfx}": t["kernel"], f"plain_ms_ae{sfx}": t["plain"],
+                        f"bound_ms_ae{sfx}": t["bound"], f"bound_by_ae{sfx}": t["bound_by"],
+                        f"library_ms_ae{sfx}": t.get("library")})
+            if key.startswith("attention_bwd"):
+                res[f"library_ms_dq_dk_dv_ae{sfx}"] = ae["ops"][dname]["sdpa_bwd"]
+        return res
 
     lp_ops = ldm_prune_fig["ops_per_step"]
     per_ldm_step = f"f32, summed over one B={LDM_PRUNE_B} LDM sweep step's calls"
@@ -4195,6 +4787,7 @@ def main() -> None:
     print(json.dumps({"ldm_train": ldm_train_fig}))
     print(json.dumps({"uncond_ldm": uncond}))
     print(json.dumps({"ablation": ablation}))
+    print(json.dumps({"ae_train": ae}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

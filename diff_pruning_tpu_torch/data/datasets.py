@@ -14,8 +14,10 @@ the same ``np.random.default_rng(seed)`` in the same order, so its batches
 are bit-identical to the JAX package's for the same seed, and so are the
 batches after a ``skip_batches`` fast-forward for resume; the same holds
 for ``iterate_labeled_batches`` over a class-labeled folder (the LDM train
-CLI's data), which decodes with PIL as the JAX version does where its
-native decoder is not built (that decoder is not ported yet). LSUN/FFHQ lmdb,
+CLI's data). Image folders are decoded with PIL, as the JAX version decodes
+them where its native decoder is not built (that decoder is not ported
+yet: it equals PIL for images stored at the resolution, and resizes with
+another filter). LSUN/FFHQ lmdb,
 CIFAR-100, the ImageNet and txt-list sources and the ddpm_exp input
 transforms are not ported yet.
 """
@@ -233,21 +235,21 @@ def normalize(batch_u8: np.ndarray) -> np.ndarray:
     return batch_u8.astype(np.float32) / 127.5 - 1.0
 
 
-def iterate_batches(dataset: ArrayDataset, batch_size: int, *, seed: int = 0,
+def iterate_batches(dataset, batch_size: int, *, seed: int = 0,
                     skip_batches: int = 0) -> Iterator[np.ndarray]:
     """Endless shuffled epochs of normalized NHWC float32 batches with random
     horizontal flip, the last partial batch of each epoch dropped (the JAX
     version's plain path with its defaults: one permutation per epoch, then
-    one flip draw per batch, from one ``default_rng(seed)``).
+    one flip draw per batch, from one ``default_rng(seed)``), from an
+    :class:`ArrayDataset` or an :class:`ImageFolderDataset` (decoded image
+    by image with :meth:`ImageFolderDataset.load`).
 
     ``skip_batches`` fast-forwards the stream for resume: the skipped
     batches' shuffle and flip draws are replayed without touching pixels, so
-    a resumed run sees exactly the batches an uninterrupted run would.
-    Only in-memory datasets are batched here: an image folder raises."""
-    if not isinstance(dataset, ArrayDataset):
-        raise NotImplementedError(f"{type(dataset).__name__}: training batches come from a .npz "
-                                  "or CIFAR-10 batches (image folders are read only by the "
-                                  "evaluation path)")
+    a resumed run sees exactly the batches an uninterrupted run would."""
+    if not isinstance(dataset, (ArrayDataset, ImageFolderDataset)):
+        raise TypeError(f"{type(dataset).__name__}: batches come from an ArrayDataset or an "
+                        "ImageFolderDataset")
     rng = np.random.default_rng(seed)
     n = len(dataset)
     while True:
@@ -258,6 +260,9 @@ def iterate_batches(dataset: ArrayDataset, batch_size: int, *, seed: int = 0,
             if skip_batches > 0:
                 skip_batches -= 1
                 continue
-            imgs = dataset.images[idx].copy()
+            if isinstance(dataset, ArrayDataset):
+                imgs = dataset.images[idx].copy()
+            else:
+                imgs = np.stack([dataset.load(j) for j in idx])
             imgs[flips] = imgs[flips, :, ::-1]
             yield normalize(imgs)

@@ -11,8 +11,11 @@ goes through the attention kernel like the UNets' (the vq-f4 decoder's is
 
 ``encode`` and ``decode`` take and return NHWC like the JAX models; inside,
 activations are NCHW in ``torch.channels_last`` memory. The LDM train step
-encodes in bf16 (``cast_compute_weights``). The VQ training quantizer
-(``quantize_train``) comes with the autoencoder slice.
+encodes in bf16 (``cast_compute_weights``). The first-stage trainer
+(``training/autoencoder.py``) differentiates through both codecs: it takes
+the decoder's trunk (``Decoder.features``) apart from ``conv_out`` and the
+VQ lookup with its straight-through estimator and codebook loss
+(``VQModel.quantize_train``).
 """
 
 from __future__ import annotations
@@ -233,8 +236,10 @@ class Decoder(nn.Module):
                                        **dev)
         self.conv_out = Conv2D(scope("conv_out"), cur, self.v_out, 3, 1, 1, **dev)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """NCHW in and out."""
+    def features(self, z: torch.Tensor) -> torch.Tensor:
+        """Everything before ``conv_out`` (NCHW in and out): the GAN
+        trainer's adaptive weight differentiates through ``conv_out`` alone
+        (the reference's last layer, ``decoder.conv_out.weight``)."""
         h = _run_mid(self.mid_block, self.conv_in(z))
         for blk in self.up_blocks.values():
             for j, r in blk["resnets"].items():
@@ -243,7 +248,11 @@ class Decoder(nn.Module):
                     h = blk["attentions"][j](h)
             if "upsamplers" in blk:
                 h = blk["upsamplers"]["0"]["conv"](upsample_nearest_2x(h))
-        return self.conv_out(self.conv_norm_out(h, with_silu=True))
+        return self.conv_norm_out(h, with_silu=True)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """NCHW in and out."""
+        return self.conv_out(self.features(z))
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -325,6 +334,22 @@ class VQModel(_FirstStage):
             torch.argmin(part.pow(2).sum(1, keepdim=True) - 2.0 * part @ emb.t() + e2, dim=1)
             for part in flat.split(rows)])
         return emb[idx].reshape(z.shape), idx.reshape(z.shape[:-1])
+
+    def quantize_train(self, z: torch.Tensor, beta: float = 0.25):
+        """Training-mode quantize (taming VectorQuantizer2, legacy weighting,
+        beta 0.25 as ldm's autoencoder.py instantiates it): ``(zq, loss,
+        indices)`` with the straight-through ``zq = z + (zq - z).detach()``
+        and ``loss = mean((zq.detach() - z)^2) + beta * mean((zq -
+        z.detach())^2)`` in f32 whatever the compute dtype. The lookup
+        (:meth:`quantize_latents`, chunked) runs without grad; the codebook
+        gets its grad through the gathered rows (``F.embedding``: on the card
+        its backward is deterministic, so a resumed run is bit-identical)."""
+        with torch.no_grad():
+            _, idx = self.quantize_latents(z)
+        zq = F.embedding(idx, self.quantize.embedding.weight.to(z.dtype))
+        zf, qf = z.to(torch.float32), zq.to(torch.float32)
+        loss = ((qf.detach() - zf) ** 2).mean() + beta * ((qf - zf.detach()) ** 2).mean()
+        return z + (zq - z).detach(), loss, idx
 
     def decode(self, z: torch.Tensor, force_not_quantize: bool = True) -> torch.Tensor:
         """NHWC latent -> NHWC image."""

@@ -119,9 +119,11 @@ def _keystr(flat_path: str) -> str:
 
 class Optimizer:
     """optax's ``chain(clip_by_global_norm(grad_clip), adam | adamw)``, with a
-    constant LR or a linear warmup to it, applied in place."""
+    constant LR or a linear warmup to it, applied in place. ``adam_path``
+    overrides the keypath of Adam's state: ``'[0]'`` is bare ``optax.adam``'s
+    (the autoencoder trainer's two optimizers, ``grad_clip`` 0, no warmup)."""
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, adam_path: Optional[str] = None):
         if cfg.optimizer != "adam":
             raise NotImplementedError(
                 f"optimizer {cfg.optimizer!r} is not ported yet (ROADMAP queue 1, item 2: "
@@ -132,7 +134,7 @@ class Optimizer:
                 "left out); the port has a constant LR with an optional warmup")
         self.cfg = cfg
         i = 1 if cfg.grad_clip else 0
-        self.adam_path = f"[{i}][0]"
+        self.adam_path = adam_path or f"[{i}][0]"
         self.schedule_path = (f"[{i}][{2 if cfg.weight_decay else 1}]"
                               if cfg.lr_warmup_steps else None)
 
@@ -151,10 +153,10 @@ class Optimizer:
         return float(np.float32(-lr) * frac + np.float32(lr))
 
     @torch.no_grad()
-    def update(self, grads: Sequence[torch.Tensor], grad_norm: torch.Tensor,
+    def update(self, grads: Sequence[torch.Tensor], grad_norm: Optional[torch.Tensor],
                state: AdamState, params: Sequence[torch.Tensor]) -> None:
-        """Clips ``grads`` (in place) by ``grad_norm``, their global norm,
-        updates the moments and the params in place."""
+        """Clips ``grads`` (in place) by ``grad_norm``, their global norm
+        (unread without a clip), updates the moments and the params in place."""
         cfg = self.cfg
         grads, params = list(grads), list(params)
         mu, nu = list(state.mu.values()), list(state.nu.values())

@@ -180,9 +180,19 @@ def save_train_state(path: str, *, step: int, params: Mapping[str, torch.Tensor]
         shutil.rmtree(os.path.join(path, e), ignore_errors=True)
 
 
-def _resolve_ckpt_dir(path: str) -> str:
-    """The version ``LATEST`` points to; a single version (a ``step-N/``
-    directory, or meta.json directly inside) resolves to itself."""
+def _resolve_ckpt_dir(path: str, step: Optional[int] = None) -> str:
+    """The version ``LATEST`` points to, or with ``step`` that version (the
+    autoencoder trainer loads its discriminator at the generator's step); a
+    single version (a ``step-N/`` directory, or meta.json directly inside)
+    resolves to itself."""
+    if step is not None:
+        d = os.path.join(path, f"step-{int(step)}")
+        if os.path.isdir(d):
+            return d
+        if os.path.exists(os.path.join(path, "LATEST")):
+            avail = sorted(e for e in os.listdir(path) if e.startswith("step-"))
+            raise FileNotFoundError(f"{path}: no step-{int(step)} version (available: {avail})")
+        return path
     latest = os.path.join(path, "LATEST")
     if os.path.exists(latest):
         with open(latest) as f:
@@ -190,13 +200,14 @@ def _resolve_ckpt_dir(path: str) -> str:
     return path
 
 
-def restore_opt_state(path: str, opt_state_template):
+def restore_opt_state(path: str, opt_state_template, step: Optional[int] = None):
     """Fills ``opt_state_template`` (a fresh ``AdamState``) in place from the
-    saved ``opt_state.npz``, matched by keypath; raises on a missing path.
+    saved ``opt_state.npz`` (of version ``step``, default ``LATEST``'s),
+    matched by keypath; raises on a missing path.
     Returns ``(state, True)``, or ``(template, False)`` when the checkpoint
     holds no optimizer state. The JAX package's legacy positional archives
     ('0', '1', ...) are not read."""
-    opt_path = os.path.join(_resolve_ckpt_dir(path), "opt_state.npz")
+    opt_path = os.path.join(_resolve_ckpt_dir(path, step), "opt_state.npz")
     if not os.path.exists(opt_path):
         return opt_state_template, False
     with np.load(opt_path) as z:
@@ -207,10 +218,11 @@ def restore_opt_state(path: str, opt_state_template):
     return opt_state_template, True
 
 
-def load_train_state(path: str):
-    """Returns ``(meta, params, ema_params | None)``, the tensors as state
-    dicts (CPU). The optimizer state comes from :func:`restore_opt_state`."""
-    path = _resolve_ckpt_dir(path)
+def load_train_state(path: str, step: Optional[int] = None):
+    """Returns ``(meta, params, ema_params | None)`` of version ``step``
+    (default ``LATEST``'s), the tensors as state dicts (CPU). The optimizer
+    state comes from :func:`restore_opt_state`."""
+    path = _resolve_ckpt_dir(path, step)
     params = load_params_npz(os.path.join(path, "params.npz"))
     ema_path = os.path.join(path, "ema_params.npz")
     ema = load_params_npz(ema_path) if os.path.exists(ema_path) else None

@@ -216,7 +216,10 @@ def _check_group_norm_backward(cuda):
              (6, 1024, 384, 32, False), (6, 1024, 960, 32, True), (6, 256, 576, 32, False),
              (6, 256, 1536, 32, True), (6, 64, 960, 32, False), (6, 64, 1920, 32, True),
              (6, 4096, 160, 32, True), (6, 1024, 288, 32, False), (6, 256, 416, 32, True),
-             (6, 64, 672, 32, False), (6, 64, 1344, 32, True)]
+             (6, 64, 672, 32, False), (6, 64, 1344, 32, True),
+             # the vq-f4 codec's first and last levels at 256 x 256 (the
+             # autoencoder trainer's): 1 and 2 MB slabs
+             (2, 65536, 128, 32, True), (2, 65536, 256, 32, True)]
 
     def inputs(b, n, c, dtype):
         x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
@@ -327,7 +330,9 @@ def _check_flash_attention_backward(cuda):
     through head-split D = 179 views of fused projections (rows only 2-byte
     aligned); the wide head dims in every dtype (the LDM sweep's and train
     step's one-head self- and class-token cross-attention at B = 6, the
-    widths of the UNet pruned at 0.3, D = 320 and 1024, several heads, fused
+    widths of the UNet pruned at 0.3, D = 320 and 1024, several heads, the
+    vq-f4 codec's 4096-token D = 512 mid attention (the autoencoder
+    trainer's), fused
     D = 270 views: rows only 8-byte aligned in f32, 4-byte in 16 bits; fused
     D = 268 and 269 in 16 bits: 8- and 2-byte aligned); the wide kernels at
     their tile edges against the plain versions in float64 in every dtype
@@ -351,7 +356,8 @@ def _check_flash_attention_backward(cuda):
             (6, 1, 1024, 1024, 268), (6, 1, 1024, 1, 268), (6, 1, 256, 256, 404),
             (6, 1, 256, 1, 404), (6, 1, 64, 64, 672), (6, 1, 64, 1, 672),
             (2, 1, 64, 64, 320), (2, 1, 64, 1, 320), (2, 1, 64, 64, 1024), (2, 1, 64, 1, 1024),
-            (2, 1, 40, 33, 1024), (2, 3, 40, 40, 300), (1, 1, 300, 130, 257)]
+            (2, 1, 40, 33, 1024), (2, 3, 40, 40, 300), (1, 1, 300, 130, 257),
+            (2, 1, 4096, 4096, 512)]  # the last: vq-f4's mid attentions, in training
     runs = [(b, h, nq, nkv, d, dtype, None) for b, h, nq, nkv, d in cases + wide
             for dtype in TOL]
     runs += [(2, heads, 64, 64, 179, dtype, heads) for heads in (1, 2) for dtype in TOL]

@@ -204,6 +204,122 @@ def test_ldm_models_match_jax(tmp_path):
                 draw = tm.encode(torch.from_numpy(img), generator=torch.Generator().manual_seed(0))
                 assert draw.shape == (2, 8, 8, 3) and bool(torch.isfinite(draw).all())
 
+    # the first-stage trainer's parts: Decoder.features (conv_out applied to
+    # it is the decode), quantize_train (values, straight-through grad, loss)
+    vcfg = _tiny_vae_config("vq")
+    jm = jv.make_first_stage(vcfg)
+    tm = tv.make_first_stage(tv.AutoencoderConfig.from_json(vcfg.to_json()), device="cpu")
+    flat = numpy_params(jm.init, 5)
+    tm.load_state_dict(tckpt.state_dict_from_flat(flat))
+    jp = _jax_tree(flat)
+    zz = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        jh = jm.decoder.features(jp["decoder"], jm.post_quant_conv(jp["post_quant_conv"],
+                                                                    jnp.asarray(zz)))
+        jzq, jloss, jidx = jm.quantize_train(jp, jnp.asarray(zz), beta=0.25)
+        jgrad = jax.grad(lambda z: jnp.sum(jm.quantize_train(jp, z)[0] ** 2)
+                         + jm.quantize_train(jp, z)[1])(jnp.asarray(zz))
+    with torch.no_grad():
+        th = tm.decoder.features(tm.post_quant_conv(torch.from_numpy(zz).permute(0, 3, 1, 2)))
+        _close(th.permute(0, 2, 3, 1).numpy(), jh, "decoder features")
+        np.testing.assert_array_equal(tm.decoder.conv_out(th).numpy(),
+                                      tm.decoder(tm.post_quant_conv(
+                                          torch.from_numpy(zz).permute(0, 3, 1, 2))).numpy())
+    tz = torch.from_numpy(zz).requires_grad_()
+    tzq, tloss, tidx = tm.quantize_train(tz, beta=0.25)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tzq.detach().numpy(), np.asarray(jzq), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss), rtol=1e-6)
+    tgrad, = torch.autograd.grad((tzq ** 2).sum() + tloss, tz)
+    np.testing.assert_allclose(tgrad.numpy(), np.asarray(jgrad), rtol=1e-5, atol=1e-7)
+    cb = tm.quantize.embedding.weight
+    cgrad, = torch.autograd.grad(tm.quantize_train(tz.detach(), beta=0.25)[1], cb)
+    with jax.default_matmul_precision("float32"):
+        jcb = jax.grad(lambda w: jm.quantize_train(
+            {**jp, "quantize": {"embedding": {"weight": w}}}, jnp.asarray(zz))[1])(
+            jp["quantize"]["embedding"]["weight"])
+    np.testing.assert_allclose(cgrad.numpy(), np.asarray(jcb), rtol=1e-5, atol=1e-8)
+
+    # the PatchGAN discriminator: graph, init layout, forward (BatchNorm from
+    # batch statistics; ActNorm), the undersized-input raise; ActNorm's init
+    from diff_pruning_tpu.models import discriminator as jdisc
+    from diff_pruning_tpu_torch.models import discriminator as tdisc
+
+    img = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    for n_layers, actnorm in ((2, False), (2, True), (3, False), (3, True)):
+        jd = jdisc.NLayerDiscriminator(ndf=8, n_layers=n_layers, use_actnorm=actnorm)
+        td = tdisc.NLayerDiscriminator(ndf=8, n_layers=n_layers, use_actnorm=actnorm,
+                                       device="cpu")
+        assert _graph_signature(td.graph) == _graph_signature(jd.graph)
+        assert td.widths == jd.widths and td.min_input_size == jd.min_input_size
+        flat = numpy_params(jd.init, 13 + n_layers)
+        assert set(tckpt.flat_from_state_dict(td.state_dict())) == set(flat)
+        td.init(torch.Generator().manual_seed(0))
+        assert float(td.main["1"]["conv"].kernel.detach().std()) == pytest.approx(0.02, rel=0.1)
+        td.load_state_dict(tckpt.state_dict_from_flat(flat))
+        jd.graph.validate(_jax_tree(flat))
+        size = max(24, jd.min_input_size)
+        with jax.default_matmul_precision("float32"), torch.no_grad():
+            want = jd(_jax_tree(flat), jnp.asarray(img[:, :size, :size]))
+            got = td(torch.from_numpy(img[:, :size, :size].copy()))
+            assert got.shape == want.shape
+            _close(got.numpy(), want, f"discriminator {n_layers} {actnorm}")
+        with pytest.raises(ValueError, match="too small"):
+            td(torch.zeros((1, td.min_input_size - 1, 40, 3)))
+    xa = rng.standard_normal((4, 5, 5, 3)).astype(np.float32) * 3 + 1
+    ja = jdisc.actnorm_initialize({}, jnp.asarray(xa))
+    ta = tdisc.actnorm_initialize(torch.from_numpy(xa))
+    for k in ("loc", "scale"):
+        np.testing.assert_allclose(ta[k].numpy(), np.asarray(ja[k]), rtol=1e-5)
+    np.testing.assert_allclose(tdisc.actnorm_apply(ta["scale"], ta["loc"], torch.from_numpy(xa))
+                               .numpy(), np.asarray(jdisc.actnorm_apply(ja, jnp.asarray(xa))),
+                               rtol=1e-5, atol=1e-6)
+
+    # LPIPS: JAX's random init written as its .npz layout, read by the port;
+    # the state-dict converter; the trainer's losses
+    from diff_pruning_tpu.eval import lpips as jlpips
+    from diff_pruning_tpu.training import autoencoder as jae
+    from diff_pruning_tpu_torch.eval import lpips as tlpips
+    from diff_pruning_tpu_torch.training import autoencoder as tae
+
+    jlp = jlpips.init_lpips_params(jax.random.key(3))
+    jckpt.save_params_npz(str(tmp_path / "lpips.npz"), jlp)
+    tlp = tlpips.LPIPS(device="cpu")
+    tlp.load_state_dict(tlpips.load_lpips_params(str(tmp_path / "lpips.npz")))
+    assert not any(p.requires_grad for p in tlp.parameters())
+    ia, ib = (rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    with jax.default_matmul_precision("float32"), torch.no_grad():
+        want = jlpips.lpips(jlp, jnp.asarray(ia), jnp.asarray(ib))
+        got = tlp(torch.from_numpy(ia), torch.from_numpy(ib))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+        assert float(tlp(torch.from_numpy(ia), torch.from_numpy(ia)).abs().max()) == 0.0
+    vgg = {f"features.{i}.weight": rng.standard_normal((co, ci, 3, 3)).astype(np.float32)
+           for i, (ci, co) in zip(jlpips.VGG16_CONV_IDX, jlpips.VGG16_CONV_CH)}
+    vgg.update({f"features.{i}.bias": rng.standard_normal(co).astype(np.float32)
+                for i, (ci, co) in zip(jlpips.VGG16_CONV_IDX, jlpips.VGG16_CONV_CH)})
+    lins = {f"lin{k}.model.1.weight": rng.uniform(0, 1, (1, c, 1, 1)).astype(np.float32)
+            for k, c in enumerate(jlpips.TAP_CHANNELS)}
+    conv = tckpt.flat_from_state_dict(tlpips.torch_lpips_state_dicts_to_params(vgg, lins))
+    jconv = flatten_params(jlpips.torch_lpips_state_dicts_to_params(vgg, lins))
+    assert sorted(conv) == sorted(jconv)
+    for k, v in jconv.items():
+        np.testing.assert_array_equal(conv[k], np.asarray(v), err_msg=k)
+    tinit = tlpips.init_lpips_params(torch.Generator().manual_seed(0))
+    assert set(tckpt.flat_from_state_dict(tinit)) == set(jconv)
+    assert all(float(tinit[f"lins.{k}.kernel"].min()) >= 0 for k in range(5))
+    lr_, lf_ = (rng.standard_normal((3, 4, 4, 1)).astype(np.float32) for _ in range(2))
+    wts = rng.uniform(0.5, 2, 3).astype(np.float32)
+    for name, args in (("hinge_d_loss", (lr_, lf_)), ("vanilla_d_loss", (lr_, lf_)),
+                       ("hinge_d_loss_with_exemplar_weights", (lr_, lf_, wts))):
+        np.testing.assert_allclose(float(getattr(tae, name)(*map(torch.from_numpy, args))),
+                                   float(getattr(jae, name)(*map(jnp.asarray, args))),
+                                   rtol=1e-6, err_msg=name)
+    codes = rng.integers(0, 37, (2, 9, 9))
+    for got, want in zip(tae.measure_perplexity(torch.from_numpy(codes), 40),
+                         jae.measure_perplexity(jnp.asarray(codes), 40)):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert [tae.adopt_weight(2.0, s, threshold=3) for s in (2, 3)] == [0.0, 2.0]
+
     # the VQ lookup in row chunks is bit-identical to the whole one
     vq = tv.make_first_stage(tv.AutoencoderConfig.from_json(_tiny_vae_config("vq").to_json()),
                              device="cpu")

@@ -77,9 +77,10 @@ def test_port_imports_nothing_of_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "from diff_pruning_tpu_torch.cli import (compute_ssim, ddpm_sample, ldm_prune,\n"
-        "                                        ldm_sample, ldm_train, prune_finetune,\n"
-        "                                        prune_ssim)\n"
+        "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
+        "                                        ldm_prune, ldm_sample, ldm_train,\n"
+        "                                        prune_finetune, prune_ssim)\n"
+        "autoencoder_train.parse_args(['--dataset', 'd', '--output_dir', 'o'])\n"
         "for cli in (ddpm_sample, ldm_sample):\n"
         "    cli.parse_args(['--model_path', 'm', '--output_dir', 'o'])\n"
         "ldm_prune.parse_args(['--save_path', 'o'])\n"
@@ -96,7 +97,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 58
+    assert int(res.stdout.strip()) >= 62
 
 
 def _tiny_sweep_inputs():
@@ -244,7 +245,8 @@ def test_macs_and_params_match_jax(config, monkeypatch):
 
 def test_data_batches_match_jax(tmp_path, monkeypatch):
     """load_npz, the CIFAR-10 pickle-batch loader and the first batches of
-    iterate_batches are bit-identical to the JAX package's; 'cifar10' is
+    iterate_batches are bit-identical to the JAX package's, over arrays and
+    over image folders (resized ones against its PIL decode); 'cifar10' is
     looked up where the JAX package looks (here ~/data/cifar10), and the
     JAX package's other sources (lsun:, ffhq:, imagenet:, txt:, CIFAR-100
     names) raise NotImplementedError naming them."""
@@ -283,6 +285,36 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
                  "CIFAR-100"):
         with pytest.raises(NotImplementedError, match="the other data sources"):
             tdata.get_dataset(name)
+
+    # image-folder batches (the autoencoder trainer's): bit-identical to the
+    # JAX package's at the stored size, also after a skip for resume;
+    # resized, to its PIL ``load`` under the same draws (its native decoder
+    # resizes with another filter)
+    from PIL import Image
+
+    folder = tmp_path / "folder"
+    (folder / "sub").mkdir(parents=True)
+    for i in range(7):
+        Image.fromarray(rng.integers(0, 256, (12, 12, 3), dtype=np.uint8)).save(
+            folder / ("sub" if i % 2 else "") / f"{i}.png")
+    tds, jds = tdata.get_dataset(str(folder), 12), jdata.get_dataset(str(folder), 12)
+    assert tds.files == jds.files and len(tds) == 7
+    for skip in (0, 3):
+        tb = tdata.iterate_batches(tds, 3, seed=4, skip_batches=skip)
+        jb = jdata.iterate_batches(jds, 3, seed=4, skip_batches=skip)
+        for _ in range(4):  # two epochs of two batches
+            np.testing.assert_array_equal(next(tb), next(jb))
+    rds, jrds = tdata.get_dataset(str(folder), 8), jdata.get_dataset(str(folder), 8)
+    drng = np.random.default_rng(4)
+    batches = tdata.iterate_batches(rds, 3, seed=4, skip_batches=1)
+    for i in range(3):
+        order = drng.permutation(7) if i % 2 == 0 else order
+        idx = order[3 * (i % 2):3 * (i % 2) + 3]
+        flips = drng.random(3) < 0.5
+        want = np.stack([jrds.load(j) for j in idx])
+        want[flips] = want[flips, :, ::-1]
+        if i:
+            np.testing.assert_array_equal(next(batches), jdata.normalize(want))
 
 
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):

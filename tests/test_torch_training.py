@@ -1,4 +1,5 @@
-"""The port's finetune slice against the JAX package, on the CPU.
+"""The port's finetune and first-stage (autoencoder) training against the
+JAX package, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages; the JAX
 side runs with f32 matmuls and the port with TF32 off. The JAX step draws
@@ -20,9 +21,13 @@ the same keys and feeds them to the port's step. Tolerances:
   to ADAM_MOVE x the summed LR, twice the most the first steps' bias-corrected
   update can move a param (1.003 lr, Cauchy-Schwarz on the moments' weights).
 - Checkpoints and resume: exact.
+- The autoencoder step and CLIs: see ``_ae_step_matches_jax`` and the
+  AE_* constants (Adam's bound for b1 0.5, b2 0.9; the bf16 rules).
 """
 
+import copy
 import dataclasses
+import functools
 import json
 import os
 
@@ -40,12 +45,29 @@ from diff_pruning_tpu.schedulers.ddpm import DiffusionSchedule as JaxSchedule
 from diff_pruning_tpu.training import finetune as jft
 from diff_pruning_tpu.utils import checkpoint as jckpt
 from diff_pruning_tpu_torch.models import unet2d as tunet
+from diff_pruning_tpu_torch.models import vae as tvae
 from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
 from diff_pruning_tpu_torch.training import finetune as tft
 from diff_pruning_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
 ADAM_MOVE = 2.02
+# the most Adam(b1 0.5, b2 0.9) moves a param in one of its steps 2-4, over
+# the LR: sqrt(sum_i w_i^2 / u_i) for the bias-corrected moments' weights
+# (Cauchy-Schwarz; 1.16 at step 4), twice for two runs that differ
+AE_ADAM_MOVE = 2 * 1.17
+# the adaptive GAN weight in bf16: a ratio of grad norms through the
+# PatchGAN's BatchNorm, whose bf16 backward is 15.6 % off the f32 one in
+# either package (the grad of -mean(D(x)) in x at these shapes, in norm);
+# the VQ case's bf16 weight sits 3.9 % (JAX) and 6.0 % (port) off its f32
+# value, 2.1 % apart, the two packages' errors differing in direction
+AE_BF16_DWEIGHT_RTOL = 0.1
+# the bf16 autoencoder grads: 7-20 % off the f32 ones in norm in either
+# package at the test's shapes (the straight-through lookup and the
+# PatchGAN's BatchNorm in bf16), in other directions; the port's bf16 grads
+# must be within 5e-2 of the f32 grads, or within this factor of JAX's own
+# bf16 distance from them
+AE_BF16_GRAD_SLACK = 1.5
 
 
 @pytest.fixture(autouse=True)
@@ -212,6 +234,139 @@ def test_train_step_matches_jax(precision):
                 torch.from_numpy(x0), torch.from_numpy(noise), torch.from_numpy(ts)))
         np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
 
+    # the first-stage autoencoder's step against the JAX step
+    _ae_step_matches_jax(precision)
+
+
+def _ae_step_matches_jax(precision):
+    """One step of the JAX autoencoder ``step_fn`` against the port's from
+    the same params and images: VQ (two levels, mid attention, LPIPS, hinge,
+    BatchNorm PatchGAN) and KL (JAX's two posterior draws passed in, no
+    LPIPS, vanilla loss, ActNorm PatchGAN, ``disc_start`` 1 so the GAN terms
+    are off while the adaptive weight is still taken). f32: the metrics
+    within 1e-4 relative, both networks' grads (Adam's first moment, 0.5 x
+    the grads) within 1e-4 of each parameter's max plus 1e-6 of the largest,
+    the updated params within 1e-6 + 1e-2 lr (to_k's bias, whose grad is
+    zero in exact arithmetic: Adam's bound). bf16: the metrics within 2e-2
+    of max(|value|, 1) (the adaptive weight: AE_BF16_DWEIGHT_RTOL), the
+    grads against the port's f32 grads by AE_BF16_GRAD_SLACK, the params
+    within Adam's bound, and the VQ indices of a bf16 encode agreeing at >=
+    90 % of the positions (argmin near-ties; the perplexity and the codes
+    used follow them, so they are not compared in bf16)."""
+    from diff_pruning_tpu.models import vae as jvae
+    from diff_pruning_tpu.models.discriminator import NLayerDiscriminator as JDisc
+    from diff_pruning_tpu.training import autoencoder as jae
+    from diff_pruning_tpu_torch.eval.lpips import LPIPS
+    from diff_pruning_tpu_torch.models.discriminator import NLayerDiscriminator
+    from diff_pruning_tpu_torch.training import autoencoder as tae
+
+    bf16 = precision == "bf16"
+    mp = "bf16" if bf16 else "no"
+    lr = 1e-5  # small beside bf16 steps, as the CLI's (4.5e-6 x batch): the discriminator
+    # pass then sees the same updated generator on both sides
+    rng = np.random.default_rng(51)
+    x = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    jlp = _jax_lpips()
+    lp_flat = {k: np.asarray(v) for k, v in jflatten(jlp).items()}
+    for kind in ("vq", "kl"):
+        vq = kind == "vq"
+        cfg = jvae.AutoencoderConfig(
+            block_out_channels=(8, 16) if vq else (8,), layers_per_block=1, latent_channels=3,
+            norm_num_groups=4, sample_size=16, num_vq_embeddings=16 if vq else None,
+            vq_embed_dim=3 if vq else None, mid_block_attention=vq)
+        lcfg = dict(disc_start=0 if vq else 1, kl_weight=1e-2, disc_weight=0.5,
+                    perceptual_weight=1.0 if vq else 0.0, disc_loss="hinge" if vq else "vanilla")
+        jm, jd = jvae.make_first_stage(cfg), JDisc(ndf=8, n_layers=2, use_actnorm=not vq)
+        gflat, dflat = numpy_params(jm, 52), numpy_params(jd, 53)
+        if vq:  # codes at the latents' unit scale: bf16 rounding decides few lookups
+            gflat["quantize/embedding/weight"] *= 10.0
+        key = jax.random.key(54)
+        with jax.default_matmul_precision("float32"):
+            gtx, dtx = jae.make_ae_optimizers(lr)
+            jstate = jae.init_ae_train_state(
+                junflatten({k: jnp.asarray(v) for k, v in gflat.items()}),
+                junflatten({k: jnp.asarray(v) for k, v in dflat.items()}), gtx, dtx)
+            jstep = jae.make_autoencoder_train_step(jm, jae.GANLossConfig(**lcfg),
+                                                    jlp if vq else None, jd, gtx, dtx,
+                                                    mixed_precision=mp)
+            jstate, jm_ = jstep(jstate, jnp.asarray(x), key)
+            want = {k: float(v) for k, v in jm_.items()}
+        dt = jnp.bfloat16 if bf16 else jnp.float32
+        noise = None if vq else tuple(
+            torch.from_numpy(np.asarray(jax.random.normal(k, (2, 16, 16, 3), dt), np.float32))
+            for k in (key, jax.random.fold_in(key, 1)))
+        tm = tvae.make_first_stage(tvae.AutoencoderConfig.from_json(cfg.to_json()), device="cpu")
+        tm.load_state_dict(tckpt.state_dict_from_flat(gflat))
+        td = NLayerDiscriminator(ndf=8, n_layers=2, use_actnorm=not vq, device="cpu")
+        td.load_state_dict(tckpt.state_dict_from_flat(dflat))
+        tlp = None
+        if vq:
+            tlp = LPIPS(device="cpu")
+            tlp.load_state_dict(tckpt.state_dict_from_flat(lp_flat))
+        ref = None
+        if bf16:  # the port's f32 step, the f32 grads (JAX's within 2e-6 in norm)
+            ref = {}
+            tm32, td32 = copy.deepcopy(tm), copy.deepcopy(td)
+            go, do = tae.make_ae_optimizers(lr)
+            st32 = tae.init_ae_train_state(tm32, td32, go, do)
+            tae.make_autoencoder_train_step(tm32, tae.GANLossConfig(**lcfg), tlp, td32, go, do)(
+                st32, torch.from_numpy(x), noise=noise)
+            ref = {"gen": st32.gen_opt.by_keypath(), "disc": st32.disc_opt.by_keypath()}
+        go, do = tae.make_ae_optimizers(lr)
+        tstate = tae.init_ae_train_state(tm, td, go, do)
+        got = tae.make_autoencoder_train_step(tm, tae.GANLossConfig(**lcfg), tlp, td, go, do,
+                                              mixed_precision=mp)(tstate, torch.from_numpy(x),
+                                                                  noise=noise)
+        got = {k: float(v) for k, v in got.items()}
+        assert sorted(got) == sorted(want), kind
+        assert want["disc_factor"] == (1.0 if vq else 0.0) and want["d_weight"] > 0
+        for k, w in want.items():
+            if bf16 and k in ("perplexity", "cluster_usage"):
+                continue  # of the bf16 indices: held below as a share
+            if bf16 and k == "d_weight":
+                assert abs(got[k] - w) <= AE_BF16_DWEIGHT_RTOL * abs(w), (kind, k, got[k], w)
+            elif bf16:
+                assert abs(got[k] - w) <= 2e-2 * max(abs(w), 1.0), (kind, k, got[k], w)
+            else:
+                np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-7, err_msg=f"{kind} {k}")
+        for net, jopt, topt, jp, tp in (
+                ("gen", jstate.gen_opt, tstate.gen_opt, jstate.gen_params, tstate.gen_params),
+                ("disc", jstate.disc_opt, tstate.disc_opt, jstate.disc_params,
+                 tstate.disc_params)):
+            jarr, tarr = jax_opt_arrays(jopt), topt.by_keypath()
+            assert sorted(jarr) == sorted(tarr) and int(tarr["[0].count"]) == 1, (kind, net)
+            mus = [k for k in jarr if ".mu" in k]
+            if not any(np.any(jarr[k]) for k in mus):  # disc_factor 0: no grad at all
+                assert not any(np.any(tarr[k]) for k in mus), (kind, net)
+            elif bf16:
+                def off_f32(arr):
+                    return np.sqrt(sum(((arr[k] - ref[net][k]) ** 2).sum() for k in mus)
+                                   / sum((ref[net][k] ** 2).sum() for k in mus))
+
+                mine, theirs = off_f32(tarr), off_f32(jarr)
+                assert mine <= max(5e-2, AE_BF16_GRAD_SLACK * theirs), (kind, net, mine, theirs)
+            else:
+                floor = 1e-6 * max(np.abs(jarr[k]).max() for k in mus)
+                for k in mus:
+                    err = np.abs(tarr[k] - jarr[k]).max()
+                    assert err <= 1e-4 * np.abs(jarr[k]).max() + floor, (kind, net, k, err)
+            jflat, tflat = jflatten(jp), tckpt.flat_from_state_dict(tp)
+            for k, v in jflat.items():
+                err = np.abs(tflat[k] - np.asarray(v)).max()
+                lim = ADAM_MOVE * lr if (bf16 or k.endswith("to_k/bias")) else 1e-6 + 1e-2 * lr
+                assert err <= lim, (kind, net, k, err, lim)
+        if vq and bf16:
+            # the bf16 lookup: argmin near-ties may pick other codes
+            jp0 = junflatten({k: jnp.asarray(v).astype(jnp.bfloat16) for k, v in gflat.items()})
+            with jax.default_matmul_precision("float32"):
+                jidx = np.asarray(jm.quantize(jp0, jm.encode(jp0, jnp.asarray(x, jnp.bfloat16)))[1])
+            tm.load_state_dict(tckpt.state_dict_from_flat(gflat))
+            with torch.no_grad():  # the whole tree in bf16, as the step casts it
+                tm16 = tm.to(torch.bfloat16)
+                enc = tm16.quantize_latents(tm16.encode(torch.from_numpy(x).to(torch.bfloat16)))[1]
+            share = float((enc.numpy() == jidx).mean())
+            assert share >= 0.9, share
+
 
 def test_train_state_crosses_packages(tmp_path):
     """A JAX train checkpoint resumes in the port (params, EMA, Adam count
@@ -301,6 +456,92 @@ def test_train_state_crosses_packages(tmp_path):
             assert torch.equal(a[n], b[n]), n
     assert (full.step, full.opt_state.count) == (resumed.step, resumed.opt_state.count) == (4, 4)
 
+    # the autoencoder CLIs: the JAX CLI's step-2 checkpoint (of a 4-step run
+    # that saved at 2 and 4) resumes in the port's CLI to step 4, which must
+    # land within Adam's bound of the JAX CLI's step 4; the port's Adam
+    # states restore in the JAX package by keypath
+    import shutil
+
+    from diff_pruning_tpu.cli.autoencoder_train import main as jax_ae_cli
+    from diff_pruning_tpu.training.autoencoder import make_ae_optimizers as jax_ae_opts
+    from diff_pruning_tpu_torch.cli import autoencoder_train
+
+    seed_dir, imdir, lp = _ae_inputs(tmp_path)
+    argv = _ae_argv(seed_dir, imdir, lp) + ["--num_iters", "4"]
+    jout, pout = tmp_path / "ae_jax", tmp_path / "ae_port"
+    with jax.default_matmul_precision("float32"):
+        jax_ae_cli(argv + ["--output_dir", str(jout)])
+    jck = tmp_path / "ae_jax_step2"
+    for sub in ("gen", "disc"):
+        shutil.copytree(jout / "ckpt" / sub / "step-2", jck / sub / "step-2")
+        (jck / sub / "LATEST").write_text("step-2")
+    stats = autoencoder_train.main(argv + ["--output_dir", str(pout), "--device", "cpu",
+                                           "--resume_from_checkpoint", str(jck)])
+    assert (stats["start_step"], stats["steps"]) == (2, 2)
+    lr = 4.5e-6 * 2
+    for sub in ("gen", "disc"):
+        _, want, _ = jckpt.load_train_state(str(jout / "ckpt" / sub))
+        _, got, _ = tckpt.load_train_state(str(pout / "ckpt" / sub))
+        got = tckpt.flat_from_state_dict(got)
+        want = {k: np.asarray(v) for k, v in jflatten(want).items()}
+        assert sorted(got) == sorted(want), sub
+        for k, v in want.items():
+            err = np.abs(got[k] - v).max()
+            assert err <= 2 * AE_ADAM_MOVE * lr, (sub, k, err)
+        # the port's Adam state restores in the JAX package
+        jtemplate = jax_ae_opts(lr)[0].init(jckpt.load_train_state(str(pout / "ckpt" / sub))[1])
+        jrest, ok = jckpt.restore_opt_state(str(pout / "ckpt" / sub), jtemplate)
+        assert ok
+        with np.load(pout / "ckpt" / sub / "step-4" / "opt_state.npz") as z:
+            mine = {k: z[k] for k in z.files}
+        theirs = jax_opt_arrays(jrest)
+        assert sorted(theirs) == sorted(mine) and theirs["[0].count"] == 4, sub
+        for k, v in theirs.items():
+            np.testing.assert_array_equal(v, mine[k], err_msg=k)
+    jrec = json.loads((jout / "metrics.jsonl").read_text().splitlines()[-1])
+    prec = json.loads((pout / "metrics.jsonl").read_text().splitlines()[-1])
+    assert jrec["step"] == prec["step"] == 4
+    for k in ("total_loss", "rec_loss", "quant_loss", "disc_loss"):
+        np.testing.assert_allclose(prec[k], jrec[k], rtol=1e-3, atol=2e-5, err_msg=k)
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_lpips():
+    """JAX's random LPIPS init (seed 5), made once: its eager draws take
+    seconds."""
+    from diff_pruning_tpu.eval.lpips import init_lpips_params
+
+    return init_lpips_params(jax.random.key(5))
+
+
+def _ae_inputs(tmp_path):
+    """The autoencoder CLIs' tiny inputs: a VQ first stage (one level of 8
+    channels, 4 groups, 16 codes) saved by the port, 8 PNGs of 16 x 16 and
+    JAX-made random LPIPS weights as an ``.npz``."""
+    from PIL import Image
+
+    cfg = tvae.AutoencoderConfig(block_out_channels=(8,), latent_channels=4, norm_num_groups=4,
+                                 num_vq_embeddings=16, mid_block_attention=False, sample_size=16)
+    seed_dir = tmp_path / "ae_seed"
+    tckpt.save_model(str(seed_dir), cfg, tvae.make_first_stage(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0)), subfolder="first_stage")
+    imdir = tmp_path / "ae_imgs"
+    imdir.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 255, (16, 16, 3), dtype=np.uint8), "RGB").save(
+            imdir / f"{i}.png")
+    lp = str(tmp_path / "lpips.npz")
+    jckpt.save_params_npz(lp, _jax_lpips())
+    return str(seed_dir), str(imdir), lp
+
+
+def _ae_argv(seed_dir, imdir, lpips):
+    return ["--model_path", seed_dir, "--dataset", imdir, "--resolution", "16",
+            "--train_batch_size", "2", "--log_steps", "2", "--save_model_steps", "2",
+            "--lpips", lpips, "--seed", "3", "--steps_per_dispatch", "2",
+            "--disc_start", "0", "--disc_num_layers", "2"]
+
 
 def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The train CLI end to end on the tiny config: TF32 pinned off,
@@ -347,6 +588,55 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     assert "warning: resuming with seed 1" in text and "optimizer state restored" in text
     with pytest.raises(NotImplementedError, match="remat"):
         ddpm_train.main(base + ["--remat", "--device", "cpu"])
+
+    # the autoencoder CLI: 4 steps straight against 2 and a resume to 4,
+    # bit-identical; then a tiny KL codec in bf16 with the vanilla loss
+    from diff_pruning_tpu_torch.cli import autoencoder_train
+
+    seed_dir, imdir, lp = _ae_inputs(tmp_path)
+    ae = _ae_argv(seed_dir, imdir, lp) + ["--device", "cpu"]
+    runs = {}
+    for name, iters, extra in (("straight", 4, []), ("a", 2, []),
+                               ("b", 4, ["--resume_from_checkpoint", str(tmp_path / "a" / "ckpt")])):
+        runs[name] = autoencoder_train.main(ae + ["--output_dir", str(tmp_path / name),
+                                                  "--num_iters", str(iters)] + extra)
+    text = capsys.readouterr().out
+    assert "resumed from step 2 (optimizers restored)" in text
+    assert runs["b"]["start_step"] == 2 and runs["b"]["losses"] == runs["straight"]["losses"][2:]
+    assert all(np.isfinite(runs["straight"]["losses"]))
+    for sub in ("ckpt/gen/step-4", "ckpt/disc/step-4", "first_stage"):
+        for f in os.listdir(tmp_path / "straight" / sub):
+            if f.endswith(".npz"):
+                with np.load(tmp_path / "straight" / sub / f) as a, \
+                        np.load(tmp_path / "b" / sub / f) as b:
+                    assert sorted(a.files) == sorted(b.files)
+                    for k in a.files:
+                        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{sub}/{f}/{k}")
+    recs = [json.loads(line) for line in (tmp_path / "straight" / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert [r["step"] for r in recs] == [2, 4]
+    assert set(recs[0]) == {"step", "total_loss", "nll_loss", "rec_loss", "d_weight",
+                            "disc_factor", "g_loss", "quant_loss", "perplexity",
+                            "cluster_usage", "disc_loss", "logits_real", "logits_fake",
+                            "imgs_per_sec"}
+    assert sorted(os.listdir(tmp_path / "straight" / "ckpt" / "gen")) == [
+        "LATEST", "step-2", "step-4"]
+    assert (tmp_path / "straight" / "run.sh").read_text().startswith(
+        "python -m diff_pruning_tpu_torch.cli.autoencoder_train --model_path")
+    kl_cfg = tvae.AutoencoderConfig(block_out_channels=(8,), latent_channels=2, norm_num_groups=4,
+                                    sample_size=16, mid_block_attention=False)
+    tckpt.save_model(str(tmp_path / "kl"), kl_cfg, tvae.make_first_stage(kl_cfg, device="cpu")
+                     .init(torch.Generator().manual_seed(4)), subfolder="first_stage")
+    kl = autoencoder_train.main(_ae_argv(str(tmp_path / "kl"), imdir, "random") + [
+        "--output_dir", str(tmp_path / "kl_out"), "--num_iters", "2", "--disc_loss", "vanilla",
+        "--mixed_precision", "bf16", "--device", "cpu"])
+    assert kl["steps"] == 2 and all(np.isfinite(kl["losses"])) and kl["last"]["kl_loss"] > 0
+    with pytest.raises(SystemExit, match="disc_num_layers"):
+        autoencoder_train.main(_ae_argv(seed_dir, imdir, "off")[:-2] + [
+            "--output_dir", str(tmp_path / "x"), "--device", "cpu"])
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ddpm_train.main(base)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autoencoder_train.main(ae[:-2] + ["--output_dir", str(tmp_path / "y")])
