@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's ten paths, through its own kernels, from seeded random
+Drives the port's thirteen paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
-params) the serving path (DDIM-100 sampling), the pruning path (the
+params) the serving path (DDIM sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
 path (the train CLI on the pruned checkpoint, f32 and bf16, and its
 resume) and the evaluation path (the fid_score and fidelity CLIs through
@@ -20,8 +20,11 @@ samplers beyond DDIM; and the paper's timestep-stage ablation (the
 prune_ssim and compute_ssim CLIs on the CIFAR UNet) with cost-aware global
 pruning (ddpm_prune --cost_aware --match_params) and prune_finetune; and
 first-stage training (the autoencoder_train CLI on vq-f4, through the
-GroupNorm and attention backward at the codec's shapes). Every
-phase raises on
+GroupNorm and attention backward at the codec's shapes); and the text- and
+retrieval-conditioned serving paths (the txt2img CLI on txt2img-1p4B with
+its BERTEmbedder, 1.54B params; the inpaint CLI on inpainting_big +
+vq-f4-noattn; train_searcher and the knn2img CLI on rdm768 + kl-f16 with
+CLIP ViT-L/14). Every phase raises on
 failure; none is caught, so any failure exits non-zero before the result
 lines.
 
@@ -52,7 +55,8 @@ lines.
    the strides of every GroupNorm input the layers pass (also under
    autograd, in phase 9).
 5. Serving path, dense: the sampling CLI, 256 images in batches of 128,
-   DDIM-100; launch counters reset just before and read just after.
+   DDIM-20 (cut from its 100); launch counters reset just before and read
+   just after.
 6. Serving path, pruned: the same CLI on a checkpoint keeping
    floor(0.7 * size / group_div) * group_div channels of every prunable var.
 7. Timings (CUDA events, in turns): per-op forward kernel against plain and
@@ -60,7 +64,8 @@ lines.
    the GroupNorm wrapper's host time per call, dense and pruned sampling
    imgs/s with the kernels off then on (one batch each), f32 and bf16, and a torch.profiler
    breakdown of 5 dense DDIM steps by kernel class. Sampling is timed at
-   DDIM-20 (imgs/s at DDIM-100 are a fifth of these).
+   DDIM-20, the serving path's steps (imgs/s at DDIM-100 are a fifth of
+   these).
 8. Backward kernels against their plain versions, at the same shapes, B =
    128, f32 and bf16: the forward's saved GroupNorm statistics and the
    attention lse, then dx/dscale/dbias and dq/dk/dv.
@@ -128,7 +133,7 @@ lines.
    local), with the lse; the wide forward at its tile edges (Nq, Nkv in 1,
    31, 33, 63, 65, 127 at D = 257, 384, 512, 513, 1024; 3-head fused views
    at D = 268, 269), inference and with lse. The CFG sampler (scale 3)
-   kernels on against off from one x_T, DDIM-20, PLMS-10 and DPM-10,
+   kernels on against off from one x_T, DDIM-20, PLMS-5 and DPM-5,
    through the decode, launch counts equal to calls x steps. Then imgs/s
    of CFG DDIM-20 + decode at B = 16, one batch kernels off, then one on; one
    UNet call and one decode, timed and profiled by kernel class; per-op ms
@@ -137,7 +142,7 @@ lines.
    ``--compare-fwd`` the other forwards, in the same turns). Last, the main
    path: the ldm_sample CLI on the saved model (1 class x 16 images, B =
    16, so its UNet calls and decodes take the rows checked above) with
-   --method ddim (20 steps), plms and dpm (10), launch counters reset just
+   --method ddim (20 steps), plms and dpm (5), launch counters reset just
    before each and read just after.
 17. LDM prune path, f32, TF32 off, on phase 16's model, B = 6 (the CLI's
    default): (a) the wide f32 dq and dk/dv kernels (256 < D <= 1024)
@@ -158,9 +163,9 @@ lines.
    61 GroupNorm and 32 attention forwards (with lse), 61 GroupNorm
    backwards, 32 dq and 32 dk/dv; a repeat with the kernels on must be
    bit-identical; (d) the main path: the ldm_prune CLI (diff-pruning, 3
-   sweep steps for 1000, 2 vis classes for 4, CFG DDIM-5 latents for 20)
+   sweep steps for 1000, 2 vis classes for 4, CFG DDIM-2 latents for 20)
    with launch counters reset just before and read just after, equal to
-   steps x (5 CFG calls + the grad step) + the vis grid; its model dir
+   steps x (2 CFG calls + the grad step) + the vis grid; its model dir
    reloads at the pinned 203,294,971 UNet params and ldm_sample draws
    finite images from it; (e) timings: the sweep step at the CLI's default
    DDIM-20 split into CFG sampling (20 CFG UNet calls of 12 rows, one
@@ -285,8 +290,40 @@ lines.
    and of the attention forward with lse, dq and dk/dv at (4096, 4096,
    512), against plain, F.group_norm (and its autograd), SDPA (and its
    backward) and the bound, f32 and bf16. Prints the phase's seconds.
-22. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation
-   and first-stage training JSON lines, the kernels' JSON line,
+22. Text- and retrieval-conditioned LDM serving, f32, TF32 off, three model
+   dirs from a seeded init on the card (zero-initialised convs redrawn):
+   txt2img-1p4B (UNet 872,300,484 + BERTEmbedder 581,994,042 + kl-f8
+   83,653,863 params, written by save_ldm with cond_stage/config.json) and
+   a 30,522-entry vocab; inpainting_big + vq-f4-noattn (387,245,827 +
+   53,219,486) and 4 image/mask pairs of 256 x 256; rdm768 + kl-f16
+   (1,335,480,400 + 69,610,963). (a) Every GroupNorm and attention shape
+   (forward hooks, meta device) of a UNet call of each model at its CLI's
+   rows, of a BERT encode, of the kl-f8, vq-f4-noattn and kl-f16 decodes and
+   the vq-f4-noattn encode, against the plain versions (head-split views;
+   txt2img's 8 heads of 40, 80 and 160 over itself and the 77-token
+   context, the BERT's 77 tokens at 8 x 64, rdm768's 14-56 heads of 32 over
+   itself and a context of 1 or 11, inpainting_big's 8 heads of 64-128;
+   head dims and Nkv printed); (b) one txt2img CFG DDIM-20 trajectory
+   kernels on against off from one x_T and the same tokens, the latents and
+   their kl-f8 decode within LDM_REL_TOL of the largest value, launches
+   exact; (d) timings, CUDA events: a UNet call of each model at its CLI's
+   rows and a BERT encode, kernels off, on, on, off; txt2img DDIM-20,
+   inpaint DDIM-20 and knn2img DDIM-10 batches with their decodes, one
+   batch off, one on (imgs/s); a profile of the txt2img UNet call; per-op
+   ms at each UNet call's and the BERT's shapes (kernel, plain, SDPA /
+   F.group_norm, bound); (c) the main paths, launch counters reset just
+   before each and read just after, equal to steps x a UNet call's launches
+   + the cond stage's + the codec's: the txt2img CLI at its defaults (256 x
+   256, n_samples 4, scale 5) with DDIM-20 (cut from 200) and --plms at 5;
+   the inpaint CLI over the pairs, --batch_size 2, --steps 20 (cut from
+   50); train_searcher --clip_path random over phase 18's class_000 PNGs
+   (no kernel of the port: CLIP's attention is plain in both packages); the
+   knn2img CLI at 768 x 768, n_samples 2, --use_neighbors --knn 10,
+   DDIM-10 (cut from 50), --clip_path random; the PNGs' count and size and
+   each model's parameter count as the CLI loaded it. Prints the phase's
+   seconds.
+23. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
+   first-stage training and text LDM JSON lines, the kernels' JSON line,
    nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
@@ -307,8 +344,9 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 128
-# the DDIM steps of phase 7's sampling imgs/s (the serving path itself, phases
-# 5 and 6, runs DDIM-100): a step's time does not depend on their number
+# the DDIM steps of the serving path (phases 5 and 6; cut from the sampling
+# CLI's 100) and of phase 7's sampling imgs/s: a step's time does not depend
+# on their number
 SAMPLE_TIME_STEPS = 20
 # forward: |kernel - plain| <= atol + rtol * |plain|. f32: both compute in f32
 # and differ only in summation order. bf16: two bf16 ulps; both round an f32
@@ -360,7 +398,7 @@ EVAL_FEATURE_RTOL, EVAL_SELF_FID_RTOL, EVAL_IMAGES = 1e-4, 1e-4, 2048
 # 3 feed each step's difference, amplified (1 + 2 x 3)-fold in the guided
 # eps, into the next
 LDM_PARAMS = {"unet": 400_920_579, "first_stage": 55_322_782, "cond_stage": 512_512}
-LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 10, 3.0
+LDM_B, LDM_CMP_B, LDM_STEPS, LDM_MULTI_STEPS, LDM_SCALE = 16, 4, 20, 5, 3.0
 LDM_REL_TOL = 1e-3
 # the LDM prune path (phase 17): the CLI's batch (labels a sweep step, 2
 # LDM_PRUNE_B UNet rows a CFG call, LDM_PRUNE_B rows in the grad step), its
@@ -371,7 +409,7 @@ LDM_REL_TOL = 1e-3
 # tolerances (SWEEP_*), the backward kernels' (BWD_TOL) with, at Nkv = 1,
 # 1e-6 of the call's largest gradient added for dq and dk, which are zero in
 # exact arithmetic there (p = 1: both sides hold only f32 noise)
-LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES, LDM_PRUNE_DDIM = 6, 3, ("25", "187"), 5
+LDM_PRUNE_B, LDM_PRUNE_STEPS, LDM_PRUNE_CLASSES, LDM_PRUNE_DDIM = 6, 3, ("25", "187"), 2
 LDM_PRUNED_PARAMS_AT_0_3 = 203_294_971
 # the LDM train path (phase 18): the CLI's batch and LR (cin256-v2.yaml: bs
 # 16, base_lr 2e-6 x 16), its steps (cut from 20,000), the save interval,
@@ -408,6 +446,21 @@ ABL_EXTRA_ATTN = ((256, 1, 113), (256, 1, 115), (256, 1, 121))
 # (the autoencoder_kl yamls' 12) and resolution, its steps (cut from 100,000)
 # and save interval, the steps of its KL run, its LR (4.5e-6 x 12)
 AE_B, AE_RES, AE_STEPS, AE_SAVE, AE_KL_STEPS, AE_LR = 12, 256, 4, 2, 2, 4.5e-6 * 12
+# the text- and retrieval-conditioned serving paths (phase 22): parameter
+# counts of the JAX package's presets (tests/test_torch_ldm.py): txt2img-1p4B
+# (UNet, BERTEmbedder, kl-f8), inpainting_big + vq-f4-noattn, rdm768 + kl-f16,
+# CLIP ViT-L/14; the prompt, the vocab's size (bert-base-uncased's), the
+# txt2img CLI's rows (n_samples 4) and scale, the DDIM steps of txt2img (cut
+# from 200) and inpaint (cut from 50), the PLMS run's steps, inpaint's
+# image/mask pairs and batch, knn2img's rows (n_samples 2), neighbours and
+# DDIM steps (cut from 50). On against off: LDM_REL_TOL of the largest value
+TEXT_PARAMS = {"txt2img": {"unet": 872_300_484, "cond_stage": 581_994_042,
+                           "first_stage": 83_653_863},
+               "inpaint": (387_245_827, 53_219_486), "knn": (1_335_480_400, 69_610_963),
+               "clip": 427_616_513}
+TEXT_PROMPT = "a painting of a virus monster playing guitar"
+TEXT_VOCAB, TEXT_B, TEXT_SCALE, TEXT_STEPS, TEXT_PLMS_STEPS = 30522, 4, 5.0, 20, 5
+TEXT_INPAINT_PAIRS, TEXT_INPAINT_B, TEXT_KNN_B, TEXT_KNN, TEXT_KNN_STEPS = 4, 2, 2, 10, 10
 # the step kernels on against off: the phase-18 tolerances, or NOISE_FACTOR x
 # what the off run moves when its images move by one ulp, whichever is
 # larger: the random codec amplifies f32 rounding through its 44 normalised
@@ -1173,10 +1226,11 @@ def op_calls(model, fwd):
     return gn, attn
 
 
-def ldm_op_shapes(unet_cfg, fs_cfg, encode=False):
-    """:func:`op_calls` of one UNet call and one first-stage decode (with
-    ``encode``, also of one encode of a 256 x 256 image), on the meta device
-    (shapes only)."""
+def ldm_op_shapes(unet_cfg, fs_cfg, encode=False, nkv=1):
+    """:func:`op_calls` of one UNet call (with a context of ``nkv`` tokens
+    where the UNet takes one) and one first-stage decode (with ``encode``,
+    also of one encode of an image at the decode's resolution), on the meta
+    device (shapes only)."""
     import torch
 
     from diff_pruning_tpu_torch.models.unet_cond import UNetCond
@@ -1185,12 +1239,13 @@ def ldm_op_shapes(unet_cfg, fs_cfg, encode=False):
     meta = torch.device("meta")
     hw, ch = unet_cfg.image_size, unet_cfg.in_channels
     ctx = (None if unet_cfg.context_dim is None
-           else torch.zeros((1, 1, unet_cfg.context_dim), device=meta))
+           else torch.zeros((1, nkv, unet_cfg.context_dim), device=meta))
     unet = op_calls(UNetCond(unet_cfg, device=meta), lambda m: m(
         torch.zeros((1, hw, hw, ch), device=meta), torch.zeros((1,), dtype=torch.int64,
                                                                device=meta), context=ctx))
     fs = make_first_stage(fs_cfg, device=meta)
-    decode = op_calls(fs, lambda m: m.decode(torch.zeros((1, hw, hw, ch), device=meta)))
+    decode = op_calls(fs, lambda m: m.decode(torch.zeros((1, hw, hw, unet_cfg.out_channels),
+                                                         device=meta)))
     if not encode:
         return unet, decode
     res = hw * 2 ** (len(fs_cfg.block_out_channels) - 1)
@@ -1429,6 +1484,8 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
 
     out = {}
     for op, cases in (("group_norm", gn_cases), ("attention", attn_cases)):
+        if not cases:
+            continue
         tot = collections.defaultdict(float)
         for shape, calls in sorted(cases.items()):
             if op == "group_norm":
@@ -2114,6 +2171,42 @@ def record_fwd_dtypes():
     return seen, restore
 
 
+def redraw_zero_init(model, g) -> int:
+    """Redraws, from ``g``, every module of ``model`` whose own parameters are
+    all zero (the convolutions that the reference zero-initialises: a fresh
+    UNet's eps is exactly 0); returns how many."""
+    nudged = 0
+    for mod in model.modules():
+        own = list(mod.parameters(recurse=False))
+        if hasattr(mod, "reset_parameters") and own and not any(bool(p.any()) for p in own):
+            mod.reset_parameters(g)
+            nudged += 1
+    return nudged
+
+
+def switched(on, fn):
+    """``fn()`` with every kernel switch set to ``on``, then back on."""
+    from diff_pruning_tpu_torch import ops
+
+    ops.set_kernels_enabled(on)
+    try:
+        return fn()
+    finally:
+        ops.set_kernels_enabled(True)
+
+
+def turns(fn):
+    """``fn(on)`` timed kernels off, on, on, off, one call each after a
+    warm-up of each: (off ms, on ms), each the mean of its two calls. Meant
+    for calls of 0.01 s of device time and more, far above the events'
+    resolution and the host's share."""
+    for on in (False, True):
+        fn(on)
+    off1, on1, on2, off2 = (cuda_ms(lambda: fn(on), iters=1, warmup=0)
+                            for on in (False, True, True, False))
+    return (off1 + off2) / 2, (on1 + on2) / 2
+
+
 def seeded_uncond_dir(path, ucfg, fcfg, seed, dev):
     """A model dir in the JAX package's layout (``unet/``, ``first_stage/``)
     of a seeded init on the card, every convolution that the reference
@@ -2129,12 +2222,7 @@ def seeded_uncond_dir(path, ucfg, fcfg, seed, dev):
     g = torch.Generator(device=dev).manual_seed(seed)
     unet = UNetCond(ucfg, device=dev).init(g)
     fs = make_first_stage(fcfg, device=dev).init(g)
-    nudged = 0
-    for mod in unet.modules():
-        own = list(mod.parameters(recurse=False))
-        if hasattr(mod, "reset_parameters") and own and not any(bool(p.any()) for p in own):
-            mod.reset_parameters(g)
-            nudged += 1
+    nudged = redraw_zero_init(unet, g)
     t0 = time.perf_counter()
     save_model(path, ucfg, unet, subfolder="unet")
     save_model(path, fcfg, fs, subfolder="first_stage")
@@ -2158,8 +2246,6 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     from diff_pruning_tpu_torch.models.unet_cond import (UNetCond, celebahq_ldm_vq4_config,
                                                          lsun_churches_ldm_kl8_config)
     from diff_pruning_tpu_torch.models.vae import first_stage_config, make_first_stage
-    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
-    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
     from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
     from diff_pruning_tpu_torch.utils.checkpoint import load_model
 
@@ -2200,36 +2286,9 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     # f32, at the CLI runs' rows; attention through (B, N, heads * D) views
     # viewed as (B, heads, N, D), as SelfAttention2D passes them
     for name, rows in (("celebahq", UNCOND_B), ("churches", CHURCH_B)):
-        (gn_u, attn_u), (gn_d, attn_d) = shapes[name]
-        for (nq, nkv, h, d), where in ([(s_, "unet") for s_ in sorted(attn_u)]
-                                       + [(s_, "decode") for s_ in sorted(attn_d)]):
-            q, k, v = (torch.randn((rows, n, h * d), generator=gen, device=dev)
-                       .view(rows, n, h, d).transpose(1, 2) for n in (nq, nkv, nkv))
-            err, ok = compare(flash_attention(q, k, v, d ** -0.5),
-                              reference_attention(q, k, v, d ** -0.5), "float32")
-            worst[("attention_uncond", "float32")] = max(worst[("attention_uncond",
-                                                                "float32")], err)
-            print(f"check uncond {name} attention ({where}) rows={rows} heads={h} Nq={nq} "
-                  f"Nkv={nkv} D={d} (head-split views) float32: max_abs_err={err:.3e} "
-                  f"tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
-            assert ok, (name, nq, nkv, h, d)
-            del q, k, v
-        for (n, c, eps, silu), where in ([(s_, "unet") for s_ in sorted(gn_u)]
-                                         + [(s_, "decode") for s_ in sorted(gn_d)]):
-            x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
-            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
-            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
-            kw = dict(groups=32, eps=eps, with_silu=silu)
-            err, ok = compare(group_norm(x, scale, bias, **kw),
-                              group_norm_reference(x, scale, bias, **kw), "float32")
-            worst[("group_norm_uncond", "float32")] = max(worst[("group_norm_uncond",
-                                                                 "float32")], err)
-            print(f"check uncond {name} group_norm ({where}) rows={rows} N={n} C={c} "
-                  f"C/g={c // 32} eps={eps} silu={silu} float32: max_abs_err={err:.3e} "
-                  f"tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
-            assert ok, (name, n, c, eps, silu)
-            del x
-    torch.cuda.synchronize()
+        for where, (gn, attn) in zip(("unet", "decode"), shapes[name]):
+            check_fwd_shapes(gn, attn, rows, gen, dev, worst, "_uncond",
+                             f"uncond {name} ({where})")
     lap("model dirs and kernel checks")
 
     # the CelebA-HQ model, loaded as the CLI loads it
@@ -2252,13 +2311,6 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     def decode(lat):
         with torch.inference_mode():
             return ((fs.decode(lat, force_not_quantize=False) + 1.0) / 2.0).clamp(0.0, 1.0)
-
-    def switched(on, fn):
-        ops.set_kernels_enabled(on)
-        try:
-            return fn()
-        finally:
-            ops.set_kernels_enabled(True)
 
     # (d) one DDIM-20 eta-1 trajectory, kernels on against off, from the same
     # x_T and per-step noise; then the decode of those latents
@@ -2292,17 +2344,6 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     # (g) timings: a UNet call at 16 rows and the decode at 16, kernels off
     # and on in turns; a UNet call at the CLI's 50 rows, kernels on, once;
     # peak memory of a decode at 50; per-op ms
-    def turns(fn):
-        """``fn(on)`` timed kernels off, on, on, off, one call each after a
-        warm-up of each: (off ms, on ms), each the mean of its two calls.
-        These calls take 0.1-0.4 s of device time, far above the events'
-        resolution and the host's share."""
-        for on in (False, True):
-            fn(on)
-        off1, on1, on2, off2 = (cuda_ms(lambda: fn(on), iters=1, warmup=0)
-                                for on in (False, True, True, False))
-        return (off1 + off2) / 2, (on1 + on2) / 2
-
     def unet_call(rows):
         xr = torch.randn((rows, hw, hw, 3), generator=gen, device=dev)
         tb = torch.full((rows,), 501, device=dev)
@@ -3690,6 +3731,440 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
     return out
 
 
+def check_fwd_shapes(gn_cases, attn_cases, rows, gen, dev, worst, key, where):
+    """The GroupNorm and attention forward kernels against their plain
+    versions, f32, at ``rows`` batch rows, at each (N, C, eps, silu) of
+    ``gn_cases`` and (Nq, Nkv, heads, D) of ``attn_cases``; the attention
+    through head-split views of (rows, N, heads x D) projections, as the
+    layers pass them. The largest errors go to ``worst[(op + key, 'float32')]``."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
+    from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
+
+    for nq, nkv, h, d in sorted(attn_cases):
+        q, k, v = (torch.randn((rows, n, h * d), generator=gen, device=dev)
+                   .view(rows, n, h, d).transpose(1, 2) for n in (nq, nkv, nkv))
+        err, ok = compare(flash_attention(q, k, v, d ** -0.5),
+                          reference_attention(q, k, v, d ** -0.5), "float32")
+        worst[("attention" + key, "float32")] = max(worst[("attention" + key, "float32")], err)
+        print(f"check {where} attention rows={rows} heads={h} D={d} Nq={nq} Nkv={nkv} "
+              f"(head-split views) float32: max_abs_err={err:.3e} tol={TOL['float32']} "
+              f"{'ok' if ok else 'FAIL'}")
+        assert ok, (where, nq, nkv, h, d)
+        del q, k, v
+    for n, c, eps, silu in sorted(gn_cases):
+        x = torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5
+        scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+        kw = dict(groups=32, eps=eps, with_silu=silu)
+        err, ok = compare(group_norm(x, scale, bias, **kw),
+                          group_norm_reference(x, scale, bias, **kw), "float32")
+        worst[("group_norm" + key, "float32")] = max(worst[("group_norm" + key, "float32")], err)
+        print(f"check {where} group_norm rows={rows} N={n} C={c} C/g={c // 32} slab "
+              f"{n * c // 32 * 4 / 1024:.0f} KB eps={eps} silu={silu} float32: "
+              f"max_abs_err={err:.3e} tol={TOL['float32']} {'ok' if ok else 'FAIL'}")
+        assert ok, (where, n, c, eps, silu)
+        del x
+    torch.cuda.synchronize()
+
+
+def calls_of(counter_pair):
+    """{'group_norm': calls, 'attention': calls} of a (GroupNorm, attention)
+    pair of :func:`op_calls` counters."""
+    gn, attn = counter_pair
+    return {"group_norm": sum(gn.values()), "attention": sum(attn.values())}
+
+
+def text_op_shapes():
+    """:func:`op_calls` (meta device, B = 1) of one UNet call, encode and
+    decode of each model of phase 22, at the CLIs' latent sizes: txt2img's
+    UNet with the 77-token context, its BERT encode, the kl-f8 decode;
+    inpainting_big's UNet, the vq-f4-noattn encode of a 256 x 256 image and
+    decode; rdm768's UNet with a context of 1 and of 1 + TEXT_KNN embeddings,
+    the kl-f16 decode."""
+    import torch
+
+    from diff_pruning_tpu_torch.models.text_encoder import BERTEmbedder, bert_txt2img_config
+    from diff_pruning_tpu_torch.models.unet_cond import (inpainting_big_config, rdm768_config,
+                                                         txt2img_1p4B_config)
+    from diff_pruning_tpu_torch.models.vae import first_stage_config
+
+    bcfg = bert_txt2img_config()
+    out = {"bert": op_calls(BERTEmbedder(bcfg, device="meta"), lambda m: m(
+        torch.zeros((1, bcfg.max_seq_len), dtype=torch.int64, device="meta")))}
+    out["txt2img_unet"], out["kl_f8_decode"] = ldm_op_shapes(
+        txt2img_1p4B_config(), first_stage_config("kl-f8"), nkv=bcfg.max_seq_len)
+    out["inpaint_unet"], out["vq_f4_noattn_decode"], out["vq_f4_noattn_encode"] = ldm_op_shapes(
+        inpainting_big_config(), first_stage_config("vq-f4-noattn"), encode=True)
+    out["rdm768_unet_nkv1"], _ = ldm_op_shapes(rdm768_config(), first_stage_config("kl-f16"))
+    out["rdm768_unet"], out["kl_f16_decode"] = ldm_op_shapes(
+        rdm768_config(), first_stage_config("kl-f16"), nkv=1 + TEXT_KNN)
+    return out
+
+
+def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
+    """Phase 22 (see the module docstring); returns the phase's figures."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img
+    from diff_pruning_tpu_torch.data.procedural import make_procedural_dataset
+    from diff_pruning_tpu_torch.data.tokenizer import BERTTokenizer
+    from diff_pruning_tpu_torch.models.latent_diffusion import (
+        IdentityCondStage, LatentDiffusion, ldm_schedule, make_concat_sampler)
+    from diff_pruning_tpu_torch.models.text_encoder import BERTEmbedder, bert_txt2img_config
+    from diff_pruning_tpu_torch.models.unet_cond import (UNetCond, inpainting_big_config,
+                                                         rdm768_config, txt2img_1p4B_config)
+    from diff_pruning_tpu_torch.models.vae import (AutoencoderKL, first_stage_config,
+                                                   make_first_stage)
+    from diff_pruning_tpu_torch.utils.checkpoint import save_ldm, save_model
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out = {"card": gpu, "laps_s": {}, "cli": {}, "ops": {}, "timing": {}}
+
+    def lap(what):
+        out["laps_s"][what] = time.perf_counter() - t_phase
+
+    shapes = text_op_shapes()
+    per = {name: calls_of(pair) for name, pair in shapes.items()}
+    out["per_call"] = per
+    out["attention_shapes"] = {name: sorted(str(s_) for s_ in pair[1])
+                               for name, pair in shapes.items() if pair[1]}
+    print("text ldm calls a forward: " + "; ".join(
+        f"{name} {c['group_norm']} GroupNorm, {c['attention']} attention "
+        f"{dict(shapes[name][1]) if shapes[name][1] else ''}" for name, c in per.items()))
+    assert per["txt2img_unet"]["attention"] == 32 and per["bert"] == {
+        "group_norm": 0, "attention": 32}, per
+
+    # -- txt2img-1p4B: a seeded model dir (unet/, cond_stage/, first_stage/ kl-f8)
+    g = torch.Generator(device=dev).manual_seed(30)
+    ldm = LatentDiffusion(txt2img_1p4B_config(), device=dev,
+                          cond_stage=BERTEmbedder(bert_txt2img_config(), device=dev),
+                          first_stage=AutoencoderKL(first_stage_config("kl-f8"), device=dev),
+                          linear_start=0.00085, linear_end=0.012, scale_factor=0.18215)
+    ldm.init(g)
+    nudged = redraw_zero_init(ldm.unet, g)
+    counts = {part: sum(p.numel() for p in getattr(ldm, part).parameters())
+              for part in ("unet", "cond_stage", "first_stage")}
+    t2i_dir = os.path.join(tmp, "txt2img")
+    t0 = time.perf_counter()
+    save_ldm(t2i_dir, ldm)
+    t_save = time.perf_counter() - t0
+    vocab = os.path.join(tmp, "bert_vocab.txt")
+    words = TEXT_PROMPT.split()
+    with open(vocab, "w") as f:  # bert-base-uncased's size, the prompt's words in it
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + [
+            f"tok{i}" for i in range(TEXT_VOCAB - 5 - len(words))]) + "\n")
+    tok = BERTTokenizer(vocab)
+    print(f"text ldm txt2img-1p4B: UNetCond {counts['unet']:,}, BERTEmbedder "
+          f"{counts['cond_stage']:,}, kl-f8 {counts['first_stage']:,} params "
+          f"({sum(counts.values()):,}); {nudged} zero-initialised convs redrawn; save_ldm "
+          f"{t_save:.1f} s; vocab {tok.vocab_size} entries")
+    assert counts == TEXT_PARAMS["txt2img"] and tok.vocab_size == TEXT_VOCAB, counts
+    out["txt2img"] = {"params": counts, "save_s": t_save}
+    lap("txt2img model dir")
+
+    # (a) every kernel shape of a UNet call (8 rows), the BERT encode (4) and
+    # the kl-f8 decode (4) against the plain versions
+    rows_t = 2 * TEXT_B
+    for name, rows in (("txt2img_unet", rows_t), ("bert", TEXT_B), ("kl_f8_decode", TEXT_B)):
+        check_fwd_shapes(*shapes[name], rows, gen, dev, worst, "_text", name)
+
+    # (b) one DDIM-20 CFG trajectory kernels on against off, from one x_T
+    tokens = torch.as_tensor(np.repeat(tok([TEXT_PROMPT]), TEXT_B, axis=0), device=dev)
+    sampler = ldm.make_cfg_sampler(ddim_steps=TEXT_STEPS, guidance_scale=TEXT_SCALE,
+                                   latent_hw=32, latent_ch=4, uncond_input=tok([""]))
+    x_T = torch.randn((TEXT_B, 32, 32, 4), generator=gen, device=dev)
+    runs = {}
+    for on in (True, False):
+        ops.reset_launch_counts()
+        lat = switched(on, lambda: sampler(None, tokens, TEXT_B, x_T=x_T))
+        torch.cuda.synchronize()
+        runs[on] = (lat, dict(ops.LAUNCHES))
+    (lat_on, c_on), (lat_off, c_off) = runs[True], runs[False]
+    lat_err, lat_ok = compare_rel(lat_on, lat_off, LDM_REL_TOL)
+    img_on, img_off = (switched(on, lambda: ldm.decode_first_stage(lat_off))
+                       for on in (True, False))
+    img_err, img_ok = compare_rel(img_on, img_off, LDM_REL_TOL)
+    print(f"text ldm txt2img CFG DDIM-{TEXT_STEPS} scale {TEXT_SCALE} B={TEXT_B}, kernels on vs "
+          f"off from one x_T and the same tokens: latents max abs err {lat_err:.3e} (tol "
+          f"{LDM_REL_TOL} x max {float(lat_off.abs().max()):.3f}), the kl-f8 decode of the same "
+          f"latents {img_err:.3e} (tol {LDM_REL_TOL} x max); launches on {c_on}, off {c_off}")
+    assert lat_ok and img_ok, (lat_err, img_err)
+    want = {op: TEXT_STEPS * per["txt2img_unet"][op] + 2 * per["bert"][op]
+            for op in ("group_norm", "attention")}
+    assert {k: c_on[k] for k in want} == want and not any(c_off.values()), (c_on, want)
+    out["txt2img"]["on_off"] = {"latent_max_abs_err": lat_err, "image_max_abs_err": img_err,
+                                "launches": c_on}
+    del runs, lat_on, lat_off, img_on, img_off
+    lap("txt2img checks")
+
+    # (d) timings: a UNet call at the CLI's 8 rows and a BERT encode at 4,
+    # kernels off and on in turns; DDIM-20 + decode at B = 4, one batch off,
+    # one on; per-op ms; a profile of the UNet call
+    xr = torch.randn((rows_t, 32, 32, 4), generator=gen, device=dev)
+    tb = torch.full((rows_t,), 501, device=dev)
+    with torch.inference_mode():
+        ctx = ldm.get_learned_conditioning(torch.cat([tokens, tokens]))
+
+    def t2i_unet(on):
+        with torch.inference_mode():
+            return switched(on, lambda: ldm.apply_unet(xr, tb, ctx))
+
+    def bert(on):
+        with torch.inference_mode():
+            return switched(on, lambda: ldm.get_learned_conditioning(tokens))
+
+    timing = out["timing"]
+    for what, fn in (("txt2img_unet_call_ms", t2i_unet), ("bert_encode_ms", bert)):
+        off, on = turns(fn)
+        timing[what] = {"kernels_on": on, "kernels_off": off}
+    warm = ldm.make_cfg_sampler(ddim_steps=2, guidance_scale=TEXT_SCALE, latent_hw=32,
+                                latent_ch=4, uncond_input=tok([""]))
+    for on in (False, True):
+        switched(on, lambda: ldm.decode_first_stage(warm(gen, tokens, TEXT_B)))
+    off, on = (cuda_ms(lambda: switched(on_, lambda: ldm.decode_first_stage(
+        sampler(gen, tokens, TEXT_B))), iters=1, warmup=0) for on_ in (False, True))
+    timing["txt2img_imgs_per_s"] = {"kernels_on": TEXT_B * 1e3 / on,
+                                    "kernels_off": TEXT_B * 1e3 / off}
+    timing["txt2img_batch_ms"] = {"on": on, "off": off}
+    print(f"time text ldm txt2img UNet call rows={rows_t} float32: kernels on "
+          f"{timing['txt2img_unet_call_ms']['kernels_on']:.2f} ms, off "
+          f"{timing['txt2img_unet_call_ms']['kernels_off']:.2f} ms; BERT encode rows={TEXT_B}: "
+          f"on {timing['bert_encode_ms']['kernels_on']:.2f} ms, off "
+          f"{timing['bert_encode_ms']['kernels_off']:.2f} ms (CUDA events, in turns "
+          f"off-on-on-off); CFG DDIM-{TEXT_STEPS} + decode B={TEXT_B}: kernels on "
+          f"{TEXT_B * 1e3 / on:.3f} imgs/s ({on:.0f} ms), off {TEXT_B * 1e3 / off:.3f} "
+          f"({off:.0f} ms) (one batch each, off then on) {tag}")
+    busy, span, launches, kcounts, _ = profile_kernels(lambda: t2i_unet(True))
+    print_profile(f"text ldm txt2img one UNet call kernels on rows={rows_t} float32", busy, span,
+                  launches, kcounts, ("UNet call", 1), tag)
+    out["txt2img"]["profile_unet_call"] = {"busy_ms": busy, "span_ms": span,
+                                           "launches": launches,
+                                           "idle_share": 1 - sum(busy.values()) / span}
+    out["ops"]["txt2img_unet_call"] = time_ldm_ops(*shapes["txt2img_unet"], rows_t, gen, dev, tag,
+                                                   "txt2img UNet call", others_fwd)
+    out["ops"]["bert_encode"] = time_ldm_ops({}, shapes["bert"][1], TEXT_B, gen, dev, tag,
+                                             "BERT encode", others_fwd)
+    del ldm, sampler, warm, xr, ctx
+    torch.cuda.empty_cache()
+    lap("txt2img timings")
+
+    # (c) the main path: the txt2img CLI on the dir, DDIM-20, then PLMS-5
+    for method, steps in (("ddim", TEXT_STEPS), ("plms", TEXT_PLMS_STEPS)):
+        odir = os.path.join(tmp, f"txt2img_{method}")
+        argv = ["--model_path", t2i_dir, "--vocab", vocab, "--outdir", odir, "--ddim_steps",
+                str(steps), "--device", "cuda"] + (["--plms"] if method == "plms" else [])
+        ops.reset_launch_counts()
+        stats, _, seconds = run_cli(txt2img.main, argv)
+        launches = dict(ops.LAUNCHES)
+        calls = steps + (method == "plms")
+        want = {op: calls * per["txt2img_unet"][op] + 2 * per["bert"][op]
+                + per["kl_f8_decode"][op] for op in ("group_norm", "attention")}
+        pngs = sorted(os.listdir(os.path.join(odir, "samples")))
+        size = Image.open(os.path.join(odir, "samples", pngs[0])).size
+        print(f"txt2img CLI --{method} {steps} steps, n_samples {TEXT_B}, 256 x 256, scale "
+              f"{TEXT_SCALE}: {len(pngs)} PNGs of {size} + grid.png, {seconds:.1f} s wall (load "
+              f"included), sampling {stats['imgs_per_s']:.3f} imgs/s {tag}; launches {launches}")
+        assert pngs == [f"{i:06d}.png" for i in range(TEXT_B)] and size == (256, 256), pngs
+        assert os.path.exists(os.path.join(odir, "grid.png")) and stats["nonfinite"] == 0
+        assert stats["params"] == TEXT_PARAMS["txt2img"], stats["params"]
+        assert {k: launches[k] for k in want} == want, (launches, want)
+        assert launches["attention_lse"] == launches["group_norm_bwd"] == 0, launches
+        out["cli"][f"txt2img_{method}"] = {"seconds": seconds, "imgs_per_s": stats["imgs_per_s"],
+                                           "launches": launches, "steps": steps}
+    lap("txt2img CLI")
+
+    # -- inpainting_big + vq-f4-noattn: a seeded model dir and 4 image/mask pairs
+    g = torch.Generator(device=dev).manual_seed(31)
+    icfg, ifcfg = inpainting_big_config(), first_stage_config("vq-f4-noattn")
+    unet = UNetCond(icfg, device=dev).init(g)
+    fs = make_first_stage(ifcfg, device=dev).init(g)
+    nudged = redraw_zero_init(unet, g)
+    i_dir = os.path.join(tmp, "inpaint")
+    t0 = time.perf_counter()
+    save_model(i_dir, icfg, unet, subfolder="unet")
+    save_model(i_dir, ifcfg, fs, subfolder="first_stage")
+    t_save = time.perf_counter() - t0
+    counts = (sum(p.numel() for p in unet.parameters()), sum(p.numel() for p in fs.parameters()))
+    print(f"text ldm inpainting_big: UNetCond {counts[0]:,}, vq-f4-noattn {counts[1]:,} params "
+          f"({sum(counts):,}); {nudged} zero-initialised convs redrawn; saved in {t_save:.1f} s")
+    assert counts == TEXT_PARAMS["inpaint"], counts
+    out["inpaint"] = {"params": counts, "save_s": t_save}
+    indir = os.path.join(tmp, "inpaint_in")
+    os.makedirs(indir)
+    for i, img in enumerate(make_procedural_dataset(TEXT_INPAINT_PAIRS, 256, seed=31)):
+        Image.fromarray(img).save(os.path.join(indir, f"{i:03d}.png"))
+        mask = np.zeros((256, 256), np.uint8)
+        mask[32 + 16 * i:160 + 16 * i, 64:192] = 255
+        Image.fromarray(mask, "L").save(os.path.join(indir, f"{i:03d}_mask.png"))
+    for name, rows in (("inpaint_unet", TEXT_INPAINT_B), ("vq_f4_noattn_encode", TEXT_INPAINT_B),
+                       ("vq_f4_noattn_decode", TEXT_INPAINT_B)):
+        check_fwd_shapes(*shapes[name], rows, gen, dev, worst, "_text", name)
+    xr = torch.randn((TEXT_INPAINT_B, 64, 64, 7), generator=gen, device=dev)
+    tb = torch.full((TEXT_INPAINT_B,), 501, device=dev)
+
+    def inpaint_unet(on):
+        with torch.inference_mode():
+            return switched(on, lambda: unet(xr, tb))
+
+    sample = make_concat_sampler(unet, ldm_schedule(linear_end=0.0205, device=dev),
+                                 ddim_steps=TEXT_STEPS, latent_ch=3)
+    cond = torch.randn((TEXT_INPAINT_B, 64, 64, 4), generator=gen, device=dev)
+
+    def inpaint_batch():
+        with torch.inference_mode():
+            return fs.decode(sample(gen, cond), force_not_quantize=False)
+
+    off, on = turns(inpaint_unet)
+    timing["inpaint_unet_call_ms"] = {"kernels_on": on, "kernels_off": off}
+    off_b, on_b = (cuda_ms(lambda: switched(on_, inpaint_batch), iters=1, warmup=0)
+                   for on_ in (False, True))
+    timing["inpaint_imgs_per_s"] = {"kernels_on": TEXT_INPAINT_B * 1e3 / on_b,
+                                    "kernels_off": TEXT_INPAINT_B * 1e3 / off_b}
+    print(f"time text ldm inpainting_big UNet call rows={TEXT_INPAINT_B} float32: kernels on "
+          f"{on:.2f} ms, off {off:.2f} ms (in turns off-on-on-off); DDIM-{TEXT_STEPS} + the VQ "
+          f"decode B={TEXT_INPAINT_B}: kernels on {TEXT_INPAINT_B * 1e3 / on_b:.3f} imgs/s "
+          f"({on_b:.0f} ms), off {TEXT_INPAINT_B * 1e3 / off_b:.3f} ({off_b:.0f} ms) (one "
+          f"batch each, off then on) {tag}")
+    out["ops"]["inpaint_unet_call"] = time_ldm_ops(*shapes["inpaint_unet"], TEXT_INPAINT_B, gen,
+                                                   dev, tag, "inpainting_big UNet call",
+                                                   others_fwd)
+    del unet, fs, sample, xr, cond
+    torch.cuda.empty_cache()
+    lap("inpaint model dir, checks, timings")
+    odir = os.path.join(tmp, "inpaint_out")
+    ops.reset_launch_counts()
+    stats, _, seconds = run_cli(inpaint.main, [
+        "--indir", indir, "--outdir", odir, "--model_path", i_dir, "--steps", str(TEXT_STEPS),
+        "--batch_size", str(TEXT_INPAINT_B), "--device", "cuda"])
+    launches = dict(ops.LAUNCHES)
+    batches = TEXT_INPAINT_PAIRS // TEXT_INPAINT_B
+    want = {op: batches * (per["vq_f4_noattn_encode"][op] + TEXT_STEPS * per["inpaint_unet"][op]
+                           + per["vq_f4_noattn_decode"][op]) for op in ("group_norm", "attention")}
+    pngs = sorted(os.listdir(odir))
+    size = Image.open(os.path.join(odir, pngs[0])).size
+    print(f"inpaint CLI --steps {TEXT_STEPS} --batch_size {TEXT_INPAINT_B}, {TEXT_INPAINT_PAIRS} "
+          f"pairs of 256 x 256: {len(pngs)} PNGs of {size}, {seconds:.1f} s wall (load "
+          f"included), {stats['imgs_per_s']:.3f} imgs/s {tag}; launches {launches}")
+    assert pngs == [f"{i:03d}.png" for i in range(TEXT_INPAINT_PAIRS)] and size == (256, 256)
+    assert stats["nonfinite"] == 0 and (stats["unet_params"], stats["first_stage_params"]) == \
+        TEXT_PARAMS["inpaint"], stats
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    out["cli"]["inpaint"] = {"seconds": seconds, "imgs_per_s": stats["imgs_per_s"],
+                             "launches": launches}
+    lap("inpaint CLI")
+
+
+    # -- rdm768 + kl-f16: a seeded model dir; CLIP ViT-L/14 is the CLIs' random init
+    g = torch.Generator(device=dev).manual_seed(32)
+    kcfg, kfcfg = rdm768_config(), first_stage_config("kl-f16")
+    kldm = LatentDiffusion(kcfg, cond_stage=IdentityCondStage(), device=dev,
+                           first_stage=make_first_stage(kfcfg, device=dev),
+                           scale_factor=0.22765929, linear_end=0.015)
+    kldm.init(g)
+    nudged = redraw_zero_init(kldm.unet, g)
+    k_dir = os.path.join(tmp, "rdm768")
+    t0 = time.perf_counter()
+    save_model(k_dir, kcfg, kldm.unet, subfolder="unet")
+    save_model(k_dir, kfcfg, kldm.first_stage, subfolder="first_stage")
+    t_save = time.perf_counter() - t0
+    counts = tuple(sum(p.numel() for p in m.parameters()) for m in (kldm.unet, kldm.first_stage))
+    print(f"text ldm rdm768: UNetCond {counts[0]:,}, kl-f16 {counts[1]:,} params; {nudged} "
+          f"zero-initialised convs redrawn; saved in {t_save:.1f} s")
+    assert counts == TEXT_PARAMS["knn"], counts
+    out["knn"] = {"params": counts, "save_s": t_save}
+    rows_k = 2 * TEXT_KNN_B
+    for name, rows in (("rdm768_unet_nkv1", rows_k), ("rdm768_unet", rows_k),
+                       ("kl_f16_decode", TEXT_KNN_B)):
+        check_fwd_shapes(*shapes[name], rows, gen, dev, worst, "_text", name)
+    hw = kcfg.image_size
+    xr = torch.randn((rows_k, hw, hw, 16), generator=gen, device=dev)
+    tb = torch.full((rows_k,), 501, device=dev)
+    ctx = torch.nn.functional.normalize(
+        torch.randn((rows_k, 1 + TEXT_KNN, kcfg.context_dim), generator=gen, device=dev), dim=-1)
+
+    def rdm_unet(on):
+        with torch.inference_mode():
+            return switched(on, lambda: kldm.apply_unet(xr, tb, ctx))
+
+    ksample = kldm.make_cfg_sampler(
+        ddim_steps=TEXT_KNN_STEPS, guidance_scale=TEXT_SCALE, latent_hw=hw, latent_ch=16,
+        uncond_input=np.zeros((1, 1 + TEXT_KNN, kcfg.context_dim), np.float32))
+
+    def knn_batch():
+        return kldm.decode_first_stage(ksample(gen, ctx[:TEXT_KNN_B], TEXT_KNN_B))
+
+    off, on = turns(rdm_unet)
+    timing["rdm768_unet_call_ms"] = {"kernels_on": on, "kernels_off": off}
+    off_b, on_b = (cuda_ms(lambda: switched(on_, knn_batch), iters=1, warmup=0)
+                   for on_ in (False, True))
+    timing["knn2img_imgs_per_s"] = {"kernels_on": TEXT_KNN_B * 1e3 / on_b,
+                                    "kernels_off": TEXT_KNN_B * 1e3 / off_b}
+    print(f"time text ldm rdm768 UNet call rows={rows_k} Nkv={1 + TEXT_KNN} float32: kernels on "
+          f"{on:.2f} ms, off {off:.2f} ms (in turns off-on-on-off); CFG DDIM-{TEXT_KNN_STEPS} + "
+          f"the kl-f16 decode B={TEXT_KNN_B} at 768 x 768: kernels on "
+          f"{TEXT_KNN_B * 1e3 / on_b:.3f} imgs/s ({on_b:.0f} ms), off "
+          f"{TEXT_KNN_B * 1e3 / off_b:.3f} ({off_b:.0f} ms) (one batch each, off then on) {tag}")
+    out["ops"]["rdm768_unet_call"] = time_ldm_ops(*shapes["rdm768_unet"], rows_k, gen, dev, tag,
+                                                  "rdm768 UNet call", others_fwd)
+    del kldm, ksample, xr, ctx
+    torch.cuda.empty_cache()
+    lap("rdm768 model dir, checks, timings")
+
+    # the main path: train_searcher over phase 18's PNGs (CLIP only: no kernel
+    # of the port), then knn2img with the 10 nearest neighbours
+    sdir, images = os.path.join(tmp, "searcher"), os.path.join(tmp, "ldm_train_data", "class_000")
+    ops.reset_launch_counts()
+    stats, _, seconds = run_cli(train_searcher.main, [
+        "--images", images, "--clip_path", "random", "--target_path", sdir, "--device", "cuda"])
+    launches = dict(ops.LAUNCHES)
+    with np.load(os.path.join(sdir, "database.npz")) as z:
+        emb = z["embedding"]
+    n_images = len([f for f in os.listdir(images) if f.endswith(".png")])
+    print(f"train_searcher CLI --clip_path random (ViT-L/14), {n_images} PNGs: database "
+          f"{emb.shape}, {seconds:.1f} s wall (CLIP init included) {tag}; launches {launches}")
+    assert emb.shape == (n_images, 768) and bool(np.isfinite(emb).all()), emb.shape
+    assert stats["entries"] == n_images and not any(launches.values()), launches
+    out["cli"]["train_searcher"] = {"seconds": seconds, "entries": n_images}
+    bpe = os.path.join(tmp, "clip_merges.txt")
+    with open(bpe, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(
+            ["h e</w>", "l l", "t h", "th e</w>", "a n", "an d</w>", "i n", "in g</w>"]) + "\n")
+    odir = os.path.join(tmp, "knn2img_out")
+    ops.reset_launch_counts()
+    stats, _, seconds = run_cli(knn2img.main, [
+        "--prompt", TEXT_PROMPT, "--outdir", odir, "--model_path", k_dir, "--bpe", bpe,
+        "--clip_path", "random", "--database", sdir, "--use_neighbors", "--knn", str(TEXT_KNN),
+        "--ddim_steps", str(TEXT_KNN_STEPS), "--n_samples", str(TEXT_KNN_B), "--device", "cuda"])
+    launches = dict(ops.LAUNCHES)
+    want = {op: TEXT_KNN_STEPS * per["rdm768_unet"][op] + per["kl_f16_decode"][op]
+            for op in ("group_norm", "attention")}
+    pngs = sorted(os.listdir(os.path.join(odir, "samples")))
+    size = Image.open(os.path.join(odir, "samples", pngs[0])).size
+    grid = Image.open(os.path.join(odir, "grid-0000.png")).size
+    print(f"knn2img CLI --use_neighbors --knn {TEXT_KNN} --ddim_steps {TEXT_KNN_STEPS}, "
+          f"n_samples {TEXT_KNN_B}, 768 x 768: {len(pngs)} PNGs of {size}, grid {grid}, "
+          f"{seconds:.1f} s wall (load and CLIP init included), "
+          f"{stats['imgs_per_s']:.3f} imgs/s {tag}; launches {launches}")
+    assert pngs == [f"{i:05d}.png" for i in range(TEXT_KNN_B)] and size == (768, 768), pngs
+    assert grid == (768 * TEXT_KNN_B, 768) and stats["nonfinite"] == 0, grid
+    assert (stats["unet_params"], stats["first_stage_params"]) == TEXT_PARAMS["knn"], stats
+    assert stats["clip_params"] == TEXT_PARAMS["clip"], stats
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    out["cli"]["knn2img"] = {"seconds": seconds, "imgs_per_s": stats["imgs_per_s"],
+                             "launches": launches}
+    lap("train_searcher and knn2img CLIs")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"text ldm phase {out['seconds']:.1f} s ("
+          + ", ".join(f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -3897,15 +4372,15 @@ def main() -> None:
         out = os.path.join(tmp, name + "_samples")
         ops.reset_launch_counts()
         stats = ddpm_sample.main(base + ["--output_dir", out, "--total_samples", "256",
-                                         "--ddim_steps", "100"])
+                                         "--ddim_steps", str(SAMPLE_TIME_STEPS)])
         counts = dict(ops.LAUNCHES)
         pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
         print(f"serving path {name}: {stats['params'] / 1e6:.4f}M params, "
               f"{stats['macs'] / 1e9:.4f}G MACs, {len(pngs)} PNGs, "
-              f"{stats['imgs_per_s']:.2f} imgs/s (DDIM-100, B={B}, f32, CUDA events, "
-              f"after warm-up) {tag}; launches {counts}")
+              f"{stats['imgs_per_s']:.2f} imgs/s (DDIM-{SAMPLE_TIME_STEPS}, B={B}, f32, "
+              f"CUDA events, after warm-up) {tag}; launches {counts}")
         assert len(pngs) == 256 and stats["images"] == 256 and stats["nonfinite"] == 0
-        forwards = 100 * 2
+        forwards = SAMPLE_TIME_STEPS * 2
         assert counts["group_norm"] == forwards * sum(gn_n.values()) > 0, counts
         assert counts["attention"] == forwards * sum(attn_n.values()) > 0, counts
         assert counts["group_norm_bwd"] == counts["attention_lse"] == 0, counts
@@ -4519,10 +4994,15 @@ def main() -> None:
     ae = ae_train_path(tmp, gen, gpu, tag, worst, {
         "vq_dir": ldm_dir, "kl_dir": os.path.join(tmp, "uncond_churches"),
         "data": os.path.join(tmp, "ldm_train_data")})
-    tmpdir.cleanup()
 
     mark(22)
-    # -- 22. result lines
+    # -- 22. the text- and retrieval-conditioned serving paths: txt2img with the
+    # BERTEmbedder, inpaint, train_searcher and knn2img with CLIP
+    text = text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd)
+    tmpdir.cleanup()
+
+    mark(23)
+    # -- 23. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -4700,6 +5180,26 @@ def main() -> None:
                 res[f"library_backend_uncond_{part}"] = tot["backends"]
         return res
 
+    def text_of(op):
+        """The text- and retrieval-conditioned paths' figures (phase 22):
+        launches of the txt2img (DDIM-20), inpaint and knn2img CLI runs, f32
+        max abs error over every shape of the three models, and ms, plain,
+        bound and library summed over one UNet call of each (the CLIs' rows)
+        and, for the attention, one BERT encode."""
+        res = {f"launches_{cli}_cli": text["cli"][key]["launches"][op]
+               for cli, key in (("txt2img", "txt2img_ddim"), ("inpaint", "inpaint"),
+                                ("knn2img", "knn2img"))}
+        res["max_abs_err_text_ldm"] = worst[(f"{op}_text", "float32")]
+        for part, ops_ in text["ops"].items():
+            if op not in ops_:
+                continue
+            tot = ops_[op]
+            res.update({f"ms_{part}": tot["kernel"], f"plain_ms_{part}": tot["plain"],
+                        f"bound_ms_{part}": tot["bound"], f"bound_by_{part}": tot["bound_by"],
+                        f"library_ms_{part}": tot.get("library"),
+                        f"ms_where_library_{part}": tot.get("kernel_where_library")})
+        return res
+
     per_fwd = "f32, summed over one B=128 UNet forward's calls (inference launch)"
     per_bwd = "f32, summed over one B=128 sweep step's calls"
     gn_fwd_src = "diff_pruning_tpu_torch/ops/csrc/group_norm_fwd.cu"
@@ -4719,7 +5219,7 @@ def main() -> None:
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"],
               **paths("group_norm"), **ldm_of("group_norm"), **ldm_train_gn("fwd"),
-              **uncond_of("group_norm")),
+              **uncond_of("group_norm"), **text_of("group_norm")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
@@ -4753,7 +5253,8 @@ def main() -> None:
               launches_with_lse=ft_counts["attention_lse"],
               launches_serving_dense=results["dense"]["launches"]["attention"],
               max_abs_err_lse_ldm=worst[("attention_lse_ldm", "float32")],
-              **paths("attention"), **ldm_of("attention"), **uncond_of("attention")),
+              **paths("attention"), **ldm_of("attention"), **uncond_of("attention"),
+              **text_of("attention")),
         entry("flash_attention_bwd_dq", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
@@ -4788,6 +5289,7 @@ def main() -> None:
     print(json.dumps({"uncond_ldm": uncond}))
     print(json.dumps({"ablation": ablation}))
     print(json.dumps({"ae_train": ae}))
+    print(json.dumps({"text_ldm": text}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

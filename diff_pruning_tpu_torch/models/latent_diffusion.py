@@ -15,13 +15,17 @@ differentiable through the port's kernels on the card. ``train_loss`` is
 the LDM train step's (``cli/ldm_train.py``): images encoded by the frozen
 first stage, labels dropped to the uncond class by a mask, in f32 or bf16.
 
-The unconditional models (``cli/sample_diffusion.py``) sample through
-``make_concat_sampler``: conditioning planes ride along the channel axis
-(none for the unconditional case). ``SpatialRescaler`` and
-``IdentityCondStage`` are the other cond stages of the CompVis configs.
+The unconditional models (``cli/sample_diffusion.py``) and the inpainting
+model (``cli/inpaint.py``) sample through ``make_concat_sampler``:
+conditioning planes ride along the channel axis (none for the unconditional
+case). ``SpatialRescaler``, ``IdentityCondStage`` (the RDM's: precomputed
+CLIP embeddings, ``cli/knn2img.py``) and the BERTEmbedder
+(``models/text_encoder.py``, ``cli/txt2img.py``) are the other cond stages
+of the CompVis configs; a text or retrieval model's CFG uncond rows are the
+cond stage applied to ``uncond_input`` (the empty prompt's tokens, or zero
+embeddings).
 
-Not ported yet (each raises where a caller can reach it): a text cond stage
-and ``uncond_input`` (ROADMAP queue 1, item 9), and ``mesh`` /
+Not ported yet (raises where a caller can reach it): ``mesh`` /
 ``tensor_parallel`` sharding (multi-GPU).
 """
 
@@ -226,20 +230,19 @@ class LatentDiffusion(nn.Module):
     """(UNetCond ``unet``, cond stage ``cond_stage``, optional first stage
     ``first_stage``) and the schedule; the pruning target is the unet. The
     state dict's top-level keys are the JAX param tree's (``unet``,
-    ``cond_stage``, ``first_stage``). ``cond_stage`` is a
-    :class:`SpatialRescaler` or an :class:`IdentityCondStage`; without one,
-    the ClassEmbedder (cin256-v2)."""
+    ``cond_stage``, ``first_stage``). ``cond_stage`` is any module with
+    ``reset_parameters(generator)`` whose forward maps the sampler's
+    ``labels`` to the (B, N, context_dim) context: a :class:`SpatialRescaler`,
+    an :class:`IdentityCondStage`, a
+    :class:`~diff_pruning_tpu_torch.models.text_encoder.BERTEmbedder` (then
+    ``labels`` are (B, 77) token ids); without one, the ClassEmbedder
+    (cin256-v2)."""
 
     def __init__(self, unet_cfg: UNetCondConfig, *, n_classes: int = 1001, first_stage=None,
                  scale_factor: float = 1.0, num_train_timesteps: int = 1000,
                  linear_start: float = 0.0015, linear_end: float = 0.0195,
                  cond_stage=None, device):
         super().__init__()
-        if cond_stage is not None and not isinstance(cond_stage, (SpatialRescaler,
-                                                                  IdentityCondStage)):
-            raise NotImplementedError(
-                f"cond stage {type(cond_stage).__name__}: a text cond stage is not ported "
-                "yet (ROADMAP queue 1, item 9)")
         self.unet = UNetCond(unet_cfg, device=device)
         if cond_stage is None:
             cond_stage = ClassEmbedder(n_classes, unet_cfg.context_dim, device=device)
@@ -308,20 +311,21 @@ class LatentDiffusion(nn.Module):
                          eta: float = 0.0, latent_hw=64, latent_ch: int = 3,
                          method: str = "ddim", mesh=None, tensor_parallel: bool = False,
                          uncond_input=None) -> Callable:
-        """Class-conditional CFG sampler over latents: returns
+        """Conditional CFG sampler over latents: returns
         ``sample(generator, labels, batch_size, *, x_T=None, noise=None) ->
         latents`` (B, h, w, latent_ch) f32 NHWC on the model's device.
 
         Each step batches the uncond and cond rows through one UNet call
-        (x_in = cat([x] * 2), ldm/models/diffusion/ddim.py:188-192). ``x_T``,
-        ``noise`` and ``method`` as for :func:`_compvis_solver`."""
+        (x_in = cat([x] * 2), ldm/models/diffusion/ddim.py:188-192). The cond
+        rows are the cond stage applied to ``labels``; the uncond rows the
+        uncond class's, or with ``uncond_input`` (e.g. the tokenized empty
+        prompt, or zero CLIP embeddings) the cond stage applied to it, a
+        single row broadcast to the batch. ``x_T``, ``noise`` and ``method``
+        as for :func:`_compvis_solver`."""
         solve = _compvis_solver(self.schedule, ddim_steps, eta, method)
         if mesh is not None or tensor_parallel:
             raise NotImplementedError("sharded sampling (mesh, tensor_parallel) comes with "
                                       "the multi-GPU slice")
-        if uncond_input is not None:
-            raise NotImplementedError("uncond_input belongs to a text cond stage, which is "
-                                      "not ported yet (ROADMAP queue 1, item 9)")
         lat_h, lat_w = ((latent_hw, latent_hw) if isinstance(latent_hw, int)
                         else tuple(latent_hw))
         device = self.schedule.alphas_cumprod.device
@@ -332,9 +336,15 @@ class LatentDiffusion(nn.Module):
             with torch.inference_mode():
                 labels = torch.as_tensor(labels, device=device)
                 ctx_c = self.get_learned_conditioning(labels)
-                ctx_u = self.get_learned_conditioning(
-                    torch.full((batch_size,), self.uncond_class, dtype=torch.int64,
-                               device=device))
+                if uncond_input is None:
+                    ctx_u = self.get_learned_conditioning(
+                        torch.full((batch_size,), self.uncond_class, dtype=torch.int64,
+                                   device=device))
+                else:
+                    ctx_u = self.get_learned_conditioning(
+                        torch.as_tensor(uncond_input, device=device))
+                    if ctx_u.shape[0] == 1:
+                        ctx_u = ctx_u.expand(batch_size, *ctx_u.shape[1:])
                 ctx = torch.cat([ctx_u, ctx_c], dim=0)
 
                 def eps_fn(x, t):

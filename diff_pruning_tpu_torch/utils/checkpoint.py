@@ -13,11 +13,15 @@ The module tree is named after the JAX param tree, so keys map ``/`` <->
 An LDM model dir (``save_ldm``; read by ``models.latent_diffusion.load_ldm``)
 is laid out as the JAX package writes it: ``unet/{config.json,
 params.npz}``, ``cond_stage/params.npz`` (the class table,
-``embedding/weight``), ``first_stage/{config.json, params.npz}`` when there
-is one, and ``ldm.json`` (n_classes, scale_factor and the schedule). Its
-leaves need no transform beyond the kernels': LayerNorm ``scale``/``bias``,
-embedding tables and the VQ codebook are the same arrays in both packages,
-the GEGLU ``proj/kernel`` and 1x1 convs are kernels.
+``embedding/weight``; a BERTEmbedder's with its ``config.json``, as the JAX
+``cli/txt2img.py`` reads it), ``first_stage/{config.json, params.npz}`` when
+there is one, and ``ldm.json`` (n_classes, scale_factor and the schedule). A
+CLIP dir (``clip/``, read by ``cli/train_searcher.py``'s ``load_clip``) is
+``{config.json, params.npz}`` written by :func:`save_model`. Their leaves
+need no transform beyond the kernels': LayerNorm ``scale``/``bias``,
+embedding tables, CLIP's projections and class embedding and the VQ codebook
+are the same arrays in both packages, the GEGLU ``proj/kernel``, 1x1 convs
+and CLIP's patch conv are kernels.
 
 Train state (``save_train_state``/``load_train_state``/``restore_opt_state``)
 has the JAX package's on-disk layout too: ``<path>/step-N/`` holding
@@ -39,11 +43,16 @@ import numpy as np
 import torch
 
 
-def state_dict_from_flat(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX-layout flat params -> ``state_dict`` (CPU tensors)."""
+def state_dict_from_flat(flat: Mapping[str, np.ndarray],
+                         device=None) -> Dict[str, torch.Tensor]:
+    """JAX-layout flat params -> ``state_dict``: CPU tensors, or with
+    ``device`` tensors there (each array copied over first, so that the
+    kernels' transposes run on the device)."""
     out = {}
     for path, arr in flat.items():
         t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device is not None:
+            t = t.to(device)
         if path.endswith("kernel"):
             if t.ndim == 4:
                 t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
@@ -54,10 +63,12 @@ def state_dict_from_flat(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tens
 
 
 def flat_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """``state_dict`` -> JAX-layout flat params (numpy; bf16/f16 widened to f32)."""
+    """``state_dict`` -> JAX-layout flat params (numpy; bf16/f16 widened to
+    f32). The widening and the kernels' transposes run where the tensors
+    are, before the copy to the host."""
     out = {}
     for key, t in state_dict.items():
-        t = t.detach().cpu()
+        t = t.detach()
         if t.dtype in (torch.bfloat16, torch.float16):
             t = t.to(torch.float32)
         if key.endswith("kernel"):
@@ -65,7 +76,7 @@ def flat_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np
                 t = t.permute(2, 3, 1, 0)  # OIHW -> HWIO
             elif t.ndim == 2:
                 t = t.t()
-        out[key.replace(".", "/")] = np.ascontiguousarray(t.numpy())
+        out[key.replace(".", "/")] = t.contiguous().cpu().numpy()
     return out
 
 
@@ -84,10 +95,11 @@ def save_params_npz(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
     np.savez(path, **flat_from_state_dict(state_dict))
 
 
-def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
+def load_params_npz(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """A ``params.npz`` as a state dict, on ``device`` when given (CPU)."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    return state_dict_from_flat(flat)
+    return state_dict_from_flat(flat, device)
 
 
 def save_model(model_dir: str, config, model, subfolder: str = "unet") -> None:
@@ -101,9 +113,9 @@ def save_model(model_dir: str, config, model, subfolder: str = "unet") -> None:
     save_params_npz(os.path.join(d, "params.npz"), state)
 
 
-def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
-    """Returns ``(config, state_dict)``; load the state dict into
-    ``UNet2D(config, device=...)``."""
+def load_model(model_dir: str, subfolder: str = "unet", config_cls=None, device=None):
+    """Returns ``(config, state_dict)``, the state dict on ``device`` when
+    given (CPU); load it into ``UNet2D(config, device=...)``."""
     from ..models.unet2d import UNet2DConfig
 
     if config_cls is None:
@@ -113,7 +125,7 @@ def load_model(model_dir: str, subfolder: str = "unet", config_cls=None):
         d = model_dir  # allow flat layout
     with open(os.path.join(d, "config.json")) as f:
         cfg = config_cls.from_json(f.read())
-    return cfg, load_params_npz(os.path.join(d, "params.npz"))
+    return cfg, load_params_npz(os.path.join(d, "params.npz"), device)
 
 
 def save_ldm(model_dir: str, ldm, *, with_unet: bool = True) -> None:
@@ -123,9 +135,12 @@ def save_ldm(model_dir: str, ldm, *, with_unet: bool = True) -> None:
     (the LDM train CLI writes those once and the UNet at every save)."""
     if with_unet:
         save_model(model_dir, ldm.unet.cfg, ldm.unet, subfolder="unet")
-    os.makedirs(os.path.join(model_dir, "cond_stage"), exist_ok=True)
-    save_params_npz(os.path.join(model_dir, "cond_stage", "params.npz"),
-                    ldm.cond_stage.state_dict())
+    if hasattr(ldm.cond_stage, "cfg"):  # a text encoder: its config too
+        save_model(model_dir, ldm.cond_stage.cfg, ldm.cond_stage, subfolder="cond_stage")
+    else:
+        os.makedirs(os.path.join(model_dir, "cond_stage"), exist_ok=True)
+        save_params_npz(os.path.join(model_dir, "cond_stage", "params.npz"),
+                        ldm.cond_stage.state_dict())
     if ldm.first_stage is not None:
         save_model(model_dir, ldm.first_stage.cfg, ldm.first_stage, subfolder="first_stage")
     with open(os.path.join(model_dir, "ldm.json"), "w") as f:

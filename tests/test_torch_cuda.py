@@ -162,6 +162,23 @@ def _check_flash_attention_forward(cuda):
                        .view(2, n, heads, dh).transpose(1, 2) for _ in range(3))
             _check(flash_attention(q, k, v, dh ** -0.5), reference_attention(q, k, v, dh ** -0.5),
                    dtype, f"attention {heads} heads x {dh}, N = {n} {dtype}")
+        # the text- and retrieval-conditioned LDMs, as CrossAttention and
+        # SelfAttention2D pass them (heads, D, Nq, Nkv): txt2img's 8 heads of
+        # 40, 80 and 160, self-attention and cross-attention over the 77-token
+        # context; its BERT's 77 tokens at 8 x 64; rdm768's 14-56 heads of 32
+        # with a context of 1 or 11 (knn 10) CLIP embeddings; inpainting_big's
+        # 8 heads of 64, 96 and 128
+        for heads, dh, nq, nkv in ((8, 40, 1024, 1024), (8, 40, 1024, 77), (8, 80, 256, 256),
+                                   (8, 80, 256, 77), (8, 160, 64, 64), (8, 160, 64, 77),
+                                   (8, 160, 16, 16), (8, 160, 16, 77), (8, 64, 77, 77),
+                                   (14, 32, 2304, 2304), (14, 32, 2304, 1), (14, 32, 2304, 11),
+                                   (28, 32, 576, 11), (42, 32, 144, 11), (56, 32, 36, 36),
+                                   (56, 32, 36, 1), (8, 64, 1024, 1024), (8, 96, 256, 256),
+                                   (8, 128, 64, 64)):
+            q, k, v = (torch.randn((2, n, heads * dh), generator=gen, device=cuda).to(dtype)
+                       .view(2, n, heads, dh).transpose(1, 2) for n in (nq, nkv, nkv))
+            _check(flash_attention(q, k, v, dh ** -0.5), reference_attention(q, k, v, dh ** -0.5),
+                   dtype, f"attention {heads} heads x {dh}, Nq = {nq}, Nkv = {nkv} {dtype}")
         q, k, v = (torch.randn((2, 2, 50, 64), generator=gen, device=cuda).to(dtype)[..., :37]
                    for _ in range(3))
         _check(flash_attention(q, k, v, 37 ** -0.5), reference_attention(q, k, v, 37 ** -0.5),

@@ -117,6 +117,199 @@ def _unet_forward_both(jcfg, flat, x, t, ctx):
     return tm, np.asarray(want), got.numpy()
 
 
+# strings for both tokenizers: accents, CJK, control and separator
+# characters, punctuation runs, numbers outside \d ('²', '½'), a special token
+# inside text, contractions (also with 'ſ', which IGNORECASE folds to 's'),
+# U+0345 (in no class of the CLIP pattern), HTML entities, and a text past
+# the context length
+TOKENIZER_TEXTS = [
+    "a painting of a virus monster playing guitar", "", "Héllo, Wörld!!  naïve café",
+    "東京 タワー 和 北京", "x²+y½ = z³ ⅷ", "don't it's WE'LL they've i'm I'd 'ſ 'S",
+    "punct...!!?? (a) [b] {c} -- __ ##", "tab\tnew\nline\x1c\x1d sep\u2003em\u3000cjk",
+    "<|startoftext|> the <|endoftext|> hell <|ſtartoftext|>", "\u0345a\u0345 b\u0345",
+    "&amp;lt;b&amp;gt; and &quot;quoted&quot;", "the hell and " * 40, "ﬁ ǅ Ⅻ ⓐ 𝔘𝔫𝔦",
+    "\x00ctrl\ufeffzero\u200bwidth", "ελληνικά и кириллица", "   padded   ",
+]
+
+
+def _write_tokenizer_files(d):
+    """A WordPiece vocab (word pieces, '##' continuations, non-ASCII and CJK
+    entries) and a BPE merges file (plain and .gz; merges over UTF-8 byte
+    symbols too) for both packages' tokenizers."""
+    import gzip
+
+    from diff_pruning_tpu_torch.data.clip_tokenizer import bytes_to_unicode
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "painting", "of", "virus",
+             "monster", "play", "##ing", "guitar", "hello", "world", "na", "##ive", "cafe",
+             "東", "京", "北", "!", ",", ".", "x", "##²", "the", "hell", "and", "don", "'",
+             "t", "it", "s", "δ", "ε", "##λ", "и", "(", ")", "-", "#", "<", ">", "|", "z",
+             "##s", "##o", "##r", "lt", "gt", "quot", "&", ";", "tab", "new", "line", "em"]
+    vf = os.path.join(d, "vocab.txt")
+    with open(vf, "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    byte = bytes_to_unicode()
+    e_acute = "".join(byte[b] for b in "é".encode("utf-8"))
+    merges = [("h", "e</w>"), ("l", "l"), ("t", "h"), ("th", "e</w>"), ("a", "n"),
+              ("an", "d</w>"), ("h", "e"), ("he", "ll</w>"), ("p", "a"), ("i", "n"),
+              ("in", "g</w>"), (e_acute[0], e_acute[1]), ("c", "a"), ("ca", "f"),
+              ("'", "s</w>"), ("1", "2")]
+    mf = os.path.join(d, "merges.txt")
+    text = "#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n"
+    with open(mf, "w", encoding="utf-8") as f:
+        f.write(text)
+    with gzip.open(mf + ".gz", "wt", encoding="utf-8") as f:
+        f.write(text)
+    return vf, mf
+
+
+def _check_text_and_clip_models(tmp_path, tiny, rng):
+    """Both tokenizers (exact ids), the BERTEmbedder and CLIP (graphs, full
+    parameter counts on the meta device, tiny forwards within ATOL/RTOL:
+    tens of layers summed in other orders), the OpenAI CLIP converter
+    (exact), and a tiny LatentDiffusion with a BERT cond stage."""
+    from diff_pruning_tpu.data import clip_tokenizer as jct
+    from diff_pruning_tpu.data import tokenizer as jtok
+    from diff_pruning_tpu.models import clip as jclip
+    from diff_pruning_tpu.models import text_encoder as jte
+    from diff_pruning_tpu_torch.data import clip_tokenizer as tct
+    from diff_pruning_tpu_torch.data import tokenizer as ttok
+    from diff_pruning_tpu_torch.models import clip as tclip
+    from diff_pruning_tpu_torch.models import text_encoder as tte
+
+    vf, mf = _write_tokenizer_files(str(tmp_path))
+    jb, tb = jtok.BERTTokenizer(vf, max_length=20), ttok.BERTTokenizer(vf, max_length=20)
+    np.testing.assert_array_equal(tb(TOKENIZER_TEXTS), jb(TOKENIZER_TEXTS))
+    for s in TOKENIZER_TEXTS:
+        assert tb.tokenize_ids(s) == jb.tokenize_ids(s), s
+    jc = jct.CLIPTokenizer(mf)
+    for path in (mf, mf + ".gz"):
+        tc = tct.CLIPTokenizer(path)
+        assert tc.vocab_size == jc.vocab_size == 512 + 16 + 2
+        np.testing.assert_array_equal(tc.tokenize(TOKENIZER_TEXTS, context_length=24),
+                                      jc.tokenize(TOKENIZER_TEXTS, context_length=24))
+    for s in TOKENIZER_TEXTS:  # the pattern alone, and through the whole encode
+        assert tct.pre_tokenize(s) == jct.re.findall(jct.CLIPTokenizer.PAT, s), s
+        assert tc.encode(s) == jc.encode(s), s
+        assert tc.decode(tc.encode(s)) == jc.decode(jc.encode(s)), s
+    with pytest.raises(RuntimeError, match="too long"):
+        tc.tokenize(TOKENIZER_TEXTS[-5], context_length=8, truncate=False)
+
+    # BERTEmbedder and CLIP: configs, graphs and parameter counts (the
+    # full-width ones on the meta device against jax.eval_shape), state keys
+    for jmod, tmod, cfgs, full in (
+            (jte, tte, ("bert_txt2img_config", "tiny_bert_config"), 581_994_042),
+            (jclip, tclip, ("clip_vit_l14_config", "tiny_clip_config"), 427_616_513)):
+        for i, name in enumerate(cfgs):
+            jcfg, tcfg = getattr(jmod, name)(), getattr(tmod, name)()
+            assert tcfg.to_json() == jcfg.to_json() and type(tcfg).from_json(
+                tcfg.to_json()) == tcfg, name
+            jm = (jte.BERTEmbedder if jmod is jte else jclip.CLIP)(jcfg)
+            tm = (tte.BERTEmbedder if jmod is jte else tclip.CLIP)(tcfg, device="meta")
+            assert _graph_signature(tm.graph) == _graph_signature(jm.graph), name
+            shapes = jax.eval_shape(jm.init, jax.random.key(0))
+            n = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+            assert sum(p.numel() for p in tm.parameters()) == n == (full if i == 0 else n)
+            assert {k.replace(".", "/") for k in tm.state_dict()} == set(flatten_params(shapes))
+
+    # tiny forwards on the same weights
+    jm, tm = jte.BERTEmbedder(jte.tiny_bert_config()), tte.BERTEmbedder(
+        tte.tiny_bert_config(), device="cpu")
+    bflat = numpy_params(jm.init, 21)
+    tm.load_state_dict(tckpt.state_dict_from_flat(bflat))
+    ids = rng.integers(0, 40, (3, 11))
+    with jax.default_matmul_precision("float32"), torch.no_grad():
+        for emb in (True, False):
+            _close(tm(torch.from_numpy(ids), return_embeddings=emb).numpy(),
+                   jm(_jax_tree(bflat), jnp.asarray(ids), return_embeddings=emb), "bert")
+    assert tm.init(torch.Generator().manual_seed(0)) is tm
+    assert float(tm.token_emb.embedding.detach().std()) == pytest.approx(0.02, rel=0.2)
+    jm, tm = jclip.CLIP(jclip.tiny_clip_config()), tclip.CLIP(tclip.tiny_clip_config(),
+                                                              device="cpu")
+    cflat = numpy_params(jm.init, 22)
+    tm.load_state_dict(tckpt.state_dict_from_flat(cflat))
+    ids = rng.integers(0, 49, (3, 10))
+    ids[np.arange(3), [9, 4, 6]] = 49  # the end-of-text token, the largest id
+    img16 = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    img_big = rng.uniform(-1, 1, (2, 37, 29, 3)).astype(np.float32)  # resized (shrinks)
+    img_small = rng.uniform(-1, 1, (1, 9, 16, 3)).astype(np.float32)  # grows one axis
+    jp = _jax_tree(cflat)
+    with jax.default_matmul_precision("float32"), torch.no_grad():
+        _close(tclip.clip_text_embed(tm, torch.from_numpy(ids), n_repeat=2).numpy(),
+               jclip.clip_text_embed(jm, jp, jnp.asarray(ids), n_repeat=2), "clip text")
+        _close(tm.encode_text(torch.from_numpy(ids)).numpy(),
+               jm.encode_text(jp, jnp.asarray(ids)), "clip encode_text")
+        _close(tm.encode_image(torch.from_numpy(img16)).numpy(),
+               jm.encode_image(jp, jnp.asarray(img16)), "clip encode_image")
+        for im in (img16, img_big, img_small):
+            _close(tclip.clip_preprocess_images(torch.from_numpy(im), 16).numpy(),
+                   jclip.clip_preprocess_images(jnp.asarray(im), 16), f"preprocess {im.shape}")
+            _close(tclip.clip_image_embed(tm, torch.from_numpy(im)).numpy(),
+                   jclip.clip_image_embed(jm, jp, jnp.asarray(im)), f"image embed {im.shape}")
+    tm.init(torch.Generator().manual_seed(0))
+    assert float(tm.logit_scale.detach()) == pytest.approx(np.log(1 / 0.07))
+    # the OpenAI state-dict converter: both towers, and the text tower alone
+    tc_ = tclip.tiny_clip_config()
+    w, vw = tc_.text_width, tc_.vision_width
+    sd = {"token_embedding.weight": (tc_.vocab_size, w), "positional_embedding": (10, w),
+          "ln_final.weight": (w,), "ln_final.bias": (w,), "text_projection": (w, 12),
+          "logit_scale": (), "visual.conv1.weight": (vw, 3, 8, 8),
+          "visual.class_embedding": (vw,), "visual.positional_embedding": (5, vw),
+          "visual.ln_pre.weight": (vw,), "visual.ln_pre.bias": (vw,),
+          "visual.ln_post.weight": (vw,), "visual.ln_post.bias": (vw,), "visual.proj": (vw, 12)}
+    for pre, width in (("transformer.resblocks", w), ("visual.transformer.resblocks", vw)):
+        for i in range(2):
+            p = f"{pre}.{i}"
+            sd.update({f"{p}.attn.in_proj_weight": (3 * width, width),
+                       f"{p}.attn.in_proj_bias": (3 * width,),
+                       f"{p}.attn.out_proj.weight": (width, width),
+                       f"{p}.attn.out_proj.bias": (width,),
+                       f"{p}.mlp.c_fc.weight": (4 * width, width),
+                       f"{p}.mlp.c_fc.bias": (4 * width,),
+                       f"{p}.mlp.c_proj.weight": (width, 4 * width),
+                       f"{p}.mlp.c_proj.bias": (width,)})
+            sd.update({f"{p}.{ln}.{k}": (width,) for ln in ("ln_1", "ln_2")
+                       for k in ("weight", "bias")})
+    sd = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for k, s in sd.items()}
+    for part in (sd, {k: v for k, v in sd.items() if not k.startswith("visual.")}):
+        got = tckpt.flat_from_state_dict(tclip.openai_clip_state_dict_to_params(part))
+        want = flatten_params(jclip.openai_clip_state_dict_to_params(part))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    tm.load_state_dict(tclip.openai_clip_state_dict_to_params(sd))
+
+    # a tiny LatentDiffusion with the BERT cond stage: the cond stage and the
+    # learned conditioning, then the full-width text and retrieval models'
+    # pinned parameter counts (UNet, BERT, first stages; meta device)
+    ucfg = dataclasses.replace(tiny, context_dim=16)
+    jldm = jl.LatentDiffusion(ucfg, cond_stage=jte.BERTEmbedder(jte.tiny_bert_config()))
+    tldm = tl.LatentDiffusion(tu.UNetCondConfig.from_json(ucfg.to_json()), device="cpu",
+                              cond_stage=tte.BERTEmbedder(tte.tiny_bert_config(), device="cpu"))
+    flat = numpy_params(jldm.init, 23)
+    assert set(tckpt.flat_from_state_dict(tldm.state_dict())) == set(flat)
+    tldm.init(torch.Generator().manual_seed(0))
+    tldm.load_state_dict(tckpt.state_dict_from_flat(flat))
+    ids = rng.integers(0, 40, (2, 11))
+    with jax.default_matmul_precision("float32"), torch.no_grad():
+        _close(tldm.get_learned_conditioning(torch.from_numpy(ids)).numpy(),
+               jldm.get_learned_conditioning(_jax_tree(flat), jnp.asarray(ids)), "ldm bert")
+    meta = torch.device("meta")
+    for ucfg_, fs_name, want in ((tu.txt2img_1p4B_config(), "kl-f8", (872_300_484, 83_653_863)),
+                                 (tu.rdm768_config(), "kl-f16", (1_335_480_400, 69_610_963)),
+                                 (tu.inpainting_big_config(), "vq-f4-noattn",
+                                  (387_245_827, 53_219_486))):
+        got = (sum(p.numel() for p in tu.UNetCond(ucfg_, device=meta).parameters()),
+               sum(p.numel() for p in tv.make_first_stage(tv.first_stage_config(fs_name),
+                                                          device=meta).parameters()))
+        assert got == want, (fs_name, got)
+    t2i = tl.LatentDiffusion(tu.txt2img_1p4B_config(), device=meta,
+                             first_stage=tv.make_first_stage(tv.first_stage_config("kl-f8"),
+                                                             device=meta),
+                             cond_stage=tte.BERTEmbedder(tte.bert_txt2img_config(), device=meta))
+    assert sum(p.numel() for p in t2i.parameters()) == 1_537_948_389
+
+
 def test_ldm_models_match_jax(tmp_path):
     """Graphs and parameter counts (every preset; cin256-v2 and vq-f4 at
     full width on the meta device against jax.eval_shape), tiny UNetCond
@@ -381,8 +574,7 @@ def test_ldm_models_match_jax(tmp_path):
         with torch.inference_mode():
             got = tm.get_learned_conditioning(torch.from_numpy(img))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tl.LatentDiffusion(tiny, cond_stage=torch.nn.Identity(), device="cpu")
+    _check_text_and_clip_models(tmp_path, tiny, rng)
 
     # checkpoints: a JAX LDM dir (UNet pruned by the JAX package, VQ first
     # stage, 5 classes) loads in the port and writes back the same arrays;
@@ -581,7 +773,17 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
                      "--num_classes", "1", "--ipc", "1", "--batch_size", "1",
                      "--ddim_steps", "2", "--method", "dpm", "--device", "cpu"])
     assert np.asarray(Image.open(tmp_path / "latent" / "000000.png")).shape == (8, 8, 3)
+    text_dirs = _check_text_and_retrieval_serving(tmp_path, capsys)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img
+
+    for cli, argv in ((txt2img, ["--vocab", text_dirs["vocab"]]),
+                      (inpaint, ["--indir", "i", "--outdir", "o", "--model_path", udir]),
+                      (train_searcher, ["--images", "i", "--target_path", "t"]),
+                      (knn2img, ["--model_path", text_dirs["knn"], "--outdir", "o",
+                                 "--bpe", "b"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -589,3 +791,254 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out), "--multihost",
                          "--device", "cpu"])
+
+
+def _check_text_and_retrieval_serving(tmp_path, capsys):
+    """The text- and retrieval-conditioned serving paths: the CFG sampler
+    with ``uncond_input`` (the empty prompt through the BERT cond stage) and
+    the concat inpaint sampler (a VQ encode plus the mask plane), each from
+    JAX's x_T (relative error in norm <= TRAJ_RTOL; concat atol 5e-5, as
+    above); the exact searcher's top-k (the same indices) and its database
+    files crossing both ways; then the txt2img, inpaint, train_searcher and
+    knn2img CLIs on --device cpu against the JAX CLIs on the same model dirs,
+    which the JAX package writes: the same files and image sizes, inpaint's
+    composite outside the mask within one level of the input and of the JAX
+    CLI's, and train_searcher's embeddings within ATOL/RTOL. Returns the
+    dirs that the refusal checks reuse."""
+    from PIL import Image
+
+    from diff_pruning_tpu import retrieval as jret
+    from diff_pruning_tpu.cli import inpaint as jinpaint
+    from diff_pruning_tpu.cli import knn2img as jknn
+    from diff_pruning_tpu.cli import train_searcher as jsearch
+    from diff_pruning_tpu.cli import txt2img as jtxt
+    from diff_pruning_tpu.data.tokenizer import BERTTokenizer
+    from diff_pruning_tpu.models import clip as jclip
+    from diff_pruning_tpu.models import text_encoder as jte
+    from diff_pruning_tpu_torch import retrieval as tret
+    from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img
+
+    def png(path):
+        return np.asarray(Image.open(path))
+
+    def listing(d):
+        return sorted(os.listdir(d))
+
+    # a tiny txt2img dir (BERT cond stage, KL f2 first stage) written by JAX
+    bcfg = jte.tiny_bert_config()
+    ucfg = dataclasses.replace(ju.tiny_cond_config(), in_channels=4, out_channels=4)
+    fcfg = jv.AutoencoderConfig(block_out_channels=(8, 8), layers_per_block=1,
+                                latent_channels=4, norm_num_groups=4,
+                                mid_block_attention=False, sample_size=16)
+    jldm = jl.LatentDiffusion(ucfg, cond_stage=jte.BERTEmbedder(bcfg),
+                              first_stage=jv.AutoencoderKL(fcfg), linear_start=0.00085,
+                              linear_end=0.012, scale_factor=0.18215)
+    jparams = _jax_tree(numpy_params(jldm.init, 30))
+    tdir = str(tmp_path / "txt2img")
+    for sub, cfg in (("unet", ucfg), ("cond_stage", bcfg), ("first_stage", fcfg)):
+        jckpt.save_model(tdir, cfg, jparams[sub], subfolder=sub)
+    vocab = str(tmp_path / "bert_vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "a", "virus", "monster",
+                           "guitar", "painting", "of", "playing"]) + "\n")
+    tok = BERTTokenizer(vocab, max_length=bcfg.max_seq_len)
+    tldm = txt2img.load_txt2img(tdir, device="cpu")
+    tokens = np.repeat(tok(["a virus monster playing"]), 3, axis=0)
+    key = jax.random.key(5)
+    x_T = np.asarray(jax.random.normal(jax.random.split(key)[1], (3, 4, 4, 4)))
+    for method in ("ddim", "plms"):
+        kw = dict(ddim_steps=4, guidance_scale=5.0, latent_hw=(4, 4), latent_ch=4,
+                  method=method, uncond_input=tok([""]))
+        with jax.default_matmul_precision("float32"):
+            want = jldm.make_cfg_sampler(jparams, **kw)(key, jnp.asarray(tokens), 3)
+            want_img = np.asarray(jldm.decode_first_stage(jparams, want))
+        got = tldm.make_cfg_sampler(**kw)(None, torch.from_numpy(tokens), 3,
+                                          x_T=torch.from_numpy(x_T.copy()))
+        assert _rel(got.numpy(), want) <= TRAJ_RTOL, (method, _rel(got.numpy(), want))
+        assert _rel(tldm.decode_first_stage(got).numpy(), want_img) <= TRAJ_RTOL, method
+    # a dir written by the port (save_ldm: cond_stage/ with its config) loads
+    # in the JAX CLI's loader with the same arrays
+    pdir = str(tmp_path / "txt2img_port")
+    tckpt.save_ldm(pdir, tldm)
+    _, jenc, jback = jtxt.load_txt2img(pdir)
+    assert jenc.cfg == bcfg
+    want = tckpt.flat_from_state_dict(tldm.state_dict())
+    got = flatten_params(jback)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=k)
+
+    # the concat inpaint sampler: the VQ encode of a masked image and the
+    # nearest-strided mask plane, the inpainting schedule (linear_end 0.0205)
+    icfg = ju.UNetCondConfig(image_size=8, in_channels=7, out_channels=3, model_channels=32,
+                             num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                             num_heads=2, context_dim=None, use_spatial_transformer=False,
+                             resblock_updown=True, norm_num_groups=8)
+    vcfg = jv.AutoencoderConfig(block_out_channels=(8, 8), layers_per_block=1,
+                                latent_channels=3, norm_num_groups=4, num_vq_embeddings=16,
+                                mid_block_attention=False, sample_size=16)
+    iflat, vflat = numpy_params(ju.UNetCond(icfg).init, 31), numpy_params(
+        jv.VQModel(vcfg).init, 32)
+    idir = str(tmp_path / "inpaint_model")
+    jckpt.save_model(idir, icfg, _jax_tree(iflat), subfolder="unet")
+    jckpt.save_model(idir, vcfg, _jax_tree(vflat), subfolder="first_stage")
+    rng = np.random.default_rng(33)
+    masked = rng.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    plane = np.sign(rng.standard_normal((2, 8, 8, 1))).astype(np.float32)
+    tvq = tv.make_first_stage(tv.AutoencoderConfig.from_json(vcfg.to_json()), device="cpu")
+    tvq.load_state_dict(tckpt.state_dict_from_flat(vflat))
+    tun = tu.UNetCond(tu.UNetCondConfig.from_json(icfg.to_json()), device="cpu")
+    tun.load_state_dict(tckpt.state_dict_from_flat(iflat))
+    tun.eval()
+    ckey = jax.random.key(6)
+    cx_T = np.array(jax.random.normal(jax.random.split(ckey)[1], (2, 8, 8, 3)))
+    with jax.default_matmul_precision("float32"):
+        jcond = jnp.concatenate([jv.VQModel(vcfg).encode(_jax_tree(vflat), jnp.asarray(masked)),
+                                 jnp.asarray(plane)], axis=-1)
+        want = jl.make_concat_sampler(ju.UNetCond(icfg), _jax_tree(iflat),
+                                      jl.ldm_schedule(linear_end=0.0205), ddim_steps=4,
+                                      latent_ch=3)(ckey, jcond)
+    with torch.inference_mode():
+        tcond = torch.cat([tvq.encode(torch.from_numpy(masked)), torch.from_numpy(plane)], -1)
+    _close(tcond.numpy(), jcond, "inpaint cond")
+    got = tl.make_concat_sampler(tun, tl.ldm_schedule(linear_end=0.0205), ddim_steps=4,
+                                 latent_ch=3)(None, tcond, x_T=torch.from_numpy(cx_T))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0,
+                               err_msg="concat inpaint")
+
+    # the exact searcher and its database files
+    emb = rng.standard_normal((50, 8)).astype(np.float32)
+    db = {"embedding": emb, "img_id": np.arange(50, dtype=np.int64),
+          "patch_coords": rng.integers(0, 9, (50, 4)).astype(np.int64)}
+    q = rng.standard_normal((3, 8)).astype(np.float32)
+    with jax.default_matmul_precision("float32"):
+        for x in (q, q[:, None, :]):
+            want, got = jret.ExactSearcher(db)(x, 5), tret.ExactSearcher(db)(x, 5)
+            for k_ in ("nns", "img_ids", "patch_coords"):
+                np.testing.assert_array_equal(got[k_], want[k_], err_msg=k_)
+            np.testing.assert_allclose(got["nn_embeddings"], want["nn_embeddings"], rtol=1e-6)
+    for save, load in ((tret.save_searcher, jret.load_searcher),
+                       (jret.save_searcher, tret.load_searcher)):
+        d = str(tmp_path / f"db_{save.__module__.split('.')[0]}")
+        save(db, d)
+        back = load(d).database
+        assert sorted(back) == sorted(db)
+        for k_ in db:
+            np.testing.assert_array_equal(np.asarray(back[k_]), db[k_], err_msg=k_)
+    multi = tmp_path / "db_multi"
+    multi.mkdir()
+    for i in range(3):
+        np.savez(multi / f"part{i}.npz", embedding=emb[None, 4 * i:4 * i + 4],
+                 img_id=np.arange(4)[None], patch_coords=np.zeros((1, 4, 4)))
+    for k_, v in jret.load_datapool(str(multi)).items():
+        np.testing.assert_array_equal(tret.load_datapool(str(multi))[k_], v, err_msg=k_)
+
+    # the CLIs, each package's on the same dirs
+    outs = {}
+    for name, main in (("jax", jtxt.main), ("port", txt2img.main)):
+        argv = ["--model_path", tdir, "--vocab", vocab, "--outdir", str(tmp_path / f"t2i_{name}"),
+                "--prompt", "a virus monster", "--ddim_steps", "4", "--n_samples", "2",
+                "--n_iter", "2", "--H", "32", "--W", "32"]
+        main(argv + (["--device", "cpu"] if name == "port" else []))
+        outs[name] = tmp_path / f"t2i_{name}"
+    assert listing(outs["port"]) == listing(outs["jax"]) == ["grid.png", "samples"]
+    assert listing(outs["port"] / "samples") == listing(outs["jax"] / "samples") == [
+        f"{i:06d}.png" for i in range(4)]
+    for f in ("grid.png", "samples/000003.png"):
+        assert png(outs["port"] / f).shape == png(outs["jax"] / f).shape, f
+    assert png(outs["port"] / "samples/000000.png").shape == (8, 8, 3)
+    stats = txt2img.main(["--model_path", tdir, "--vocab", vocab, "--plms", "--ddim_steps", "2",
+                          "--n_samples", "2", "--H", "32", "--W", "32", "--device", "cpu",
+                          "--outdir", str(tmp_path / "t2i_plms")])
+    assert stats["images"] == 2 and stats["nonfinite"] == 0
+    big_vocab = str(tmp_path / "big_vocab.txt")
+    with open(big_vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + [f"w{i}" for i in range(40)]))
+    with pytest.raises(SystemExit, match="44 tokens but the text encoder embeds 40"):
+        txt2img.main(["--model_path", tdir, "--vocab", big_vocab, "--device", "cpu",
+                      "--outdir", str(tmp_path / "t2i_bad")])
+
+    indir = tmp_path / "inpaint_in"
+    indir.mkdir()
+    keep = np.ones((2, 16, 16), bool)
+    for i, (y0, x0) in enumerate(((4, 4), (2, 7))):
+        Image.fromarray(rng.integers(0, 255, (16, 16, 3), dtype=np.uint8), "RGB").save(
+            indir / f"im{i}.png")
+        mask = np.zeros((16, 16), np.uint8)
+        mask[y0:y0 + 8, x0:x0 + 8] = 255
+        keep[i, y0:y0 + 8, x0:x0 + 8] = False
+        Image.fromarray(mask, "L").save(indir / f"im{i}_mask.png")
+    for name, main in (("jax", jinpaint.main), ("port", inpaint.main)):
+        argv = ["--indir", str(indir), "--outdir", str(tmp_path / f"inpaint_{name}"),
+                "--model_path", idir, "--steps", "2", "--batch_size", "2"]
+        main(argv + (["--device", "cpu"] if name == "port" else []))
+    assert listing(tmp_path / "inpaint_port") == listing(tmp_path / "inpaint_jax") == [
+        "im0.png", "im1.png"]
+    for i in range(2):
+        src = png(indir / f"im{i}.png").astype(int)
+        got, want = (png(tmp_path / f"inpaint_{n}" / f"im{i}.png").astype(int)
+                     for n in ("port", "jax"))
+        assert got.shape == want.shape == (16, 16, 3)
+        assert np.abs(got[keep[i]] - src[keep[i]]).max() <= 1
+        assert np.abs(got[keep[i]] - want[keep[i]]).max() <= 1
+
+    # train_searcher: a CLIP dir written by JAX, a folder of PNGs
+    ccfg = dataclasses.replace(jclip.tiny_clip_config(), vocab_size=520)
+    kdir = tmp_path / "knn_model"
+    kucfg = ju.UNetCondConfig(image_size=8, in_channels=4, out_channels=4, model_channels=32,
+                              num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                              num_heads=2, transformer_depth=1, context_dim=ccfg.embed_dim,
+                              norm_num_groups=8)
+    kfcfg = jv.AutoencoderConfig(block_out_channels=(8, 8), layers_per_block=1,
+                                 latent_channels=4, norm_num_groups=4,
+                                 mid_block_attention=False, sample_size=16)
+    jckpt.save_model(str(kdir), kucfg, _jax_tree(numpy_params(ju.UNetCond(kucfg).init, 34)),
+                     subfolder="unet")
+    jckpt.save_model(str(kdir), kfcfg, _jax_tree(numpy_params(jv.AutoencoderKL(kfcfg).init,
+                                                              35)), subfolder="first_stage")
+    jckpt.save_model(str(kdir), ccfg, _jax_tree(numpy_params(jclip.CLIP(ccfg).init, 36)),
+                     subfolder="clip")
+    imdir = tmp_path / "knn_images"
+    imdir.mkdir()
+    for i in range(6):
+        Image.fromarray(rng.integers(0, 255, (16, 16, 3), dtype=np.uint8), "RGB").save(
+            imdir / f"{i}.png")
+    for name, main in (("jax", jsearch.main), ("port", train_searcher.main)):
+        argv = ["--images", str(imdir), "--clip_path", str(kdir / "clip"), "--target_path",
+                str(tmp_path / f"searcher_{name}"), "--batch_size", "4"]
+        with jax.default_matmul_precision("float32"):
+            main(argv + (["--device", "cpu"] if name == "port" else []))
+    got, want = (tret.load_datapool(str(tmp_path / f"searcher_{n}")) for n in ("port", "jax"))
+    assert sorted(got) == sorted(want) and got["embedding"].shape == (6, ccfg.embed_dim)
+    _close(got["embedding"], want["embedding"], "train_searcher embeddings")
+    for k_ in ("img_id", "patch_coords"):
+        np.testing.assert_array_equal(got[k_], want[k_], err_msg=k_)
+
+    bpe = tmp_path / "knn_merges.txt"
+    bpe.write_text("#version: 0.2\n" + "\n".join(
+        ["h e</w>", "l l", "t h", "th e</w>", "a n", "an d</w>"]) + "\n")
+    for name, main in (("jax", jknn.main), ("port", knn2img.main)):
+        argv = ["--prompt", "the hell and the", "--outdir", str(tmp_path / f"knn_{name}"),
+                "--model_path", str(kdir), "--bpe", str(bpe), "--database",
+                str(tmp_path / "searcher_jax"), "--use_neighbors", "--knn", "3",
+                "--ddim_steps", "2", "--n_samples", "2", "--H", "16", "--W", "16",
+                "--scale", "2.0"]
+        main(argv + (["--device", "cpu"] if name == "port" else []))
+    for f in ("grid-0000.png", "samples/00000.png", "samples/00001.png"):
+        assert png(tmp_path / "knn_port" / f).shape == png(tmp_path / "knn_jax" / f).shape, f
+    assert listing(tmp_path / "knn_port") == listing(tmp_path / "knn_jax")
+    assert png(tmp_path / "knn_port" / "samples/00000.png").shape == (16, 16, 3)
+    # --from-file into the same outdir: numbering goes on, a second grid
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("the hell\n\nand the\n")
+    stats = knn2img.main(["--from-file", str(prompts), "--outdir", str(tmp_path / "knn_port"),
+                          "--model_path", str(kdir), "--bpe", str(bpe), "--ddim_steps", "2",
+                          "--n_samples", "1", "--H", "16", "--W", "16", "--device", "cpu"])
+    assert stats["images"] == 2 and stats["nonfinite"] == 0
+    assert listing(tmp_path / "knn_port" / "samples") == [f"{i:05d}.png" for i in range(4)]
+    assert png(tmp_path / "knn_port" / "grid-0001.png").shape == (32, 16, 3)
+    with pytest.raises(SystemExit, match="needs --database"):
+        knn2img.main(["--outdir", str(tmp_path / "knn_bad"), "--model_path", str(kdir), "--bpe",
+                      str(bpe), "--use_neighbors", "--device", "cpu"])
+    assert "allow_tf32=False" in capsys.readouterr().out
+    return {"vocab": vocab, "knn": str(kdir)}

@@ -66,12 +66,13 @@ def numpy_params(jmodel, seed):
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port imports with ``jax``, the JAX package,
-    ``triton`` and ``matplotlib`` blocked (a blocked import raises) and no ``nvcc``
-    (CUDA_HOME points nowhere), none pulls jax or the JAX package in, and
-    the CLIs parse their arguments so."""
+    ``triton``, ``matplotlib`` and ``regex`` (which the JAX CLIP tokenizer
+    needs and the card's machine lacks) blocked (a blocked import raises) and
+    no ``nvcc`` (CUDA_HOME points nowhere), none pulls jax or the JAX package
+    in, and the CLIs parse their arguments so."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib'):\n"
+        "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex'):\n"
         "    sys.modules[m] = None\n"
         "import diff_pruning_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -88,6 +89,12 @@ def test_port_imports_nothing_of_jax():
         "    cli.parse_args(['--model_path', 'm', '--dataset', 'd', '--output_dir', 'o'])\n"
         "prune_ssim.parse_args(['--model_path', 'm', '--save_path', 'o', '--dataset', 'd'])\n"
         "compute_ssim.parse_args(['a', 'b'])\n"
+        "from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img\n"
+        "txt2img.parse_args(['--vocab', 'v'])\n"
+        "inpaint.parse_args(['--indir', 'i', '--outdir', 'o', '--model_path', 'm'])\n"
+        "train_searcher.parse_args(['--images', 'i', '--target_path', 't'])\n"
+        "knn2img.parse_args(['--outdir', 'o', '--model_path', 'm', '--bpe', 'b',\n"
+        "                    '--use_neighbors', '--database', 'd'])\n"
         "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
         "       (m.split('.')[0] in ('jax', 'diff_pruning_tpu'))]\n"
         "assert not bad, bad\n"
@@ -97,7 +104,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 62
+    assert int(res.stdout.strip()) >= 71
 
 
 def _tiny_sweep_inputs():
