@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's thirteen paths, through its own kernels, from seeded random
+Drives the port's fourteen paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -24,9 +24,10 @@ GroupNorm and attention backward at the codec's shapes); and the text- and
 retrieval-conditioned serving paths (the txt2img CLI on txt2img-1p4B with
 its BERTEmbedder, 1.54B params; the inpaint CLI on inpainting_big +
 vq-f4-noattn; train_searcher and the knn2img CLI on rdm768 + kl-f16 with
-CLIP ViT-L/14). Every phase raises on
-failure; none is caught, so any failure exits non-zero before the result
-lines.
+CLIP ViT-L/14); and the data-parallel path (the train, prune and ldm_sample
+CLIs with --multihost over NCCL at world size 1, and two ranks over gloo on
+the one card). Every phase raises on failure; none is caught, so any
+failure exits non-zero before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
@@ -96,13 +97,13 @@ lines.
    in bf16, at the prune CLI's UNet's (D = 179) too; with ``--compare-bwd``
    also the other versions' dq and dk/dv, in turns with these), the
    GroupNorm backward wrapper's host time per call, the sweep step (forward
-   + backward, f32) with the kernels on and off, and a torch.profiler
-   breakdown of the sweep step by kernel class.
+   + backward, f32) with the kernels off then on (one turn each), and a
+   torch.profiler breakdown of the sweep step by kernel class, kernels on.
 14. The train step: kernels on against off (dense, 3 steps from the same
    state on the same noise and t, no dropout), in f32 and in bf16 (the
    16-bit dq and dk/dv inside the model): losses and the first step's
    grads; then train step ms and imgs/s, dense and pruned, f32 and bf16,
-   kernels on and off (CUDA events, in turns), peak memory, the optimizer +
+   kernels off then on (CUDA events, one step each), peak memory, the optimizer +
    EMA ms per step, and torch.profiler breakdowns of one train step of each
    (with the dq and dk/dv kernels' device ms).
 15. Evaluation path, f32, TF32 off, the FID Inception's random init at
@@ -142,8 +143,10 @@ lines.
    ``--compare-fwd`` the other forwards, in the same turns). Last, the main
    path: the ldm_sample CLI on the saved model (1 class x 16 images, B =
    16, so its UNet calls and decodes take the rows checked above) with
-   --method ddim (20 steps), plms and dpm (5), launch counters reset just
-   before each and read just after.
+   --method ddim (20 steps), plms and dpm (5), then plms again with
+   --multihost under torchrun's environment at world size 1 (the CLI's own
+   NCCL init; phase 23's (c)), its PNGs byte-identical to the plain plms
+   run's, launch counters reset just before each and read just after.
 17. LDM prune path, f32, TF32 off, on phase 16's model, B = 6 (the CLI's
    default): (a) the wide f32 dq and dk/dv kernels (256 < D <= 1024)
    against their plain versions at every attention backward shape of one
@@ -201,9 +204,9 @@ lines.
    equal to steps x the per-step counts; a resume from step 3 into another
    directory whose step-6 params and AdamW state must be bit-identical; its
    model dir reloads at 203,294,971 UNet params and ldm_sample draws finite
-   images from it; (d) timings: the train step, dense and pruned, kernels on
-   and off (CUDA events, in turns), split into the encode, the UNet's
-   forward + backward and the optimizer; peak memory; a profile by kernel
+   images from it; (d) timings: the train step, dense and pruned, kernels
+   off then on (CUDA events, one step each), split into the encode, the
+   UNet's forward + backward and the optimizer; peak memory; a profile by kernel
    class; per-op ms of the 16-bit forward with lse, dq and dk/dv at the
    step's shapes, and of the encode's forward, against plain, SDPA and the
    bound (with ``--compare-fwd`` and ``--compare-bwd`` the other forwards
@@ -283,7 +286,7 @@ lines.
    discriminator and both Adam states must be bit-identical; first_stage/
    reloaded at 55,322,782 params and decoded; 4 bf16 steps; 2 f32 steps
    on phase 19's kl-f8 dir (the KL branch), launches exact; (d) the step's
-   ms and imgs/s, kernels off, on, on, off (one step each), split into the
+   ms and imgs/s, kernels off, then on (one step each), split into the
    generator's forward, the adaptive weight, the generator's backward and
    Adam, and the discriminator pass; peak memory; a profile by kernel
    class; per-op ms of the GroupNorm forward and backward at (65,536, 128)
@@ -322,16 +325,39 @@ lines.
    DDIM-10 (cut from 50), --clip_path random; the PNGs' count and size and
    each model's parameter count as the CLI loaded it. Prints the phase's
    seconds.
-23. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
-   first-stage training and text LDM JSON lines, the kernels' JSON line,
-   nvidia-smi's line, then the result line.
+23. Multi-GPU (data-parallel) path, full CIFAR-10 width, B = 128, from
+   phase 5's dense checkpoint and phase 10's .npz: (a) a child process of
+   this script (``--dp-worker``): the train CLI, 2 steps saving (and a DDIM-100 vis grid of 8) at
+   step 2, and the prune CLI (diff-pruning, 3 sweep steps with thr 0,
+   --skip_vis), each without and then with --multihost under torchrun's
+   environment at world size 1 (each call its own NCCL init; cuDNN
+   deterministic): the step-2 params, EMA and Adam state, the sweep's
+   losses and grads, the pruner's Diff-Pruning scores and the pruned
+   params.npz bit-identical, launch counters reset just before and read
+   just after each run, equal to steps x a step's calls (+ the vis grid's
+   100 forwards); (b) meanwhile here, in a world-1 NCCL group, the library
+   train step (explicit noise and t) and sweep (3 steps) on the whole
+   batch, launches exact, then two child processes joined over gloo on the
+   one card (NCCL takes one rank a GPU): the same step and sweep on 64 rows
+   each, every kernel launched on each rank the exact count, the two
+   ranks' params bit-identical, each against the world-1 run at the CPU
+   tests' tolerances (DP_RTOL, Adam's bound); then the world-1 step timed
+   against the plain one as the train CLI runs it (CUDA events, in turns);
+   (c) is phase 16's ldm_sample --multihost run (its PNGs byte-identical
+   to the plain run's). Prints the phase's seconds
+   and the world-1 step's imgs/s against the plain step's.
+24. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
+   first-stage training, text LDM and multi-GPU JSON lines, the kernels'
+   JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
 """
 
 import collections
+import contextlib
 import dataclasses
+import filecmp
 import itertools
 import json
 import math
@@ -467,6 +493,16 @@ TEXT_INPAINT_PAIRS, TEXT_INPAINT_B, TEXT_KNN_B, TEXT_KNN, TEXT_KNN_STEPS = 4, 2,
 # calls (each call's own difference is ~1e-7), and the kernels round
 # differently at every call, not only at the input
 NOISE_FACTOR = 10
+# the multi-GPU path (phase 23): the global batch (the train CLI's 128, 64
+# rows a gloo rank), the train CLI's steps, the sweep's steps (thr off), the
+# timed steps a turn, each worker's time limit. The gloo ranks against the
+# NCCL world-1 run: the CPU tests' tolerances (tests/test_torch_training.py):
+# DP_RTOL relative (a mean of two row means against one mean, and cuDNN's
+# algorithms at 64 rows against 128, a few f32 ulps), the params within
+# Adam's bound, ADAM_MOVE x lr (twice the most its first bias-corrected
+# update moves a param: a grad near eps turns f32 noise into a part of lr)
+DP_B, DP_TRAIN_STEPS, DP_SWEEP_STEPS, DP_TIME_ITERS, DP_WORKER_TIMEOUT_S = B, 2, 3, 3, 300
+DP_RTOL, ADAM_MOVE = 1e-5, 2.02
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -480,6 +516,34 @@ T_START = time.perf_counter()
 def mark(phase: int) -> None:
     """Prints the seconds since the start as ``phase`` begins."""
     print(f"-- phase {phase} at {time.perf_counter() - T_START:.1f} s", flush=True)
+
+
+def free_port() -> int:
+    """A free TCP port on this host for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's environment for one process at world size 1 (a fresh
+    rendezvous port) while the block runs: a --multihost CLI called in it
+    makes its own init, as under ``torchrun --nproc_per_node 1``."""
+    keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def gpu_line() -> str:
@@ -500,6 +564,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def one_turn(fns):
+    """Ms of one call of each of ``fns``, in order, after their warm-ups:
+    the end-to-end steps timed without a second, reversed turn (phase 23's
+    cost paid by fewer turns)."""
+    return [cuda_ms(f, iters=1, warmup=0) for f in fns]
 
 
 def in_turns(fns, iters: int, warmup: int = 2):
@@ -768,6 +839,16 @@ def record_bwd_dtypes():
     return seen, restore
 
 
+def unet_launches(per_call, steps, forwards=0):
+    """The kernel launches of ``steps`` forward + backward steps and
+    ``forwards`` inference forwards of a UNet with ``per_call`` (GroupNorm,
+    attention) calls a forward."""
+    g, a = per_call
+    return {"group_norm": (steps + forwards) * g, "group_norm_bwd": steps * g,
+            "attention": (steps + forwards) * a, "attention_lse": steps * a,
+            "attention_bwd_dq": steps * a, "attention_bwd_dkv": steps * a}
+
+
 def npz_equal(a: str, b: str) -> bool:
     """Whether two .npz files hold the same arrays, bit for bit."""
     import numpy as np
@@ -1030,7 +1111,6 @@ def compare_rel(got, want, tol):
 def run_cli(main_fn, argv):
     """Runs a CLI's ``main`` with its output captured, then prints it:
     (return value, output, wall seconds up to a device sync)."""
-    import contextlib
     import io
 
     import torch
@@ -1758,29 +1838,53 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
                             others_fwd)
     ops_dec = time_ldm_ops(gn_dec, attn_dec, rows_dec, gen, dev, tag, "decode", others_fwd)
 
-    # the main path: the ldm_sample CLI on the saved model
+    # the main path: the ldm_sample CLI on the saved model; then the PLMS run
+    # again with --multihost under torchrun's environment at world size 1,
+    # its own NCCL init (phase 23's (c)), whose PNGs must equal the plain run's
     cli = {}
-    for method, steps in (("ddim", LDM_STEPS), ("plms", LDM_MULTI_STEPS),
-                          ("dpm", LDM_MULTI_STEPS)):
-        out = os.path.join(tmp, f"ldm_{method}")
+    for key, method, steps, multihost in (
+            ("ddim", "ddim", LDM_STEPS, False), ("plms", "plms", LDM_MULTI_STEPS, False),
+            ("dpm", "dpm", LDM_MULTI_STEPS, False),
+            ("plms_multihost", "plms", LDM_MULTI_STEPS, True)):
+        out = os.path.join(tmp, f"ldm_{key}")
+        argv = ["--model_path", model_dir, "--output_dir", out, "--num_classes", "1", "--ipc",
+                str(LDM_B), "--batch_size", str(LDM_B), "--ddim_steps", str(steps), "--method",
+                method, "--device", "cuda"]
         ops.reset_launch_counts()
-        stats, _, seconds = run_cli(ldm_sample.main, [
-            "--model_path", model_dir, "--output_dir", out, "--num_classes", "1", "--ipc",
-            str(LDM_B), "--batch_size", str(LDM_B), "--ddim_steps", str(steps), "--method",
-            method, "--device", "cuda"])
+        if multihost:
+            with torchrun_env():
+                try:
+                    stats, text, seconds = run_cli(ldm_sample.main, argv + ["--multihost"])
+                    assert torch.distributed.get_backend() == "nccl", text
+                finally:
+                    if torch.distributed.is_initialized():
+                        torch.distributed.destroy_process_group()
+        else:
+            stats, text, seconds = run_cli(ldm_sample.main, argv)
         launches = dict(ops.LAUNCHES)
-        pngs = [f for f in os.listdir(out) if f.endswith(".png")]
+        pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
         calls = steps + (method == "plms")
         want = {"group_norm": calls * 61 + per_decode["group_norm"],
                 "attention": calls * 32 + per_decode["attention"]}
-        cli[method] = {"seconds": seconds, "pngs": len(pngs), "launches": launches,
-                       "imgs_per_s": stats["imgs_per_s"]}
-        print(f"ldm_sample CLI --method {method} --ddim_steps {steps}, 1 class x {LDM_B}, "
-              f"B={LDM_B}: "
+        cli[key] = {"seconds": seconds, "pngs": len(pngs), "launches": launches,
+                    "imgs_per_s": stats["imgs_per_s"], "multihost": multihost}
+        if multihost:  # one process, all its rows: the one-process layout, the same PNGs
+            assert "process_" not in " ".join(os.listdir(out)), os.listdir(out)
+            plain = os.path.join(tmp, "ldm_plms")
+            same = pngs == sorted(f for f in os.listdir(plain) if f.endswith(".png")) and all(
+                filecmp.cmp(os.path.join(out, f), os.path.join(plain, f), shallow=False)
+                for f in pngs)
+            cli[key]["pngs_equal_plain"] = same
+        print(f"ldm_sample CLI --method {method} --ddim_steps {steps}"
+              f"{' --multihost (NCCL, world 1, torchrun env)' if multihost else ''}, 1 class x "
+              f"{LDM_B}, B={LDM_B}: "
               f"{len(pngs)} PNGs, {seconds:.1f} s wall (load included), sampling "
-              f"{stats['imgs_per_s']:.2f} imgs/s {tag}; launches {launches}")
+              f"{stats['imgs_per_s']:.2f} imgs/s {tag}; launches {launches}"
+              + (f"; PNGs byte-identical to the plain plms run's {same}" if multihost else ""))
         assert len(pngs) == LDM_B and stats["nonfinite"] == 0, stats
         assert {k: launches[k] for k in want} == want, (launches, want)
+        if multihost:
+            assert same and launches == cli["plms"]["launches"], (same, launches)
     print(f"ldm phase {time.perf_counter() - t_phase:.1f} s")
     return ldm, model_dir, {"card": gpu, "params": counts, "b": LDM_B,
             "imgs_per_s": ips, "batch_ms": batch_ms,
@@ -2798,8 +2902,8 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
         norm_ = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         for fn in (lambda: run(False), lambda: run(True), encode):  # one warm-up each
             fn()
-        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=1, warmup=0)
-        enc_ms, fb_ms = in_turns([encode, fwd_bwd], iters=1, warmup=0)
+        off, on = one_turn([lambda: run(False), lambda: run(True)])
+        enc_ms, fb_ms = one_turn([encode, fwd_bwd])
         opt_ms = cuda_ms(lambda: opt.update(grads, norm_, st, plist), iters=3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2819,7 +2923,8 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
                          "peak_gb": peak}
         print(f"time ldm train step {name} B={rows} bf16: kernels on {on:.1f} ms "
               f"({rows * 1e3 / on:.2f} imgs/s), kernels off {off:.1f} ms ({rows * 1e3 / off:.2f} "
-              f"imgs/s) (CUDA events, in turns off-on-on-off); kernels on: encode {enc_ms:.1f} ms, "
+              f"imgs/s) (CUDA events, one step off then one on); kernels on: encode "
+              f"{enc_ms:.1f} ms, "
               f"UNet forward + backward {fb_ms - enc_ms:.1f} ms, optimizer (clip + AdamW) "
               f"{opt_ms:.1f} ms; peak memory {peak:.2f} GB {tag}")
         del grads, st, step
@@ -3028,13 +3133,6 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
 
     g, a = ctx["per_call"]
 
-    def launches(steps, forwards):
-        """The counts of ``steps`` forward + backward steps and ``forwards``
-        inference forwards of a UNet with the CIFAR UNet's calls."""
-        return {"group_norm": (steps + forwards) * g, "group_norm_bwd": steps * g,
-                "attention": (steps + forwards) * a, "attention_lse": steps * a,
-                "attention_bwd_dq": steps * a, "attention_bwd_dkv": steps * a}
-
     def reload(path, subfolder="unet"):
         pcfg, state = load_model(path, subfolder=subfolder)
         net = UNet2D(pcfg, device=dev)
@@ -3063,7 +3161,8 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
               f"{stats['macs_before'] / 1e9:.4f}G -> {stats['macs'] / 1e9:.4f}G MACs, sweep "
               f"{steps} steps, whole CLI {secs:.2f}s (host clock, B={B}, f32) {tag}; launches "
               f"{counts}; channel sizes {json.dumps(stats['channel_sizes'], sort_keys=True)}")
-        assert 1 <= steps <= ABL_PRUNE_STEPS and counts == launches(steps, 0), (name, counts)
+        assert 1 <= steps <= ABL_PRUNE_STEPS and counts == unet_launches((g, a), steps), \
+            (name, counts)
         assert n == stats["params"] and pcfg.channel_sizes == stats["channel_sizes"], name
         runs[name] = {"cfg": pcfg, "net": net, "stats": stats}
         out.setdefault("prune_cli", {})[name] = {
@@ -3127,7 +3226,8 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
           f"{losses}; whole CLI {pf_secs:.2f}s {tag}; launches {counts}; backward calls by "
           f"dtype {dict(bwd_dtypes)}")
     # DDIM-100 vis grids at each save
-    assert counts == launches(sweep + ABL_FT_STEPS, ABL_FT_STEPS // ABL_FT_SAVE * 100), counts
+    assert counts == unet_launches((g, a), sweep + ABL_FT_STEPS,
+                                    ABL_FT_STEPS // ABL_FT_SAVE * 100), counts
     assert dict(bwd_dtypes) == {
         ("group_norm_bwd", "torch.float32"): sweep * g, ("attention_bwd", "torch.float32"): sweep * a,
         ("group_norm_bwd", "torch.bfloat16"): ABL_FT_STEPS * g,
@@ -3159,7 +3259,8 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
           f"DDIM-{ABL_DDIM} x {ABL_N_VIS} images a set; whole CLI {ab_secs:.2f}s, stages "
           f"{ab['seconds']} s (host clock, f32) {tag}; params {ab['params']}; launches {counts}")
     # the sweeps, then the base set and one set a stage
-    assert counts == launches(sum(ABL_STAGES), (1 + len(ABL_STAGES)) * ABL_DDIM), counts
+    assert counts == unet_launches((g, a), sum(ABL_STAGES),
+                                    (1 + len(ABL_STAGES)) * ABL_DDIM), counts
     assert ab["steps_run"] == {s: s for s in ABL_STAGES}, ab["steps_run"]
     ssim = {}
     for stage in ("base",) + ABL_STAGES:
@@ -3224,6 +3325,63 @@ def ae_op_shapes(fs_cfg, res):
     meta = torch.device("meta")
     return op_calls(make_first_stage(fs_cfg, device=meta), lambda m: m.decode(m.encode(
         torch.zeros((1, res, res, fs_cfg.in_channels), device=meta))))
+
+
+def ae_fresh(model, disc, lpips, loss_cfg, masters, mp):
+    """Phase 21's models set back to ``masters`` (each of ``model``'s and
+    ``disc``'s params), a fresh train state and the step function of
+    ``mixed_precision`` ``mp``."""
+    import torch
+
+    from diff_pruning_tpu_torch.training import autoencoder as AE
+
+    with torch.no_grad():
+        for net, master in zip((model, disc), masters):
+            for n, p in net.named_parameters():
+                p.copy_(master[n])
+    gopt, dopt = AE.make_ae_optimizers(AE_LR)
+    st = AE.init_ae_train_state(model, disc, gopt, dopt)
+    return st, AE.make_autoencoder_train_step(model, loss_cfg, lpips, disc, gopt, dopt,
+                                              mixed_precision=mp)
+
+
+def ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=None):
+    """One first-stage train step of phase 21 on ``x`` from :func:`ae_fresh`:
+    (metrics, the generator's and the discriminator's Adam first moments
+    (0.5 x the step's grads), launches). The VQ lookups are pinned: without
+    ``replay`` each call's indices are appended to ``chosen``, with it they
+    are taken from there in order, so that runs quantize alike: a near-tie
+    flips with f32 summation order, and the decoder's global attention
+    spreads one flipped code over the whole image. ``on``: the kernels on
+    or off, on again after (None: left on; on the CPU the plain versions
+    run)."""
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+
+    lookup = model.quantize_latents
+
+    def pinned(z):
+        if replay:
+            idx = chosen.pop(0).to(z.device)
+            return model.quantize.embedding.weight.to(z.dtype)[idx], idx
+        zq, idx = lookup(z)
+        chosen.append(idx)
+        return zq, idx
+
+    if on is not None:
+        ops.set_kernels_enabled(on)
+    model.quantize_latents = pinned
+    try:
+        st, step = ae_fresh(model, disc, lpips, loss_cfg, masters, mp)
+        ops.reset_launch_counts()
+        m = {k: float(v) for k, v in step(st, x).items()}
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return m, st.gen_opt.mu, st.disc_opt.mu, dict(ops.LAUNCHES)
+    finally:
+        ops.set_kernels_enabled(True)
+        del model.quantize_latents
 
 
 def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
@@ -3382,44 +3540,10 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
                for net in (model, disc)]
 
     def fresh(mp):
-        """The models at the masters, a fresh state and a step function."""
-        with torch.no_grad():
-            for net, master in zip((model, disc), masters):
-                for n, p in net.named_parameters():
-                    p.copy_(master[n])
-        gopt, dopt = AE.make_ae_optimizers(AE_LR)
-        st = AE.init_ae_train_state(model, disc, gopt, dopt)
-        return st, AE.make_autoencoder_train_step(model, loss_cfg, lpips, disc, gopt, dopt,
-                                                  mixed_precision=mp)
-
-    lookup = model.quantize_latents
+        return ae_fresh(model, disc, lpips, loss_cfg, masters, mp)
 
     def one_step(on, mp, chosen, replay, x=images):
-        """One step from the masters. The VQ lookups are pinned: without
-        ``replay`` each call's indices are appended to ``chosen``, with it
-        they are taken from there in order, so both runs quantize alike: a
-        near-tie flips with f32 summation order, and the decoder's global
-        attention spreads one flipped code over the whole image."""
-        def pinned(z):
-            if replay:
-                idx = chosen.pop(0)
-                return model.quantize.embedding.weight.to(z.dtype)[idx], idx
-            zq, idx = lookup(z)
-            chosen.append(idx)
-            return zq, idx
-
-        ops.set_kernels_enabled(on)
-        model.quantize_latents = pinned
-        try:
-            st, step = fresh(mp)
-            ops.reset_launch_counts()
-            m = {k: float(v) for k, v in step(st, x).items()}
-            torch.cuda.synchronize()
-            # Adam's first moments: 0.5 x the step's grads
-            return m, st.gen_opt.mu, st.disc_opt.mu, dict(ops.LAUNCHES)
-        finally:
-            ops.set_kernels_enabled(True)
-            del model.quantize_latents
+        return ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=on)
 
     def codes(on, mp):
         """The step's VQ indices of the batch, kernels on or off."""
@@ -3607,7 +3731,7 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
         # (b) ran both precisions both ways: no warm-up; the first "on" turn
         # is also split by the step's marks and read for peak memory
         ms = []
-        for i, on in enumerate((False, True, True, False)):
+        for i, on in enumerate((False, True)):
             if i == 1:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -3615,7 +3739,7 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
                               iters=1, warmup=0))
             if i == 1:
                 peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        off, on = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+        off, on = ms
         parts = {"generator_forward_ms": events["start"].elapsed_time(events["d_weight"]),
                  "d_weight_ms": events["d_weight"].elapsed_time(events["gen_backward"]),
                  "generator_backward_adam_ms": events["gen_backward"].elapsed_time(
@@ -3631,7 +3755,7 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
                           "kernels_off_imgs_per_s": rows * 1e3 / off, "peak_gb": peak, **parts}
         print(f"time ae train step vq-f4 B={rows} {dname}: kernels on {on:.1f} ms "
               f"({rows * 1e3 / on:.2f} imgs/s), kernels off {off:.1f} ms "
-              f"({rows * 1e3 / off:.2f} imgs/s) (CUDA events, one step each, off-on-on-off: "
+              f"({rows * 1e3 / off:.2f} imgs/s) (CUDA events, one step each, off then on: "
               f"{', '.join(f'{t:.1f}' for t in ms)}); "
               "kernels on: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
               + f"; peak memory {peak:.2f} GB {tag}")
@@ -4165,6 +4289,393 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     return out
 
 
+def dp_step_and_sweep(ctx, mesh, dev):
+    """Phase 23's library run on ``mesh``'s rows of the global batch DP_B:
+    one data-parallel train step (explicit noise and t, no dropout) and a
+    DP_SWEEP_STEPS data-parallel sweep, each from the dense checkpoint.
+    Returns host arrays (loss, grad norm, Adam's first moment, the params,
+    the sweep's losses and grads) and each run's launches."""
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_taylor_grads
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.parallel.mesh import local_rows
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.training.finetune import (TrainConfig, init_train_state,
+                                                          make_train_step)
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict, load_model
+
+    cfg, state = load_model(ctx["ckpt"])
+    sched = DiffusionSchedule.create(device=dev)
+    with np.load(ctx["inputs"]) as f:
+        x, noise, t = (torch.from_numpy(f[k]).to(dev) for k in ("x", "noise", "t"))
+    res = {}
+    model = UNet2D(cfg, device=dev)
+    model.load_state_dict(state)
+    st = init_train_state(model, TrainConfig())
+    step = make_train_step(model, sched, TrainConfig(), mesh=mesh)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    st, m = step(st, local_rows(mesh, x), noise=local_rows(mesh, noise), t=local_rows(mesh, t))
+    torch.cuda.synchronize()
+    res["step_launches"] = dict(ops.LAUNCHES)
+    res.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+    res["mu"] = flat_from_state_dict(st.opt_state.mu)
+    res["params"] = flat_from_state_dict(st.params)
+    del st, step, model
+    model = UNet2D(cfg, device=dev)
+    model.load_state_dict(state)
+    ops.reset_launch_counts()
+    sw = accumulate_taylor_grads(model, sched, x, noise, thr=None, max_steps=DP_SWEEP_STEPS,
+                                 mesh=mesh)
+    torch.cuda.synchronize()
+    res["sweep_launches"] = dict(ops.LAUNCHES)
+    res.update(steps_run=sw.steps_run, losses=np.asarray(sw.losses))
+    res["grads"] = flat_from_state_dict(sw.grads)
+    return res
+
+
+def dp_compare(got, ref, lr):
+    """The gloo ranks' run against the NCCL world-1 run, at the CPU tests'
+    tolerances (tests/test_torch_training.py, tests/test_torch_pruning.py):
+    loss, grad norm and sweep losses DP_RTOL relative; Adam's first moment
+    and the sweep grads within DP_RTOL of each parameter's largest |value|
+    plus 1e-6 of the largest overall; the params within Adam's bound
+    (ADAM_MOVE x lr). Returns the worst of each; raises past a tolerance."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    worst = {}
+    for k in ("loss", "grad_norm"):
+        worst[k] = abs(got[k] / ref[k] - 1)
+        assert worst[k] <= DP_RTOL, (k, got[k], ref[k])
+    assert got["steps_run"] == ref["steps_run"] == DP_SWEEP_STEPS, (got["steps_run"],
+                                                                     ref["steps_run"])
+    worst["sweep_losses"] = float(np.max(np.abs(got["losses"] / ref["losses"] - 1)))
+    assert worst["sweep_losses"] <= DP_RTOL, (got["losses"], ref["losses"])
+    def errs(part):  # (|got - ref| max, |ref| max) per parameter, on the card
+        out = {}
+        for k, v in ref[part].items():
+            r, g = torch.from_numpy(v).to(dev), torch.from_numpy(got[part][k]).to(dev)
+            out[k] = (float((g - r).abs().max()), float(r.abs().max()))
+        return out
+
+    for part in ("mu", "grads"):
+        e = errs(part)
+        floor = 1e-6 * max(vmax for _, vmax in e.values())
+        worst[part] = 0.0
+        for k, (err, vmax) in e.items():
+            assert err <= DP_RTOL * vmax + floor, (part, k, err, vmax)
+            worst[part] = max(worst[part], err / max(vmax, floor))
+    worst["params_over_lr"] = max(err for err, _ in errs("params").values()) / lr
+    assert worst["params_over_lr"] <= ADAM_MOVE, worst
+    return worst
+
+
+def dp_save(path, res):
+    import numpy as np
+
+    arrays = {"loss": res["loss"], "grad_norm": res["grad_norm"], "steps_run": res["steps_run"],
+              "losses": res["losses"]}
+    for part in ("mu", "params", "grads"):
+        arrays.update({f"{part}:{k}": v for k, v in res[part].items()})
+    np.savez(path, **arrays)
+
+
+def dp_load(path):
+    import numpy as np
+
+    res = {"mu": {}, "params": {}, "grads": {}}
+    with np.load(path) as f:
+        for k in f.files:
+            part, _, name = k.partition(":")
+            if name:
+                res[part][name] = f[k]
+            else:
+                res[k] = f[k].item() if f[k].ndim == 0 else f[k]
+    return res
+
+
+def dp_worker(argv) -> None:
+    """One process of phase 23: ``chip_smoke.py --dp-worker nccl1|gloo:RANK CTX.json``.
+
+    ``nccl1`` runs the train and prune CLIs without and then with
+    --multihost under torchrun's environment at world size 1 (each call its
+    own NCCL init), which must agree bit for bit.
+    ``gloo:RANK`` is one of two ranks on the one card over gloo (the card
+    holds one NCCL rank): the library step and sweep on its 64 rows, held
+    against the parent's world-1 reference. Writes its figures to
+    ``CTX["out"]_<mode>.json``."""
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    mode, ctx_path = argv
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --dp-worker: torch.cuda.is_available() is false")
+    with open(ctx_path) as f:
+        ctx = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    sys.path.insert(0, REPO)
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.ops import _build
+    from diff_pruning_tpu_torch.parallel.mesh import make_mesh
+
+    _build.build_libraries()  # the parent built them: this loads them
+    dev = torch.device("cuda", 0)
+    per_call = tuple(ctx["per_call"])
+    out = {"mode": mode, "laps_s": {}}
+    t0 = time.perf_counter()
+
+    def lap(what):
+        out["laps_s"][what] = time.perf_counter() - t0
+
+    if mode.startswith("gloo:"):
+        import datetime
+
+        rank = int(mode.split(":")[1])
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{ctx['gloo_port']}",
+                                world_size=2, rank=rank,
+                                timeout=datetime.timedelta(seconds=DP_WORKER_TIMEOUT_S))
+        mesh = make_mesh(dev)
+        res = dp_step_and_sweep(ctx, mesh, dev)
+        lap("step and sweep")
+        for what, steps in (("step_launches", 1), ("sweep_launches", DP_SWEEP_STEPS)):
+            assert res[what] == unet_launches(per_call, steps), (rank, what, res[what])
+        # every rank ends the step with the same params
+        flat = torch.cat([torch.from_numpy(v).reshape(-1) for v in res["params"].values()])
+        theirs = flat.clone().to(dev)
+        dist.broadcast(theirs, 0)
+        assert torch.equal(theirs.cpu(), flat), f"rank {rank}'s params differ from rank 0's"
+        worst = dp_compare(res, dp_load(ctx["ref"]), ctx["lr"])
+        lap("compared")
+        out.update(rank=rank, worst=worst, step_launches=res["step_launches"],
+                   sweep_launches=res["sweep_launches"], rows=DP_B // 2)
+        dist.barrier()
+        dist.destroy_process_group()
+    else:
+        from diff_pruning_tpu_torch.cli import ddpm_prune, ddpm_train
+        from diff_pruning_tpu_torch.diffpruning import sweep as sweep_mod
+        from diff_pruning_tpu_torch.pruning import pruner as pruner_mod
+        from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict
+
+        def cli(main_fn, argv, multihost):
+            """``main_fn(argv)``; with ``multihost`` under torchrun's
+            environment at world size 1, the CLI's own NCCL init, the group
+            destroyed after it."""
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                if multihost:
+                    with torchrun_env():
+                        try:
+                            stats = main_fn(argv + ["--multihost"])
+                            assert (dist.get_backend(), dist.get_world_size()) == ("nccl", 1)
+                        finally:
+                            if dist.is_initialized():
+                                dist.destroy_process_group()
+                else:
+                    stats = main_fn(argv)
+            torch.cuda.synchronize()
+            return stats, dict(ops.LAUNCHES), buf.getvalue()
+
+        tmp = ctx["tmp"]
+        # (a) the train CLI, 2 steps, saving (and a vis grid) at step 2
+        train = ["--model_path", ctx["ckpt"], "--dataset", ctx["data"], "--train_batch_size",
+                 str(DP_B), "--num_iters", str(DP_TRAIN_STEPS), "--save_model_steps",
+                 str(DP_TRAIN_STEPS), "--log_steps", "1", "--vis_samples", "8",
+                 "--device", "cuda"]
+        runs = {}
+        for name in ("plain", "multihost"):
+            d = os.path.join(tmp, f"dp_train_{name}")
+            runs[name] = cli(ddpm_train.main, train + ["--output_dir", d], name == "multihost")
+            lap(f"train CLI {name}")
+        text = runs["multihost"][2]
+        assert "data mesh: 1 processes, rank 0 on cuda:0" in text, text
+        ckpt = f"ckpt/step-{DP_TRAIN_STEPS}"
+        same = {f: npz_equal(os.path.join(tmp, "dp_train_plain", ckpt, f),
+                             os.path.join(tmp, "dp_train_multihost", ckpt, f))
+                for f in ("params.npz", "ema_params.npz", "opt_state.npz")}
+        want = unet_launches(per_call, DP_TRAIN_STEPS, 100)  # + the DDIM-100 vis grid
+        out["train_cli"] = {"bit_identical": same, "losses": runs["multihost"][0]["losses"],
+                            "launches": runs["multihost"][1]}
+        print(f"multi-GPU (a) ddpm_train CLI --multihost (NCCL, world 1) against the plain "
+              f"CLI, {DP_TRAIN_STEPS} steps B={DP_B}: losses {runs['multihost'][0]['losses']} "
+              f"against {runs['plain'][0]['losses']}; step-{DP_TRAIN_STEPS} files bit-identical "
+              f"{same}; launches {runs['multihost'][1]}")
+        assert all(same.values()), same
+        assert runs["multihost"][0]["losses"] == runs["plain"][0]["losses"]
+        assert runs["plain"][1] == runs["multihost"][1] == want, (runs["plain"][1], want)
+
+        # (a) the prune CLI, 3 sweep steps with thr off; the sweep's grads
+        # and the pruner's Diff-Pruning scores caught on their way out
+        caught = {"sweep": [], "prune": []}
+        sweep_fn, prune_fn = sweep_mod.accumulate_taylor_grads, pruner_mod.prune
+
+        def catch_sweep(*a, **k):
+            res = sweep_fn(*a, **k)
+            caught["sweep"].append((res.losses.copy(), flat_from_state_dict(res.grads)))
+            return res
+
+        def catch_prune(*a, **k):
+            res = prune_fn(*a, **k)
+            caught["prune"].append(res)
+            return res
+
+        sweep_mod.accumulate_taylor_grads, pruner_mod.prune = catch_sweep, catch_prune
+        prune = ["--model_path", ctx["ckpt"], "--pruner", "diff-pruning", "--pruning_ratio",
+                 "0.3", "--thr", "0", "--max_steps", str(DP_SWEEP_STEPS), "--batch_size",
+                 str(DP_B), "--dataset", ctx["data"], "--skip_vis", "--device", "cuda"]
+        try:
+            for name in ("plain", "multihost"):
+                d = os.path.join(tmp, f"dp_prune_{name}")
+                runs[name] = cli(ddpm_prune.main, prune + ["--save_path", d],
+                                 name == "multihost")
+                lap(f"prune CLI {name}")
+        finally:
+            sweep_mod.accumulate_taylor_grads, pruner_mod.prune = sweep_fn, prune_fn
+        (l_plain, g_plain), (l_mh, g_mh) = caught["sweep"]
+        r_plain, r_mh = caught["prune"]
+        grads_same = all(np.array_equal(g_mh[k], v) for k, v in g_plain.items())
+        scores_same = sorted(r_plain.scores) == sorted(r_mh.scores) and all(
+            np.array_equal(r_mh.scores[k], v) for k, v in r_plain.scores.items())
+        model_same = npz_equal(os.path.join(tmp, "dp_prune_plain", "unet", "params.npz"),
+                               os.path.join(tmp, "dp_prune_multihost", "unet", "params.npz"))
+        want = unet_launches(per_call, DP_SWEEP_STEPS)
+        out["prune_cli"] = {"grads_bit_identical": grads_same,
+                            "scores_bit_identical": scores_same,
+                            "pruned_params_bit_identical": model_same,
+                            "losses": l_mh.tolist(), "launches": runs["multihost"][1]}
+        print(f"multi-GPU (a) ddpm_prune CLI --multihost (NCCL, world 1) against the plain "
+              f"CLI, {DP_SWEEP_STEPS} sweep steps B={DP_B}, thr off: losses {l_mh.tolist()} "
+              f"against {l_plain.tolist()}; grads bit-identical {grads_same}, diff-pruning "
+              f"scores ({len(r_mh.scores)} vars) bit-identical {scores_same}, pruned "
+              f"params.npz bit-identical {model_same}; launches {runs['multihost'][1]}")
+        assert np.array_equal(l_plain, l_mh) and grads_same and scores_same and model_same
+        assert runs["multihost"][0]["channel_sizes"] == runs["plain"][0]["channel_sizes"]
+        assert runs["plain"][1] == runs["multihost"][1] == want, (runs["plain"][1], want)
+    out["seconds"] = time.perf_counter() - t0
+    with open(ctx["out"] + f"_{mode.replace(':', '')}.json", "w") as f:
+        json.dump(out, f)
+
+
+def multi_gpu_path(tmp, gpu, tag, ctx):
+    """Phase 23 (see the module docstring); returns the phase's figures.
+    ``ctx``: ``ckpt`` (the dense CIFAR UNet's checkpoint dir), ``data``
+    (phase 10's .npz), ``per_call`` and ``ldm_sample`` (phase 16's
+    ldm_sample --multihost run: (c))."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.parallel.mesh import init_distributed
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.training.finetune import (TrainConfig, init_train_state,
+                                                          make_train_step)
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(23)
+    half = rng.integers(0, 1000, DP_B // 2 + 1)
+    inputs = os.path.join(tmp, "dp_inputs.npz")
+    np.savez(inputs, x=rng.uniform(-1, 1, (DP_B, 32, 32, 3)).astype(np.float32),
+             noise=rng.standard_normal((DP_B, 32, 32, 3)).astype(np.float32),
+             t=np.concatenate([half, 999 - half])[:DP_B].astype(np.int64))
+    wctx = dict(ctx, tmp=tmp, inputs=inputs, ref=os.path.join(tmp, "dp_ref.npz"),
+                out=os.path.join(tmp, "dp_out"), gloo_port=free_port(),
+                lr=TrainConfig().learning_rate)
+    ctx_path = os.path.join(tmp, "dp_ctx.json")
+    with open(ctx_path, "w") as f:
+        json.dump(wctx, f)
+
+    def start(mode, env):
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", mode,
+                                 ctx_path], cwd=REPO, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    # (a) in one process, --multihost under torchrun's environment; here
+    # meanwhile (b)'s reference in a world-1 NCCL group (the library step
+    # and sweep on the whole batch), then (b)'s two gloo ranks; the world-1
+    # step timed against the plain one once the card is free again
+    procs = [start("nccl1", dict(os.environ))]
+    outs = []
+    try:
+        mesh = init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        try:
+            assert (mesh.world, mesh.rank, dist.get_backend()) == (1, 0, "nccl"), mesh
+            ref = dp_step_and_sweep(wctx, mesh, dev)
+            assert ref["step_launches"] == unet_launches(ctx["per_call"], 1), ref
+            assert ref["sweep_launches"] == unet_launches(ctx["per_call"], DP_SWEEP_STEPS)
+            dp_save(wctx["ref"], ref)
+            del ref
+            t_ref = time.perf_counter() - t_phase
+            procs += [start(f"gloo:{r}", dict(os.environ)) for r in (0, 1)]
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_WORKER_TIMEOUT_S)[0])
+            t_procs = time.perf_counter() - t_phase
+            # as the train CLI runs the step: draws from (seed, step), dropout
+            cfg, state = load_model(ctx["ckpt"])
+            model = UNet2D(cfg, device=dev)
+            model.load_state_dict(state)
+            sched = DiffusionSchedule.create(device=dev)
+            st = init_train_state(model, TrainConfig())
+            x = torch.from_numpy(np.load(inputs)["x"]).to(dev)
+            fns = [lambda s=make_train_step(model, sched, TrainConfig(), mesh=m): s(st, x)
+                   for m in (None, mesh)]
+            plain_ms, mesh_ms = in_turns(fns, iters=DP_TIME_ITERS, warmup=1)
+            del st, fns, model
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for p in procs:  # a rank that failed leaves none waiting
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, text in zip(procs, outs):
+        print(text, end="")
+        assert p.returncode == 0, f"phase 23 worker exited {p.returncode}"
+    step_ms = {"plain": plain_ms, "world1_nccl": mesh_ms,
+               "plain_imgs_per_s": DP_B * 1e3 / plain_ms,
+               "world1_nccl_imgs_per_s": DP_B * 1e3 / mesh_ms}
+    print(f"time multi-GPU train step cifar10 35.75M B={DP_B} f32: world-1 NCCL "
+          f"{mesh_ms:.2f} ms ({DP_B * 1e3 / mesh_ms:.1f} imgs/s), plain {plain_ms:.2f} ms "
+          f"({DP_B * 1e3 / plain_ms:.1f} imgs/s) (CUDA events, in turns plain-nccl-nccl-"
+          f"plain, {DP_TIME_ITERS} steps each after a warm-up) {tag}")
+    res = {}
+    for mode in ("nccl1", "gloo0", "gloo1"):
+        with open(os.path.join(tmp, f"dp_out_{mode}.json")) as f:
+            res[mode] = json.load(f)
+    for r in (0, 1):
+        g = res[f"gloo{r}"]
+        print(f"multi-GPU (b) gloo rank {r} of 2 on the one card, {g['rows']} rows: against the "
+              f"NCCL world-1 run on {DP_B}, worst (err / max(param max, 1e-6 of the largest)) "
+              f"{g['worst']} (tol {DP_RTOL} x param max + 1e-6 of the largest; params "
+              f"{ADAM_MOVE} x lr); launches step {g['step_launches']}, sweep "
+              f"{g['sweep_launches']}")
+    c = ctx["ldm_sample"]
+    print(f"multi-GPU (c) ldm_sample --multihost (NCCL, world 1) in phase 16: {c['pngs']} PNGs, "
+          f"launches {c['launches']}, {c['imgs_per_s']:.2f} imgs/s")
+    seconds = time.perf_counter() - t_phase
+    print(f"multi-GPU phase {seconds:.1f} s (the reference at {t_ref:.1f} s, the processes done "
+          f"at {t_procs:.1f} s; laps {res['nccl1']['laps_s']}, gloo {res['gloo0']['laps_s']}); "
+          f"world-1 train step {step_ms['world1_nccl_imgs_per_s']:.1f} imgs/s against the "
+          f"plain step's {step_ms['plain_imgs_per_s']:.1f} {tag}")
+    return {"card": gpu, "seconds": seconds, "reference_seconds": t_ref,
+            "train_cli": res["nccl1"]["train_cli"], "prune_cli": res["nccl1"]["prune_cli"],
+            "ldm_sample": c, "step_ms": step_ms, "nccl1_laps_s": res["nccl1"]["laps_s"],
+            "gloo_ranks": [res["gloo0"], res["gloo1"]]}
+
+
 def main() -> None:
     import argparse
 
@@ -4623,10 +5134,8 @@ def main() -> None:
 
     def ft_counts_want(steps):
         # per step one forward and one backward; DDIM-100 for each vis grid
-        g, a, vis = sum(gn_ft.values()), sum(attn_ft.values()), steps // FT_SAVE * 100
-        return {"group_norm": (steps + vis) * g, "group_norm_bwd": steps * g,
-                "attention": (steps + vis) * a, "attention_lse": steps * a,
-                "attention_bwd_dq": steps * a, "attention_bwd_dkv": steps * a}
+        return unet_launches((sum(gn_ft.values()), sum(attn_ft.values())), steps,
+                             steps // FT_SAVE * 100)
 
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -4802,15 +5311,13 @@ def main() -> None:
 
     sweep_steps(False)  # one warm-up each
     sweep_steps(True)
-    off_ms, on_ms = in_turns([lambda: sweep_steps(False), lambda: sweep_steps(True)], iters=1,
-                             warmup=0)
+    off_ms, on_ms = one_turn([lambda: sweep_steps(False), lambda: sweep_steps(True)])
     step_on, step_off = on_ms / SWEEP_STEPS, off_ms / SWEEP_STEPS
     print(f"time sweep step (forward + backward) cifar10 35.75M B={B} f32: kernels on "
-          f"{step_on:.2f} ms, kernels off {step_off:.2f} ms (CUDA events, in turns "
-          f"off-on-on-off, cuDNN deterministic) {tag}")
-    for on in (False, True):
-        print_profile(f"sweep step kernels {'on' if on else 'off'} B={B} f32",
-                      *profile_classes(lambda: sweep_steps(on)), ("step", SWEEP_STEPS), tag)
+          f"{step_on:.2f} ms, kernels off {step_off:.2f} ms (CUDA events, {SWEEP_STEPS} steps "
+          f"off then on after a warm-up each, cuDNN deterministic) {tag}")
+    print_profile(f"sweep step kernels on B={B} f32",
+                  *profile_classes(lambda: sweep_steps(True)), ("step", SWEEP_STEPS), tag)
     torch.backends.cudnn.deterministic = False
     torch.cuda.synchronize()
 
@@ -4907,7 +5414,7 @@ def main() -> None:
 
         run(False)  # one warm-up each
         run(True)
-        off, on = in_turns([lambda: run(False), lambda: run(True)], iters=1, warmup=0)
+        off, on = one_turn([lambda: run(False), lambda: run(True)])
         dname = "bfloat16" if prec == "bf16" else "float32"
         train_ms[(name, dname)] = {"kernels_on_ms": on, "kernels_off_ms": off,
                                    "kernels_on_imgs_per_s": B * 1e3 / on,
@@ -4920,7 +5427,7 @@ def main() -> None:
         train_ms[(name, dname)]["host_ms"] = host_us_per_call(lambda: run(True), calls=1) / 1e3
         print(f"time train step {name} B={B} {dname}: kernels on {on:.2f} ms "
               f"({B * 1e3 / on:.1f} imgs/s), kernels off {off:.2f} ms ({B * 1e3 / off:.1f} "
-              f"imgs/s) (CUDA events, in turns off-on-on-off, 1 step each, dropout 0.1); host "
+              f"imgs/s) (CUDA events, 1 step off then 1 on, dropout 0.1); host "
               f"{train_ms[(name, dname)]['host_ms']:.2f} ms a step kernels on (perf_counter over "
               f"1 step without a sync); peak memory {peak_gb[(name, dname)]:.2f} GB {tag}")
         if name == "dense":  # a profile of the dense step
@@ -4999,10 +5506,18 @@ def main() -> None:
     # -- 22. the text- and retrieval-conditioned serving paths: txt2img with the
     # BERTEmbedder, inpaint, train_searcher and knn2img with CLIP
     text = text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd)
-    tmpdir.cleanup()
 
     mark(23)
-    # -- 23. result lines
+    # -- 23. the multi-GPU path: NCCL at world size 1 (the train, prune and
+    # ldm_sample CLIs with --multihost), two gloo ranks on the one card
+    multi_gpu = multi_gpu_path(tmp, gpu, tag, {
+        "ckpt": os.path.join(tmp, "dense"), "data": data,
+        "per_call": (sum(gn_dense.values()), sum(attn_dense.values())),
+        "ldm_sample": ldm["cli"]["plms_multihost"]})
+    tmpdir.cleanup()
+
+    mark(24)
+    # -- 24. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -5033,6 +5548,7 @@ def main() -> None:
                     launches_ldm_prune_cli=ldm_prune_fig["cli_launches"][key],
                     launches_ldm_train_cli=ldm_train_fig["cli_launches"][key],
                     launches_prune_ssim_cli=ablation["prune_ssim"]["launches"][key],
+                    launches_multi_gpu_train_cli=multi_gpu["train_cli"]["launches"][key],
                     max_abs_err_cost_aware_unets=worst[(key + "_cost", "float32")],
                     **ae_of(key))
 
@@ -5290,6 +5806,7 @@ def main() -> None:
     print(json.dumps({"ablation": ablation}))
     print(json.dumps({"ae_train": ae}))
     print(json.dumps({"text_ldm": text}))
+    print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5298,4 +5815,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2:])
+    else:
+        main()

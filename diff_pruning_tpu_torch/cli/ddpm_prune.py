@@ -12,11 +12,20 @@ selects channels (``pruning/``), slices the weights, and writes the pruned
 ``vis/after_pruning.png``. Prints the JAX CLI's ``#Params`` and ``#MACS``
 lines.
 
+With ``--multihost`` (one process per GPU, e.g. ``torchrun --nproc_per_node
+N -m diff_pruning_tpu_torch.cli.ddpm_prune --multihost ...``) every process
+draws the same sweep batch and noise, the sweep splits it by rows
+(``parallel/mesh.py``; the world size must divide ``--batch_size``) and
+averages each step's loss and, at the end, the grads over the processes;
+scores, selection and slicing then run alike on every rank, and only rank 0
+writes the pruned model and the grids. ``--host_loop`` keeps the JAX
+meaning there: an unsplit sweep on every rank.
+
 Differences from the JAX CLI:
 * the sweep is one host loop (the JAX package's on-device ``lax.while_loop``
-  exists to avoid TPU round-trips); ``--host_loop`` is accepted and changes
-  nothing;
-* there are no multihost flags and no diffusers-directory loading yet;
+  exists to avoid TPU round-trips); without ``--multihost``, ``--host_loop``
+  changes nothing;
+* there is no diffusers-directory loading yet;
 * the data is a local ``.npz`` or CIFAR-10 batch directory
   (``data/datasets.py``), or the model's own samples
   (``--use_generated_samples``); the sweep noise comes from a
@@ -52,8 +61,8 @@ def parse_args(argv=None):
     p.add_argument("--max_steps", type=int, default=None,
                    help="cap the Taylor sweep (default: num_train_timesteps)")
     p.add_argument("--host_loop", action="store_true",
-                   help="accepted for the JAX CLI's flags; the sweep here is always "
-                        "one host loop")
+                   help="the sweep is always one host loop; under --multihost this runs it "
+                        "unsplit on every process, as the JAX CLI's host loop")
     p.add_argument("--global_pruning", action="store_true")
     p.add_argument("--normalizer", type=str, default=None,
                    choices=["sum", "mean", "max", "standarization", "gaussian"],
@@ -92,6 +101,9 @@ def parse_args(argv=None):
     p.add_argument("--skip_vis", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    from ._multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p.parse_args(argv)
 
 
@@ -121,10 +133,13 @@ def main(argv=None) -> dict:
     and with ``--match_params`` ``"match_params": {"sparsity", "params",
     "target", "probes"}``."""
     args = parse_args(argv)
+    from ._multihost import maybe_init_distributed
     from .ddpm_sample import pin_f32_precision, resolve_device
 
     pin_f32_precision()
-    device = resolve_device(args.device)
+    mesh = maybe_init_distributed(args)  # before the first use of the card
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_main = mesh is None or mesh.is_main
     import numpy as np
     import torch
 
@@ -163,9 +178,10 @@ def main(argv=None) -> dict:
                     style="ddim_exp"))
                 x01 = gen(torch.Generator(device=device).manual_seed(args.seed),
                           args.batch_size, hw, cfg.in_channels)
-                os.makedirs(args.save_path, exist_ok=True)
-                save_image_grid(x01[:64], os.path.join(args.save_path,
-                                                       "generated_for_pruning.png"))
+                if is_main:
+                    os.makedirs(args.save_path, exist_ok=True)
+                    save_image_grid(x01[:64], os.path.join(args.save_path,
+                                                           "generated_for_pruning.png"))
                 x0 = x01.clone() * 2.0 - 1.0  # a normal tensor, usable under autograd
                 print(f"Generated {args.batch_size} samples for the sweep")
             else:
@@ -178,10 +194,15 @@ def main(argv=None) -> dict:
             noise = torch.randn(x0.shape, generator=torch.Generator(device=device).manual_seed(
                 args.seed), device=device)
             thr = args.thr if args.pruner == "diff-pruning" else None
+            sweep_mesh = None if args.host_loop else mesh
+            if sweep_mesh is not None and args.batch_size % sweep_mesh.world:
+                raise SystemExit(f"--multihost: batch_size {args.batch_size} must be "
+                                 f"divisible by the world size {sweep_mesh.world}")
             print("Accumulating gradients for pruning...")
             t0 = time.perf_counter()
             res = accumulate_taylor_grads(model, schedule, x0, noise, thr=thr,
-                                          max_steps=args.max_steps, loss_type="mse")
+                                          max_steps=args.max_steps, loss_type="mse",
+                                          mesh=sweep_mesh)
             grads = unflatten_params(flat_grads(model))
             model.zero_grad(set_to_none=True)
             stats["sweep_seconds"] = time.perf_counter() - t0
@@ -254,16 +275,22 @@ def main(argv=None) -> dict:
         macs, n_params = base_macs, base_params
     stats.update(params=n_params, macs=macs, channel_sizes=dict(new_cfg.channel_sizes))
 
-    save_model(args.save_path, new_cfg, new_model)
-    print(f"Saved pruned model to {args.save_path}")
-
-    if not args.skip_vis:
+    # the sweep's grads are the same on every rank, and so are the scores and
+    # the selection: only rank 0 writes, and the vis runs there without a mesh
+    if is_main:
+        save_model(args.save_path, new_cfg, new_model)
+        print(f"Saved pruned model to {args.save_path}")
+    if is_main and not args.skip_vis:
         sampler = make_sampler(new_model, schedule, SamplerConfig(num_inference_steps=100))
         imgs = sampler(torch.Generator(device=device).manual_seed(0),
                        min(args.batch_size, 64), hw, cfg.in_channels)
         os.makedirs(os.path.join(args.save_path, "vis"), exist_ok=True)
         save_image_grid(imgs, os.path.join(args.save_path, "vis", "after_pruning.png"))
         print("Wrote vis/after_pruning.png")
+    if mesh is not None:
+        from ..parallel.mesh import barrier
+
+        barrier(mesh)  # the model is on disk before any rank returns
     return stats
 
 

@@ -13,6 +13,13 @@ next one runs. ``--mode sequence`` writes ``sequence.png``: 4 samples, every
 11 slerp interpolants of two noises, denoised (diffusion.py:452). ``--device cuda`` without a GPU
 raises: the CLI never carries on on the CPU. TF32 is off for matmuls and
 convolutions (printed at the start).
+
+With ``--multihost`` (one process per GPU, e.g. ``torchrun --nproc_per_node
+N -m diff_pruning_tpu_torch.cli.ddpm_sample --multihost ...``) ``--mode
+fid`` splits every batch of ``--batch_size`` by rows over the processes
+(``parallel/mesh.py``; the world size must divide it) and each writes its
+rows to ``process_{rank}/``, numbered locally, in whole batches; their
+union is the one-process run's images. The grid modes run on rank 0 only.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ def parse_args(argv=None):
     p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    from ._multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p.parse_args(argv)
 
 
@@ -73,11 +83,15 @@ def pin_f32_precision() -> None:
 
 def main(argv=None) -> dict:
     """Returns ``{"params", "macs", "images", "nonfinite", "seconds",
-    "imgs_per_s"}``; in the grid modes ``{"params", "macs", "path", "shape"}``
-    (the grid's images before tiling)."""
+    "imgs_per_s"}`` (``images``: this process's); in the grid modes
+    ``{"params", "macs", "path", "shape"}`` (the grid's images before tiling;
+    on a rank other than 0 only the first two)."""
     args = parse_args(argv)
     pin_f32_precision()
-    device = resolve_device(args.device)
+    from ._multihost import maybe_init_distributed
+
+    mesh = maybe_init_distributed(args)  # before the first use of the card
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     import torch
 
     from ..models.unet2d import UNet2D
@@ -102,8 +116,13 @@ def main(argv=None) -> dict:
 
     schedule = DiffusionSchedule.create(device=device)
     if args.mode != "fid":
+        if mesh is not None and not mesh.is_main:
+            return {"params": n_params, "macs": macs}
         return {"params": n_params, "macs": macs,
                 **write_grid(args, model, schedule, hw, cfg.in_channels, device)}
+    if mesh is not None and args.batch_size % mesh.world:
+        raise SystemExit(f"--multihost: batch_size {args.batch_size} must be divisible by "
+                         f"the world size {mesh.world}")
     sampler = make_sampler(model, schedule, SamplerConfig(
         num_inference_steps=args.ddim_steps,
         skip_type=args.skip_type,
@@ -112,7 +131,7 @@ def main(argv=None) -> dict:
         clip_sample=not args.no_clip,
         kind=args.sampler,
         dtype=args.dtype,
-    ))
+    ), mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if device.type == "cuda":
         # device-clock interval around the run; ends once the last PNG is written
@@ -121,7 +140,7 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     stats = sample_many(sampler, generator=generator, total_images=args.total_samples,
                         batch_size=args.batch_size, hw=hw, channels=cfg.in_channels,
-                        outdir=args.output_dir, progress=True)
+                        outdir=args.output_dir, progress=True, mesh=mesh)
     if device.type == "cuda":
         end.record()
         end.synchronize()
@@ -130,7 +149,8 @@ def main(argv=None) -> dict:
     else:
         dt = time.perf_counter() - t0
         where = "cpu"
-    print(f"{stats['images']} images in {dt:.2f}s ({stats['images'] / dt:.2f} imgs/s "
+    rank = "" if mesh is None else f" on rank {mesh.rank} of {mesh.world}"
+    print(f"{stats['images']} images{rank} in {dt:.2f}s ({stats['images'] / dt:.2f} imgs/s "
           f"at {args.ddim_steps} DDIM steps, {args.dtype}, {where})")
     if stats["nonfinite"]:
         print(f"WARNING: {stats['nonfinite']} non-finite sample values")

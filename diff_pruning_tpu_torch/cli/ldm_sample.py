@@ -13,13 +13,21 @@ from [-1, 1] when there is none) and writes ``%06d.png`` numbered across
 classes; the last batch of a class may be partial. The PNGs of batch b are
 encoded while batch b + 1's trajectory runs. ``--device cuda`` without a
 GPU raises: the CLI never carries on on the CPU. TF32 is off for matmuls
-and convolutions (printed at the start). The multi-host flags wait for the
-multi-GPU slice and raise.
+and convolutions (printed at the start).
+
+With ``--multihost`` (one process per GPU, e.g. ``torchrun --nproc_per_node
+N -m diff_pruning_tpu_torch.cli.ldm_sample --multihost ...``) every batch is
+split by rows over the processes (``parallel/mesh.py``; the world size must
+divide ``--batch_size``, and ``--batch_size`` must divide ``--ipc``, as the
+JAX CLI asserts) and, with more than one, each writes its rows to
+``process_{rank}/``, numbered locally; their union is the one-process run's
+images.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -36,26 +44,30 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=0.0)
     p.add_argument("--method", type=str, default="ddim", choices=["ddim", "plms", "dpm"])
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--multihost", action="store_true",
-                   help="multi-host sampling (not ported yet: raises)")
-    p.add_argument("--coordinator_address", type=str, default=None)
-    p.add_argument("--num_processes", type=int, default=None)
-    p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    from ._multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p.parse_args(argv)
 
 
 def main(argv=None) -> dict:
-    """Returns ``{"images", "nonfinite", "seconds", "imgs_per_s"}``."""
+    """Returns ``{"images", "nonfinite", "seconds", "imgs_per_s"}``
+    (``images``: this process's)."""
     args = parse_args(argv)
+    from ._multihost import maybe_init_distributed
     from .ddpm_sample import pin_f32_precision, resolve_device
 
     pin_f32_precision()
-    if args.multihost or args.coordinator_address or args.num_processes or args.process_id:
-        raise NotImplementedError("multi-host sampling (--multihost and its address flags) "
-                                  "comes with the multi-GPU slice")
-    device = resolve_device(args.device)
+    mesh = maybe_init_distributed(args)  # before the first use of the card
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    multiproc = mesh is not None and mesh.world > 1
+    if mesh is not None and args.batch_size % mesh.world:
+        raise SystemExit(f"--multihost: batch_size {args.batch_size} must be divisible by "
+                         f"the world size {mesh.world}")
+    if multiproc and args.ipc % args.batch_size:
+        raise SystemExit("--multihost needs --ipc % --batch_size == 0 (whole batches)")
     import numpy as np
     import torch
 
@@ -66,7 +78,12 @@ def main(argv=None) -> dict:
     ldm = load_ldm(args.model_path, None, args.seed, device=device)
     hw, ch = ldm.unet.cfg.image_size, ldm.unet.cfg.in_channels
     sampler = ldm.make_cfg_sampler(ddim_steps=args.ddim_steps, guidance_scale=args.scale,
-                                   eta=args.eta, latent_hw=hw, latent_ch=ch, method=args.method)
+                                   eta=args.eta, latent_hw=hw, latent_ch=ch, method=args.method,
+                                   mesh=mesh)
+    # more than one process: each writes its rows to process_{rank}/, numbered
+    # locally (the reference's per-process layout, ddpm_sample.py:55-74)
+    outdir = (os.path.join(args.output_dir, f"process_{mesh.rank}") if multiproc
+              else args.output_dir)
     if ldm.first_stage is not None:
         decode = ldm.decode_first_stage
     else:
@@ -80,14 +97,14 @@ def main(argv=None) -> dict:
         if done is not None:
             done.synchronize()
         imgs = host.numpy()[:n]
-        stats["images"] += n
+        stats["images"] += len(imgs)
         stats["nonfinite"] += int(imgs.size - np.count_nonzero(np.isfinite(imgs)))
-        save_images(imgs, args.output_dir, start_index=start)
+        save_images(imgs, outdir, start_index=start)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    idx, pending = 0, None
+    idx, local_idx, pending = 0, 0, None
     for cls in range(args.num_classes):
         remaining = args.ipc
         while remaining > 0:
@@ -96,7 +113,11 @@ def main(argv=None) -> dict:
             staged = _stage(decode(sampler(generator, labels, args.batch_size)))
             if pending is not None:
                 flush(*pending)
-            pending = (staged, n, idx)
+            if multiproc:  # this rank's rows of a whole batch, numbered locally
+                pending = (staged, args.batch_size // mesh.world, local_idx)
+                local_idx += args.batch_size // mesh.world
+            else:
+                pending = (staged, n, idx)
             idx += n
             remaining -= n
         if (cls + 1) % 25 == 0:
@@ -105,12 +126,13 @@ def main(argv=None) -> dict:
         flush(*pending)
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"wrote {idx} images to {args.output_dir} in {dt:.2f}s ({idx / dt:.2f} imgs/s, "
+    print(f"wrote {stats['images']} images to {outdir} in {dt:.2f}s "
+          f"({stats['images'] / dt:.2f} imgs/s, "
           f"{args.method} {args.ddim_steps} steps, scale {args.scale}, B={args.batch_size}, "
           f"f32, {where}, wall clock)")
     if stats["nonfinite"]:
         print(f"WARNING: {stats['nonfinite']} non-finite sample values")
-    return {**stats, "seconds": dt, "imgs_per_s": idx / dt}
+    return {**stats, "seconds": dt, "imgs_per_s": stats["images"] / dt}
 
 
 if __name__ == "__main__":

@@ -28,7 +28,7 @@ import dataclasses
 import os
 import pickle
 from glob import glob
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -199,7 +199,8 @@ def get_labeled_dataset(root: str, resolution: int = 256) -> LabeledImageFolderD
 
 
 def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int, *,
-                            seed: int = 0, flip: bool = True, skip_batches: int = 0):
+                            seed: int = 0, flip: bool = True, skip_batches: int = 0,
+                            local_slice: Optional[Tuple[int, int]] = None):
     """Endless shuffled epochs of ``(images, labels)``: NHWC float32 images in
     [-1, 1] at the dataset's resolution with a random horizontal flip, int32
     labels; the last partial batch of each epoch dropped. One
@@ -210,9 +211,15 @@ def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int,
 
     Images are decoded one by one with PIL (``_load_image``: shorter side to
     the resolution, then a center crop), the JAX version's path when its
-    native decoder is not built."""
+    native decoder is not built.
+
+    ``local_slice=(lo, hi)`` yields rows [lo, hi) of each global batch (a
+    data-parallel rank's, ``parallel.mesh.process_batch_slice``): the
+    shuffle and flip draws stay at the global batch shape, so the rows are
+    bit-exactly the single-process stream's, and only they are decoded."""
     rng = np.random.default_rng(seed)
     n = len(dataset)
+    rows = slice(None) if local_slice is None else slice(*local_slice)
     while True:
         order = rng.permutation(n)
         for i in range(0, n - n % batch_size, batch_size):
@@ -222,10 +229,11 @@ def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int,
                 if flip:
                     rng.random(len(idx))  # keep the flip stream aligned
                 continue
+            idx = idx[rows]
             imgs = np.stack([_load_image(dataset.files[j], dataset.resolution, False)
                              for j in idx])
             if flip:
-                flips = rng.random(len(imgs)) < 0.5
+                flips = (rng.random(batch_size) < 0.5)[rows]
                 imgs[flips] = imgs[flips, :, ::-1]
             yield normalize(imgs), dataset.labels[idx]
 
@@ -235,8 +243,8 @@ def normalize(batch_u8: np.ndarray) -> np.ndarray:
     return batch_u8.astype(np.float32) / 127.5 - 1.0
 
 
-def iterate_batches(dataset, batch_size: int, *, seed: int = 0,
-                    skip_batches: int = 0) -> Iterator[np.ndarray]:
+def iterate_batches(dataset, batch_size: int, *, seed: int = 0, skip_batches: int = 0,
+                    local_slice: Optional[Tuple[int, int]] = None) -> Iterator[np.ndarray]:
     """Endless shuffled epochs of normalized NHWC float32 batches with random
     horizontal flip, the last partial batch of each epoch dropped (the JAX
     version's plain path with its defaults: one permutation per epoch, then
@@ -246,12 +254,18 @@ def iterate_batches(dataset, batch_size: int, *, seed: int = 0,
 
     ``skip_batches`` fast-forwards the stream for resume: the skipped
     batches' shuffle and flip draws are replayed without touching pixels, so
-    a resumed run sees exactly the batches an uninterrupted run would."""
+    a resumed run sees exactly the batches an uninterrupted run would.
+
+    ``local_slice=(lo, hi)`` yields rows [lo, hi) of each global batch (the
+    JAX version's multi-host path): every draw stays at the global batch
+    shape, so the rows are bit-exactly the single-process stream's, and only
+    they are gathered or decoded."""
     if not isinstance(dataset, (ArrayDataset, ImageFolderDataset)):
         raise TypeError(f"{type(dataset).__name__}: batches come from an ArrayDataset or an "
                         "ImageFolderDataset")
     rng = np.random.default_rng(seed)
     n = len(dataset)
+    rows = slice(None) if local_slice is None else slice(*local_slice)
     while True:
         order = rng.permutation(n)
         for i in range(0, n - n % batch_size, batch_size):
@@ -260,6 +274,7 @@ def iterate_batches(dataset, batch_size: int, *, seed: int = 0,
             if skip_batches > 0:
                 skip_batches -= 1
                 continue
+            idx, flips = idx[rows], flips[rows]
             if isinstance(dataset, ArrayDataset):
                 imgs = dataset.images[idx].copy()
             else:

@@ -20,7 +20,8 @@ host round-trips to the TPU and has no counterpart. On the card the
 forward and backward go through the port's GroupNorm and attention kernels
 (``ops``).
 
-``thr=None`` runs a fixed number of steps (plain 'taylor' pruning).
+``thr=None`` runs a fixed number of steps (plain 'taylor' pruning). With a
+``mesh`` the sweep is data-parallel over ``torch.distributed``.
 
 The LDM prune sweep (:func:`accumulate_ldm_grads`, the JAX package's
 ``cli/ldm_prune.py:153-187``, prune_ldm.py:104-131) differs in two ways:
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from ..models.unet2d import call_in_dtype
+from ..parallel.mesh import DataMesh, all_reduce_mean, local_rows
 from ..schedulers.ddpm import DiffusionSchedule
 
 
@@ -86,6 +88,7 @@ def accumulate_taylor_grads(
     max_steps: Optional[int] = None,
     loss_type: str = "mse",
     accumulate_abs: bool = False,
+    mesh: Optional[DataMesh] = None,
 ) -> SweepResult:
     """Accumulate d(loss)/d(param) over timesteps 0, 1, ... into the model's
     ``.grad`` (zeroed first), stopping after ``max_steps`` (default: every
@@ -96,7 +99,21 @@ def accumulate_taylor_grads(
     sum (the vendored AbsTaylorImportance's mode,
     ddpm_exp/torch_pruning/pruner/importance.py:553-670): each step's grads
     come from ``torch.autograd.grad`` and their absolute values are added.
+
+    ``mesh`` (``parallel/mesh.py``) runs the sweep data-parallel, as the JAX
+    ``accumulate_taylor_grads_scan(mesh=)``: ``x0`` and ``noise`` are the
+    global batch and each rank takes its rows; every step's loss is averaged
+    over the ranks before the ``thr`` test, so all stop at the same step,
+    identical to one process; the signed sum is linear, so one all_reduce
+    of the grads at the end gives the global batch's. With
+    ``accumulate_abs`` it raises: the JAX package has |grad| only in its
+    unsharded host loop.
     """
+    if mesh is not None:
+        if accumulate_abs:
+            raise ValueError("accumulate_abs has no data-parallel sweep (the JAX package "
+                             "accumulates |grad| only unsharded); run it without a mesh")
+        x0, noise = local_rows(mesh, x0), local_rows(mesh, noise)
     T = schedule.num_train_timesteps if max_steps is None else max_steps
     loss_fn = make_loss_fn(model, schedule, loss_type)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
@@ -115,12 +132,18 @@ def accumulate_taylor_grads(
                     p.grad.add_(g.abs())
             else:
                 loss.backward()
-            loss = float(loss.detach())
+            loss = loss.detach()
+            if mesh is not None:
+                loss = loss.clone()
+                all_reduce_mean(mesh, [loss])
+            loss = float(loss)
             losses.append(loss)
             if thr is not None:
                 loss_max = max(loss_max, loss)
                 if loss < loss_max * thr:
                     break
+    if mesh is not None:
+        all_reduce_mean(mesh, [p.grad for p in params])
     return SweepResult({n: p.grad for n, p in named}, np.asarray(losses), k + 1)
 
 

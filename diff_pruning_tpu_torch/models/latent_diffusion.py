@@ -25,8 +25,9 @@ of the CompVis configs; a text or retrieval model's CFG uncond rows are the
 cond stage applied to ``uncond_input`` (the empty prompt's tokens, or zero
 embeddings).
 
-Not ported yet (raises where a caller can reach it): ``mesh`` /
-``tensor_parallel`` sharding (multi-GPU).
+The CFG sampler's ``mesh`` splits a batch by rows over data-parallel ranks
+(``parallel/mesh.py``). Not ported yet (raises where a caller can reach it):
+``tensor_parallel`` (the JAX ``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import process_batch_slice
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step
 from ..schedulers.ddpm import DiffusionSchedule
 from ..schedulers.dpm_solver import dpm_solver_sample
@@ -64,9 +66,11 @@ def compvis_ddim_timesteps(num_steps: int, num_train_timesteps: int = 1000) -> n
 def _compvis_solver(schedule: DiffusionSchedule, ddim_steps: int, eta: float,
                     method: str) -> Callable:
     """The trajectory both LDM samplers run over ``compvis_ddim_timesteps``:
-    returns ``solve(eps_fn, shape, generator, x_T, noise) -> latents`` f32.
+    returns ``solve(eps_fn, shape, generator, x_T, noise, rows) -> latents`` f32.
     ``x_T`` is the initial noise and ``noise[i]`` DDIM's at step i (eta > 0);
-    what is not given is drawn from ``generator``. 'ddim', 'plms' (S + 1
+    what is not given is drawn from ``generator``. ``shape``, ``x_T`` and
+    ``noise`` are the global batch's; the trajectory runs on its ``rows``
+    (a data-parallel rank's, every draw still at the global shape). 'ddim', 'plms' (S + 1
     ``eps_fn`` calls) or 'dpm' (DPM-Solver++(2M)); the last two need eta == 0.
     Never clips."""
     if method not in ("ddim", "plms", "dpm"):
@@ -79,9 +83,10 @@ def _compvis_solver(schedule: DiffusionSchedule, ddim_steps: int, eta: float,
 
     def solve(eps_fn: Callable, shape, generator: Optional[torch.Generator],
               x_T: Optional[torch.Tensor] = None,
-              noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+              noise: Optional[Sequence[torch.Tensor]] = None,
+              rows: slice = slice(None)) -> torch.Tensor:
         x = (torch.randn(shape, generator=generator, device=device) if x_T is None
-             else x_T.to(device=device, dtype=torch.float32))
+             else x_T.to(device=device, dtype=torch.float32))[rows]
         if method == "plms":
             return plms_sample(eps_fn, schedule, x, ts, prev)
         if method == "dpm":
@@ -90,7 +95,7 @@ def _compvis_solver(schedule: DiffusionSchedule, ddim_steps: int, eta: float,
             z = None
             if eta > 0:
                 z = (torch.randn(shape, generator=generator, device=device) if noise is None
-                     else noise[i].to(device=device, dtype=torch.float32))
+                     else noise[i].to(device=device, dtype=torch.float32))[rows]
             x = ddim_step(schedule, x, eps_fn(x, t), t, tp, eta=eta, noise=z)
         return x
 
@@ -321,11 +326,17 @@ class LatentDiffusion(nn.Module):
         uncond class's, or with ``uncond_input`` (e.g. the tokenized empty
         prompt, or zero CLIP embeddings) the cond stage applied to it, a
         single row broadcast to the batch. ``x_T``, ``noise`` and ``method``
-        as for :func:`_compvis_solver`."""
+        as for :func:`_compvis_solver`.
+
+        With ``mesh`` (``parallel/mesh.py``) the batch is split by rows over
+        the data-parallel ranks, the JAX sampler's data axis: ``labels``,
+        ``batch_size``, ``x_T`` and ``noise`` are global, every draw is made
+        at the global shape, and the sampler returns this rank's rows.
+        ``tensor_parallel`` (the JAX ``parallel/tp.py``) is not ported."""
         solve = _compvis_solver(self.schedule, ddim_steps, eta, method)
-        if mesh is not None or tensor_parallel:
-            raise NotImplementedError("sharded sampling (mesh, tensor_parallel) comes with "
-                                      "the multi-GPU slice")
+        if tensor_parallel:
+            raise NotImplementedError("tensor_parallel (the JAX parallel/tp.py) is not ported "
+                                      "yet (ROADMAP queue 1, item 5a)")
         lat_h, lat_w = ((latent_hw, latent_hw) if isinstance(latent_hw, int)
                         else tuple(latent_hw))
         device = self.schedule.alphas_cumprod.device
@@ -334,26 +345,28 @@ class LatentDiffusion(nn.Module):
                    batch_size: int, *, x_T: Optional[torch.Tensor] = None,
                    noise: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
             with torch.inference_mode():
-                labels = torch.as_tensor(labels, device=device)
+                rows = (slice(None) if mesh is None
+                        else slice(*process_batch_slice(mesh, batch_size)))
+                labels = torch.as_tensor(labels, device=device)[rows]
+                n = labels.shape[0]
                 ctx_c = self.get_learned_conditioning(labels)
                 if uncond_input is None:
                     ctx_u = self.get_learned_conditioning(
-                        torch.full((batch_size,), self.uncond_class, dtype=torch.int64,
-                                   device=device))
+                        torch.full((n,), self.uncond_class, dtype=torch.int64, device=device))
                 else:
-                    ctx_u = self.get_learned_conditioning(
-                        torch.as_tensor(uncond_input, device=device))
+                    u = torch.as_tensor(uncond_input, device=device)
+                    ctx_u = self.get_learned_conditioning(u if u.shape[0] == 1 else u[rows])
                     if ctx_u.shape[0] == 1:
-                        ctx_u = ctx_u.expand(batch_size, *ctx_u.shape[1:])
+                        ctx_u = ctx_u.expand(n, *ctx_u.shape[1:])
                 ctx = torch.cat([ctx_u, ctx_c], dim=0)
 
                 def eps_fn(x, t):
-                    tb = torch.full((2 * batch_size,), t, dtype=torch.int64, device=device)
+                    tb = torch.full((2 * n,), t, dtype=torch.int64, device=device)
                     e_u, e_c = self.apply_unet(torch.cat([x, x], dim=0), tb, ctx).chunk(2)
                     return e_u + guidance_scale * (e_c - e_u)
 
                 return solve(eps_fn, (batch_size, lat_h, lat_w, latent_ch), generator,
-                             x_T, noise)
+                             x_T, noise, rows)
 
         return sample
 

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh, process_batch_slice
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step, ddim_timesteps, ddpm_step
 from ..schedulers.ddpm import DiffusionSchedule
 from ..schedulers.dpm_solver import dpm_solver_sample
@@ -37,7 +38,8 @@ class SamplerConfig:
     dtype: str = "float32"
 
 
-def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Callable:
+def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
+                 mesh: Optional[DataMesh] = None) -> Callable:
     """Returns ``sample(generator, batch_size, hw, channels, labels=None, *, x_T=None)``
     -> images in [0, 1], NHWC f32 on the model's device.
 
@@ -46,6 +48,12 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
     ``kind="ddpm"``. For a compute dtype other than f32 the sampler holds a
     copy of the model whose conv/linear weights are cast once. ``plms``
     calls the model S + 1 times, ``dpm`` S times.
+
+    With ``mesh`` (``parallel/mesh.py``) the trajectory is split by rows, as
+    the JAX sampler's over its data axis: ``batch_size``, ``labels`` and
+    ``x_T`` are global, every noise is drawn at the global shape from the
+    generator that each rank seeds alike, and the sampler returns this
+    rank's rows of the images one process would draw.
     """
     if cfg.kind not in ("ddim", "ddpm", "plms", "dpm"):
         raise ValueError(f"unknown sampler kind {cfg.kind!r}")
@@ -69,14 +77,18 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
                channels: int, labels: Optional[torch.Tensor] = None, *,
                x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
         with torch.inference_mode():
+            shape = (batch_size, hw, hw, channels)
+            rows = slice(None) if mesh is None else slice(*process_batch_slice(mesh, batch_size))
             if x_T is None:
-                x = torch.randn((batch_size, hw, hw, channels), generator=generator,
-                                device=device)
+                x = torch.randn(shape, generator=generator, device=device)[rows]
             else:
-                x = x_T.to(device=device, dtype=torch.float32)
+                x = x_T.to(device=device, dtype=torch.float32)[rows]
+            if labels is not None and mesh is not None:
+                labels = labels[rows]
+            rows_b = x.shape[0]
             if cfg.kind in ("plms", "dpm"):
                 def eps_fn(x, t):
-                    tb = torch.full((batch_size,), t, dtype=torch.int64, device=device)
+                    tb = torch.full((rows_b,), t, dtype=torch.int64, device=device)
                     return net(x.to(compute_dtype), tb, labels)
 
                 if cfg.kind == "plms":
@@ -87,9 +99,9 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig) -> Call
                                           clip_sample=cfg.clip_sample)
                 return (x / 2.0 + 0.5).clamp(0.0, 1.0)
             for t, tp in steps:
-                tb = torch.full((batch_size,), t, dtype=torch.int64, device=device)
+                tb = torch.full((rows_b,), t, dtype=torch.int64, device=device)
                 eps = net(x.to(compute_dtype), tb, labels)
-                z = (torch.randn(x.shape, generator=generator, device=device)
+                z = (torch.randn(shape, generator=generator, device=device)[rows]
                      if needs_noise else None)
                 if cfg.kind == "ddim":
                     x = ddim_step(schedule, x, eps, t, tp, eta=cfg.eta,

@@ -1,17 +1,23 @@
-"""Large-batch sampling (the 50k-image FID runs), single process.
+"""Large-batch sampling (the 50k-image FID runs), in one process or split
+by rows over a data-parallel group.
 
-Counterpart of ``sample_many`` in ``diff_pruning_tpu/sampling/distributed.py``;
-its multi-host sharding and class labels wait for the multi-GPU slice and a
-class-conditional caller.
+Counterpart of ``sample_many`` in ``diff_pruning_tpu/sampling/distributed.py``.
+The reference shards the work across processes by index with per-process
+seeds and subdirectories (ddpm_sample.py:55-77); here, as in the JAX
+package, every process runs the same trajectory program over its rows of
+each global batch (``make_sampler(mesh=)``) and writes them to
+``process_{rank}/``. Class labels wait for a class-conditional caller.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh
 from .ddim_sampler import save_images
 
 
@@ -29,7 +35,8 @@ def _stage(imgs: torch.Tensor):
 
 def sample_many(sampler: Callable, *, generator: Optional[torch.Generator],
                 total_images: int, batch_size: int, hw: int, channels: int = 3,
-                outdir: Optional[str] = None, progress: bool = False):
+                outdir: Optional[str] = None, progress: bool = False,
+                mesh: Optional[DataMesh] = None):
     """Run ``sampler`` ceil(total/batch) times; save PNGs to ``outdir`` or
     return the images.
 
@@ -38,8 +45,26 @@ def sample_many(sampler: Callable, *, generator: Optional[torch.Generator],
     overlaps the next trajectory. Returns the (total, hw, hw, C) f32 array
     when ``outdir`` is None, else ``{"images": n, "nonfinite": k}`` with k
     the count of non-finite values seen before quantising.
+
+    ``batch_size`` is the global batch. With a ``mesh`` of more than one
+    rank (and ``sampler`` built with it), each rank keeps only its rows:
+    PNGs go to ``outdir/process_{rank}/``, numbered locally, and the array
+    returned holds this rank's rows; every batch is whole, so a ragged
+    total is rounded up, as the reference's ceil (ddpm_sample.py:67). The
+    world size must divide ``batch_size``.
     """
     num_batches = (total_images + batch_size - 1) // batch_size
+    multiproc = mesh is not None and mesh.world > 1
+    if mesh is not None and batch_size % mesh.world:
+        raise ValueError(f"batch_size {batch_size} must divide by the world size "
+                         f"({mesh.world})")
+    if multiproc:
+        if total_images % batch_size:
+            print(f"multi-process run rounds {total_images} up to "
+                  f"{num_batches * batch_size} images (whole batches)")
+        if outdir is not None:
+            outdir = os.path.join(outdir, f"process_{mesh.rank}")
+    local_total = num_batches * batch_size // mesh.world if multiproc else total_images
     results = []
     stats = {"images": 0, "nonfinite": 0}
 
@@ -47,7 +72,10 @@ def sample_many(sampler: Callable, *, generator: Optional[torch.Generator],
         host, done = staged
         if done is not None:
             done.synchronize()
-        imgs = host.numpy()[: min(batch_size, total_images - start)]
+        if multiproc:  # this rank's whole rows, numbered locally
+            imgs, start = host.numpy(), stats["images"]
+        else:
+            imgs = host.numpy()[: min(batch_size, total_images - start)]
         stats["images"] += len(imgs)
         stats["nonfinite"] += int(imgs.size - np.count_nonzero(np.isfinite(imgs)))
         if outdir is not None:
@@ -55,7 +83,7 @@ def sample_many(sampler: Callable, *, generator: Optional[torch.Generator],
         else:
             results.append(imgs.copy())
         if progress:
-            print(f"  sampled {stats['images']}/{total_images}")
+            print(f"  sampled {stats['images']}/{local_total}" + (" (local)" if multiproc else ""))
 
     pending = None
     for b in range(num_batches):

@@ -1,0 +1,133 @@
+"""Runs the port's data-parallel path in several OS processes over gloo on
+the CPU, for the tests of the port (``tests/test_torch_*.py``).
+
+``run_ranks`` starts one process per rank, each under a time limit, and
+returns their outputs; a rank that fails or outlives the limit fails the
+caller (the others are killed, so no rank waits in a collective). Run as a
+script, this file is one rank of a library-level run:
+
+    python tests/_torch_dp.py train|sweep RANK WORLD PORT IN_DIR OUT_DIR
+
+``IN_DIR`` holds a UNet checkpoint (``utils/checkpoint.save_model``) and
+``inputs.npz``; the rank writes ``OUT_DIR/rank{RANK}.npz``. It imports torch
+and the port only.
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# each rank's limit: a tiny config takes a few seconds
+RANK_TIMEOUT_S = 120
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def multihost_flags(rank: int, world: int, port: int):
+    return ["--multihost", "--coordinator_address", f"127.0.0.1:{port}",
+            "--num_processes", str(world), "--process_id", str(rank), "--device", "cpu"]
+
+
+def run_ranks(argv_of_rank, world: int = 2, timeout: float = RANK_TIMEOUT_S):
+    """Starts ``python argv_of_rank(rank, port)`` for every rank, one thread
+    of torch each, and returns their outputs; raises AssertionError with the
+    output of any rank that failed."""
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable] + argv_of_rank(r, port), cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out}"
+    return outs
+
+
+def cli_ranks(module: str, argv, world: int = 2):
+    """``python -m diff_pruning_tpu_torch.cli.<module> argv --multihost ...
+    --device cpu`` in ``world`` processes."""
+    return run_ranks(lambda r, port: ["-m", f"diff_pruning_tpu_torch.cli.{module}"] + list(argv)
+                     + multihost_flags(r, world, port), world)
+
+
+def lib_ranks(mode: str, in_dir, out_dir, world: int = 2):
+    """This file's ``mode`` in ``world`` processes; returns each rank's npz
+    contents."""
+    import numpy as np
+
+    run_ranks(lambda r, port: [os.path.abspath(__file__), mode, str(r), str(world), str(port),
+                               str(in_dir), str(out_dir)], world)
+    res = []
+    for r in range(world):
+        with np.load(os.path.join(out_dir, f"rank{r}.npz")) as f:
+            res.append({k: f[k] for k in f.files})
+    return res
+
+
+def _main(mode, rank, world, port, in_dir, out_dir):
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.parallel.mesh import init_distributed, local_rows
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict, load_model
+
+    torch.set_num_threads(1)
+    mesh = init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    cfg, state = load_model(in_dir)
+    model = UNet2D(cfg, device="cpu")
+    model.load_state_dict(state)
+    schedule = DiffusionSchedule.create(device="cpu")
+    with np.load(os.path.join(in_dir, "inputs.npz")) as f:
+        inputs = {k: torch.from_numpy(f[k]) for k in f.files}
+    with open(os.path.join(in_dir, "kwargs.json")) as f:
+        kwargs = json.load(f)
+    out = {}
+    if mode == "train":
+        from diff_pruning_tpu_torch.training.finetune import (TrainConfig, init_train_state,
+                                                              make_train_step)
+
+        tcfg = TrainConfig(**kwargs)
+        st = init_train_state(model, tcfg)
+        step = make_train_step(model, schedule, tcfg, mesh=mesh)
+        x, noise, t = (local_rows(mesh, inputs[k]) for k in ("x", "noise", "t"))
+        st, m = step(st, x, noise=noise, t=t.long())
+        out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        for name, tree in (("mu", st.opt_state.mu), ("params", st.params),
+                           ("ema", st.ema_params)):
+            out.update({f"{name}:{k}": v for k, v in flat_from_state_dict(tree).items()})
+    elif mode == "sweep":
+        from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_taylor_grads
+        from diff_pruning_tpu_torch.utils.checkpoint import flat_grads
+
+        res = accumulate_taylor_grads(model, schedule, inputs["x0"], inputs["noise"],
+                                      mesh=mesh, **kwargs)
+        out.update(steps_run=res.steps_run, losses=res.losses)
+        out.update({f"grad:{k}": v for k, v in flat_grads(model).items()})
+    else:
+        raise ValueError(mode)
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+          sys.argv[6])

@@ -639,8 +639,9 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     """The LDM schedule and timesteps; CFG trajectories (DDIM, PLMS,
     DPM-Solver++; 4 steps, scale 3) from JAX's own x_T, then the decode;
     the sampler's refusals; the ldm_sample CLI on --device cpu (files,
-    numbering across classes with a partial batch, image shapes) and its
-    refusal without a GPU and of the multi-host flags."""
+    numbering across classes with a partial batch, image shapes), on 2 gloo
+    ranks against one process, and its refusal without a GPU, with and
+    without --multihost."""
     js, ts_ = jl.ldm_schedule(), tl.ldm_schedule()
     np.testing.assert_allclose(ts_.alphas_cumprod.numpy(), np.asarray(js.alphas_cumprod),
                                rtol=1e-6)
@@ -767,6 +768,27 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     from PIL import Image
 
     assert np.asarray(Image.open(out / pngs[-1])).shape == (16, 16, 3)
+    # --multihost on 2 gloo ranks, DDIM eta 1 (every draw at the global
+    # shape): each rank writes its row of every batch of 2 to
+    # process_{rank}/, numbered locally; the union in global order is the
+    # one-process run's images within one uint8 level (f32 sum order only);
+    # --ipc not a multiple of --batch_size is refused, as the JAX CLI does
+    import _torch_dp
+
+    dp = ["--model_path", model_dir, "--num_classes", "2", "--ipc", "2", "--batch_size", "2",
+          "--ddim_steps", "2", "--eta", "1.0"]
+    ldm_sample.main(dp + ["--output_dir", str(tmp_path / "dp1"), "--device", "cpu"])
+    _torch_dp.cli_ranks("ldm_sample", dp + ["--output_dir", str(tmp_path / "dp2")])
+    dirs = [tmp_path / "dp2" / f"process_{r}" for r in (0, 1)]
+    assert [sorted(os.listdir(d)) for d in dirs] == [["000000.png", "000001.png"]] * 2
+    assert sorted(os.listdir(tmp_path / "dp1")) == [f"{i:06d}.png" for i in range(4)]
+    for i in range(4):
+        got = np.asarray(Image.open(dirs[i % 2] / f"{i // 2:06d}.png"), np.int16)
+        want = np.asarray(Image.open(tmp_path / "dp1" / f"{i:06d}.png"), np.int16)
+        assert np.abs(got - want).max() <= 1, i
+    with pytest.raises(AssertionError, match="--ipc % --batch_size == 0"):
+        _torch_dp.cli_ranks("ldm_sample", dp[:5] + ["3"] + dp[6:] + [
+            "--output_dir", str(tmp_path / "dp3")])
     # without a first stage the latents are mapped from [-1, 1]
     os.rename(os.path.join(model_dir, "first_stage"), str(tmp_path / "first_stage"))
     ldm_sample.main(["--model_path", model_dir, "--output_dir", str(tmp_path / "latent"),
@@ -788,9 +810,10 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_diffusion.main(["--model_path", udir, "--logdir", str(out)])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # NCCL needs the card
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out), "--multihost",
-                         "--device", "cpu"])
+                         "--coordinator_address", "127.0.0.1:1", "--num_processes", "1",
+                         "--process_id", "0"])
 
 
 def _check_text_and_retrieval_serving(tmp_path, capsys):

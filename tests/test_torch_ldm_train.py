@@ -26,7 +26,9 @@ Tolerances:
   tests/test_torch_training.py);
 - the optimizer on the same grads: params and moments after two updates
   within 1e-6 + 1e-6 relative (the same f32 formulas);
-- the CLI's resume, its checkpoints and model dir: exact.
+- the CLI's resume, its checkpoints and model dir: exact;
+- the CLI on 2 gloo ranks against one process (f32): DP_LOSS_RTOL, and
+  Adam's bound for the UNet.
 """
 
 import json
@@ -60,6 +62,10 @@ from diff_pruning_tpu_torch.utils import checkpoint as tckpt
 torch.set_num_threads(2)
 B, N_CLASSES, LR = 4, 5, 3.2e-5
 F32_LOSS_RTOL, F32_GRAD_TOL = 1e-4, 1e-3
+# the CLI on 2 gloo ranks against one process (f32): a mean of two row
+# means against one mean, a few ulps; Adam's bound a step (twice the most
+# its first bias-corrected updates move a param, tests/test_torch_training.py)
+DP_LOSS_RTOL, ADAM_MOVE = 1e-5, 2.02
 BF16_LOSS_RTOL, BF16_GRAD_RTOL = 2e-2, 5e-2
 
 
@@ -126,11 +132,16 @@ def _check_batches(root, res):
     for skip in (0, 3):
         jit = jdata.iterate_labeled_batches(jds, B, seed=9, skip_batches=skip)
         tit = tdata.iterate_labeled_batches(tds, B, seed=9, skip_batches=skip)
+        # a data-parallel rank's rows: every draw at the global shape
+        lit = tdata.iterate_labeled_batches(tds, B, seed=9, skip_batches=skip,
+                                            local_slice=(1, 3))
         for _ in range(5):  # past an epoch of 3 batches
-            (ji, jlab), (ti, tlab) = next(jit), next(tit)
+            (ji, jlab), (ti, tlab), (li, llab) = next(jit), next(tit), next(lit)
             assert ti.dtype == np.float32 and ti.shape == (B, res, res, 3)
             np.testing.assert_array_equal(ti, ji)
             np.testing.assert_array_equal(tlab, jlab)
+            np.testing.assert_array_equal(li, ji[1:3])
+            np.testing.assert_array_equal(llab, jlab[1:3])
 
 
 def _check_step(model_dir, root, res):
@@ -252,14 +263,33 @@ def _check_cli(tmp_path, model_dir, root):
         np.testing.assert_array_equal(np.asarray(jflatten(jparams["unet"])[k]), np.asarray(v),
                                       err_msg=k)
     assert jldm.n_classes == N_CLASSES
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ldm_train.main(base + ["--output_dir", str(tmp_path / "c"), "--multihost"])
+    # --multihost on 2 gloo ranks against one process, f32: rank 0's weights
+    # broadcast, each rank its rows of the batches and of the step's global
+    # draws, the grads averaged; losses within DP_LOSS_RTOL, the UNet within
+    # Adam's bound over the steps; rank 0 alone writes the dir
+    import _torch_dp
+
+    dp = base[:6] + ["--num_iters", "4", "--save_model_steps", "4", "--log_steps", "1",
+                     "--uncond_prob", "0.5", "--mixed_precision", "no"]
+    one = ldm_train.main(dp + ["--output_dir", str(tmp_path / "dp1"), "--device", "cpu"])
+    _torch_dp.cli_ranks("ldm_train", dp + ["--output_dir", str(tmp_path / "dp2")])
+    with open(tmp_path / "dp2" / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4]
+    np.testing.assert_allclose([r["loss"] for r in recs], one["losses"], rtol=DP_LOSS_RTOL)
+    assert sorted(os.listdir(tmp_path / "dp2")) == sorted(os.listdir(a))
+    _, p1, _ = tckpt.load_train_state(str(tmp_path / "dp1" / "ckpt"))
+    _, p2, _ = tckpt.load_train_state(str(tmp_path / "dp2" / "ckpt"))
+    for k, v in tckpt.flat_from_state_dict(p1).items():
+        err = np.abs(tckpt.flat_from_state_dict(p2)[k] - v).max()
+        assert err <= ADAM_MOVE * 4 * LR, (k, err)
 
 
 def test_ldm_train_matches_jax(tmp_path):
     """The labeled batches, one train step (f32 and bf16) and the AdamW +
     clip update against the JAX package; then the ldm_train CLI on the CPU,
-    its resume and its outputs in the JAX package."""
+    its resume and its outputs in the JAX package, and the CLI on 2 gloo
+    ranks against one process."""
     model_dir, root = str(tmp_path / "ldm"), str(tmp_path / "data")
     _model_dir(model_dir, seed=3)
     res = ju.tiny_cond_config().image_size * 2  # the VQ's f2

@@ -69,7 +69,9 @@ def test_port_imports_nothing_of_jax():
     ``triton``, ``matplotlib`` and ``regex`` (which the JAX CLIP tokenizer
     needs and the card's machine lacks) blocked (a blocked import raises) and
     no ``nvcc`` (CUDA_HOME points nowhere), none pulls jax or the JAX package
-    in, and the CLIs parse their arguments so."""
+    in, and the CLIs parse their arguments so, the five data-parallel ones
+    with the multihost flags (``parallel/mesh.py`` and ``cli/_multihost.py``
+    among the modules)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex'):\n"
@@ -78,6 +80,8 @@ def test_port_imports_nothing_of_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "assert {'diff_pruning_tpu_torch.parallel.mesh',\n"
+        "        'diff_pruning_tpu_torch.cli._multihost'} <= set(names)\n"
         "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
         "                                        ldm_prune, ldm_sample, ldm_train,\n"
         "                                        prune_finetune, prune_ssim)\n"
@@ -88,6 +92,18 @@ def test_port_imports_nothing_of_jax():
         "for cli in (ldm_train, prune_finetune):\n"
         "    cli.parse_args(['--model_path', 'm', '--dataset', 'd', '--output_dir', 'o'])\n"
         "prune_ssim.parse_args(['--model_path', 'm', '--save_path', 'o', '--dataset', 'd'])\n"
+        "from diff_pruning_tpu_torch.cli import ddpm_prune, ddpm_train\n"
+        "mh = ['--multihost', '--coordinator_address', 'h:1', '--num_processes', '2',\n"
+        "      '--process_id', '1']\n"
+        "for cli, argv in ((ddpm_train, ['--dataset', 'd', '--model_path', 'm',\n"
+        "                                '--output_dir', 'o']),\n"
+        "                  (ddpm_prune, ['--model_path', 'm', '--save_path', 'o']),\n"
+        "                  (ddpm_sample, ['--model_path', 'm', '--output_dir', 'o']),\n"
+        "                  (ldm_sample, ['--model_path', 'm', '--output_dir', 'o']),\n"
+        "                  (ldm_train, ['--model_path', 'm', '--dataset', 'd',\n"
+        "                               '--output_dir', 'o'])):\n"
+        "    a = cli.parse_args(argv + mh)\n"
+        "    assert a.multihost and a.num_processes == 2 and a.process_id == 1, cli\n"
         "compute_ssim.parse_args(['a', 'b'])\n"
         "from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img\n"
         "txt2img.parse_args(['--vocab', 'v'])\n"
@@ -104,7 +120,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 71
+    assert int(res.stdout.strip()) >= 76
 
 
 def _tiny_sweep_inputs():
@@ -119,12 +135,59 @@ def _tiny_sweep_inputs():
     return jmodel, tmodel, flat, x0, noise
 
 
+def _check_data_parallel_sweep(tmp_path, flat, x0, noise, one, jmodel, kw):
+    """The sweep over 2 gloo ranks (``mesh``; the batch of 2 split by rows)
+    against the one-process sweep ``one`` (the port's grads as flat numpy)
+    and the JAX ``accumulate_taylor_grads_scan(mesh=)`` on 2 of the suite's
+    virtual devices: the same steps run, losses rtol 1e-5 and grads within
+    the sweep's rule (1e-4 of each max, the f32 floor) against JAX; against
+    one process, losses rtol 1e-6 and grads within 1e-5 of each max (a mean
+    of two row means against one mean)."""
+    import json
+
+    import _torch_dp
+    from diff_pruning_tpu.diffpruning.sweep import accumulate_taylor_grads_scan
+    from diff_pruning_tpu.parallel.mesh import make_mesh
+    from diff_pruning_tpu.schedulers.ddpm import DiffusionSchedule as JaxSchedule
+
+    in_dir, out_dir = tmp_path / "dp_in", tmp_path / "dp_out"
+    out_dir.mkdir()
+    cfg = tunet.UNet2DConfig.from_json(junet.tiny_unet_config().to_json())
+    model = tunet.UNet2D(cfg, device="cpu")
+    model.load_state_dict(tckpt.state_dict_from_flat(flat))
+    tckpt.save_model(str(in_dir), cfg, model)
+    np.savez(in_dir / "inputs.npz", x0=x0, noise=noise)
+    (in_dir / "kwargs.json").write_text(json.dumps(kw))
+    ranks = _torch_dp.lib_ranks("sweep", in_dir, out_dir)
+    for k, v in ranks[0].items():  # every rank ends with the same grads
+        np.testing.assert_array_equal(ranks[1][k], v, err_msg=k)
+    grads = {k.split(":", 1)[1]: v for k, v in ranks[0].items() if k.startswith("grad:")}
+    with jax.default_matmul_precision("float32"):
+        mesh = make_mesh((("data", 2),), devices=jax.devices()[:2])
+        want = accumulate_taylor_grads_scan(
+            jmodel, junflatten({k: jnp.asarray(v) for k, v in flat.items()}),
+            JaxSchedule.create(), jnp.asarray(x0), jnp.asarray(noise), mesh=mesh, **kw)
+    assert int(ranks[0]["steps_run"]) == one["steps_run"] == want.steps_run
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"], rtol=1e-6)
+    np.testing.assert_allclose(ranks[0]["losses"], np.asarray(want.losses)[:want.steps_run],
+                               rtol=1e-5)
+    for ref, rtol in ((one["grads"], 1e-5),
+                      ({k: np.asarray(v) for k, v in jflatten(want.grads).items()}, 1e-4)):
+        assert sorted(grads) == sorted(ref)
+        floor = 1e-6 * max(np.abs(g).max() for g in ref.values())
+        for k, g in ref.items():
+            err = np.abs(grads[k] - g).max()
+            assert err <= rtol * np.abs(g).max() + floor, (k, err)
+
+
 @pytest.mark.parametrize("stop", ["max_steps", "thr", "abs"])
-def test_sweep_matches_jax(stop):
+def test_sweep_matches_jax(stop, tmp_path):
     """accumulate_taylor_grads against the JAX host-loop variant on the same
     x0 and noise: the same steps run (at max_steps, at a thr where JAX exits
     early, and accumulating |grad|), losses and flat grads within tolerance,
-    and Diff-Pruning scores from each package's own grads within tolerance."""
+    and Diff-Pruning scores from each package's own grads within tolerance.
+    ``thr``: also data-parallel over 2 gloo ranks, against one process and
+    the JAX 2-device mesh; ``abs``: a mesh with ``accumulate_abs`` raises."""
     from diff_pruning_tpu.diffpruning.sweep import accumulate_taylor_grads as jsweep
     from diff_pruning_tpu.schedulers.ddpm import DiffusionSchedule as JaxSchedule
     from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_taylor_grads
@@ -157,6 +220,16 @@ def test_sweep_matches_jax(stop):
         mine = imp(graph, params, v, grads=unflatten_params(tgrads))
         theirs = imp(graph, params, v, grads=unflatten_params(jgrads))
         np.testing.assert_allclose(mine, theirs, rtol=1e-3, atol=1e-12, err_msg=v.name)
+    if stop == "thr":
+        _check_data_parallel_sweep(tmp_path, flat, x0, noise, {
+            "steps_run": got.steps_run, "losses": got.losses, "grads": tgrads}, jmodel,
+            {"thr": thr, "max_steps": max_steps})
+    elif stop == "abs":
+        from diff_pruning_tpu_torch.parallel.mesh import DataMesh
+
+        with pytest.raises(ValueError, match="accumulate_abs"):
+            accumulate_taylor_grads(tmodel, DiffusionSchedule.create(), torch.from_numpy(x0),
+                                    torch.from_numpy(noise), mesh=DataMesh(2, 0, "cpu"), **kw)
 
 
 @pytest.mark.parametrize("mode", ["local", "global"])
@@ -253,7 +326,8 @@ def test_macs_and_params_match_jax(config, monkeypatch):
 def test_data_batches_match_jax(tmp_path, monkeypatch):
     """load_npz, the CIFAR-10 pickle-batch loader and the first batches of
     iterate_batches are bit-identical to the JAX package's, over arrays and
-    over image folders (resized ones against its PIL decode); 'cifar10' is
+    over image folders (resized ones against its PIL decode), and so are a
+    data-parallel rank's rows (``local_slice``); 'cifar10' is
     looked up where the JAX package looks (here ~/data/cifar10), and the
     JAX package's other sources (lsun:, ffhq:, imagenet:, txt:, CIFAR-100
     names) raise NotImplementedError naming them."""
@@ -276,10 +350,16 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
         for seed in (0, 5):
             tb = tdata.iterate_batches(tds, 4, seed=seed)
             jb = jdata.iterate_batches(jds, 4, seed=seed)
+            # a data-parallel rank's rows (the JAX multi-host path's)
+            tl = tdata.iterate_batches(tds, 4, seed=seed, local_slice=(2, 4))
+            jl = jdata.iterate_batches(jds, 4, seed=seed, local_slice=(2, 4))
             for _ in range(3):  # crosses an epoch boundary on the npz
                 a, b = next(tb), next(jb)
                 assert a.dtype == b.dtype == np.float32
                 np.testing.assert_array_equal(a, b)
+                la = next(tl)
+                np.testing.assert_array_equal(la, next(jl))
+                np.testing.assert_array_equal(la, b[2:4])
     home = tmp_path / "home"
     (home / "data").mkdir(parents=True)
     os.rename(d, home / "data" / "cifar10")
@@ -309,8 +389,11 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
     for skip in (0, 3):
         tb = tdata.iterate_batches(tds, 3, seed=4, skip_batches=skip)
         jb = jdata.iterate_batches(jds, 3, seed=4, skip_batches=skip)
+        tl = tdata.iterate_batches(tds, 3, seed=4, skip_batches=skip, local_slice=(1, 2))
         for _ in range(4):  # two epochs of two batches
-            np.testing.assert_array_equal(next(tb), next(jb))
+            want = next(jb)
+            np.testing.assert_array_equal(next(tb), want)
+            np.testing.assert_array_equal(next(tl), want[1:2])
     rds, jrds = tdata.get_dataset(str(folder), 8), jdata.get_dataset(str(folder), 8)
     drng = np.random.default_rng(4)
     batches = tdata.iterate_batches(rds, 3, seed=4, skip_batches=1)

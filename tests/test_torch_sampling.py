@@ -203,6 +203,9 @@ def test_ddim_trajectory_matches_jax():
 
 
 def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
+    """The sampling CLI on the CPU: PNGs, the sampler kinds and grid modes,
+    the data-parallel run over 2 gloo ranks against one process; it refuses
+    --device cuda without a GPU, with and without --multihost."""
     cfg, model = _tiny_checkpoint(1)
     tckpt.save_model(str(tmp_path / "ckpt"), cfg, model)
     out = tmp_path / "samples"
@@ -240,8 +243,32 @@ def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
         assert np.asarray(Image.open(out["path"])).shape == (
             (hw + 2) * rows + 2, (hw + 2) * nrow + 2, 3), mode
         assert os.path.basename(out["path"]) == f"{mode}.png"
+    # --multihost on 2 gloo ranks, DDIM eta 1 (per-step noise drawn at the
+    # global shape): each rank writes its row of every batch of 2 to
+    # process_{rank}/, numbered locally, the ragged 5 rounded up to 6; the
+    # union in global order is the one-process run's images within one
+    # uint8 level (the rows' f32 sums differ in order only)
+    import _torch_dp
+
+    eta = args[:3] + [str(tmp_path / "one")] + args[4:] + ["--eta", "1.0"]
+    ddpm_sample.main(eta + ["--device", "cpu"])
+    eta[3] = str(tmp_path / "two")
+    outs = _torch_dp.cli_ranks("ddpm_sample", eta)
+    assert all("rounds 5 up to 6 images" in o for o in outs)
+    dirs = [tmp_path / "two" / f"process_{r}" for r in (0, 1)]
+    assert [sorted(os.listdir(d)) for d in dirs] == [[f"{i:06d}.png" for i in range(3)]] * 2
+    union = [np.asarray(Image.open(dirs[i % 2] / f"{i // 2:06d}.png"), np.int16)
+             for i in range(6)]
+    one = [np.asarray(Image.open(tmp_path / "one" / f"{i:06d}.png"), np.int16)
+           for i in range(5)]
+    assert sorted(os.listdir(tmp_path / "one")) == [f"{i:06d}.png" for i in range(5)]
+    for i in range(5):
+        assert np.abs(union[i] - one[i]).max() <= 1, i
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ddpm_sample.main(args + ["--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ddpm_sample.main(args + ["--mode", "sequence", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # NCCL needs the card
+        ddpm_sample.main(args + ["--multihost", "--coordinator_address", "127.0.0.1:1",
+                                 "--num_processes", "1", "--process_id", "0"])

@@ -23,6 +23,17 @@ the same keys and feeds them to the port's step. Tolerances:
 - Checkpoints and resume: exact.
 - The autoencoder step and CLIs: see ``_ae_step_matches_jax`` and the
   AE_* constants (Adam's bound for b1 0.5, b2 0.9; the bf16 rules).
+- Data parallelism (``parallel/mesh.py``; 2 gloo processes on the CPU,
+  global batch 8, dropout 0): the 2-rank step against the one-process
+  step: loss and grad_norm rtol DP_RTOL (a mean of two row means against
+  one mean, a few f32 ulps), the grads (Adam's first moment) within DP_RTOL
+  of each parameter's max plus 1e-6 of the largest overall; against the
+  JAX step on a 2-device mesh, the f32 rules above; params and EMA within
+  Adam's bound (the grads near eps carry the noise into them); the two
+  ranks' params bit-identical; the same with gradient accumulation over 2
+  micro-batches. The train CLI on 2 ranks against 1 process:
+  its losses DP_RTOL, its params and EMA within Adam's bound over the
+  steps.
 """
 
 import copy
@@ -51,6 +62,7 @@ from diff_pruning_tpu_torch.training import finetune as tft
 from diff_pruning_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
+DP_RTOL = 1e-5
 ADAM_MOVE = 2.02
 # the most Adam(b1 0.5, b2 0.9) moves a param in one of its steps 2-4, over
 # the LR: sqrt(sum_i w_i^2 / u_i) for the bias-corrected moments' weights
@@ -104,14 +116,108 @@ def jax_opt_arrays(opt_state):
             for k, v in jax.tree_util.tree_flatten_with_path(opt_state)[0]}
 
 
+def _close_grads(got, want, rtol, what):
+    """Each of ``got``'s flat grads within ``rtol`` of the parameter's
+    largest |grad| in ``want``, plus 1e-6 of the largest grad overall."""
+    assert sorted(got) == sorted(want), what
+    floor = 1e-6 * max(np.abs(g).max() for g in want.values())
+    for k, g in want.items():
+        err = np.abs(got[k] - g).max()
+        assert err <= rtol * np.abs(g).max() + floor, (what, k, err)
+
+
+def _close_params(got, want, lr_sum, what):
+    """Adam's bound: ADAM_MOVE x the summed LR. Adam's first steps move a
+    param by ~lr g / (|g| + eps), so a grad near eps (1e-8) turns its f32
+    reduce-order noise into a fraction of lr."""
+    assert sorted(got) == sorted(want), what
+    for k, v in want.items():
+        err = np.abs(got[k] - v).max()
+        assert err <= ADAM_MOVE * lr_sum, (what, k, err)
+
+
+def _check_data_parallel_step(tmp_path):
+    """One train step (clip active, EMA on, dropout 0) on a global batch of
+    8 split over 2 gloo ranks, against the port's one-process step and the
+    JAX ``make_train_step(mesh=)`` on 2 of the suite's virtual devices, with
+    the same weights, noise and t; without and with gradient accumulation
+    over 2 micro-batches (each rank splits its 4 rows, JAX the global 8: the
+    same mean over the 8 rows). A local batch that the accumulation count
+    does not divide raises."""
+    import _torch_dp
+    from diff_pruning_tpu.parallel.mesh import make_mesh, replicate, shard_batch
+
+    cfg = junet.tiny_unet_config()
+    jmodel = junet.UNet2D(cfg)
+    flat = numpy_params(jmodel, 24)
+    bsz = 8
+    x = np.random.default_rng(25).uniform(-1, 1, (bsz, 16, 16, 3)).astype(np.float32)
+    key = jax.random.key(200)
+    nkey, tkey, _ = jax.random.split(key, 3)
+    noise = np.array(jax.random.normal(nkey, x.shape, jnp.float32))
+    t = np.array(jft.antithetic_timesteps(tkey, bsz, 1000))
+    tx, tnoise, tt = torch.from_numpy(x), torch.from_numpy(noise), torch.from_numpy(t).long()
+    with pytest.raises(ValueError, match="not divisible by gradient_accumulation_steps 3"):
+        tmodel = port_model(cfg, flat)
+        tcfg = tft.TrainConfig(gradient_accumulation_steps=3)
+        tft.make_train_step(tmodel, DiffusionSchedule.create(), tcfg)(
+            tft.init_train_state(tmodel, tcfg), tx, noise=tnoise, t=tt)
+    for accum in (1, 2):
+        kw = dict(ema_decay=0.9, gradient_accumulation_steps=accum)
+        with jax.default_matmul_precision("float32"):
+            mesh = make_mesh((("data", 2),), devices=jax.devices()[:2])
+            jcfg = jft.TrainConfig(**kw)
+            jstate = replicate(mesh, jft.init_train_state(
+                junflatten({k: jnp.asarray(v) for k, v in flat.items()}), jcfg))
+            jstate, jm = jft.make_train_step(jmodel, JaxSchedule.create(), jcfg, mesh=mesh)(
+                jstate, shard_batch(mesh, jnp.asarray(x)), key)
+        jax_flat = {"mu": jflatten(jstate.opt_state[1][0].mu),
+                    "params": jflatten(jstate.params), "ema": jflatten(jstate.ema_params)}
+        tmodel = port_model(cfg, flat)
+        one = tft.init_train_state(tmodel, tft.TrainConfig(**kw))
+        one, om = tft.make_train_step(tmodel, DiffusionSchedule.create(),
+                                      tft.TrainConfig(**kw))(one, tx, noise=tnoise, t=tt)
+        one_flat = {"mu": tckpt.flat_from_state_dict(one.opt_state.mu),
+                    "params": tckpt.flat_from_state_dict(one.params),
+                    "ema": tckpt.flat_from_state_dict(one.ema_params)}
+
+        in_dir, out_dir = tmp_path / f"dp_in{accum}", tmp_path / f"dp_out{accum}"
+        out_dir.mkdir()
+        tckpt.save_model(str(in_dir), tunet.UNet2DConfig.from_json(cfg.to_json()),
+                         port_model(cfg, flat))
+        np.savez(in_dir / "inputs.npz", x=x, noise=noise, t=t)
+        (in_dir / "kwargs.json").write_text(json.dumps(kw))
+        ranks = _torch_dp.lib_ranks("train", in_dir, out_dir)
+        assert sorted(ranks[0]) == sorted(ranks[1])
+        for k, v in ranks[0].items():  # every rank takes the same step
+            np.testing.assert_array_equal(ranks[1][k], v, err_msg=(accum, k))
+        two = {part: {k.split(":", 1)[1]: v for k, v in ranks[0].items()
+                      if k.startswith(part + ":")} for part in ("mu", "params", "ema")}
+        for m, rtol in ((om, DP_RTOL), (jm, 1e-5)):
+            for k in ("loss", "grad_norm"):
+                np.testing.assert_allclose(float(ranks[0][k]), float(m[k]), rtol=rtol,
+                                           err_msg=(accum, k))
+        assert float(om["grad_norm"]) > 1.0  # the clip is active
+        _close_grads(two["mu"], one_flat["mu"], DP_RTOL, (accum, "2 ranks against 1 process"))
+        _close_grads(two["mu"], {k: np.asarray(v) for k, v in jax_flat["mu"].items()}, 1e-4,
+                     (accum, "2 ranks against the JAX 2-device mesh"))
+        lr = tft.TrainConfig().learning_rate
+        for part in ("params", "ema"):
+            _close_params(two[part], one_flat[part], lr,
+                          (accum, f"{part}: 2 ranks against 1 process"))
+            _close_params(two[part], {k: np.asarray(v) for k, v in jax_flat[part].items()},
+                          lr, (accum, f"{part}: 2 ranks against the JAX mesh"))
+
+
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_train_step_matches_jax(precision):
+def test_train_step_matches_jax(precision, tmp_path):
     """Three steps of JAX make_train_step (warmup 2, clip active, EMA on)
     against the port's step on the same params, batches, noise and t:
     losses, grad norms, the first step's grads and the optimizer's layout,
     then params and EMA. f32: dropout changes the output only with a
-    generator, ddpm_loss, avg_pool_2x and a KD step against JAX; bf16: the
-    sweep's bf16 loss against JAX."""
+    generator, ddpm_loss, avg_pool_2x, a KD step against JAX, and the
+    data-parallel step on 2 gloo ranks against one process and the JAX
+    2-device mesh; bf16: the sweep's bf16 loss against JAX."""
     cfg = junet.tiny_unet_config()
     jmodel = junet.UNet2D(cfg)
     flat = numpy_params(jmodel, 21)
@@ -217,6 +323,7 @@ def test_train_step_matches_jax(precision):
                       noise=torch.from_numpy(noise), t=torch.from_numpy(t).long())
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(km[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+        _check_data_parallel_step(tmp_path)
     else:
         # the bf16 sweep loss (make_loss_fn's compute_dtype) against the JAX one
         from diff_pruning_tpu.diffpruning.sweep import make_loss_fn as jmake
@@ -589,6 +696,35 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     with pytest.raises(NotImplementedError, match="remat"):
         ddpm_train.main(base + ["--remat", "--device", "cpu"])
 
+    # --multihost on 2 gloo ranks against one process, dropout 0: the same
+    # losses and weights; rank 0 alone writes metrics.jsonl (once per log)
+    import _torch_dp
+
+    dp = ["--model_path", str(tmp_path / "in"), "--dataset", str(tmp_path / "data.npz"),
+          "--train_batch_size", "4", "--num_iters", "2", "--save_model_steps", "2",
+          "--log_steps", "1", "--vis_samples", "4", "--dropout", "0"]
+    one = ddpm_train.main(dp + ["--output_dir", str(tmp_path / "dp1"), "--device", "cpu"])
+    outs = _torch_dp.cli_ranks("ddpm_train", dp + ["--output_dir", str(tmp_path / "dp2")])
+    assert all("data mesh: 2 processes" in o for o in outs)
+    recs = [json.loads(line) for line in (tmp_path / "dp2" / "metrics.jsonl").read_text()
+            .splitlines()]
+    assert [r["step"] for r in recs] == [1, 2]
+    np.testing.assert_allclose([r["loss"] for r in recs], one["losses"], rtol=DP_RTOL)
+    assert sorted(os.listdir(tmp_path / "dp2" / "ckpt")) == ["LATEST", "step-2"]
+    _, p1, e1 = tckpt.load_train_state(str(tmp_path / "dp1" / "ckpt"))
+    _, p2, e2 = tckpt.load_train_state(str(tmp_path / "dp2" / "ckpt"))
+    lr = tft.TrainConfig().learning_rate
+    for name, a, b in (("params", p2, p1), ("ema", e2, e1)):
+        _close_params(tckpt.flat_from_state_dict(a), tckpt.flat_from_state_dict(b), 2 * lr,
+                      f"train CLI {name}: 2 ranks against 1 process")
+    with pytest.raises(AssertionError, match="divisible by the world size 2"):
+        _torch_dp.cli_ranks("ddpm_train", dp[:5] + ["3"] + dp[6:] + [
+            "--output_dir", str(tmp_path / "dp3")])
+    with pytest.raises(SystemExit, match="4 rows a process, not divisible by "
+                       "--gradient_accumulation_steps 3"):
+        ddpm_train.main(dp + ["--output_dir", str(tmp_path / "dp4"), "--device", "cpu",
+                              "--gradient_accumulation_steps", "3"])
+
     # the autoencoder CLI: 4 steps straight against 2 and a resume to 4,
     # bit-identical; then a tiny KL codec in bf16 with the vanilla loss
     from diff_pruning_tpu_torch.cli import autoencoder_train
@@ -638,5 +774,8 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ddpm_train.main(base)
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # NCCL needs the card
+        ddpm_train.main(base + ["--multihost", "--coordinator_address", "127.0.0.1:1",
+                                "--num_processes", "1", "--process_id", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         autoencoder_train.main(ae[:-2] + ["--output_dir", str(tmp_path / "y")])
