@@ -2,13 +2,15 @@
 """Phase 21's f32 kernels-on/off gate of the first-stage train step, on other
 codebooks, with the CPU as a second witness.
 
-    python3 ae_gate_probe.py [--seeds 6] [--nudges 3] [--cpu-seeds 3] [--cpu-budget 400]
+    python3 ae_gate_probe.py [--seeds 7] [--nudges 5] [--cpu-seeds 0] [--cpu-budget 400]
+    python3 ae_gate_probe.py --rescore LOG   # the rules again, from a run's output
 
 ``chip_smoke.py`` phase 21 takes one vq-f4 train step (B = 12, 256 x 256,
 f32, every loss term live) with the kernels on and off from the same state,
 VQ lookups pinned, and holds total_loss, d_weight and disc_loss to
-max(TRAIN_LOSS_RTOL, NOISE_FACTOR x what a one-ulp nudge of the images
-moves). Its codebook is drawn from the script's shared generator. This
+max(TRAIN_LOSS_RTOL, NOISE_FACTOR x the median of what AE_NUDGES one-ulp
+nudges of the images move; once one nudge's). Its codebook is drawn
+from the script's shared generator. This
 script draws the codebook from each of ``--seeds`` seeds instead (the
 model, discriminator, LPIPS and images as phase 21 makes them), and per
 codebook runs the step kernels off, off on ``--nudges`` independent
@@ -18,8 +20,15 @@ summation order) for the ``--cpu-seeds`` codebooks whose gate ratio is
 worst. It reports each quantity's relative distance between the runs, so
 that a failing gate reads either as the kernels' fault (on far from both
 f32 witnesses while they agree) or as the rule's (on, off and the CPU
-equally far apart, beyond what a single nudge shows). Exits non-zero
-without a card; prints nvidia-smi's name and power limit.
+equally far apart, beyond what a single nudge shows), and it scores each
+rule max(TRAIN_LOSS_RTOL, factor x stat(the first k nudges' changes))
+(median, max or mean, k 3 or all, factor 3, 5 or 10), and phase 21's
+rule (10 x the median of 3, at most AE_GATE_CAP), against the one-nudge
+rule: its allowance over the old one's (above 1: looser) on every codebook
+and quantity, and the quantities it fails. Exits non-zero without a card;
+prints nvidia-smi's name and power limit. ``--rescore`` reads the rows of
+an earlier run's output (its last JSON line) and scores the rules on the
+CPU, with no card.
 """
 
 import argparse
@@ -46,12 +55,22 @@ def mu_rel(a, b):
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--seeds", type=int, default=6)
-    p.add_argument("--nudges", type=int, default=3)
-    p.add_argument("--cpu-seeds", type=int, default=3)
+    p.add_argument("--seeds", type=int, default=7)
+    p.add_argument("--nudges", type=int, default=5)
+    p.add_argument("--cpu-seeds", type=int, default=0)
     p.add_argument("--cpu-budget", type=float, default=400.0,
                    help="seconds of CPU witness after which no further one starts")
+    p.add_argument("--rescore", metavar="LOG",
+                   help="score the rules on the rows of an earlier run's output")
     args = p.parse_args()
+    if args.rescore:
+        sys.path.insert(0, REPO)
+        import chip_smoke as cs
+
+        with open(args.rescore) as f:
+            rows = [json.loads(line) for line in f if line.startswith('{"card"')][-1]["rows"]
+        rule_table(rows, cs)
+        return
     import torch
 
     if not torch.cuda.is_available():
@@ -134,6 +153,7 @@ def main() -> None:
         row["mu_off"], row["mu_on"] = ({n: v.cpu() for n, v in mu.items()}
                                        for mu in (mu_off, mu_on))
         row["metrics_nudged"] = [m for m, *_ in nud]
+    print(json.dumps({"rules": rule_table(rows, cs)}), flush=True)
     # the CPU witness, worst gates first
     model_c, disc_c, lpips_c = (copy.deepcopy(m).cpu() for m in (model, disc, lpips))
     images_c = images.cpu()
@@ -163,6 +183,48 @@ def main() -> None:
     print(json.dumps({"card": gpu, "b": cs.AE_B, "rows": [
         {k: r[k] for k in keep if k in r} for r in rows]}))
     print(gpu)
+
+
+def rule_table(rows, cs):
+    """Each candidate floor rule against the one phase 21 had (NOISE_FACTOR x
+    the first nudge's change): per codebook and quantity the allowance max(
+    TRAIN_LOSS_RTOL, factor x stat(the first k nudges' changes)), its ratio to
+    the old allowance (above 1: looser), and whether on against off passes."""
+    import statistics
+
+    stats = {"median": statistics.median, "max": max, "mean": statistics.fmean}
+    k_all = len(rows[0]["rel_nudged_off"])
+    rules = [(f"{factor}x{name}{k}", f"{factor} x {name} of {k} nudges", factor, stat, k,
+              math.inf)
+             for name, stat in stats.items() for k in sorted({3, k_all}) if k <= k_all
+             for factor in (3, 5, 10)]
+    rules.append(("phase21", f"{cs.NOISE_FACTOR} x median of {cs.AE_NUDGES} nudges, at most "
+                  f"{cs.AE_GATE_CAP} (phase 21's)", cs.NOISE_FACTOR, statistics.median,
+                  cs.AE_NUDGES, cs.AE_GATE_CAP))
+    out = {}
+    for tag, label, factor, stat, k, cap in rules:
+        per = []
+        for r in rows:
+            for key in KEYS:
+                old = max(cs.TRAIN_LOSS_RTOL, cs.NOISE_FACTOR * r["rel_nudged_off"][0][key])
+                new = max(cs.TRAIN_LOSS_RTOL, min(factor * stat(
+                    [n[key] for n in r["rel_nudged_off"][:k]]), cap))
+                per.append({"seed": r["seed"], "key": key, "old": old, "new": new,
+                            "looser": new / old, "on_off": r["rel_on_off"][key],
+                            "passes_old": r["rel_on_off"][key] <= old,
+                            "passes_new": r["rel_on_off"][key] <= new})
+        seed0 = [x["looser"] for x in per if x["seed"] == 0]
+        out[tag] = {"max_looser": max(x["looser"] for x in per), "seed0_looser": seed0,
+                    "fails": [(x["seed"], x["key"]) for x in per if not x["passes_new"]],
+                    "per": per}
+        print(f"rule {label}: allowance / old allowance max {out[tag]['max_looser']:.3f}, at "
+              "seed 0 " + ", ".join(f"{v:.3f}" for v in seed0) + f"; fails {out[tag]['fails']}",
+              flush=True)
+        if tag == "phase21":
+            for x in per:
+                print(f"  seed {x['seed']} {x['key']}: on vs off {x['on_off']:.3e}, allowed "
+                      f"{x['new']:.3e} (old rule {x['old']:.3e})", flush=True)
+    return out
 
 
 def fmt(r):

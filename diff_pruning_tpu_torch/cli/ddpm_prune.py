@@ -4,7 +4,9 @@
         --model_path <dir-with-unet-checkpoint> --save_path run/pruned \\
         --pruning_ratio 0.3 --pruner diff-pruning --thr 0.05 --dataset data.npz
 
-Loads a ``(config.json, params.npz)`` checkpoint, accumulates Taylor grads
+Loads a ``(config.json, params.npz)`` checkpoint or a diffusers directory
+(``unet/config.json`` + ``diffusion_pytorch_model.safetensors`` or ``.bin``,
+as ``cli/convert_checkpoints.py export-diffusers`` writes it), accumulates Taylor grads
 over a prefix of timesteps (``diffpruning/sweep.py``: forward and backward
 through the port's GroupNorm and attention kernels on the card), scores and
 selects channels (``pruning/``), slices the weights, and writes the pruned
@@ -25,9 +27,8 @@ Differences from the JAX CLI:
 * the sweep is one host loop (the JAX package's on-device ``lax.while_loop``
   exists to avoid TPU round-trips); without ``--multihost``, ``--host_loop``
   changes nothing;
-* there is no diffusers-directory loading yet;
-* the data is a local ``.npz`` or CIFAR-10 batch directory
-  (``data/datasets.py``), or the model's own samples
+* the data is any source of ``data/datasets.py`` (a local ``.npz``, CIFAR,
+  an image folder, ``lsun:<lmdb>``, ...), or the model's own samples
   (``--use_generated_samples``); the sweep noise comes from a
   ``torch.Generator`` seeded by ``--seed``.
 ``--device cuda`` (the default) without a GPU raises: the CLI never carries
@@ -49,7 +50,9 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset", type=str, default=None,
-                   help="a .npz of uint8 NHWC images | a CIFAR-10 batch directory | cifar10")
+                   help="a .npz of uint8 NHWC images | cifar10 | cifar100 | an image folder | "
+                        "lsun:<lmdb dir> | ffhq:<lmdb dir> | imagenet:<root> | "
+                        "txt:<filelist>:<data root> (data/datasets.py)")
     p.add_argument("--model_path", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--pruning_ratio", type=float, default=0.3)
@@ -108,22 +111,25 @@ def parse_args(argv=None):
 
 
 def load_unet(model_path: str):
-    """Load ``(config, state_dict)`` from our layout: ``<path>/unet/params.npz``
-    or ``<path>/params.npz``, each beside a ``config.json``.
-
-    A diffusers directory (``diffusion_pytorch_model.bin``) is not read yet:
-    that waits for the port of ``utils/convert.py``.
-    """
+    """Load ``(config, state_dict)`` (CPU tensors) from our layout,
+    ``<path>/unet/params.npz`` or ``<path>/params.npz`` beside a
+    ``config.json``, else from a diffusers directory: ``config.json`` (its
+    ``channel_sizes`` rebuild a pruned model) beside
+    ``diffusion_pytorch_model.safetensors`` or ``.bin``, under ``unet/`` or
+    at the top."""
+    from ..models.unet2d import UNet2DConfig
     from ..utils.checkpoint import load_model
+    from ..utils.convert import load_diffusers_unet_checkpoint
 
     for sub in ("unet", ""):
         if os.path.exists(os.path.join(model_path, sub, "params.npz")):
             return load_model(model_path, subfolder=sub)
     for sub in ("unet", ""):
-        if os.path.exists(os.path.join(model_path, sub, "config.json")):
-            raise NotImplementedError(
-                f"{model_path}: diffusers-format checkpoints load once utils/convert.py "
-                "is ported; convert with the JAX package's tools/convert_checkpoints.py")
+        d = os.path.join(model_path, sub)
+        if os.path.exists(os.path.join(d, "config.json")):
+            with open(os.path.join(d, "config.json")) as f:
+                cfg = UNet2DConfig.from_json(f.read())
+            return cfg, load_diffusers_unet_checkpoint(d)
     raise FileNotFoundError(f"no UNet checkpoint under {model_path}")
 
 
@@ -187,7 +193,7 @@ def main(argv=None) -> dict:
             else:
                 from ..data.datasets import get_dataset, iterate_batches
 
-                ds = get_dataset(args.dataset)
+                ds = get_dataset(args.dataset, resolution=hw)
                 print(f"Dataset size: {len(ds)}")
                 batch = next(iterate_batches(ds, args.batch_size, seed=args.seed))
                 x0 = torch.from_numpy(batch).to(device)

@@ -5,7 +5,7 @@
         --output_dir OUT --total_samples 50000 --batch_size 128 --device cuda
 
 Loads a ``(config.json, params.npz)`` checkpoint in the JAX package's
-layout. ``--mode fid`` samples DDIM, DDPM, PLMS or DPM-Solver++
+layout, or a diffusers directory (``cli/ddpm_prune.py``'s ``load_unet``). ``--mode fid`` samples DDIM, DDPM, PLMS or DPM-Solver++
 trajectories batch by batch and writes PNGs, each batch encoded while the
 next one runs. ``--mode sequence`` writes ``sequence.png``: 4 samples, every
 ``len // 10``-th state of their DDIM trajectories as columns

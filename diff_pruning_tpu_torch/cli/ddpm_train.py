@@ -54,9 +54,10 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--dataset", type=str, required=True,
-                   help="a .npz of uint8 NHWC images | a CIFAR-10 batch directory | cifar10")
+                   help="any source of data/datasets.py: a .npz of uint8 NHWC images | "
+                        "cifar10 | an image folder | lsun:<lmdb dir> | ...")
     p.add_argument("--model_path", type=str, required=True,
-                   help="checkpoint dir (unet/{config.json,params.npz})")
+                   help="checkpoint dir (unet/{config.json,params.npz}) or a diffusers dir")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--train_batch_size", type=int, default=128)
     p.add_argument("--num_iters", type=int, default=100_000)

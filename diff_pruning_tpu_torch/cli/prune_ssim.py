@@ -35,7 +35,8 @@ def parse_args(argv=None):
     p.add_argument("--model_path", type=str, required=True)
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--dataset", type=str, required=True,
-                   help="a .npz of uint8 NHWC images | a CIFAR-10 batch directory | cifar10")
+                   help="any source of data/datasets.py: a .npz of uint8 NHWC images | "
+                        "cifar10 | an image folder | lsun:<lmdb dir> | ...")
     p.add_argument("--pruning_ratio", type=float, default=0.3)
     p.add_argument("--stages", type=int, nargs="+",
                    default=[1, 10, 50, 100, 250, 500, 1000])

@@ -143,8 +143,8 @@ def torch_lpips_state_dicts_to_params(vgg_sd: Mapping, lin_sd: Mapping) -> Dict[
 
 
 def load_lpips_params(path: str) -> Dict[str, torch.Tensor]:
-    """A state dict from the JAX package's converted ``.npz``
-    (``tools/convert_checkpoints.py lpips``: ``features/{i}/kernel`` HWIO,
+    """A state dict from a converted ``.npz`` (``cli/convert_checkpoints.py
+    lpips`` of either package: ``features/{i}/kernel`` HWIO,
     ``features/{i}/bias``, ``lins/{k}/kernel``)."""
     from ..utils.checkpoint import load_params_npz
 

@@ -82,7 +82,13 @@ class DiffusionSchedule:
     def alpha_bar(self, t) -> torch.Tensor:
         """alphas_cumprod[t], with t == -1 -> 1.0 (compute_alpha's zero-pad,
         ddpm_exp/functions/denoising.py:4-7). t: int or integer tensor on
-        the schedule's device; an int indexes without a host-to-device copy."""
+        the schedule's device; an int indexes without a host-to-device copy.
+        An index past either end is clamped, as the JAX gather clamps it: t =
+        T (the last step of the CompVis DDIM grids at some step counts) reads
+        alphas_cumprod[T - 1]."""
         acp = self.alphas_cumprod
         padded = torch.cat([torch.ones((1,), dtype=acp.dtype, device=acp.device), acp])
-        return padded[t + 1]
+        last = padded.shape[0] - 1
+        if isinstance(t, torch.Tensor):
+            return padded[(t + 1).clamp(0, last)]
+        return padded[min(max(int(t) + 1, 0), last)]

@@ -316,7 +316,11 @@ def test_ldm_models_match_jax(tmp_path):
     forwards (spatial transformer with class-token cross-attention; the
     AttentionBlock, scale-shift and resblock up/down variants), VQ and KL
     encode/quantize/decode, and checkpoints across the packages both ways,
-    including one pruned by the JAX package."""
+    including one pruned by the JAX package. The converters of the CompVis
+    UNet (spatial transformer and fused-qkv AttentionBlocks), first stage
+    (and its config), x-transformers BERT and taming discriminator
+    (BatchNorm, ActNorm) give exactly the JAX ones' arrays, and so do the
+    convert_checkpoints CLI's first-stage, lpips and inception kinds."""
     rng = np.random.default_rng(0)
     for name in PRESETS:
         jcfg = getattr(ju, name)()
@@ -633,11 +637,96 @@ def test_ldm_models_match_jax(tmp_path):
     tinit = tckpt.flat_from_state_dict(fresh.unet.state_dict())
     for k, v in jinit.items():
         assert (not np.any(np.asarray(v))) == (not np.any(tinit[k])), k
+    _check_ldm_converters(tmp_path, tiny)
+
+
+def _check_ldm_converters(tmp_path, tiny):
+    """See test_ldm_models_match_jax."""
+    from _convert_layouts import (assert_flat_equal, bert_state_dict, compvis_vae_state_dict,
+                                  discriminator_state_dict, ldm_unet_state_dict)
+    from diff_pruning_tpu.eval import inception as jinc
+    from diff_pruning_tpu.eval import lpips as jlp
+    from diff_pruning_tpu.models import discriminator as jdisc
+    from diff_pruning_tpu.models import text_encoder as jte
+    from diff_pruning_tpu.utils import convert as jconv
+    from diff_pruning_tpu_torch.cli import convert_checkpoints
+    from diff_pruning_tpu_torch.eval.inception import random_init_fid_inception_state_dict
+    from diff_pruning_tpu_torch.utils import convert as tconv
+
+    def both(what, tfn, jfn, src, want):
+        assert_flat_equal({k: np.asarray(v) for k, v in flatten_params(jfn(src)).items()},
+                          want, what + " (JAX)")
+        assert_flat_equal(tckpt.flat_from_state_dict(tfn(src)), want, what)
+
+    legacy = dataclasses.replace(tiny, use_spatial_transformer=False, context_dim=None,
+                                 num_classes=4)
+    for i, ucfg in enumerate((tiny, legacy)):
+        jm = ju.UNetCond(ucfg)
+        flat = numpy_params(jm.init, 20 + i)
+        heads = tu.UNetCond(tu.UNetCondConfig.from_json(ucfg.to_json()), device="meta").attn_heads
+        assert heads == jm.attn_heads
+        both(f"CompVis UNet {i}", lambda s: tconv.ldm_unet_state_dict_to_params(s, heads),
+             lambda s: jconv.ldm_unet_state_dict_to_params(s, jm.attn_heads),
+             ldm_unet_state_dict(flat, jm.attn_heads), flat)
+    with pytest.raises(ValueError, match="attn_heads"):
+        tconv.ldm_unet_state_dict_to_params(ldm_unet_state_dict(flat, jm.attn_heads))
+    for kind in ("vq", "kl"):
+        vcfg = _tiny_vae_config(kind)
+        flat = numpy_params(jv.make_first_stage(vcfg).init, 22)
+        vsd = compvis_vae_state_dict(flat, 2)
+        assert tconv.infer_compvis_vae_config(vsd, 16).to_json() == \
+            jconv.infer_compvis_vae_config(vsd, 16).to_json()
+        both(f"CompVis {kind}", lambda s: tconv.compvis_vae_state_dict_to_params(s, 2),
+             lambda s: jconv.compvis_vae_state_dict_to_params(s, 2), vsd, flat)
+        # the first-stage CLI kind on a Lightning-style checkpoint
+        torch.save({"state_dict": {k: torch.as_tensor(v) for k, v in vsd.items()}},
+                   tmp_path / f"{kind}.ckpt")
+        convert_checkpoints.main(["first-stage", str(tmp_path / f"{kind}.ckpt"),
+                                  str(tmp_path / f"fs_{kind}"), "--resolution", "16"])
+        jcfg, jparams = jckpt.load_model(str(tmp_path / f"fs_{kind}"), subfolder="first_stage",
+                                         config_cls=jv.AutoencoderConfig)
+        assert jcfg.to_json() == jconv.infer_compvis_vae_config(vsd, 16).to_json()
+        assert_flat_equal({k: np.asarray(v) for k, v in flatten_params(jparams).items()}, flat,
+                          f"CLI first-stage {kind}")
+    flat = numpy_params(jte.BERTEmbedder(jte.tiny_bert_config()).init, 23)
+    both("BERT", tconv.bert_embedder_state_dict_to_params, jconv.bert_embedder_state_dict_to_params,
+         bert_state_dict(flat), flat)
+    for actnorm in (False, True):
+        flat = numpy_params(jdisc.NLayerDiscriminator(ndf=8, n_layers=2,
+                                                      use_actnorm=actnorm).init, 24)
+        both(f"discriminator actnorm={actnorm}",
+             lambda s: tconv.torch_discriminator_state_dict_to_params(s, 2),
+             lambda s: jconv.torch_discriminator_state_dict_to_params(s, 2),
+             discriminator_state_dict(flat, 2), flat)
+    # lpips and inception CLI kinds against the JAX converters
+    g = torch.Generator().manual_seed(25)
+    vgg = {}
+    for i, (cin, cout) in zip(jlp.VGG16_CONV_IDX, jlp.VGG16_CONV_CH):
+        vgg[f"features.{i}.weight"] = torch.randn((cout, cin, 3, 3), generator=g) * 0.05
+        vgg[f"features.{i}.bias"] = torch.randn((cout,), generator=g) * 0.1
+    lin = {f"lin{k}.model.1.weight": torch.rand((1, c, 1, 1), generator=g)
+           for k, c in enumerate(jlp.TAP_CHANNELS)}
+    torch.save(vgg, tmp_path / "vgg.pth")
+    torch.save({"state_dict": lin}, tmp_path / "lin.ckpt")
+    convert_checkpoints.main(["lpips", str(tmp_path / "vgg.pth"), str(tmp_path / "lpips.npz"),
+                              "--lin", str(tmp_path / "lin.ckpt")])
+    inc = random_init_fid_inception_state_dict(26)
+    inc["fc.weight"], inc["fc.bias"] = torch.randn((1008, 2048), generator=g), torch.zeros(1008)
+    inc["AuxLogits.fc.weight"] = torch.zeros((1000, 768))
+    torch.save(inc, tmp_path / "pt_inception.pth")
+    convert_checkpoints.main(["inception", str(tmp_path / "pt_inception.pth"),
+                              str(tmp_path / "inception.npz")])
+    for path, want in (("lpips.npz", jlp.torch_lpips_state_dicts_to_params(vgg, lin)),
+                       ("inception.npz", jinc.torch_inception_state_dict_to_params(inc))):
+        with np.load(tmp_path / path) as z:
+            assert_flat_equal({k: z[k] for k in z.files},
+                              {k: np.asarray(v) for k, v in flatten_params(want).items()}, path)
 
 
 def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     """The LDM schedule and timesteps; CFG trajectories (DDIM, PLMS,
-    DPM-Solver++; 4 steps, scale 3) from JAX's own x_T, then the decode;
+    DPM-Solver++; 4 steps, scale 3; DDIM also at 3, whose grid ends at t =
+    1000) from JAX's own x_T, then the decode;
     the sampler's refusals; the ldm_sample CLI on --device cpu (files,
     numbering across classes with a partial batch, image shapes), on 2 gloo
     ranks against one process, and its refusal without a GPU, with and
@@ -645,8 +734,9 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     js, ts_ = jl.ldm_schedule(), tl.ldm_schedule()
     np.testing.assert_allclose(ts_.alphas_cumprod.numpy(), np.asarray(js.alphas_cumprod),
                                rtol=1e-6)
-    for s in (4, 20, 250):
+    for s in (3, 4, 20, 250):
         np.testing.assert_array_equal(tl.compvis_ddim_timesteps(s), jl.compvis_ddim_timesteps(s))
+    assert tl.compvis_ddim_timesteps(3)[0] == 1000  # past the schedule: alpha_bar clamps
 
     tiny = ju.tiny_cond_config()
     jldm = jl.LatentDiffusion(tiny, n_classes=5, first_stage=jv.make_first_stage(
@@ -667,13 +757,13 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     labels = np.array([0, 3, 1], np.int32)
     key = jax.random.key(9)
     x_T = np.asarray(jax.random.normal(jax.random.split(key)[1], (3, 8, 8, 3)))
-    for method in ("ddim", "plms", "dpm"):
+    for method, steps in (("ddim", 4), ("ddim", 3), ("plms", 4), ("dpm", 4)):
         with jax.default_matmul_precision("float32"):
-            sampler = jldm.make_cfg_sampler(jparams, ddim_steps=4, guidance_scale=3.0,
+            sampler = jldm.make_cfg_sampler(jparams, ddim_steps=steps, guidance_scale=3.0,
                                             latent_hw=8, latent_ch=3, method=method)
             want = sampler(key, jnp.asarray(labels), 3)
             want_img = np.asarray(jldm.decode_first_stage(jparams, want))
-        sample = tldm.make_cfg_sampler(ddim_steps=4, guidance_scale=3.0, latent_hw=8,
+        sample = tldm.make_cfg_sampler(ddim_steps=steps, guidance_scale=3.0, latent_hw=8,
                                        latent_ch=3, method=method)
         got = sample(None, torch.from_numpy(labels), 3, x_T=torch.from_numpy(x_T.copy()))
         got_img = tldm.decode_first_stage(got)

@@ -66,22 +66,29 @@ def numpy_params(jmodel, seed):
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port imports with ``jax``, the JAX package,
-    ``triton``, ``matplotlib`` and ``regex`` (which the JAX CLIP tokenizer
-    needs and the card's machine lacks) blocked (a blocked import raises) and
+    ``triton``, ``matplotlib``, ``regex`` (which the JAX CLIP tokenizer
+    needs and the card's machine lacks), ``safetensors``, ``lmdb`` and
+    ``yaml`` (which the checkpoint and data modules must not need there)
+    blocked (a blocked import raises) and
     no ``nvcc`` (CUDA_HOME points nowhere), none pulls jax or the JAX package
     in, and the CLIs parse their arguments so, the five data-parallel ones
-    with the multihost flags (``parallel/mesh.py`` and ``cli/_multihost.py``
-    among the modules)."""
+    with the multihost flags (``parallel/mesh.py``, ``cli/_multihost.py``
+    and the checkpoint-conversion and data modules among them)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex'):\n"
+        "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex', 'safetensors',\n"
+        "          'lmdb', 'yaml'):\n"
         "    sys.modules[m] = None\n"
         "import diff_pruning_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert {'diff_pruning_tpu_torch.parallel.mesh',\n"
-        "        'diff_pruning_tpu_torch.cli._multihost'} <= set(names)\n"
+        "        'diff_pruning_tpu_torch.cli._multihost',\n"
+        "        'diff_pruning_tpu_torch.utils.convert', 'diff_pruning_tpu_torch.utils.ckpt_util',\n"
+        "        'diff_pruning_tpu_torch.data.lmdb_io', 'diff_pruning_tpu_torch.data.ldm_datasets',\n"
+        "        'diff_pruning_tpu_torch.cli.convert_checkpoints',\n"
+        "        'diff_pruning_tpu_torch.cli.make_lsun_lmdb'} <= set(names)\n"
         "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
         "                                        ldm_prune, ldm_sample, ldm_train,\n"
         "                                        prune_finetune, prune_ssim)\n"
@@ -105,6 +112,8 @@ def test_port_imports_nothing_of_jax():
         "    a = cli.parse_args(argv + mh)\n"
         "    assert a.multihost and a.num_processes == 2 and a.process_id == 1, cli\n"
         "compute_ssim.parse_args(['a', 'b'])\n"
+        "from diff_pruning_tpu_torch.data import datasets\n"
+        "datasets.get_dataset('txt:' + datasets.__file__ + ':.', 8)  # a txt list: no yaml\n"
         "from diff_pruning_tpu_torch.cli import inpaint, knn2img, train_searcher, txt2img\n"
         "txt2img.parse_args(['--vocab', 'v'])\n"
         "inpaint.parse_args(['--indir', 'i', '--outdir', 'o', '--model_path', 'm'])\n"
@@ -120,7 +129,7 @@ def test_port_imports_nothing_of_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 76
+    assert int(res.stdout.strip()) >= 82
 
 
 def _tiny_sweep_inputs():
@@ -327,10 +336,14 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
     """load_npz, the CIFAR-10 pickle-batch loader and the first batches of
     iterate_batches are bit-identical to the JAX package's, over arrays and
     over image folders (resized ones against its PIL decode), and so are a
-    data-parallel rank's rows (``local_slice``); 'cifar10' is
-    looked up where the JAX package looks (here ~/data/cifar10), and the
-    JAX package's other sources (lsun:, ffhq:, imagenet:, txt:, CIFAR-100
-    names) raise NotImplementedError naming them."""
+    data-parallel rank's rows (``local_slice``); 'cifar10' and 'cifar100'
+    are looked up where the JAX package looks (here ~/data/cifar10 and
+    ~/data/cifar100). The lmdb reader and writer match the JAX ones byte
+    for byte both ways (branch levels and overflow pages included), and
+    the lsun:, ffhq:, lmdb-directory, CIFAR-100, imagenet: and txt: sources
+    give the JAX package's uint8 images and batches exactly; the input
+    transforms (logit, dequantization, their inverse, and through
+    iterate_batches with a skip and a rank's rows) agree within 1e-6."""
     import pickle
 
     from diff_pruning_tpu.data import datasets as jdata
@@ -368,10 +381,7 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path / "cwd")
     np.testing.assert_array_equal(tdata.get_dataset("cifar10").images,
                                   jdata.get_dataset("cifar10").images)
-    for name in ("lsun:db", "ffhq:db", "imagenet:root", "txt:list.txt:root", "cifar100",
-                 "CIFAR-100"):
-        with pytest.raises(NotImplementedError, match="the other data sources"):
-            tdata.get_dataset(name)
+    _check_other_sources(tmp_path, home, rng)
 
     # image-folder batches (the autoencoder trainer's): bit-identical to the
     # JAX package's at the stored size, also after a skip for resume;
@@ -407,6 +417,117 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
             np.testing.assert_array_equal(next(batches), jdata.normalize(want))
 
 
+def _check_other_sources(tmp_path, home, rng):
+    """The lmdb files, the lsun:, ffhq:, lmdb-directory, CIFAR-100, imagenet:
+    and txt: sources and the input transforms against the JAX package (see
+    test_data_batches_match_jax)."""
+    import io
+    import pickle
+
+    from PIL import Image
+
+    from diff_pruning_tpu.data import datasets as jdata
+    from diff_pruning_tpu.data import lmdb_io as jlmdb
+    from diff_pruning_tpu_torch.data import datasets as tdata
+    from diff_pruning_tpu_torch.data import lmdb_io as tlmdb
+
+    # lmdb files both ways: 300 small values (two branch levels over the
+    # leaves) and big ones on overflow pages
+    items = [(f"{i:05d}".encode(), rng.bytes(int(rng.integers(1, 60)))) for i in range(300)]
+    items += [(b"big-%d" % i, rng.bytes(5000 + 3000 * i)) for i in range(3)]
+    for writer, reader, name in ((jlmdb.write_lmdb, tlmdb.LMDBReader, "jax_written"),
+                                 (tlmdb.write_lmdb, jlmdb.LMDBReader, "port_written")):
+        writer(str(tmp_path / name), items)
+        with reader(str(tmp_path / name)) as db:
+            assert len(db) == len(items) and db.depth >= 2
+            assert list(db.items()) == sorted(items)
+            assert db.keys() == sorted(k for k, _ in items)
+            assert all(db.get(k) == v for k, v in items) and db.get(b"absent") is None
+    with tlmdb.LMDBReader(str(tmp_path / "jax_written")) as db:  # the key scan reads no value
+        db._leaf_value = None
+        assert db.keys() == sorted(k for k, _ in items)
+    assert (tmp_path / "jax_written" / "data.mdb").read_bytes() == \
+        (tmp_path / "port_written" / "data.mdb").read_bytes()
+
+    def encoded(arr, fmt):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, format=fmt, **({"lossless": True} if fmt == "WEBP" else {}))
+        return buf.getvalue()
+
+    # LSUN: webp images of several aspect ratios under md5 keys, read through
+    # the lsun: prefix and as a bare lmdb directory, resized and cropped
+    shapes = [(20, 31), (33, 18), (24, 24), (17, 40), (40, 26), (21, 21), (30, 19)]
+    lsun = [(f"{i:032x}".encode(), encoded(rng.integers(0, 256, s + (3,), dtype=np.uint8), "WEBP"))
+            for i, s in enumerate(shapes)]
+    jlmdb.write_lmdb(str(tmp_path / "lsun_db"), lsun)
+    ffhq = [(b"length", b"6")] + [(f"16-{i:05d}".encode(), encoded(
+        rng.integers(0, 256, (16, 16, 3), dtype=np.uint8), "PNG")) for i in range(6)]
+    tlmdb.write_lmdb(str(tmp_path / "ffhq_db"), ffhq)
+    c100 = home / "data" / "cifar100" / "cifar-100-python"
+    c100.mkdir(parents=True)
+    with open(c100 / "train", "wb") as f:
+        pickle.dump({"data": rng.integers(0, 256, (9, 3 * 32 * 32), dtype=np.uint8),
+                     "fine_labels": [0] * 9}, f)
+    inet = tmp_path / "imagenet"
+    for i, syn in enumerate(("n01", "n01", "n02", "n03", "n03", "n03")):
+        (inet / "data" / syn).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (18 + 3 * i, 25, 3), dtype=np.uint8)).save(
+            inet / "data" / syn / f"{syn}_{i}.JPEG")
+    (tmp_path / "txtroot").mkdir()
+    names = []
+    for i in range(5):
+        names.append(f"im{i}.png")
+        Image.fromarray(rng.integers(0, 256, (22, 14 + 4 * i, 3), dtype=np.uint8)).save(
+            tmp_path / "txtroot" / names[-1])
+    (tmp_path / "list.txt").write_text("\n".join(names) + "\n")
+    sources = [("lsun:" + str(tmp_path / "lsun_db"), 16), (str(tmp_path / "lsun_db"), 12),
+               ("ffhq:" + str(tmp_path / "ffhq_db"), 16), ("cifar100", None),
+               (str(home / "data" / "cifar100"), None), ("imagenet:" + str(inet), 16),
+               ("txt:" + str(tmp_path / "list.txt") + ":" + str(tmp_path / "txtroot"), 12)]
+    for src, res in sources:
+        tds = tdata.get_dataset(src, res)
+        jds = jdata.get_dataset(src, res)
+        assert type(tds).__name__ == type(jds).__name__ and len(tds) == len(jds), src
+        if hasattr(jds, "images"):
+            np.testing.assert_array_equal(tds.images, jds.images, err_msg=src)
+        else:
+            for i in range(len(jds)):
+                a, b = tds.load(i), jds.load(i)
+                assert a.dtype == b.dtype == np.uint8, src
+                np.testing.assert_array_equal(a, b, err_msg=f"{src} {i}")
+        if src.startswith("imagenet:"):
+            assert tds.class_labels == jds.class_labels == [0, 0, 1, 2, 2, 2]
+        tb, jb = tdata.iterate_batches(tds, 3, seed=2), jdata.iterate_batches(jds, 3, seed=2)
+        for _ in range(3):
+            np.testing.assert_array_equal(next(tb), next(jb), err_msg=src)
+
+    # the input transforms, alone and through iterate_batches
+    x01 = rng.random((4, 8, 8, 3)).astype(np.float32)
+    x01[0, 0, 0] = (0.0, 1.0, 0.5)
+    for name in ("", "rescaled", "logit", "logit+udq", "rescaled+gdq", "udq+gdq", "logit+udq+gdq"):
+        kw = tdata._parse_transform(name)
+        assert kw == jdata._parse_transform(name), name
+        got = tdata.data_transform(x01, rng=np.random.default_rng(3), **kw)
+        want = jdata.data_transform(x01, rng=np.random.default_rng(3), **kw)
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0, err_msg=name)
+        inv = {k: kw[k] for k in ("rescaled", "logit")}
+        np.testing.assert_allclose(tdata.inverse_data_transform(got, **inv),
+                                   jdata.inverse_data_transform(want, **inv), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tdata.logit_transform(x01 * 1.2 - 0.1),
+                               jdata.logit_transform(x01 * 1.2 - 0.1), atol=1e-6, rtol=0)
+    with pytest.raises(ValueError, match="unknown transform"):
+        tdata._parse_transform("logit+bad")
+    arr = tdata.ArrayDataset(rng.integers(0, 256, (10, 8, 8, 3), dtype=np.uint8))
+    for transform, skip, rows in (("logit+udq", 0, None), ("udq+gdq", 2, None),
+                                  ("rescaled+gdq", 1, (1, 3))):
+        kw = dict(seed=6, skip_batches=skip, transform=transform, dequant_seed=9,
+                  local_slice=rows)
+        tb = tdata.iterate_batches(arr, 4, **kw)
+        jb = jdata.iterate_batches(jdata.ArrayDataset(arr.images), 4, **kw)
+        for _ in range(3):
+            np.testing.assert_allclose(next(tb), next(jb), atol=1e-6, rtol=0, err_msg=transform)
+
+
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The prune CLI end to end on the tiny config: TF32 pinned off, a
     checkpoint that both packages load, the JAX CLI's report lines, the vis
@@ -416,7 +537,9 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     dir loads in both packages and validates, every sample set starts from
     one initial noise, and stage 2's selection is the JAX pruner's on the
     port's own stage-2 grads. prune_finetune's output loads in the JAX
-    package. --device cuda without a GPU raises in each CLI."""
+    package. A diffusers directory over an lsun: lmdb prunes to the JAX
+    CLI's channels and weights. --device cuda without a GPU raises in each
+    CLI."""
     from diff_pruning_tpu.cli import ddpm_prune as jddpm_prune
     from diff_pruning_tpu.utils import checkpoint as jckpt
     from diff_pruning_tpu.utils import compile_cache
@@ -552,6 +675,45 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
         jcfg, jparams = jckpt.load_model(str(pf), subfolder=sub)
         junet.UNet2D(jcfg).graph.validate(jparams)
         assert jcfg.channel_sizes == chained["prune"]["channel_sizes"]
+
+    # a diffusers directory over an LSUN lmdb (the port's exporter and
+    # make_lsun_lmdb): both packages' prune CLIs keep the same channels
+    # (taylor, 2 sweep steps; the port fed the noise the JAX CLI draws)
+    from PIL import Image
+
+    from diff_pruning_tpu_torch.cli import make_lsun_lmdb
+    from diff_pruning_tpu_torch.utils.convert import export_diffusers_pipeline
+
+    folder = tmp_path / "lsun_src"
+    folder.mkdir()
+    for i, img in enumerate(np.random.default_rng(18).integers(0, 256, (6, 20, 27, 3),
+                                                               dtype=np.uint8)):
+        Image.fromarray(img).save(folder / f"{i}.png")
+    made = make_lsun_lmdb.main(["--src", str(folder), "--out", str(tmp_path / "lsun_db")])
+    assert made["entries"] == 6
+    export_diffusers_pipeline(str(tmp_path / "hf"), cfg, model.state_dict())
+    lsun = ["--model_path", str(tmp_path / "hf"), "--dataset", "lsun:" + str(tmp_path / "lsun_db"),
+            "--batch_size", "4", "--pruner", "taylor", "--pruning_ratio", "0.3", "--max_steps",
+            "2", "--host_loop", "--skip_vis"]
+    with jax.default_matmul_precision("float32"):
+        jddpm_prune.main(lsun + ["--save_path", str(tmp_path / "lsun_jax")])
+    jnoise = torch.from_numpy(np.asarray(jax.random.normal(jax.random.key(0), (4, 16, 16, 3))))
+    real_randn = torch.randn
+
+    def jax_noise(*shape, **kw):
+        dims = tuple(shape[0]) if len(shape) == 1 and not isinstance(shape[0], int) else shape
+        return jnoise.clone() if dims == (4, 16, 16, 3) else real_randn(*shape, **kw)
+
+    monkeypatch.setattr(torch, "randn", jax_noise)
+    ddpm_prune.main(lsun + ["--save_path", str(tmp_path / "lsun_port"), "--device", "cpu"])
+    monkeypatch.setattr(torch, "randn", real_randn)
+    jcfg, jparams = jckpt.load_model(str(tmp_path / "lsun_jax"))
+    tcfg, state = tckpt.load_model(str(tmp_path / "lsun_port"))
+    assert tcfg.channel_sizes == jcfg.channel_sizes and tcfg.channel_sizes
+    got, want = tckpt.flat_from_state_dict(state), jflatten(jparams)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():  # the same keep-indices slice the same dense weights
+        np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in (

@@ -8,12 +8,14 @@ Tolerances:
   evaluated in the same order.
 - a 5-step trajectory on the tiny UNet, images in [0, 1]: atol 5e-5; each
   step carries the UNet's sum-order differences (a few 1e-6, see
-  tests/test_torch_unet.py) through the DDIM update.
+  tests/test_torch_unet.py) through the DDIM update. So the port's loops
+  get the JAX UNet's eps (``_jax_eps``) and are held to JAX's at atol 5e-5,
+  clipped or not: on some CPUs the UNets' sum-order differences alone put
+  single clipped pixels 7e-5 to 9e-5 apart.
 - unclipped trajectories: at t near 999 the x0 prediction divides eps's
   differences by sqrt(alpha_bar) ~ 0.0064, and a random UNet's unclipped
   samples carry that to the output (DDIM's own: 3e-4 with the port's UNet).
-  So the port's loops get the JAX UNet's eps (``_jax_eps``) and are held to
-  atol 5e-5; the port's own UNet through them to a relative error in norm
+  The port's own UNet through the loops is held to a relative error in norm
   of 1e-5 (tests/test_torch_ldm.py's trajectory tolerance).
 """
 
@@ -137,12 +139,16 @@ def test_ddim_trajectory_matches_jax():
         with jax.default_matmul_precision("float32"):
             want = jsampler.make_sampler(jmodel, jparams, js,
                                          jsampler.SamplerConfig(**scfg))(key, 2, 16, 3)
-        sample = tsampler.make_sampler(model if clip else jeps, ts_,
-                                       tsampler.SamplerConfig(**scfg))
-        got = sample(None, 2, 16, 3, x_T=tx_T)
-        assert got.shape == (2, 16, 16, 3)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0,
-                                   err_msg=f"{kind} clip_sample={clip}")
+        for m in ((jeps, model) if clip else (jeps,)):
+            got = tsampler.make_sampler(m, ts_, tsampler.SamplerConfig(**scfg))(
+                None, 2, 16, 3, x_T=tx_T)
+            assert got.shape == (2, 16, 16, 3)
+            if m is jeps:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-5, rtol=0,
+                                           err_msg=f"{kind} clip_sample={clip}")
+            else:
+                w = np.asarray(want)
+                assert np.linalg.norm(got.numpy() - w) <= 1e-5 * np.linalg.norm(w), (kind, clip)
     # DPM-Solver++(2M)'s raw latents, straight through the schedulers
     from diff_pruning_tpu.schedulers import dpm_solver as jdpm
     from diff_pruning_tpu_torch.schedulers import dpm_solver as tdpm

@@ -9,6 +9,8 @@ norms and attention, which moves outputs of order 1 by a few 1e-6 (5e-6 at
 full CIFAR width).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -174,7 +176,13 @@ def test_cifar10_full_width_params_and_forward():
 def test_checkpoints_cross_both_ways(tmp_path):
     """A checkpoint written by the JAX package loads here and is written back
     byte-for-byte the same arrays; one written here loads in the JAX package,
-    validates against its graph and gives the same forward."""
+    validates against its graph and gives the same forward. Then the
+    converters (utils/convert.py): the diffusers and DDIM-codebase ones give
+    exactly the JAX ones' arrays; a diffusers directory written by either
+    package's exporter, dense and pruned, loads in the other to identical
+    arrays (.safetensors, and .bin); the port's .safetensors files read in
+    safetensors.numpy and that package's in the port; ckpt_util and the
+    convert_checkpoints CLI's diffusers, export-diffusers and ddim kinds."""
     cfg = junet.tiny_unet_config()
     jmodel = junet.UNet2D(cfg)
     flat = numpy_params(jmodel, seed=5)
@@ -201,6 +209,137 @@ def test_checkpoints_cross_both_ways(tmp_path):
     x = np.random.default_rng(7).standard_normal((2, 16, 16, 3)).astype(np.float32)
     want, got = forward_both(jmodel, m, flat, x, np.array([3, 400], np.int32))
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    _check_converters(tmp_path)
+
+
+def _check_converters(tmp_path):
+    """See test_checkpoints_cross_both_ways."""
+    import hashlib
+
+    from safetensors.numpy import load_file, save_file
+
+    from _convert_layouts import assert_flat_equal, ddim_state_dict
+    from diff_pruning_tpu.cli import ddpm_prune as jprune_cli
+    from diff_pruning_tpu.pruning.importance import make_importance
+    from diff_pruning_tpu.pruning.pruner import apply_pruning, prune
+    from diff_pruning_tpu.utils import ckpt_util as jck
+    from diff_pruning_tpu.utils import convert as jconv
+    from diff_pruning_tpu_torch.cli import convert_checkpoints
+    from diff_pruning_tpu_torch.cli.ddpm_prune import load_unet
+    from diff_pruning_tpu_torch.utils import ckpt_util as tck
+    from diff_pruning_tpu_torch.utils import convert as tconv
+
+    def jflat(tree):
+        return {k: np.asarray(v) for k, v in flatten_params(tree).items()}
+
+    cfg = junet.tiny_unet_config()
+    jmodel = junet.UNet2D(cfg)
+    flat = numpy_params(jmodel, seed=11)
+    tree = unflatten_params(flat)
+    # diffusers <-> the port's state dict, and the DDIM codebase's layout
+    sd = jconv.params_to_torch_state_dict(tree)
+    assert_flat_equal(tconv.params_to_torch_state_dict(tckpt.state_dict_from_flat(flat)), sd,
+                      "params_to_torch_state_dict")
+    for what, tfn, jfn, src in (
+            ("diffusers", tconv.torch_state_dict_to_params, jconv.torch_state_dict_to_params, sd),
+            ("ddim", lambda s: tconv.ddim_original_state_dict_to_params(s, 4),
+             lambda s: jconv.ddim_original_state_dict_to_params(s, 4), ddim_state_dict(flat, 4))):
+        assert_flat_equal(jflat(jfn(src)), flat, what + " (JAX)")
+        assert_flat_equal(tckpt.flat_from_state_dict(tfn(src)), flat, what)
+        tsrc = {k: torch.from_numpy(v) for k, v in src.items()}  # tensors in, too
+        assert_flat_equal(tckpt.flat_from_state_dict(tfn(tsrc)), flat, what + " (tensors)")
+
+    # diffusers directories across the packages, dense and pruned
+    res = prune(jmodel.graph, tree, make_importance("magnitude"), sparsity=0.3)
+    pruned = jflat(apply_pruning(tree, jmodel.graph, res))
+    for name, pcfg, pflat in (("dense", cfg, flat),
+                              ("pruned", cfg.with_channel_sizes(res.channel_sizes), pruned)):
+        jdir, tdir = str(tmp_path / f"jexp_{name}"), str(tmp_path / f"texp_{name}")
+        jconv.export_diffusers_pipeline(jdir, pcfg, unflatten_params(pflat))
+        tconv.export_diffusers_pipeline(tdir, tunet.UNet2DConfig.from_json(pcfg.to_json()),
+                                        tckpt.state_dict_from_flat(pflat))
+        for f in ("model_index.json", "unet/config.json", "scheduler/scheduler_config.json"):
+            with open(os.path.join(jdir, f)) as a, open(os.path.join(tdir, f)) as b:
+                assert a.read() == b.read(), (name, f)
+        st = "unet/diffusion_pytorch_model.safetensors"
+        assert_flat_equal(load_file(os.path.join(tdir, st)), load_file(os.path.join(jdir, st)),
+                          f"{name} safetensors")
+        for d in (jdir, tdir):
+            tcfg, state = load_unet(d)
+            assert tcfg.channel_sizes == pcfg.channel_sizes, (name, d)
+            m = tunet.UNet2D(tcfg, device="cpu")
+            m.load_state_dict(state)
+            assert_flat_equal(tckpt.flat_from_state_dict(state), pflat, f"{name} port load {d}")
+            jcfg, jparams = jprune_cli.load_unet(d)
+            assert jcfg.channel_sizes == pcfg.channel_sizes
+            assert_flat_equal(jflat(jparams), pflat, f"{name} JAX load {d}")
+    # .bin, and safetensors written by safetensors.numpy (several dtypes) in the port
+    bdir = tmp_path / "bin_unet"
+    bdir.mkdir()
+    (bdir / "config.json").write_text(cfg.to_json())
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               bdir / "diffusion_pytorch_model.bin")
+    assert_flat_equal(tckpt.flat_from_state_dict(load_unet(str(bdir))[1]), flat, ".bin")
+    assert_flat_equal(jflat(jprune_cli.load_unet(str(bdir))[1]), flat, ".bin (JAX)")
+    rng = np.random.default_rng(12)
+    mixed = {"w": rng.standard_normal((3, 5)).astype(np.float32),
+             "h": rng.standard_normal(7).astype(np.float16),
+             "d": rng.standard_normal((2, 2)), "i": np.arange(6, dtype=np.int64).reshape(2, 3),
+             "u": rng.integers(0, 255, 9, dtype=np.uint8), "s": np.array(2.5, np.float32),
+             "e": np.zeros((0, 3), np.float32)}
+    save_file(mixed, str(tmp_path / "theirs.safetensors"), metadata={"format": "pt"})
+    theirs = tconv._read_safetensors(str(tmp_path / "theirs.safetensors"))
+    assert_flat_equal({k: v.numpy() for k, v in theirs.items()}, mixed, "safetensors.numpy file")
+    tconv._write_safetensors(str(tmp_path / "ours.safetensors"), mixed, {"format": "pt"})
+    assert_flat_equal(load_file(str(tmp_path / "ours.safetensors")), mixed, "port file")
+    assert (tmp_path / "ours.safetensors").read_bytes() == \
+        (tmp_path / "theirs.safetensors").read_bytes()
+    bf = torch.randn(4, 3).to(torch.bfloat16)
+    tconv._write_safetensors(str(tmp_path / "bf16.safetensors"), {"b": bf})
+    assert torch.equal(tconv._read_safetensors(str(tmp_path / "bf16.safetensors"))["b"], bf)
+
+    # ckpt_util: the same names, layout and MD5 checks as the JAX one's
+    assert tck.CKPT_MAP == jck.CKPT_MAP and tck.MD5_MAP == jck.MD5_MAP
+    root = tmp_path / "cache"
+    rel = tck.CKPT_MAP["ema_lsun_church"]
+    with pytest.raises(FileNotFoundError, match="diff_pruning_tpu_torch.cli.convert_checkpoints"):
+        tck.get_ckpt_path("ema_lsun_church_outdoor", root=str(root))
+    with pytest.raises(KeyError):
+        tck.get_ckpt_path("imagenet", root=str(root))
+    (root / rel).parent.mkdir(parents=True)
+    (root / rel).write_bytes(b"not the checkpoint")
+    assert tck.md5_hash(str(root / rel)) == jck.md5_hash(str(root / rel)) == \
+        hashlib.md5(b"not the checkpoint").hexdigest()
+    assert tck.get_ckpt_path("ema_lsun_church", root=str(root)) == \
+        jck.get_ckpt_path("ema_lsun_church", root=str(root)) == str(root / rel)
+    with pytest.raises(ValueError, match="MD5"):
+        tck.get_ckpt_path("ema_lsun_church_outdoor", root=str(root), check=True)
+
+    # the CLI's kinds: a diffusers dir -> our layout -> a diffusers dir, and a
+    # DDIM-codebase checkpoint of the full-width CIFAR-10 UNet
+    out = convert_checkpoints.main(["diffusers", str(tmp_path / "jexp_pruned"),
+                                    str(tmp_path / "conv")])
+    tcfg, state = tckpt.load_model(str(tmp_path / "conv"))
+    assert out.endswith("unet") and tcfg.channel_sizes == res.channel_sizes
+    assert_flat_equal(tckpt.flat_from_state_dict(state), pruned, "CLI diffusers")
+    convert_checkpoints.main(["export-diffusers", str(tmp_path / "conv"),
+                              str(tmp_path / "reexp"), "--scheduler", "DDIMScheduler"])
+    assert_flat_equal(jflat(jprune_cli.load_unet(str(tmp_path / "reexp"))[1]), pruned,
+                      "CLI export-diffusers")
+    full = junet.ddpm_cifar10_config()
+    fflat = {k: np.random.default_rng(13).standard_normal(s.shape).astype(np.float32)
+             for k, s in flatten_params(jax.eval_shape(junet.UNet2D(full).init,
+                                                       jax.random.key(0))).items()}
+    torch.save({"module." + k: torch.from_numpy(v) for k, v in ddim_state_dict(fflat, 4).items()},
+               tmp_path / "ddim.pth")
+    convert_checkpoints.main(["ddim", str(tmp_path / "ddim.pth"), str(tmp_path / "ddim_out"),
+                              "--config", "cifar10"])
+    jcfg, jparams = jckpt.load_model(str(tmp_path / "ddim_out"))
+    assert jcfg.to_json() == full.to_json()
+    assert_flat_equal(jflat(jparams), fflat, "CLI ddim")
+    with pytest.raises(ValueError, match="does not fit"):
+        convert_checkpoints.main(["ddim", str(tmp_path / "ddim.pth"), str(tmp_path / "bad"),
+                                  "--config", "celeba"])
 
 
 def test_jax_pruned_checkpoint_forward(tmp_path):
