@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phase 21's f32 kernels-on/off gate of the first-stage train step, on other
+"""Phase 21's kernels-on/off gate of the first-stage train step, on other
 codebooks, with the CPU as a second witness.
 
     python3 ae_gate_probe.py [--seeds 7] [--nudges 5] [--cpu-seeds 0] [--cpu-budget 400]
@@ -29,6 +29,16 @@ and quantity, and the quantities it fails. Exits non-zero without a card;
 prints nvidia-smi's name and power limit. ``--rescore`` reads the rows of
 an earlier run's output (its last JSON line) and scores the rules on the
 CPU, with no card.
+
+The grads: per codebook the script also takes the step in bf16 (off, off on
+the nudges, on), and reports for the generator and the discriminator, from
+their Adam first moments (0.5 x the grads), each param's |on - off| /
+max|off| and the same ratio for each nudged run (f32), and |on - off| /
+|off| in norm with the nudged runs' (bf16). It scores phase 21's grad rules
+(f32: each param within max(SWEEP_GRAD_TOL, NOISE_FACTOR x the median of the
+first AE_NUDGES nudges' ratios), bf16: max(TRAIN_BF16_GRAD_RTOL, NOISE_FACTOR
+x their median) in norm) with and without the cap AE_GRAD_CAP, and prints
+the widest on/off ratio over the codebooks, from which the cap is chosen.
 """
 
 import argparse
@@ -53,6 +63,34 @@ def mu_rel(a, b):
     return math.sqrt(num / sum(float((t.cpu() ** 2).sum()) for t in b.values()))
 
 
+def param_rel(a, b):
+    """Each param's max |a - b| over max |b| (Adam first moments)."""
+    return {n: float((a[n] - t).abs().max()) / max(float(t.abs().max()), 1e-30)
+            for n, t in b.items()}
+
+
+def grad_rows(cs, model, disc, lpips, loss_cfg, masters, images, nudged, mp):
+    """The step ``mp`` off, then off on each nudge and on with the VQ lookups
+    pinned to the off run's, as phase 21 runs them: per network, each
+    param's on/off and nudged/off ratio (:func:`param_rel`) and the same in
+    norm."""
+    chosen = []
+    runs = [cs.ae_step(model, disc, lpips, loss_cfg, masters, images, mp, chosen, replay=False,
+                       on=False)]
+    runs += [cs.ae_step(model, disc, lpips, loss_cfg, masters, x, mp, list(chosen),
+                        replay=True, on=on)
+             for x, on in [(x, False) for x in nudged] + [(images, True)]]
+    out = {}
+    for i, net in ((1, "gen"), (2, "disc")):
+        off, on, nuds = runs[0][i], runs[-1][i], [r[i] for r in runs[1:-1]]
+        out[net] = {"param_max": {n: float(t.abs().max()) for n, t in off.items()},
+                    "param_on_off": param_rel(on, off),
+                    "param_nudged_off": [param_rel(n, off) for n in nuds],
+                    "norm_on_off": mu_rel(on, off),
+                    "norm_nudged_off": [mu_rel(n, off) for n in nuds]}
+    return out
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seeds", type=int, default=7)
@@ -70,6 +108,8 @@ def main() -> None:
         with open(args.rescore) as f:
             rows = [json.loads(line) for line in f if line.startswith('{"card"')][-1]["rows"]
         rule_table(rows, cs)
+        if "param_max" in rows[0].get("grads", {}).get("float32", {}).get("gen", {}):
+            grad_rule_table(rows, cs)
         return
     import torch
 
@@ -134,7 +174,12 @@ def main() -> None:
         # the gate of phase 21: the first nudge is the one it draws
         ratio = max(r_on[k] / max(cs.TRAIN_LOSS_RTOL, cs.NOISE_FACTOR * r_nud[0][k])
                     for k in KEYS)
+        grads = {"float32": grad_rows(cs, model, disc, lpips, loss_cfg, masters, images,
+                                      nudged, "no"),
+                 "bfloat16": grad_rows(cs, model, disc, lpips, loss_cfg, masters, images,
+                                       nudged, "bf16")}
         row = {"seed": seed, "metrics_off": m_off, "metrics_on": m_on, "rel_on_off": r_on,
+               "grads": grads,
                "rel_replayed_off": rel(m_rep, m_off),
                "mu_rel_replayed_off": mu_rel(mu_rep, mu_off),
                "rel_nudged_off": r_nud, "gate_ratio": ratio, "passes": ratio <= 1.0,
@@ -153,7 +198,8 @@ def main() -> None:
         row["mu_off"], row["mu_on"] = ({n: v.cpu() for n, v in mu.items()}
                                        for mu in (mu_off, mu_on))
         row["metrics_nudged"] = [m for m, *_ in nud]
-    print(json.dumps({"rules": rule_table(rows, cs)}), flush=True)
+    print(json.dumps({"rules": rule_table(rows, cs), "grad_rules": grad_rule_table(rows, cs)}),
+          flush=True)
     # the CPU witness, worst gates first
     model_c, disc_c, lpips_c = (copy.deepcopy(m).cpu() for m in (model, disc, lpips))
     images_c = images.cpu()
@@ -179,7 +225,7 @@ def main() -> None:
     keep = ("seed", "metrics_off", "metrics_on", "metrics_nudged", "metrics_cpu", "rel_on_off",
             "rel_replayed_off", "mu_rel_replayed_off", "rel_nudged_off", "rel_cpu_off",
             "rel_cpu_on", "gate_ratio", "passes", "mu_rel_on_off", "mu_rel_nudged_off", "mu_rel_cpu_off", "mu_rel_cpu_on",
-            "launches_on", "gpu_s", "cpu_s")
+            "launches_on", "gpu_s", "cpu_s", "grads")
     print(json.dumps({"card": gpu, "b": cs.AE_B, "rows": [
         {k: r[k] for k in keep if k in r} for r in rows]}))
     print(gpu)
@@ -224,6 +270,68 @@ def rule_table(rows, cs):
             for x in per:
                 print(f"  seed {x['seed']} {x['key']}: on vs off {x['on_off']:.3e}, allowed "
                       f"{x['new']:.3e} (old rule {x['old']:.3e})", flush=True)
+    return out
+
+
+def grad_rule_table(rows, cs):
+    """Phase 21's grad rules on every (codebook, network, param), with and
+    without AE_GRAD_CAP: the widest on/off ratio (f32 per param, bf16 in
+    norm), the allowance with the cap over the one without (at most 1: never
+    looser), and the cases each rule fails. In f32 each param's allowance,
+    over its max, carries the rule's floor, 1e-6 of the network's largest
+    grad (a grad that is zero in exact arithmetic, to_k's bias, lies within
+    it); the widest on/off ratio is also given without the params that the
+    floor alone admits."""
+    import statistics
+
+    k = cs.AE_NUDGES
+    out = {}
+    for dname, key in (("float32", "param"), ("bfloat16", "norm")):
+        floor_tol = cs.SWEEP_GRAD_TOL if dname == "float32" else cs.TRAIN_BF16_GRAD_RTOL
+        cap = cs.AE_GRAD_CAP[dname]
+        per = []
+        for r in rows:
+            for net, g in r["grads"][dname].items():
+                if key == "param":
+                    top = max(g["param_max"].values())
+                    cases = [(n, on, statistics.median(x[n] for x in g["param_nudged_off"][:k]),
+                              1e-6 * top / max(g["param_max"][n], 1e-30))
+                             for n, on in g["param_on_off"].items()]
+                else:
+                    cases = [("(norm)", g["norm_on_off"],
+                              statistics.median(g["norm_nudged_off"][:k]), 0.0)]
+                for name, on, nud, fl in cases:
+                    old = max(floor_tol, cs.NOISE_FACTOR * nud) + fl
+                    new = max(floor_tol, min(cs.NOISE_FACTOR * nud, cap)) + fl
+                    per.append({"seed": r["seed"], "net": net, "param": name, "on_off": on,
+                                "nudged_median": nud, "floor": fl, "old": old, "new": new,
+                                "looser": new / old})
+        widest = max(per, key=lambda x: x["on_off"])
+        held = [x for x in per if x["on_off"] > x["floor"]] or per
+        widest_held = max(held, key=lambda x: x["on_off"])
+        out[dname] = {"cap": cap, "widest_on_off": widest, "widest_beyond_floor": widest_held,
+                      "max_looser": max(x["looser"] for x in per),
+                      "fails_old": [(x["seed"], x["net"], x["param"]) for x in per
+                                    if x["on_off"] > x["old"]],
+                      "fails_new": [(x["seed"], x["net"], x["param"]) for x in per
+                                    if x["on_off"] > x["new"]],
+                      "widest_nudged": max(x["nudged_median"] for x in per)}
+        o = out[dname]
+        print(f"grad rule {dname} ({'each param' if key == 'param' else 'in norm'}): widest "
+              f"on/off {widest['on_off']:.3e} (seed {widest['seed']} {widest['net']} "
+              f"{widest['param']}), beyond the floor {widest_held['on_off']:.3e} (seed "
+              f"{widest_held['seed']} {widest_held['net']} {widest_held['param']}), widest "
+              f"nudged median {o['widest_nudged']:.3e}; cap {cap}: "
+              f"allowance / uncapped max {o['max_looser']:.3f}; fails uncapped "
+              f"{o['fails_old']}, capped {o['fails_new']}", flush=True)
+        for r in rows:
+            for net in ("gen", "disc"):
+                mine = [x for x in per if x["seed"] == r["seed"] and x["net"] == net]
+                w = max([x for x in mine if x["on_off"] > x["floor"]] or mine,
+                        key=lambda x: x["on_off"])
+                print(f"  seed {r['seed']} {net}: widest on/off {w['on_off']:.3e} "
+                      f"({w['param']}), its nudged median {w['nudged_median']:.3e}, allowed "
+                      f"{w['new']:.3e} (uncapped {w['old']:.3e})", flush=True)
     return out
 
 

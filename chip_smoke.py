@@ -28,7 +28,9 @@ CLIP ViT-L/14); and the data-parallel path (the train, prune and ldm_sample
 CLIs with --multihost over NCCL at world size 1, and two ranks over gloo on
 the one card); and the paper's LSUN-256 pipeline (scripts/prune_ddpm_lsun.sh:
 a diffusers directory and an lmdb through the prune, bf16 train and sampling
-CLIs on the full-width 113.7M-param DDPM). Every phase raises on failure;
+CLIs on the full-width 113.7M-param DDPM), with the train step's remat, the
+RMSprop, SGD and cosine updates and the profile_model CLI on that DDPM.
+Every phase raises on failure;
 none is caught, so any failure exits non-zero before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
@@ -279,7 +281,9 @@ none is caught, so any failure exits non-zero before the result lines.
    and disc_loss (f32 1e-4, bf16 2e-2 relative), the first Adam moments
    of both networks (f32: each param within 1e-3 of its max; bf16: 5e-2
    in norm), each or 10x the median of what 3 one-ulp nudges of the
-   images move the off run (the f32 losses' at most 5e-3), the share of VQ indices that differ, launches a step (84
+   images move the off run (the f32 losses' at most 5e-3, the grads' at
+   most AE_GRAD_CAP: of each param's max in f32, in norm in bf16), the
+   share of VQ indices that differ, launches a step (84
    GroupNorm forwards, 42 backwards, 4 attention forwards of which 2 with
    lse, 2 dq, 2 dk/dv) and their dtypes; (c) the main path: the
    autoencoder_train CLI, --lpips random, --disc_start 0, 4 steps (cut
@@ -347,7 +351,19 @@ none is caught, so any failure exits non-zero before the result lines.
    tests' tolerances (DP_RTOL, Adam's bound); then the world-1 step timed
    against the plain one as the train CLI runs it (CUDA events, in turns);
    (c) is phase 16's ldm_sample --multihost run (its PNGs byte-identical
-   to the plain run's). Prints the phase's seconds
+   to the plain run's). The two meshes of the evaluation and the
+   first-stage step: in (a)'s process also the fid_score CLI between phases
+   5 and 6's sample folders without and with --multihost, the features of
+   both folders and the FID bit-identical; in (b)'s world-1 group the vq-f4
+   train step (phase 21's models and seeds, the codebook from seed 0, B =
+   12, 256 x 256) in bf16 with mesh= bit-identical to the step without,
+   then in f32 on the mesh and on 3 one-ulp nudges of its images (the VQ
+   lookups pinned), and each gloo rank's f32 step on its 6 rows with the
+   lookups replayed against it: the losses and d_weight within max(DP_RTOL,
+   min(10 x the nudged median, AE_GATE_CAP)), both networks' Adam moments
+   per param within max(DP_RTOL of its max, min(10 x the nudged median,
+   AE_GRAD_CAP of its max)), the launches a step exact, the ranks'
+   generators equal. Prints the phase's seconds
    and the world-1 step's imgs/s against the plain step's.
 24. LSUN-256 path, full width (ddpm_lsun256, 113,673,219 params), B = 16
    (scripts/prune_ddpm_lsun.sh's): (a) a seeded UNet saved in our layout
@@ -371,8 +387,24 @@ none is caught, so any failure exits non-zero before the result lines.
    with lse, dq and dk/dv at (256, 256, 512), f32 and bf16, against plain,
    the library call and the bound. Prints the phase's seconds, each CLI's
    seconds and peak memory.
-25. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
-   first-stage training, text LDM, multi-GPU and LSUN JSON lines, the
+25. Remat path, on phase 24's diffusers dir (dropout 0.1) and lmdb, B =
+   16: (a) one bf16 and one f32 train step with and without remat from the
+   same state and batch (the step's own draws, cuDNN deterministic): the
+   loss and the step's grads (Adam's first moment) at phase 14's on/off
+   tolerances, whether they are bit-identical, the peak memory (remat's
+   must be lower), the step ms (CUDA events, the second steps in turns) and
+   the launches exact (remat: every block's GroupNorm and attention
+   forward again in the backward); (b) 3 updates of rmsprop, sgd and Adam
+   on the cosine schedule (with the clip) of 40 of the UNet's tensors on
+   the card against the same updates on the CPU, within f32 rounding; (c)
+   the main path: the train CLI with --remat, 2 f32 steps and the save with
+   its DDIM-100 vis grid of 1, launch counters reset just before and read
+   just after, equal to 2 remat steps + 100 forwards; (d) profile_model
+   --train_step --trace at B = 16: params and MACs equal to phase 24's, the
+   trace written and not empty, its peak memory, 3 train calls' launches.
+   Prints the phase's seconds.
+26. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
+   first-stage training, text LDM, multi-GPU, LSUN and remat JSON lines, the
    kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
@@ -521,6 +553,13 @@ TEXT_INPAINT_PAIRS, TEXT_INPAINT_B, TEXT_KNN_B, TEXT_KNN, TEXT_KNN_STEPS = 4, 2,
 # 500,000), its vis grid, the sampling CLI's images and DDIM steps
 LSUN_PARAMS, LSUN_B, LSUN_IMAGES, LSUN_PRUNE_STEPS, LSUN_THR = 113_673_219, 16, 64, 3, 0.01
 LSUN_TRAIN_STEPS, LSUN_VIS, LSUN_SAMPLES, LSUN_DDIM = 4, 1, 8, 4
+# the remat phase (25): the dropout of its train steps, the train CLI's
+# steps, the tensors the optimizers update and their rule on the card
+# against the CPU, given the same global norm for the clip: each tensor
+# within OPT_RTOL of its largest value, a few f32 ulps (FMA on the card; an
+# update that nearly cancels a param leaves only such ulps)
+REMAT_DROPOUT, REMAT_CLI_STEPS, REMAT_OPT_PARAMS = 0.1, 2, 40
+OPT_RTOL = 1e-6
 # the step kernels on against off: the phase-18 tolerances, or NOISE_FACTOR x
 # what the off run moves when its images move by one ulp, whichever is
 # larger: the random codec amplifies f32 rounding through its 44 normalised
@@ -533,6 +572,17 @@ LSUN_TRAIN_STEPS, LSUN_VIS, LSUN_SAMPLES, LSUN_DDIM = 4, 1, 8, 4
 # median would pass a kernel fault of that size; 5e-3 is 4x the widest f32
 # on/off gap of the 7 codebooks ae_gate_probe.py measured (1.2e-3)
 NOISE_FACTOR, AE_NUDGES, AE_GATE_CAP = 10, 3, 5e-3
+# The grads' nudged floor is capped alike: in f32 at AE_GRAD_CAP of each
+# param's max, in bf16 at AE_GRAD_CAP in norm. ae_gate_probe.py on 7
+# codebooks x 3 nudges (NVIDIA H100 80GB HBM3, 700 W): the widest f32 on/off
+# |on - off| / max|off| of a param beyond the 1e-6 floor is 2.25e-2 (the
+# discriminator's first conv bias; the generator's 4.6e-3), while 10x the
+# nudged median reaches 0.185 there (and ~18 on to_k's bias, whose grad is
+# zero in exact arithmetic and lies within the floor); bf16 in norm: on/off
+# 9.8e-2 at most, 10x the nudged median up to 0.84. Each cap is 4x the
+# widest on/off gap, as AE_GATE_CAP: nowhere looser than the uncapped rule,
+# and it fails no (codebook, param) pair that the uncapped rule passes
+AE_GRAD_CAP = {"float32": 0.09, "bfloat16": 0.4}
 # the multi-GPU path (phase 23): the global batch (the train CLI's 128, 64
 # rows a gloo rank), the train CLI's steps, the sweep's steps (thr off), the
 # timed steps a turn, each worker's time limit. The gloo ranks against the
@@ -543,6 +593,9 @@ NOISE_FACTOR, AE_NUDGES, AE_GATE_CAP = 10, 3, 5e-3
 # update moves a param: a grad near eps turns f32 noise into a part of lr)
 DP_B, DP_TRAIN_STEPS, DP_SWEEP_STEPS, DP_TIME_ITERS, DP_WORKER_TIMEOUT_S = B, 2, 3, 3, 300
 DP_RTOL, ADAM_MOVE = 1e-5, 2.02
+# phase 23's first-stage step on the mesh: the metrics held (and the Adam
+# moments of both networks)
+AE_DP_KEYS = ("total_loss", "nll_loss", "g_loss", "quant_loss", "d_weight", "disc_loss")
 # H100 SXM, NVIDIA's data sheet: HBM rate, and peak rates by input type
 # (f32 on the CUDA cores, bf16 dense tensor cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -3368,10 +3421,10 @@ def ae_op_shapes(fs_cfg, res):
         torch.zeros((1, res, res, fs_cfg.in_channels), device=meta))))
 
 
-def ae_fresh(model, disc, lpips, loss_cfg, masters, mp):
+def ae_fresh(model, disc, lpips, loss_cfg, masters, mp, mesh=None):
     """Phase 21's models set back to ``masters`` (each of ``model``'s and
     ``disc``'s params), a fresh train state and the step function of
-    ``mixed_precision`` ``mp``."""
+    ``mixed_precision`` ``mp`` (on ``mesh``'s rows, with one)."""
     import torch
 
     from diff_pruning_tpu_torch.training import autoencoder as AE
@@ -3383,10 +3436,10 @@ def ae_fresh(model, disc, lpips, loss_cfg, masters, mp):
     gopt, dopt = AE.make_ae_optimizers(AE_LR)
     st = AE.init_ae_train_state(model, disc, gopt, dopt)
     return st, AE.make_autoencoder_train_step(model, loss_cfg, lpips, disc, gopt, dopt,
-                                              mixed_precision=mp)
+                                              mixed_precision=mp, mesh=mesh)
 
 
-def ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=None):
+def ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=None, mesh=None):
     """One first-stage train step of phase 21 on ``x`` from :func:`ae_fresh`:
     (metrics, the generator's and the discriminator's Adam first moments
     (0.5 x the step's grads), launches). The VQ lookups are pinned: without
@@ -3395,7 +3448,8 @@ def ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=Non
     flips with f32 summation order, and the decoder's global attention
     spreads one flipped code over the whole image. ``on``: the kernels on
     or off, on again after (None: left on; on the CPU the plain versions
-    run)."""
+    run). ``mesh``: the step on its rows (``x`` and the replayed indices
+    this rank's)."""
     import torch
 
     from diff_pruning_tpu_torch import ops
@@ -3414,7 +3468,7 @@ def ae_step(model, disc, lpips, loss_cfg, masters, x, mp, chosen, replay, on=Non
         ops.set_kernels_enabled(on)
     model.quantize_latents = pinned
     try:
-        st, step = ae_fresh(model, disc, lpips, loss_cfg, masters, mp)
+        st, step = ae_fresh(model, disc, lpips, loss_cfg, masters, mp, mesh)
         ops.reset_launch_counts()
         m = {k: float(v) for k, v in step(st, x).items()}
         if x.is_cuda:
@@ -3757,11 +3811,13 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
             grads_floor[net] = statistics.median(dist(a) for a in nuds)
             # each param's grads against its max, or against NOISE_FACTOR x the
             # nudged runs' own (median) difference (plus 1e-6 of the largest grad)
+            # (the nudged floor at most AE_GRAD_CAP of the max)
             floor = 1e-6 * max(float(t.abs().max()) for t in off_.values())
             worst_param[net] = max((float((on_[n] - t).abs().max()) / (max(
-                SWEEP_GRAD_TOL * float(t.abs().max()),
-                NOISE_FACTOR * statistics.median(float((a[n] - t).abs().max()) for a in nuds))
-                + floor), n) for n, t in off_.items())
+                SWEEP_GRAD_TOL * float(t.abs().max()), min(
+                    NOISE_FACTOR * statistics.median(float((a[n] - t).abs().max()) for a in nuds),
+                    AE_GRAD_CAP["float32"] * float(t.abs().max()))) + floor), n)
+                for n, t in off_.items())
         print(f"ae train step vq-f4 B={rows} {dname}, kernels on vs off: "
               + ", ".join(f"{k} {m_on[k]:.7f} against {m_off[k]:.7f} (rel {rel[k]:.3e}; the "
                           f"nudged off runs' median {rel_floor[k]:.3e})" for k in keys)
@@ -3774,9 +3830,11 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
               f"{grads_floor['disc']:.3e}); worst param |on - off| over its tolerance: "
               f"generator {worst_param['gen'][0]:.3f} ({worst_param['gen'][1]}), "
               f"discriminator {worst_param['disc'][0]:.3f} ({worst_param['disc'][1]}) (tol "
-              + (f"each param within max({SWEEP_GRAD_TOL} of its max, {NOISE_FACTOR} x nudged)"
-                 if mp == "no" else f"max({TRAIN_BF16_GRAD_RTOL}, {NOISE_FACTOR} x nudged) in "
-                 "norm") + "); the VQ lookups pinned to the off run's (an unpinned encode's "
+              + (f"each param within max({SWEEP_GRAD_TOL} of its max, {NOISE_FACTOR} x nudged "
+                 f"at most {AE_GRAD_CAP['float32']} of its max)" if mp == "no" else
+                 f"max({TRAIN_BF16_GRAD_RTOL}, {NOISE_FACTOR} x nudged at most "
+                 f"{AE_GRAD_CAP['bfloat16']}) in norm") + "); the VQ lookups pinned to the "
+              "off run's (an unpinned encode's "
               f"indices differ on vs off at {flips:.2e} of the rows); launches on {c_on}; "
               f"forward launches by dtype {dict(fwd_dtypes)}, backward calls by dtype "
               f"{dict(bwd_dtypes)}")
@@ -3785,7 +3843,8 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
         if mp == "no":
             assert max(w for w, _ in worst_param.values()) <= 1.0, worst_param
         else:
-            assert all(grads[k] <= max(TRAIN_BF16_GRAD_RTOL, NOISE_FACTOR * grads_floor[k])
+            assert all(grads[k] <= max(TRAIN_BF16_GRAD_RTOL, min(NOISE_FACTOR * grads_floor[k],
+                                                                 AE_GRAD_CAP["bfloat16"]))
                        for k in grads), grads
         compare_fig[dname] = {"metrics_on": m_on, "metrics_off": m_off, "rel": rel,
                               "rel_nudged": rel_floor, "allowed": allowed, "grad_rel": grads,
@@ -4471,6 +4530,9 @@ def lsun_path(tmp, gen, gpu, tag, worst):
     out["prune_cli"] = {"params": n_pruned, "macs": stats["macs"], "steps": steps,
                         "sweep_s": stats["sweep_seconds"], "seconds": prune_s,
                         "peak_gb": prune_peak, "launches": prune_counts}
+    # what phase 25 takes from here
+    out["dense"] = {"hf_dir": hf_dir, "lmdb": lmdb, "per_call": per_call,
+                    "params": stats["params_before"], "macs": stats["macs_before"]}
     lap("prune CLI")
 
     # (d) every GroupNorm and attention shape of the dense and the pruned UNet,
@@ -4556,6 +4618,212 @@ def lsun_path(tmp, gen, gpu, tag, worst):
     return out
 
 
+def remat_launches(per_call, steps, forwards=0):
+    """:func:`unet_launches` of remat train steps: each block's GroupNorm and
+    attention forwards run again in the backward (every call but the
+    output head's GroupNorm, which no block holds)."""
+    g, a = per_call
+    out = unet_launches(per_call, steps, forwards)
+    out["group_norm"] += steps * (g - 1)
+    out["attention"] += steps * a
+    out["attention_lse"] += steps * a
+    return out
+
+
+def remat_path(tmp, gpu, tag, ctx):
+    """Phase 25 (see the module docstring); returns its figures. ``ctx``:
+    phase 24's ``hf_dir``, ``lmdb``, ``per_call``, ``params`` and ``macs``
+    (the dense UNet's)."""
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.cli import ddpm_train, profile_model
+    from diff_pruning_tpu_torch.cli.ddpm_prune import load_unet
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.training.finetune import (Optimizer, TrainConfig,
+                                                          init_train_state, make_train_step)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"card": gpu, "b": LSUN_B, "laps_s": {}}
+
+    def lap(what):
+        out["laps_s"][what] = time.perf_counter() - t_phase
+
+    per_call = tuple(ctx["per_call"])
+    cfg, state = load_unet(ctx["hf_dir"])
+    cfg = dataclasses.replace(cfg, dropout=REMAT_DROPOUT)
+    sd = {k: v.to(dev) for k, v in state.items()}
+    del state
+    sched = DiffusionSchedule.create(device=dev)
+    x = torch.rand((LSUN_B, 256, 256, 3), generator=torch.Generator(device=dev).manual_seed(25),
+                   device=dev) * 2 - 1
+    torch.backends.cudnn.deterministic = True
+
+    # (a) one train step with and without remat from the same state and
+    # batch, the step's own draws (noise, t, dropout) from (seed, step)
+    out["step"] = {}
+    for prec, dname in (("bf16", "bfloat16"), ("no", "float32")):
+        runs = {}
+        for remat in (False, True):
+            net = UNet2D(cfg, device=dev)
+            net.load_state_dict(sd)
+            tcfg = TrainConfig(mixed_precision=prec, remat=remat)
+            st = init_train_state(net, tcfg)
+            step = make_train_step(net, sched, tcfg, seed=25)
+            torch.cuda.synchronize(dev)
+            resident = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            _, met = step(st, x)
+            end.record()
+            end.synchronize()
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev)
+            runs[remat] = {"net": net, "st": st, "step": step, "launches": launches,
+                           "loss": float(met["loss"]), "first_ms": start.elapsed_time(end),
+                           "peak_gb": peak / 1e9,
+                           "step_gb": (peak - resident) / 1e9,
+                           "mu": {n: m.clone() for n, m in st.opt_state.mu.items()}}
+        off, on = runs[False], runs[True]
+        assert off["launches"] == unet_launches(per_call, 1), off["launches"]
+        assert on["launches"] == remat_launches(per_call, 1), on["launches"]
+        # the second step of each, in turns (off, on, on, off): its ms
+        ms_off, ms_on = in_turns([lambda r=r: r["step"](r["st"], x) for r in (off, on)],
+                                 iters=1, warmup=0)
+        bit = all(torch.equal(on["mu"][n], m) for n, m in off["mu"].items())
+        if dname == "float32":
+            floor = 1e-6 * max(float(m.abs().max()) for m in off["mu"].values())
+            worst = max(float((on["mu"][n] - m).abs().max()) / max(float(m.abs().max()), floor)
+                        for n, m in off["mu"].items())
+            ok = all(float((on["mu"][n] - m).abs().max())
+                     <= SWEEP_GRAD_TOL * float(m.abs().max()) + floor
+                     for n, m in off["mu"].items())
+            rule = f"each param within {SWEEP_GRAD_TOL} of its max"
+        else:
+            worst = math.sqrt(sum(float(((on["mu"][n] - m) ** 2).sum())
+                                  for n, m in off["mu"].items())
+                              / sum(float((m ** 2).sum()) for m in off["mu"].values()))
+            ok = worst <= TRAIN_BF16_GRAD_RTOL
+            rule = f"{TRAIN_BF16_GRAD_RTOL} in norm"
+        fig = {"loss_off": off["loss"], "loss_on": on["loss"], "grads_worst": worst,
+               "grads_bit_identical": bit, "launches_off": off["launches"],
+               "launches_remat": on["launches"], "first_step_ms": [off["first_ms"],
+                                                                   on["first_ms"]],
+               "step_ms_off": ms_off, "step_ms_remat": ms_on,
+               "peak_gb_off": off["peak_gb"], "peak_gb_remat": on["peak_gb"],
+               "step_gb_off": off["step_gb"], "step_gb_remat": on["step_gb"]}
+        out["step"][dname] = fig
+        print(f"remat train step lsun256 113.67M B={LSUN_B} {dname} dropout {REMAT_DROPOUT}, "
+              f"remat against none from one state: loss {on['loss']:.7f} against "
+              f"{off['loss']:.7f}, the step's grads (Adam's mu) worst {worst:.3e} ({rule}), "
+              f"bit-identical: loss {on['loss'] == off['loss']}, grads {bit}; peak memory "
+              f"{on['peak_gb']:.2f} GB against {off['peak_gb']:.2f} GB (above the resident "
+              f"weights and state: {on['step_gb']:.2f} against {off['step_gb']:.2f} GB); step "
+              f"{ms_on:.1f} ms against {ms_off:.1f} ms (CUDA events, in turns none-remat-remat-"
+              f"none, the second steps; first steps {on['first_ms']:.1f} and "
+              f"{off['first_ms']:.1f} ms) {tag}; launches remat {on['launches']}, none "
+              f"{off['launches']}")
+        rtol = TRAIN_LOSS_RTOL if dname == "float32" else TRAIN_BF16_LOSS_RTOL
+        assert math.isfinite(on["loss"]) and abs(on["loss"] - off["loss"]) <= rtol * abs(
+            off["loss"]), (on["loss"], off["loss"])
+        assert ok, (dname, worst)
+        assert on["step_gb"] < off["step_gb"], (on["step_gb"], off["step_gb"])
+        del runs, off, on
+        lap(f"step {dname}")
+    torch.backends.cudnn.deterministic = False
+
+    # (b) rmsprop, sgd and Adam on the cosine schedule (with the clip): 3
+    # updates of the LSUN UNet's first REMAT_OPT_PARAMS tensors by seeded
+    # grads on the card against the same updates on the CPU
+    ogen = torch.Generator().manual_seed(26)
+    names = list(sd)[:REMAT_OPT_PARAMS]
+    grads = [[torch.randn(sd[n].shape, generator=ogen) for n in names] for _ in range(3)]
+    # the clip's global norm, one value for both sides: summed over 1.4M
+    # squares in another order on the card it would part by ~1e-6
+    norms = [torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g))) for g in grads]
+    out["optimizers"] = {}
+    for label, kw in (("rmsprop", dict(optimizer="rmsprop")), ("sgd", dict(optimizer="sgd")),
+                      ("cosine_adam", dict(lr_schedule="cosine", lr_warmup_steps=1,
+                                           num_train_steps=3))):
+        res = {}
+        for where in ("cpu", "cuda"):
+            opt = Optimizer(TrainConfig(learning_rate=1e-2, **kw))
+            params = {n: sd[n].to(where, copy=True) for n in names}
+            st = opt.init(params)
+            for g, norm in zip(grads, norms):
+                opt.update([t.to(where, copy=True) for t in g], norm.to(where), st,
+                           list(params.values()))
+            res[where] = {**{f"param:{n}": t.cpu() for n, t in params.items()},
+                          **{k: torch.from_numpy(np.asarray(v))
+                             for k, v in st.by_keypath().items()}}
+        assert sorted(res["cpu"]) == sorted(res["cuda"]), label
+        worst = max(float((res["cuda"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+                    for k, v in res["cpu"].items() if v.is_floating_point())
+        counts = {k: int(v) for k, v in res["cuda"].items() if k.endswith("count")}
+        assert counts == {k: int(v) for k, v in res["cpu"].items() if k.endswith("count")}
+        out["optimizers"][label] = {"worst_rel": worst, "counts": counts}
+        print(f"optimizer {label} ({kw}), 3 updates with the clip of {len(names)} LSUN UNet "
+              f"tensors ({sum(sd[n].numel() for n in names):,} values) on the card against "
+              f"the CPU: params and state worst max |cuda - cpu| / max |cpu| a tensor "
+              f"{worst:.3e} (tol {OPT_RTOL}); state keys "
+              f"{sorted(k for k in res['cpu'] if not k.startswith('param:'))[:3]}..., counts "
+              f"{counts}")
+        assert worst <= OPT_RTOL, (label, worst)
+    lap("optimizers")
+
+    # (c) the main path: the train CLI with --remat on the diffusers dir over
+    # lsun:, 2 f32 steps (dropout 0.1) and the save with its vis grid
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    ft, _, ft_s = run_cli(ddpm_train.main, [
+        "--model_path", ctx["hf_dir"], "--dataset", "lsun:" + ctx["lmdb"], "--output_dir",
+        os.path.join(tmp, "lsun_remat"), "--train_batch_size", str(LSUN_B), "--num_iters",
+        str(REMAT_CLI_STEPS), "--save_model_steps", str(REMAT_CLI_STEPS), "--log_steps", "1",
+        "--vis_samples", str(LSUN_VIS), "--remat", "--device", "cuda"])
+    cli_counts = dict(ops.LAUNCHES)
+    cli_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = remat_launches(per_call, REMAT_CLI_STEPS, 100)
+    print(f"main path lsun train CLI --remat f32: {ft['steps']} steps of B={LSUN_B}, losses "
+          f"{ft['losses']}, whole CLI {ft_s:.2f} s (the save and its DDIM-100 vis grid of "
+          f"{LSUN_VIS} included), peak memory {cli_peak:.2f} GB {tag}; launches {cli_counts} "
+          f"(the blocks' forwards again in each backward)")
+    assert ft["steps"] == REMAT_CLI_STEPS and all(math.isfinite(v) for v in ft["losses"])
+    assert cli_counts == want, (cli_counts, want)
+    out["train_cli"] = {"losses": ft["losses"], "seconds": ft_s, "peak_gb": cli_peak,
+                        "launches": cli_counts}
+    lap("train CLI")
+
+    # (d) profile_model on the diffusers dir: the train step at B = 16, a trace
+    ops.reset_launch_counts()
+    trace_dir = os.path.join(tmp, "lsun_profile")
+    prof, text, prof_s = run_cli(profile_model.main, [
+        "--model_path", ctx["hf_dir"], "--batch_size", str(LSUN_B), "--train_step", "--trace",
+        trace_dir, "--device", "cuda"])
+    prof_counts = dict(ops.LAUNCHES)
+    trace_bytes = os.path.getsize(prof["trace"]) if prof["trace"] else 0
+    print(f"profile_model --train_step --trace, B={LSUN_B}: {prof['params']:,} params, "
+          f"{prof['macs'] / 1e9:.4f} G MACs (phase 24: {ctx['params']:,}, "
+          f"{ctx['macs'] / 1e9:.4f} G), {prof['flops'] / 1e12:.3f} TFLOP (FlopCounterMode, "
+          f"meta), peak memory {prof['peak_bytes'] / 1e9:.2f} GB, trace {trace_bytes:,} bytes, "
+          f"{prof_s:.2f} s {tag}; launches {prof_counts}")
+    assert (prof["params"], prof["macs"]) == (ctx["params"], ctx["macs"]), prof
+    assert trace_bytes > 0 and prof["flops"] > 0
+    assert "#MACs (conv/linear, reference-counter semantics)" in text
+    assert prof_counts == unet_launches(per_call, 3), prof_counts  # peak, warm-up, traced
+    out["profile_model"] = {k: prof[k] for k in ("params", "macs", "flops", "peak_bytes")}
+    out["profile_model"].update(trace_bytes=trace_bytes, seconds=prof_s, launches=prof_counts)
+    lap("profile_model")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"remat phase {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} at {v:.1f} s" for k, v in out["laps_s"].items()) + ")")
+    return out
+
+
 def dp_step_and_sweep(ctx, mesh, dev):
     """Phase 23's library run on ``mesh``'s rows of the global batch DP_B:
     one data-parallel train step (explicit noise and t, no dropout) and a
@@ -4602,6 +4870,137 @@ def dp_step_and_sweep(ctx, mesh, dev):
     res.update(steps_run=sw.steps_run, losses=np.asarray(sw.losses))
     res["grads"] = flat_from_state_dict(sw.grads)
     return res
+
+
+def ae_mesh_setup(ctx, dev):
+    """Phase 23's first-stage step inputs, alike on every rank: phase 21's
+    vq-f4 (phase 16's dir) with its codebook drawn at the latents' scale
+    from seed 0, the discriminator, LPIPS, loss and images as phase 21 seeds
+    them. Returns (model, disc, lpips, loss_cfg, masters, images)."""
+    import torch
+
+    from diff_pruning_tpu_torch.eval.lpips import LPIPS, init_lpips_params
+    from diff_pruning_tpu_torch.models.discriminator import NLayerDiscriminator
+    from diff_pruning_tpu_torch.models.vae import AutoencoderConfig, make_first_stage
+    from diff_pruning_tpu_torch.training import autoencoder as AE
+    from diff_pruning_tpu_torch.utils.checkpoint import load_params_npz
+
+    d = os.path.join(ctx["vq_dir"], "first_stage")
+    with open(os.path.join(d, "config.json")) as f:
+        cfg = AutoencoderConfig.from_json(f.read())
+    model = make_first_stage(cfg, device="cpu")
+    model.load_state_dict(load_params_npz(os.path.join(d, "params.npz")))
+    model.to(dev)
+    images = torch.rand((AE_B, AE_RES, AE_RES, 3), generator=torch.Generator(
+        device=dev).manual_seed(21), device=dev) * 2 - 1
+    disc = NLayerDiscriminator(input_nc=cfg.in_channels, device="cpu").init(
+        torch.Generator().manual_seed(1)).to(dev)
+    lpips = LPIPS(device="cpu")
+    lpips.load_state_dict(init_lpips_params(torch.Generator().manual_seed(7)))
+    lpips.to(dev)
+    with torch.no_grad():
+        cb = model.quantize.embedding.weight
+        cb.copy_(torch.randn(cb.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                             device=dev) * model.encode(images[:2]).std())
+    masters = [{n: p.detach().clone() for n, p in net.named_parameters()}
+               for net in (model, disc)]
+    return (model, disc, lpips, AE.GANLossConfig(disc_start=0, disc_weight=0.5), masters,
+            images)
+
+
+def ae_mesh_reference(ctx, mesh, dev):
+    """Phase 23 (b) here, in the world-1 NCCL group: the vq-f4 step in bf16
+    with ``mesh=`` against the step without, bit for bit; then the f32 step
+    on the mesh (the gloo ranks' reference) and on AE_NUDGES one-ulp nudges
+    of the images, the VQ lookups pinned, saved to ``ctx["ae_ref"]``.
+    Returns the figures."""
+    import torch
+
+    model, disc, lpips, loss_cfg, masters, images = ae_mesh_setup(ctx, dev)
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        chosen = []
+        met, gmu, dmu, counts = ae_step(model, disc, lpips, loss_cfg, masters, images, "bf16",
+                                        chosen, replay=False, mesh=m)
+        runs[name] = (met, gmu, dmu, counts, chosen)
+    (mp_, gp, dp_, cp, chp), (mm, gm, dm, cm, chm) = runs["plain"], runs["mesh"]
+    same = {"metrics": mp_ == mm, "codes": all(torch.equal(a, b) for a, b in zip(chp, chm)),
+            "gen_mu": all(torch.equal(gm[n], t) for n, t in gp.items()),
+            "disc_mu": all(torch.equal(dm[n], t) for n, t in dp_.items())}
+    print(f"multi-GPU (b) first-stage train step vq-f4 B={AE_B} {AE_RES}x{AE_RES} bf16 with "
+          f"mesh= (NCCL, world 1) against the step without: bit-identical {same}; total_loss "
+          f"{mm['total_loss']:.7f}, d_weight {mm['d_weight']:.7f}; launches {cm}")
+    assert all(same.values()) and cp == cm, (same, cp, cm)
+    del runs, gp, dp_, gm, dm
+    chosen = []
+    ref = ae_step(model, disc, lpips, loss_cfg, masters, images, "no", chosen, replay=False,
+                  mesh=mesh)
+    up = torch.nextafter(images, torch.full_like(images, 2.0))
+    down = torch.nextafter(images, torch.full_like(images, -2.0))
+    ngen = torch.Generator(device=dev).manual_seed(23)
+    nudged = []
+    for _ in range(AE_NUDGES):
+        x = torch.where(torch.rand(images.shape, generator=ngen, device=dev) < 0.5, up, down)
+        nudged.append(ae_step(model, disc, lpips, loss_cfg, masters, x, "no", list(chosen),
+                              replay=True, mesh=mesh)[:3])
+    met, gmu, dmu, counts = ref
+    floors = {"metrics": {k: statistics.median(abs(m[k] - met[k]) / max(abs(met[k]), 1e-12)
+                                              for m, _, _ in nudged) for k in AE_DP_KEYS}}
+    for i, (net, mu) in enumerate((("gen", gmu), ("disc", dmu))):
+        floors[net] = {n: statistics.median(float((nd[i + 1][n] - t).abs().max())
+                                            for nd in nudged) for n, t in mu.items()}
+    torch.save({"metrics": met, "gen": {n: t.cpu() for n, t in gmu.items()},
+                "disc": {n: t.cpu() for n, t in dmu.items()}, "floors": floors,
+                "chosen": [c.cpu() for c in chosen], "launches": counts}, ctx["ae_ref"])
+    torch.backends.cudnn.deterministic = False
+    return {"bf16_bit_identical": same, "f32_metrics": met, "launches": counts,
+            "nudged_metric_floor": floors["metrics"]}
+
+
+def ae_mesh_compare(ctx, mesh, dev):
+    """Phase 23 (b) on a gloo rank: the f32 vq-f4 step on this rank's rows,
+    the VQ lookups replayed from the world-1 run's, against that run: the
+    losses and d_weight within max(DP_RTOL, min(NOISE_FACTOR x the nudged
+    runs' median change, AE_GATE_CAP)) relative, each param of both
+    networks' Adam first moments within max(DP_RTOL of its max, min(
+    NOISE_FACTOR x the nudged median, AE_GRAD_CAP of its max)) plus 1e-6 of
+    the largest: the row split changes the rounding of the convolutions (6
+    rows against 12) as a one-ulp nudge does, and the codec amplifies it.
+    The ranks end with the same generator. Returns the worst ratios."""
+    import torch
+    import torch.distributed as dist
+
+    from diff_pruning_tpu_torch.parallel.mesh import process_batch_slice
+
+    ref = torch.load(ctx["ae_ref"])
+    model, disc, lpips, loss_cfg, masters, images = ae_mesh_setup(ctx, dev)
+    lo, hi = process_batch_slice(mesh, AE_B)
+    torch.backends.cudnn.deterministic = True
+    met, gmu, dmu, counts = ae_step(model, disc, lpips, loss_cfg, masters, images[lo:hi], "no",
+                                    [c[lo:hi] for c in ref["chosen"]], replay=True, mesh=mesh)
+    torch.backends.cudnn.deterministic = False
+    assert counts == ref["launches"], (counts, ref["launches"])
+    worst = {}
+    for k in AE_DP_KEYS:
+        rel = abs(met[k] - ref["metrics"][k]) / max(abs(ref["metrics"][k]), 1e-12)
+        allowed = max(DP_RTOL, min(NOISE_FACTOR * ref["floors"]["metrics"][k], AE_GATE_CAP))
+        worst[k] = rel / allowed
+        assert rel <= allowed, (k, met[k], ref["metrics"][k], allowed)
+    for net, mu in (("gen", gmu), ("disc", dmu)):
+        floor = 1e-6 * max(float(t.abs().max()) for t in ref[net].values())
+        worst[net] = 0.0
+        for n, t in ref[net].items():
+            err, vmax = float((mu[n].cpu() - t).abs().max()), float(t.abs().max())
+            allowed = max(DP_RTOL * vmax, min(NOISE_FACTOR * ref["floors"][net][n],
+                                              AE_GRAD_CAP["float32"] * vmax)) + floor
+            worst[net] = max(worst[net], err / allowed)
+            assert err <= allowed, (net, n, err, vmax, allowed)
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    theirs = flat.clone()
+    dist.broadcast(theirs, 0)
+    assert torch.equal(theirs, flat), f"rank {mesh.rank}'s generator differs from rank 0's"
+    return {"worst_over_allowed": worst, "metrics": met, "launches": counts}
 
 
 def dp_compare(got, ref, lr):
@@ -4725,6 +5124,10 @@ def dp_worker(argv) -> None:
         lap("compared")
         out.update(rank=rank, worst=worst, step_launches=res["step_launches"],
                    sweep_launches=res["sweep_launches"], rows=DP_B // 2)
+        del res
+        torch.cuda.empty_cache()
+        out["ae"] = ae_mesh_compare(ctx, mesh, dev)
+        lap("first-stage step")
         dist.barrier()
         dist.destroy_process_group()
     else:
@@ -4829,6 +5232,38 @@ def dp_worker(argv) -> None:
         assert np.array_equal(l_plain, l_mh) and grads_same and scores_same and model_same
         assert runs["multihost"][0]["channel_sizes"] == runs["plain"][0]["channel_sizes"]
         assert runs["plain"][1] == runs["multihost"][1] == want, (runs["plain"][1], want)
+
+        # (a) the fid_score CLI between phases 5 and 6's sample folders: the
+        # features of both folders, caught on their way out, and the FID
+        from diff_pruning_tpu_torch.cli import fid_score
+        from diff_pruning_tpu_torch.eval import fid as fid_mod
+
+        feats = {"plain": [], "multihost": []}
+        features_fn = fid_mod.features_of_path
+        try:
+            for name in ("plain", "multihost"):
+                def catch(*a, _name=name, **k):
+                    f = features_fn(*a, **k)
+                    feats[_name].append(f)
+                    return f
+
+                fid_mod.features_of_path = catch
+                runs[name] = cli(fid_score.main, [ctx["samples"]["dense"],
+                                                  ctx["samples"]["pruned"], "--random-init-seed",
+                                                  "0", "--device", "cuda"], name == "multihost")
+                lap(f"fid_score CLI {name}")
+        finally:
+            fid_mod.features_of_path = features_fn
+        same = len(feats["plain"]) == len(feats["multihost"]) == 2 and all(
+            np.array_equal(a, b) for a, b in zip(feats["plain"], feats["multihost"]))
+        out["fid_score_cli"] = {"fid": runs["multihost"][0], "features_bit_identical": same,
+                                "images": [len(f) for f in feats["multihost"]]}
+        print(f"multi-GPU (a) fid_score CLI --multihost (NCCL, world 1) against the plain CLI, "
+              f"phase 5's against phase 6's samples ({[len(f) for f in feats['plain']]} images): "
+              f"FID {runs['multihost'][0]!r} against {runs['plain'][0]!r}; features "
+              f"bit-identical {same}; launches {runs['multihost'][1]}")
+        assert same and runs["multihost"][0] == runs["plain"][0], out["fid_score_cli"]
+        assert not any(runs["multihost"][1].values())  # no kernel of the port there
     out["seconds"] = time.perf_counter() - t0
     with open(ctx["out"] + f"_{mode.replace(':', '')}.json", "w") as f:
         json.dump(out, f)
@@ -4859,6 +5294,7 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
              noise=rng.standard_normal((DP_B, 32, 32, 3)).astype(np.float32),
              t=np.concatenate([half, 999 - half])[:DP_B].astype(np.int64))
     wctx = dict(ctx, tmp=tmp, inputs=inputs, ref=os.path.join(tmp, "dp_ref.npz"),
+                ae_ref=os.path.join(tmp, "dp_ae_ref.pt"),
                 out=os.path.join(tmp, "dp_out"), gloo_port=free_port(),
                 lr=TrainConfig().learning_rate)
     ctx_path = os.path.join(tmp, "dp_ctx.json")
@@ -4885,6 +5321,8 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
             assert ref["sweep_launches"] == unet_launches(ctx["per_call"], DP_SWEEP_STEPS)
             dp_save(wctx["ref"], ref)
             del ref
+            ae_ref = ae_mesh_reference(wctx, mesh, dev)
+            torch.cuda.empty_cache()
             t_ref = time.perf_counter() - t_phase
             procs += [start(f"gloo:{r}", dict(os.environ)) for r in (0, 1)]
             for p in procs:
@@ -4929,6 +5367,18 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
               f"{g['worst']} (tol {DP_RTOL} x param max + 1e-6 of the largest; params "
               f"{ADAM_MOVE} x lr); launches step {g['step_launches']}, sweep "
               f"{g['sweep_launches']}")
+    for r in (0, 1):
+        g = res[f"gloo{r}"]["ae"]
+        print(f"multi-GPU (b) first-stage train step vq-f4 f32, gloo rank {r} of 2, "
+              f"{AE_B // 2} rows, the VQ lookups replayed: against the world-1 NCCL run on "
+              f"{AE_B}, worst |diff| over its allowance {g['worst_over_allowed']} (losses and "
+              f"d_weight max({DP_RTOL}, min({NOISE_FACTOR} x the {AE_NUDGES} nudged runs' "
+              f"median, {AE_GATE_CAP})); Adam's moments each param max({DP_RTOL} of its max, "
+              f"min({NOISE_FACTOR} x nudged, {AE_GRAD_CAP['float32']} of its max))); total_loss "
+              f"{g['metrics']['total_loss']:.7f} against "
+              f"{ae_ref['f32_metrics']['total_loss']:.7f}, d_weight "
+              f"{g['metrics']['d_weight']:.7f} against {ae_ref['f32_metrics']['d_weight']:.7f}; "
+              f"launches {g['launches']}")
     c = ctx["ldm_sample"]
     print(f"multi-GPU (c) ldm_sample --multihost (NCCL, world 1) in phase 16: {c['pngs']} PNGs, "
           f"launches {c['launches']}, {c['imgs_per_s']:.2f} imgs/s")
@@ -4939,6 +5389,7 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
           f"plain step's {step_ms['plain_imgs_per_s']:.1f} {tag}")
     return {"card": gpu, "seconds": seconds, "reference_seconds": t_ref,
             "train_cli": res["nccl1"]["train_cli"], "prune_cli": res["nccl1"]["prune_cli"],
+            "fid_score_cli": res["nccl1"]["fid_score_cli"], "ae_step": ae_ref,
             "ldm_sample": c, "step_ms": step_ms, "nccl1_laps_s": res["nccl1"]["laps_s"],
             "gloo_ranks": [res["gloo0"], res["gloo1"]]}
 
@@ -5780,16 +6231,22 @@ def main() -> None:
     multi_gpu = multi_gpu_path(tmp, gpu, tag, {
         "ckpt": os.path.join(tmp, "dense"), "data": data,
         "per_call": (sum(gn_dense.values()), sum(attn_dense.values())),
-        "ldm_sample": ldm["cli"]["plms_multihost"]})
+        "ldm_sample": ldm["cli"]["plms_multihost"], "vq_dir": ldm_dir,
+        "samples": {name: os.path.join(tmp, name + "_samples") for name in ("dense", "pruned")}})
 
     mark(24)
     # -- 24. the LSUN-256 path: a diffusers dir and an lmdb through the prune,
     # train (bf16) and sampling CLIs at full width; every kernel at its shapes
     lsun = lsun_path(tmp, gen, gpu, tag, worst)
-    tmpdir.cleanup()
 
     mark(25)
-    # -- 25. result lines
+    # -- 25. the remat path on phase 24's diffusers dir and lmdb: the train
+    # step with and without --remat, the new optimizers, profile_model
+    remat = remat_path(tmp, gpu, tag, lsun["dense"])
+    tmpdir.cleanup()
+
+    mark(26)
+    # -- 26. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -5857,6 +6314,7 @@ def main() -> None:
               "attention_bwd_dq": "dq", "attention_bwd_dkv": "dkv"}[key]
         res = {"launches_lsun_prune_cli": lsun["prune_cli"]["launches"][key],
                "launches_lsun_train_cli": lsun["train_cli"]["launches"][key],
+               "launches_remat_train_cli": remat["train_cli"]["launches"][key],
                "max_abs_err_lsun": worst[(key + "_lsun", "float32")],
                "max_abs_err_lsun_bf16": worst[(key + "_lsun", "bfloat16")],
                "lsun_shape": (lsun["ops"]["float32"]["gn_shape"] if key.startswith("group_norm")
@@ -6102,6 +6560,7 @@ def main() -> None:
     print(json.dumps({"text_ldm": text}))
     print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"lsun": lsun}))
+    print(json.dumps({"remat": remat}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

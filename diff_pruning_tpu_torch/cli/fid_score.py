@@ -1,7 +1,7 @@
 """CLI: FID between two paths (counterpart of ``diff_pruning_tpu/cli/fid_score.py``).
 
     python -m diff_pruning_tpu_torch.cli.fid_score path1 path2 [--save-stats] \\
-        [--clean] [--random-init-seed S] [--device cuda]
+        [--clean] [--random-init-seed S] [--device cuda] [--multihost]
 
 Paths may be image dirs, dataset names (cifar10), or .npz stats files.
 Needs local FID Inception weights (eval/inception.py: a pt_inception
@@ -9,6 +9,13 @@ Needs local FID Inception weights (eval/inception.py: a pt_inception
 ``--random-init-seed``. ``--device cuda`` without a GPU raises: the CLI
 never carries on on the CPU. TF32 is off for matmuls and convolutions
 (printed at the start).
+
+With ``--multihost`` (one process per GPU, e.g. ``torchrun --nproc_per_node
+N -m diff_pruning_tpu_torch.cli.fid_score --multihost ...``, or the address
+flags; gloo with ``--device cpu``) each process runs its rows of every
+Inception batch (``eval/fid.py``), where the JAX CLI shards the batch over
+its local devices; every process gets the same features and FID, and only
+process 0 writes the stats file and prints the FID.
 """
 
 from __future__ import annotations
@@ -35,6 +42,9 @@ def parse_args(argv=None):
                         "NOT comparable to published FID numbers")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    from ._multihost import add_multihost_args
+
+    add_multihost_args(p)
     return p.parse_args(argv)
 
 
@@ -42,10 +52,13 @@ def main(argv=None):
     """Prints ``FID:  <value>`` and returns the value; with ``--save-stats``
     writes path2 and returns None."""
     args = parse_args(argv)
+    from ._multihost import maybe_init_distributed
     from .ddpm_sample import pin_f32_precision, resolve_device
 
     pin_f32_precision()
-    device = resolve_device(args.device)
+    mesh = maybe_init_distributed(args)  # before the first use of the card
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    is_main = mesh is None or mesh.is_main
     from ..eval.fid import fid_between_paths, save_stats, statistics_of_path
     from ..eval.inception import (fid_inception, load_fid_inception_state_dict,
                                   random_init_fid_inception_state_dict)
@@ -53,8 +66,9 @@ def main(argv=None):
     # an explicit --random-init-seed wins over weights found on disk, so the
     # score stays comparable with scores computed where no weights exist
     if args.random_init_seed is not None:
-        print(f"NOTE: random-init inception (seed={args.random_init_seed}) — "
-              "relative distance only, not comparable to published FID")
+        if is_main:
+            print(f"NOTE: random-init inception (seed={args.random_init_seed}) — "
+                  "relative distance only, not comparable to published FID")
         state = random_init_fid_inception_state_dict(args.random_init_seed)
     else:
         state = load_fid_inception_state_dict(args.inception_weights)
@@ -67,14 +81,16 @@ def main(argv=None):
     mode = "clean" if args.clean else "torch"
     if args.save_stats:
         mu, sigma = statistics_of_path(args.path[0], model, batch_size=args.batch_size,
-                                       resolution=args.res, resize_mode=mode)
-        save_stats(args.path[1], mu, sigma, resize_mode=mode)
-        print(f"saved stats to {args.path[1]}")
+                                       resolution=args.res, resize_mode=mode, mesh=mesh)
+        if is_main:
+            save_stats(args.path[1], mu, sigma, resize_mode=mode)
+            print(f"saved stats to {args.path[1]}")
         return None
 
     fid = fid_between_paths(args.path[0], args.path[1], model, batch_size=args.batch_size,
-                            resolution=args.res, resize_mode=mode)
-    print("FID: ", fid)
+                            resolution=args.res, resize_mode=mode, mesh=mesh)
+    if is_main:
+        print("FID: ", fid)
     return fid
 
 

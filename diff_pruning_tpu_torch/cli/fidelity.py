@@ -3,12 +3,14 @@
 and prc all on).
 
     python -m diff_pruning_tpu_torch.cli.fidelity --input1 GEN --input2 REF \\
-        [--weights W] [--device cuda]
+        [--weights W] [--device cuda] [--multihost]
 
 All four metrics come from ONE Inception feature pass per input; ISC also
 applies the classifier head, so it needs weights that carry one (or
 ``--no-isc``). ``--device cuda`` without a GPU raises; TF32 is off for
 matmuls and convolutions (printed at the start). Prints one JSON line.
+With ``--multihost`` (as ``cli/fid_score.py``) each process runs its rows
+of every Inception batch and gets the same features; process 0 prints.
 """
 
 from __future__ import annotations
@@ -37,11 +39,15 @@ def main(argv=None):
                    help="clean-fid preprocessing family")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cuda' raises when no GPU is present")
+    from ._multihost import add_multihost_args, maybe_init_distributed
+
+    add_multihost_args(p)
     args = p.parse_args(argv)
     from .ddpm_sample import pin_f32_precision, resolve_device
 
     pin_f32_precision()
-    device = resolve_device(args.device)
+    mesh = maybe_init_distributed(args)  # before the first use of the card
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     from ..eval.fid import activation_statistics, features_of_path, frechet_distance
     from ..eval.fidelity import inception_probs, inception_score, kid, precision_recall
     from ..eval.inception import fid_inception, load_fid_inception_state_dict
@@ -52,8 +58,10 @@ def main(argv=None):
                          "or a converted .npz)")
     model = fid_inception(state, device)
     mode = "clean" if args.clean else "torch"
-    f1 = features_of_path(args.input1, model, batch_size=args.batch_size, resize_mode=mode)
-    f2 = features_of_path(args.input2, model, batch_size=args.batch_size, resize_mode=mode)
+    f1 = features_of_path(args.input1, model, batch_size=args.batch_size, resize_mode=mode,
+                          mesh=mesh)
+    f2 = features_of_path(args.input2, model, batch_size=args.batch_size, resize_mode=mode,
+                          mesh=mesh)
 
     out = {}
     mu1, s1 = activation_statistics(f1)
@@ -69,7 +77,8 @@ def main(argv=None):
         out["kernel_inception_distance_std"] = s
     if args.prc:
         out.update(precision_recall(f2, f1, device=device))
-    print(json.dumps({k: round(float(v), 5) for k, v in out.items()}))
+    if mesh is None or mesh.is_main:
+        print(json.dumps({k: round(float(v), 5) for k, v in out.items()}))
     return out
 
 

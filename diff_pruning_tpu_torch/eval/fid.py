@@ -10,16 +10,24 @@ eigendecomposition identity,
 
 exact for PSD covariances. Stats files keep the JAX layout (``mu``,
 ``sigma``, ``resize_mode``), so they cross between the packages both ways.
+
+With a ``mesh`` (``parallel/mesh.py``), the counterpart of the JAX
+package's batch sharded over the data axis: each rank runs its rows of
+every batch (a ragged batch zero-padded to a multiple of the world size,
+the pad rows dropped), and the features are gathered back in file order, so
+every rank returns the same features and statistics. A folder's ranks
+decode only their own rows.
 """
 
 from __future__ import annotations
 
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import DataMesh, all_gather_rows, padded_rows
 from .inception import FIDInceptionV3, inception_pool3
 from .resize import resize_bicubic_pil
 
@@ -53,9 +61,9 @@ def frechet_distance(mu1, sigma1, mu2, sigma2) -> float:
     return float(diff @ diff + np.trace(s1) + np.trace(s2) - 2.0 * tr_sqrt)
 
 
-@torch.inference_mode()
 def compute_activations(model: FIDInceptionV3, images_iter: Iterable[np.ndarray], *,
-                        resize_mode: str = "torch") -> np.ndarray:
+                        resize_mode: str = "torch",
+                        mesh: Optional[DataMesh] = None) -> np.ndarray:
     """Iterate uint8/float NHWC image batches -> stacked (N, 2048) features.
 
     resize_mode 'torch' is pytorch-fid's in-network bilinear resize; 'clean'
@@ -64,11 +72,36 @@ def compute_activations(model: FIDInceptionV3, images_iter: Iterable[np.ndarray]
     uint8 batches go to the device as they are and become x / 255 there
     (the same f32 division as the JAX package's on the host). Batches are
     taken as the iterator gives them (the last may be short), and the
-    features stay on the device until the last batch is queued."""
+    features stay on the device until the last batch is queued. With
+    ``mesh``, every rank iterates the same batches and runs its rows of
+    each (see the module docstring)."""
+
+    def chunks():
+        for batch in images_iter:
+            if mesh is None:
+                yield batch, len(batch)
+            else:
+                lo, hi, _ = padded_rows(mesh, len(batch))
+                yield batch[lo:hi], len(batch)
+
+    return _features(model, chunks(), resize_mode, mesh)
+
+
+@torch.inference_mode()
+def _features(model: FIDInceptionV3, chunks: Iterator[Tuple[np.ndarray, int]],
+              resize_mode: str, mesh: Optional[DataMesh]) -> np.ndarray:
+    """The features of ``chunks``: (this rank's rows of a batch, the batch's
+    rows). Under a mesh each rank pads its rows to the batch's share, and one
+    gather at the end puts every batch's rows back in order."""
     device = next(model.parameters()).device
-    out = []
-    for batch in images_iter:
-        x = torch.from_numpy(np.ascontiguousarray(batch))
+    out, sizes = [], []
+    for rows, n in chunks:
+        x = torch.from_numpy(np.ascontiguousarray(rows))
+        if mesh is not None:
+            per = padded_rows(mesh, n)[2]
+            if len(x) < per:  # the ragged batch's pad rows (or a rank without rows)
+                x = torch.cat([x, x.new_zeros((per - len(x),) + tuple(x.shape[1:]))])
+            sizes.append((n, per))
         if device.type == "cuda":  # pinned, so the copy need not wait for the device
             x = x.pin_memory()
         x = x.to(device, non_blocking=True)
@@ -78,7 +111,20 @@ def compute_activations(model: FIDInceptionV3, images_iter: Iterable[np.ndarray]
         else:
             feats = inception_pool3(model, x)
         out.append(feats)
-    return torch.cat(out).cpu().numpy()
+    local = torch.cat(out)
+    if mesh is None:
+        return local.cpu().numpy()
+    # every rank's padded rows, rank after rank; batch b's rows of rank r
+    # start at r * (the rows a rank holds) + the rows of the batches before
+    every = all_gather_rows(mesh, local).cpu().numpy()
+    held = sum(per for _, per in sizes)
+    parts, start = [], 0
+    for n, per in sizes:
+        rows = np.concatenate([every[r * held + start:r * held + start + per]
+                               for r in range(mesh.world)])
+        parts.append(rows[:n])
+        start += per
+    return np.concatenate(parts)
 
 
 def statistics_of_path(
@@ -89,6 +135,7 @@ def statistics_of_path(
     resolution: Optional[int] = None,
     max_images: Optional[int] = None,
     resize_mode: str = "torch",
+    mesh: Optional[DataMesh] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Dir of images, .npz stats cache, or dataset name -> (mu, sigma).
 
@@ -105,7 +152,7 @@ def statistics_of_path(
                           f"{resize_mode} — FID mixes preprocessing families")
                 return z["mu"], z["sigma"]
     feats = features_of_path(path, model, batch_size=batch_size, resolution=resolution,
-                             max_images=max_images, resize_mode=resize_mode)
+                             max_images=max_images, resize_mode=resize_mode, mesh=mesh)
     return activation_statistics(feats)
 
 
@@ -117,37 +164,48 @@ def features_of_path(
     resolution: Optional[int] = None,
     max_images: Optional[int] = None,
     resize_mode: str = "torch",
+    mesh: Optional[DataMesh] = None,
 ) -> np.ndarray:
     """Dir of images / dataset name -> raw (N, 2048) pool3 features (shared
     by the FID statistics and the ISC/KID/PRC metrics in eval/fidelity.py).
 
     An image folder is decoded by 16 threads with one batch of lookahead,
-    so the next batch decodes while the device runs this one."""
+    so the next batch decodes while the device runs this one; under a
+    ``mesh`` each rank decodes only its rows of every batch."""
     from ..data.datasets import ArrayDataset, get_dataset
 
     ds = get_dataset(path, resolution=resolution)
     n = len(ds) if max_images is None else min(max_images, len(ds))
 
-    def batches():
+    def mine(i):  # this rank's rows [lo, hi) of the batch starting at i
+        m = min(i + batch_size, n) - i
+        lo, hi, _ = (0, m, m) if mesh is None else padded_rows(mesh, m)
+        return i + lo, i + hi, m
+
+    def chunks():
         if isinstance(ds, ArrayDataset):
             for i in range(0, n, batch_size):
-                yield ds.images[i:min(i + batch_size, n)]
+                lo, hi, m = mine(i)
+                yield ds.images[lo:hi], m
             return
         with ThreadPoolExecutor(max_workers=16) as pool:
             futs = {}
 
             def submit(i):
-                for j in range(i, min(i + batch_size, n)):
+                lo, hi, _ = mine(i)
+                for j in range(lo, hi):
                     futs[j] = pool.submit(ds.load, j)
 
             submit(0)
             for i in range(0, n, batch_size):
                 if i + batch_size < n:
                     submit(i + batch_size)
-                yield np.stack([futs.pop(j).result()
-                                for j in range(i, min(i + batch_size, n))])
+                lo, hi, m = mine(i)
+                rows = [futs.pop(j).result() for j in range(lo, hi)]
+                yield (np.stack(rows) if rows else
+                       np.zeros((0,) + ds.load(0).shape, np.uint8)), m
 
-    return compute_activations(model, batches(), resize_mode=resize_mode)
+    return _features(model, chunks(), resize_mode, mesh)
 
 
 def save_stats(path: str, mu: np.ndarray, sigma: np.ndarray,
@@ -159,9 +217,9 @@ def save_stats(path: str, mu: np.ndarray, sigma: np.ndarray,
 
 def fid_between_paths(path1: str, path2: str, model: FIDInceptionV3, *,
                       batch_size: int = 128, resolution: Optional[int] = None,
-                      resize_mode: str = "torch") -> float:
+                      resize_mode: str = "torch", mesh: Optional[DataMesh] = None) -> float:
     m1, s1 = statistics_of_path(path1, model, batch_size=batch_size,
-                                resolution=resolution, resize_mode=resize_mode)
+                                resolution=resolution, resize_mode=resize_mode, mesh=mesh)
     m2, s2 = statistics_of_path(path2, model, batch_size=batch_size,
-                                resolution=resolution, resize_mode=resize_mode)
+                                resolution=resolution, resize_mode=resize_mode, mesh=mesh)
     return frechet_distance(m1, s1, m2, s2)

@@ -11,7 +11,12 @@ Adam states and the graph cross between the packages.
 The discriminator runs only in train mode inside the GAN step, where torch's
 BatchNorm normalises with the batch's own statistics (biased variance, in
 f32): that is what ``_batch_stats_norm`` computes, and no running statistics
-are kept, as in the JAX package. ``forward`` takes and returns NHWC like the
+are kept, as in the JAX package. With a ``mesh`` (``parallel/mesh.py``) of
+more than one rank, where each rank holds its rows of the batch, the
+statistics are those of the global batch, as the JAX SPMD step computes
+them: the per-channel sums, then the sums of squared deviations from the
+global mean, summed over the ranks (differentiably, so the backward reduces
+too). ``forward`` takes and returns NHWC like the
 JAX model; the convolutions see NCHW views of it (``channels_last``), so no
 copy is made between layers.
 """
@@ -24,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_reduce_sum
 from ..pruning.graph import ChannelGraph, ChannelVar
 from .layers import Conv2D, Scope
 
@@ -34,8 +40,24 @@ def _batch_stats_norm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     mean and biased variance, in f32, then the affine; x's dtype out."""
     xf = x.to(torch.float32)
     var, mean = torch.var_mean(xf, dim=(0, 1, 2), correction=0)
+    return _affine(scale, bias, xf, mean, var, eps).to(x.dtype)
+
+
+def _batch_stats_norm_over_ranks(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                                 mesh, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`_batch_stats_norm` of the global batch, ``x`` this rank's rows:
+    the mean, then the biased variance about it, each a sum over the ranks
+    (two passes, differentiable)."""
+    xf = x.to(torch.float32)
+    n = xf.shape[0] * xf.shape[1] * xf.shape[2] * mesh.world
+    mean = all_reduce_sum(mesh, xf.sum(dim=(0, 1, 2))) / n
+    var = all_reduce_sum(mesh, ((xf - mean) ** 2).sum(dim=(0, 1, 2))) / n
+    return _affine(scale, bias, xf, mean, var, eps).to(x.dtype)
+
+
+def _affine(scale, bias, xf, mean, var, eps):
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    return y * scale.to(torch.float32) + bias.to(torch.float32)
 
 
 def actnorm_apply(scale: torch.Tensor, loc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -63,9 +85,11 @@ class _Norm(nn.Module):
         self.scale = nn.Parameter(torch.ones((var.size,), device=device))
         self.register_parameter(shift, nn.Parameter(torch.zeros((var.size,), device=device)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         if self.actnorm:
             return actnorm_apply(self.scale, self.loc, x)
+        if mesh is not None and mesh.world > 1:
+            return _batch_stats_norm_over_ranks(self.scale, self.bias, x, mesh)
         return _batch_stats_norm(self.scale, self.bias, x)
 
 
@@ -123,8 +147,9 @@ class NLayerDiscriminator(nn.Module):
         H / 2^n - 2 >= 1."""
         return 3 * (2 ** self.n_layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, input_nc) -> patch logits (N, h, w, 1)."""
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        """(N, H, W, input_nc) -> patch logits (N, h, w, 1); ``x`` is this
+        rank's rows of the batch under a ``mesh`` (BatchNorm over all)."""
         if min(x.shape[1], x.shape[2]) < self.min_input_size:
             # an undersized input gives an empty logits map and the GAN
             # losses (means over it) silently become NaN
@@ -136,6 +161,6 @@ class NLayerDiscriminator(nn.Module):
             blk = self.main[str(i)]
             h = blk["conv"](h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             if i > 0:
-                h = blk["norm"](h)
+                h = blk["norm"](h, mesh)
             h = F.leaky_relu(h, 0.2)
         return self.main["out"]["conv"](h.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

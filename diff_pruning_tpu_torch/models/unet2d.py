@@ -13,6 +13,15 @@ ResnetBlock's second GroupNorm+SiLU) applies only when the caller passes a
 ``dropout_generator``, as the JAX model applies it only when given a
 ``dropout_rng``; ``module.training`` does not switch it, so the sweep and
 the samplers stay deterministic.
+
+``forward(..., remat=True)`` under autograd wraps each ResnetBlock and each
+attention block in a non-reentrant ``torch.utils.checkpoint`` (the
+reference's ``gradient_checkpointing`` granularity; the JAX step's
+``jax.checkpoint``): only the blocks' inputs are kept, and the backward runs
+each block's forward again, kernels included, before its own backward. The
+recompute sees the tensors the forward saw (``call_in_dtype``'s casts too)
+and replays the dropout generator from the state it had at the block's
+entry, so the grads are the ones without remat.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..pruning.graph import CatVar, ChannelGraph, ChannelVar
 from .layers import (
@@ -177,6 +187,35 @@ def _block(resnets, attns, sampler_name: str, sampler) -> nn.ModuleDict:
     return blk
 
 
+def _checkpointed(block: nn.Module, *args):
+    """``block(*args)`` under a non-reentrant checkpoint. The backward's
+    recompute runs ``block`` over the tensors that this call's ``block``
+    held (under ``torch.func.functional_call`` they are not its own
+    parameters by then), with a ``torch.Generator`` among ``args`` set back
+    to its state here and restored after, so that the recompute draws this
+    call's dropout mask and later draws are left as they were. The global
+    RNG is not saved: the UNet draws only from explicit generators."""
+    params = dict(block.named_parameters())
+    gens = [a for a in args if isinstance(a, torch.Generator)]
+    entry = [g.get_state() for g in gens]
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return block(*a)
+        after = [g.get_state() for g in gens]
+        for g, st in zip(gens, entry):
+            g.set_state(st)
+        try:
+            return torch.func.functional_call(block, params, a)
+        finally:
+            for g, st in zip(gens, after):
+                g.set_state(st)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class UNet2D(nn.Module):
     """Built once from a config on ``device``; parameters are allocated, not
     initialised: call :meth:`init` with a generator, or load a state dict."""
@@ -326,11 +365,15 @@ class UNet2D(nn.Module):
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 class_labels: Optional[torch.Tensor] = None, *,
-                dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_generator: Optional[torch.Generator] = None,
+                remat: bool = False) -> torch.Tensor:
         """sample (B, H, W, C) NHWC; timesteps (B,) or scalar -> eps, NHWC.
         With ``dropout_generator``, every ResnetBlock drops at ``cfg.dropout``
-        from it, in forward order."""
+        from it, in forward order. ``remat``: checkpoint each block (see the
+        module docstring); without grad it changes nothing."""
         cfg = self.cfg
+        block = _checkpointed if remat and torch.is_grad_enabled() else (
+            lambda m, *args: m(*args))
         if cfg.center_input_sample:
             sample = 2.0 * sample - 1.0
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -353,9 +396,9 @@ class UNet2D(nn.Module):
         for blk in self.down_blocks.values():
             attns = blk["attentions"] if "attentions" in blk else None
             for j, r in blk["resnets"].items():
-                h = r(h, temb, dropout_generator)
+                h = block(r, h, temb, dropout_generator)
                 if attns is not None:
-                    h = attns[j](h)
+                    h = block(attns[j], h)
                 hs.append(h)
             if "downsamplers" in blk:
                 if cfg.downsample_padding == 0:
@@ -365,17 +408,17 @@ class UNet2D(nn.Module):
                 hs.append(h)
 
         mid = self.mid_block
-        h = mid["resnets"]["0"](h, temb, dropout_generator)
+        h = block(mid["resnets"]["0"], h, temb, dropout_generator)
         if "attentions" in mid:
-            h = mid["attentions"]["0"](h)
-        h = mid["resnets"]["1"](h, temb, dropout_generator)
+            h = block(mid["attentions"]["0"], h)
+        h = block(mid["resnets"]["1"], h, temb, dropout_generator)
 
         for blk in self.up_blocks.values():
             attns = blk["attentions"] if "attentions" in blk else None
             for j, r in blk["resnets"].items():
-                h = r(torch.cat([h, hs.pop()], dim=1), temb, dropout_generator)
+                h = block(r, torch.cat([h, hs.pop()], dim=1), temb, dropout_generator)
                 if attns is not None:
-                    h = attns[j](h)
+                    h = block(attns[j], h)
             if "upsamplers" in blk:
                 h = blk["upsamplers"]["0"]["conv"](upsample_nearest_2x(h))
 

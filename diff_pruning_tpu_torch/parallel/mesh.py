@@ -15,7 +15,11 @@ initialised (e.g. gloo over CUDA tensors, all_reduce and broadcast being all
 this layer needs) is used whatever its backend. Nothing falls back: a
 missing GPU, a missing rendezvous or a failed init raises. The JAX
 ``data_sharding``, ``replicated``, ``shard_batch`` and ``shard_batch_local``
-have no torch meaning; their one counterpart is :func:`local_rows`.
+have no torch meaning; their counterparts are :func:`local_rows` and
+:func:`padded_rows` (a batch split by rows) and :func:`all_gather_rows` (the
+rows put back together). :func:`all_reduce_sum` is a sum over the ranks
+that autograd differentiates (a statistic of the global batch inside a
+model: the PatchGAN's BatchNorm).
 """
 
 from __future__ import annotations
@@ -131,6 +135,49 @@ def local_rows(mesh: DataMesh, x: torch.Tensor) -> torch.Tensor:
     """Rows :func:`process_batch_slice` of the global tensor ``x`` (a view)."""
     lo, hi = process_batch_slice(mesh, x.shape[0])
     return x[lo:hi]
+
+
+def padded_rows(mesh: DataMesh, n: int) -> Tuple[int, int, int]:
+    """This rank's rows [lo, hi) of a batch of ``n`` rows that need not
+    divide by the world size, and ``per``, the rows each rank holds once the
+    batch is zero-padded to ``per x world``: rank r takes rows [r per, (r +
+    1) per), the pad rows at the end (the JAX ``compute_activations(mesh=)``
+    padding). ``hi - lo`` may be below ``per``, or 0."""
+    per = -(-n // mesh.world)
+    lo = min(mesh.rank * per, n)
+    return lo, min(lo + per, n), per
+
+
+def all_gather_rows(mesh: DataMesh, x: torch.Tensor) -> torch.Tensor:
+    """The ranks' ``x`` (the same shape on each) concatenated along the rows
+    in rank order; every rank gets the whole."""
+    parts = [torch.empty_like(x) for _ in range(mesh.world)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; its backward sums the output's grads over the ranks
+    too: with each rank's loss averaged into one by the grads' all_reduce
+    (:func:`all_reduce_mean`), every rank's input feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx = dy.clone()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx, None
+
+
+def all_reduce_sum(mesh: DataMesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks, differentiably (a new tensor)."""
+    return _AllReduceSum.apply(x, mesh.group)
 
 
 def _flat_collective(tensors: Iterable[torch.Tensor], op) -> None:

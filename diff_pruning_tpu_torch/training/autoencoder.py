@@ -40,6 +40,17 @@ and their reductions are f32. The LPIPS weights are cast once.
 The state is updated in place: ``AETrainState`` holds the two models' own
 parameters and Adam states. The KL draws come from a generator seeded by
 (seed, step), so a resumed run replays them; tests pass explicit noise.
+
+With a ``mesh`` (``parallel/mesh.py``) the step is the DDP counterpart of
+the JAX ``make_autoencoder_train_step(mesh=)``: each rank takes its rows of
+the global batch, and the grads of both optimizers are averaged over the
+ranks before each update. What the JAX step computes over the global batch
+is reduced over the ranks: the PatchGAN's BatchNorm statistics
+(``models/discriminator.py``, forward and backward), the two grads of the
+adaptive weight on ``conv_out``'s kernel (before their norms), the VQ
+code histogram behind the perplexity and the cluster use, and the logged
+losses; the KL posterior noise is drawn at the global shape and each rank
+keeps its rows.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .finetune import AdamState, Optimizer, TrainConfig, step_generator
+from ..parallel.mesh import DataMesh, all_reduce_mean, local_rows
+from .finetune import OptState, Optimizer, TrainConfig, step_generator
 
 # ---------------------------------------------------------------------------
 # losses (vqperceptual.py:11-40 and taming's hinge / vanilla)
@@ -81,12 +93,19 @@ def adopt_weight(weight: float, global_step: int, threshold: int = 0, value: flo
     return value if global_step < threshold else weight
 
 
-def measure_perplexity(predicted_indices: torch.Tensor, n_embed: int):
+def measure_perplexity(predicted_indices: torch.Tensor, n_embed: int,
+                       mesh: Optional[DataMesh] = None):
     """vqperceptual.py:26-33: the codebook's usage perplexity and the number
     of codes used, from the code counts (``bincount``, not a one-hot of
-    rows x codes: 1.6 GB for vq-f4 at B = 12)."""
+    rows x codes: 1.6 GB for vq-f4 at B = 12); with a ``mesh``, of the
+    counts summed over the ranks."""
     idx = predicted_indices.reshape(-1)
-    avg = torch.bincount(idx, minlength=n_embed).to(torch.float32) / idx.numel()
+    counts = torch.bincount(idx, minlength=n_embed)
+    total = idx.numel()
+    if mesh is not None:
+        torch.distributed.all_reduce(counts, group=mesh.group)
+        total *= mesh.world
+    avg = counts.to(torch.float32) / total
     perplexity = torch.exp(-(avg * torch.log(avg + 1e-10)).sum())
     return perplexity, (avg > 0).sum()
 
@@ -112,8 +131,8 @@ class GANLossConfig:
 class AETrainState:
     gen_params: Dict[str, torch.Tensor]   # the first stage's own parameters
     disc_params: Dict[str, torch.Tensor]  # the discriminator's
-    gen_opt: AdamState
-    disc_opt: AdamState
+    gen_opt: OptState
+    disc_opt: OptState
     step: int
 
 
@@ -142,11 +161,13 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 class _Codec(nn.Module):
     """The step's view of the first stage: ``forward(x, noise) -> (h, aux)``,
-    ``h`` the decoder's trunk output (NCHW) before ``conv_out``."""
+    ``h`` the decoder's trunk output (NCHW) before ``conv_out``. Under a
+    ``mesh`` a KL draw from a generator is made at the global shape and
+    this rank keeps its rows."""
 
-    def __init__(self, model: nn.Module, beta: float):
+    def __init__(self, model: nn.Module, beta: float, mesh: Optional[DataMesh] = None):
         super().__init__()
-        self.model, self.beta = model, beta
+        self.model, self.beta, self.mesh = model, beta, mesh
 
     def forward(self, x: torch.Tensor, noise):
         m = self.model
@@ -157,7 +178,11 @@ class _Codec(nn.Module):
             mean, lv = m.encode_moments(x).chunk(2, dim=-1)
             lv = lv.clamp(-30.0, 20.0)
             if isinstance(noise, torch.Generator):
-                noise = torch.randn(mean.shape, generator=noise, device=mean.device)
+                world = 1 if self.mesh is None else self.mesh.world
+                noise = torch.randn((mean.shape[0] * world,) + tuple(mean.shape[1:]),
+                                    generator=noise, device=mean.device)
+                if self.mesh is not None:
+                    noise = local_rows(self.mesh, noise)
             lat = mean + torch.exp(0.5 * lv) * noise.to(mean.dtype)
             # DiagonalGaussianDistribution.kl() against N(0, 1), summed per
             # image, in f32
@@ -169,7 +194,8 @@ class _Codec(nn.Module):
 
 def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Optional[nn.Module],
                                 disc: nn.Module, gen_opt: Optimizer, disc_opt: Optimizer, *,
-                                mixed_precision: str = "no", seed: int = 0):
+                                mixed_precision: str = "no", seed: int = 0,
+                                mesh: Optional[DataMesh] = None):
     """Returns ``step(state, images, *, noise=None, marks=None) -> metrics``
     for a ``VQModel`` or ``AutoencoderKL`` (``models/vae.py``) and a
     ``NLayerDiscriminator``: both optimizer passes on ``images`` (NHWC in
@@ -182,7 +208,11 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
     :func:`~diff_pruning_tpu_torch.training.finetune.step_generator`
     (``seed``, ``state.step``). ``marks``, if given, is called with
     ``"d_weight"``, ``"gen_backward"``, ``"disc"`` and ``"end"`` where those
-    parts of the step begin and where it ends (a timer's hooks)."""
+    parts of the step begin and where it ends (a timer's hooks).
+
+    With ``mesh``, ``images`` (and an explicit ``noise``) are this rank's
+    rows of the global batch, and every rank takes the same step: see the
+    module docstring. The metrics are the global batch's."""
     if mixed_precision not in ("no", "bf16"):
         raise ValueError(f"mixed_precision {mixed_precision!r}: 'no' | 'bf16'")
     is_vq = bool(model.cfg.num_vq_embeddings)
@@ -191,7 +221,7 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
     compute = torch.bfloat16 if mixed_precision == "bf16" else torch.float32
     if use_lpips and compute != torch.float32:
         lpips = copy.deepcopy(lpips).to(compute)  # the JAX layers cast per call: same values
-    codec = _Codec(model, cfg.vq_beta)
+    codec = _Codec(model, cfg.vq_beta, mesh)
     conv_out = model.decoder.conv_out
     k_out, b_out = "decoder.conv_out.kernel", "decoder.conv_out.bias"
     logvar = cfg.logvar_init
@@ -217,7 +247,11 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
         return (rec / math.exp(logvar) + logvar).sum() / x.shape[0], rec
 
     def disc_logits(params, x):
-        return torch.func.functional_call(disc, params, (x,)).to(torch.float32)
+        return torch.func.functional_call(disc, params, (x,), {"mesh": mesh}).to(torch.float32)
+
+    def mean_over_ranks(tensors):
+        if mesh is not None:
+            all_reduce_mean(mesh, tensors)
 
     def step(state: AETrainState, images: torch.Tensor, *, noise=None,
              marks: Optional[Callable[[str], None]] = None):
@@ -243,6 +277,7 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
                 w_last = state.gen_params[k_out]
                 nll_g, = torch.autograd.grad(nll, w_last, retain_graph=True)
                 g_g, = torch.autograd.grad(g_loss, w_last, retain_graph=True)
+                mean_over_ranks([nll_g, g_g])  # the global loss's grads, then their norms
                 d_weight = (torch.linalg.vector_norm(nll_g)
                             / (torch.linalg.vector_norm(g_g) + 1e-4)).clamp(0.0, 1e4)
                 d_weight = d_weight * cfg.disc_weight
@@ -254,17 +289,20 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
             else:
                 loss = nll + cfg.kl_weight * aux["kl"] + d_weight * disc_factor * g_loss
             grads = torch.autograd.grad(loss, gen_plist, allow_unused=True)
-        gen_opt.update([torch.zeros_like(p) if g is None else g for g, p in zip(grads, gen_plist)],
-                       None, state.gen_opt, gen_plist)
-        metrics = {"total_loss": loss.detach(), "nll_loss": nll.detach(),
-                   "rec_loss": rec.detach().mean(), "d_weight": d_weight,
-                   "disc_factor": disc_factor, "g_loss": g_loss.detach()}
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, gen_plist)]
+        mean_over_ranks(grads)
+        gen_opt.update(grads, None, state.gen_opt, gen_plist)
+        # the logged losses, as new tensors (averaged over the ranks in place)
+        losses = {"total_loss": loss, "nll_loss": nll, "rec_loss": rec.mean(), "g_loss": g_loss,
+                  **({"quant_loss": aux["qloss"]} if is_vq else {"kl_loss": aux["kl"]})}
+        losses = {k: v.detach().clone() for k, v in losses.items()}
+        mean_over_ranks(list(losses.values()))
+        metrics = {**losses, "d_weight": d_weight, "disc_factor": disc_factor}
         if is_vq:
-            perp, used = measure_perplexity(aux["idx"], model.cfg.num_vq_embeddings)
-            metrics.update(quant_loss=aux["qloss"].detach(), perplexity=perp,
-                           cluster_usage=used)
+            perp, used = measure_perplexity(aux["idx"], model.cfg.num_vq_embeddings, mesh)
+            metrics.update(perplexity=perp, cluster_usage=used)
         else:
-            metrics.update(kl_loss=aux["kl"].detach(), logvar=logvar)
+            metrics.update(logvar=logvar)
         del gp, h, aux, recon, nll, rec, g_loss, loss, grads
 
         # the discriminator pass, on reconstructions by the updated generator
@@ -280,10 +318,13 @@ def make_autoencoder_train_step(model: nn.Module, cfg: GANLossConfig, lpips: Opt
             logits_real = disc_logits(dp, x)
             logits_fake = disc_logits(dp, recon)
             d_loss = disc_factor * d_loss_fn(logits_real, logits_fake)
-            dgrads = torch.autograd.grad(d_loss, disc_plist)
+            dgrads = list(torch.autograd.grad(d_loss, disc_plist))
+        mean_over_ranks(dgrads)
         disc_opt.update(dgrads, None, state.disc_opt, disc_plist)
-        metrics.update(disc_loss=d_loss.detach(), logits_real=logits_real.detach().mean(),
-                       logits_fake=logits_fake.detach().mean())
+        dm = {"disc_loss": d_loss.detach().clone(), "logits_real": logits_real.detach().mean(),
+              "logits_fake": logits_fake.detach().mean()}
+        mean_over_ranks(list(dm.values()))
+        metrics.update(dm)
         state.step += 1
         mark("end")
         return metrics

@@ -156,7 +156,7 @@ def save_train_state(path: str, *, step: int, params: Mapping[str, torch.Tensor]
     """Writes ``<path>/step-<step>/`` and points ``LATEST`` at it; keeps the
     newest ``keep`` committed versions. ``params``/``ema_params`` are state
     dicts; ``opt_state`` is an object with ``by_keypath()``
-    (``training.finetune.AdamState``); ``extra_meta`` records what resume
+    (``training.finetune.OptState``); ``extra_meta`` records what resume
     needs beyond tensors (seed, batches consumed).
 
     Crash-atomic as the JAX version: ``meta.json`` is written and fsynced
@@ -216,7 +216,7 @@ def _resolve_ckpt_dir(path: str, step: Optional[int] = None) -> str:
 
 
 def restore_opt_state(path: str, opt_state_template, step: Optional[int] = None):
-    """Fills ``opt_state_template`` (a fresh ``AdamState``) in place from the
+    """Fills ``opt_state_template`` (a fresh ``OptState``) in place from the
     saved ``opt_state.npz`` (of version ``step``, default ``LATEST``'s),
     matched by keypath; raises on a missing path.
     Returns ``(state, True)``, or ``(template, False)`` when the checkpoint

@@ -6,11 +6,15 @@ returns their outputs; a rank that fails or outlives the limit fails the
 caller (the others are killed, so no rank waits in a collective). Run as a
 script, this file is one rank of a library-level run:
 
-    python tests/_torch_dp.py train|sweep RANK WORLD PORT IN_DIR OUT_DIR
+    python tests/_torch_dp.py train|sweep|ae RANK WORLD PORT IN_DIR OUT_DIR
 
-``IN_DIR`` holds a UNet checkpoint (``utils/checkpoint.save_model``) and
-``inputs.npz``; the rank writes ``OUT_DIR/rank{RANK}.npz``. It imports torch
-and the port only.
+For ``train`` and ``sweep``, ``IN_DIR`` holds ``inputs.npz``,
+``kwargs.json`` and a UNet checkpoint (``utils/checkpoint.save_model``); for
+``ae``, subdirectories that each hold ``inputs.npz``, ``kwargs.json``, a
+first stage (``first_stage/``), the discriminator's (``disc.npz``) and,
+optionally, LPIPS's (``lpips.npz``) params: one step each (:func:`ae_step`).
+The rank writes ``OUT_DIR/rank{RANK}.npz`` (for ``ae`` each key prefixed
+by its subdirectory's name and ``/``). It imports torch and the port only.
 """
 
 import json
@@ -86,22 +90,36 @@ def _main(mode, rank, world, port, in_dir, out_dir):
     import torch
 
     sys.path.insert(0, REPO)
-    from diff_pruning_tpu_torch.models.unet2d import UNet2D
     from diff_pruning_tpu_torch.parallel.mesh import init_distributed, local_rows
-    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
-    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict, load_model
+    from diff_pruning_tpu_torch.utils.checkpoint import flat_from_state_dict
 
     torch.set_num_threads(1)
     mesh = init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+
+    def inputs_of(d):
+        with np.load(os.path.join(d, "inputs.npz")) as f:
+            inputs = {k: torch.from_numpy(f[k]) for k in f.files}
+        with open(os.path.join(d, "kwargs.json")) as f:
+            return inputs, json.load(f)
+
+    out = {}
+    if mode == "ae":
+        for kind in sorted(os.listdir(in_dir)):
+            inputs, kwargs = inputs_of(os.path.join(in_dir, kind))
+            res = ae_step(os.path.join(in_dir, kind), local_rows(mesh, inputs["x"]), kwargs,
+                          mesh=mesh)
+            out.update({f"{kind}/{k}": v for k, v in res.items()})
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        return
+    inputs, kwargs = inputs_of(in_dir)
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
     cfg, state = load_model(in_dir)
     model = UNet2D(cfg, device="cpu")
     model.load_state_dict(state)
     schedule = DiffusionSchedule.create(device="cpu")
-    with np.load(os.path.join(in_dir, "inputs.npz")) as f:
-        inputs = {k: torch.from_numpy(f[k]) for k in f.files}
-    with open(os.path.join(in_dir, "kwargs.json")) as f:
-        kwargs = json.load(f)
-    out = {}
     if mode == "train":
         from diff_pruning_tpu_torch.training.finetune import (TrainConfig, init_train_state,
                                                               make_train_step)
@@ -126,6 +144,45 @@ def _main(mode, rank, world, port, in_dir, out_dir):
     else:
         raise ValueError(mode)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def ae_step(in_dir, x, kwargs, mesh=None):
+    """One first-stage train step (``training/autoencoder.py``) from
+    ``in_dir``'s models on the images ``x`` (this rank's rows under
+    ``mesh``); ``kwargs``: ``loss`` (GANLossConfig's fields), ``disc``
+    (NLayerDiscriminator's), ``lr``, ``seed``. Returns the metrics
+    (``m:<name>``) and both Adam states (``gen:<keypath>``,
+    ``disc:<keypath>``) and params (``gen_params:<path>``, ...) as arrays."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from diff_pruning_tpu_torch.eval.lpips import LPIPS
+    from diff_pruning_tpu_torch.models.discriminator import NLayerDiscriminator
+    from diff_pruning_tpu_torch.models.vae import AutoencoderConfig, make_first_stage
+    from diff_pruning_tpu_torch.training import autoencoder as tae
+    from diff_pruning_tpu_torch.utils.checkpoint import (flat_from_state_dict, load_model,
+                                                         load_params_npz)
+
+    cfg, state = load_model(in_dir, subfolder="first_stage", config_cls=AutoencoderConfig)
+    model = make_first_stage(cfg, device="cpu")
+    model.load_state_dict(state)
+    disc = NLayerDiscriminator(**kwargs["disc"], device="cpu")
+    disc.load_state_dict(load_params_npz(os.path.join(in_dir, "disc.npz")))
+    lpips = None
+    if os.path.exists(os.path.join(in_dir, "lpips.npz")):
+        lpips = LPIPS(device="cpu")
+        lpips.load_state_dict(load_params_npz(os.path.join(in_dir, "lpips.npz")))
+    go, do = tae.make_ae_optimizers(kwargs["lr"])
+    st = tae.init_ae_train_state(model, disc, go, do)
+    m = tae.make_autoencoder_train_step(model, tae.GANLossConfig(**kwargs["loss"]), lpips, disc,
+                                        go, do, seed=kwargs["seed"], mesh=mesh)(st, x)
+    out = {f"m:{k}": np.asarray(float(v)) for k, v in m.items()}
+    for name, opt in (("gen", st.gen_opt), ("disc", st.disc_opt)):
+        out.update({f"{name}:{k}": v for k, v in opt.by_keypath().items()})
+    for name, params in (("gen_params", st.gen_params), ("disc_params", st.disc_params)):
+        out.update({f"{name}:{k}": v for k, v in flat_from_state_dict(params).items()})
+    return out
 
 
 if __name__ == "__main__":

@@ -241,7 +241,14 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
     features are ~80 in RMS, so the cubic kernel is ~1e11 and KID is an f32
     cancellation on both sides; features 3e-7 apart move each kernel value
     by ~1e-6 relative); precision/recall equal; compute_ssim prints
-    the JAX CLI's SSIM and MSE lines. ``--device cuda`` raises
+    the JAX CLI's SSIM and MSE lines. fid_score (``--save-stats``) and
+    fidelity with ``--multihost`` over 2 gloo ranks, at batches of 3 (3, 3,
+    2 images: each rank's rows padded, the last batch 1 + 1 rows), against
+    one process at batches of 8: mu within 1e-5 relative in norm, sigma
+    within 1e-3 (the features' offset again: batches of 2 and 8 move the
+    features by ~5e-8 relative, sigma by ~3e-5), FID, IS, KID and
+    precision/recall within 1e-5 relative (the printed 5 decimals at least),
+    only rank 0 writing and printing. ``--device cuda`` raises
     where no GPU is present, and the CLIs leave TF32 off."""
     from diff_pruning_tpu.cli import compute_ssim as jssim_cli
     from diff_pruning_tpu.cli import fid_score as jfid_cli
@@ -333,6 +340,23 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
     for key in ("kernel_inception_distance_mean", "kernel_inception_distance_std"):
         assert abs(got[key] - want[key]) <= 1e-5 * scale, (key, got[key], want[key])
     assert got["precision"] == want["precision"] and got["recall"] == want["recall"]
+
+    # --multihost: 2 gloo ranks, each running its rows of every batch of 3
+    import _torch_dp
+
+    stats2 = str(tmp_path / "torch_2ranks.npz")
+    outs = _torch_dp.cli_ranks("fid_score", [da, stats2, "--save-stats", "--inception-weights",
+                                             weights, "--batch-size", "3"])
+    assert [("saved stats" in o) for o in outs] == [True, False]
+    with np.load(str(tmp_path / "torch0.npz")) as z1, np.load(stats2) as z2:
+        assert _rel(z2["mu"], z1["mu"]) <= FEATURE_RTOL and _rel(z2["sigma"], z1["sigma"]) <= 1e-3
+    outs = _torch_dp.cli_ranks("fidelity", argv[:-1] + ["3"])
+    assert not outs[1].strip().splitlines()[-1].startswith("{")
+    two = json.loads(outs[0].strip().splitlines()[-1])
+    assert set(two) == set(got)
+    for key, v in two.items():  # KID: to 1e-5 of the mean kernel value, as above
+        tol = 1e-5 * (scale if key.startswith("kernel") else abs(got[key]))
+        assert abs(v - got[key]) <= max(tol, 5e-6), (key, v, got[key])
 
     want = _run(jssim_cli.main, [da, db, "--batch-size", "3"])[1].splitlines()
     got, out = _run(compute_ssim.main, [da, db, "--batch-size", "3", "--device", "cpu"])

@@ -21,6 +21,7 @@ matmuls, the port with TF32 off. Tolerances:
 
 import dataclasses
 import itertools
+import json
 import os
 
 import numpy as np
@@ -43,6 +44,8 @@ from diff_pruning_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(2)
 ATOL = RTOL = 5e-5
+# the autoencoder step on 2 gloo ranks against one process (_check_ae_mesh)
+AE_DP_RTOL = 1e-5
 TRAJ_RTOL = 1e-5
 PRESETS = ["cin256_v2_config", "celebahq_ldm_vq4_config", "ffhq_ldm_vq4_config",
            "lsun_bedrooms_ldm_vq4_config", "lsun_churches_ldm_kl8_config",
@@ -102,6 +105,75 @@ def _close(got, want, what):
 def _rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _check_ae_mesh(tmp_path, jlp):
+    """The first-stage train step with ``mesh=`` on 2 gloo ranks of 2 rows
+    against the port's one-process step on the 4 (``tests/_torch_dp.py``
+    ``ae``; one launch): VQ (BatchNorm PatchGAN, LPIPS, hinge) and KL (its
+    posterior drawn from the step's generator at the global shape, BatchNorm
+    PatchGAN, vanilla loss), every term live. The two ranks end bit-identical;
+    against one process the metrics lie within AE_DP_RTOL relative (measured
+    <= 3.3e-6: a mean of two row means against one mean) and both networks'
+    grads (Adam's first moments) within AE_DP_RTOL of each parameter's max
+    plus 1e-6 of the largest. Per-rank BatchNorm statistics move d_weight by
+    8-17 % and the discriminator's grads by up to 0.79 of a parameter's max;
+    a per-rank adaptive weight moves d_weight by 24-40 %. The one-process
+    step is held against the JAX step by
+    tests/test_torch_training.py::test_train_step_matches_jax (the same VQ
+    and KL configurations)."""
+    import _torch_dp
+    from diff_pruning_tpu.models.discriminator import NLayerDiscriminator as JDisc
+
+    x = np.random.default_rng(61).uniform(-1, 1, (4, 16, 16, 3)).astype(np.float32)
+    in_dir, out_dir = tmp_path / "ae_mesh_in", tmp_path / "ae_mesh_out"
+    out_dir.mkdir()
+    one = {}
+    for kind in ("vq", "kl"):
+        vq = kind == "vq"
+        cfg = jv.AutoencoderConfig(
+            block_out_channels=(8, 16), layers_per_block=1, latent_channels=3,
+            norm_num_groups=4, sample_size=16, num_vq_embeddings=16 if vq else None,
+            vq_embed_dim=3 if vq else None, mid_block_attention=vq)
+        dkw = dict(ndf=8, n_layers=2, use_actnorm=False)
+        jm, jd = jv.make_first_stage(cfg), JDisc(**dkw)
+        gflat, dflat = numpy_params(jm.init, 62), numpy_params(jd.init, 63)
+        if vq:  # codes at the latents' unit scale: f32 rounding decides no lookup
+            gflat["quantize/embedding/weight"] *= 10.0
+        lcfg = dict(disc_start=0, kl_weight=1e-2, disc_weight=0.5,
+                    perceptual_weight=1.0 if vq else 0.0, disc_loss="hinge" if vq else "vanilla")
+        kw = {"loss": lcfg, "disc": dkw, "lr": 1e-4, "seed": 7}
+        d = in_dir / kind
+        tckpt.save_model(str(d), tv.AutoencoderConfig.from_json(cfg.to_json()),
+                         tckpt.state_dict_from_flat(gflat), subfolder="first_stage")
+        tckpt.save_params_npz(str(d / "disc.npz"), tckpt.state_dict_from_flat(dflat))
+        if vq:
+            jckpt.save_params_npz(str(d / "lpips.npz"), jlp)
+        np.savez(d / "inputs.npz", x=x)
+        (d / "kwargs.json").write_text(json.dumps(kw))
+        one[kind] = _torch_dp.ae_step(str(d), torch.from_numpy(x), kw)
+    ranks = _torch_dp.lib_ranks("ae", in_dir, out_dir)
+    assert sorted(ranks[0]) == sorted(ranks[1])
+    for k, v in ranks[0].items():  # every rank takes the same step
+        np.testing.assert_array_equal(ranks[1][k], v, err_msg=k)
+
+    def close_mus(got, want, rtol, what):  # the rule of _check_data_parallel_step
+        for net in ("gen", "disc"):
+            mus = [k for k in want if k.startswith(net + ":") and ".mu" in k]
+            assert mus, (what, net)
+            floor = 1e-6 * max(np.abs(want[k]).max() for k in mus)
+            for k in mus:
+                err = np.abs(got[k] - want[k]).max()
+                assert err <= rtol * np.abs(want[k]).max() + floor, (what, k, err)
+
+    for kind, ref in one.items():
+        two = {k.split("/", 1)[1]: v for k, v in ranks[0].items() if k.startswith(kind + "/")}
+        assert sorted(two) == sorted(ref), kind
+        assert float(ref["m:d_weight"]) > 0 and float(ref["m:disc_factor"]) == 1.0
+        for k in (k for k in ref if k.startswith("m:")):
+            np.testing.assert_allclose(float(two[k]), float(ref[k]), rtol=AE_DP_RTOL,
+                                       atol=1e-9, err_msg=f"{kind} {k}: 2 ranks against 1")
+        close_mus(two, ref, AE_DP_RTOL, f"{kind}: 2 ranks against 1 process")
 
 
 def _unet_forward_both(jcfg, flat, x, t, ctx):
@@ -516,6 +588,7 @@ def test_ldm_models_match_jax(tmp_path):
                          jae.measure_perplexity(jnp.asarray(codes), 40)):
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     assert [tae.adopt_weight(2.0, s, threshold=3) for s in (2, 3)] == [0.0, 2.0]
+    _check_ae_mesh(tmp_path, jlp)
 
     # the VQ lookup in row chunks is bit-identical to the whole one
     vq = tv.make_first_stage(tv.AutoencoderConfig.from_json(_tiny_vae_config("vq").to_json()),

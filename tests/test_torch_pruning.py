@@ -71,9 +71,10 @@ def test_port_imports_nothing_of_jax():
     ``yaml`` (which the checkpoint and data modules must not need there)
     blocked (a blocked import raises) and
     no ``nvcc`` (CUDA_HOME points nowhere), none pulls jax or the JAX package
-    in, and the CLIs parse their arguments so, the five data-parallel ones
-    with the multihost flags (``parallel/mesh.py``, ``cli/_multihost.py``
-    and the checkpoint-conversion and data modules among them)."""
+    in, and the CLIs parse their arguments so, the data-parallel ones
+    with the multihost flags (``parallel/mesh.py``, ``cli/_multihost.py``,
+    ``cli/profile_model.py`` and the checkpoint-conversion and data modules
+    among them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex', 'safetensors',\n"
@@ -88,7 +89,8 @@ def test_port_imports_nothing_of_jax():
         "        'diff_pruning_tpu_torch.utils.convert', 'diff_pruning_tpu_torch.utils.ckpt_util',\n"
         "        'diff_pruning_tpu_torch.data.lmdb_io', 'diff_pruning_tpu_torch.data.ldm_datasets',\n"
         "        'diff_pruning_tpu_torch.cli.convert_checkpoints',\n"
-        "        'diff_pruning_tpu_torch.cli.make_lsun_lmdb'} <= set(names)\n"
+        "        'diff_pruning_tpu_torch.cli.make_lsun_lmdb',\n"
+        "        'diff_pruning_tpu_torch.cli.profile_model'} <= set(names)\n"
         "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
         "                                        ldm_prune, ldm_sample, ldm_train,\n"
         "                                        prune_finetune, prune_ssim)\n"
@@ -111,6 +113,10 @@ def test_port_imports_nothing_of_jax():
         "                               '--output_dir', 'o'])):\n"
         "    a = cli.parse_args(argv + mh)\n"
         "    assert a.multihost and a.num_processes == 2 and a.process_id == 1, cli\n"
+        "from diff_pruning_tpu_torch.cli import fid_score, profile_model\n"
+        "assert fid_score.parse_args(['a', 'b'] + mh).multihost\n"
+        "a = profile_model.parse_args(['--model_path', 'm', '--train_step'])\n"
+        "assert a.device == 'cuda' and a.train_step and a.trace is None\n"
         "compute_ssim.parse_args(['a', 'b'])\n"
         "from diff_pruning_tpu_torch.data import datasets\n"
         "datasets.get_dataset('txt:' + datasets.__file__ + ':.', 8)  # a txt list: no yaml\n"
@@ -292,12 +298,46 @@ def test_keep_indices_match_jax(mode):
                 np.testing.assert_array_equal(got.keep[var], idx, err_msg=f"{name} {var} cost")
 
 
+def _profile_model_prints_jax_counts(tmodel, capsys, tmp_path):
+    """``profile_model --device cpu`` on a checkpoint of ``tmodel`` prints the
+    JAX CLI's params and MACs lines at batch 2; its FlopCounterMode count of
+    the forward lies within 10 % of XLA's (both count the convolutions and
+    matmuls; each side has ops the other lacks), and with ``--train_step``
+    (the JAX CLI's loss) between 2 and 3.5 times that; no peak memory on
+    the CPU; ``--device cuda`` raises where no GPU is present."""
+    from diff_pruning_tpu.cli import profile_model as jprofile
+    from diff_pruning_tpu_torch.cli import profile_model
+    from diff_pruning_tpu_torch.utils.checkpoint import save_model
+
+    ckpt = str(tmp_path / "ckpt")
+    save_model(ckpt, tmodel.cfg, tmodel.init(torch.Generator().manual_seed(0)))
+    argv = ["--model_path", ckpt, "--batch_size", "2"]
+    got = profile_model.main(argv + ["--device", "cpu"])
+    mine = capsys.readouterr().out.splitlines()
+    train = profile_model.main(argv + ["--device", "cpu", "--train_step"])
+    capsys.readouterr()
+    assert 2.0 <= train["flops"] / got["flops"] <= 3.5, (train["flops"], got["flops"])
+    assert (train["params"], train["macs"]) == (got["params"], got["macs"])
+    jprofile.main(argv)
+    theirs = capsys.readouterr().out.splitlines()
+    for head in ("#Params:", "#MACs"):
+        assert [ln for ln in mine if ln.startswith(head)] == [
+            ln for ln in theirs if ln.startswith(head)], head
+    xla = float(next(ln for ln in theirs if ln.startswith("XLA exact FLOPs")).split(": ")[1]
+                .split()[0]) * 1e9
+    assert abs(got["flops"] / xla - 1) <= 0.1, (got["flops"], xla)
+    assert got["peak_bytes"] is None and "peak device memory: not measured on the CPU" in mine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_model.main(argv)
+
+
 @pytest.mark.parametrize("config", ["tiny_unet_config", "ddpm_cifar10_config"])
-def test_macs_and_params_match_jax(config, monkeypatch):
+def test_macs_and_params_match_jax(config, monkeypatch, capsys, tmp_path):
     """MACs and params, and the per-channel cost weights of every mode
     (pruning/cost.py), equal the JAX package's; the hybrid mode's
     FLOP-per-byte ratio is the H100's in the port and the TPU's in the JAX
-    package, so it is compared with the port's set to the JAX one."""
+    package, so it is compared with the port's set to the JAX one; the
+    profile_model CLI prints the JAX CLI's params and MACs."""
     from diff_pruning_tpu.pruning.cost import var_cost_weights as jcost
     from diff_pruning_tpu.pruning.flops import count_ops_and_params as jcount
     from diff_pruning_tpu_torch.pruning import cost as tcost
@@ -321,6 +361,8 @@ def test_macs_and_params_match_jax(config, monkeypatch):
                 jmodel, jparams, shape, mode="hybrid")
     with pytest.raises(ValueError, match="unknown cost mode"):
         tcost.var_cost_weights(tmodel, mode="flops")
+    if config == "tiny_unet_config":
+        _profile_model_prints_jax_counts(tmodel, capsys, tmp_path)
     if config == "ddpm_cifar10_config":
         assert count_ops_and_params(tmodel) == (6_053_953_536, 35_746_307)
         # the pruned size at ratio 0.3, from the JAX package's own pruner

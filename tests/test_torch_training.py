@@ -47,6 +47,7 @@ import pytest
 
 import jax
 import jax.numpy as jnp
+import optax
 import torch
 
 from diff_pruning_tpu.models import unet2d as junet
@@ -214,22 +215,12 @@ def _check_data_parallel_step(tmp_path):
                           lr, (accum, f"{part}: 2 ranks against the JAX mesh"))
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_train_step_matches_jax(precision, tmp_path):
-    """Three steps of JAX make_train_step (warmup 2, clip active, EMA on)
-    against the port's step on the same params, batches, noise and t:
-    losses, grad norms, the first step's grads and the optimizer's layout,
-    then params and EMA. f32: dropout changes the output only with a
-    generator, ddpm_loss, avg_pool_2x, a KD step against JAX, and the
-    data-parallel step on 2 gloo ranks against one process and the JAX
-    2-device mesh; bf16: the sweep's bf16 loss against JAX."""
-    cfg = junet.tiny_unet_config()
+def _step_against_jax(cfg, flat, batches, precision, remat):
+    """Three steps of the JAX step against the port's (the rules of
+    test_train_step_matches_jax); returns the JAX step's noise and t draws."""
     jmodel = junet.UNet2D(cfg)
-    flat = numpy_params(jmodel, 21)
-    rng = np.random.default_rng(22)
-    bsz = 4
-    batches = [rng.uniform(-1, 1, (bsz, 16, 16, 3)).astype(np.float32) for _ in range(3)]
-    kw = dict(lr_warmup_steps=2, ema_decay=0.9,
+    bsz = batches[0].shape[0]
+    kw = dict(lr_warmup_steps=2, ema_decay=0.9, remat=remat,
               mixed_precision="bf16" if precision == "bf16" else "no")
     jcfg = jft.TrainConfig(**kw)
     with jax.default_matmul_precision("float32"):
@@ -283,6 +274,113 @@ def test_train_step_matches_jax(precision, tmp_path):
             lim = ADAM_MOVE * lr_sum if (precision == "bf16" or k.endswith("to_k/bias")) \
                 else tol
             assert err <= lim, (k, err, lim)
+    return draws
+
+
+def _remat_bit_identical(cfg, flat, batches, precision):
+    """Two port steps with remat against two without, dropout 0.1 drawn from
+    the step's generator, with and without 2 micro-batches: the losses,
+    Adam's moments and the params bit for bit."""
+    cfg_d = dataclasses.replace(cfg, dropout=0.1)
+    mp = "bf16" if precision == "bf16" else "no"
+    for accum in (1, 2):
+        runs = []
+        for remat in (False, True):
+            m = port_model(cfg_d, flat)
+            tcfg = tft.TrainConfig(remat=remat, mixed_precision=mp,
+                                   gradient_accumulation_steps=accum)
+            st = tft.init_train_state(m, tcfg)
+            step = tft.make_train_step(m, DiffusionSchedule.create(), tcfg, seed=5)
+            losses = [float(step(st, torch.from_numpy(b))[1]["loss"]) for b in batches[:2]]
+            runs.append((losses, {f"{part}:{k}": v for part, tree in (
+                ("mu", st.opt_state.mu), ("params", st.params))
+                for k, v in tckpt.flat_from_state_dict(tree).items()}))
+        (l0, arrays0), (l1, arrays1) = runs
+        assert l0 == l1, (accum, l0, l1)
+        for k, v in arrays0.items():
+            np.testing.assert_array_equal(arrays1[k], v, err_msg=(accum, k))
+
+
+def _optimizers_match_optax():
+    """rmsprop, sgd and Adam with the cosine schedule (and rmsprop with a
+    warmup, and sgd after the cosine's end), with the global-norm clip,
+    against ``make_optimizer`` of the JAX package for 3 updates of random
+    grads: the params within 1e-6 relative to the LR summed over the steps,
+    the state's keypaths equal and its arrays and the params within f32
+    rounding. The
+    cosine schedule's LR against optax's at warmup 0, the last warmup step,
+    the step where the decay ends and after it (0)."""
+    rng = np.random.default_rng(71)
+    shapes = {"a/kernel": (3, 4), "a/bias": (4,), "b/scale": (5,)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) * 3 for k, s in shapes.items()}
+             for _ in range(3)]
+    cases = [dict(optimizer="rmsprop"), dict(optimizer="rmsprop", lr_warmup_steps=2),
+             dict(optimizer="sgd"), dict(optimizer="sgd", lr_schedule="cosine",
+                                         num_train_steps=2, grad_clip=0.0),
+             dict(lr_schedule="cosine", lr_warmup_steps=1, num_train_steps=3),
+             dict(lr_schedule="cosine", num_train_steps=2, weight_decay=0.1)]
+    for kw in cases:
+        jcfg, tcfg = jft.TrainConfig(learning_rate=1e-2, **kw), tft.TrainConfig(
+            learning_rate=1e-2, **kw)
+        jtx = jft.make_optimizer(jcfg)
+        jp = junflatten({k: jnp.asarray(v) for k, v in p0.items()})
+        jst = jtx.init(jp)
+        # the port's layout (kernels transposed), on copies: updated in place
+        tp = tckpt.state_dict_from_flat({k: v.copy() for k, v in p0.items()})
+        opt = tft.Optimizer(tcfg)
+        tst = opt.init(tp)
+        for g in grads:
+            jg = junflatten({k: jnp.asarray(v) for k, v in g.items()})
+            upd, jst = jtx.update(jg, jst, jp)
+            jp = optax.apply_updates(jp, upd)
+            tg = list(tckpt.state_dict_from_flat({k: v.copy() for k, v in g.items()}).values())
+            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tg]))
+            opt.update(tg, norm, tst, list(tp.values()))
+        want = jax_opt_arrays(jst)
+        mine = tst.by_keypath()
+        assert sorted(mine) == sorted(want), (kw, sorted(mine), sorted(want))
+        for k, v in want.items():
+            np.testing.assert_allclose(mine[k], v, rtol=2e-6, atol=1e-12, err_msg=(kw, k))
+        tflat = tckpt.flat_from_state_dict(tp)
+        for k, v in jflatten(jp).items():
+            np.testing.assert_allclose(tflat[k], np.asarray(v), rtol=2e-6, atol=1e-7,
+                                       err_msg=(kw, k))
+    for w, total in ((0, 4), (2, 5), (3, 4)):
+        sched = optax.schedules.warmup_cosine_decay_schedule(0.0, 2e-4, w, total)
+        opt = tft.Optimizer(tft.TrainConfig(lr_schedule="cosine", lr_warmup_steps=w,
+                                            num_train_steps=total))
+        for count in sorted({0, max(w - 1, 0), w, total - 1, total, total + 3}):
+            want = float(sched(count))
+            assert abs(opt.learning_rate(count) - want) <= 1e-7 * 2e-4, (w, total, count)
+        assert opt.learning_rate(total) == opt.learning_rate(total + 3) == 0.0
+    with pytest.raises(ValueError, match="must exceed lr_warmup_steps"):
+        tft.Optimizer(tft.TrainConfig(lr_schedule="cosine", lr_warmup_steps=4,
+                                      num_train_steps=4))
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_train_step_matches_jax(precision, tmp_path):
+    """Three steps of JAX make_train_step (warmup 2, clip active, EMA on)
+    against the port's step on the same params, batches, noise and t:
+    losses, grad norms, the first step's grads and the optimizer's layout,
+    then params and EMA; in f32 also with ``remat`` against the JAX remat
+    step. The port's remat step equals its step without remat bit for bit
+    (dropout 0.1, with and without accumulation over 2 micro-batches).
+    f32: dropout changes the output only with a generator, ddpm_loss,
+    avg_pool_2x, a KD step against JAX, the rmsprop, sgd and cosine
+    optimizers against optax, and the data-parallel step on 2 gloo ranks
+    against one process and the JAX 2-device mesh; bf16: the sweep's bf16
+    loss against JAX."""
+    cfg = junet.tiny_unet_config()
+    jmodel = junet.UNet2D(cfg)
+    flat = numpy_params(jmodel, 21)
+    rng = np.random.default_rng(22)
+    bsz = 4
+    batches = [rng.uniform(-1, 1, (bsz, 16, 16, 3)).astype(np.float32) for _ in range(3)]
+    for remat in (False, True) if precision == "f32" else (False,):
+        draws = _step_against_jax(cfg, flat, batches, precision, remat)
+    _remat_bit_identical(cfg, flat, batches, precision)
 
     # dropout: off without a generator, reproducible with one
     if precision == "f32":
@@ -328,6 +426,7 @@ def test_train_step_matches_jax(precision, tmp_path):
                       noise=torch.from_numpy(noise), t=torch.from_numpy(t).long())
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(km[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+        _optimizers_match_optax()
         _check_data_parallel_step(tmp_path)
     else:
         # the bf16 sweep loss (make_loss_fn's compute_dtype) against the JAX one
@@ -344,7 +443,7 @@ def test_train_step_matches_jax(precision, tmp_path):
             tl = float(make_loss_fn(port_model(cfg, flat), DiffusionSchedule.create(),
                                     compute_dtype=torch.bfloat16)(
                 torch.from_numpy(x0), torch.from_numpy(noise), torch.from_numpy(ts)))
-        np.testing.assert_allclose(tl, jl, rtol=loss_rtol)
+        np.testing.assert_allclose(tl, jl, rtol=2e-2)  # the bf16 loss rule above
 
     # the first-stage autoencoder's step against the JAX step
     _ae_step_matches_jax(precision)
@@ -508,8 +607,9 @@ def _ae_step_matches_jax(precision):
 def test_train_state_crosses_packages(tmp_path):
     """A JAX train checkpoint resumes in the port (params, EMA, Adam count
     and moments, the schedule's count); the port's restores in the JAX
-    package; a port run resumed at step 2 of 4 ends bit-identical to the
-    uninterrupted run, dropout on."""
+    package; so do rmsprop's, sgd's and the cosine schedule's states; a
+    port run resumed at step 2 of 4 ends bit-identical to the uninterrupted
+    run, dropout on."""
     from diff_pruning_tpu_torch.data.datasets import ArrayDataset, iterate_batches
 
     cfg = junet.tiny_unet_config()
@@ -557,6 +657,30 @@ def test_train_state_crosses_packages(tmp_path):
     with pytest.raises(KeyError, match="refusing a partial restore"):
         tft.init_train_state(model, tft.TrainConfig()).opt_state.load_by_keypath(
             {"[1][0].count": np.int32(0)})
+
+    # the other optimizers' states after two JAX updates, both ways: rmsprop
+    # with a warmup (nu, the schedule's count), sgd and Adam on the cosine
+    for i, kw in enumerate((dict(optimizer="rmsprop", lr_warmup_steps=3),
+                            dict(optimizer="sgd", lr_schedule="cosine"),
+                            dict(lr_schedule="cosine", lr_warmup_steps=1))):
+        tx = jft.make_optimizer(jft.TrainConfig(**kw))
+        jo = tx.init(jparams)
+        for _ in range(2):
+            _, jo = tx.update(jgrads, jo, jparams)
+        want = jax_opt_arrays(jo)
+        jckpt.save_train_state(str(tmp_path / f"jax{i}"), step=2, params=jparams, opt_state=jo)
+        st = tft.init_train_state(model, tft.TrainConfig(**kw))
+        restored, ok = tckpt.restore_opt_state(str(tmp_path / f"jax{i}"), st.opt_state)
+        mine = restored.by_keypath()
+        assert ok and sorted(mine) == sorted(want) and restored.schedule_count == 2, kw
+        for k, v in want.items():
+            np.testing.assert_array_equal(mine[k], v, err_msg=(kw, k))
+        tckpt.save_train_state(str(tmp_path / f"port{i}"), step=2, params=st.params,
+                               opt_state=restored)
+        back, ok = jckpt.restore_opt_state(str(tmp_path / f"port{i}"), tx.init(jparams))
+        assert ok
+        for k, v in jax_opt_arrays(back).items():
+            np.testing.assert_array_equal(v, want[k], err_msg=(kw, k))
 
     # resume at step 2 of 4: the same batches, draws and state as uninterrupted
     cfg_d = tunet.UNet2DConfig.from_json(cfg.to_json())
@@ -753,7 +877,8 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The train CLI end to end on the tiny config: TF32 pinned off,
     metrics.jsonl, ckpt/ (two versions kept), unet/ and unet_ema/ that the
     JAX package loads, vis grids, run.sh; a resume with another seed warns;
-    --remat and --device cuda without a GPU raise."""
+    --remat takes the same steps bit for bit; --device cuda without a GPU
+    raises."""
     from diff_pruning_tpu_torch.cli import ddpm_train
 
     cfg = tunet.tiny_unet_config()
@@ -792,8 +917,16 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     text = capsys.readouterr().out
     assert (resumed["start_step"], resumed["steps"]) == (4, 0)
     assert "warning: resuming with seed 1" in text and "optimizer state restored" in text
-    with pytest.raises(NotImplementedError, match="remat"):
-        ddpm_train.main(base + ["--remat", "--device", "cpu"])
+    # --remat: the same 2 steps (dropout 0.1), bit for bit
+    remat = ddpm_train.main(base + ["--device", "cpu", "--remat", "--num_iters", "2",
+                                    "--output_dir", str(tmp_path / "remat")])
+    assert remat["losses"] == stats["losses"][:2]
+    for f in ("params.npz", "ema_params.npz", "opt_state.npz"):
+        with np.load(out / "ckpt" / "step-2" / f) as a, \
+                np.load(tmp_path / "remat" / "ckpt" / "step-2" / f) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(b[k], a[k], err_msg=f"{f}/{k}")
 
     # --multihost on 2 gloo ranks against one process, dropout 0: the same
     # losses and weights; rank 0 alone writes metrics.jsonl (once per log)
