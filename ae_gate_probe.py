@@ -36,7 +36,8 @@ their Adam first moments (0.5 x the grads), each param's |on - off| /
 max|off| and the same ratio for each nudged run (f32), and |on - off| /
 |off| in norm with the nudged runs' (bf16). It scores phase 21's grad rules
 (f32: each param within max(SWEEP_GRAD_TOL, NOISE_FACTOR x the median of the
-first AE_NUDGES nudges' ratios), bf16: max(TRAIN_BF16_GRAD_RTOL, NOISE_FACTOR
+first AE_NUDGES nudges' ratios, or their smallest non-zero one where that
+median is 0: ``chip_smoke.nudged_change``), bf16: max(TRAIN_BF16_GRAD_RTOL, NOISE_FACTOR
 x their median) in norm) with and without the cap AE_GRAD_CAP, and prints
 the widest on/off ratio over the codebooks, from which the cap is chosen.
 """
@@ -294,17 +295,22 @@ def grad_rule_table(rows, cs):
             for net, g in r["grads"][dname].items():
                 if key == "param":
                     top = max(g["param_max"].values())
-                    cases = [(n, on, statistics.median(x[n] for x in g["param_nudged_off"][:k]),
+                    cases = [(n, on, [x[n] for x in g["param_nudged_off"][:k]],
                               1e-6 * top / max(g["param_max"][n], 1e-30))
                              for n, on in g["param_on_off"].items()]
                 else:
-                    cases = [("(norm)", g["norm_on_off"],
-                              statistics.median(g["norm_nudged_off"][:k]), 0.0)]
-                for name, on, nud, fl in cases:
+                    cases = [("(norm)", g["norm_on_off"], g["norm_nudged_off"][:k], 0.0)]
+                for name, on, changes, fl in cases:
+                    nud = statistics.median(changes)
+                    # phase 21's f32 rule takes the smallest non-zero change
+                    # where the median is 0 (cs.nudged_change); bf16 the median
+                    quantum = cs.nudged_change(changes) if key == "param" else nud
                     old = max(floor_tol, cs.NOISE_FACTOR * nud) + fl
-                    new = max(floor_tol, min(cs.NOISE_FACTOR * nud, cap)) + fl
+                    median_rule = max(floor_tol, min(cs.NOISE_FACTOR * nud, cap)) + fl
+                    new = max(floor_tol, min(cs.NOISE_FACTOR * quantum, cap)) + fl
                     per.append({"seed": r["seed"], "net": net, "param": name, "on_off": on,
-                                "nudged_median": nud, "floor": fl, "old": old, "new": new,
+                                "nudged_median": nud, "nudged_change": quantum, "floor": fl,
+                                "old": old, "median_rule": median_rule, "new": new,
                                 "looser": new / old})
         widest = max(per, key=lambda x: x["on_off"])
         held = [x for x in per if x["on_off"] > x["floor"]] or per
@@ -313,8 +319,17 @@ def grad_rule_table(rows, cs):
                       "max_looser": max(x["looser"] for x in per),
                       "fails_old": [(x["seed"], x["net"], x["param"]) for x in per
                                     if x["on_off"] > x["old"]],
+                      "fails_median_rule": [(x["seed"], x["net"], x["param"]) for x in per
+                                            if x["on_off"] > x["median_rule"]],
                       "fails_new": [(x["seed"], x["net"], x["param"]) for x in per
                                     if x["on_off"] > x["new"]],
+                      # where the quantum rule moves the allowance: only where
+                      # the nudged median is 0
+                      "changed": [(x["seed"], x["net"], x["param"], x["median_rule"], x["new"])
+                                  for x in per if x["new"] != x["median_rule"]],
+                      "changed_with_nonzero_median": [
+                          (x["seed"], x["net"], x["param"]) for x in per
+                          if x["new"] != x["median_rule"] and x["nudged_median"] > 0],
                       "widest_nudged": max(x["nudged_median"] for x in per)}
         o = out[dname]
         print(f"grad rule {dname} ({'each param' if key == 'param' else 'in norm'}): widest "
@@ -323,7 +338,11 @@ def grad_rule_table(rows, cs):
               f"{widest_held['seed']} {widest_held['net']} {widest_held['param']}), widest "
               f"nudged median {o['widest_nudged']:.3e}; cap {cap}: "
               f"allowance / uncapped max {o['max_looser']:.3f}; fails uncapped "
-              f"{o['fails_old']}, capped {o['fails_new']}", flush=True)
+              f"{o['fails_old']}, capped with the median alone {o['fails_median_rule']}, "
+              f"capped (phase 21's) {o['fails_new']}; allowance moved by the smallest "
+              f"non-zero change on {len(o['changed'])} params {o['changed']}, of which "
+              f"{len(o['changed_with_nonzero_median'])} have a non-zero nudged median",
+              flush=True)
         for r in rows:
             for net in ("gen", "disc"):
                 mine = [x for x in per if x["seed"] == r["seed"] and x["net"] == net]

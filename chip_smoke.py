@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
 
-Drives the port's fifteen paths, through its own kernels, from seeded random
+Drives the port's paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
 params) the serving path (DDIM sampling), the pruning path (the
 Diff-Pruning sweep, scoring, slicing and the prune CLI), the finetune
@@ -29,7 +29,10 @@ CLIs with --multihost over NCCL at world size 1, and two ranks over gloo on
 the one card); and the paper's LSUN-256 pipeline (scripts/prune_ddpm_lsun.sh:
 a diffusers directory and an lmdb through the prune, bf16 train and sampling
 CLIs on the full-width 113.7M-param DDPM), with the train step's remat, the
-RMSprop, SGD and cosine updates and the profile_model CLI on that DDPM.
+RMSprop, SGD and cosine updates and the profile_model CLI on that DDPM;
+and the notebook helpers (class-conditional sampling on cin256-v2 and
+super-resolution on bsr_sr from the BSRGAN-degraded SR dataset), tensor-
+parallel sampling and the native batch loader.
 Every phase raises on failure;
 none is caught, so any failure exits non-zero before the result lines.
 
@@ -281,7 +284,9 @@ none is caught, so any failure exits non-zero before the result lines.
    and disc_loss (f32 1e-4, bf16 2e-2 relative), the first Adam moments
    of both networks (f32: each param within 1e-3 of its max; bf16: 5e-2
    in norm), each or 10x the median of what 3 one-ulp nudges of the
-   images move the off run (the f32 losses' at most 5e-3, the grads' at
+   images move the off run (an f32 param whose median is 0 but which a
+   nudge moved: 10x the smallest move, one quantum of a grad that moves in
+   steps; the f32 losses' at most 5e-3, the grads' at
    most AE_GRAD_CAP: of each param's max in f32, in norm in bf16), the
    share of VQ indices that differ, launches a step (84
    GroupNorm forwards, 42 backwards, 4 attention forwards of which 2 with
@@ -363,8 +368,18 @@ none is caught, so any failure exits non-zero before the result lines.
    min(10 x the nudged median, AE_GATE_CAP)), both networks' Adam moments
    per param within max(DP_RTOL of its max, min(10 x the nudged median,
    AE_GRAD_CAP of its max)), the launches a step exact, the ranks'
-   generators equal. Prints the phase's seconds
-   and the world-1 step's imgs/s against the plain step's.
+   generators equal; (d) tensor parallelism (``parallel/tp.py``): in (a)'s
+   process make_sampler on the dense CIFAR UNet (B = 128) and
+   make_cfg_sampler on phase 16's cin256-v2 dir (B = 4, 2 classes), DDIM-5
+   from seeded noise, plain and then with tensor_parallel over a model axis
+   of one rank in a world-1 NCCL group, bit-identical with equal launches;
+   in each of (b)'s gloo ranks the same with a model axis of 2 (each rank
+   holds its slice of every out-axis that 2 divides and computes that slice
+   of each conv and linear, the slices gathered before their consumers),
+   within FORWARD_TOL_F32 in norm of the world-1 outputs (cuDNN picks its
+   algorithms for half the channels), launches equal, the param bytes each
+   rank holds printed (cin256-v2's UNet: fewer than the whole). Prints the
+   phase's seconds and the world-1 step's imgs/s against the plain step's.
 24. LSUN-256 path, full width (ddpm_lsun256, 113,673,219 params), B = 16
    (scripts/prune_ddpm_lsun.sh's): (a) a seeded UNet saved in our layout
    and exported by ``convert_checkpoints export-diffusers``; the UNet loaded
@@ -403,9 +418,26 @@ none is caught, so any failure exits non-zero before the result lines.
    --train_step --trace at B = 16: params and MACs equal to phase 24's, the
    trace written and not empty, its peak memory, 3 train calls' launches.
    Prints the phase's seconds.
-26. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
-   first-stage training, text LDM, multi-GPU, LSUN and remat JSON lines, the
-   kernels' JSON line, nvidia-smi's line, then the result line.
+26. Notebook path (``utils/notebook.py``), f32, TF32 off: (a) ``SRDataset``
+   with ``bsrgan_light`` over 2 seeded 320 x 288 PNGs: 256 x 256 images and
+   64 x 64 low-resolution ones, finite, in range; (b) bsr_sr (``UNetCond``,
+   113,622,563 params, 6 input channels at 64 x 64) at full width from a
+   seed, its zero-initialised convs redrawn: every GroupNorm and attention
+   shape of its call (20 heads of 32 at 8 x 8 tokens) against the plain
+   versions at 2 rows, and per-op ms against plain, the library call and
+   the bound; (c) the main path: ``get_model`` on phase 16's cin256-v2 dir,
+   ``sample_classes`` (classes 25 and 187, 2 images each, DDIM-10, then
+   PLMS-10, decoded), ``run_superres`` on bsr_sr from (a)'s images
+   (DDIM-10, eta 1), ``to_pil``; launch counters reset just before and read
+   just after, equal to the UNet calls' and decodes' calls; images finite in
+   [0, 1]; sample_classes (DDIM and PLMS) and run_superres kernels on
+   against off within FORWARD_TOL_F32 in norm; (d) the native batch loader (``native/``, g++
+   -fopenmp, built here): host ms a batch native against plain, CIFAR-size
+   in memory at B = 128 (equal batches) and an LSUN-size JPEG folder at B =
+   16 (warm reads). Prints the phase's seconds.
+27. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
+   first-stage training, text LDM, multi-GPU, LSUN, remat and notebook JSON
+   lines, the kernels' JSON line, nvidia-smi's line, then the result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -593,6 +625,15 @@ AE_GRAD_CAP = {"float32": 0.09, "bfloat16": 0.4}
 # update moves a param: a grad near eps turns f32 noise into a part of lr)
 DP_B, DP_TRAIN_STEPS, DP_SWEEP_STEPS, DP_TIME_ITERS, DP_WORKER_TIMEOUT_S = B, 2, 3, 3, 300
 DP_RTOL, ADAM_MOVE = 1e-5, 2.02
+# tensor parallelism in phase 23 (d): DDIM steps of both samplers, the LDM's rows
+TP_STEPS, TP_LDM_B = 5, 4
+# the notebook path (phase 26): the SR source PNGs (h, w), the SR image size,
+# its downscale factor and batch, bsr_sr's params; the samplers' steps, classes
+# and images a class; the native loader's batches (CIFAR in memory, an
+# LSUN-size folder) and the timed batches
+SR_SRC, SR_SIZE, SR_F, SR_B, SR_PARAMS = (320, 288), 256, 4, 2, 113_622_563
+NB_STEPS, NB_CLASSES, NB_PER_CLASS = 10, (25, 187), 2
+NATIVE_CIFAR_B, NATIVE_LSUN_B, NATIVE_BATCHES = 128, 16, 8
 # phase 23's first-stage step on the mesh: the metrics held (and the Adam
 # moments of both networks)
 AE_DP_KEYS = ("total_loss", "nll_loss", "g_loss", "quant_loss", "d_weight", "disc_loss")
@@ -637,6 +678,20 @@ def torchrun_env():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def nudged_change(changes) -> float:
+    """What the nudged runs moved one param's grad, which its allowance in
+    phase 21 scales: the median of their changes, or, where that median is 0
+    but some nudge did move it, the smallest change that any nudge made. Such
+    a grad is quantised: the discriminator's output bias counts the logits
+    past the hinge, and moves by one logit's share or not at all, so a
+    median of 0 would leave it SWEEP_GRAD_TOL of its max, below one quantum.
+    A param whose nudged median is not 0 keeps that median."""
+    med = statistics.median(changes)
+    if med > 0:
+        return med
+    return min((c for c in changes if c > 0), default=0.0)
 
 
 def gpu_line() -> str:
@@ -3810,12 +3865,12 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
             grads[net] = dist(on_)
             grads_floor[net] = statistics.median(dist(a) for a in nuds)
             # each param's grads against its max, or against NOISE_FACTOR x the
-            # nudged runs' own (median) difference (plus 1e-6 of the largest grad)
-            # (the nudged floor at most AE_GRAD_CAP of the max)
+            # nudged runs' own difference (nudged_change) (plus 1e-6 of the largest
+            # grad) (the nudged floor at most AE_GRAD_CAP of the max)
             floor = 1e-6 * max(float(t.abs().max()) for t in off_.values())
             worst_param[net] = max((float((on_[n] - t).abs().max()) / (max(
                 SWEEP_GRAD_TOL * float(t.abs().max()), min(
-                    NOISE_FACTOR * statistics.median(float((a[n] - t).abs().max()) for a in nuds),
+                    NOISE_FACTOR * nudged_change([float((a[n] - t).abs().max()) for a in nuds]),
                     AE_GRAD_CAP["float32"] * float(t.abs().max()))) + floor), n)
                 for n, t in off_.items())
         print(f"ae train step vq-f4 B={rows} {dname}, kernels on vs off: "
@@ -4824,6 +4879,202 @@ def remat_path(tmp, gpu, tag, ctx):
     return out
 
 
+def rel_norm(got, want) -> float:
+    """|got - want| / |want| in norm (f32)."""
+    import torch
+
+    got, want = torch.as_tensor(got).float(), torch.as_tensor(want).float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def notebook_path(tmp, ldm_dir, gen, gpu, tag, worst, others_fwd):
+    """Phase 26 (see the module docstring): the notebook helpers on phase
+    16's cin256-v2 dir and a full-width bsr_sr from SRDataset batches, the
+    bsr_sr UNet's kernel shapes, and the native batch loader; returns the
+    phase's figures."""
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import native, ops
+    from diff_pruning_tpu_torch.data import datasets
+    from diff_pruning_tpu_torch.data.procedural import make_procedural_dataset
+    from diff_pruning_tpu_torch.data.sr import sr_dataset_from_folder
+    from diff_pruning_tpu_torch.models.latent_diffusion import compvis_ddim_timesteps
+    from diff_pruning_tpu_torch.models.unet_cond import UNetCond, bsr_sr_config
+    from diff_pruning_tpu_torch.utils import notebook
+    from PIL import Image
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    out = {"card": gpu}
+    # (a) the SR data: SRDataset's bsrgan_light over seeded non-square PNGs
+    src = os.path.join(tmp, "sr_src")
+    os.makedirs(src)
+    for i, img in enumerate(make_procedural_dataset(SR_B, SR_SRC[0], seed=26)):
+        Image.fromarray(img[:, :SR_SRC[1]]).save(os.path.join(src, f"{i}.png"))
+    ds = sr_dataset_from_folder(src, size=SR_SIZE, degradation="bsrgan_light",
+                                downscale_f=SR_F, seed=26)
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    sr_item_ms = (time.perf_counter() - t0) * 1e3 / len(ds)
+    lowres = np.stack([(it["LR_image"] + 1.0) / 2.0 for it in items])
+    assert lowres.shape == (SR_B, SR_SIZE // SR_F, SR_SIZE // SR_F, 3), lowres.shape
+    assert all(it["image"].shape == (SR_SIZE, SR_SIZE, 3) for it in items)
+    assert np.isfinite(lowres).all() and lowres.min() >= 0.0 and lowres.max() <= 1.0
+    print(f"notebook (a) SRDataset bsrgan_light: {SR_B} items of {SR_SRC[1]} x {SR_SRC[0]} "
+          f"PNGs -> image {items[0]['image'].shape}, LR_image {items[0]['LR_image'].shape}; "
+          f"{sr_item_ms:.1f} ms an item (host)")
+    # (b) bsr_sr at full width from a seed, its kernels at every shape it gives them
+    ucfg = bsr_sr_config()
+    sr_unet = UNetCond(ucfg, device=dev)
+    g26 = torch.Generator(device=dev).manual_seed(26)
+    sr_unet.init(g26)
+    redrawn = redraw_zero_init(sr_unet, g26)
+    sr_unet.eval()
+    sr_params = sum(p.numel() for p in sr_unet.parameters())
+    assert sr_params == SR_PARAMS, sr_params
+    gn_sr, attn_sr = op_calls(UNetCond(ucfg, device="meta"), lambda m: m(
+        torch.zeros((1, ucfg.image_size, ucfg.image_size, ucfg.in_channels), device="meta"),
+        torch.zeros((1,), dtype=torch.int64, device="meta")))
+    print(f"notebook (b) bsr_sr UNetCond {sr_params:,} params ({redrawn} zero-initialised "
+          f"convs redrawn); a call: {sum(gn_sr.values())} GroupNorm at {len(gn_sr)} shapes, "
+          f"{sum(attn_sr.values())} attention at {sorted(attn_sr)}")
+    check_fwd_shapes(gn_sr, attn_sr, SR_B, gen, dev, worst, "_sr", "bsr_sr")
+    out["sr_ops"] = time_ldm_ops(gn_sr, attn_sr, SR_B, gen, dev, tag, "bsr_sr UNet call",
+                                 others_fwd)
+    # (c) the main path: get_model on phase 16's dir, sample_classes (ddim,
+    # plms), run_superres on bsr_sr; launch counters reset just before
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ldm = notebook.get_model(ldm_dir, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    imgs, secs = {}, {"get_model": t_load}
+    for method in ("ddim", "plms"):
+        t0 = time.perf_counter()
+        imgs[method] = notebook.sample_classes(ldm, classes=NB_CLASSES, n_per_class=NB_PER_CLASS,
+                                               ddim_steps=NB_STEPS, method=method, seed=26)
+        secs[f"sample_classes_{method}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lat = notebook.run_superres(sr_unet, lowres, ddim_steps=NB_STEPS, eta=1.0, seed=26)
+    secs["run_superres"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    (gn_u, attn_u), (gn_d, attn_d) = ldm_op_shapes(ldm.unet.cfg, ldm.first_stage.cfg)
+    steps = len(compvis_ddim_timesteps(NB_STEPS))
+    calls = len(NB_CLASSES) * (steps + steps + 1)  # DDIM, then PLMS's S + 1
+    decodes = 2 * len(NB_CLASSES)
+    want = {op: 0 for op in launches}
+    for op, (u, d, s) in (("group_norm", (gn_u, gn_d, gn_sr)),
+                          ("attention", (attn_u, attn_d, attn_sr))):
+        want[op] = (calls * sum(u.values()) + decodes * sum(d.values())
+                    + steps * sum(s.values()))
+    n_img = len(NB_CLASSES) * NB_PER_CLASS
+    for method, x in imgs.items():
+        assert x.shape == (n_img, SR_SIZE, SR_SIZE, 3) and np.isfinite(x).all(), method
+        assert x.min() >= 0.0 and x.max() <= 1.0, method
+    assert lat.shape == (SR_B, SR_SIZE // SR_F, SR_SIZE // SR_F, 3) and np.isfinite(lat).all()
+    grid = notebook.to_pil(imgs["ddim"], nrow=NB_PER_CLASS)
+    assert grid.size == (NB_PER_CLASS * (SR_SIZE + 2) + 2, len(NB_CLASSES) * (SR_SIZE + 2) + 2)
+    print(f"notebook (c) get_model({os.path.basename(ldm_dir)}) {t_load:.1f} s; sample_classes "
+          f"{NB_CLASSES} x {NB_PER_CLASS} DDIM-{NB_STEPS} {secs['sample_classes_ddim']:.2f} s, "
+          f"PLMS-{NB_STEPS} {secs['sample_classes_plms']:.2f} s ({n_img} images "
+          f"{imgs['ddim'].shape[1:]}, finite, in [0, 1]); run_superres bsr_sr B={SR_B} "
+          f"DDIM-{NB_STEPS} eta 1 {secs['run_superres']:.2f} s (latents {lat.shape[1:]}); "
+          f"to_pil grid {grid.size}; launches {launches} (want {want}: {calls} cin256-v2 UNet "
+          f"calls + {decodes} vq-f4 decodes + {steps} bsr_sr calls)")
+    assert launches == want, (launches, want)
+    # kernels on against off on the same draws (the helpers seed their noise)
+    on_off = {f"sample_classes_{method}": rel_norm(x, switched(
+        False, lambda: notebook.sample_classes(ldm, classes=NB_CLASSES, n_per_class=NB_PER_CLASS,
+                                               ddim_steps=NB_STEPS, method=method, seed=26)))
+        for method, x in imgs.items()}
+    lat_off = switched(False, lambda: notebook.run_superres(sr_unet, lowres, ddim_steps=NB_STEPS,
+                                                            eta=1.0, seed=26))
+    on_off["run_superres"] = rel_norm(lat, lat_off)
+    print(f"notebook (c) kernels on against off, |on - off| / |off|: {on_off} (tol "
+          f"{FORWARD_TOL_F32})")
+    assert all(v <= FORWARD_TOL_F32 for v in on_off.values()), on_off
+    out.update(launches=launches, seconds=secs, on_off=on_off, sr_params=sr_params,
+               sr_item_ms=sr_item_ms, sr_shapes={"group_norm": len(gn_sr),
+                                                 "attention": sorted(attn_sr)})
+    del ldm, sr_unet
+    torch.cuda.empty_cache()
+    out["native"] = native_loader_path(tmp, tag)
+    out["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"notebook phase {out['phase_seconds']:.1f} s {tag}")
+    return out
+
+
+def native_loader_path(tmp, tag):
+    """Phase 26 (d): the native batch loader against its plain NumPy/PIL
+    version, host ms a batch: an in-memory CIFAR-size set (50,000 x 32 x 32,
+    B = NATIVE_CIFAR_B) through ``assemble_batch``, and an LSUN-256-size
+    folder of JPEGs (256 x 341, B = NATIVE_LSUN_B, quality 90) through
+    ``decode_batch``; the same draws, the batches equal to plain in memory.
+    Warm reads: the files were just written."""
+    import numpy as np
+
+    from diff_pruning_tpu_torch import native
+    from diff_pruning_tpu_torch.data import datasets
+    from diff_pruning_tpu_torch.data.procedural import make_procedural_dataset
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(260)
+    images = rng.integers(0, 256, (50_000, 32, 32, 3), dtype=np.uint8)
+
+    def plain_cifar(images, idx, flips):
+        imgs = images[idx].copy()
+        imgs[flips] = imgs[flips, :, ::-1]
+        return datasets.normalize(imgs)
+
+    draws = [(rng.permutation(len(images))[:NATIVE_CIFAR_B],
+              rng.random(NATIVE_CIFAR_B) < 0.5) for _ in range(NATIVE_BATCHES)]
+    calls0 = dict(native.CALLS)
+    for idx, fl in draws[:1]:
+        assert np.array_equal(native.assemble_batch(images, idx, fl),
+                              plain_cifar(images, idx, fl))
+    ms = {}
+    for name, fn in (("cifar_native", native.assemble_batch), ("cifar_plain", plain_cifar)):
+        t0 = time.perf_counter()
+        for idx, fl in draws:
+            fn(images, idx, fl)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(draws)
+    folder = os.path.join(tmp, "lsun_size_jpegs")
+    os.makedirs(folder)
+    n_files = NATIVE_LSUN_B * 3
+    for i, img in enumerate(make_procedural_dataset(n_files, 341, seed=261)):
+        Image.fromarray(img[:256]).save(os.path.join(folder, f"{i:03d}.jpg"), quality=90)
+    ds = datasets.get_dataset(folder, 256)
+    batches = [rng.permutation(n_files)[:NATIVE_LSUN_B] for _ in range(3)]
+    for name in ("lsun_native", "lsun_plain"):
+        t0 = time.perf_counter()
+        for idx in batches:
+            if name == "lsun_native":
+                got = native.decode_batch([ds.files[j] for j in idx], 256)
+                assert got is not None and got.shape == (NATIVE_LSUN_B, 256, 256, 3)
+            else:
+                np.stack([ds.load(j) for j in idx])
+        ms[name] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    it = datasets.iterate_batches(ds, NATIVE_LSUN_B, seed=0)
+    first = next(it)
+    assert first.shape == (NATIVE_LSUN_B, 256, 256, 3) and np.isfinite(first).all()
+    calls = {k: native.CALLS[k] - calls0[k] for k in calls0}
+    assert calls == {"assemble_batch": NATIVE_BATCHES + 1, "decode_batch": 4}, calls
+    print(f"notebook (d) native batch loader (g++ build {build_s:.1f} s, "
+          f"{native.get_lib().omp_thread_count()} OpenMP threads), host ms a batch: CIFAR "
+          f"in memory B={NATIVE_CIFAR_B} native {ms['cifar_native']:.3f} against plain "
+          f"{ms['cifar_plain']:.3f}; LSUN-size JPEG folder (256 x 341 -> 256) "
+          f"B={NATIVE_LSUN_B} native {ms['lsun_native']:.2f} against plain (PIL) "
+          f"{ms['lsun_plain']:.2f} (warm reads); native calls {calls} {tag}")
+    return {"build_s": build_s, "host_ms_per_batch": ms, "calls": calls,
+            "omp_threads": native.get_lib().omp_thread_count()}
+
+
 def dp_step_and_sweep(ctx, mesh, dev):
     """Phase 23's library run on ``mesh``'s rows of the global batch DP_B:
     one data-parallel train step (explicit noise and t, no dropout) and a
@@ -4869,6 +5120,57 @@ def dp_step_and_sweep(ctx, mesh, dev):
     res["sweep_launches"] = dict(ops.LAUNCHES)
     res.update(steps_run=sw.steps_run, losses=np.asarray(sw.losses))
     res["grads"] = flat_from_state_dict(sw.grads)
+    return res
+
+
+def tp_samples(ctx, dev, mesh=None):
+    """Phase 23 (d): make_sampler on the dense CIFAR UNet (B = DP_B, DDIM
+    TP_STEPS) and make_cfg_sampler on phase 16's cin256-v2 dir (B = TP_LDM_B,
+    2 classes, DDIM TP_STEPS) from seeded noise; with ``mesh`` (2-D)
+    ``tensor_parallel`` over its model axis. Returns the outputs (host), the
+    param bytes held before and after, launches and seconds."""
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.models.latent_diffusion import load_ldm
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.parallel.tp import param_bytes
+    from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+    tp = mesh is not None
+    res = {"bytes_before": {}, "bytes": {}, "launches": {}, "seconds": {}}
+    cfg, state = load_model(ctx["ckpt"])
+    model = UNet2D(cfg, device=dev)
+    model.load_state_dict(state)
+    model.eval()
+    ldm = load_ldm(ctx["vq_dir"], device=dev)
+    res["bytes_before"] = {"cifar": param_bytes(model), "ldm_unet": param_bytes(ldm.unet),
+                           "ldm": param_bytes(ldm)}
+    ucfg = ldm.unet.cfg
+    labels = torch.tensor([25, 187] * (TP_LDM_B // 2), device=dev)
+    for name, make, draw in (
+            ("cifar", lambda: make_sampler(model, DiffusionSchedule.create(device=dev),
+                                           SamplerConfig(num_inference_steps=TP_STEPS),
+                                           mesh=mesh, tensor_parallel=tp),
+             lambda f, g: f(g, DP_B, cfg.sample_size, cfg.out_channels)),
+            ("ldm", lambda: ldm.make_cfg_sampler(ddim_steps=TP_STEPS, latent_hw=ucfg.image_size,
+                                                 latent_ch=ucfg.in_channels, mesh=mesh,
+                                                 tensor_parallel=tp),
+             lambda f, g: f(g, labels, TP_LDM_B))):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sample = make()
+        res[name] = draw(sample, torch.Generator(device=dev).manual_seed(231)).cpu()
+        torch.cuda.synchronize()
+        res["seconds"][name] = time.perf_counter() - t0
+        res["launches"][name] = dict(ops.LAUNCHES)
+    res["bytes"] = {"cifar": param_bytes(model), "ldm_unet": param_bytes(ldm.unet),
+                    "ldm": param_bytes(ldm)}
+    del model, ldm
+    torch.cuda.empty_cache()
     return res
 
 
@@ -5128,6 +5430,11 @@ def dp_worker(argv) -> None:
         torch.cuda.empty_cache()
         out["ae"] = ae_mesh_compare(ctx, mesh, dev)
         lap("first-stage step")
+        # (d) both samplers with tensor_parallel over a model axis of 2 ranks
+        tp = tp_samples(ctx, dev, make_mesh(dev, model=2))
+        torch.save({k: tp[k] for k in ("cifar", "ldm")}, ctx["out"] + f"_tp{rank}.pt")
+        out["tp"] = {k: tp[k] for k in ("bytes_before", "bytes", "launches", "seconds")}
+        lap("tensor parallel")
         dist.barrier()
         dist.destroy_process_group()
     else:
@@ -5264,6 +5571,29 @@ def dp_worker(argv) -> None:
               f"bit-identical {same}; launches {runs['multihost'][1]}")
         assert same and runs["multihost"][0] == runs["plain"][0], out["fid_score_cli"]
         assert not any(runs["multihost"][1].values())  # no kernel of the port there
+
+        # (d) both samplers plain, then with tensor_parallel over a model axis
+        # of one rank in a world-1 NCCL group: bit-identical
+        from diff_pruning_tpu_torch.parallel.mesh import init_distributed
+
+        plain = tp_samples(ctx, dev)
+        lap("samplers plain")
+        init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        try:
+            tp = tp_samples(ctx, dev, make_mesh(dev, model=1))
+        finally:
+            dist.destroy_process_group()
+        lap("samplers tensor_parallel world 1")
+        same = {k: torch.equal(plain[k], tp[k]) for k in ("cifar", "ldm")}
+        torch.save({k: plain[k] for k in ("cifar", "ldm")}, ctx["out"] + "_tp_ref.pt")
+        out["tp"] = {"bit_identical": same, "launches": tp["launches"],
+                     "launches_plain": plain["launches"], "seconds": tp["seconds"],
+                     "seconds_plain": plain["seconds"], "bytes": tp["bytes"]}
+        print(f"multi-GPU (d) tensor_parallel over a model axis of 1 (NCCL, world 1) against "
+              f"the plain samplers, DDIM-{TP_STEPS}: CIFAR UNet B={DP_B} and cin256-v2 "
+              f"B={TP_LDM_B} bit-identical {same}; launches {tp['launches']}; seconds "
+              f"{tp['seconds']} (plain {plain['seconds']})")
+        assert all(same.values()) and tp["launches"] == plain["launches"], out["tp"]
     out["seconds"] = time.perf_counter() - t0
     with open(ctx["out"] + f"_{mode.replace(':', '')}.json", "w") as f:
         json.dump(out, f)
@@ -5379,6 +5709,23 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
               f"{ae_ref['f32_metrics']['total_loss']:.7f}, d_weight "
               f"{g['metrics']['d_weight']:.7f} against {ae_ref['f32_metrics']['d_weight']:.7f}; "
               f"launches {g['launches']}")
+    ref = torch.load(os.path.join(tmp, "dp_out_tp_ref.pt"))
+    tp_fig = {"world1": res["nccl1"]["tp"], "gloo": []}
+    for r in (0, 1):
+        got = torch.load(os.path.join(tmp, f"dp_out_tp{r}.pt"))
+        g = res[f"gloo{r}"]["tp"]
+        rel = {k: rel_norm(got[k], ref[k]) for k in ("cifar", "ldm")}
+        tp_fig["gloo"].append(dict(g, rel_to_world1=rel))
+        b0, b1 = g["bytes_before"], g["bytes"]
+        print(f"multi-GPU (d) tensor_parallel, gloo rank {r} of a model axis of 2 on the one "
+              f"card, DDIM-{TP_STEPS}: |tp - world 1| / |world 1| CIFAR B={DP_B} "
+              f"{rel['cifar']:.3e}, cin256-v2 B={TP_LDM_B} {rel['ldm']:.3e} (tol "
+              f"{FORWARD_TOL_F32}); param bytes this rank holds: cin256-v2 UNet "
+              f"{b1['ldm_unet']:,} of {b0['ldm_unet']:,}, the LDM {b1['ldm']:,} of "
+              f"{b0['ldm']:,}, the CIFAR UNet {b1['cifar']:,} of {b0['cifar']:,}; launches "
+              f"{g['launches']}; seconds {g['seconds']} {tag}")
+        assert all(v <= FORWARD_TOL_F32 for v in rel.values()), rel
+        assert b1["ldm_unet"] < b0["ldm_unet"] and g["launches"] == tp_fig["world1"]["launches"]
     c = ctx["ldm_sample"]
     print(f"multi-GPU (c) ldm_sample --multihost (NCCL, world 1) in phase 16: {c['pngs']} PNGs, "
           f"launches {c['launches']}, {c['imgs_per_s']:.2f} imgs/s")
@@ -5391,6 +5738,7 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
             "train_cli": res["nccl1"]["train_cli"], "prune_cli": res["nccl1"]["prune_cli"],
             "fid_score_cli": res["nccl1"]["fid_score_cli"], "ae_step": ae_ref,
             "ldm_sample": c, "step_ms": step_ms, "nccl1_laps_s": res["nccl1"]["laps_s"],
+            "tensor_parallel": tp_fig,
             "gloo_ranks": [res["gloo0"], res["gloo1"]]}
 
 
@@ -6243,10 +6591,15 @@ def main() -> None:
     # -- 25. the remat path on phase 24's diffusers dir and lmdb: the train
     # step with and without --remat, the new optimizers, profile_model
     remat = remat_path(tmp, gpu, tag, lsun["dense"])
-    tmpdir.cleanup()
 
     mark(26)
-    # -- 26. result lines
+    # -- 26. the notebook path on phase 16's dir and a full-width bsr_sr from
+    # SRDataset batches; the native batch loader
+    nb = notebook_path(tmp, ldm_dir, gen, gpu, tag, worst, others_fwd)
+    tmpdir.cleanup()
+
+    mark(27)
+    # -- 27. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -6327,6 +6680,18 @@ def main() -> None:
             if key.startswith("attention_bwd"):
                 res[f"library_ms_dq_dk_dv_lsun{sfx}"] = lsun["ops"][dname]["sdpa_bwd"]
         return res
+
+    def sr_of(key):
+        """The notebook path's figures (phase 26): its launches, the max abs
+        error over bsr_sr's shapes and ms, plain, bound and library per
+        bsr_sr UNet call at SR_B rows (f32)."""
+        tot = nb["sr_ops"][key]
+        return {"launches_notebook": nb["launches"][key],
+                "max_abs_err_sr": worst[(key + "_sr", "float32")],
+                "ms_sr": tot["kernel"], "plain_ms_sr": tot["plain"], "bound_ms_sr": tot["bound"],
+                "bound_by_sr": tot["bound_by"], "library_ms_sr": tot.get("library"),
+                "ms_where_library_sr": tot.get("kernel_where_library"),
+                "sr_ms_is": f"f32, summed over one B={SR_B} bsr_sr UNet call's calls"}
 
     lp_ops = ldm_prune_fig["ops_per_step"]
     per_ldm_step = f"f32, summed over one B={LDM_PRUNE_B} LDM sweep step's calls"
@@ -6487,7 +6852,7 @@ def main() -> None:
               host_us_per_call=host_us["float32"], host_us_per_call_bf16=host_us["bfloat16"],
               launches_serving_dense=results["dense"]["launches"]["group_norm"],
               **paths("group_norm"), **ldm_of("group_norm"), **ldm_train_gn("fwd"),
-              **uncond_of("group_norm"), **text_of("group_norm")),
+              **uncond_of("group_norm"), **text_of("group_norm"), **sr_of("group_norm")),
         entry("group_norm_silu_bwd", "cuda", gn_bwd_src, "diff_pruning_tpu/ops/group_norm.py:131",
               ft_counts["group_norm_bwd"], "group_norm_bwd", f32_bwd["gn_kernel"],
               f32_bwd["gn_plain"], f32_bwd["gn_bound"], bound_by(f32_bwd, "gn_"),
@@ -6522,7 +6887,7 @@ def main() -> None:
               launches_serving_dense=results["dense"]["launches"]["attention"],
               max_abs_err_lse_ldm=worst[("attention_lse_ldm", "float32")],
               **paths("attention"), **ldm_of("attention"), **uncond_of("attention"),
-              **text_of("attention")),
+              **text_of("attention"), **sr_of("attention")),
         entry("flash_attention_bwd_dq", "cuda", attn_bwd_src,
               "diff_pruning_tpu/ops/attention.py:205", ft_counts["attention_bwd_dq"],
               "attention_bwd_dq", f32_bwd["dq_kernel"], f32_bwd["dq_plain"],
@@ -6561,6 +6926,7 @@ def main() -> None:
     print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"lsun": lsun}))
     print(json.dumps({"remat": remat}))
+    print(json.dumps({"notebook": nb}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

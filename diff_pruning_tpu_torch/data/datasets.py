@@ -20,10 +20,12 @@ seed, also after a ``skip_batches`` fast-forward for resume; so are
 ``iterate_labeled_batches``' over a class-labeled folder (the LDM train
 CLI's data). ``transform`` selects the DDIM codebase's input transforms
 (:func:`data_transform`: logit, uniform or Gaussian dequantization) in
-place of the plain [-1, 1]. Images are decoded with PIL, as the JAX version
-decodes them where its native decoder is not built (that decoder is not
-ported: it equals PIL for images stored at the resolution, and resizes with
-another filter).
+place of the plain [-1, 1]. Where the JAX version takes its native loader,
+so does this one (``native/``, built on first use; a failed build raises):
+plain in-memory batches through ``assemble_batch``, and a resized folder
+that is not celeba-cropped, and every class-labeled folder, through
+``decode_batch``, whose bilinear resize is not PIL's. A batch holding a
+file that the native decoder refuses is decoded with PIL, as in JAX.
 """
 
 from __future__ import annotations
@@ -315,14 +317,17 @@ def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int,
     to its own for the same seed. ``skip_batches`` fast-forwards for resume:
     the skipped batches' draws are replayed without decoding an image.
 
-    Images are decoded one by one with PIL (``_load_image``: shorter side to
-    the resolution, then a center crop), the JAX version's path when its
-    native decoder is not built.
+    Images are decoded by ``native.decode_batch`` (shorter side to the
+    resolution, bilinear, then a center crop), as in the JAX version; a batch
+    holding a file that it refuses is decoded one by one with PIL
+    (``_load_image``), the JAX version's fallback for such a batch.
 
     ``local_slice=(lo, hi)`` yields rows [lo, hi) of each global batch (a
     data-parallel rank's, ``parallel.mesh.process_batch_slice``): the
     shuffle and flip draws stay at the global batch shape, so the rows are
     bit-exactly the single-process stream's, and only they are decoded."""
+    from .. import native
+
     rng = np.random.default_rng(seed)
     n = len(dataset)
     rows = slice(None) if local_slice is None else slice(*local_slice)
@@ -336,8 +341,10 @@ def iterate_labeled_batches(dataset: LabeledImageFolderDataset, batch_size: int,
                     rng.random(len(idx))  # keep the flip stream aligned
                 continue
             idx = idx[rows]
-            imgs = np.stack([_load_image(dataset.files[j], dataset.resolution, False)
-                             for j in idx])
+            imgs = native.decode_batch([dataset.files[j] for j in idx], dataset.resolution)
+            if imgs is None:
+                imgs = np.stack([_load_image(dataset.files[j], dataset.resolution, False)
+                                 for j in idx])
             if flip:
                 flips = (rng.random(batch_size) < 0.5)[rows]
                 imgs[flips] = imgs[flips, :, ::-1]
@@ -433,13 +440,22 @@ def iterate_batches(dataset, batch_size: int, *, seed: int = 0, skip_batches: in
     JAX version's multi-host path): every draw stays at the global batch
     shape, so the rows are bit-exactly the single-process stream's; only
     they are gathered or decoded, except under a transform, whose noise
-    needs the whole batch."""
+    needs the whole batch.
+
+    Plain batches of an :class:`ArrayDataset` are gathered, flipped and
+    normalised by ``native.assemble_batch``; an :class:`ImageFolderDataset`
+    with a resolution and without the celeba crop is decoded by
+    ``native.decode_batch``: the JAX version's native paths."""
+    from .. import native
+
     if not (isinstance(dataset, ArrayDataset) or hasattr(dataset, "load")):
         raise TypeError(f"{type(dataset).__name__}: batches come from an ArrayDataset or a "
                         "dataset with load(i)")
     rng = np.random.default_rng(seed)
     n = len(dataset)
     rows = slice(None) if local_slice is None else slice(*local_slice)
+    native_folder = (isinstance(dataset, ImageFolderDataset) and not dataset.celeba_crop
+                     and dataset.resolution is not None)
     tkw = _parse_transform(transform)
     plain = not (tkw["logit"] or tkw["uniform_dequantization"]
                  or tkw["gaussian_dequantization"])
@@ -464,9 +480,15 @@ def iterate_batches(dataset, batch_size: int, *, seed: int = 0, skip_batches: in
             if plain:
                 idx, flips = idx[rows], flips[rows]
             if isinstance(dataset, ArrayDataset):
+                if plain:
+                    yield native.assemble_batch(dataset.images, idx, flips)
+                    continue
                 imgs = dataset.images[idx].copy()
             else:
-                imgs = np.stack([dataset.load(j) for j in idx])
+                imgs = (native.decode_batch([dataset.files[j] for j in idx], dataset.resolution)
+                        if native_folder else None)
+                if imgs is None:
+                    imgs = np.stack([dataset.load(j) for j in idx])
             imgs[flips] = imgs[flips, :, ::-1]
             if plain:
                 yield normalize(imgs)

@@ -26,8 +26,8 @@ cond stage applied to ``uncond_input`` (the empty prompt's tokens, or zero
 embeddings).
 
 The CFG sampler's ``mesh`` splits a batch by rows over data-parallel ranks
-(``parallel/mesh.py``). Not ported yet (raises where a caller can reach it):
-``tensor_parallel`` (the JAX ``parallel/tp.py``).
+(``parallel/mesh.py``), and its ``tensor_parallel`` splits the UNet's
+channels over a model axis (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import process_batch_slice
+from ..parallel.tp import shard_for_sampler
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step
 from ..schedulers.ddpm import DiffusionSchedule
 from ..schedulers.dpm_solver import dpm_solver_sample
@@ -315,7 +316,7 @@ class LatentDiffusion(nn.Module):
     def make_cfg_sampler(self, *, ddim_steps: int = 20, guidance_scale: float = 3.0,
                          eta: float = 0.0, latent_hw=64, latent_ch: int = 3,
                          method: str = "ddim", mesh=None, tensor_parallel: bool = False,
-                         uncond_input=None) -> Callable:
+                         model_axis: str = "model", uncond_input=None) -> Callable:
         """Conditional CFG sampler over latents: returns
         ``sample(generator, labels, batch_size, *, x_T=None, noise=None) ->
         latents`` (B, h, w, latent_ch) f32 NHWC on the model's device.
@@ -332,11 +333,13 @@ class LatentDiffusion(nn.Module):
         the data-parallel ranks, the JAX sampler's data axis: ``labels``,
         ``batch_size``, ``x_T`` and ``noise`` are global, every draw is made
         at the global shape, and the sampler returns this rank's rows.
-        ``tensor_parallel`` (the JAX ``parallel/tp.py``) is not ported."""
+        ``tensor_parallel`` (a 2-D mesh, ``make_mesh(model=m)``, whose model
+        axis ``model_axis`` names as in JAX: 'model') shards the UNet in
+        place over the model axis (``parallel/tp.py``), for inference only;
+        the cond stage and the first stage stay replicated, as in JAX. A
+        later sampler without ``tensor_parallel`` refuses the sharded UNet."""
         solve = _compvis_solver(self.schedule, ddim_steps, eta, method)
-        if tensor_parallel:
-            raise NotImplementedError("tensor_parallel (the JAX parallel/tp.py) is not ported "
-                                      "yet (ROADMAP queue 1, item 5a)")
+        shard_for_sampler(self.unet, mesh, tensor_parallel, model_axis)
         lat_h, lat_w = ((latent_hw, latent_hw) if isinstance(latent_hw, int)
                         else tuple(latent_hw))
         device = self.schedule.alphas_cumprod.device

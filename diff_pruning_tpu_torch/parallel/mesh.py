@@ -19,7 +19,9 @@ have no torch meaning; their counterparts are :func:`local_rows` and
 :func:`padded_rows` (a batch split by rows) and :func:`all_gather_rows` (the
 rows put back together). :func:`all_reduce_sum` is a sum over the ranks
 that autograd differentiates (a statistic of the global batch inside a
-model: the PatchGAN's BatchNorm).
+model: the PatchGAN's BatchNorm). ``make_mesh(model=m)`` makes the mesh 2-D
+(data x model): the model axis's ranks share each row and split the UNet's
+channels (``parallel/tp.py``, the samplers' ``tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -38,14 +40,28 @@ TIMEOUT_S = 600
 
 
 @dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """A 2-D mesh's model axis, the JAX mesh's 'model' (``parallel/tp.py``):
+    ``size`` ranks, this one ``rank`` among them, collectives over
+    ``group``."""
+
+    size: int
+    rank: int
+    group: Optional[object] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class DataMesh:
     """The 'data' axis: ``world`` processes, this one ``rank``, its tensors
-    on ``device``, collectives over ``group`` (None: the default group)."""
+    on ``device``, collectives over ``group`` (None: the default group).
+    ``model``: the model axis of a 2-D (data x model) mesh, or None; there
+    ``world`` and ``rank`` are the data axis's."""
 
     world: int
     rank: int
     device: torch.device
     group: Optional[object] = None
+    model: Optional[ModelAxis] = None
 
     @property
     def is_main(self) -> bool:
@@ -100,16 +116,40 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return make_mesh()
 
 
-def make_mesh(device=None) -> DataMesh:
+def make_mesh(device=None, *, model: Optional[int] = None) -> DataMesh:
     """The data axis over the initialised process group: its world size and
     this process's rank; ``device`` defaults to the current GPU under NCCL
-    and the CPU otherwise. Raises when no group is initialised."""
+    and the CPU otherwise. Raises when no group is initialised.
+
+    With ``model`` the mesh is 2-D, (world // model) x model, as the JAX
+    ``make_mesh((("data", d), ("model", m)))``: rank r sits at data index
+    r // model and model index r % model, and each axis gets its process
+    groups (every rank makes every group, in one order). ``model=1`` gives a
+    model axis of one rank, over which ``tensor_parallel`` needs no
+    collective."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call init_distributed first")
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return DataMesh(dist.get_world_size(), dist.get_rank(), torch.device(device))
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model is None:
+        return DataMesh(world, rank, torch.device(device))
+    if model < 1 or world % model:
+        raise ValueError(f"model axis {model} does not divide the world size {world}")
+    data = world // model
+    data_group = model_group = None
+    if model > 1 or data > 1:
+        for d in range(data):
+            g = dist.new_group([d * model + m for m in range(model)])
+            if rank // model == d:
+                model_group = g
+        for m in range(model):
+            g = dist.new_group([d * model + m for d in range(data)])
+            if rank % model == m:
+                data_group = g
+    return DataMesh(data, rank // model, torch.device(device), data_group,
+                    ModelAxis(model, rank % model, model_group))
 
 
 def process_index() -> int:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import DataMesh, process_batch_slice
+from ..parallel.tp import shard_for_sampler
 from ..schedulers.ddim import ddim_prev_timesteps, ddim_step, ddim_timesteps, ddpm_step
 from ..schedulers.ddpm import DiffusionSchedule
 from ..schedulers.dpm_solver import dpm_solver_sample
@@ -39,7 +40,8 @@ class SamplerConfig:
 
 
 def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
-                 mesh: Optional[DataMesh] = None) -> Callable:
+                 mesh: Optional[DataMesh] = None, tensor_parallel: bool = False,
+                 model_axis: str = "model") -> Callable:
     """Returns ``sample(generator, batch_size, hw, channels, labels=None, *, x_T=None)``
     -> images in [0, 1], NHWC f32 on the model's device.
 
@@ -54,6 +56,15 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
     ``x_T`` are global, every noise is drawn at the global shape from the
     generator that each rank seeds alike, and the sampler returns this
     rank's rows of the images one process would draw.
+
+    ``tensor_parallel`` (a 2-D mesh, ``make_mesh(model=m)``; ``model_axis``
+    names its model axis as in JAX, and the port's has the one name,
+    'model') shards ``model`` in place over the model axis by its
+    ChannelGraph (``parallel/tp.py``): each rank holds its slice of every
+    conv/linear out-axis that the axis size divides and computes that slice
+    of the output; the ranks of a model axis share their rows. The sharded
+    model is for inference only, and a later sampler without
+    ``tensor_parallel`` refuses it.
     """
     if cfg.kind not in ("ddim", "ddpm", "plms", "dpm"):
         raise ValueError(f"unknown sampler kind {cfg.kind!r}")
@@ -68,6 +79,7 @@ def make_sampler(model, schedule: DiffusionSchedule, cfg: SamplerConfig,
     steps = [(int(t), int(tp)) for t, tp in zip(ts, prev)]
     needs_noise = cfg.eta > 0.0 or cfg.kind == "ddpm"
     compute_dtype = getattr(torch, cfg.dtype)
+    shard_for_sampler(model, mesh, tensor_parallel, model_axis)
     net = model
     if compute_dtype != torch.float32:
         net = copy.deepcopy(model).cast_compute_weights(compute_dtype)
@@ -122,10 +134,9 @@ def to_uint8(images) -> np.ndarray:
     return np.round(np.clip(arr, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
-def save_image_grid(images, path: str, nrow: int = 8) -> None:
-    """torchvision.utils.save_image equivalent (PIL)."""
-    from PIL import Image
-
+def image_grid(images, nrow: int = 8) -> np.ndarray:
+    """[0,1] float NHWC -> one uint8 grid, ``nrow`` images a row, 2-pixel white
+    gaps (torchvision.utils.make_grid's layout)."""
     arr = to_uint8(images)
     n, h, w, c = arr.shape
     nr = (n + nrow - 1) // nrow
@@ -135,7 +146,14 @@ def save_image_grid(images, path: str, nrow: int = 8) -> None:
         r, col = divmod(i, nrow)
         y0, x0 = pad + r * (h + pad), pad + col * (w + pad)
         grid[y0:y0 + h, x0:x0 + w] = arr[i]
-    Image.fromarray(grid.squeeze()).save(path)
+    return grid.squeeze()
+
+
+def save_image_grid(images, path: str, nrow: int = 8) -> None:
+    """torchvision.utils.save_image equivalent (PIL)."""
+    from PIL import Image
+
+    Image.fromarray(image_grid(images, nrow)).save(path)
 
 
 def save_images(images, outdir: str, start_index: int = 0) -> None:

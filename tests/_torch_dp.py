@@ -6,13 +6,16 @@ returns their outputs; a rank that fails or outlives the limit fails the
 caller (the others are killed, so no rank waits in a collective). Run as a
 script, this file is one rank of a library-level run:
 
-    python tests/_torch_dp.py train|sweep|ae RANK WORLD PORT IN_DIR OUT_DIR
+    python tests/_torch_dp.py train|sweep|ae|tp RANK WORLD PORT IN_DIR OUT_DIR
 
 For ``train`` and ``sweep``, ``IN_DIR`` holds ``inputs.npz``,
 ``kwargs.json`` and a UNet checkpoint (``utils/checkpoint.save_model``); for
 ``ae``, subdirectories that each hold ``inputs.npz``, ``kwargs.json``, a
 first stage (``first_stage/``), the discriminator's (``disc.npz``) and,
 optionally, LPIPS's (``lpips.npz``) params: one step each (:func:`ae_step`).
+For ``tp`` (tensor parallelism, ``parallel/tp.py``: every rank on one
+model axis), ``IN_DIR`` holds ``kwargs.json``, ``inputs.npz`` and a UNet
+checkpoint (``unet/``, a UNet2D) or an LDM dir (``ldm/``): :func:`tp_run`.
 The rank writes ``OUT_DIR/rank{RANK}.npz`` (for ``ae`` each key prefixed
 by its subdirectory's name and ``/``). It imports torch and the port only.
 """
@@ -112,6 +115,12 @@ def _main(mode, rank, world, port, in_dir, out_dir):
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
         return
     inputs, kwargs = inputs_of(in_dir)
+    if mode == "tp":
+        from diff_pruning_tpu_torch.parallel.mesh import make_mesh
+
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 **tp_run(in_dir, inputs, kwargs, make_mesh(model=world)))
+        return
     from diff_pruning_tpu_torch.models.unet2d import UNet2D
     from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
     from diff_pruning_tpu_torch.utils.checkpoint import load_model
@@ -144,6 +153,57 @@ def _main(mode, rank, world, port, in_dir, out_dir):
     else:
         raise ValueError(mode)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+
+
+def tp_run(in_dir, inputs, kwargs, mesh=None):
+    """``kwargs["kind"]`` 'unet2d': the UNet's forward on ``inputs`` x and t,
+    then ``make_sampler`` for each of ``kwargs["samplers"]`` (SamplerConfig
+    fields; noise from ``default`` seeded generators), both with
+    ``tensor_parallel`` over ``mesh``'s model axis; 'ldm': ``make_cfg_sampler``
+    for each of ``kwargs["samplers"]`` on ``inputs`` labels. Without ``mesh``
+    the same, replicated. Returns the outputs and the param bytes held."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from diff_pruning_tpu_torch.parallel.tp import param_bytes, shard_model_tp
+
+    tp = mesh is not None
+    out = {}
+    with torch.no_grad():
+        if kwargs["kind"] == "unet2d":
+            from diff_pruning_tpu_torch.models.unet2d import UNet2D
+            from diff_pruning_tpu_torch.sampling.ddim_sampler import SamplerConfig, make_sampler
+            from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+            from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+            cfg, state = load_model(in_dir)
+            model = UNet2D(cfg, device="cpu")
+            model.load_state_dict(state)
+            model.eval()
+            out["bytes_before"] = np.asarray(param_bytes(model))
+            if tp:
+                shard_model_tp(model, mesh)
+            out["bytes"] = np.asarray(param_bytes(model))
+            out["forward"] = model(inputs["x"], inputs["t"].long()).numpy()
+            hw = cfg.sample_size
+            for i, sc in enumerate(kwargs["samplers"]):
+                sample = make_sampler(model, DiffusionSchedule.create(device="cpu"),
+                                      SamplerConfig(**sc), mesh=mesh, tensor_parallel=tp)
+                out[f"sample{i}"] = sample(torch.Generator().manual_seed(5 + i), 2, hw,
+                                           cfg.out_channels).numpy()
+        else:
+            from diff_pruning_tpu_torch.models.latent_diffusion import load_ldm
+
+            ldm = load_ldm(os.path.join(in_dir, "ldm"), device="cpu")
+            out["bytes_before"] = np.asarray(param_bytes(ldm.unet))
+            labels = inputs["labels"].long()
+            for i, sc in enumerate(kwargs["samplers"]):
+                sample = ldm.make_cfg_sampler(**sc, mesh=mesh, tensor_parallel=tp)
+                out[f"sample{i}"] = sample(torch.Generator().manual_seed(5 + i), labels,
+                                           len(labels)).numpy()
+            out["bytes"] = np.asarray(param_bytes(ldm.unet))
+    return out
 
 
 def ae_step(in_dir, x, kwargs, mesh=None):

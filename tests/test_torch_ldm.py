@@ -711,6 +711,70 @@ def test_ldm_models_match_jax(tmp_path):
     for k, v in jinit.items():
         assert (not np.any(np.asarray(v))) == (not np.any(tinit[k])), k
     _check_ldm_converters(tmp_path, tiny)
+    _check_sr_data(tmp_path)
+
+
+def _check_sr_data(tmp_path):
+    """The BSRGAN degradation (each stage, and degradation_bsrgan_variant,
+    full and light, with and without the sf = 4 pre-halving) and SRDataset
+    in every degradation mode, from the same numpy generators: the port makes
+    the same numpy, scipy and cv2 calls in the same order, so every uint8
+    output, and the [-1, 1] floats made from it, equals the JAX package's
+    (largest difference 0, share of pixels that differ 0)."""
+    from PIL import Image
+
+    from diff_pruning_tpu.data import degradation as jdeg
+    from diff_pruning_tpu.data import sr as jsr
+    from diff_pruning_tpu_torch.data import degradation as tdeg
+    from diff_pruning_tpu_torch.data import sr as tsr
+
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 256, (72, 64, 3), dtype=np.uint8)
+    f = img.astype(np.float32) / 255.0
+    np.testing.assert_array_equal(tdeg.gaussian_kernel(7, 1.3), jdeg.gaussian_kernel(7, 1.3))
+    np.testing.assert_array_equal(tdeg.anisotropic_gaussian_kernel(9, 0.7, 2.0, 0.5),
+                                  jdeg.anisotropic_gaussian_kernel(9, 0.7, 2.0, 0.5))
+    k = jdeg.gaussian_kernel(25, 1.1)
+    np.testing.assert_array_equal(tdeg.shift_pixel(k, 4), jdeg.shift_pixel(k, 4))
+    for seed in range(8):  # every branch of each stage is drawn in 8 seeds
+        for light in (True, False):
+            a, b = (m.add_blur(f, 4, np.random.default_rng(seed), light=light)
+                    for m in (jdeg, tdeg))
+            np.testing.assert_array_equal(a, b)
+            a, b = (m.add_jpeg_noise(f, np.random.default_rng(seed), light=light)
+                    for m in (jdeg, tdeg))
+            np.testing.assert_array_equal(a, b)
+        a, b = (m.add_gaussian_noise(f, np.random.default_rng(seed), 2, 25) for m in (jdeg, tdeg))
+        np.testing.assert_array_equal(a, b)
+    # seeds 3 and 11 take the pre-halving by cv2.resize, 29 by the bicubic matrices
+    for seed in list(range(12)) + [29]:
+        for light in (True, False):
+            a, b = (m.degradation_bsrgan_variant(img, 4, light=light,
+                                                 rng=np.random.default_rng(seed))["image"]
+                    for m in (jdeg, tdeg))
+            assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape, (seed, light)
+            np.testing.assert_array_equal(a, b, err_msg=f"seed {seed} light {light}")
+    folder = tmp_path / "sr_images"
+    folder.mkdir()
+    for i, (h, w) in enumerate(((80, 96), (96, 72), (64, 64))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+            folder / f"{i}.png")
+    modes = ["bsrgan", "bsrgan_light", "pil_nearest", "pil_bilinear", "pil_bicubic", "pil_box",
+             "pil_hamming", "pil_lanczos", "cv_nearest", "cv_bilinear", "cv_bicubic", "cv_area",
+             "cv_lanczos"]
+    for mode in modes:
+        for random_crop in (True, False):
+            kw = dict(size=32, degradation=mode, random_crop=random_crop, seed=3)
+            jd = jsr.sr_dataset_from_folder(str(folder), **kw)
+            td = tsr.sr_dataset_from_folder(str(folder), **kw)
+            assert len(td) == len(jd) == 3
+            for i in range(3):
+                a, b = jd[i], td[i]
+                assert b["image"].shape == (32, 32, 3) and b["LR_image"].shape == (8, 8, 3)
+                for key in ("image", "LR_image"):
+                    np.testing.assert_array_equal(b[key], a[key], err_msg=f"{mode} {i} {key}")
+    with pytest.raises(ValueError, match="unknown degradation"):
+        tsr.SRDataset([], size=32, degradation="cv_sinc")
 
 
 def _check_ldm_converters(tmp_path, tiny):
@@ -887,6 +951,8 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     for method in ("plms", "dpm"):
         with pytest.raises(ValueError, match="eta == 0"):
             tl.make_concat_sampler(tm, ts_, method=method, eta=1.0)
+    _check_notebook(model_dir, jldm, jparams, tldm, uncond)
+    _check_ldm_tensor_parallel(tmp_path, model_dir, flat)
 
     # sample_diffusion on model dirs that the JAX package wrote (VQ and KL
     # first stages, as tests/test_sample_diffusion_cli.py writes them)
@@ -977,6 +1043,116 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
         ldm_sample.main(["--model_path", model_dir, "--output_dir", str(out), "--multihost",
                          "--coordinator_address", "127.0.0.1:1", "--num_processes", "1",
                          "--process_id", "0"])
+
+
+def _check_ldm_tensor_parallel(tmp_path, model_dir, flat):
+    """parallel/tp.py on the LDM: the plan of tiny_cond's UNetCond equals the
+    JAX tp_param_shardings path by path (model axes 2 and 4); over 2 gloo
+    ranks on one model axis, make_cfg_sampler(tensor_parallel=True) (DDIM
+    eta 1 and PLMS, 3 steps) against the replicated port at JAX's 2e-5
+    (tests/test_tp_sharding.py), each rank holding fewer UNet param bytes;
+    then, sharded on a model axis of one rank, save_ldm refuses to write the
+    UNet's slices and a plain make_cfg_sampler refuses the UNet."""
+    import shutil
+
+    import _torch_dp
+    from test_torch_sampling import jax_tp_axes
+
+    from diff_pruning_tpu_torch.parallel import tp
+
+    uflat = {k[len("unet/"):]: v for k, v in flat.items() if k.startswith("unet/")}
+    tgraph = tu.UNetCond(tu.tiny_cond_config(), device="meta").graph
+    for size in (2, 4):
+        plan = tp.tp_plan(tgraph, uflat, size)
+        assert plan == jax_tp_axes(ju.UNetCond(ju.tiny_cond_config()).graph, uflat, size), size
+        assert any(a is not None for a in plan.values())
+    tdir = tmp_path / "tp_ldm"
+    shutil.copytree(model_dir, tdir / "ldm")
+    labels = np.array([1, 4], np.int64)
+    samplers = [dict(ddim_steps=3, eta=1.0, latent_hw=8, latent_ch=3),
+                dict(ddim_steps=3, method="plms", latent_hw=8, latent_ch=3)]
+    np.savez(tdir / "inputs.npz", labels=labels)
+    with open(tdir / "kwargs.json", "w") as f:
+        json.dump({"kind": "ldm", "samplers": samplers}, f)
+    ranks = _torch_dp.lib_ranks("tp", tdir, tmp_path, world=2)
+    want = _torch_dp.tp_run(str(tdir), {"labels": torch.from_numpy(labels)},
+                            {"kind": "ldm", "samplers": samplers})
+    for r in ranks:
+        assert r["bytes"] < r["bytes_before"] == want["bytes"]
+        for key in ("sample0", "sample1"):
+            np.testing.assert_allclose(r[key], want[key], atol=2e-5, rtol=2e-5, err_msg=key)
+    from diff_pruning_tpu_torch.parallel.mesh import DataMesh, ModelAxis
+
+    ldm = tl.load_ldm(str(tdir / "ldm"), device="cpu")
+    ldm.make_cfg_sampler(**samplers[0], mesh=DataMesh(1, 0, torch.device("cpu"),
+                                                      model=ModelAxis(1, 0)),
+                         tensor_parallel=True)
+    with pytest.raises(RuntimeError, match="slices"):
+        tckpt.save_ldm(str(tmp_path / "tp_save"), ldm)
+    with pytest.raises(ValueError, match="build its sampler with tensor_parallel"):
+        ldm.make_cfg_sampler(**samplers[0])
+
+
+def _jax_concat_noise(seed, shape, steps):
+    """x_T and DDIM's per-step noise as the JAX concat sampler draws them
+    from ``jax.random.key(seed)``."""
+    k, ik = jax.random.split(jax.random.key(seed))
+    noise = []
+    for _ in range(steps):
+        k, nk = jax.random.split(k)
+        noise.append(torch.from_numpy(np.array(jax.random.normal(nk, shape))))
+    return torch.from_numpy(np.array(jax.random.normal(ik, shape))), noise
+
+
+def _check_notebook(model_dir, jldm, jparams, tldm, uncond):
+    """utils/notebook.py against the JAX helpers: get_model on a model dir
+    (the same weights as load_ldm), on a preset and on an unknown name;
+    sample_classes (DDIM and PLMS, decoded) from the JAX helper's x_T per
+    class, within TRAJ_RTOL in norm; run_superres and run_inpaint (DDIM eta
+    1, 4 steps) from the JAX helper's x_T and per-step noise, within the
+    concat sampler's 5e-5; to_pil's grid equal to the JAX one's."""
+    from diff_pruning_tpu.utils import notebook as jnb
+    from diff_pruning_tpu_torch.utils import notebook as tnb
+
+    got = tnb.get_model(model_dir, device="cpu")
+    want = tldm.state_dict()
+    assert all(torch.equal(t, want[k]) for k, t in got.state_dict().items())
+    preset = tnb.get_model("tiny-cond", seed=1, device="cpu")
+    assert preset.unet.cfg.to_json() == ju.tiny_cond_config().to_json()
+    assert preset.first_stage is None and not preset.training
+    with pytest.raises(ValueError, match="presets"):
+        tnb.get_model("no_such_preset_xyz", device="cpu")
+    classes, n, seed = (0, 3), 2, 5
+    x_T = torch.cat([torch.from_numpy(np.array(jax.random.normal(
+        jax.random.split(jax.random.key(seed + i))[1], (n, 8, 8, 3)))) for i in range(2)])
+    for method in ("ddim", "plms"):
+        with jax.default_matmul_precision("float32"):
+            want = jnb.sample_classes(jldm, jparams, classes=classes, n_per_class=n,
+                                      ddim_steps=4, method=method, seed=seed)
+        got = tnb.sample_classes(tldm, classes=classes, n_per_class=n, ddim_steps=4,
+                                 method=method, seed=seed, x_T=x_T)
+        assert got.shape == want.shape == (4, 16, 16, 3)
+        assert _rel(got, want) <= TRAJ_RTOL, (method, _rel(got, want))
+    assert np.array_equal(np.asarray(tnb.to_pil(got, nrow=3)), np.asarray(jnb.to_pil(got, nrow=3)))
+    rng = np.random.default_rng(31)
+    img = rng.uniform(0, 1, (2, 8, 8, 3)).astype(np.float32)
+    mask = np.zeros((2, 8, 8), np.float32)
+    mask[:, :4] = 1.0
+    for task, cc in (("superres", 3), ("inpaint", 4)):
+        ucfg = dataclasses.replace(uncond, in_channels=3 + cc)
+        jm = ju.UNetCond(ucfg)
+        uflat = numpy_params(jm.init, 40 + cc)
+        tm = tu.UNetCond(tu.UNetCondConfig.from_json(ucfg.to_json()), device="cpu")
+        tm.load_state_dict(tckpt.state_dict_from_flat(uflat))
+        tm.eval()
+        x_T, noise = _jax_concat_noise(7, (2, 8, 8, 3), 4)
+        args = (img,) if task == "superres" else (img, mask)
+        fn_j, fn_t = getattr(jnb, f"run_{task}"), getattr(tnb, f"run_{task}")
+        with jax.default_matmul_precision("float32"):
+            want = fn_j(jm, _jax_tree(uflat), *args, ddim_steps=4, seed=7)
+        got = fn_t(tm, *args, ddim_steps=4, seed=7, x_T=x_T, noise=noise)
+        assert got.shape == (2, 8, 8, 3)
+        np.testing.assert_allclose(got, np.asarray(want), atol=5e-5, rtol=0, err_msg=task)
 
 
 def _check_text_and_retrieval_serving(tmp_path, capsys):

@@ -73,8 +73,9 @@ def test_port_imports_nothing_of_jax():
     no ``nvcc`` (CUDA_HOME points nowhere), none pulls jax or the JAX package
     in, and the CLIs parse their arguments so, the data-parallel ones
     with the multihost flags (``parallel/mesh.py``, ``cli/_multihost.py``,
-    ``cli/profile_model.py`` and the checkpoint-conversion and data modules
-    among them)."""
+    ``cli/profile_model.py``, the checkpoint-conversion and data modules, the
+    SR data, the notebook helpers, ``parallel/tp.py`` and ``native`` among
+    them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex', 'safetensors',\n"
@@ -90,7 +91,10 @@ def test_port_imports_nothing_of_jax():
         "        'diff_pruning_tpu_torch.data.lmdb_io', 'diff_pruning_tpu_torch.data.ldm_datasets',\n"
         "        'diff_pruning_tpu_torch.cli.convert_checkpoints',\n"
         "        'diff_pruning_tpu_torch.cli.make_lsun_lmdb',\n"
-        "        'diff_pruning_tpu_torch.cli.profile_model'} <= set(names)\n"
+        "        'diff_pruning_tpu_torch.cli.profile_model',\n"
+        "        'diff_pruning_tpu_torch.data.degradation', 'diff_pruning_tpu_torch.data.sr',\n"
+        "        'diff_pruning_tpu_torch.utils.notebook', 'diff_pruning_tpu_torch.parallel.tp',\n"
+        "        'diff_pruning_tpu_torch.native'} <= set(names)\n"
         "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
         "                                        ldm_prune, ldm_sample, ldm_train,\n"
         "                                        prune_finetune, prune_ssim)\n"
@@ -377,7 +381,7 @@ def test_macs_and_params_match_jax(config, monkeypatch, capsys, tmp_path):
 def test_data_batches_match_jax(tmp_path, monkeypatch):
     """load_npz, the CIFAR-10 pickle-batch loader and the first batches of
     iterate_batches are bit-identical to the JAX package's, over arrays and
-    over image folders (resized ones against its PIL decode), and so are a
+    over image folders (resized ones through the native loader), and so are a
     data-parallel rank's rows (``local_slice``); 'cifar10' and 'cifar100'
     are looked up where the JAX package looks (here ~/data/cifar10 and
     ~/data/cifar100). The lmdb reader and writer match the JAX ones byte
@@ -427,8 +431,7 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
 
     # image-folder batches (the autoencoder trainer's): bit-identical to the
     # JAX package's at the stored size, also after a skip for resume;
-    # resized, to its PIL ``load`` under the same draws (its native decoder
-    # resizes with another filter)
+    # resized, through the native loader (_check_native_loader)
     from PIL import Image
 
     folder = tmp_path / "folder"
@@ -446,17 +449,66 @@ def test_data_batches_match_jax(tmp_path, monkeypatch):
             want = next(jb)
             np.testing.assert_array_equal(next(tb), want)
             np.testing.assert_array_equal(next(tl), want[1:2])
+    _check_native_loader(tmp_path, rng, folder)
+
+
+def _check_native_loader(tmp_path, rng, folder):
+    """The native loader (``native/``): resized folders of non-square PNGs
+    and JPEGs, plain and class-labeled, give the JAX package's batches bit
+    for bit with its native library built (its bilinear resize, not PIL's),
+    also for a rank's rows and after a skip; a batch holding a file that the
+    native decoder refuses (a PNG under a .jpg name) is decoded with PIL in
+    both; the in-memory batches went through ``assemble_batch`` above; and a
+    failed build raises instead of falling back."""
+    from PIL import Image
+
+    from diff_pruning_tpu import native as jnative
+    from diff_pruning_tpu.data import datasets as jdata
+    from diff_pruning_tpu_torch import native as tnative
+    from diff_pruning_tpu_torch.data import datasets as tdata
+
+    assert jnative.get_lib() is not None, "the JAX native loader must build here"
+    calls = dict(tnative.CALLS)
     rds, jrds = tdata.get_dataset(str(folder), 8), jdata.get_dataset(str(folder), 8)
-    drng = np.random.default_rng(4)
-    batches = tdata.iterate_batches(rds, 3, seed=4, skip_batches=1)
+    for kw in ({}, {"skip_batches": 1}, {"local_slice": (1, 3)}):
+        tb, jb = (m.iterate_batches(d, 3, seed=4, **kw) for m, d in ((tdata, rds), (jdata, jrds)))
+        for _ in range(3):
+            np.testing.assert_array_equal(next(tb), next(jb))
+    labeled = tmp_path / "labeled"
+    for i, (h, w) in enumerate(((20, 28), (31, 17), (16, 16), (24, 40), (33, 21), (18, 26))):
+        (labeled / f"c{i % 2}").mkdir(parents=True, exist_ok=True)
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        img.save(labeled / f"c{i % 2}" / (f"{i}.png" if i % 3 else f"{i}.jpg"), quality=90)
+    tds, jds = (m.get_labeled_dataset(str(labeled), 16) for m in (tdata, jdata))
+    for kw in ({}, {"skip_batches": 1}):
+        tb = tdata.iterate_labeled_batches(tds, 2, seed=6, **kw)
+        jb = jdata.iterate_labeled_batches(jds, 2, seed=6, **kw)
+        for _ in range(4):
+            (a, la), (b, lb) = next(tb), next(jb)
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(la, lb)
+    assert tnative.CALLS["decode_batch"] > calls["decode_batch"]
+    assert tnative.CALLS["assemble_batch"] > 0
+    # a PNG under a .jpg name: the native decoder refuses it, the batch goes to PIL
+    odd = tmp_path / "odd"
+    odd.mkdir()
     for i in range(3):
-        order = drng.permutation(7) if i % 2 == 0 else order
-        idx = order[3 * (i % 2):3 * (i % 2) + 3]
-        flips = drng.random(3) < 0.5
-        want = np.stack([jrds.load(j) for j in idx])
-        want[flips] = want[flips, :, ::-1]
-        if i:
-            np.testing.assert_array_equal(next(batches), jdata.normalize(want))
+        Image.fromarray(rng.integers(0, 256, (10 + i, 14, 3), dtype=np.uint8)).save(
+            odd / f"{i}.png")
+    os.rename(odd / "1.png", odd / "1.jpg")
+    tds, jds = tdata.get_dataset(str(odd), 8), jdata.get_dataset(str(odd), 8)
+    assert tnative.decode_batch(tds.files, 8) is None
+    np.testing.assert_array_equal(next(tdata.iterate_batches(tds, 3, seed=0)),
+                                  next(jdata.iterate_batches(jds, 3, seed=0)))
+    broken = tmp_path / "broken.cc"
+    broken.write_text("this is not C++\n")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tnative, "_lib", None)
+        mp.setattr(tnative, "_SRC", str(broken))
+        mp.setattr(tnative, "BUILD_DIR", str(tmp_path / "native_build"))
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            next(tdata.iterate_batches(tdata.ArrayDataset(
+                rng.integers(0, 256, (4, 4, 4, 3), dtype=np.uint8)), 2))
 
 
 def _check_other_sources(tmp_path, home, rng):

@@ -19,6 +19,8 @@ Tolerances:
   of 1e-5 (tests/test_torch_ldm.py's trajectory tolerance).
 """
 
+import copy
+import json
 import os
 
 import numpy as np
@@ -208,12 +210,106 @@ def test_ddim_trajectory_matches_jax():
             tsampler.make_sampler(model, ts_, tsampler.SamplerConfig(kind=kind, eta=0.5))
 
 
+def jax_tp_axes(jgraph, flat, model_size):
+    """The JAX ``tp_param_shardings`` of JAX-layout ``flat`` params over a
+    (8 // model_size) x model_size mesh of the test's 8 CPU devices, as
+    the sharded axis of each param or None."""
+    from jax.sharding import PartitionSpec as P
+
+    from diff_pruning_tpu.parallel.mesh import make_mesh
+    from diff_pruning_tpu.parallel.tp import tp_param_shardings
+    from diff_pruning_tpu.pruning.surgery import flatten_params
+
+    mesh = make_mesh((("data", 8 // model_size), ("model", model_size)))
+    specs = flatten_params(tp_param_shardings(jgraph, unflatten_params(flat), mesh))
+    return {k: None if s.spec == P() else list(s.spec).index("model") for k, s in specs.items()}
+
+
+def _check_tensor_parallel(tmp_path, cfg, model):
+    """parallel/tp.py: the plan equals the JAX tp_param_shardings, path by
+    path, on tests/test_tp_sharding.py's tiny UNet2D (model axis 4) and on
+    its magnitude-pruned variant, whose sizes stop dividing 8 (axis 8: the
+    graceful degradation to replicated); then over 2 gloo ranks on one model
+    axis, the tiny UNet's forward and make_sampler (DDIM eta 1, PLMS) with
+    tensor_parallel against the replicated port at JAX's 2e-5
+    (tests/test_tp_sharding.py), each rank holding fewer param bytes; last,
+    on a model axis of one rank, that a sharded model refuses a forward
+    under autograd, its state_dict, a sampler without tensor_parallel, a
+    model axis of another name and another mesh, and samples exactly as the
+    replicated one under the same noise."""
+    import _torch_dp
+    from diff_pruning_tpu.pruning.importance import make_importance
+    from diff_pruning_tpu.pruning.pruner import apply_pruning, prune
+    from diff_pruning_tpu.pruning.surgery import flatten_params
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D, UNet2DConfig
+    from diff_pruning_tpu_torch.parallel import tp
+
+    kw = dict(sample_size=16, block_out_channels=(16, 24), layers_per_block=1,
+              down_block_types=("DownBlock2D", "DownBlock2D"),
+              up_block_types=("UpBlock2D", "UpBlock2D"), norm_num_groups=4,
+              attention_head_dim=None, add_attention=False)
+    jm = junet.UNet2D(junet.UNet2DConfig(**kw))
+    jparams = jm.init(jax.random.key(0))
+    res = prune(jm.graph, jparams, make_importance("magnitude"), sparsity=0.25)
+    pruned = apply_pruning(jparams, jm.graph, res)
+    assert any(v % 8 for v in res.channel_sizes.values())
+    for sizes, params, size in ((None, jparams, 4), (res.channel_sizes, pruned, 8)):
+        tcfg = UNet2DConfig(**kw) if sizes is None else UNet2DConfig(**kw).with_channel_sizes(
+            sizes)
+        jgraph = jm.graph if sizes is None else junet.UNet2D(
+            junet.UNet2DConfig(**kw).with_channel_sizes(sizes)).graph
+        flat = {k: np.asarray(v) for k, v in flatten_params(params).items()}
+        plan = tp.tp_plan(UNet2D(tcfg, device="meta").graph, flat, size)
+        assert plan == jax_tp_axes(jgraph, flat, size), size
+        assert any(a is not None for a in plan.values())
+        if size == 8:
+            assert any(a is None and flat[k].ndim == 4 for k, a in plan.items())
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 16, 16, 3)).astype(np.float32)
+    t = np.array([10, 900], np.int64)
+    samplers = [dict(num_inference_steps=3, eta=1.0), dict(num_inference_steps=3, kind="plms")]
+    tdir = tmp_path / "tp"
+    tckpt.save_model(str(tdir), cfg, model)
+    np.savez(tdir / "inputs.npz", x=x, t=t)
+    with open(tdir / "kwargs.json", "w") as f:
+        json.dump({"kind": "unet2d", "samplers": samplers}, f)
+    ranks = _torch_dp.lib_ranks("tp", tdir, tmp_path, world=2)
+    want = _torch_dp.tp_run(str(tdir), {"x": torch.from_numpy(x), "t": torch.from_numpy(t)},
+                            {"kind": "unet2d", "samplers": samplers})
+    for r in ranks:
+        assert r["bytes"] < r["bytes_before"] == want["bytes"]
+        for key in ("forward", "sample0", "sample1"):
+            np.testing.assert_allclose(r[key], want[key], atol=2e-5, rtol=2e-5, err_msg=key)
+    from diff_pruning_tpu_torch.parallel.mesh import DataMesh, ModelAxis
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+
+    mesh = DataMesh(1, 0, torch.device("cpu"), model=ModelAxis(1, 0))
+    sched, sc = DiffusionSchedule.create(device="cpu"), tsampler.SamplerConfig(
+        num_inference_steps=3, eta=1.0)
+    model = copy.deepcopy(model).eval()
+    plain = tsampler.make_sampler(model, sched, sc)(torch.Generator().manual_seed(3), 2, 16, 3)
+    sharded = tsampler.make_sampler(model, sched, sc, mesh=mesh, tensor_parallel=True)
+    assert torch.equal(sharded(torch.Generator().manual_seed(3), 2, 16, 3), plain)
+    with pytest.raises(RuntimeError, match="for inference"):
+        model(torch.from_numpy(x), torch.from_numpy(t))
+    with pytest.raises(RuntimeError, match="slices"):
+        tckpt.save_model(str(tmp_path / "tp_save"), cfg, model)
+    with pytest.raises(ValueError, match="build its sampler with tensor_parallel"):
+        tsampler.make_sampler(model, sched, sc)
+    with pytest.raises(ValueError, match="no model axis 'data'"):
+        tsampler.make_sampler(model, sched, sc, mesh=mesh, tensor_parallel=True,
+                              model_axis="data")
+    with pytest.raises(ValueError, match="another model axis"):
+        tp.shard_model_tp(model, DataMesh(1, 0, torch.device("cpu"), model=ModelAxis(2, 0)))
+
+
 def test_cli_writes_pngs_on_cpu_and_refuses_missing_gpu(tmp_path, monkeypatch):
     """The sampling CLI on the CPU: PNGs, the sampler kinds and grid modes,
     the data-parallel run over 2 gloo ranks against one process; it refuses
     --device cuda without a GPU, with and without --multihost."""
     cfg, model = _tiny_checkpoint(1)
     tckpt.save_model(str(tmp_path / "ckpt"), cfg, model)
+    _check_tensor_parallel(tmp_path, cfg, model)
     out = tmp_path / "samples"
     args = ["--model_path", str(tmp_path / "ckpt"), "--output_dir", str(out),
             "--total_samples", "5", "--batch_size", "2", "--ddim_steps", "3"]
