@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``diff_pruning_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--compare-fwd LABEL=SRC ...] [--compare-bwd LABEL=SRC ...]
+                          [--compare-gn-fwd LABEL=SRC ...] [--compare-gn-bwd LABEL=SRC ...]
 
 Drives the port's paths, through its own kernels, from seeded random
 checkpoints, and checks them: on the full-width CIFAR-10 UNet (35.75M
@@ -49,12 +50,16 @@ none is caught, so any failure exits non-zero before the result lines.
    dk/dv, the wide ones above D = 256 too; the wide forward and the wgmma
    dq and dk/dv with wgmma) must use the tensor cores, the f32 attention
    kernels and the GroupNorm backward must not.
+   The GroupNorm kernels' cluster route (``gn_fwd_cluster_kernel``,
+   ``gn_bwd_cluster_kernel``) must not spill either.
    With ``--compare-fwd LABEL=SRC`` or ``--compare-bwd LABEL=SRC``
    (repeatable) it also builds SRC, another version of
    flash_attention_fwd.cu or flash_attention_bwd.cu with the same C
    interface (e.g. the parent commit's, unpacked by ``git archive``), beside
    the port's own builds, for phases 16 and 18 (forward) or 13, 17 and 18
-   (backward).
+   (backward); with ``--compare-gn-fwd LABEL=SRC`` or ``--compare-gn-bwd
+   LABEL=SRC`` another group_norm_fwd.cu or group_norm_bwd.cu, which every
+   per-op GroupNorm timing runs in the same turns as this checkout's.
 3. Forward kernels against their plain versions on the card, B = 128, f32
    and bf16, at every GroupNorm and attention shape the dense, the pruned
    and the prune CLI's UNet give them (collected by forward hooks), plus a
@@ -76,7 +81,16 @@ none is caught, so any failure exits non-zero before the result lines.
    these).
 8. Backward kernels against their plain versions, at the same shapes, B =
    128, f32 and bf16: the forward's saved GroupNorm statistics and the
-   attention lse, then dx/dscale/dbias and dq/dk/dv.
+   attention lse, then dx/dscale/dbias and dq/dk/dv. Then the GroupNorm
+   kernels' cluster route (slabs beyond one block's shared memory): at N one
+   position either side of each kernel's single-block budget (from the
+   libraries' route queries) at 4, 8, 16 and 60 channels a group, at N
+   ragged to a 16-block cluster's shares and at slabs beyond the largest
+   cluster (streamed), in f32, bf16 and f16, channels-last and as NCHW
+   views, SiLU on and off: the route, one launch a call, y with and without
+   the statistics, dx, dscale and dbias against the plain versions, repeats
+   bit-identical; the backward replayed from a CUDA graph bit-identical to
+   an eager call.
 9. The sweep at full width, B = 128, f32, 3 timesteps, kernels on against
    off on the same x0 and noise (cuDNN deterministic): losses, every
    parameter's grad, Diff-Pruning scores, launch counts per step, and the
@@ -302,9 +316,10 @@ none is caught, so any failure exits non-zero before the result lines.
    generator's forward, the adaptive weight, the generator's backward and
    Adam, and the discriminator pass; peak memory; a profile by kernel
    class; per-op ms of the GroupNorm forward and backward at (65,536, 128)
-   and of the attention forward with lse, dq and dk/dv at (4096, 4096,
-   512), against plain, F.group_norm (and its autograd), SDPA (and its
-   backward) and the bound, f32 and bf16. Prints the phase's seconds.
+   (channels-last, and the NCHW view) and of the attention forward with
+   lse, dq and dk/dv at (4096, 4096, 512), against plain, F.group_norm (and
+   its autograd), SDPA (and its backward) and the bound, f32 and bf16.
+   Prints the phase's seconds.
 22. Text- and retrieval-conditioned LDM serving, f32, TF32 off, three model
    dirs from a seeded init on the card (zero-initialised convs redrawn):
    txt2img-1p4B (UNet 872,300,484 + BERTEmbedder 581,994,042 + kl-f8
@@ -398,9 +413,11 @@ none is caught, so any failure exits non-zero before the result lines.
    launches exact, every backward in bf16; (f) the sampling CLI from the
    finetuned dir (8 images, DDIM-4), and its export-diffusers, which loads
    back with its channel sizes bit-identical; (g) per-op ms of the
-   GroupNorm forward and backward at (65,536, 128) and the attention forward
-   with lse, dq and dk/dv at (256, 256, 512), f32 and bf16, against plain,
-   the library call and the bound. Prints the phase's seconds, each CLI's
+   GroupNorm forward and backward at (65,536, 128) (channels-last, and the
+   NCHW view) and the attention forward with lse, dq and dk/dv at (256,
+   256, 512), f32 and bf16, against plain, the library call and the bound.
+   In phases 21 and 24 every GroupNorm shape's line names the route each
+   kernel takes, and a call must launch once. Prints the phase's seconds, each CLI's
    seconds and peak memory.
 25. Remat path, on phase 24's diffusers dir (dropout 0.1) and lmdb, B =
    16: (a) one bf16 and one f32 train step with and without remat from the
@@ -787,9 +804,9 @@ def bound_by(tot, prefix=""):
 
 def kernel_class(name: str) -> str:
     n = name.lower()
-    if "gn_fwd_kernel" in n:  # the CUDA kernels, mangled
+    if "gn_fwd_kernel" in n or "gn_fwd_cluster_kernel" in n:  # the CUDA kernels, mangled
         return "GroupNorm forward"
-    if "gn_bwd_kernel" in n:
+    if "gn_bwd_kernel" in n or "gn_bwd_cluster_kernel" in n:
         return "GroupNorm backward"
     if "flash_fwd_kernel" in n or "flash_bwd_" in n:  # the CUDA kernels, mangled
         return "attention kernels"
@@ -851,7 +868,8 @@ def ptxas_by_kernel(log: str, pattern: str, name_of):
 # attention forward and backward (``flash_fwd_kernel_wgmma_wide<T, NW, Z>``,
 # ``flash_fwd_kernel_f32_wide<BQ, NCV>``, ``flash_bwd_dq_kernel_f32<NC>``,
 # ``flash_bwd_dkv_kernel_f32_wide<NC2>``, ``flash_bwd_dkv_kernel_mma<T, NC>``,
-# ...) and the GroupNorm backward (``gn_bwd_kernel<T, silu>``)
+# ...) and the GroupNorm forward and backward (``gn_bwd_kernel<T, silu>``,
+# the cluster route's ``gn_fwd_cluster_kernel<T, silu, vc>``)
 PTXAS_KERNELS = {
     "flash_attention_fwd": (r"Compiling entry function '.*?(flash_fwd_\w+?_(?:f32_wide|f32|"
                             r"wgmma_wide|mma))I(13__nv_bfloat16|6__half)?((?:Li\d+E)+)E",
@@ -863,29 +881,43 @@ PTXAS_KERNELS = {
                             lambda m: f"{m.group(1)}<" + (
                                 m.group(2).lstrip("0123456789") + ", " if m.group(2) else "")
                             + ", ".join(re.findall(r"Li(\d+)E", m.group(3))) + ">"),
-    "group_norm_bwd": (r"Compiling entry function '.*?gn_bwd_kernelI(f|13__nv_bfloat16|6__half)"
-                       r"Lb(\d)E",
-                       lambda m: f"gn_bwd_kernel<{m.group(1).lstrip('0123456789')}, "
-                                 f"silu={m.group(2)}>"),
+    **{lib: (rf"Compiling entry function '.*?(gn_{lib[-3:]}(?:_cluster)?_kernel)I"
+             r"(f|13__nv_bfloat16|6__half)Lb(\d)E(?:Li(\d+)E)?",
+             lambda m: f"{m.group(1)}<{m.group(2).lstrip('0123456789')}, silu={m.group(3)}"
+                       + (f", vc={m.group(4)}>" if m.group(4) else ">"))
+       for lib in ("group_norm_fwd", "group_norm_bwd")},
 }
 
 
-# the attention libraries another version can stand in for: --compare-fwd
-# and --compare-bwd, and the C functions each binds
+# the libraries another version can stand in for: --compare-fwd and
+# --compare-bwd (attention), --compare-gn-fwd and --compare-gn-bwd
+# (GroupNorm), and the C functions each binds
 OTHER_LIBS = {"fwd": ("flash_attention_fwd", ("flash_attention_fwd",)),
               "bwd": ("flash_attention_bwd", ("flash_attention_bwd_dq",
-                                              "flash_attention_bwd_dkv"))}
+                                              "flash_attention_bwd_dkv")),
+              "gn_fwd": ("group_norm_fwd", ("group_norm_fwd",)),
+              "gn_bwd": ("group_norm_bwd", ("group_norm_bwd",))}
+# the other GroupNorm versions given (kind -> label -> library), set by
+# main(); every per-op GroupNorm timing runs them in the same turns
+GN_OTHERS = {"gn_fwd": {}, "gn_bwd": {}}
+
+
+def ops_module(kind: str):
+    """The wrapper module whose library ``kind`` names."""
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    return G if kind.startswith("gn_") else A
 
 
 def load_other(kind: str, label: str, src: str):
-    """The library of another version of flash_attention_{kind}.cu with the
-    port's C interface, built as the port builds its own (nvcc, the same
-    flags, the port's csrc/ on the include path) and bound as
-    ops/attention.py binds it."""
+    """The library of another version of the ``kind`` source (e.g.
+    flash_attention_fwd.cu, group_norm_bwd.cu) with the port's C interface,
+    built as the port builds its own (nvcc, the same flags, the port's csrc/
+    on the include path) and bound as its wrapper module binds it."""
     import ctypes
 
     from diff_pruning_tpu_torch.ops import _build
-    from diff_pruning_tpu_torch.ops import attention as A
 
     name, fns = OTHER_LIBS[kind]
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -897,7 +929,11 @@ def load_other(kind: str, label: str, src: str):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}\n{res.stderr}")
     print(f"build: {label}: {src} (nvcc sm_90a) {time.perf_counter() - t0:.2f}s")
-    lib, ours = ctypes.CDLL(out), A._lib(name)
+    lib, ours = ctypes.CDLL(out), ops_module(kind)._lib(name)
+    if kind.startswith("gn_"):  # ops/group_norm.py keeps the C function itself
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = ours.argtypes, ours.restype
+        return fn
     for fn in fns:
         getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
         getattr(lib, fn).restype = getattr(ours, fn).restype
@@ -905,21 +941,35 @@ def load_other(kind: str, label: str, src: str):
 
 
 def with_lib(kind: str, lib, fn):
-    """``fn`` as a function that runs it with ops/attention.py's
-    flash_attention_{kind} library set to ``lib``."""
-    from diff_pruning_tpu_torch.ops import attention as A
-
-    name = OTHER_LIBS[kind][0]
+    """``fn`` as a function that runs it with the wrapper module's library
+    of ``kind`` (OTHER_LIBS) set to ``lib``."""
+    mod, name = ops_module(kind), OTHER_LIBS[kind][0]
 
     def run():
-        saved = A._LIBS[name]
-        A._LIBS[name] = lib
+        saved = mod._LIBS[name]
+        mod._LIBS[name] = lib
         try:
             return fn()
         finally:
-            A._LIBS[name] = saved
+            mod._LIBS[name] = saved
 
     return run
+
+
+def gn_others(kind: str, fn):
+    """``fn`` run with each other GroupNorm version of ``kind`` ("gn_fwd",
+    "gn_bwd"), in GN_OTHERS's order: appended to a per-op timing's turns."""
+    return [with_lib(kind, lib, fn) for lib in GN_OTHERS[kind].values()]
+
+
+def split_others(ms, base: int, kind: str):
+    """(the first ``base`` timings, {label: ms} of the GroupNorm versions
+    that gn_others appended after them)."""
+    return ms[:base], dict(zip(GN_OTHERS[kind], ms[base:]))
+
+
+def others_text(other_ms) -> str:
+    return "".join(f", {label} kernel {t:.4f} ms" for label, t in other_ms.items())
 
 
 def layout_name(x3) -> str:
@@ -1234,6 +1284,174 @@ def check_backward_kernels(gn_cases, attn_cases, gen, dev, worst, suffixes=("",)
             print(f"check attention bwd B={B} heads={h} N={n} D={d} {dname}: "
                   + " ".join(f"{k}={e:.3e}" for k, e in errs.items())
                   + f" tol={tol} x max|want| ok")
+
+
+def gn_route(kind: str, dname: str, n: int, c: int, groups: int = 32, sc: int = 1):
+    """The route the GroupNorm kernel of ``kind`` ("fwd", "bwd") takes at
+    (N, C) with ``groups`` groups (the forward: x's channel stride ``sc``),
+    from its library's route query: (0 one block a run / 1 a cluster, groups
+    a run, blocks a cluster, positions a block, of which in shared memory,
+    a block's shared memory in bytes)."""
+    import ctypes
+
+    from diff_pruning_tpu_torch.ops import _build
+
+    fn = getattr(_build.load_library(f"group_norm_{kind}"), f"group_norm_{kind}_route")
+    out = (ctypes.c_int * 6)()
+    code = {"float32": 0, "bfloat16": 1, "float16": 2}[dname]
+    if kind == "fwd":
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        err = fn(code, n, c, groups, sc, out)
+    else:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        err = fn(code, n, c, groups, out)
+    assert err == 0, (kind, dname, n, c, err)
+    return tuple(out)
+
+
+def single_block_limit(kind: str, dname: str, c: int) -> int:
+    """The largest N whose (N, c) slab the GroupNorm kernel of ``kind``
+    takes on one block (the route grows with N)."""
+    lo, hi = 1, 1 << 22
+    assert gn_route(kind, dname, lo, c)[0] == 0 and gn_route(kind, dname, hi, c)[0] == 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if gn_route(kind, dname, mid, c)[0] == 0 else (lo, mid)
+    return lo
+
+
+# the GroupNorm cluster route's checks (phase 8): channels a group (cin256-v2's
+# 1920 channels give 60), and shapes beyond the single-block budget that a
+# boundary does not give: N ragged to a 16-block cluster's 32-position shares
+# (C = 128), and slabs beyond the largest cluster's shared memory (f32 and
+# 16-bit: the streamed route)
+GN_EDGE_CPG = (4, 8, 16, 60)
+GN_EDGE_EXTRA = ((2, 65536 + 17, 128), (1, 200_003, 128))
+
+
+def check_gn_cluster_route(gen, dev, worst):
+    """Phase 8's checks of the GroupNorm kernels' cluster route: at N one
+    position either side of each kernel's single-block budget (``cpg`` of
+    GN_EDGE_CPG channels a group, 32 groups) and at GN_EDGE_EXTRA, in f32,
+    bf16 and f16, channels-last and as the (B, N, C) view of an NCHW tensor,
+    SiLU on and off in turn: the route the budget implies, one launch a
+    call, y with ``stats`` null and set (bit-equal), the statistics, dx,
+    dscale and dbias against the plain versions (the forward at TOL /
+    F16_TOL, the rest at BWD_TOL / F16_BWD_TOL x max|plain|), and a repeat of
+    each kernel bit-identical; then a backward on the cluster route captured
+    into a CUDA graph, replayed between eager calls on new inputs, equal to
+    the eager call on the same inputs bit for bit."""
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    tols = {"float32": (TOL["float32"], BWD_TOL["float32"]),
+            "bfloat16": (TOL["bfloat16"], BWD_TOL["bfloat16"]), "float16": (F16_TOL, F16_BWD_TOL)}
+
+    def inputs(b, n, c, dtype, nchw):
+        x = (torch.randn((b, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        dy = torch.randn((b, n, c), generator=gen, device=dev).to(dtype)
+        if nchw:  # the (B, N, C) views of (B, C, N)-contiguous tensors
+            x, dy = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, dy))
+        scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+        bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+        return x, dy, scale, bias
+
+    def check(b, n, c, dname, nchw, silu):
+        dtype = getattr(torch, dname)
+        (atol, rtol), btol = tols[dname]
+        x, dy, scale, bias = inputs(b, n, c, dtype, nchw)
+        routes = (gn_route("fwd", dname, n, c, sc=x.stride(2)), gn_route("bwd", dname, n, c))
+        before = dict(ops.LAUNCHES)
+        y = G.group_norm(x, scale, bias, groups=32, with_silu=silu)
+        y2, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=32,
+                                                         with_silu=silu)
+        want = G.group_norm_reference(x, scale, bias, groups=32, with_silu=silu)
+        pmean, prstd = G.group_norm_stats_reference(x, 32)
+        got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=32, with_silu=silu)
+        again = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=32,
+                                      with_silu=silu)
+        wb = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd, groups=32,
+                                             with_silu=silu)
+        assert ops.LAUNCHES["group_norm"] == before["group_norm"] + 2, "a launch a call"
+        assert ops.LAUNCHES["group_norm_bwd"] == before["group_norm_bwd"] + 2, "a launch a call"
+        what = f"gn cluster route B={b} N={n} C={c} {dname} {'NCHW' if nchw else 'CL'} silu={silu}"
+        err = (y.float() - want.float()).abs()
+        assert bool(torch.isfinite(y.float()).all()) and bool(
+            (err <= atol + rtol * want.float().abs()).all()), (what, float(err.max()))
+        assert torch.equal(y, y2), what + ": y with stats differs"
+        assert torch.equal(y, G.group_norm(x, scale, bias, groups=32, with_silu=silu)), \
+            what + ": a repeat differs"
+        errs = {"fwd": float(err.max())}
+        for name, a, w, tol in (("mean", mean, pmean, BWD_TOL["float32"]),
+                                ("rstd", rstd, prstd, BWD_TOL["float32"]),
+                                ("dx", got[0], wb[0], btol), ("dscale", got[1], wb[1], btol),
+                                ("dbias", got[2], wb[2], btol)):
+            errs[name], ok = compare_rel(a, w, tol)
+            assert ok, (what, name, errs[name])
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, again)), what + ": a repeat differs"
+        worst[("group_norm_cluster", dname)] = max(worst[("group_norm_cluster", dname)],
+                                                   errs["fwd"])
+        worst[("group_norm_bwd_cluster", dname)] = max(worst[("group_norm_bwd_cluster", dname)],
+                                                       errs["dx"], errs["dscale"], errs["dbias"])
+        print(f"check {what}: routes fwd {routes[0]} bwd {routes[1]}; "
+              + " ".join(f"{k}={e:.3e}" for k, e in errs.items()) + "; repeats bit-identical ok")
+        return routes
+
+    t0 = time.perf_counter()
+    cases = 0
+    for cpg, dname in itertools.product(GN_EDGE_CPG, ("float32", "bfloat16", "float16")):
+        c = 32 * cpg
+        for kind in ("fwd", "bwd"):
+            lim = single_block_limit(kind, dname, c)
+            for i, n in enumerate((lim, lim + 1)):
+                for nchw in (False, True):
+                    routes = check(2, n, c, dname, nchw, silu=(i + nchw) % 2 == 0)
+                    cases += 1
+                    route = routes[0] if kind == "fwd" else routes[1]
+                    assert route[0] == (n > lim), (kind, dname, n, c, route)
+    for (b, n, c), dname in itertools.product(GN_EDGE_EXTRA, ("float32", "bfloat16", "float16")):
+        for nchw in (False, True):
+            routes = check(b, n, c, dname, nchw, silu=not nchw)
+            cases += 1
+            assert routes[0][0] == routes[1][0] == 1, routes
+    # the backward on the cluster route under CUDA-graph capture, replayed
+    # between eager calls on the capture stream (its own tickets and partials)
+    assert gn_route("bwd", "float32", 16384, 256)[0] == 1
+    x, dy, scale, bias = inputs(3, 16384, 256, torch.float32, False)
+    mean, rstd = G.group_norm_stats_reference(x, 32)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up outside the capture
+        G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32, with_silu=True)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32,
+                                         with_silu=True)
+    for replay in range(2):
+        with torch.cuda.stream(stream):
+            nx, ndy, _, _ = inputs(3, 16384, 256, torch.float32, False)
+            eager = G.group_norm_backward(nx, scale, bias, ndy, *G.group_norm_stats_reference(
+                nx, 32), groups=32, with_silu=True)
+            x.copy_(nx)
+            dy.copy_(ndy)
+            for t, v in zip((mean, rstd), G.group_norm_stats_reference(nx, 32)):
+                t.copy_(v)
+            graph.replay()
+        torch.cuda.synchronize()
+        want = G.group_norm_backward_reference(nx, scale, bias, ndy, mean, rstd, groups=32,
+                                               with_silu=True)
+        for name, a, e, w in zip(("dx", "dscale", "dbias"), captured, eager, want):
+            assert torch.equal(a, e), f"gn cluster bwd graph replay {replay}: {name} differs"
+            assert compare_rel(a, w, BWD_TOL["float32"])[1], f"graph replay {replay} {name}"
+    print(f"check gn cluster route: {cases} cases, a CUDA-graph replay of the backward "
+          f"bit-identical to eager x2; worst fwd "
+          + ", ".join(f"{d} {worst[('group_norm_cluster', d)]:.3e}" for d in tols)
+          + "; bwd " + ", ".join(f"{d} {worst[('group_norm_bwd_cluster', d)]:.3e}" for d in tols)
+          + f"; {time.perf_counter() - t0:.1f} s")
+    del graph, captured
+    torch.cuda.synchronize()
 
 
 def compare(got, want, dtype):
@@ -1725,6 +1943,8 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
                 if not silu:  # F.group_norm on its own (B, C, N) layout
                     xl = x.transpose(1, 2).contiguous()
                     fns.append(lambda: F.group_norm(xl, 32, s, b, eps=eps))
+                base = len(fns)
+                fns += gn_others("gn_fwd", lambda: group_norm(x, s, b, **kw))
                 el = rows * n * c
                 nbytes, flops = 2 * el * 4 + 2 * c * 4, el * (9 if silu else 5)
                 iters = 2 if el > 2e8 else 5
@@ -1741,10 +1961,11 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
                 nbytes = 4 * rows * h * (2 * nq + 2 * nkv) * d
                 flops = 4 * rows * h * nq * nkv * d
                 iters = 2 if nq * nkv > 4e6 else 5
-            pm, km, *lib = in_turns(fns, iters=iters)
-            other_ms = {}
+            ms = in_turns(fns, iters=iters)
             if op == "attention":
-                lib, other_ms = lib[:1], dict(zip(others_fwd, lib[1:]))
+                (pm, km, *lib), other_ms = ms[:3], dict(zip(others_fwd, ms[3:]))
+            else:
+                (pm, km, *lib), other_ms = split_others(ms, base, "gn_fwd")
             for label, oms in other_ms.items():
                 tot[f"kernel_{label}"] += oms * calls
             bms, by = bound(nbytes, flops, "float32")
@@ -1777,7 +1998,7 @@ def time_ldm_ops(gn_cases, attn_cases, rows, gen, dev, tag, what, others_fwd):
               f"{tot.get('kernel_where_library', 0.0):.4f} ms on the calls it covers, "
               f"{tot['tflops']:.2f} TFLOP/s"
               + "".join(f", {label} kernel {tot[f'kernel_{label}']:.4f} ms"
-                        for label in (others_fwd if op == "attention" else ()))
+                        for label in (others_fwd if op == "attention" else GN_OTHERS["gn_fwd"]))
               + f" {tag}")
     return out
 
@@ -2366,7 +2587,11 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
             yl = F.group_norm(xl, 32, sl, bl, eps=eps)
             dyl = dy.transpose(1, 2).contiguous()
             fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
-        ms = in_turns(fns, iters=2)
+        base = len(fns)
+        fns += gn_others("gn_bwd", lambda: G.group_norm_backward(x, s_, b_, dy, mean, rstd, **kw))
+        ms, other_ms = split_others(in_turns(fns, iters=2), base, "gn_bwd")
+        for label, t in other_ms.items():
+            tot[f"gn_kernel_{label}"] += t * ncalls
         bms, by = bound(*gn_bwd_work(n, c, silu, "float32", rows=rows), "float32")
         tot["gn_kernel"] += ms[1] * ncalls
         tot["gn_plain"] += ms[0] * ncalls
@@ -2376,7 +2601,8 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
             tot["gn_kernel_where_library"] += ms[1] * ncalls
         print(f"time ldm group_norm bwd {(n, c, silu)} x{ncalls}/step rows={rows} float32: "
               f"kernel {ms[1]:.4f} ms, plain {ms[0]:.4f} ms, library "
-              f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by}) {tag}")
+              f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by})"
+              f"{others_text(other_ms)} {tag}")
         del fns, x, dy
     tot["dq_tflops"] = tot["dq_flops"] / tot["dq_kernel"] / 1e9
     tot["dkv_tflops"] = tot["dkv_flops"] / tot["dkv_kernel"] / 1e9
@@ -3212,8 +3438,20 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
                 yl = F.group_norm(xl, 32, sl, bl, eps=eps)
                 dyl = dy.transpose(1, 2).contiguous()
                 fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
+        base = len(fns)
+        fns += gn_others("gn_fwd", lambda: group_norm(x, sc, bi, **kw))
+        if bwd_calls:
+            fns += gn_others("gn_bwd", lambda: G.group_norm_backward(
+                x, sc, bi, dy, mean, rstd, groups=32, with_silu=silu))
         el = rows * n * c
         ms = in_turns(fns, iters=2 if el > 2e8 else 5)
+        ms, rest, nf = ms[:base], ms[base:], len(GN_OTHERS["gn_fwd"])
+        fwd_others = dict(zip(GN_OTHERS["gn_fwd"], rest[:nf]))
+        bwd_others = dict(zip(GN_OTHERS["gn_bwd"], rest[nf:]))
+        for label, t in fwd_others.items():
+            tot[f"fwd_kernel_{label}"] += t * ncalls
+        for label, t in bwd_others.items():
+            tot[f"bwd_kernel_{label}"] += t * bwd_calls
         fb = bound(2 * el * 2 + 2 * c * 4, el * (9 if silu else 5), "bfloat16")
         for key, val in (("fwd_plain", ms[0]), ("fwd_kernel", ms[1])):
             tot[key] += val * ncalls
@@ -3237,7 +3475,8 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
                 line += f", autograd of F.group_norm {lib[1]:.4f}"
             line += ")"
         print(f"time ldm train group_norm {(n, c, silu)} x{ncalls} fwd, x{bwd_calls} bwd/step "
-              f"rows={rows} bfloat16: {line} {tag}")
+              f"rows={rows} bfloat16: {line}{others_text(fwd_others)}"
+              f"{others_text({f'{k_} bwd': t for k_, t in bwd_others.items()})} {tag}")
         del fns, x, dy
     for part in ("fwd", "bwd"):
         tot[part + "_bound_by"] = bound_by(tot, part + "_")
@@ -3538,19 +3777,24 @@ def check_step_shapes(gn_cases, attn_cases, rows, gen, dev, worst, sfx):
     """Every GroupNorm (N, C, eps, silu) and attention (Nq, Nkv, heads, D) shape
     of ``gn_cases`` and ``attn_cases`` at ``rows`` batch rows against the plain
     versions, f32 and bf16: the forward, its statistics and lse, the backward
-    (dx, dscale, dbias; dq, dk, dv) (phases 21 and 24). Raises on a
-    disagreement; each op's largest error goes to ``worst`` under
-    ``<op>_<sfx>``."""
+    (dx, dscale, dbias; dq, dk, dv) (phases 21 and 24), with each GroupNorm
+    kernel's route and one launch a call. Raises on a disagreement; each
+    op's largest error goes to ``worst`` under ``<op>_<sfx>``."""
     import torch
 
+    from diff_pruning_tpu_torch import ops
     from diff_pruning_tpu_torch.ops import attention as A
     from diff_pruning_tpu_torch.ops import group_norm as G
     from diff_pruning_tpu_torch.ops.attention import flash_attention, reference_attention
     from diff_pruning_tpu_torch.ops.group_norm import group_norm, group_norm_reference
 
+    on_cluster = collections.Counter()
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for (n, c, eps, silu) in sorted(gn_cases):
+            routes = gn_route("fwd", dname, n, c), gn_route("bwd", dname, n, c)
+            on_cluster[dname] += routes[0][0] + routes[1][0]
+            before = dict(ops.LAUNCHES)
             x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
             dy = torch.randn((rows, n, c), generator=gen, device=dev).to(dtype)
             scale = torch.rand((c,), generator=gen, device=dev) + 0.5
@@ -3570,6 +3814,8 @@ def check_step_shapes(gn_cases, attn_cases, rows, gen, dev, worst, sfx):
                                         with_silu=silu)
             want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd, groups=32,
                                                    with_silu=silu)
+            assert (ops.LAUNCHES["group_norm"] - before["group_norm"],
+                    ops.LAUNCHES["group_norm_bwd"] - before["group_norm_bwd"]) == (2, 1)
             line = f"fwd {err:.3e}, stats {serr:.3e}"
             for what, a, w in zip(("dx", "dscale", "dbias"), got, want):
                 e, ok = compare_rel(a, w, BWD_TOL[dname])
@@ -3580,7 +3826,8 @@ def check_step_shapes(gn_cases, attn_cases, rows, gen, dev, worst, sfx):
             print(f"check {sfx} group_norm rows={rows} N={n} C={c} C/g={c // 32} slab "
                   f"{n * c // 32 * NBYTES[dname] // 1024} KB silu={silu} {dname}: {line} (tol "
                   f"{TOL[dname]}, stats and bwd {BWD_TOL['float32']}/{BWD_TOL[dname]} x "
-                  "max|want|) ok")
+                  f"max|want|) ok; routes (cluster, groups a run, blocks a cluster) fwd "
+                  f"{routes[0][:3]} bwd {routes[1][:3]}")
             del x, dy, got, want
         for (nq, nkv, h, d) in sorted(attn_cases):
             def views(n):  # head-split views of (B, N, heads x D), as the layer passes them
@@ -3620,14 +3867,19 @@ def check_step_shapes(gn_cases, attn_cases, rows, gen, dev, worst, sfx):
                   f"{BWD_TOL['float32']} x max|want|) ok")
             del q, k, v, do, o, po, dq, dk, dv, pdq, pdk, pdv
     torch.cuda.synchronize()
+    print(f"check {sfx} group_norm routes: " + ", ".join(
+        f"{d} {k_} of {2 * len(gn_cases)} kernel calls on the cluster route"
+        for d, k_ in on_cluster.items()))
 
 
 def time_step_ops(gn_shape, attn_shape, rows, gen, dev, tag, label):
     """Per-op ms at a step's headline shapes, f32 and bf16 (phases 21 and 24):
-    the GroupNorm forward and backward at ``gn_shape`` (N, C) with SiLU, the
-    one-head attention forward with lse, dq and dk/dv at ``attn_shape`` (Nq,
-    Nkv, D), each against plain, the library call (F.group_norm and its
-    autograd, SDPA and its backward) and the bound, in turns; returns
+    the GroupNorm forward and backward at ``gn_shape`` (N, C) with SiLU, on
+    channels-last inputs and on the (B, N, C) views of NCHW-contiguous ones
+    (``kernel_nchw``), the one-head attention forward with lse, dq and dk/dv
+    at ``attn_shape`` (Nq, Nkv, D), each against plain, the library call
+    (F.group_norm and its autograd, SDPA and its backward), the bound and the
+    other GroupNorm versions (GN_OTHERS, keyed by label), in turns; returns
     ``{dtype: {op: {kernel, plain, library, bound, bound_by, ...}}}``."""
     import torch
     import torch.nn.functional as F
@@ -3652,18 +3904,36 @@ def time_step_ops(gn_shape, attn_shape, rows, gen, dev, tag, label):
         sl, bl = (z_.to(dtype, copy=True).requires_grad_() for z_ in (sc, bi))
         yl = F.group_norm(xl, 32, sl, bl, eps=1e-6)
         dyl = dy.transpose(1, 2).contiguous()
-        fns = [lambda: group_norm_reference(x, sc, bi, **kw), lambda: group_norm(x, sc, bi, **kw),
+        # the (B, N, C) views of NCHW-contiguous x and dy, as a layer passes
+        # a tensor that a convolution wrote in NCHW
+        xv, dyv = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, dy))
+
+        def fwd(a):
+            return lambda: group_norm(a, sc, bi, **kw)
+
+        def bwd(a, d_):
+            return lambda: G.group_norm_backward(a, sc, bi, d_, mean, rstd, groups=32,
+                                                 with_silu=True)
+
+        fns = [lambda: group_norm_reference(x, sc, bi, **kw), fwd(x),
                lambda: F.group_norm(xl, 32, sl, bl, eps=1e-6),
                lambda: G.group_norm_backward_reference(x, sc, bi, dy, mean, rstd, groups=32,
                                                        with_silu=True),
-               lambda: G.group_norm_backward(x, sc, bi, dy, mean, rstd, groups=32,
-                                             with_silu=True),
-               lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True)]
+               bwd(x, dy), lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True),
+               fwd(xv), bwd(xv, dyv)]
+        base = len(fns)
+        for kind, fn in (("gn_fwd", fwd(x)), ("gn_fwd", fwd(xv)), ("gn_bwd", bwd(x, dy)),
+                         ("gn_bwd", bwd(xv, dyv))):
+            fns += gn_others(kind, fn)
         g_ms = in_turns(fns, iters=3)
+        rest = iter(g_ms[base:])
+        g_others = {(kind, lay): {lab: next(rest) for lab in GN_OTHERS[kind]}
+                    for kind, lay in (("gn_fwd", ""), ("gn_fwd", "_nchw"), ("gn_bwd", ""),
+                                      ("gn_bwd", "_nchw"))}
         el = rows * n * c
         gfb = bound(2 * el * es + 2 * c * 4, el * 9, dname)
         gbb = bound(*gn_bwd_work(n, c, True, dname, rows=rows), dname)
-        del x, dy, xl, yl, dyl, fns
+        del x, dy, xl, yl, dyl, xv, dyv, fns
 
         def views(n_):
             return torch.randn((rows, n_, d), generator=gen, device=dev).to(dtype) \
@@ -3692,9 +3962,13 @@ def time_step_ops(gn_shape, attn_shape, rows, gen, dev, tag, label):
         ops_ms[dname] = {
             "gn_shape": [n, c], "attn_shape": [nq, nkv, d],
             "gn_fwd": {"kernel": g_ms[1], "plain": g_ms[0], "library": g_ms[2],
-                       "bound": gfb[0], "bound_by": gfb[1]},
+                       "bound": gfb[0], "bound_by": gfb[1], "kernel_nchw": g_ms[6],
+                       **{lab + lay: t for (kind, lay), d_ in g_others.items()
+                          if kind == "gn_fwd" for lab, t in d_.items()}},
             "gn_bwd": {"kernel": g_ms[4], "plain": g_ms[3], "library": g_ms[5],
-                       "bound": gbb[0], "bound_by": gbb[1]},
+                       "bound": gbb[0], "bound_by": gbb[1], "kernel_nchw": g_ms[7],
+                       **{lab + lay: t for (kind, lay), d_ in g_others.items()
+                          if kind == "gn_bwd" for lab, t in d_.items()}},
             "attn_fwd": {"kernel": a_ms[1], "plain": a_ms[0], "library": a_ms[2],
                          "bound": afb[0], "bound_by": afb[1],
                          "tflops": fwd_flops / a_ms[1] / 1e9},
@@ -3710,7 +3984,11 @@ def time_step_ops(gn_shape, attn_shape, rows, gen, dev, tag, label):
                       f"{t['kernel']:.4f} ms, plain {t['plain']:.4f}, "
                       + (f"library {t['library']:.4f}, " if "library" in t else "")
                       + f"bound {t['bound']:.4f} ({t['bound_by']})"
-                      + (f", {t['tflops']:.2f} TFLOP/s" if "tflops" in t else "") + f" {tag}")
+                      + (f", {t['tflops']:.2f} TFLOP/s" if "tflops" in t else "")
+                      + "".join(f", {k_} {v_:.4f}" for k_, v_ in t.items()
+                                if k_ not in ("kernel", "plain", "library", "bound", "bound_by",
+                                              "tflops"))
+                      + f" {tag}")
         print(f"time {label} SDPA backward (dq+dk+dv, {backends[1]}) rows={rows} {dname} at "
               f"{(nq, nkv, d)}: {a_ms[7]:.4f} ms {tag}")
         del q, k, v, do, o, ql, kl, vl, ol, fns
@@ -5756,6 +6034,14 @@ def main() -> None:
     ap.add_argument("--compare-bwd", metavar="LABEL=SRC", action="append", default=[],
                     help="another flash_attention_bwd.cu (same C interface) whose dq and dk/dv "
                          "phases 13, 17 and 18 time in turns with this checkout's; repeatable")
+    ap.add_argument("--compare-gn-fwd", metavar="LABEL=SRC", action="append", default=[],
+                    help="another group_norm_fwd.cu (same C interface) that every per-op "
+                         "GroupNorm forward timing (phases 7, 16, 18, 19, 21, 22, 24, 26) runs "
+                         "in turns with this checkout's; repeatable")
+    ap.add_argument("--compare-gn-bwd", metavar="LABEL=SRC", action="append", default=[],
+                    help="another group_norm_bwd.cu (same C interface) that every per-op "
+                         "GroupNorm backward timing (phases 13, 17, 18, 21, 24) runs in turns "
+                         "with this checkout's; repeatable")
     args = ap.parse_args()
     other_srcs = {}  # kind -> [(label, source)]
     for kind in OTHER_LIBS:
@@ -5846,8 +6132,13 @@ def main() -> None:
         for kname, (_, st, ld) in regs["flash_attention_bwd"].items():
             assert not ("_wgmma" in kname or "_f32_wide" in kname) or st == ld == 0, \
                 f"{kname} spills"
-    if _build.BUILD_INFO["group_norm_bwd"]["log"]:
-        assert len(regs["group_norm_bwd"]) == 6, regs  # 3 dtypes x SiLU or not
+    for lib in ("group_norm_fwd", "group_norm_bwd"):
+        if _build.BUILD_INFO[lib]["log"]:
+            # 3 dtypes x SiLU or not on one block, and on a cluster with
+            # 16-byte or one-channel chunks
+            assert len(regs[lib]) == 18, regs[lib]
+            for kname, (_, st, ld) in regs[lib].items():
+                assert "_cluster" not in kname or st == ld == 0, f"{kname} spills"
     sass_libs = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd")
     with ThreadPoolExecutor(max_workers=len(sass_libs)) as sass_pool:  # a cuobjdump each
         sass_of = dict(zip(sass_libs, sass_pool.map(
@@ -5863,7 +6154,7 @@ def main() -> None:
                 assert hmma > 0, f"{kname} has no tensor-core instruction"
             if "_kernel_wgmma" in kname:  # the wide 16-bit forward, dq and dk/dv
                 assert hgmma > 0, f"{kname} has no warpgroup tensor-core instruction"
-            if "_kernel_f32" in kname or "gn_bwd_kernel" in kname:
+            if "_kernel_f32" in kname or "gn_bwd_kernel" in kname or "gn_bwd_cluster" in kname:
                 assert hmma == hgmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
         wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_wgmma_wide",
                                          "flash_fwd_kernel_f32_wide"),
@@ -5883,6 +6174,8 @@ def main() -> None:
     # label -> library of another version of the attention forward / backward
     others_fwd = {label: fut.result() for label, fut in other_futs["fwd"].items()}
     others = {label: fut.result() for label, fut in other_futs["bwd"].items()}
+    for kind in GN_OTHERS:
+        GN_OTHERS[kind] = {label: fut.result() for label, fut in other_futs[kind].items()}
     pool.shutdown()
 
     mark(3)
@@ -5982,6 +6275,8 @@ def main() -> None:
                     if not silu:  # F.group_norm on its own (B, C, N) layout
                         xl, sl, bl = x.transpose(1, 2).contiguous(), s.to(dtype), b.to(dtype)
                         fns.append(lambda: F.group_norm(xl, 32, sl, bl, eps=1e-6))
+                    base = len(fns)
+                    fns += gn_others("gn_fwd", lambda: group_norm(x, s, b, **kw))
                     nbytes, flops = gn_fwd_work(n, c, silu, dname)
                 else:
                     n, h, d = shape
@@ -5990,9 +6285,12 @@ def main() -> None:
                     fns = [lambda: reference_attention(q, k, v, d ** -0.5),
                            lambda: flash_attention(q, k, v, d ** -0.5),
                            lambda: F.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)]
+                    base = len(fns)
                     nbytes, flops = attn_fwd_work(n, h, d, dname)
-                ms = in_turns(fns, iters=5)
+                ms, other_ms = split_others(in_turns(fns, iters=5), base, "gn_fwd")
                 pm, km = ms[0], ms[1]
+                for label, t in other_ms.items():
+                    tot[f"kernel_{label}"] += t * calls
                 bms, by = bound(nbytes, flops, dname)
                 tot["kernel"] += km * calls
                 tot["plain"] += pm * calls
@@ -6007,13 +6305,15 @@ def main() -> None:
                 print(f"time {op} fwd {shape} x{calls}/forward B={B} {dname}: kernel {km:.4f} ms, "
                       f"plain {pm:.4f} ms, library "
                       f"{'-' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})"
-                      f"{rate} {tag}")
+                      f"{rate}{others_text(other_ms)} {tag}")
             tot["tflops"] = tot["flops"] / tot["kernel"] / 1e9
             per_forward[(op, dname)] = dict(tot)
             print(f"time {op} fwd per UNet forward B={B} {dname}: kernel {tot['kernel']:.4f} ms, "
                   f"plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms; library "
                   f"{tot['library']:.4f} ms against kernel {tot['kernel_where_library']:.4f} ms "
-                  f"on the calls it covers; {tot['tflops']:.2f} TFLOP/s {tag}")
+                  f"on the calls it covers; {tot['tflops']:.2f} TFLOP/s"
+                  + others_text({label: tot[f"kernel_{label}"] for label in GN_OTHERS["gn_fwd"]
+                                 if op == "group_norm"}) + f" {tag}")
 
     # GroupNorm host time per call: the wrapper's enqueue, no sync inside
     host_us = {}
@@ -6065,9 +6365,11 @@ def main() -> None:
     del model, pmodel
 
     mark(8)
-    # -- 8. backward kernels against plain versions at the UNet's shapes, B = 128
+    # -- 8. backward kernels against plain versions at the UNet's shapes, B = 128;
+    # then the GroupNorm kernels' cluster route at its edges
     check_backward_kernels(gn_cases, attn_cases, gen, dev, worst)
     torch.cuda.synchronize()
+    check_gn_cluster_route(gen, dev, worst)
 
     mark(9)
     # -- 9. the sweep at full width, kernels on against off, then on again
@@ -6288,7 +6590,11 @@ def main() -> None:
                 yl = F.group_norm(xl, 32, sl, bl, eps=1e-6)
                 dyl = dy.transpose(1, 2).contiguous()
                 fns.append(lambda: torch.autograd.grad(yl, (xl, sl, bl), dyl, retain_graph=True))
-            ms = in_turns(fns, iters=5)
+            base = len(fns)
+            fns += gn_others("gn_bwd", lambda: G.group_norm_backward(x, s, b, dy, mean, rstd, **kw))
+            ms, other_ms = split_others(in_turns(fns, iters=5), base, "gn_bwd")
+            for label, t in other_ms.items():
+                tot[f"gn_kernel_{label}"] += t * calls
             bms, by = bound(*gn_bwd_work(n, c, silu, dname), dname)
             tot["gn_kernel"] += ms[1] * calls
             tot["gn_plain"] += ms[0] * calls
@@ -6298,7 +6604,8 @@ def main() -> None:
                 tot["gn_kernel_where_library"] += ms[1] * calls
             print(f"time group_norm bwd {(n, c, silu)} x{calls}/step B={B} {dname}: kernel "
                   f"{ms[1]:.4f} ms, plain {ms[0]:.4f} ms, library "
-                  f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by}) {tag}")
+                  f"{f'{ms[2]:.4f} ms' if len(ms) == 3 else '-'}, bound {bms:.4f} ms ({by})"
+                  f"{others_text(other_ms)} {tag}")
         # the dense UNet's shapes, and in bf16 the prune CLI's UNet's (D = 179;
         # keys "ft_..."), which the bf16 finetune path trains
         for pre, cases in [("", attn_dense)] + ([("ft_", attn_ft)] if dname == "bfloat16" else []):

@@ -11,7 +11,28 @@
 // order, so the design also keeps the whole call to one launch: no second
 // pass over x and dy, no separate kernel or torch op for the batch sum.
 //
-// Design:
+// Two routes, chosen from the shape alone (`launch`), with the same math:
+// the forward's saved (B, G) mean and rstd are read, not recomputed;
+// xhat = (x - mean) * rstd and dy' (dy through the SiLU derivative on the
+// recomputed z = xhat * gamma + beta, as `group_norm_backward_reference`
+// forms it, the sigmoid with the approximate reciprocal) are formed in
+// registers, once for the sums of dy' and dy' * xhat per channel and again
+// for dx; per group gm1 = mean(dy' * gamma), gm2 = mean(dy' * gamma * xhat),
+// then dx = rstd * (dy' * gamma - gm1 - xhat * gm2), written once to a
+// contiguous (B, N, C) dx. No float is summed atomically: every sum has a
+// fixed order, so the results are bit-reproducible.
+//
+// dscale and dbias in the same launch: per (sample, channel run) one block
+// writes the run's per-sample partials to an f32 (2, B, C) workspace; after
+// a barrier, its thread 0 fences and takes a ticket with atomicInc (which
+// wraps the ticket back to 0 for the next call) while the block writes dx.
+// The block that takes the last ticket of its channel run sums the B
+// partials of its channels in a fixed order (float4 reads, several in
+// flight, spread over the block's threads) and writes the (C,) outputs. The
+// atomic only orders the blocks.
+//
+// The single-block route, for x and dy slabs that fit one block's 104 KB
+// (CIFAR's and the LDMs' smaller levels):
 // - one block of 256 threads per (sample, run of whole groups), grid
 //   (G / gpb, B), the runs chosen as the forward chooses them
 //   (group_norm_fwd.cu): whole 32-byte sectors per position's run of
@@ -28,32 +49,40 @@
 //   positions (the (B, N, C) view of an NCHW tensor), otherwise element by
 //   element. A 16-bit slab takes half the shared memory of an f32 one, so
 //   more blocks fit on an SM;
-// - the forward's saved (B, G) mean and rstd are read, not recomputed;
-//   xhat = (x - mean) * rstd and dy' (dy through the SiLU derivative on the
-//   recomputed z = xhat * gamma + beta, as `group_norm_backward_reference`
-//   forms it, the sigmoid with the approximate reciprocal) are formed in
-//   registers, once for the sums of dy' and dy' * xhat per channel and
-//   again for dx: each thread owns one channel and every (256 / K)-th
-//   position, and the partial sums are added in a fixed order, by shuffles
-//   within a warp where K divides 32 (no atomics: bit-reproducible);
-// - per group gm1 = mean(dy' * gamma), gm2 = mean(dy' * gamma * xhat), then
-//   dx = rstd * (dy' * gamma - gm1 - xhat * gm2) from the slab on chip,
+// - each thread owns one channel and every (256 / K)-th position for the
+//   sums, added by shuffles within a warp where K divides 32; dx is written
 //   4 channels a thread in and out (16 bytes f32, 8 bytes 16-bit), their
-//   coefficients in registers, written once to a contiguous (B, N, C) dx;
-// - dscale and dbias in the same launch: each block writes its channels'
-//   per-sample partials to an f32 (2, B, C) workspace; after a barrier,
-//   thread 0 fences and takes a ticket with atomicInc (which wraps the
-//   ticket back to 0 for the next call) while the block writes dx. The
-//   block that takes the last ticket of its channel run sums the B
-//   partials of its channels in a fixed order (float4 reads, several in
-//   flight, spread over the block's threads) and writes the (C,) outputs.
-//   The atomic only orders the blocks; no float is summed atomically;
-// - a slab beyond the shared-memory budget (not at CIFAR sizes; the LDM's
-//   64x64 latents) is taken in chunks of positions: the sum pass streams x
-//   and dy through shared memory, the dx pass reads them again (from L2).
-//   Still one launch.
+//   coefficients in registers.
 //
-// The C entry point returns cudaGetLastError() after the launch.
+// The cluster route, for every larger pair of slabs (1-4 MB a group at the
+// LSUN-256 UNet's and the vq-f4 codec's 128-256 px levels). One block
+// cannot hold them, and one block walking them in chunks serialised copies
+// and sums and read x and dy twice. Here a thread-block cluster of 2-16
+// blocks takes one (sample, run of whole groups), as in the forward
+// (group_norm_common.cuh, plan_cluster):
+// - the N positions are split over the cluster's blocks in equal shares (a
+//   multiple of 32); each block (512 threads, up to 225 KB of shared
+//   memory) copies its share of x and dy once into its shared memory with
+//   cp.async, in eight stages issued at once, each thread summing exactly
+//   the chunks it copied as they land (other strides: element by element
+//   through registers);
+// - the sums of dy' and dy' * xhat per channel are added within a warp by
+//   shuffles, then over the warps, then, after the cluster barrier, over
+//   the cluster's blocks in rank order through distributed shared memory:
+//   every block holds the same totals and writes dx for its share from
+//   shared memory; rank 0 writes the sample's partials and takes the
+//   ticket, which counts clusters, and the last cluster's rank 0 sums the
+//   batch;
+// - a share beyond one block's shared memory (the f32 pair at LSUN-256's
+//   (65,536, 256): 4 MB against a 16-block cluster's 3.5 MB) keeps both x
+//   and dy of the share's first positions on chip and streams both of the
+//   rest through registers, reading only those twice. Keeping x whole on
+//   chip and streaming dy instead would read all of dy twice: 2 MB extra a
+//   group against 0.5 MB here.
+//
+// The C entry point returns cudaGetLastError() after the launch (a refused
+// cluster launch returns its error); `group_norm_bwd_route` reports the
+// route a shape takes.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -62,6 +91,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "group_norm_common.cuh"
 
 namespace {
 
@@ -84,27 +115,12 @@ enum Layout : int {
   kVecPositions = 2,  // 16-byte vectors along contiguous positions
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+using gn::cp_async16;
+using gn::cp_async_commit;
+using gn::cp_async_wait;
+using gn::from_f32;
+using gn::to_f32;
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
-  return __float2half_rn(x);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 // waits until at most n of this thread's cp.async groups are pending
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
   static_assert(kStages == 4, "one case per stage");
@@ -123,7 +139,7 @@ struct Src {
 };
 
 struct Params {
-  int N, C, G, cpg, gpb, rows;  // rows: positions per chunk
+  int N, C, G, cpg, gpb;
   Src x, dy;
   int vec_out;                  // 4-channel shared reads and dx stores
 };
@@ -290,15 +306,15 @@ __device__ __forceinline__ void store_rows(T* dxb, const T* xs, const T* ds, con
 // reads where they line up). P contiguous runs of b per column, each
 // summed in order with 16 reads in flight, then the runs in order: a fixed
 // order for given B and K, so the result is bit-reproducible.
-template <int VC>
+template <int VC, int NT>
 __device__ __forceinline__ void batch_sum(const float* ws, float* dscale, float* dbias,
                                           float* red, int B, int C, int c0, int K) {
   const int tid = threadIdx.x;
   const size_t BC = size_t(B) * C;
   const int items = 2 * K / VC;  // VC-channel columns of dscale, then of dbias
-  const int P = max(1, kThreads / items);
+  const int P = max(1, NT / items);
   const int seg = (B + P - 1) / P;
-  for (int idx = tid; idx < items * P; idx += kThreads) {
+  for (int idx = tid; idx < items * P; idx += NT) {
     const int item = idx / P;
     const int part = idx - item * P;
     const int col = item * VC;
@@ -323,7 +339,7 @@ __device__ __forceinline__ void batch_sum(const float* ws, float* dscale, float*
     for (int v = 0; v < VC; ++v) red[idx * VC + v] = acc[v];
   }
   __syncthreads();
-  for (int idx = tid; idx < 2 * K; idx += kThreads) {  // one output channel each
+  for (int idx = tid; idx < 2 * K; idx += NT) {  // one output channel each
     const int item = idx / VC;
     const int v = idx - item * VC;
     float acc = 0.f;
@@ -357,9 +373,9 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int b = blockIdx.y;
   const int B = gridDim.y;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);                     // [rows][K] x
-  T* ds = reinterpret_cast<T*>(smem + slab_bytes<T>(p.rows, K));  // [rows][K] dy
-  float* hm = reinterpret_cast<float*>(smem + 2 * slab_bytes<T>(p.rows, K));  // [K] mean
+  T* xs = reinterpret_cast<T*>(smem);                     // [N][K] x
+  T* ds = reinterpret_cast<T*>(smem + slab_bytes<T>(p.N, K));  // [N][K] dy
+  float* hm = reinterpret_cast<float*>(smem + 2 * slab_bytes<T>(p.N, K));  // [K] mean
   float* hr = hm + K;    // [K] rstd
   float* ga = hr + K;    // [K] scale
   float* be = ga + K;    // [K] bias
@@ -379,8 +395,8 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int slices = max(1, kThreads / K);  // positions split among a channel's threads
   float* red1 = red;
   float* red2 = red + slices * K;
-  // the first chunk is on its way while the per-channel constants are read
-  int groups = issue_chunk<T>(xs, ds, xb, db, p, c0, K, 0, min(p.rows, p.N));
+  // the slabs are on their way while the per-channel constants are read
+  const int groups = issue_chunk<T>(xs, ds, xb, db, p, c0, K, 0, p.N);
   for (int c = tid; c < K; c += kThreads) {
     const size_t gi = size_t(b) * p.G + blockIdx.x * p.gpb + c / p.cpg;
     hm[c] = mean[gi];
@@ -390,23 +406,16 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   }
   for (int j = tid; j < 2 * slices * K; j += kThreads) red[j] = 0.f;
 
-  // sum pass, chunk by chunk (one chunk at CIFAR sizes), stage by stage
-  for (int n0 = 0; n0 < p.N; n0 += p.rows) {
-    const int nr = min(p.rows, p.N - n0);
-    if (n0 > 0) {
-      __syncthreads();  // the previous chunk is consumed
-      groups = issue_chunk<T>(xs, ds, xb, db, p, c0, K, n0, nr);
-    }
-    for (int s = 0; s < groups; ++s) {
-      cp_async_wait_pending(groups - 1 - s);
-      __syncthreads();
-      const int r0 = groups == 1 ? 0 : stage_row(nr, s);
-      const int r1 = groups == 1 ? nr : stage_row(nr, s + 1);
-      if (SILU)
-        sum_rows<T, true>(xs, ds, K, slices, r0, r1, hm, hr, ga, be, red1, red2);
-      else
-        sum_rows<T, false>(xs, ds, K, slices, r0, r1, hm, hr, ga, be, red1, red2);
-    }
+  // sum pass, stage by stage
+  for (int s = 0; s < groups; ++s) {
+    cp_async_wait_pending(groups - 1 - s);
+    __syncthreads();
+    const int r0 = groups == 1 ? 0 : stage_row(p.N, s);
+    const int r1 = groups == 1 ? p.N : stage_row(p.N, s + 1);
+    if (SILU)
+      sum_rows<T, true>(xs, ds, K, slices, r0, r1, hm, hr, ga, be, red1, red2);
+    else
+      sum_rows<T, false>(xs, ds, K, slices, r0, r1, hm, hr, ga, be, red1, red2);
   }
   __syncthreads();
   // the slices of each channel in a fixed order: where K divides 32 a warp
@@ -469,30 +478,21 @@ gn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     is_last = atomicInc(&tickets[blockIdx.x], unsigned(B - 1)) == unsigned(B - 1);
   }
 
-  // dx pass: from the slab on chip, or chunk by chunk again
+  // dx pass, from the slabs on chip
   T* dxb = dx + size_t(b) * p.N * p.C;
-  for (int n0 = 0; n0 < p.N; n0 += p.rows) {
-    const int nr = min(p.rows, p.N - n0);
-    if (p.rows < p.N) {
-      __syncthreads();  // the previous chunk is stored
-      issue_chunk<T>(xs, ds, xb, db, p, c0, K, n0, nr);
-      cp_async_wait<0>();
-      __syncthreads();
-    }
-    if (SILU)
-      store_rows<T, true>(dxb, xs, ds, hm, hr, ga, be, ca, cb, cc, p, c0, K, n0, nr);
-    else
-      store_rows<T, false>(dxb, xs, ds, hm, hr, ga, be, ca, cb, cc, p, c0, K, n0, nr);
-  }
+  if (SILU)
+    store_rows<T, true>(dxb, xs, ds, hm, hr, ga, be, ca, cb, cc, p, c0, K, 0, p.N);
+  else
+    store_rows<T, false>(dxb, xs, ds, hm, hr, ga, be, ca, cb, cc, p, c0, K, 0, p.N);
 
   // the batch sum: the block with the last ticket of this channel run
   __syncthreads();
   if (!is_last) return;
   __threadfence();
   if (K % 4 == 0 && p.C % 4 == 0)
-    batch_sum<4>(ws, dscale, dbias, red, B, p.C, c0, K);
+    batch_sum<4, kThreads>(ws, dscale, dbias, red, B, p.C, c0, K);
   else
-    batch_sum<1>(ws, dscale, dbias, red, B, p.C, c0, K);
+    batch_sum<1, kThreads>(ws, dscale, dbias, red, B, p.C, c0, K);
 }
 
 template <typename T, bool SILU>
@@ -523,6 +523,285 @@ int copy_layout(const T* t, const Src& s, int K, int N) {
   return kScalar;
 }
 
+// ---- the cluster route ----
+
+// bytes a cluster block needs besides its slabs: its partial sums [2][K],
+// the reduction's [kCWarps][2][K] (reused by the batch sum, which takes
+// up to [4 kCThreads]), gm1 and gm2 [2][gpb]
+inline int cluster_extra_bytes(int K, int gpb) {
+  const int red = gn::kCWarps * 2 * K > 4 * gn::kCThreads ? gn::kCWarps * 2 * K
+                                                           : 4 * gn::kCThreads;
+  return 4 * (2 * K + red + 2 * gpb);
+}
+
+template <typename T, bool SILU, int VC>
+__global__ void __launch_bounds__(gn::kCThreads, 1)
+gn_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                      const float* __restrict__ scale, const float* __restrict__ bias,
+                      const float* __restrict__ mean, const float* __restrict__ rstd,
+                      T* __restrict__ dx, float* __restrict__ dscale, float* __restrict__ dbias,
+                      float* __restrict__ ws, unsigned int* __restrict__ tickets,
+                      gn::Strides xst, gn::Strides dst, gn::CParams p) {
+  using gn::kCThreads;
+  using gn::kCStages;
+  const int K = p.K;
+  const int rank = blockIdx.x;  // a cluster spans gridDim.x
+  const int run = blockIdx.y;
+  const int c0 = run * K;
+  const int b = blockIdx.z;
+  const int B = gridDim.z;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);                                // [resident][K] x
+  T* ds = reinterpret_cast<T*>(smem + p.slab_bytes);                 // [resident][K] dy
+  float* part = reinterpret_cast<float*>(smem + 2 * p.slab_bytes);   // [2][K] sums of dy', dy' xhat
+  float* red = part + 2 * K;  // the reduction; then the cluster's sums; then the batch sum's
+  float* gm = red + (gn::kCWarps * 2 * K > 4 * kCThreads ? gn::kCWarps * 2 * K
+                                                         : 4 * kCThreads);  // [2][gpb]
+  __shared__ bool is_last;
+
+  const int tid = threadIdx.x;
+  const int cv = tid & (p.kvp - 1);
+  const int r0 = tid / p.kvp;
+  const int rp = kCThreads / p.kvp;
+  const bool active = cv < p.kv;
+  const int cc = cv * VC;  // the chunk's first channel in the run
+  const int n_lo = rank * p.share;
+  const int n_cnt = max(0, min(p.share, p.N - n_lo));
+  const int n_res = min(n_cnt, p.resident);
+  const T* xb = x + b * xst.sb + n_lo * xst.sn + (c0 + cc) * xst.sc;   // the chunk at n_lo
+  const T* db = dy + b * dst.sb + n_lo * dst.sn + (c0 + cc) * dst.sc;
+  const bool vec = VC * sizeof(T) == 16 && p.vec_in;  // cp.async and 16-byte loads
+
+  float mu[VC], rs[VC], ga[VC], be[VC], a1[VC], a2[VC];
+#pragma unroll
+  for (int e = 0; e < VC; ++e) {
+    a1[e] = a2[e] = 0.f;
+    const int c = active ? c0 + cc + e : c0;
+    const size_t gi = size_t(b) * p.G + c / p.cpg;
+    mu[e] = mean[gi];
+    rs[e] = rstd[gi];
+    ga[e] = scale[c];
+    be[e] = bias[c];
+  }
+  auto add = [&](const T (&tx)[VC], const T (&td)[VC]) {
+#pragma unroll
+    for (int e = 0; e < VC; ++e) {
+      const float xh = (to_f32(tx[e]) - mu[e]) * rs[e];
+      const float d = silu_grad<SILU>(to_f32(td[e]), xh, ga[e], be[e]);
+      a1[e] += d;
+      a2[e] = fmaf(d, xh, a2[e]);
+    }
+  };
+
+  // the resident positions: cp.async in stages, all issued before any sum
+  const int srows = n_res > 0 ? gn::round_up(gn::ceil_div(n_res, kCStages), rp) : 0;
+  if (vec) {
+    for (int s = 0; s < kCStages; ++s) {
+      if (active)
+        for (int r = s * srows + r0; r < min(n_res, (s + 1) * srows); r += rp) {
+          cp_async16(xs + r * K + cc, xb + r * xst.sn);
+          cp_async16(ds + r * K + cc, db + r * dst.sn);
+        }
+      cp_async_commit();
+    }
+  } else if (active) {  // element by element through the strides
+#pragma unroll 2
+    for (int r = r0; r < n_res; r += rp) {
+      T tx[VC], td[VC];
+      gn::load_chunk<T, VC>(tx, xb + r * xst.sn, xst.sc, false);
+      gn::load_chunk<T, VC>(td, db + r * dst.sn, dst.sc, false);
+      add(tx, td);
+      gn::smem_write<T, VC>(xs + r * K + cc, tx);
+      gn::smem_write<T, VC>(ds + r * K + cc, td);
+    }
+  }
+  // the streamed positions (beyond the shared memory) while those copies fly
+  if (active) {
+#pragma unroll 2
+    for (int r = n_res + r0; r < n_cnt; r += rp) {
+      T tx[VC], td[VC];
+      gn::load_chunk<T, VC>(tx, xb + r * xst.sn, xst.sc, vec);
+      gn::load_chunk<T, VC>(td, db + r * dst.sn, dst.sc, vec);
+      add(tx, td);
+    }
+  }
+  // the stages as they land: each thread sums the chunks it copied
+  if (vec) {
+    for (int s = 0; s < kCStages; ++s) {
+      gn::cp_async_wait_pending(kCStages - 1 - s);
+      if (active)
+        for (int r = s * srows + r0; r < min(n_res, (s + 1) * srows); r += rp) {
+          T tx[VC], td[VC];
+          gn::smem_read<T, VC>(tx, xs + r * K + cc);
+          gn::smem_read<T, VC>(td, ds + r * K + cc);
+          add(tx, td);
+        }
+    }
+  }
+
+  gn::block_sums<VC>(a1, a2, p, red, part);
+  gn::cluster_arrive();  // this block's part is written
+  gn::cluster_wait();    // ... and every other block's
+  gn::cluster_sums(p, part, red);  // red[0, K): sums of dy'; red[K, 2K): of dy' * xhat
+
+  // per group the coefficients of dx, the same in every block; rank 0
+  // writes the sample's partials, then its thread 0 fences (cumulative over
+  // the block's writes after the barrier) and takes the cluster's ticket
+  const float inv_n = 1.f / (float(p.N) * float(p.cpg));
+  for (int g = tid; g < p.gpb; g += kCThreads) {
+    float g1 = 0.f, g2 = 0.f;
+    for (int c = g * p.cpg; c < (g + 1) * p.cpg; ++c) {
+      g1 = fmaf(scale[c0 + c], red[c], g1);
+      g2 = fmaf(scale[c0 + c], red[K + c], g2);
+    }
+    gm[g] = g1 * inv_n;
+    gm[p.gpb + g] = g2 * inv_n;
+  }
+  if (rank == 0) {
+    const size_t BC = size_t(B) * p.C;
+    for (int j = tid; j < K; j += kCThreads) {
+      ws[size_t(b) * p.C + c0 + j] = red[K + j];   // dscale partial
+      ws[BC + size_t(b) * p.C + c0 + j] = red[j];  // dbias partial
+    }
+  }
+  __syncthreads();
+  if (rank == 0 && tid == 0) {
+    __threadfence();
+    is_last = atomicInc(&tickets[run], unsigned(B - 1)) == unsigned(B - 1);
+  }
+
+  // dx: the resident positions from shared memory, the streamed ones read again
+  if (active) {
+    float k1[VC], k2[VC], k3[VC];
+#pragma unroll
+    for (int e = 0; e < VC; ++e) {
+      const int g = (cc + e) / p.cpg;
+      k1[e] = rs[e] * ga[e];
+      k2[e] = -rs[e] * gm[p.gpb + g];
+      k3[e] = -rs[e] * gm[g];
+    }
+    auto dx_of = [&](const T (&tx)[VC], const T (&td)[VC], float (&v)[VC]) {
+#pragma unroll
+      for (int e = 0; e < VC; ++e) {
+        const float xh = (to_f32(tx[e]) - mu[e]) * rs[e];
+        const float d = silu_grad<SILU>(to_f32(td[e]), xh, ga[e], be[e]);
+        v[e] = fmaf(d, k1[e], fmaf(xh, k2[e], k3[e]));
+      }
+    };
+    T* dxb = dx + (size_t(b) * p.N + n_lo) * p.C + c0 + cc;
+#pragma unroll 2
+    for (int r = r0; r < n_res; r += rp) {
+      T tx[VC], td[VC];
+      gn::smem_read<T, VC>(tx, xs + r * K + cc);
+      gn::smem_read<T, VC>(td, ds + r * K + cc);
+      float v[VC];
+      dx_of(tx, td, v);
+      gn::store_chunk<T, VC>(dxb + size_t(r) * p.C, v, p.vec_out);
+    }
+#pragma unroll 2
+    for (int r = n_res + r0; r < n_cnt; r += rp) {
+      T tx[VC], td[VC];
+      gn::load_chunk<T, VC>(tx, xb + r * xst.sn, xst.sc, vec);
+      gn::load_chunk<T, VC>(td, db + r * dst.sn, dst.sc, vec);
+      float v[VC];
+      dx_of(tx, td, v);
+      gn::store_chunk<T, VC>(dxb + size_t(r) * p.C, v, p.vec_out);
+    }
+  }
+
+  // the batch sum: rank 0 of the cluster with the last ticket of this run
+  if (rank == 0) {
+    __syncthreads();
+    if (is_last) {
+      __threadfence();
+      if (K % 4 == 0 && p.C % 4 == 0)
+        batch_sum<4, kCThreads>(ws, dscale, dbias, red, B, p.C, c0, K);
+      else
+        batch_sum<1, kCThreads>(ws, dscale, dbias, red, B, p.C, c0, K);
+    }
+  }
+  gn::cluster_wait();  // no block leaves while another may still read its sums
+}
+
+template <typename T, int VC>
+const void* cluster_kernel(bool silu) {
+  return silu ? reinterpret_cast<const void*>(gn_bwd_cluster_kernel<T, true, VC>)
+              : reinterpret_cast<const void*>(gn_bwd_cluster_kernel<T, false, VC>);
+}
+
+// The cluster route's plan for this shape (false: none).
+template <typename T>
+bool cluster_plan(int N, int C, int G, gn::CParams* p) {
+  constexpr int VW = 16 / sizeof(T);
+  p->N = N;
+  p->C = C;
+  p->G = G;
+  p->cpg = C / G;
+  auto kernel = [](int vc) {  // the occupancy of the plain kernels decides
+    return vc == VW ? cluster_kernel<T, VW>(false) : cluster_kernel<T, 1>(false);
+  };
+  // f32 slabs beyond the cluster's shared memory stream in 128-byte
+  // segments (faster than 32 there; slower for 16-bit inputs)
+  return gn::plan_cluster(N, G, p->cpg, int(sizeof(T)), 2, gn::kCSmemMax, 32,
+                          sizeof(T) == 4 ? 128 : 32, kernel, cluster_extra_bytes, p);
+}
+
+template <typename T, int VC>
+cudaError_t launch_cluster_vc(const T* x, const T* dy, const float* scale, const float* bias,
+                              const float* mean, const float* rstd, T* dx, float* dscale,
+                              float* dbias, float* ws, unsigned int* tickets, int B,
+                              const gn::Strides& xst, const gn::Strides& dst,
+                              const gn::CParams& p, bool silu, cudaStream_t stream) {
+  // (the first query also sets the kernel's attributes)
+  if (gn::resident_blocks(cluster_kernel<T, VC>(silu), p.cs, p.smem) < 1)
+    return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      gn::cluster_config(dim3(p.cs, p.G / p.gpb, B), p.cs, p.smem, stream, attr);
+  if (silu)
+    return cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T, true, VC>, x, dy, scale, bias, mean,
+                              rstd, dx, dscale, dbias, ws, tickets, xst, dst, p);
+  return cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T, false, VC>, x, dy, scale, bias, mean,
+                            rstd, dx, dscale, dbias, ws, tickets, xst, dst, p);
+}
+
+template <typename T>
+bool vec_chunks(const T* t, const gn::Strides& s) {
+  constexpr int es = sizeof(T);
+  return s.sc == 1 && reinterpret_cast<uintptr_t>(t) % 16 == 0 && (s.sb * es) % 16 == 0 &&
+         (s.sn * es) % 16 == 0;
+}
+
+// floats a single block needs besides the two slabs, and its bytes in all
+template <typename T>
+long long single_block_bytes(int cpg, int gpb, long long rows) {
+  const long long K = (long long)gpb * cpg;
+  return 2 * ((rows * K * int(sizeof(T)) + 15) / 16 * 16) + 4LL * extra_floats(int(K), gpb);
+}
+
+// the single-block route's run of groups, and whether its slabs fit
+template <typename T>
+bool single_block_plan(int N, int C, int G, Params* p) {
+  constexpr int es = sizeof(T);
+  p->N = N;
+  p->C = C;
+  p->G = G;
+  p->cpg = C / G;
+  auto fits = [&](int gpb) { return single_block_bytes<T>(p->cpg, gpb, N) <= kSmemBytes; };
+  // a block owns whole groups: grow the run while the slab is small, or
+  // while a position's run of channels of dx is not a whole number of
+  // 32-byte sectors (up to 128 bytes)
+  auto partial_sectors = [&](int gpb) {
+    const int run = gpb * p->cpg * es;
+    return run < 32 || (run % 32 != 0 && run < 128);
+  };
+  p->gpb = 1;
+  while (G % (2 * p->gpb) == 0 && fits(2 * p->gpb) &&
+         (partial_sectors(p->gpb) || (long long)p->gpb * p->cpg * N * es < kMinSlabBytes))
+    p->gpb *= 2;
+  return fits(p->gpb);
+}
+
 template <typename T>
 cudaError_t launch(const void* xv, const void* dyv, const float* scale, const float* bias,
                    const float* mean, const float* rstd, void* dxv, float* dscale,
@@ -531,46 +810,59 @@ cudaError_t launch(const void* xv, const void* dyv, const float* scale, const fl
   const T* x = static_cast<const T*>(xv);
   const T* dy = static_cast<const T*>(dyv);
   T* dx = static_cast<T*>(dxv);
-  constexpr int es = sizeof(T);
-  constexpr int VW = 16 / es;
+  constexpr int VW = 16 / sizeof(T);
   Params p;
-  p.N = N;
-  p.C = C;
-  p.G = G;
-  p.cpg = C / G;
+  if (!single_block_plan<T>(N, C, G, &p)) {
+    gn::CParams cp;
+    if (!cluster_plan<T>(N, C, G, &cp)) return cudaErrorInvalidValue;
+    const gn::Strides xst{strides[0], strides[1], strides[2]};
+    const gn::Strides dst{strides[3], strides[4], strides[5]};
+    cp.eps = 0.f;
+    cp.vec_in = cp.vc == VW && vec_chunks(x, xst) && vec_chunks(dy, dst);
+    cp.vec_out = cp.vc == VW && reinterpret_cast<uintptr_t>(dx) % 16 == 0 && C % VW == 0;
+    const cudaError_t err =
+        cp.vc == VW
+            ? launch_cluster_vc<T, VW>(x, dy, scale, bias, mean, rstd, dx, dscale, dbias, ws,
+                                       tickets, B, xst, dst, cp, silu, stream)
+            : launch_cluster_vc<T, 1>(x, dy, scale, bias, mean, rstd, dx, dscale, dbias, ws,
+                                      tickets, B, xst, dst, cp, silu, stream);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
   p.x = {strides[0], strides[1], strides[2], kScalar};
   p.dy = {strides[3], strides[4], strides[5], kScalar};
-  auto bytes = [&](int gpb, long long rows) {
-    const long long K = (long long)gpb * p.cpg;
-    return 2 * ((rows * K * es + 15) / 16 * 16) + 4LL * extra_floats(int(K), gpb);
-  };
-  auto fits = [&](int gpb) { return bytes(gpb, N) <= kSmemBytes; };
-  // a block owns whole groups: grow the run while the slab is small, or
-  // while a position's run of channels of dx is not a whole number of
-  // 32-byte sectors (up to 128 bytes)
-  auto partial_sectors = [&](int gpb) {
-    const int run = gpb * p.cpg * es;
-    return run < 32 || (run % 32 != 0 && run < 128);
-  };
-  p.gpb = 1;
-  while (G % (2 * p.gpb) == 0 && fits(2 * p.gpb) &&
-         (partial_sectors(p.gpb) || (long long)p.gpb * p.cpg * N * es < kMinSlabBytes))
-    p.gpb *= 2;
   const int K = p.gpb * p.cpg;
-  if (fits(p.gpb)) {
-    p.rows = N;
-  } else {  // chunks of a multiple of 32 positions
-    p.rows = int((kSmemBytes - 4LL * extra_floats(K, p.gpb) - 32) / (2LL * K * es) / 32 * 32);
-    if (p.rows < 32) return cudaErrorInvalidValue;
-  }
   p.x.layout = copy_layout(x, p.x, K, N);
   p.dy.layout = copy_layout(dy, p.dy, K, N);
   p.vec_out = reinterpret_cast<uintptr_t>(dx) % 16 == 0 && K % 4 == 0 && C % 4 == 0;
-  const size_t smem = size_t(bytes(p.gpb, p.rows));
+  const size_t smem = size_t(single_block_bytes<T>(p.cpg, p.gpb, N));
   return silu ? launch_kernel<T, true>(x, dy, scale, bias, mean, rstd, dx, dscale, dbias, ws,
                                        tickets, B, p, smem, stream)
               : launch_kernel<T, false>(x, dy, scale, bias, mean, rstd, dx, dscale, dbias, ws,
                                         tickets, B, p, smem, stream);
+}
+
+template <typename T>
+int route(int N, int C, int G, int* out) {
+  Params sp;
+  if (single_block_plan<T>(N, C, G, &sp)) {
+    out[0] = 0;
+    out[1] = sp.gpb;
+    out[2] = 1;
+    out[3] = N;
+    out[4] = N;
+    out[5] = int(single_block_bytes<T>(sp.cpg, sp.gpb, N));
+    return 0;
+  }
+  gn::CParams p;
+  if (!cluster_plan<T>(N, C, G, &p)) return int(cudaErrorInvalidValue);
+  out[0] = 1;
+  out[1] = p.gpb;
+  out[2] = p.cs;
+  out[3] = p.share;
+  out[4] = p.resident;
+  out[5] = p.smem;
+  return 0;
 }
 
 }  // namespace
@@ -612,5 +904,20 @@ extern "C" int group_norm_bwd(const void* x, const void* dy, const void* scale, 
                                 silu, str));
     default:
       return int(cudaErrorInvalidValue);
+  }
+}
+
+// The route group_norm_bwd takes for a shape: out[0] 0 = one block per run,
+// 1 = a cluster per run; out[1] groups a run, out[2] blocks a cluster (1 on
+// the single-block route), out[3] positions a block, out[4] of which held
+// in shared memory, out[5] a block's dynamic shared memory in bytes.
+// Returns 0, or a CUDA error where no route takes the shape.
+extern "C" int group_norm_bwd_route(int dtype, int N, int C, int G, int* out) {
+  if (N < 1 || G < 1 || C < G || C % G != 0) return int(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0: return route<float>(N, C, G, out);
+    case 1: return route<__nv_bfloat16>(N, C, G, out);
+    case 2: return route<__half>(N, C, G, out);
+    default: return int(cudaErrorInvalidValue);
   }
 }

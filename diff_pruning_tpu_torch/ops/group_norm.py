@@ -15,10 +15,12 @@ TPU kernel: one block per (sample, run of whole groups) copies its slab
 from device memory once into shared memory, takes the statistics there in
 f32 (the shifted variance for f32 inputs, as the layer does), then writes y
 once, with SiLU if asked; under autograd it also writes the (B, G) mean and
-rstd, which the backward reads instead of recomputing. A slab beyond the
-block's shared memory is taken in chunks (one launch still; x is read a
-second time, from L2). The wrapper's host path is one allocation for y
-(plus one (2, B, G) buffer for the statistics) and one ``ctypes`` call.
+rstd, which the backward reads instead of recomputing. A slab beyond one
+block's shared memory is split over a thread-block cluster of 2-16 blocks,
+which add their sums through distributed shared memory (one launch still;
+x is read once, except where a group exceeds the largest cluster's shared
+memory). The wrapper's host path is one allocation for y (plus one (2, B,
+G) buffer for the statistics) and one ``ctypes`` call.
 
 backward (CUDA C++, ``csrc/group_norm_bwd.cu``; ``_pallas_gn_bwd``'s math,
 ``group_norm.py:74-102`` there), one launch a call: one block per (sample,
@@ -28,7 +30,8 @@ the sums), forms xhat and dy' (dy through the SiLU derivative on a
 recomputed ``z = xhat * gamma + beta``) from the forward's saved (B, G)
 mean and rstd, sums ``dy'`` and ``dy' * xhat`` per channel, forms per group
 ``gm1 = mean(dy' * gamma)`` and ``gm2 = mean(dy' * gamma * xhat)``, and
-writes ``dx = rstd * (dy' * gamma - gm1 - xhat * gm2)`` once. dscale and
+writes ``dx = rstd * (dy' * gamma - gm1 - xhat * gm2)`` once (larger slabs
+over a cluster of blocks, as in the forward). dscale and
 dbias are summed over the batch in the same launch: each block writes its
 per-sample partials, and the last block of each channel run (an atomic
 ticket, which only orders the blocks) sums them in a fixed order. The

@@ -28,6 +28,8 @@ Tolerances, |kernel - plain| <= atol + rtol * |plain|:
   versions computed in float64, whose own noise is far below that floor.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -58,6 +60,44 @@ def _check(got, want, dtype, what):
     assert bool((err <= bound).all()), f"{what}: max abs err {err.max().item():.3e}"
 
 
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _gn_route(kind, dtype, n, c, sc=1):
+    """(0 one block a run / 1 a cluster, groups a run, blocks a cluster, ...)
+    of the GroupNorm kernel ``kind`` ("fwd", "bwd") at (N, C), 32 groups."""
+    from diff_pruning_tpu_torch.ops import _build
+
+    fn = getattr(_build.load_library(f"group_norm_{kind}"), f"group_norm_{kind}_route")
+    out = (ctypes.c_int * 6)()
+    if kind == "fwd":
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p]
+        assert fn(_CODES[dtype], n, c, 32, sc, out) == 0
+    else:
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        assert fn(_CODES[dtype], n, c, 32, out) == 0
+    return tuple(out)
+
+
+def _gn_edges():
+    """(N, C, dtype, kind) one position either side of each kernel's
+    single-block budget, at 4, 8, 16 and 60 channels a group: the last N on
+    one block and the first on a cluster (the cluster route takes every
+    slab beyond the budget)."""
+    edges = []
+    for c in (128, 256, 512, 1920):
+        for dtype in TOL:
+            for kind in ("fwd", "bwd"):
+                lo, hi = 1, 1 << 22
+                while hi - lo > 1:
+                    mid = (lo + hi) // 2
+                    lo, hi = (mid, hi) if _gn_route(kind, dtype, mid, c)[0] == 0 else (lo, mid)
+                assert _gn_route(kind, dtype, lo, c)[0] == 0
+                assert _gn_route(kind, dtype, lo + 1, c)[0] == 1
+                edges += [(lo, c, dtype, kind), (lo + 1, c, dtype, kind)]
+    return edges
+
+
 def _check_group_norm_forward(cuda):
     """y, and the (B, G) statistics the forward writes under autograd."""
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -73,23 +113,34 @@ def _check_group_norm_forward(cuda):
     # without (LSUN-churches' scale-shift ResBlocks)
     cases += [(2, 4096, 224, 32, True), (2, 4096, 224, 32, False), (2, 1024, 672, 32, True),
               (2, 256, 1120, 32, True), (2, 64, 1568, 32, False), (2, 1024, 1568, 32, True)]
-    for b, n, c, g, silu in cases:
-        for dtype in TOL:
-            x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
-            scale = torch.rand((c,), generator=gen, device=cuda) + 0.5
-            bias = torch.randn((c,), generator=gen, device=cuda) * 0.1
-            what = f"gn {(b, n, c, g, silu)} {dtype}"
-            before = ops.LAUNCHES["group_norm"]
-            got = group_norm(x, scale, bias, groups=g, with_silu=silu)
-            assert ops.LAUNCHES["group_norm"] == before + 1, what + " launch count"
-            want = group_norm_reference(x, scale, bias, groups=g, with_silu=silu)
-            _check(got, want, dtype, what)
-            y, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=g,
-                                                            with_silu=silu)
-            assert torch.equal(y, got), what + " y with stats"
-            pmean, prstd = G.group_norm_stats_reference(x, g)
-            _check_rel(mean, pmean, torch.float32, what + " mean")
-            _check_rel(rstd, prstd, torch.float32, what + " rstd")
+    runs = [(case, dtype, False) for case in cases for dtype in TOL]
+    # the cluster route's edges, channels-last and as NCHW views, SiLU in
+    # turn; N ragged to a 16-block cluster's shares; a slab beyond the largest
+    # cluster (streamed)
+    runs += [((2, n, c, 32, i % 2 == 0), dtype, nchw)
+             for i, (n, c, dtype, _) in enumerate(_gn_edges()) for nchw in (False, True)]
+    runs += [((b, n, 128, 32, silu), dtype, nchw) for b, n, silu in
+             ((2, 65536 + 17, True), (1, 200_003, False)) for dtype in TOL for nchw in (False, True)]
+    for (b, n, c, g, silu), dtype, nchw in runs:
+        x = (torch.randn((b, n, c), generator=gen, device=cuda) * 2 + 0.5).to(dtype)
+        if nchw:  # the (B, N, C) view of a (B, C, N)-contiguous tensor
+            x = x.transpose(1, 2).contiguous().transpose(1, 2)
+        scale = torch.rand((c,), generator=gen, device=cuda) + 0.5
+        bias = torch.randn((c,), generator=gen, device=cuda) * 0.1
+        what = f"gn {(b, n, c, g, silu)} {dtype}{' NCHW view' if nchw else ''}"
+        before = ops.LAUNCHES["group_norm"]
+        got = group_norm(x, scale, bias, groups=g, with_silu=silu)
+        assert ops.LAUNCHES["group_norm"] == before + 1, what + " launch count"
+        want = group_norm_reference(x, scale, bias, groups=g, with_silu=silu)
+        _check(got, want, dtype, what)
+        y, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, groups=g,
+                                                        with_silu=silu)
+        assert torch.equal(y, got), what + " y with stats"
+        assert torch.equal(group_norm(x, scale, bias, groups=g, with_silu=silu), got), \
+            what + " repeat"
+        pmean, prstd = G.group_norm_stats_reference(x, g)
+        _check_rel(mean, pmean, torch.float32, what + " mean")
+        _check_rel(rstd, prstd, torch.float32, what + " rstd")
     # the layer's input: the channel-last view of an NCHW tensor, contiguous
     # (strides (C*H*W, 1, H*W) as (B, N, C)) or channels_last ((B, N, C) contiguous)
     scale, bias = torch.rand(64, device=cuda) + 0.5, torch.randn(64, device=cuda) * 0.1
@@ -268,6 +319,23 @@ def _check_group_norm_backward(cuda):
             _check_rel(mean, pmean, torch.float32, what + " mean")
             _check_rel(rstd, prstd, torch.float32, what + " rstd")
             check(x, dy, scale, bias, g, silu, dtype, what)
+    # the cluster route's edges (as in the forward's check), channels-last
+    # and as NCHW views, SiLU in turn; N ragged to a 16-block cluster's
+    # shares; a slab beyond the largest cluster (streamed): each repeated
+    # bit-identically, dscale and dbias included
+    edges = [((2, n, c), dtype, i % 2 == 0) for i, (n, c, dtype, _) in enumerate(_gn_edges())]
+    edges += [((b, n, 128), dtype, silu) for b, n, silu in
+              ((2, 65536 + 17, False), (1, 200_003, True)) for dtype in TOL]
+    for ((b, n, c), dtype, silu), nchw in ((edge, nchw) for edge in edges for nchw in (False, True)):
+        x, dy, scale, bias = inputs(b, n, c, dtype)
+        if nchw:  # the (B, N, C) views of (B, C, N)-contiguous tensors
+            x, dy = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (x, dy))
+        what = f"gn bwd {(b, n, c, silu)} {dtype}{' NCHW views' if nchw else ''}"
+        got = check(x, dy, scale, bias, 32, silu, dtype, what)
+        again = G.group_norm_backward(x, scale, bias, dy, *G.group_norm_stats_reference(x, 32),
+                                      groups=32, with_silu=silu)
+        for name, a, a2 in zip(("dx", "dscale", "dbias"), got, again):
+            assert torch.equal(a, a2), f"{what} repeat: {name} differs"
     # x and dy through other strides: the (B, H, W, C) view of an NCHW
     # tensor (16-byte reads along positions), channels cut from a wider
     # tensor (along channels, another row stride), every other channel
@@ -302,31 +370,34 @@ def _check_group_norm_backward(cuda):
             assert torch.equal(a, b), f"gn bwd {dtype} repeat: {name} differs"
     # captured into a CUDA graph, then replayed between eager calls on the
     # capture stream with a larger B * C than any before: the graph keeps
-    # its own tickets and partials, and the eager calls free nothing it holds
-    x, dy, scale, bias = inputs(3, 256, 128, torch.float32)
-    mean, rstd = G.group_norm_stats_reference(x, 32)
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):  # warm-up outside the capture
-        G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32, with_silu=True)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        captured = G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32,
-                                         with_silu=True)
-    for replay in range(2):
-        with torch.cuda.stream(stream):
-            check(*inputs(160 + replay, 16, 512, torch.float32), 32, True, torch.float32,
-                  f"gn bwd eager beside a graph {replay}")
-        nx, ndy, _, _ = inputs(3, 256, 128, torch.float32)
-        x.copy_(nx)
-        dy.copy_(ndy)
-        for t, v in zip((mean, rstd), G.group_norm_stats_reference(nx, 32)):
-            t.copy_(v)
-        graph.replay()
-        want = G.group_norm_backward_reference(nx, scale, bias, ndy, mean, rstd, groups=32,
-                                               with_silu=True)
-        for a, w, name in zip(captured, want, ("dx", "dscale", "dbias")):
-            _check_rel(a, w, torch.float32, f"gn bwd graph replay {replay} {name}")
+    # its own tickets and partials, and the eager calls free nothing it holds;
+    # on one block a run, then on the cluster route
+    for shape in ((3, 256, 128), (3, 16384, 256)):
+        assert _gn_route("bwd", torch.float32, *shape[1:])[0] == (shape[1] > 256)
+        x, dy, scale, bias = inputs(*shape, torch.float32)
+        mean, rstd = G.group_norm_stats_reference(x, 32)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):  # warm-up outside the capture
+            G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32, with_silu=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = G.group_norm_backward(x, scale, bias, dy, mean, rstd, groups=32,
+                                             with_silu=True)
+        for replay in range(2):
+            with torch.cuda.stream(stream):
+                check(*inputs(160 + replay, 16, 512, torch.float32), 32, True, torch.float32,
+                      f"gn bwd eager beside a graph {replay}")
+            nx, ndy, _, _ = inputs(*shape, torch.float32)
+            x.copy_(nx)
+            dy.copy_(ndy)
+            for t, v in zip((mean, rstd), G.group_norm_stats_reference(nx, 32)):
+                t.copy_(v)
+            graph.replay()
+            want = G.group_norm_backward_reference(nx, scale, bias, ndy, mean, rstd, groups=32,
+                                                   with_silu=True)
+            for a, w, name in zip(captured, want, ("dx", "dscale", "dbias")):
+                _check_rel(a, w, torch.float32, f"gn bwd graph replay {shape} {replay} {name}")
     x = torch.randn((2, 64, 8, 8), generator=gen, device=cuda, requires_grad=True)
     scale = torch.ones(64, device=cuda, requires_grad=True)
     bias = torch.zeros(64, device=cuda, requires_grad=True)
