@@ -33,13 +33,19 @@ CLIs on the full-width 113.7M-param DDPM), with the train step's remat, the
 RMSprop, SGD and cosine updates and the profile_model CLI on that DDPM;
 and the notebook helpers (class-conditional sampling on cin256-v2 and
 super-resolution on bsr_sr from the BSRGAN-degraded SR dataset), tensor-
-parallel sampling and the native batch loader.
+parallel sampling and the native batch loader; and the recipe drivers
+(the e2e validation, the full recipe with a SIGKILL and resume, the
+cost-aware quality arms, the first-stage and pixel-space LDM recipes, the
+SSIM curve).
 Every phase raises on failure;
 none is caught, so any failure exits non-zero before the result lines.
 
 1. Device: CUDA must be available; prints nvidia-smi's name and power limit.
 2. Build: compiles every kernel of the port, CUDA C++ from this
-   checkout's sources (one nvcc per source, sm_90a, all at once); prints
+   checkout's sources (one nvcc per source, sm_90a, all at once; phases 3-6
+   launch forward kernels only and run while the attention backward, the
+   longest build, finishes: its report and checks below come just before
+   phase 7); prints
    the build seconds and ptxas's registers and spills (per kernel for the
    attention forward and backward, f32 and bf16/f16, and the GroupNorm
    backward; the wide forward kernels, the wide f32 backward kernels and
@@ -326,7 +332,9 @@ none is caught, so any failure exits non-zero before the result lines.
    83,653,863 params, written by save_ldm with cond_stage/config.json) and
    a 30,522-entry vocab; inpainting_big + vq-f4-noattn (387,245,827 +
    53,219,486) and 4 image/mask pairs of 256 x 256; rdm768 + kl-f16
-   (1,335,480,400 + 69,610,963). (a) Every GroupNorm and attention shape
+   (1,335,480,400 + 69,610,963); the dirs hold the weights in f16 (each
+   model rounded to them first, so the CLIs load what the checks here use:
+   half the bytes on the disk). (a) Every GroupNorm and attention shape
    (forward hooks, meta device) of a UNet call of each model at its CLI's
    rows, of a BERT encode, of the kl-f8, vq-f4-noattn and kl-f16 decodes and
    the vq-f4-noattn encode, against the plain versions (head-split views;
@@ -452,9 +460,33 @@ none is caught, so any failure exits non-zero before the result lines.
    -fopenmp, built here): host ms a batch native against plain, CIFAR-size
    in memory at B = 128 (equal batches) and an LSUN-size JPEG folder at B =
    16 (warm reads). Prints the phase's seconds.
-27. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
-   first-stage training, text LDM, multi-GPU, LSUN, remat and notebook JSON
-   lines, the kernels' JSON line, nvidia-smi's line, then the result line.
+27. The recipe drivers (``diff_pruning_tpu_torch/tools``), through their
+   ``run`` functions at full width and small depth (DRV_* below), each with
+   the launch counters reset just before and read just after, every kernel
+   of its path launched: e2e_validation --full (the 35.75M UNet trained in
+   bf16, DDIM samples, the sweep with thr 0.05, the four criteria at
+   19,951,049 params each, the finetune; its RESULT and consistency lines);
+   fullrun on the same UNet (its state file's ten phases; the finetune's
+   child process killed by SIGKILL once its metrics report DRV_KILL_AT, the
+   resume from a saved step to the last step, its EMA reloaded at the
+   pinned params; FID and SSIM finite); cost_quality on fullrun's output
+   (both arms pruned, finetuned, sampled, scored and timed); ae_validation
+   (its JSON line); pixelrun at its full recipe's 64 px and UNet (128
+   channels, heads of 32) with small counts (DRV_PIXEL_COUNTS: vq-f4
+   trained at 64 x 64, the LDM's recipe through ldm_prune, FID, SSIM and
+   class consistency; every shape of a full-width UNet call and decode
+   seen); ssim_curve over phase 20's prune_ssim folders (its table and
+   figure). Meanwhile the GroupNorm and attention layers' forwards are
+   wrapped to record every shape the drivers ran in this process (16 and
+   32 groups; one head of 128-512 and heads of 32 over 1-256 tokens), each
+   with the most rows it took: last, each shape at those rows (at most B)
+   against the plain versions, f32 and bf16, forward, statistics and lse,
+   and backward (phase 17's float64 plain backward and its Nkv = 1 floor).
+   Prints each driver's seconds, launches and shape counts.
+28. The evaluation, LDM, LDM prune, LDM train, unconditional LDM, ablation,
+   first-stage training, text LDM, multi-GPU, LSUN, remat, notebook and
+   drivers JSON lines, the kernels' JSON line, nvidia-smi's line, then the
+   result line.
 
 TF32 is off for matmuls and convolutions throughout (printed), so f32
 comparisons are f32 against f32.
@@ -470,11 +502,15 @@ import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+
+# CUDA-event timing, shared with the recipe drivers (no torch at import)
+from diff_pruning_tpu_torch.tools._runner import in_turns, ms_per_call
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 B = 128
@@ -634,13 +670,14 @@ NOISE_FACTOR, AE_NUDGES, AE_GATE_CAP = 10, 3, 5e-3
 AE_GRAD_CAP = {"float32": 0.09, "bfloat16": 0.4}
 # the multi-GPU path (phase 23): the global batch (the train CLI's 128, 64
 # rows a gloo rank), the train CLI's steps, the sweep's steps (thr off), the
-# timed steps a turn, each worker's time limit. The gloo ranks against the
+# timed steps a turn (1; 3 before phase 27 took the time), each worker's time
+# limit. The gloo ranks against the
 # NCCL world-1 run: the CPU tests' tolerances (tests/test_torch_training.py):
 # DP_RTOL relative (a mean of two row means against one mean, and cuDNN's
 # algorithms at 64 rows against 128, a few f32 ulps), the params within
 # Adam's bound, ADAM_MOVE x lr (twice the most its first bias-corrected
 # update moves a param: a grad near eps turns f32 noise into a part of lr)
-DP_B, DP_TRAIN_STEPS, DP_SWEEP_STEPS, DP_TIME_ITERS, DP_WORKER_TIMEOUT_S = B, 2, 3, 3, 300
+DP_B, DP_TRAIN_STEPS, DP_SWEEP_STEPS, DP_TIME_ITERS, DP_WORKER_TIMEOUT_S = B, 2, 3, 1, 300
 DP_RTOL, ADAM_MOVE = 1e-5, 2.02
 # tensor parallelism in phase 23 (d): DDIM steps of both samplers, the LDM's rows
 TP_STEPS, TP_LDM_B = 5, 4
@@ -651,6 +688,28 @@ TP_STEPS, TP_LDM_B = 5, 4
 SR_SRC, SR_SIZE, SR_F, SR_B, SR_PARAMS = (320, 288), 256, 4, 2, 113_622_563
 NB_STEPS, NB_CLASSES, NB_PER_CLASS = 10, (25, 187), 2
 NATIVE_CIFAR_B, NATIVE_LSUN_B, NATIVE_BATCHES = 128, 16, 8
+# the recipe drivers (phase 27): the train steps of e2e_validation's training
+# and finetune, fullrun's base, cost_quality's finetunes and ae_validation (cut
+# from 600-30,000); the images of a same-seed set (cut from 64-1024) and the
+# DDIM steps of every sample set (cut from 50 and 100); the sweeps' steps (cut
+# from the thr 0.05 exit, up to 1000); fullrun's finetune steps, the reported
+# step that its SIGKILL waits for, its save and log intervals (cut from
+# 100,000, 37,000, 1000 and 100), its FID sets and data images (cut from 50,000
+# each); ae_validation's batch (cut from 64)
+DRV_TRAIN_STEPS, DRV_SAMPLES, DRV_DDIM, DRV_SWEEP_STEPS = 4, 16, 5, 3
+DRV_FT_STEPS, DRV_KILL_AT, DRV_SAVE, DRV_LOG, DRV_FID_N, DRV_DATA_N = 8, 6, 4, 2, 128, 256
+DRV_AE_B = 16
+# pixelrun's counts (its SMOKE's) at its full recipe's 64 px and UNet (128
+# channels, heads of 32 over 8 x 8 and 4 x 4 latents): data images a class
+# (cut from 2500), the steps of the codec, the LDM and its finetune (cut from
+# 8000-20,000), images a class of the FID and grid sets (cut from 256 and
+# 32), DDIM steps, batches, save and log intervals, and ldm_prune's steps,
+# batch and DDIM steps (cut from 1000, 6 and 20)
+DRV_PIXEL_COUNTS = dict(n_per_class=24, ae_steps=8, ldm_steps=8, ft_steps=8, ipc_fid=4,
+                        ipc_grid=2, ddim_steps=5, bs_ae=8, bs_ldm=8, bs_sample=8, save_every=8,
+                        log_every=4, prune_steps=3, prune_bs=2, prune_ddim=4)
+# the drivers whose launches the kernels' JSON line reports (ssim_curve runs none)
+DRIVERS = ("e2e_validation", "fullrun", "cost_quality", "ae_validation", "pixelrun")
 # phase 23's first-stage step on the mesh: the metrics held (and the Adam
 # moments of both networks)
 AE_DP_KEYS = ("total_loss", "nll_loss", "g_loss", "quant_loss", "d_weight", "disc_loss")
@@ -717,33 +776,11 @@ def gpu_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def one_turn(fns):
     """Ms of one call of each of ``fns``, in order, after their warm-ups:
     the end-to-end steps timed without a second, reversed turn (phase 23's
     cost paid by fewer turns)."""
-    return [cuda_ms(f, iters=1, warmup=0) for f in fns]
-
-
-def in_turns(fns, iters: int, warmup: int = 2):
-    """Mean ms of each of ``fns``, timed in order and then in reverse order
-    (two functions: a, b, b, a), each timing after ``warmup`` calls."""
-    first = [cuda_ms(f, iters, warmup) for f in fns]
-    second = [cuda_ms(f, iters, warmup) for f in reversed(fns)][::-1]
-    return [(a + b) / 2 for a, b in zip(first, second)]
+    return [ms_per_call(f, iters=1, warmup=0) for f in fns]
 
 
 def bound(nbytes: float, flops: float, dname: str):
@@ -2156,7 +2193,7 @@ def ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     def batch(on, fn=sample):
         ops.set_kernels_enabled(on)
         try:
-            return cuda_ms(lambda: ldm.decode_first_stage(fn(gen, tlabels, LDM_B)), iters=1,
+            return ms_per_call(lambda: ldm.decode_first_stage(fn(gen, tlabels, LDM_B)), iters=1,
                            warmup=0)
         finally:
             ops.set_kernels_enabled(True)
@@ -2483,7 +2520,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
     def timed(on, fn):
         ops.set_kernels_enabled(on)
         try:
-            return cuda_ms(fn, iters=1, warmup=0)
+            return ms_per_call(fn, iters=1, warmup=0)
         finally:
             ops.set_kernels_enabled(True)
 
@@ -2509,7 +2546,7 @@ def ldm_prune_path(tmp, ldm, model_dir, gen, gpu, tag, worst, others_bwd):
         xc = torch.randn((n, 192, 64, 64), generator=gen, device=dev).contiguous(
             memory_format=torch.channels_last)
         with torch.inference_mode():
-            conv_ms[n] = cuda_ms(lambda: F.conv2d(xc, w, None, 1, 1), iters=3, warmup=1)
+            conv_ms[n] = ms_per_call(lambda: F.conv2d(xc, w, None, 1, 1), iters=3, warmup=1)
         del xc
     print("time ldm conv 3x3 192->192 at 64x64 NHWC float32: " + ", ".join(
         f"{n} rows {ms:.2f} ms ({ms / n:.3f} a row)" for n, ms in conv_ms.items()) + f" {tag}")
@@ -2650,6 +2687,33 @@ def record_fwd_dtypes():
     return seen, restore
 
 
+@contextlib.contextmanager
+def stored_as_f16(*modules):
+    """Rounds the modules' floating-point weights to f16 (they stay f32
+    tensors) and, while the block runs, has ``utils/checkpoint`` write every
+    f32 array of a ``params.npz`` in f16: a model dir of half the bytes,
+    whose weights the CLIs load (into f32) equal to the ones the in-memory
+    checks use. The script's runs write tens of GB of model dirs; this halves
+    phase 22's share."""
+    import numpy as np
+
+    from diff_pruning_tpu_torch.utils import checkpoint
+
+    for m in modules:
+        m.half().float()
+    save = checkpoint.save_params_npz
+
+    def save_f16(path, state_dict):
+        np.savez(path, **{k: v.astype(np.float16) if v.dtype == np.float32 else v
+                          for k, v in checkpoint.flat_from_state_dict(state_dict).items()})
+
+    checkpoint.save_params_npz = save_f16
+    try:
+        yield
+    finally:
+        checkpoint.save_params_npz = save
+
+
 def redraw_zero_init(model, g) -> int:
     """Redraws, from ``g``, every module of ``model`` whose own parameters are
     all zero (the convolutions that the reference zero-initialises: a fresh
@@ -2681,7 +2745,7 @@ def turns(fn):
     resolution and the host's share."""
     for on in (False, True):
         fn(on)
-    off1, on1, on2, off2 = (cuda_ms(lambda: fn(on), iters=1, warmup=0)
+    off1, on1, on2, off2 = (ms_per_call(lambda: fn(on), iters=1, warmup=0)
                             for on in (False, True, True, False))
     return (off1 + off2) / 2, (on1 + on2) / 2
 
@@ -2847,7 +2911,7 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     # at the CLI's default rows, where cuDNN's choice may change (ROADMAP
     # queue 2, F): one call after a warm-up, kernels on
     call50 = unet_call(UNCOND_CLI_B)
-    on = cuda_ms(lambda: call50(True), iters=1, warmup=1)
+    on = ms_per_call(lambda: call50(True), iters=1, warmup=1)
     timing[f"unet_call_ms_{UNCOND_CLI_B}"] = {"kernels_on": on}
     print(f"time uncond celebahq one UNet call rows={UNCOND_CLI_B} float32: kernels on "
           f"{on:.2f} ms ({on / UNCOND_CLI_B:.3f} ms a row; CUDA events, one call after a "
@@ -2872,7 +2936,7 @@ def uncond_ldm_path(tmp, gen, gpu, tag, worst, others_fwd, cifar):
     # above: one batch each, kernels off then on
     sample20 = make_concat_sampler(unet, sched, ddim_steps=UNCOND_STEPS, eta=UNCOND_ETA)
     empty16 = torch.zeros((UNCOND_B, hw, hw, 0), device=dev)
-    off, on = (cuda_ms(lambda: switched(on_, lambda: decode(sample20(gen, empty16))),
+    off, on = (ms_per_call(lambda: switched(on_, lambda: decode(sample20(gen, empty16))),
                        iters=1, warmup=0) for on_ in (False, True))
     timing["imgs_per_s"] = {"kernels_on": UNCOND_B * 1e3 / on,
                             "kernels_off": UNCOND_B * 1e3 / off}
@@ -3279,7 +3343,7 @@ def ldm_train_path(tmp, model_dir, pruned_dir, gen, gpu, tag, worst, others_fwd,
             fn()
         off, on = one_turn([lambda: run(False), lambda: run(True)])
         enc_ms, fb_ms = one_turn([encode, fwd_bwd])
-        opt_ms = cuda_ms(lambda: opt.update(grads, norm_, st, plist), iters=3)
+        opt_ms = ms_per_call(lambda: opt.update(grads, norm_, st, plist), iters=3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         run(True)
@@ -3679,7 +3743,7 @@ def ablation_path(tmp, gen, gpu, tag, worst, ctx):
         def run(on, sample=sample):
             ops.set_kernels_enabled(on)
             try:
-                return cuda_ms(lambda: sample(gen, B, 32, 3), iters=1, warmup=0)
+                return ms_per_call(lambda: sample(gen, B, 32, 3), iters=1, warmup=0)
             finally:
                 ops.set_kernels_enabled(True)
 
@@ -4188,7 +4252,7 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
     lap("on against off")
 
     # (c) the main path: the autoencoder_train CLI on phase 16's vq-f4 at
-    # full width, B = 12, 256 x 256, every term live; a resume from step 2
+    # full width, B = 12, 256 x 256, every term live; a resume from step AE_SAVE
     base = ["--model_path", ctx["vq_dir"], "--dataset", ctx["data"], "--resolution",
             str(AE_RES), "--train_batch_size", str(rows), "--lpips", "random", "--disc_start",
             "0", "--log_steps", "1", "--device", "cuda"]
@@ -4205,8 +4269,8 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
           f"{[round(x, 2) for x in stats['save_seconds']]} s {tag}; launches {cli_counts}")
     assert stats["steps"] == AE_STEPS and all(math.isfinite(x) for x in stats["losses"])
     assert cli_counts == want_cli, (cli_counts, want_cli)
-    pair = os.path.join(tmp, "ae_step2")
-    for sub in ("gen", "disc"):  # the pair as it stood at step 2
+    pair = os.path.join(tmp, "ae_resume_from")
+    for sub in ("gen", "disc"):  # the pair as it stood at step AE_SAVE
         shutil.copytree(os.path.join(first, "ckpt", sub, f"step-{AE_SAVE}"),
                         os.path.join(pair, sub, f"step-{AE_SAVE}"))
         with open(os.path.join(pair, sub, "LATEST"), "w") as f:
@@ -4289,7 +4353,7 @@ def ae_train_path(tmp, gen, gpu, tag, worst, ctx):
             if i == 1:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
-            ms.append(cuda_ms(lambda on=on, i=i: run(on, marks=mark if i == 1 else None),
+            ms.append(ms_per_call(lambda on=on, i=i: run(on, marks=mark if i == 1 else None),
                               iters=1, warmup=0))
             if i == 1:
                 peak = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -4454,7 +4518,8 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
               for part in ("unet", "cond_stage", "first_stage")}
     t2i_dir = os.path.join(tmp, "txt2img")
     t0 = time.perf_counter()
-    save_ldm(t2i_dir, ldm)
+    with stored_as_f16(ldm):
+        save_ldm(t2i_dir, ldm)
     t_save = time.perf_counter() - t0
     vocab = os.path.join(tmp, "bert_vocab.txt")
     words = TEXT_PROMPT.split()
@@ -4529,7 +4594,7 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
                                 latent_ch=4, uncond_input=tok([""]))
     for on in (False, True):
         switched(on, lambda: ldm.decode_first_stage(warm(gen, tokens, TEXT_B)))
-    off, on = (cuda_ms(lambda: switched(on_, lambda: ldm.decode_first_stage(
+    off, on = (ms_per_call(lambda: switched(on_, lambda: ldm.decode_first_stage(
         sampler(gen, tokens, TEXT_B))), iters=1, warmup=0) for on_ in (False, True))
     timing["txt2img_imgs_per_s"] = {"kernels_on": TEXT_B * 1e3 / on,
                                     "kernels_off": TEXT_B * 1e3 / off}
@@ -4589,8 +4654,9 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     nudged = redraw_zero_init(unet, g)
     i_dir = os.path.join(tmp, "inpaint")
     t0 = time.perf_counter()
-    save_model(i_dir, icfg, unet, subfolder="unet")
-    save_model(i_dir, ifcfg, fs, subfolder="first_stage")
+    with stored_as_f16(unet, fs):
+        save_model(i_dir, icfg, unet, subfolder="unet")
+        save_model(i_dir, ifcfg, fs, subfolder="first_stage")
     t_save = time.perf_counter() - t0
     counts = (sum(p.numel() for p in unet.parameters()), sum(p.numel() for p in fs.parameters()))
     print(f"text ldm inpainting_big: UNetCond {counts[0]:,}, vq-f4-noattn {counts[1]:,} params "
@@ -4624,7 +4690,7 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
 
     off, on = turns(inpaint_unet)
     timing["inpaint_unet_call_ms"] = {"kernels_on": on, "kernels_off": off}
-    off_b, on_b = (cuda_ms(lambda: switched(on_, inpaint_batch), iters=1, warmup=0)
+    off_b, on_b = (ms_per_call(lambda: switched(on_, inpaint_batch), iters=1, warmup=0)
                    for on_ in (False, True))
     timing["inpaint_imgs_per_s"] = {"kernels_on": TEXT_INPAINT_B * 1e3 / on_b,
                                     "kernels_off": TEXT_INPAINT_B * 1e3 / off_b}
@@ -4672,8 +4738,9 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
     nudged = redraw_zero_init(kldm.unet, g)
     k_dir = os.path.join(tmp, "rdm768")
     t0 = time.perf_counter()
-    save_model(k_dir, kcfg, kldm.unet, subfolder="unet")
-    save_model(k_dir, kfcfg, kldm.first_stage, subfolder="first_stage")
+    with stored_as_f16(kldm):
+        save_model(k_dir, kcfg, kldm.unet, subfolder="unet")
+        save_model(k_dir, kfcfg, kldm.first_stage, subfolder="first_stage")
     t_save = time.perf_counter() - t0
     counts = tuple(sum(p.numel() for p in m.parameters()) for m in (kldm.unet, kldm.first_stage))
     print(f"text ldm rdm768: UNetCond {counts[0]:,}, kl-f16 {counts[1]:,} params; {nudged} "
@@ -4703,7 +4770,7 @@ def text_ldm_path(tmp, gen, gpu, tag, worst, others_fwd):
 
     off, on = turns(rdm_unet)
     timing["rdm768_unet_call_ms"] = {"kernels_on": on, "kernels_off": off}
-    off_b, on_b = (cuda_ms(lambda: switched(on_, knn_batch), iters=1, warmup=0)
+    off_b, on_b = (ms_per_call(lambda: switched(on_, knn_batch), iters=1, warmup=0)
                    for on_ in (False, True))
     timing["knn2img_imgs_per_s"] = {"kernels_on": TEXT_KNN_B * 1e3 / on_b,
                                     "kernels_off": TEXT_KNN_B * 1e3 / off_b}
@@ -6020,6 +6087,382 @@ def multi_gpu_path(tmp, gpu, tag, ctx):
             "gloo_ranks": [res["gloo0"], res["gloo1"]]}
 
 
+def check_builds(libs, t_build):
+    """Phase 2's report and checks of the built libraries ``libs``: each
+    build's seconds and ptxas lines, registers and spills per kernel (the
+    kernel counts and no spills where phase 2 says), the SASS's tensor-core
+    and FFMA instructions per kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from diff_pruning_tpu_torch.ops import _build
+
+    for name in libs:
+        info = _build.BUILD_INFO[name]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"build: {name}.cu (nvcc sm_90a) {info['seconds']:.2f}s; " + " | ".join(ptxas))
+    print(f"build: {', '.join(libs)} built at {time.perf_counter() - t_build:.2f}s")
+    regs = {lib: ptxas_by_kernel(_build.BUILD_INFO[lib]["log"], *PTXAS_KERNELS[lib])
+            for lib in PTXAS_KERNELS if lib in libs}
+    for lib, kernels in regs.items():
+        for kname, (nregs, st, ld) in sorted(kernels.items()):
+            print(f"ptxas: {lib} {kname}: {nregs} registers, spill stores {st} bytes, "
+                  f"spill loads {ld} bytes")
+    # (a library's log is empty when it was already built)
+    if "flash_attention_fwd" in libs and _build.BUILD_INFO["flash_attention_fwd"]["log"]:
+        assert {k.split("<")[0] for k in regs["flash_attention_fwd"]} == {
+            "flash_fwd_kernel_f32", "flash_fwd_kernel_f32_wide", "flash_fwd_kernel_mma",
+            "flash_fwd_kernel_wgmma_wide"}, regs
+        # f32 at 4 head-dim paddings and 6 wide (D 257-1024); 16-bit: 2 types
+        # x (4 + 4 wide)
+        assert len(regs["flash_attention_fwd"]) == 26, regs
+        for kname, (_, st, ld) in regs["flash_attention_fwd"].items():
+            assert "_wide" not in kname or st == ld == 0, f"{kname} spills"
+    if "flash_attention_bwd" in libs and _build.BUILD_INFO["flash_attention_bwd"]["log"]:
+        assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
+            "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
+            "flash_bwd_dkv_kernel_mma", "flash_bwd_dq_kernel_f32_wide",
+            "flash_bwd_dkv_kernel_f32_wide", "flash_bwd_dq_kernel_mma_wide",
+            "flash_bwd_dkv_kernel_mma_wide", "flash_bwd_dq_kernel_wgmma_wide",
+            "flash_bwd_dkv_kernel_wgmma_wide"}, regs
+        # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 1 each
+        # (D 257-1024: clusters of 192-column blocks); 16-bit: 2 types x ((4 +
+        # 6) x 2 kernels + the wgmma pair's 5 tilings each)
+        assert len(regs["flash_attention_bwd"]) == 68, regs
+        for kname, (_, st, ld) in regs["flash_attention_bwd"].items():
+            assert not ("_wgmma" in kname or "_f32_wide" in kname) or st == ld == 0, \
+                f"{kname} spills"
+    for lib in ("group_norm_fwd", "group_norm_bwd"):
+        if lib in libs and _build.BUILD_INFO[lib]["log"]:
+            # 3 dtypes x SiLU or not on one block, and on a cluster with
+            # 16-byte or one-channel chunks
+            assert len(regs[lib]) == 18, regs[lib]
+            for kname, (_, st, ld) in regs[lib].items():
+                assert "_cluster" not in kname or st == ld == 0, f"{kname} spills"
+    sass_libs = [lib for lib in ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd")
+                 if lib in libs]
+    with ThreadPoolExecutor(max_workers=len(sass_libs)) as sass_pool:  # a cuobjdump each
+        sass_of = dict(zip(sass_libs, sass_pool.map(
+            lambda lib: sass_counts(_build.load_library(lib)._name), sass_libs)))
+    for lib in sass_libs:
+        sass = sass_of[lib]
+        if sass is None:
+            print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
+            break
+        for kname, (hmma, hgmma, ffma) in sorted(sass.items()):
+            print(f"sass: {lib} {kname}: {hmma} HMMA, {hgmma} HGMMA, {ffma} FFMA")
+            if "_kernel_mma" in kname:  # forward, dq and dk/dv in bf16/f16
+                assert hmma > 0, f"{kname} has no tensor-core instruction"
+            if "_kernel_wgmma" in kname:  # the wide 16-bit forward, dq and dk/dv
+                assert hgmma > 0, f"{kname} has no warpgroup tensor-core instruction"
+            if "_kernel_f32" in kname or "gn_bwd_kernel" in kname or "gn_bwd_cluster" in kname:
+                assert hmma == hgmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
+        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_wgmma_wide",
+                                         "flash_fwd_kernel_f32_wide"),
+                 "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
+                                         "flash_bwd_dq_kernel_f32_wide",
+                                         "flash_bwd_dkv_kernel_f32_wide",
+                                         "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma",
+                                         "flash_bwd_dq_kernel_mma_wide",
+                                         "flash_bwd_dkv_kernel_mma_wide",
+                                         "flash_bwd_dq_kernel_wgmma_wide",
+                                         "flash_bwd_dkv_kernel_wgmma_wide"),
+                 "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
+        for want in wants:  # (one instance of each wide f32 kernel, two or more of the others)
+            least = 1 if want.endswith("_f32_wide") else 2
+            assert sum(want in kname for kname in sass) >= least, (want, sorted(sass))
+
+
+@contextlib.contextmanager
+def recorded_op_shapes():
+    """While the block runs, every GroupNorm layer's call on the card records
+    (N, C, groups, eps, silu) and every attention layer's (Nq, Nkv, heads,
+    D), each with the most batch rows it took (the layers' forwards wrapped,
+    so the models that CLIs build in this process are seen too; calls on
+    the meta device or the CPU, such as the cost model's probes, launch no
+    kernel and are left out); yields the two dicts, shape -> rows."""
+    from diff_pruning_tpu_torch.models.layers import CrossAttention, GroupNorm, SelfAttention2D
+
+    gn, attn = {}, {}
+    orig = {cls: cls.forward for cls in (GroupNorm, SelfAttention2D, CrossAttention)}
+
+    def keep(seen, key, x):
+        if x.is_cuda:
+            seen[key] = max(seen.get(key, 0), x.shape[0])
+
+    def gn_forward(self, x, with_silu=False):
+        keep(gn, (x.shape[2] * x.shape[3], x.shape[1], self.num_groups, self.eps,
+                  bool(with_silu)), x)
+        return orig[GroupNorm](self, x, with_silu)
+
+    def self_attn_forward(self, x):
+        n = x.shape[2] * x.shape[3]
+        keep(attn, (n, n, self.heads, self.inner.size // self.heads), x)
+        return orig[SelfAttention2D](self, x)
+
+    def cross_attn_forward(self, x, context=None):
+        ctx = x if context is None else context
+        keep(attn, (x.shape[1], ctx.shape[1], self.heads, self.inner.size // self.heads), x)
+        return orig[CrossAttention](self, x, context)
+
+    GroupNorm.forward, SelfAttention2D.forward = gn_forward, self_attn_forward
+    CrossAttention.forward = cross_attn_forward
+    try:
+        yield gn, attn
+    finally:
+        for cls, fwd in orig.items():
+            cls.forward = fwd
+
+
+def check_driver_shapes(gn_cases, attn_cases, gen, dev, worst):
+    """Every shape of :func:`recorded_op_shapes`, at the most rows it took
+    (at most B), against the plain versions, f32 and bf16 (phase 27): the
+    GroupNorm forward (its groups and eps), statistics and backward (dx,
+    dscale, dbias); the attention forward on head-split views, its lse, and
+    dq and dk/dv against the plain backward in float64
+    (:func:`bwd_edge_errors`: + 1e-6 of the largest gradient for dq and dk
+    at Nkv = 1). Raises on a disagreement; the largest errors go to
+    ``worst`` under ``<op>_drivers``."""
+    import torch
+
+    from diff_pruning_tpu_torch.ops import attention as A
+    from diff_pruning_tpu_torch.ops import group_norm as G
+
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for (n, c, groups, eps, silu), rows in sorted(gn_cases.items()):
+            rows = min(rows, B)
+            x = (torch.randn((rows, n, c), generator=gen, device=dev) * 2 + 0.5).to(dtype)
+            dy = torch.randn((rows, n, c), generator=gen, device=dev).to(dtype)
+            scale = torch.rand((c,), generator=gen, device=dev) + 0.5
+            bias = torch.randn((c,), generator=gen, device=dev) * 0.1
+            kw = dict(groups=groups, eps=eps, with_silu=silu)
+            errs = {}
+            errs["fwd"], ok = compare(G.group_norm(x, scale, bias, **kw),
+                                      G.group_norm_reference(x, scale, bias, **kw), dname)
+            assert ok, ("drivers gn fwd", n, c, groups, silu, dname, errs)
+            _, mean, rstd = G.group_norm_forward_with_stats(x, scale, bias, **kw)
+            pmean, prstd = G.group_norm_stats_reference(x, groups, eps=eps)
+            got = G.group_norm_backward(x, scale, bias, dy, pmean, prstd, groups=groups,
+                                        with_silu=silu)
+            want = G.group_norm_backward_reference(x, scale, bias, dy, pmean, prstd,
+                                                   groups=groups, with_silu=silu)
+            for what, a, w, tol in (("mean", mean, pmean, BWD_TOL["float32"]),
+                                    ("rstd", rstd, prstd, BWD_TOL["float32"]),
+                                    ("dx", got[0], want[0], BWD_TOL[dname]),
+                                    ("dscale", got[1], want[1], BWD_TOL[dname]),
+                                    ("dbias", got[2], want[2], BWD_TOL[dname])):
+                errs[what], ok = compare_rel(a, w, tol)
+                assert ok, ("drivers gn", what, n, c, groups, silu, dname, errs)
+            worst[("group_norm_drivers", dname)] = max(worst[("group_norm_drivers", dname)],
+                                                       errs["fwd"])
+            worst[("group_norm_bwd_drivers", dname)] = max(
+                worst[("group_norm_bwd_drivers", dname)], errs["dx"], errs["dscale"],
+                errs["dbias"])
+            print(f"check drivers group_norm rows={rows} N={n} C={c} groups={groups} "
+                  f"C/g={c // groups} eps={eps} silu={silu} {dname}: "
+                  + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+                  + f" (tol fwd {TOL[dname]}, stats {BWD_TOL['float32']}, bwd {BWD_TOL[dname]} "
+                  f"x max|want|) ok")
+            del x, dy, got, want
+        for (nq, nkv, h, d), rows in sorted(attn_cases.items()):
+            rows = min(rows, B)
+            q, k, v = (torch.randn((rows, m, h * d), generator=gen, device=dev).to(dtype)
+                       .view(rows, m, h, d).transpose(1, 2) for m in (nq, nkv, nkv))
+            scale = d ** -0.5
+            errs = {}
+            errs["o"], ok = compare(A.flash_attention(q, k, v, scale),
+                                    A.reference_attention(q, k, v, scale), dname)
+            assert ok, ("drivers attention", nq, nkv, h, d, dname, errs)
+            o, lse = A.flash_attention_forward_lse(q, k, v, scale)
+            po, plse = A.reference_attention_lse(q, k, v, scale)
+            errs["o_lse"], ok = compare(o, po, dname)
+            assert ok, ("drivers attention with lse", nq, nkv, h, d, dname, errs)
+            errs["lse"], ok = compare_rel(lse, plse, BWD_TOL["float32"])
+            assert ok, ("drivers lse", nq, nkv, h, d, dname, errs)
+            del q, k, v, o, po
+            errs.update(bwd_edge_errors(rows, h, nq, nkv, d, False, dtype, BWD_TOL[dname], gen,
+                                        dev))
+            for key, parts in (("attention", ("o", "o_lse")), ("attention_bwd_dq", ("dq", "dsum")),
+                               ("attention_bwd_dkv", ("dk", "dv"))):
+                worst[(f"{key}_drivers", dname)] = max(worst[(f"{key}_drivers", dname)],
+                                                       *(errs[p_] for p_ in parts))
+            print(f"check drivers attention rows={rows} Nq={nq} Nkv={nkv} heads={h} D={d} "
+                  f"{dname}: " + " ".join(f"{k_}={e:.3e}" for k_, e in errs.items())
+                  + f" (tol o {TOL[dname]}, lse and dsum {BWD_TOL['float32']}, grads "
+                  f"{BWD_TOL[dname]} x max|want|) ok")
+    torch.cuda.synchronize()
+
+
+def drivers_path(tmp, gen, gpu, tag, worst, ablation_dir):
+    """Phase 27 (see the module docstring): the recipe drivers of
+    ``diff_pruning_tpu_torch/tools`` at full width and small depth; returns
+    the phase's figures."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from diff_pruning_tpu_torch import ops
+    from diff_pruning_tpu_torch.models.unet2d import UNet2D
+    from diff_pruning_tpu_torch.models.unet_cond import UNetCondConfig
+    from diff_pruning_tpu_torch.models.vae import first_stage_config
+    from diff_pruning_tpu_torch.tools import (ae_validation, cost_quality,
+                                              e2e_validation, fullrun, pixelrun, ssim_curve)
+    from diff_pruning_tpu_torch.utils.checkpoint import load_model
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "drivers")
+    out = {"card": gpu}
+    every = set(ops.LAUNCHES) - {"attention_lse"}
+    gn_seen, attn_seen = {}, {}  # every driver's shapes -> the most rows
+
+    def driven(name, fn, must):
+        """Runs ``fn``, its output captured and its layers' shapes recorded,
+        with the launch counters reset just before and read just after; each
+        kernel in ``must`` has to have launched. Returns (``fn``'s result,
+        its output)."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), recorded_op_shapes() as (gn, attn):
+            res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        print(f"driver {name}: {secs:.1f} s, launches {counts}, {len(gn)} GroupNorm and "
+              f"{len(attn)} attention shapes {tag}")
+        missing = [k for k in must if not counts[k]]
+        assert not missing, (name, missing, counts)
+        for seen, new in ((gn_seen, gn), (attn_seen, attn)):
+            for key, rows in new.items():
+                seen[key] = max(seen.get(key, 0), rows)
+        out[name] = {"seconds": secs, "launches": counts}
+        return res, buf.getvalue()
+
+    # (a) e2e_validation --full: train, sample, sweep (thr 0.05), 4 criteria, finetune
+    e2e_out = os.path.join(root, "e2e")
+    rep, text = driven("e2e_validation", lambda: e2e_validation.run(
+        steps=DRV_TRAIN_STEPS, finetune_steps=DRV_TRAIN_STEPS, batch=B, out=e2e_out, full=True,
+        device="cuda", n_samples=DRV_SAMPLES, ddim_steps=DRV_DDIM,
+        sweep_max_steps=DRV_SWEEP_STEPS), every | {"attention_lse"})
+    print(text, end="")
+    lines = text.splitlines()
+    assert any(ln.startswith("RESULT {") for ln in lines), lines[-3:]
+    assert lines[-1].startswith("diff-pruning >= random consistency: "), lines[-1]
+    assert rep["params"] == 35_746_307 and 1 <= rep["sweep_steps"] <= DRV_SWEEP_STEPS, rep
+    assert all(c["params"] == PRUNED_PARAMS_AT_0_3 for c in rep["criteria"].values()), rep
+    ssims = [c["ssim"] for c in rep["criteria"].values()] + [rep["ssim_finetuned"]]
+    assert np.isfinite(ssims).all() and os.path.exists(os.path.join(e2e_out, "e2e_result.json"))
+    out["e2e_validation"].update({k: rep[k] for k in ("sweep_steps", "criteria",
+                                                      "ssim_finetuned", "seconds")})
+
+    # (b) fullrun: the CIFAR recipe, the finetune SIGKILLed in a child process
+    # once it reports DRV_KILL_AT, then resumed here from its checkpoint
+    fr_out = os.path.join(root, "fullrun")
+    sz = fullrun.Sizes(base_steps=DRV_TRAIN_STEPS, ft_steps=DRV_FT_STEPS, kill_at=DRV_KILL_AT,
+                       total_samples=DRV_FID_N, save_every=DRV_SAVE, log_every=DRV_LOG, bs=B,
+                       ssim_n=DRV_SAMPLES, data_n=DRV_DATA_N, ddim_steps=DRV_DDIM,
+                       prune_max_steps=DRV_SWEEP_STEPS)
+    st, _ = driven("fullrun", lambda: fullrun.run(fr_out, sz, device="cuda"), every)
+    assert list(st) == ["data", "base", "basesample", "basesample_fid", "prune",
+                        "finetune_kill", "finetune", "sample", "ssimsample", "eval"], list(st)
+    kill, ft = st["finetune_kill"], st["finetune"]
+    # the child died by the signal once it had reported the kill step
+    assert kill["killed"] and kill["rc"] == -signal.SIGKILL, kill
+    assert kill["last_step"] >= DRV_KILL_AT, kill
+    # the resume started from a saved step no later than the last one reported,
+    # and reached the last step
+    assert ft["resumed_from"] in range(DRV_SAVE, kill["last_step"] + 1, DRV_SAVE), ft
+    assert ft["last_step"] == DRV_FT_STEPS, ft
+    cfg, state = load_model(os.path.join(fr_out, "finetuned"), subfolder="unet_ema")
+    net = UNet2D(cfg, device="cuda")
+    net.load_state_dict(state)
+    assert sum(p.numel() for p in net.parameters()) == PRUNED_PARAMS_AT_0_3
+    del net, state
+    ev = st["eval"]
+    assert np.isfinite([ev["fid_pruned_vs_data"], ev["fid_base_vs_data"],
+                        ev["sameseed_ssim"]]).all(), ev
+    print(f"fullrun: killed by SIGKILL (rc {kill['rc']}) after reported step "
+          f"{kill['last_step']} (kill at {DRV_KILL_AT}); resumed from step {ft['resumed_from']} "
+          f"to {DRV_FT_STEPS}; EMA reloads at {PRUNED_PARAMS_AT_0_3} params; FID pruned "
+          f"{ev['fid_pruned_vs_data']:.3f} base {ev['fid_base_vs_data']:.3f}, SSIM "
+          f"{ev['sameseed_ssim']:.4f}")
+    out["fullrun"].update(kill=kill, resumed_from=ft["resumed_from"], eval=ev,
+                          phase_seconds={k: v.get("secs") for k, v in st.items()})
+
+    # (c) cost_quality on fullrun's base: the two arms, scored and timed
+    cq = os.path.join(root, "cost_quality")
+    csz = cost_quality.Sizes(ft_steps=DRV_TRAIN_STEPS, fid_n=DRV_FID_N, ssim_n=DRV_SAMPLES,
+                             ddim_steps=DRV_DDIM, prune_max_steps=DRV_SWEEP_STEPS, time_iters=1)
+    st, _ = driven("cost_quality", lambda: cost_quality.run(fr_out, cq, csz, device="cuda"),
+                   every)
+    arms = list(cost_quality.ARMS)
+    pa, pb = (st[f"prune_{a}"]["params_m"] for a in arms)
+    assert np.isfinite([st["eval"][k] for k in st["eval"] if k != "t"]).all(), st["eval"]
+    assert all(st["throughput"][a] > 0 for a in arms), st["throughput"]
+    print(f"cost_quality: params {pa} / {pb} M, eval " + json.dumps(
+        {k: v for k, v in st["eval"].items() if k != "t"}) + f", DDIM-{DRV_DDIM} imgs/s "
+          + json.dumps({a: st["throughput"][a] for a in arms}) + f" {tag}")
+    out["cost_quality"].update(params_m=[pa, pb], eval=st["eval"],
+                               imgs_per_sec={a: st["throughput"][a] for a in arms})
+
+    # (d) ae_validation: the first-stage CLI on its small VQ codec
+    rep, text = driven("ae_validation", lambda: ae_validation.run(
+        steps=DRV_TRAIN_STEPS, out=os.path.join(root, "ae_val"), batch_size=DRV_AE_B,
+        disc_start=DRV_TRAIN_STEPS // 2, dispatch=DRV_LOG // 2, device="cuda"),
+        {"group_norm", "group_norm_bwd"})
+    assert json.loads(text.splitlines()[-1]) == rep and np.isfinite(
+        [rep["rec_loss_first"], rep["rec_loss_last"], rep["l1_recon_trained"]]).all(), rep
+    print(f"ae_validation: {json.dumps(rep)}")
+    out["ae_validation"]["result"] = rep
+
+    # (e) pixelrun at its full recipe's image size and UNet, small counts:
+    # vq-f4 (55.3M) trained at 64 px, the LDM's whole recipe on it
+    psz = dataclasses.replace(pixelrun.FULL, **DRV_PIXEL_COUNTS)
+    st, _ = driven("pixelrun", lambda: pixelrun.run(os.path.join(root, "pixelrun"), psz,
+                                                    device="cuda"),
+                   every | {"attention_lse"})
+    assert list(st) == ["data", "ae", "ae_check", "ldm_init", "ldm_train", "basesample", "prune",
+                        "finetune", "prunedsample", "eval"], list(st)
+    ev = {k: v for k, v in st["eval"].items() if k != "t"}
+    assert np.isfinite(list(ev.values())).all() and 0 <= ev["class_acc_pruned"] <= 1, ev
+    assert st["prune"]["params"] < st["prune"]["params_before"] == st["ldm_init"][
+        "unet_params"], st
+    # the full-width UNet and codec ran: every shape of their calls was seen
+    unet_calls, decode_calls = ldm_op_shapes(UNetCondConfig(**pixelrun.LDM_UNET),
+                                             first_stage_config("vq-f4"))
+    for want, seen in ((unet_calls[0] + decode_calls[0], {k[:2] + k[3:] for k in gn_seen}),
+                       (unet_calls[1] + decode_calls[1], set(attn_seen))):
+        assert set(want) <= seen, sorted(set(want) - seen)
+    print(f"pixelrun: recon PSNR {st['ae_check']['recon_psnr']} dB, UNet "
+          f"{st['prune']['params_before']} -> {st['prune']['params']} params, eval "
+          f"{json.dumps(ev)}")
+    out["pixelrun"].update(eval=ev, prune=st["prune"], ae_check=st["ae_check"])
+
+    # (f) ssim_curve over phase 20's prune_ssim folders
+    table, _ = driven("ssim_curve", lambda: ssim_curve.main([ablation_dir, "--device", "cuda"]),
+                      ())
+    assert table["stages"] == list(ABL_STAGES) and np.isfinite(table["ssim"]).all(), table
+    assert os.path.exists(os.path.join(ablation_dir, "ssim_curve.png"))
+    print(f"ssim_curve: {json.dumps(table)}")
+    out["ssim_curve"]["table"] = table
+
+    # (g) every GroupNorm and attention shape the drivers ran in this
+    # process, against the plain versions, forward and backward
+    t0 = time.perf_counter()
+    check_driver_shapes(gn_seen, attn_seen, gen, torch.device("cuda"), worst)
+    out["shapes"] = {"group_norm": len(gn_seen), "attention": len(attn_seen),
+                     "groups": sorted({k[2] for k in gn_seen}),
+                     "head_dims": sorted({k[3] for k in attn_seen}),
+                     "seconds": time.perf_counter() - t0}
+    print(f"drivers shapes: {json.dumps(out['shapes'])}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"drivers phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -6093,90 +6536,19 @@ def main() -> None:
     t_build = time.perf_counter()
     from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(max_workers=max(1, sum(map(len, other_srcs.values()))))
+    pool = ThreadPoolExecutor(max_workers=1 + sum(map(len, other_srcs.values())))
     other_futs = {kind: {label: pool.submit(load_other, kind, label, src) for label, src in srcs}
                   for kind, srcs in other_srcs.items()}
-    _build.build_libraries()
-    for name in _build.CUDA_LIBRARIES:
-        info = _build.BUILD_INFO[name]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"build: {name}.cu (nvcc sm_90a) {info['seconds']:.2f}s; " + " | ".join(ptxas))
-    print(f"build: all builds {time.perf_counter() - t_build:.2f}s")
-    regs = {lib: ptxas_by_kernel(_build.BUILD_INFO[lib]["log"], *PTXAS_KERNELS[lib])
-            for lib in PTXAS_KERNELS}
-    for lib, kernels in regs.items():
-        for kname, (nregs, st, ld) in sorted(kernels.items()):
-            print(f"ptxas: {lib} {kname}: {nregs} registers, spill stores {st} bytes, "
-                  f"spill loads {ld} bytes")
-    if _build.BUILD_INFO["flash_attention_fwd"]["log"]:  # empty when already built
-        assert {k.split("<")[0] for k in regs["flash_attention_fwd"]} == {
-            "flash_fwd_kernel_f32", "flash_fwd_kernel_f32_wide", "flash_fwd_kernel_mma",
-            "flash_fwd_kernel_wgmma_wide"}, regs
-        # f32 at 4 head-dim paddings and 6 wide (D 257-1024); 16-bit: 2 types
-        # x (4 + 4 wide)
-        assert len(regs["flash_attention_fwd"]) == 26, regs
-        for kname, (_, st, ld) in regs["flash_attention_fwd"].items():
-            assert "_wide" not in kname or st == ld == 0, f"{kname} spills"
-    if _build.BUILD_INFO["flash_attention_bwd"]["log"]:
-        assert {k.split("<")[0] for k in regs["flash_attention_bwd"]} == {
-            "flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32", "flash_bwd_dq_kernel_mma",
-            "flash_bwd_dkv_kernel_mma", "flash_bwd_dq_kernel_f32_wide",
-            "flash_bwd_dkv_kernel_f32_wide", "flash_bwd_dq_kernel_mma_wide",
-            "flash_bwd_dkv_kernel_mma_wide", "flash_bwd_dq_kernel_wgmma_wide",
-            "flash_bwd_dkv_kernel_wgmma_wide"}, regs
-        # f32: dq at 4 head-dim paddings, dk/dv at 2, the wide pair at 1 each
-        # (D 257-1024: clusters of 192-column blocks); 16-bit: 2 types x ((4 +
-        # 6) x 2 kernels + the wgmma pair's 5 tilings each)
-        assert len(regs["flash_attention_bwd"]) == 68, regs
-        for kname, (_, st, ld) in regs["flash_attention_bwd"].items():
-            assert not ("_wgmma" in kname or "_f32_wide" in kname) or st == ld == 0, \
-                f"{kname} spills"
-    for lib in ("group_norm_fwd", "group_norm_bwd"):
-        if _build.BUILD_INFO[lib]["log"]:
-            # 3 dtypes x SiLU or not on one block, and on a cluster with
-            # 16-byte or one-channel chunks
-            assert len(regs[lib]) == 18, regs[lib]
-            for kname, (_, st, ld) in regs[lib].items():
-                assert "_cluster" not in kname or st == ld == 0, f"{kname} spills"
-    sass_libs = ("flash_attention_fwd", "flash_attention_bwd", "group_norm_bwd")
-    with ThreadPoolExecutor(max_workers=len(sass_libs)) as sass_pool:  # a cuobjdump each
-        sass_of = dict(zip(sass_libs, sass_pool.map(
-            lambda lib: sass_counts(_build.load_library(lib)._name), sass_libs)))
-    for lib in sass_libs:
-        sass = sass_of[lib]
-        if sass is None:
-            print("sass: no cuobjdump in the toolkit; tensor-core use not checked")
-            break
-        for kname, (hmma, hgmma, ffma) in sorted(sass.items()):
-            print(f"sass: {lib} {kname}: {hmma} HMMA, {hgmma} HGMMA, {ffma} FFMA")
-            if "_kernel_mma" in kname:  # forward, dq and dk/dv in bf16/f16
-                assert hmma > 0, f"{kname} has no tensor-core instruction"
-            if "_kernel_wgmma" in kname:  # the wide 16-bit forward, dq and dk/dv
-                assert hgmma > 0, f"{kname} has no warpgroup tensor-core instruction"
-            if "_kernel_f32" in kname or "gn_bwd_kernel" in kname or "gn_bwd_cluster" in kname:
-                assert hmma == hgmma == 0 and ffma > 0, f"{kname} is not f32 on the CUDA cores"
-        wants = {"flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel_wgmma_wide",
-                                         "flash_fwd_kernel_f32_wide"),
-                 "flash_attention_bwd": ("flash_bwd_dq_kernel_f32", "flash_bwd_dkv_kernel_f32",
-                                         "flash_bwd_dq_kernel_f32_wide",
-                                         "flash_bwd_dkv_kernel_f32_wide",
-                                         "flash_bwd_dq_kernel_mma", "flash_bwd_dkv_kernel_mma",
-                                         "flash_bwd_dq_kernel_mma_wide",
-                                         "flash_bwd_dkv_kernel_mma_wide",
-                                         "flash_bwd_dq_kernel_wgmma_wide",
-                                         "flash_bwd_dkv_kernel_wgmma_wide"),
-                 "group_norm_bwd": ("gn_bwd_kernel",)}[lib]
-        for want in wants:  # (one instance of each wide f32 kernel, two or more of the others)
-            least = 1 if want.endswith("_f32_wide") else 2
-            assert sum(want in kname for kname in sass) >= least, (want, sorted(sass))
-    ours = A._lib("flash_attention_bwd")
-    # label -> library of another version of the attention forward / backward
+    # the attention backward (68 kernels) takes longest to build: phases 3-6
+    # launch forward kernels only, so they run while it builds
+    bwd_build = pool.submit(_build.load_library, "flash_attention_bwd")
+    fwd_libs = tuple(n for n in _build.CUDA_LIBRARIES if n != "flash_attention_bwd")
+    _build.build_libraries(fwd_libs)
+    check_builds(fwd_libs, t_build)
+    # label -> library of another version of the attention forward / GroupNorm
     others_fwd = {label: fut.result() for label, fut in other_futs["fwd"].items()}
-    others = {label: fut.result() for label, fut in other_futs["bwd"].items()}
     for kind in GN_OTHERS:
         GN_OTHERS[kind] = {label: fut.result() for label, fut in other_futs[kind].items()}
-    pool.shutdown()
 
     mark(3)
     # -- 3. forward kernels against plain versions at the UNet's shapes, B = 128
@@ -6255,6 +6627,13 @@ def main() -> None:
         assert counts["attention"] == forwards * sum(attn_n.values()) > 0, counts
         assert counts["group_norm_bwd"] == counts["attention_lse"] == 0, counts
         results[name] = {"stats": stats, "launches": counts}
+
+    # the attention backward's build, started in phase 2
+    bwd_build.result()
+    check_builds(("flash_attention_bwd",), t_build)
+    ours = A._lib("flash_attention_bwd")
+    others = {label: fut.result() for label, fut in other_futs["bwd"].items()}
+    pool.shutdown()
 
     mark(7)
     # -- 7. timings: forward per op at the dense shapes (f32 and bf16), then sampling
@@ -6343,7 +6722,7 @@ def main() -> None:
         def run(on, sample=sample):
             ops.set_kernels_enabled(on)
             try:
-                return cuda_ms(lambda: sample(gen, B, 32, 3), iters=1, warmup=0)
+                return ms_per_call(lambda: sample(gen, B, 32, 3), iters=1, warmup=0)
             finally:
                 ops.set_kernels_enabled(True)
 
@@ -6824,7 +7203,7 @@ def main() -> None:
                 opt.update(grads, norm, st.opt_state, plist)
                 ema_update(st.ema_params.values(), plist, tcfg.ema_decay)
 
-            opt_ms = cuda_ms(opt_ema, iters=10)
+            opt_ms = ms_per_call(opt_ema, iters=10)
             opt_host_ms = host_us_per_call(opt_ema, calls=10) / 1e3
             print(f"time optimizer + EMA per step (grad norm, clip, Adam, EMA; "
                   f"{sum(p.numel() for p in plist)} params in {len(plist)} tensors, f32): "
@@ -6903,10 +7282,16 @@ def main() -> None:
     # -- 26. the notebook path on phase 16's dir and a full-width bsr_sr from
     # SRDataset batches; the native batch loader
     nb = notebook_path(tmp, ldm_dir, gen, gpu, tag, worst, others_fwd)
-    tmpdir.cleanup()
 
     mark(27)
-    # -- 27. result lines
+    # -- 27. the recipe drivers at full width and small depth: e2e_validation,
+    # fullrun (a real SIGKILL and resume), cost_quality, ae_validation,
+    # pixelrun, ssim_curve over phase 20's prune_ssim folders
+    drivers = drivers_path(tmp, gen, gpu, tag, worst, os.path.join(tmp, "ablation_ssim"))
+    tmpdir.cleanup()
+
+    mark(28)
+    # -- 28. result lines
     f32_fwd = {op: per_forward[(op, "float32")] for op in ("group_norm", "attention")}
     f32_bwd, bf16_bwd = per_step_bwd["float32"], per_step_bwd["bfloat16"]
 
@@ -6938,6 +7323,9 @@ def main() -> None:
                     launches_ldm_train_cli=ldm_train_fig["cli_launches"][key],
                     launches_prune_ssim_cli=ablation["prune_ssim"]["launches"][key],
                     launches_multi_gpu_train_cli=multi_gpu["train_cli"]["launches"][key],
+                    launches_recipe_drivers={d: drivers[d]["launches"][key] for d in DRIVERS},
+                    max_abs_err_recipe_drivers=worst[(key + "_drivers", "float32")],
+                    max_abs_err_bf16_recipe_drivers=worst[(key + "_drivers", "bfloat16")],
                     max_abs_err_cost_aware_unets=worst[(key + "_cost", "float32")],
                     **ae_of(key), **lsun_of(key))
 
@@ -7234,6 +7622,7 @@ def main() -> None:
     print(json.dumps({"lsun": lsun}))
     print(json.dumps({"remat": remat}))
     print(json.dumps({"notebook": nb}))
+    print(json.dumps({"drivers": drivers}))
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

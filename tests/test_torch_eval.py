@@ -225,6 +225,43 @@ def _run(main, argv):
     return out, buf.getvalue()
 
 
+def _check_ssim_curve_and_cost_quality(tmp_path, monkeypatch):
+    """``tools/ssim_curve`` on a prune_ssim-shaped folder (stage_base and
+    stages 1, 10, 100 of 4 noise PNGs each): its SSIM and MSE per stage lie
+    within 1e-6 of JAX's ``pairwise_ssim_mse`` (noise images: no flat
+    regions, where the two sum orders part by ~1e-6), the stages in order,
+    the JSON and the PNG written. ``tools/cost_quality --smoke`` makes the
+    JAX driver's (CLI, argv) sequence (``tests/_torch_drivers.py``)."""
+    import _torch_drivers as D
+
+    from diff_pruning_tpu_torch.tools import ssim_curve
+
+    rng = np.random.default_rng(23)
+    save = tmp_path / "curve"
+    base = rng.integers(0, 256, (4, 24, 24, 3), dtype=np.uint8)
+    for stage, amp in (("base", 0), (1, 60), (10, 30), (100, 10)):
+        d = save / f"stage_{stage}"
+        d.mkdir(parents=True)
+        noisy = np.clip(base + rng.integers(-amp, amp + 1, base.shape), 0, 255)
+        for i, img in enumerate(noisy.astype(np.uint8)):
+            Image.fromarray(img).save(d / f"{i:06d}.png")
+    table = ssim_curve.main([str(save), "--device", "cpu"])
+    assert table["stages"] == [1, 10, 100]
+    for n, s, m in zip(table["stages"], table["ssim"], table["mse"]):
+        js, jm = jssim.pairwise_ssim_mse(str(save / "stage_base"), str(save / f"stage_{n}"))
+        assert abs(s - js) <= 1e-6 and abs(m - jm) <= 1e-6, (n, s, js, m, jm)
+    assert json.loads((save / "ssim_curve.json").read_text()) == table
+    assert Image.open(save / "ssim_curve.png").size == (750, 480)
+
+    fr = tmp_path / "fullrun"
+    D.fake_fullrun_base(str(fr), 256)
+    runs = {port: D.cost_quality_calls(monkeypatch, fr, tmp_path / f"cq_{port}",
+                                       tmp_path / "cq_logs", port) for port in (False, True)}
+    want, got = (D.normalised(runs[p], tmp_path / "cq_False", tmp_path / "cq_True")
+                 for p in (False, True))
+    assert got == want and len(want) == 14, (got, want)
+
+
 def test_eval_clis_on_cpu(tmp_path, monkeypatch):
     """The procedural copy equals JAX's bit for bit (arrays and PNG bytes);
     ``get_dataset`` on a PNG folder gives JAX's arrays at the 256 default;
@@ -249,7 +286,9 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
     features by ~5e-8 relative, sigma by ~3e-5), FID, IS, KID and
     precision/recall within 1e-5 relative (the printed 5 decimals at least),
     only rank 0 writing and printing. ``--device cuda`` raises
-    where no GPU is present, and the CLIs leave TF32 off."""
+    where no GPU is present, and the CLIs leave TF32 off. ssim_curve gives
+    JAX's SSIM per stage and cost_quality the JAX driver's CLI calls
+    (``_check_ssim_curve_and_cost_quality``)."""
     from diff_pruning_tpu.cli import compute_ssim as jssim_cli
     from diff_pruning_tpu.cli import fid_score as jfid_cli
     from diff_pruning_tpu.cli import fidelity as jfidelity_cli
@@ -373,3 +412,6 @@ def test_eval_clis_on_cpu(tmp_path, monkeypatch):
                        (compute_ssim.main, [da, db])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(args + ["--device", "cuda"])
+
+    # the recipe drivers that score: ssim_curve and cost_quality
+    _check_ssim_curve_and_cost_quality(tmp_path, monkeypatch)

@@ -860,6 +860,26 @@ def _check_ldm_converters(tmp_path, tiny):
                               {k: np.asarray(v) for k, v in flatten_params(want).items()}, path)
 
 
+def _check_pixelrun_argv(tmp_path, monkeypatch):
+    """``tools/pixelrun --smoke`` makes the JAX driver's (CLI, argv)
+    sequence, the module prefix swapped (``tests/_torch_drivers.py``): the
+    vq-f4 first stage, the LDM's train, samples, prune, finetune and
+    scoring CLIs in order with the same flags; its ``ae_check``,
+    ``ldm_init`` and class consistency run in process (stubbed here, as
+    the JAX driver's subprocesses are). The port's runner adds
+    ``--device``."""
+    import _torch_drivers as D
+
+    runs = {port: D.pixelrun_calls(monkeypatch, tmp_path / f"px_{port}", port)
+            for port in (False, True)}
+    want, got = (D.normalised(runs[p], tmp_path / "px_False", tmp_path / "px_True")
+                 for p in (False, True))
+    assert got == want, (got, want)
+    assert [c[0] for c in want] == [
+        "autoencoder_train", "ldm_train", "ldm_sample", "ldm_sample", "ldm_prune", "ldm_train",
+        "ldm_sample", "ldm_sample", "fid_score", "fid_score", "compute_ssim"]
+
+
 def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     """The LDM schedule and timesteps; CFG trajectories (DDIM, PLMS,
     DPM-Solver++; 4 steps, scale 3; DDIM also at 3, whose grid ends at t =
@@ -867,7 +887,9 @@ def test_ldm_sampling_and_cli_match_jax(tmp_path, monkeypatch, capsys):
     the sampler's refusals; the ldm_sample CLI on --device cpu (files,
     numbering across classes with a partial batch, image shapes), on 2 gloo
     ranks against one process, and its refusal without a GPU, with and
-    without --multihost."""
+    without --multihost. The pixelrun driver makes the JAX driver's CLI
+    calls (``_check_pixelrun_argv``)."""
+    _check_pixelrun_argv(tmp_path, monkeypatch)
     js, ts_ = jl.ldm_schedule(), tl.ldm_schedule()
     np.testing.assert_allclose(ts_.alphas_cumprod.numpy(), np.asarray(js.alphas_cumprod),
                                rtol=1e-6)

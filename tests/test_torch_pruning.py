@@ -74,8 +74,9 @@ def test_port_imports_nothing_of_jax():
     in, and the CLIs parse their arguments so, the data-parallel ones
     with the multihost flags (``parallel/mesh.py``, ``cli/_multihost.py``,
     ``cli/profile_model.py``, the checkpoint-conversion and data modules, the
-    SR data, the notebook helpers, ``parallel/tp.py`` and ``native`` among
-    them)."""
+    SR data, the notebook helpers, ``parallel/tp.py``, ``native`` and the
+    recipe drivers of ``tools/`` among them; each driver runs on the card
+    unless told otherwise)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "for m in ('jax', 'diff_pruning_tpu', 'triton', 'matplotlib', 'regex', 'safetensors',\n"
@@ -94,7 +95,17 @@ def test_port_imports_nothing_of_jax():
         "        'diff_pruning_tpu_torch.cli.profile_model',\n"
         "        'diff_pruning_tpu_torch.data.degradation', 'diff_pruning_tpu_torch.data.sr',\n"
         "        'diff_pruning_tpu_torch.utils.notebook', 'diff_pruning_tpu_torch.parallel.tp',\n"
-        "        'diff_pruning_tpu_torch.native'} <= set(names)\n"
+        "        'diff_pruning_tpu_torch.native',\n"
+        "        'diff_pruning_tpu_torch.tools.e2e_validation',\n"
+        "        'diff_pruning_tpu_torch.tools.fullrun', 'diff_pruning_tpu_torch.tools.ssim_curve',\n"
+        "        'diff_pruning_tpu_torch.tools.cost_quality',\n"
+        "        'diff_pruning_tpu_torch.tools.ae_validation',\n"
+        "        'diff_pruning_tpu_torch.tools.pixelrun'} <= set(names)\n"
+        "from diff_pruning_tpu_torch.tools import (ae_validation, cost_quality, e2e_validation,\n"
+        "                                          fullrun, pixelrun, ssim_curve)\n"
+        "for drv in (ae_validation, cost_quality, e2e_validation, fullrun, pixelrun):\n"
+        "    assert drv.parse_args([]).device == 'cuda', drv\n"
+        "assert ssim_curve.parse_args(['s']).device == 'cuda'\n"
         "from diff_pruning_tpu_torch.cli import (autoencoder_train, compute_ssim, ddpm_sample,\n"
         "                                        ldm_prune, ldm_sample, ldm_train,\n"
         "                                        prune_finetune, prune_ssim)\n"
@@ -622,6 +633,53 @@ def _check_other_sources(tmp_path, home, rng):
             np.testing.assert_allclose(next(tb), next(jb), atol=1e-6, rtol=0, err_msg=transform)
 
 
+def _check_e2e_validation():
+    """``tools/e2e_validation``'s pruning at the tiny config against the JAX
+    package on the same weights (a JAX-layout init through
+    ``state_dict_from_flat``), x0 and noise: the sweep the driver runs (thr
+    0.05, at most 3 steps; its parity with JAX is ``test_sweep_matches_jax``'s),
+    then for each criterion, given the sweep's grads, ``prune_with`` gives
+    the JAX pruner's channel sizes and keep-indices, and the JAX counter's
+    params and MACs, exactly; the SSIM the driver takes of two image sets
+    lies within 1e-6 of JAX's ``eval.ssim.ssim``."""
+    import json
+
+    from diff_pruning_tpu.eval.ssim import ssim as jssim
+    from diff_pruning_tpu.pruning.flops import count_ops_and_params as jcount
+    from diff_pruning_tpu_torch.diffpruning.sweep import accumulate_taylor_grads
+    from diff_pruning_tpu_torch.eval.ssim import ssim
+    from diff_pruning_tpu_torch.schedulers.ddpm import DiffusionSchedule
+    from diff_pruning_tpu_torch.tools import e2e_validation as e2e
+
+    jmodel, tmodel, flat, x0, noise = _tiny_sweep_inputs()
+    res = accumulate_taylor_grads(tmodel, DiffusionSchedule.create(), torch.from_numpy(x0),
+                                  torch.from_numpy(noise), thr=0.05, max_steps=3)
+    assert 1 <= res.steps_run == len(res.losses) <= 3
+    tgrads = tckpt.flat_grads(tmodel)
+    grads = unflatten_params(tgrads)
+    tmodel.zero_grad(set_to_none=True)
+    jparams = junflatten({k: jnp.asarray(v) for k, v in flat.items()})
+    jgrads = junflatten({k: jnp.asarray(v) for k, v in tgrads.items()})
+    counts = {}  # MACs and params depend on the channel sizes alone
+    for crit in e2e.CRITERIA:
+        want = jpruner.prune(jmodel.graph, jparams, jimp.make_importance(crit, seed=0),
+                             sparsity=0.3, grads=jgrads)
+        pr, pmodel, macs, n = e2e.prune_with(crit, tmodel, grads, device="cpu")
+        assert pr.channel_sizes == want.channel_sizes == pmodel.cfg.channel_sizes, crit
+        assert sorted(pr.keep) == sorted(want.keep), crit
+        for var, idx in want.keep.items():
+            np.testing.assert_array_equal(pr.keep[var], np.asarray(idx), err_msg=f"{crit} {var}")
+        key = json.dumps(sorted(want.channel_sizes.items()))
+        if key not in counts:
+            jm = junet.UNet2D(jmodel.cfg.with_channel_sizes(want.channel_sizes))
+            counts[key] = jcount(jm, jax.eval_shape(jm.init, jax.random.key(0)), (1, 32, 32, 3))
+        assert (macs, n) == counts[key], (crit, macs, n, counts[key])
+    rng = np.random.default_rng(19)
+    a, b = (rng.uniform(0, 1, (4, 32, 32, 3)).astype(np.float32) for _ in range(2))
+    b = np.clip(a + 0.2 * (b - 0.5), 0, 1).astype(np.float32)
+    assert abs(float(ssim(torch.from_numpy(a), torch.from_numpy(b)))
+               - float(jssim(jnp.asarray(a), jnp.asarray(b)))) <= 1e-6
+
 def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The prune CLI end to end on the tiny config: TF32 pinned off, a
     checkpoint that both packages load, the JAX CLI's report lines, the vis
@@ -632,8 +690,10 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     one initial noise, and stage 2's selection is the JAX pruner's on the
     port's own stage-2 grads. prune_finetune's output loads in the JAX
     package. A diffusers directory over an lsun: lmdb prunes to the JAX
-    CLI's channels and weights. --device cuda without a GPU raises in each
-    CLI."""
+    CLI's channels and weights. The e2e validation driver's functions give
+    the JAX driver's sweep steps, channel sizes, params, MACs and SSIM
+    (``_check_e2e_validation``). --device cuda without a GPU raises in each
+    CLI and in the driver."""
     from diff_pruning_tpu.cli import ddpm_prune as jddpm_prune
     from diff_pruning_tpu.utils import checkpoint as jckpt
     from diff_pruning_tpu.utils import compile_cache
@@ -809,8 +869,14 @@ def test_prune_cli_on_cpu(tmp_path, capsys, monkeypatch):
     for k, v in want.items():  # the same keep-indices slice the same dense weights
         np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
 
+    # the e2e validation driver's functions against the JAX driver's calls
+    _check_e2e_validation()
+
+    from diff_pruning_tpu_torch.tools import e2e_validation
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in (
+            (e2e_validation.main, ["--out", str(tmp_path / "e2e")]),
             (ddpm_prune.main, base + ["--pruner", "magnitude"]),
             (prune_ssim.main, ["--model_path", str(tmp_path / "dense"), "--save_path",
                                str(tmp_path / "x"), "--dataset", str(tmp_path / "data.npz")]),

@@ -873,12 +873,49 @@ def _ae_argv(seed_dir, imdir, lpips):
             "--disc_start", "0", "--disc_num_layers", "2"]
 
 
+def _check_driver_argv(tmp_path, monkeypatch):
+    """``tools/fullrun`` (``--smoke``) and ``tools/ae_validation`` (its
+    defaults) make the JAX drivers' (CLI, argv) sequences, the module
+    prefix swapped (``tests/_torch_drivers.py``): every CLI in the same
+    order with the same flags, and fullrun's one SIGKILLed finetune at
+    step 200, then its resume. Two deliberate differences: the port's
+    runner adds ``--device``, and ae_validation and e2e_validation default
+    ``--out`` to ``run/<name>`` inside the checkout, as the other drivers
+    do, where the JAX twins write to fixed ``/tmp`` dirs that two checkouts
+    would share."""
+    import _torch_drivers as D
+    from diff_pruning_tpu_torch.tools import ae_validation, e2e_validation
+
+    runs = {}
+    for port in (False, True):
+        out = tmp_path / ("fullrun_port" if port else "fullrun_jax")
+        runs[port] = D.fullrun_calls(monkeypatch, out, port)
+    want, got = (D.normalised(runs[p], tmp_path / "fullrun_jax", tmp_path / "fullrun_port")
+                 for p in (False, True))
+    assert got == want and len(want) == 11, (got, want)
+    assert [(i, c[0], c[2]) for i, c in enumerate(want) if c[2] is not None] == [
+        (4, "ddpm_train", 200)]
+    assert want[5][1] == want[4][1] + ["--resume_from_checkpoint", "<out>/finetuned/ckpt"]
+    for port in (False, True):
+        out = tmp_path / ("ae_port" if port else "ae_jax")
+        runs[port] = D.ae_validation_calls(monkeypatch, out, port)
+    want, got = (D.normalised(runs[p], tmp_path / "ae_jax", tmp_path / "ae_port")
+                 for p in (False, True))
+    assert got == want and [c[0] for c in want] == ["autoencoder_train"], (got, want)
+    for mod, name, port_out in ((ae_validation, "ae_validation", "run/ae_val"),
+                                (e2e_validation, "e2e_validation", "run/e2e")):
+        assert mod.parse_args([]).out == port_out
+        with open(os.path.join(D.REPO, "tools", f"{name}.py")) as f:  # the twin's default
+            assert '"--out", type=str, default="/tmp/' in f.read(), name
+
+
 def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """The train CLI end to end on the tiny config: TF32 pinned off,
     metrics.jsonl, ckpt/ (two versions kept), unet/ and unet_ema/ that the
     JAX package loads, vis grids, run.sh; a resume with another seed warns;
     --remat takes the same steps bit for bit; --device cuda without a GPU
-    raises."""
+    raises. The fullrun and ae_validation drivers make the JAX drivers'
+    CLI calls (``_check_driver_argv``)."""
     from diff_pruning_tpu_torch.cli import ddpm_train
 
     cfg = tunet.tiny_unet_config()
@@ -1002,6 +1039,9 @@ def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     with pytest.raises(SystemExit, match="disc_num_layers"):
         autoencoder_train.main(_ae_argv(seed_dir, imdir, "off")[:-2] + [
             "--output_dir", str(tmp_path / "x"), "--device", "cpu"])
+
+    # the recipe drivers make the JAX drivers' CLI calls
+    _check_driver_argv(tmp_path, monkeypatch)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
